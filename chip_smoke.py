@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure (an exception, exit code != 0):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: the ready-queue CUDA kernel, from the sources in this checkout.
-3. Kernel vs plain: on random DAG streams the kernel's slab, completion
-   flags and final ring are bit-equal to ``ready_queue_ref`` on the card.
+2. Build: the three CUDA kernels (ready queue, flash attention, RG-LRU
+   scan) from the sources in this checkout, one ``nvcc`` each, all started
+   together; each one's build seconds.
+3. Kernel vs plain, on the card:
+   a. ready queue: on random DAG streams the kernel's slab, completion
+      flags and final ring are bit-equal to ``ready_queue_ref``;
+   b. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4},
+      S in {1, 37, 512, 2048}, D 2560, float32 and bfloat16;
+   c. ``flash_attention``: within tolerance of ``attention_ref`` (float32
+      1e-4, bfloat16 2e-2) at the recurrentgemma-2b and h2o-danube-3-4b
+      prefill shapes, with softcap, prefix, decode (Sq = 1) and fully
+      masked rows (exactly 0).
 4. ACS-HW main path: the chain universe (64 chains x width 4096 x depth 32,
    2,048 tasks) and the 24-task mixed-tag hazard stream run through
    ``DeviceWindowRunner(plan_mode="loop")`` on the CUDA kernel, bit-equal
@@ -16,11 +25,23 @@ Phases, each fatal on failure (an exception, exit code != 0):
 5. ACS-SW main path: the cheetah physics stream (64 envs, 8 groups,
    5 steps) through the serial, wave and threaded (4 CUDA streams)
    schedulers, bit-equal across the three and finite.
-6. Numbers: CUDA-event medians of the kernel and its plain version at the
-   main path's shape, and the wall time of each phase-4/5 policy.
-7. Device busy share: one more pass of each phase-4/5 policy under
-   ``torch.profiler``; the union of the CUDA kernels' intervals over the
-   pass's wall ("not measured" if the profiler records no kernel).
+6. Serving main path: recurrentgemma-2b at its published config (26
+   layers, d_model 2560, bf16 weights drawn from seed 0) serves 8 seeded
+   prompts of 128-512 tokens, 16 new tokens each, through
+   ``SessionServer(scheduler="wave")`` and then ``ContinuousBatchingServer``
+   (4 slots, max_len 1024, window 32). Every request gets its 16 tokens,
+   the two servers' tokens are identical and equal a plain greedy loop
+   over ``prefill``/``decode_step``, every logit is finite, and each
+   server run launches the flash kernel once per request and local
+   attention layer (64) and the scan once per RG-LRU layer and prefill or
+   decode (2,448).
+7. Numbers: CUDA-event medians of each kernel and its plain version at
+   its main path's shape (and SDPA's for attention), each kernel's bound,
+   and the wall time of each phase-4/5/6 policy and server.
+8. Device busy share: one more pass of each phase-4/5 policy, and one
+   serving pass, under ``torch.profiler``; the union of the CUDA kernels'
+   intervals over the pass's wall ("not measured" if the profiler records
+   no kernel).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -35,20 +56,28 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and fp32 rate
-# outside the tensor cores, for the kernel's least possible time.
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, the fp32 rate
+# outside the tensor cores and the dense bf16 tensor-core rate, for each
+# kernel's least possible time.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 CHAINS, WIDTH, DEPTH, WINDOW = 64, 4096, 32, 32
 SIM_ENVS, SIM_GROUP, SIM_STEPS, SIM_STREAMS = 64, 8, 5, 4
 TIMED_RUNS = 20
+
+# The serving pass: recurrentgemma-2b at its published widths.
+SERVE_ARCH, SERVE_SEED = "recurrentgemma-2b", 0
+SERVE_REQUESTS, SERVE_MIN_PROMPT, SERVE_MAX_PROMPT, SERVE_MAX_NEW = 8, 128, 512, 16
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024
 
 
 def log(msg: str) -> None:
@@ -186,10 +215,14 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import ready_queue as rq
+    """Build every kernel of the port, one nvcc each, started together."""
+    from repro_torch.kernels import flash_attention, lru_scan, ready_queue
 
-    path, seconds = rq.build()
-    log(f"build: {rq.SOURCE.name} -> {path.name} in {seconds:.2f} s (sm_90a)")
+    mods = (ready_queue, flash_attention, lru_scan)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        built = list(pool.map(lambda m: m.build(), mods))
+    for mod, (path, seconds) in zip(mods, built):
+        log(f"build: {mod.SOURCE.name} -> {path.name} in {seconds:.2f} s (sm_90a)")
 
 
 def phase_kernel_vs_plain(device):
@@ -208,6 +241,77 @@ def phase_kernel_vs_plain(device):
                 check(bit_equal(g, w), f"kernel != plain on {name} (seed {seed}, n {n}, d {d})")
             check(bool(got[1].all()), f"queue did not drain (seed {seed}, n {n})")
             log(f"kernel == plain: seed {seed} n {n} d {d} slab {tuple(slab.shape)}")
+
+
+def _int_bits(t):
+    import torch
+
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def phase_lru_vs_plain(device):
+    import torch
+    from repro_torch.kernels.lru_scan import lru_scan
+    from repro_torch.kernels.ref import lru_scan_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    for b in (1, 4):
+        for s in (1, 37, 512, 2048):
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.rand(b, s, 2560, generator=gen, device=device).to(dtype)
+                x = torch.randn(b, s, 2560, generator=gen, device=device).to(dtype)
+                h0 = torch.randn(b, 2560, generator=gen, device=device)
+                got = lru_scan(a, x, h0)
+                want = lru_scan_ref(a, x, h0)
+                torch.cuda.synchronize()
+                check(torch.equal(_int_bits(got), _int_bits(want)),
+                      f"lru_scan kernel != plain (B {b}, S {s}, {dtype})")
+    log("lru_scan kernel == plain, bit for bit: B {1, 4} x S {1, 37, 512, 2048} x D 2560, "
+        "float32 and bfloat16")
+
+
+# (b, h, hkv, sq, sk, d), attention flags
+FLASH_SWEEP = [
+    *(((1, 10, 1, s, s, 256), {"window": 2048}) for s in (64, 333, 512, 2048, 2500)),
+    *(((1, 32, 8, s, s, 120), {"window": 4096}) for s in (64, 333, 512)),
+    ((1, 10, 1, 300, 300, 256), {"window": 2048, "softcap": 30.0}),
+    ((1, 10, 1, 300, 300, 256), {"window": 64, "prefix_len": 17}),
+    ((1, 10, 1, 1, 1024, 256), {"window": 2048, "q_offset": 1023}),
+    ((1, 32, 8, 1, 777, 120), {"window": 4096, "q_offset": 776}),
+    ((1, 10, 1, 40, 40, 256), {"q_offset": -8}),  # rows 0-7 see no key
+]
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def phase_flash_vs_plain(device):
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    for (b, h, hkv, sq, sk, d), flags in FLASH_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, h, sq, d, generator=gen, device=device).to(dtype)
+            k = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+            v = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+            got = flash_attention(q, k, v, **flags)
+            want = attention_ref(q, k, v, **flags)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[str(dtype).replace("torch.", "")]
+            err = (got.float() - want.float()).abs()
+            bound = tol + tol * want.float().abs()
+            check(bool((err <= bound).all()),
+                  f"flash_attention != plain at {(b, h, hkv, sq, sk, d)} {flags} {dtype}: "
+                  f"max abs err {float(err.max())}")
+            if flags.get("q_offset", 0) < 0:
+                check(bool((got[:, :, :-flags["q_offset"]] == 0).all()),
+                      "flash_attention: a fully masked row is not 0")
+            check(torch.equal(flash_attention(q, k, v, **flags), got),
+                  "flash_attention: a second launch gave other bits")
+            log(f"flash_attention ~ plain: {(b, h, hkv, sq, sk, d)} {flags} "
+                f"{str(dtype).replace('torch.', '')} max abs err {float(err.max()):.3g}")
 
 
 def phase_acs_hw(device):
@@ -298,6 +402,122 @@ def phase_acs_sw(device):
     return walls
 
 
+def serve_prompts(vocab):
+    rng = np.random.RandomState(SERVE_SEED)
+    lengths = rng.randint(SERVE_MIN_PROMPT, SERVE_MAX_PROMPT + 1, SERVE_REQUESTS)
+    return [rng.randint(0, vocab, n).astype(np.int32) for n in lengths]
+
+
+def greedy(cfg, params, prompt, device):
+    """A plain greedy loop over ``prefill``/``decode_step``, mirroring one
+    server slot. Returns (tokens, prefill seconds, decode-step seconds,
+    all logits finite)."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=device)
+    tokens = torch.as_tensor(prompt[None], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, tokens, cache)
+    tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    pos = torch.full((), len(prompt), dtype=torch.int32, device=device)
+    out, t_decode = [], []
+    for _ in range(SERVE_MAX_NEW):
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cfg, tok[:, None], cache, pos)
+        tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1).to(torch.int32)
+        pos = pos + 1
+        out.append(int(tok[0]))  # the host read ends the step
+        t_decode.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(logits).all())
+    return out, t_prefill, t_decode, finite
+
+
+def serve_once(cfg, params, server_cls, prompts, device, **kw):
+    """One server run over ``prompts``; returns (per-prompt tokens, wall
+    seconds, host reads, {kernel: launches})."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.runtime import SessionServer
+
+    server = server_cls(cfg, params, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        window=WINDOW, device=device, **kw)
+    torch.cuda.synchronize()
+    fa.reset_launches()  # the main path's counts start here
+    ls.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [server.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    done = server.run_until_drained()
+    if isinstance(server, SessionServer):
+        server.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "lru_scan": ls.launches}
+    check(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
+          f"{server_cls.__name__}: {len(done)} of {len(reqs)} requests finished")
+    return [r.generated for r in reqs], wall, server.host_reads, launches
+
+
+def phase_serve(device, card):
+    """Returns (launches per kernel on the session server's run, wall
+    seconds per server, the model and its config)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params, split_pattern
+    from repro_torch.runtime import ContinuousBatchingServer, SessionServer
+
+    cfg = ARCHS[SERVE_ARCH]
+    t0 = time.perf_counter()
+    params = init_params(cfg, SERVE_SEED, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype}, "
+        f"{n_params} parameters drawn from seed {SERVE_SEED} in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    prompts = serve_prompts(cfg.vocab)
+    kinds = list(split_pattern(cfg)[0]) + list(cfg.pattern_unit) * split_pattern(cfg)[1]
+    n_local, n_rglru = kinds.count("attn_local"), kinds.count("rglru")
+    want = {"flash_attention": SERVE_REQUESTS * n_local,
+            "lru_scan": n_rglru * (SERVE_REQUESTS + SERVE_REQUESTS * SERVE_MAX_NEW)}
+
+    plain, prefill_s, decode_s = [], [], []
+    for p in prompts:
+        toks, t_pre, t_dec, finite = greedy(cfg, params, p, device)
+        check(finite, f"serve: non-finite logits for a prompt of {len(p)} tokens")
+        plain.append(toks)
+        prefill_s.append(t_pre)
+        decode_s.extend(t_dec)
+
+    walls, tokens, main_launches = {}, {}, None
+    for name, cls, kw in (("SessionServer(wave)", SessionServer, {"scheduler": "wave"}),
+                          ("ContinuousBatchingServer", ContinuousBatchingServer, {})):
+        toks, wall, reads, launches = serve_once(cfg, params, cls, prompts, device, **kw)
+        check(all(len(t) == SERVE_MAX_NEW for t in toks), f"{name}: a request lacks tokens")
+        check(all(0 <= x < cfg.vocab for t in toks for x in t), f"{name}: a token out of range")
+        check(launches == want, f"{name}: kernel launches {launches}, expected {want}")
+        check(toks == plain, f"{name}: tokens differ from the plain greedy loop")
+        tokens[name], walls[f"serve/{name}"] = toks, wall
+        if main_launches is None:
+            main_launches = launches
+        n_tok = SERVE_REQUESTS * SERVE_MAX_NEW
+        log(f"serve {name}: {SERVE_REQUESTS} requests x {SERVE_MAX_NEW} tokens, wall "
+            f"{wall * 1e3:.3f} ms, {n_tok / wall:.2f} tokens/s, host reads {reads}, "
+            f"launches {launches} [{card}]")
+    check(tokens["SessionServer(wave)"] == tokens["ContinuousBatchingServer"],
+          "serve: the two servers' tokens differ")
+    log(f"serve: prompt lengths {[len(p) for p in prompts]}; both servers' tokens identical "
+        f"and equal to the plain greedy loop; median prefill "
+        f"{statistics.median(prefill_s) * 1e3:.3f} ms, median decode step "
+        f"{statistics.median(decode_s) * 1e3:.3f} ms (greedy loop, host clock, "
+        f"{len(decode_s)} steps) [{card}]")
+    return main_launches, walls, (cfg, params, prompts)
+
+
 def median_ms(fn, runs=TIMED_RUNS, warmup=3):
     import torch
 
@@ -359,10 +579,99 @@ def phase_numbers(device, launches):
     }
 
 
+def bound(n_bytes, n_ops, ops_per_s):
+    """(least ms, "bytes" or "operations") on this card's published peaks."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def numbers_lru(device, launches):
+    import torch
+    from repro_torch.kernels.lru_scan import lru_scan
+    from repro_torch.kernels.ref import lru_scan_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    out = {}
+    for label, s in (("prefill", 512), ("decode", 1)):
+        a = torch.rand(1, s, 2560, generator=gen, device=device)
+        x = torch.randn(1, s, 2560, generator=gen, device=device)
+        h0 = torch.randn(1, 2560, generator=gen, device=device)
+        got, want = lru_scan(a, x, h0), lru_scan_ref(a, x, h0)
+        torch.cuda.synchronize()
+        elems = a.numel()
+        ms_bound, by = bound((3 * elems + h0.numel()) * 4, 2 * elems, FP32_FLOP_PER_S)
+        out[label] = dict(ms=median_ms(lambda: lru_scan(a, x, h0)),
+                          plain_ms=median_ms(lambda: lru_scan_ref(a, x, h0)),
+                          bound_ms=ms_bound, bound_by=by,
+                          max_abs_err=float((got - want).abs().max()),
+                          matches_plain=bool(torch.equal(_int_bits(got), _int_bits(want))))
+    pre, dec = out["prefill"], out["decode"]
+    return {
+        "name": "lru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:27",
+        "launches": launches,
+        "matches_plain": pre["matches_plain"] and dec["matches_plain"],
+        "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
+        "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a linear recurrence
+        "decode_ms": dec["ms"],
+        "decode_plain_ms": dec["plain_ms"],
+        "decode_bound_ms": dec["bound_ms"],
+        "shape": "prefill a, b [1, 512, 2560] f32; decode [1, 1, 2560] f32",
+    }
+
+
+def numbers_flash(device, launches):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    b, h, hkv, s, d, window = 1, 10, 1, 512, 256, 2048
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    q, k, v = (torch.randn(b, n, s, d, generator=gen, device=device).to(torch.bfloat16)
+               for n in (h, hkv, hkv))
+    flags = dict(causal=True, window=window)
+    got, want = flash_attention(q, k, v, **flags), attention_ref(q, k, v, **flags)
+    torch.cuda.synchronize()
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(s, device=device)[None, :]
+    mask = (cols <= rows) & (cols > rows - window)
+    seen = int(mask.sum())  # (row, key) pairs this input's mask keeps
+    ms_bound, by = bound(2 * (q.numel() * 2 + k.numel() + v.numel()), 4 * b * h * seen * d,
+                         BF16_FLOP_PER_S)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
+                                                  enable_gqa=True)
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:37",
+        "launches": launches,
+        "matches_plain": bool(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)),
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": median_ms(lambda: flash_attention(q, k, v, **flags)),
+        "plain_ms": median_ms(lambda: attention_ref(q, k, v, **flags)),
+        "bound_ms": ms_bound,
+        "bound_by": by,
+        "library_ms": median_ms(sdpa),
+        "shape": f"q [1, 10, 512, 256], k, v [1, 1, 512, 256] bf16, causal, window {window}",
+    }
+
+
 def device_busy(fn):
     """Run ``fn()`` once under ``torch.profiler``. Returns (wall ms under
     the profiler, device-busy ms: the union of the CUDA kernels' intervals,
-    or None when the profiler records no kernel)."""
+    or None when the profiler records no kernel; the number of CUDA
+    kernels; the three host ops with the most self CPU time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -375,8 +684,10 @@ def device_busy(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:3]
+    top = ", ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.1f} ms x{a.count}" for a in host)
     if not spans:
-        return wall_ms, None
+        return wall_ms, None, 0, top
     busy_us, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -384,10 +695,10 @@ def device_busy(fn):
             lo, hi = start, end
         else:
             hi = max(hi, end)
-    return wall_ms, (busy_us + hi - lo) / 1e3
+    return wall_ms, (busy_us + hi - lo) / 1e3, len(spans), top
 
 
-def phase_busy(device, card):
+def phase_busy(device, card, served):
     from repro_torch.core import DeviceOpRegistry, DeviceWindowRunner, TaskStream
     from repro_torch.core import make_scheduler, run_serial
     from repro_torch.kernels.ops import register_loop_branches
@@ -414,14 +725,24 @@ def phase_busy(device, card):
             run(stream.tasks)
         return step
 
+    def serve():
+        from repro_torch.runtime import SessionServer
+
+        cfg, params, prompts = served
+        return lambda: serve_once(cfg, params, SessionServer, prompts[:2], device,
+                                  scheduler="wave")
+
     for label, make in (("chain_universe/serial", lambda: chain("serial")),
                         ("chain_universe/device_loop", lambda: chain("device_loop")),
                         *((f"cheetah step/{p}", lambda p=p: cheetah(p))
-                          for p in ("serial", "wave", "threaded"))):
-        wall_ms, busy_ms = device_busy(make())
+                          for p in ("serial", "wave", "threaded")),
+                        (f"serve SessionServer(wave), 2 requests x {SERVE_MAX_NEW} tokens",
+                         serve)):
+        wall_ms, busy_ms, n_kernels, top = device_busy(make())
         busy = ("device busy not measured (no kernel in the trace)" if busy_ms is None
                 else f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
-        log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, {busy} [{card}]")
+        log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, {busy}, "
+            f"{n_kernels} CUDA kernels; most host time: {top} [{card}]")
 
 
 def main() -> int:
@@ -439,22 +760,36 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     card = phase_device()
-    phase_build()
-    phase_kernel_vs_plain(device)
-    launches, hw_walls = phase_acs_hw(device)
-    sw_walls = phase_acs_sw(device)
-    kernel = phase_numbers(device, launches)
-    check(kernel["matches_plain"], "kernel != plain at the main path's shape")
-    check(kernel["launches"] >= 1, "the main path launched no ready_queue kernel")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    timed(phase_build)
+    timed(phase_kernel_vs_plain, device)
+    timed(phase_lru_vs_plain, device)
+    timed(phase_flash_vs_plain, device)
+    launches, hw_walls = timed(phase_acs_hw, device)
+    sw_walls = timed(phase_acs_sw, device)
+    serve_launches, serve_walls, served = timed(phase_serve, device, card)
+    kernels = [timed(phase_numbers, device, launches),
+               timed(numbers_flash, device, serve_launches["flash_attention"]),
+               timed(numbers_lru, device, serve_launches["lru_scan"])]
+    for kernel in kernels:
+        check(kernel["matches_plain"], f"{kernel['name']}: kernel != plain at the main "
+                                       "path's shape")
+        check(kernel["launches"] >= 1, f"the main path launched no {kernel['name']} kernel")
 
     kind = torch.cuda.get_device_name(0)
-    for key, secs in {**hw_walls, **sw_walls}.items():
+    for key, secs in {**hw_walls, **sw_walls, **serve_walls}.items():
         log(f"wall {key}: {secs * 1e3:.3f} ms [{card}]")
-    phase_busy(device, card)
+    timed(phase_busy, device, card, served)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

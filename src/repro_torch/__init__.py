@@ -1,12 +1,13 @@
 """repro_torch — the ACS reproduction on PyTorch and CUDA (NVIDIA H100).
 
 A second package beside the JAX reference ``repro``, with the same layout
-(``core/``, ``kernels/``, ``sim/``) so each module's counterpart is found by
-path. It imports ``torch`` and ``numpy`` only — never ``jax`` and nothing
-from ``repro``.
+(``core/``, ``kernels/``, ``sim/``, ``models/``, ``configs/``,
+``runtime/``) so each module's counterpart is found by path. It imports
+``torch`` and ``numpy`` only — never ``jax`` and nothing from ``repro``.
 
 Every entry point that touches tensors (``BufferPool``, ``PhysicsEngine``,
-``DeviceWindowRunner``, ``make_scheduler``, ``run_serial``) takes
+``DeviceWindowRunner``, ``make_scheduler``, ``run_serial``,
+``models.init_params``, ``models.init_cache``, the servers) takes
 ``device=`` and defaults to ``"cuda"``; on a host without a card the default
 raises and the caller passes ``device="cpu"``.
 """
@@ -20,4 +21,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["core", "kernels", "sim"]
+__all__ = ["configs", "core", "kernels", "models", "runtime", "sim"]

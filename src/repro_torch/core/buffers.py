@@ -13,10 +13,11 @@ Sub-buffer views (one body's state slice, one force row) map to
 sub-intervals of the parent buffer's range, so partial-overlap dependencies
 behave like real address-range checks, including aliasing.
 
-Values are ``torch.Tensor``s on the pool's device. Writes through a row
-view are functional (clone, then assign the slice): a tensor a reader
-already holds never changes under it, the guarantee the reference gets from
-immutable jax arrays.
+Array values are ``torch.Tensor``s on the pool's device; any other value
+(a server's ``(cache, token, pos)`` slot) is held as given. Writes through
+a row view are functional (clone, then assign the slice): a tensor a
+reader already holds never changes under it, the guarantee the reference
+gets from immutable jax arrays.
 """
 
 from __future__ import annotations
@@ -58,12 +59,16 @@ def to_numpy_dtype(dtype: Any) -> np.dtype:
 
 
 def _as_tensor(value: Any, device: torch.device) -> Any:
-    if value is None:
-        return None
+    """A tensor or numpy array is placed on the pool's device. Any other
+    value (a server's ``(cache, token, pos)`` slot tuple, a dict, ``None``,
+    a Python int) is kept as given, like the reference pool's opaque
+    pytrees; tensors nested inside it are the caller's to place."""
     if isinstance(value, torch.Tensor):
         return value.to(device)
-    # A copy: the caller's array must not alias the buffer's value.
-    return torch.tensor(np.asarray(value), device=device)
+    if isinstance(value, (np.ndarray, np.generic)):
+        # A copy: the caller's array must not alias the buffer's value.
+        return torch.tensor(value, device=device)
+    return value
 
 
 @dataclasses.dataclass
@@ -75,7 +80,8 @@ class Buffer:
     nbytes: int
     shape: Tuple[int, ...]
     dtype: Any
-    # The buffer's current value (a torch tensor). The ACS executors
+    # The buffer's current value (a torch tensor, or an opaque value such
+    # as a serving slot's tuple). The ACS executors
     # functionally update this as tasks retire.
     value: Any = None
 

@@ -1,0 +1,124 @@
+"""Blocked online-softmax attention (flash attention) on the H100 (port of
+``repro/kernels/flash_attention.py``).
+
+Serves every attention prefill of the models (``models/attention.py``
+through ``ops.attention``): GQA, a causal mask at a global ``q_offset``
+(decode: Sq = 1 against a cache), a sliding ``window``, ``prefix_len``
+keys visible to every query, a gemma2-style ``softcap`` and a ragged Sk.
+The kernel is the hand-written CUDA in ``csrc/flash_attention.cu`` (its
+header says what bounds it and how it is laid out). It computes what the
+plain version :func:`~.ref.attention_ref` computes, fully masked rows
+included (they give 0, where the Pallas kernel gives the row's mean of
+``v``).
+
+A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
+or raises. The kernel builds at first use (``_nvcc.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from ._nvcc import NVCC_FLAGS, CudaLibrary
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "build", "launches", "reset_launches", "SOURCE", "MAX_HEAD_DIM"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+MAX_HEAD_DIM = 256
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The attention kernel is held to its plain version within a tolerance, not
+# bit for bit, so it may contract multiply-adds.
+_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+
+# Kernel launches since the last reset_launches(): incremented once per
+# launch of the CUDA kernel, never by the plain version.
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.acs_flash_attention.argtypes = [
+        ptr, ptr, ptr, ptr,            # q, k, v, o
+        i32, i32, i32, i32, i32, i32,  # B, H, Hkv, Sq, Sk, D
+        i32, f32, i32,                 # dtype, scale, causal
+        i32, i32, i32, f32,            # has_window, window, has_softcap, softcap
+        i32, i32,                      # q_offset, prefix_len
+        ptr,                           # stream
+    ]
+    lib.acs_flash_attention.restype = i32
+
+
+_LIB = CudaLibrary(SOURCE, _bind, _FLAGS)
+
+
+def build() -> Tuple[Path, float]:
+    """Compile ``csrc/flash_attention.cu`` for ``sm_90a`` (once per source
+    and flag set). Returns the library's path and the compile's seconds."""
+    return _LIB.build()
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,  # [B, Hkv, Sk, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Attention ``[B, H, Sq, D]`` in ``q``'s dtype, float32 inside.
+    Launches on the current CUDA stream without synchronizing."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                             scale=scale, q_offset=q_offset, prefix_len=prefix_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q [B, H, Sq, D] and equal k, v [B, Hkv, Sk, D] "
+                         f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    n_batch, n_heads, sq, dim = q.shape
+    _, n_kv, sk, _ = k.shape
+    if k.shape[0] != n_batch or k.shape[3] != dim:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if n_kv < 1 or n_heads % n_kv:
+        raise ValueError(f"flash_attention: {n_heads} query heads over {n_kv} kv heads")
+    if not 1 <= dim <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {dim} outside 1..{MAX_HEAD_DIM}")
+    if n_batch * n_heads * sq == 0:
+        raise ValueError(f"flash_attention: empty query {tuple(q.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share one of "
+                        f"{sorted(map(str, _DTYPES))}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    scale = float(scale if scale is not None else 1.0 / dim ** 0.5)
+    out = torch.empty_like(q)
+    err = _LIB.get().acs_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        n_batch, n_heads, n_kv, sq, sk, dim, _DTYPES[q.dtype], scale, int(causal),
+        int(window is not None), int(window or 0),
+        int(softcap is not None), float(softcap or 0.0),
+        int(q_offset), int(prefix_len),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return out

@@ -1,15 +1,28 @@
-"""The ready-queue kernel's fixed branch table (PyTorch port of the
-``LOOP_BRANCHES`` part of ``repro/kernels/ops.py``).
+"""Dispatch to the port's kernels, and the ready-queue kernel's fixed
+branch table (PyTorch port of ``repro/kernels/ops.py``).
 
-These are elementwise, row-shape-preserving branches the device ready
-queue may dispatch. They ARE the fns the test and smoke streams launch:
-fast-path eligibility checks fn identity against this table, so the kernel
-can never silently diverge from what the host path would have executed.
+``attention`` and ``lru_scan`` are what the models call. The reference
+chooses Pallas or its jnp oracle by JAX backend; the port chooses by the
+tensor's device, inside each kernel's wrapper: a CUDA tensor launches the
+hand-written kernel or raises, a CPU tensor takes the plain version. There
+is no fallback from a failed build or launch.
+
+``LOOP_BRANCHES`` are elementwise, row-shape-preserving branches the
+device ready queue may dispatch. They ARE the fns the test and smoke
+streams launch: fast-path eligibility checks fn identity against this
+table, so the kernel can never silently diverge from what the host path
+would have executed.
 """
 
 from __future__ import annotations
 
-__all__ = ["LOOP_BRANCHES", "LOOP_OPCODES", "register_loop_branches"]
+# The models' entry names; each wrapper picks kernel or plain version by
+# its tensors' device.
+from .flash_attention import flash_attention as attention
+from .lru_scan import lru_scan
+
+__all__ = ["attention", "lru_scan", "LOOP_BRANCHES", "LOOP_OPCODES",
+           "register_loop_branches"]
 
 
 def _axpy_row(x, y):

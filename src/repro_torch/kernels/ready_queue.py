@@ -30,33 +30,22 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 from typing import Callable, Sequence, Tuple
 
 import torch
 
+from ._nvcc import CudaLibrary
 from .ops import LOOP_OPCODES
 from .ref import ready_queue_ref
 
 __all__ = ["ready_queue", "build", "launches", "reset_launches", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ready_queue.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
 # Kernel launches since the last reset_launches(): incremented once per
 # launch of the CUDA kernel, never by the plain version.
 launches = 0
-
-_lock = threading.Lock()
-_lib = None
 
 
 def reset_launches() -> None:
@@ -64,54 +53,26 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                           "to build the ready-queue kernel")
-    return found
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.acs_ready_queue.argtypes = [
+        ptr, i32, i32,          # slab, rows, d
+        ptr, ptr, i32, i32,     # task_tbl, dep_tbl, n, m
+        ptr, i32,               # branch_ops, n_branches
+        ptr, ptr, ptr, ptr,     # ring, rem, done, tail0
+        ptr,                    # stream
+    ]
+    lib.acs_ready_queue.restype = i32
+
+
+_LIB = CudaLibrary(SOURCE, _bind)
 
 
 def build() -> Tuple[Path, float]:
     """Compile ``csrc/ready_queue.cu`` for ``sm_90a`` (once per source
     and flag set). Returns the shared library's path and the seconds the
     compile took (0.0 when it was already built)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"ready_queue_{tag}.so"
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.acs_ready_queue.argtypes = [
-                ptr, i32, i32,          # slab, rows, d
-                ptr, ptr, i32, i32,     # task_tbl, dep_tbl, n, m
-                ptr, i32,               # branch_ops, n_branches
-                ptr, ptr, ptr, ptr,     # ring, rem, done, tail0
-                ptr,                    # stream
-            ]
-            lib.acs_ready_queue.restype = i32
-            _lib = lib
-    return _lib
+    return _LIB.build()
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -168,8 +129,7 @@ def ready_queue(
     ring = ring0.clone()
     rem = rem0.clone()
     done = torch.empty(n, dtype=torch.int32, device=dev)
-    lib = _library()
-    err = lib.acs_ready_queue(
+    err = _LIB.get().acs_ready_queue(
         out.data_ptr(), out.shape[0], out.shape[1],
         task_tbl.data_ptr(), dep_tbl.data_ptr(), n, m,
         ops.data_ptr(), len(branches),

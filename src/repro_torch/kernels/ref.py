@@ -1,5 +1,11 @@
 """Plain PyTorch versions of the port's kernels: the test oracles and the
-CPU path (counterpart of ``repro/kernels/ref.py``).
+CPU path (counterpart of ``repro/kernels/ref.py``). Each runs on any
+device; ``chip_smoke.py`` holds every kernel against its plain version on
+the card.
+
+``attention_ref`` and ``lru_scan_ref`` follow the reference's oracles of
+the same names: fully masked attention rows give 0, and the recurrence
+carries its state in float32.
 
 ``ready_queue_ref`` is the plain version of ``kernels/ready_queue.py``;
 the reference package has no oracle for that kernel, so this one is
@@ -9,11 +15,75 @@ does, step for step.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["ready_queue_ref"]
+__all__ = ["attention_ref", "lru_scan_ref", "ready_queue_ref"]
+
+
+def attention_ref(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,  # [B, Hkv, Sk, Dv]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,     # local/sliding window size (keys kept)
+    softcap: Optional[float] = None,  # gemma2-style logit soft capping
+    scale: Optional[float] = None,
+    q_offset: int = 0,    # global position of q[0] (decode: Sk - Sq)
+    prefix_len: int = 0,  # prefix-LM: first N keys visible to every query
+) -> torch.Tensor:
+    """Masked softmax attention with GQA, causal/local/prefix masks and
+    softcap, in float32; the output is in ``q``'s dtype. Masked logits are
+    ``-inf``, so a query row with no visible key gives 0."""
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    dv = v.shape[-1]
+    if h % hkv:
+        raise ValueError(f"attention_ref: {h} query heads over {hkv} kv heads")
+    group = h // hkv
+    scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
+
+    qg = q.reshape(b, hkv, group, sq, d).float()
+    s = torch.einsum("bkgqd,bkld->bkgql", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+
+    rows = q_offset + torch.arange(sq, device=q.device)[:, None]  # global q positions
+    cols = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    if prefix_len:
+        mask |= cols < prefix_len
+    s = s.masked_fill(~mask, float("-inf"))
+
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # fully masked rows -> zeros
+    out = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
+    return out.reshape(b, h, sq, dv).to(q.dtype)
+
+
+def lru_scan_ref(
+    a: torch.Tensor,   # [B, S, D] decay
+    b: torch.Tensor,   # [B, S, D] input
+    h0: torch.Tensor,  # [B, D]
+) -> torch.Tensor:
+    """Diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t`` with a
+    float32 carry; the output is in ``b``'s dtype. Each step is a multiply
+    then an add, each rounded to float32 (two eager kernels, no fused
+    multiply-add), the rounding the CUDA kernel reproduces bit for bit."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    out = torch.empty(b.shape, dtype=torch.float32, device=b.device)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(b.dtype)
 
 
 def ready_queue_ref(

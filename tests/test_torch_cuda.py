@@ -1,8 +1,16 @@
-"""The ready-queue CUDA kernel on the card: bit-equal to its plain version
-on random DAG epochs, the same early stop on corrupted tables, the
-wrapper's input checks, and the device runner's route through it.
+"""The port's CUDA kernels on the card.
 
-Every test here needs a CUDA device and ``nvcc`` (the kernel builds at
+* ready queue: bit-equal to its plain version on random DAG epochs, the
+  same early stop on corrupted tables, the wrapper's input checks, and the
+  device runner's route through it;
+* ``lru_scan``: bit-equal to ``lru_scan_ref``, float32 and bfloat16;
+* ``flash_attention``: within tolerance of ``attention_ref`` over the CPU
+  tests' sweep and the serving shapes (float32 1e-4: summation order;
+  bfloat16 2e-2: output rounding), fully masked rows exactly 0, the same
+  bits on a second launch;
+* the two wrappers' input checks, and a model prefill that launches them.
+
+Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use), so they carry the ``cuda`` marker and skip without a card.
 Run them on the card with::
 
@@ -19,9 +27,11 @@ from repro_torch.core import BufferPool, DeviceOpRegistry, DeviceWindowRunner, S
 from repro_torch.core import run_serial
 from repro_torch.core.device_dispatch import _loop_kernel_parts, lower_epoch_program
 from repro_torch.core.task import default_segments
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lru_scan as ls
 from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches
-from repro_torch.kernels.ref import ready_queue_ref
+from repro_torch.kernels.ref import attention_ref, lru_scan_ref, ready_queue_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +39,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the ready-queue kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the port's CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -160,3 +170,122 @@ def test_device_runner_goes_through_the_kernel(device):
     assert report.loop_executor == "cuda"
     assert rq.launches == before + 1
     assert torch.equal(_bits(torch.stack([b.value for b in bufs])), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# lru_scan and flash_attention
+# ---------------------------------------------------------------------------
+
+def _int_bits(t):
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d", [(1, 1, 2560), (3, 7, 16), (1, 300, 2560), (4, 1000, 130)])
+def test_lru_scan_bit_equal_to_plain(device, b, s, d, dtype):
+    rng = np.random.RandomState(s + d)
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, s, d)).astype(np.float32)).to(device, dtype)
+    x = torch.from_numpy(rng.randn(b, s, d).astype(np.float32)).to(device, dtype)
+    h0 = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(device)
+    before = ls.launches
+    got = ls.lru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert ls.launches == before + 1
+    want = lru_scan_ref(a, x, h0)
+    assert got.dtype == dtype
+    assert torch.equal(_int_bits(got), _int_bits(want))
+
+
+# (b, h, hkv, sq, sk, d), flags: tests/test_torch_attention.py's sweep
+# plus the serving shapes of recurrentgemma-2b and h2o-danube-3-4b.
+FLASH = {
+    "mha": ((1, 2, 2, 32, 32, 16), {}),
+    "gqa_ragged_seq": ((2, 4, 2, 48, 48, 32), {}),
+    "mqa_cross": ((1, 8, 1, 16, 64, 8), {"q_offset": 48}),
+    "window_17": ((1, 2, 2, 40, 40, 16), {"window": 17}),
+    "softcap": ((1, 2, 2, 32, 32, 16), {"softcap": 10.0}),
+    "prefix_window": ((1, 4, 2, 40, 40, 16), {"window": 8, "prefix_len": 5}),
+    "decode_sq1": ((2, 4, 2, 1, 128, 16), {"q_offset": 127}),
+    "noncausal": ((1, 2, 2, 24, 24, 16), {"causal": False}),
+    "ragged_sk_odd_d": ((1, 4, 1, 20, 37, 24), {"q_offset": 17}),
+    "fully_masked_rows": ((1, 2, 2, 8, 8, 16), {"q_offset": -4}),
+    "recurrentgemma_prefill": ((1, 10, 1, 333, 333, 256), {"window": 2048}),
+    "recurrentgemma_window": ((1, 10, 1, 2500, 2500, 256), {"window": 2048}),
+    "danube_prefill": ((1, 32, 8, 300, 300, 120), {"window": 4096}),
+}
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _qkv(device, name, dtype):
+    (b, h, hkv, sq, sk, d), _ = FLASH[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    return make(b, h, sq, d), make(b, hkv, sk, d), make(b, hkv, sk, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_attention_matches_plain(device, name, dtype):
+    q, k, v = _qkv(device, name, dtype)
+    flags = FLASH[name][1]
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **flags)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dtype
+    want = attention_ref(q, k, v, **flags)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    assert torch.equal(fa.flash_attention(q, k, v, **flags), got)  # the same bits again
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_rows_are_zero(device, dtype):
+    q, k, v = _qkv(device, "fully_masked_rows", dtype)
+    got = fa.flash_attention(q, k, v, q_offset=-4)
+    torch.cuda.synchronize()
+    assert bool((got[:, :, :4] == 0).all())
+    assert bool((got[:, :, 4:] != 0).any())
+
+
+def test_kernel_wrappers_check_inputs(device):
+    q, k, v = _qkv(device, "mha", torch.float32)
+    with pytest.raises(TypeError, match="share one of"):
+        fa.flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 1, 4, 264, device=device)
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="query heads"):
+        fa.flash_attention(torch.zeros(1, 3, 4, 16, device=device), k, v)
+    a = torch.rand(1, 4, 8, device=device)
+    with pytest.raises(TypeError, match="share one of"):
+        ls.lru_scan(a, a.double(), torch.zeros(1, 8, device=device))
+    with pytest.raises(ValueError, match="h0 must be"):
+        ls.lru_scan(a, a, torch.zeros(2, 8, device=device))
+    with pytest.raises(ValueError, match="contiguous"):
+        ls.lru_scan(torch.rand(1, 8, 4, device=device).transpose(1, 2), a,
+                    torch.zeros(1, 8, device=device))
+    with pytest.raises(ValueError, match="at least one step"):
+        empty = torch.zeros(1, 0, 8, device=device)
+        ls.lru_scan(empty, empty, torch.zeros(1, 8, device=device))
+
+
+def test_model_prefill_launches_both_kernels(device):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_cache, init_params, prefill
+
+    cfg = dataclasses.replace(ARCHS["recurrentgemma-2b"].reduced(), n_layers=5)
+    params = init_params(cfg, 0, device=device)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab, (1, 20))
+                            .astype(np.int32)).to(device)
+    fa.reset_launches()
+    ls.reset_launches()
+    logits, _ = prefill(params, cfg, toks, init_cache(cfg, 1, 32, device=device))
+    torch.cuda.synchronize()
+    assert fa.launches == 1 and ls.launches == 4  # 1 local-attention, 4 RG-LRU layers
+    assert bool(torch.isfinite(logits).all())

@@ -54,9 +54,18 @@ def test_no_source_imports_jax_or_the_reference(path):
 def _entry_points():
     from repro_torch.core import BufferPool, DeviceWindowRunner, SlabArena, make_scheduler
     from repro_torch.core import run_serial
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.runtime import ContinuousBatchingServer, SessionServer
     from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
 
+    cfg = ARCHS["recurrentgemma-2b"].reduced()
     return {
+        "init_params": lambda: init_params(cfg, 0),
+        "init_cache": lambda: init_cache(cfg, 1, 8),
+        "SessionServer": lambda: SessionServer(cfg, init_params(cfg, 0, device="cpu")),
+        "ContinuousBatchingServer": lambda: ContinuousBatchingServer(
+            cfg, init_params(cfg, 0, device="cpu")),
         "BufferPool": lambda: BufferPool(),
         "SlabArena.pack": lambda: SlabArena().pack(),
         "PhysicsEngine": lambda: PhysicsEngine(ENVIRONMENTS["cheetah"], n_envs=2, group_size=1),

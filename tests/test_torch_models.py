@@ -1,0 +1,282 @@
+"""The port's models against the reference's, on the reference's weights
+carried across with ``models.convert``: the layer primitives, the GQA
+mixer (training, prefill and ring-cache decode), the RG-LRU mixer (with
+and without state), and whole models (prefill logits and caches, then
+three decode steps teacher-forced with the reference's greedy tokens).
+
+Sizes are the reduced configs in float32: recurrentgemma with 5 layers
+(its 2-layer prefix and one stage), h2o-danube, and gemma2, minicpm and
+mistral-large (softcaps, global caches, an untied head), and danube with
+its 4 heads padded to 8 (``pad_heads_to``). Layers are held
+to 1e-5; whole models to 1e-4, because XLA and torch sum the products in
+different orders across the layers. Argmax tokens are not compared against
+JAX: near-ties may break either way.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro import models as RM
+from repro.configs import ARCHS as R_ARCHS
+from repro.models import attention as RA
+from repro.models import layers as RL
+from repro.models import recurrent as RR
+from repro_torch import models as TM
+from repro_torch.configs import ARCHS
+from repro_torch.models import attention as TA
+from repro_torch.models import layers as TL
+from repro_torch.models import recurrent as TR
+
+LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+
+CONFIGS = {
+    "recurrentgemma": ("recurrentgemma-2b", {"n_layers": 5}),
+    "danube": ("h2o-danube-3-4b", {}),
+    "gemma2": ("gemma2-27b", {}),
+    "minicpm": ("minicpm-2b", {}),
+    "mistral": ("mistral-large-123b", {}),
+    "danube_padded_heads": ("h2o-danube-3-4b", {"pad_heads_to": 8}),
+}
+UNPORTED = ["deepseek-v2-236b", "falcon-mamba-7b", "granite-moe-3b-a800m",
+            "musicgen-large", "paligemma-3b"]
+PROMPT, MAX_LEN = 20, 32  # a prompt longer than the reduced window (16)
+
+
+@functools.lru_cache(maxsize=None)
+def _cfg(key):
+    name, kw = CONFIGS[key]
+    cfg = dataclasses.replace(ARCHS[name].reduced(), **kw)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        dataclasses.replace(R_ARCHS[name].reduced(), **kw))
+    return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def _models(key):
+    cfg = _cfg(key)
+    ref = RM.init_params(cfg, jax.random.PRNGKey(0), tp_size=1)
+    port = TM.params_from_numpy(jax.tree.map(np.asarray, ref), cfg, device="cpu")
+    return ref, port
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _tokens(cfg, n, seed=0):
+    return np.random.RandomState(seed).randint(0, cfg.vocab, (1, n)).astype(np.int32)
+
+
+def _ref_leaf(tree, name):
+    """The reference leaf named like the port's parameter ``name``."""
+    parts = name.split(".")
+    if parts[0] == "stages":
+        si, ui, rest = int(parts[1]), int(parts[2]), parts[3:]
+        node = tree["stages"][ui]
+        for p in rest:
+            node = node[p]
+        return np.asarray(node)[si]
+    node = tree
+    for p in parts:
+        node = node[int(p)] if isinstance(node, list) else node[p]
+    return np.asarray(node)
+
+
+def _flat_cache(cache):
+    out = []
+    for entry in cache["prefix"]:
+        out.extend(entry)
+    for stage in cache["stages"]:
+        for entry in stage:
+            out.extend(entry)
+    return out
+
+
+def _flat_ref_cache(cache, cfg):
+    return _flat_cache(TM.cache_from_numpy(jax.tree.map(np.asarray, cache), cfg, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# weights carried across, and the port's own init
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_params_from_numpy_round_trips_exactly(key):
+    ref, port = _models(key)
+    named = dict(port.named_parameters())
+    n_ref = sum(np.asarray(leaf).shape[0] if path[0].key == "stages" else 1
+                for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0])
+    assert len(named) == n_ref
+    for name, t in named.items():
+        want = _ref_leaf(ref, name)
+        assert tuple(t.shape) == want.shape, name
+        np.testing.assert_array_equal(t.numpy(), want.astype(np.float32), err_msg=name)
+
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_init_params_matches_reference_layout(key):
+    cfg = _cfg(key)
+    _, converted = _models(key)
+    mine = TM.init_params(cfg, 0, device="cpu")
+    want = {n: (tuple(t.shape), t.dtype) for n, t in converted.named_parameters()}
+    assert {n: (tuple(t.shape), t.dtype) for n, t in mine.named_parameters()} == want
+    again = TM.init_params(cfg, 0, device="cpu")
+    other = TM.init_params(cfg, 1, device="cpu")
+    assert torch.equal(mine.embed, again.embed)
+    assert not torch.equal(mine.embed, other.embed)
+
+
+@pytest.mark.parametrize("name", UNPORTED)
+def test_unported_architectures_raise(name):
+    cfg = ARCHS[name].reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        TM.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        TM.init_cache(cfg, 1, 8, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_rms_norm():
+    rng = np.random.RandomState(0)
+    x, w = rng.randn(2, 5, 16).astype(np.float32), rng.randn(16).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(TL.rms_norm(torch.from_numpy(x), torch.from_numpy(w))),
+        _np(RL.rms_norm(jnp.asarray(x), jnp.asarray(w))), **LAYER_TOL)
+
+
+def test_rope_and_apply_rope():
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 3, 7, 16).astype(np.float32)
+    pos = np.arange(5, 12)
+    rc, rs = RL.rope(jnp.asarray(pos), 16)
+    tc, ts = TL.rope(torch.from_numpy(pos), 16)
+    np.testing.assert_allclose(_np(tc), _np(rc), **LAYER_TOL)
+    np.testing.assert_allclose(_np(ts), _np(rs), **LAYER_TOL)
+    np.testing.assert_allclose(_np(TL.apply_rope(torch.from_numpy(x), tc, ts)),
+                               _np(RL.apply_rope(jnp.asarray(x), rc, rs)), **LAYER_TOL)
+
+
+def _attn_layer(key):
+    """(cfg, reference mixer params, port mixer) of the first local layer."""
+    ref, port = _models(key)
+    cfg = _cfg(key)
+    ui = list(cfg.pattern_unit).index("attn_local")
+    r = jax.tree.map(lambda a: a[0], ref["stages"][ui]["mixer"])
+    return cfg, r, port.stages[0][ui].mixer
+
+
+@pytest.mark.parametrize("key", ["danube", "recurrentgemma"])
+@pytest.mark.parametrize("mode", ["train", "prefill", "ring_decode"])
+def test_apply_attn(key, mode):
+    cfg, rp, tp = _attn_layer(key)
+    rng = np.random.RandomState(2)
+    s = 1 if mode == "ring_decode" else PROMPT
+    x = rng.randn(1, s, cfg.d_model).astype(np.float32)
+    cache = pos = None
+    if mode != "train":
+        cache_np = tuple(np.zeros((1, cfg.eff_kv_heads, min(cfg.window, MAX_LEN), cfg.head_dim),
+                                  np.float32) for _ in range(2))
+        if mode == "ring_decode":  # a cache left by a prompt longer than the window
+            cache_np = tuple(rng.randn(*c.shape).astype(np.float32) for c in cache_np)
+            pos = PROMPT
+        cache = cache_np
+    positions = np.arange(s) + (pos or 0)
+    ry, rc = RA.apply_attn(
+        rp, jnp.asarray(x), cfg, local=True, positions=jnp.asarray(positions),
+        cache=None if cache is None else tuple(map(jnp.asarray, cache)),
+        pos=None if pos is None else jnp.asarray(pos, jnp.int32), prefill=(mode == "prefill"))
+    ty, tc = TA.apply_attn(
+        tp, torch.from_numpy(x), cfg, local=True, positions=torch.from_numpy(positions),
+        cache=None if cache is None else tuple(map(torch.from_numpy, cache)),
+        pos=None if pos is None else torch.tensor(pos, dtype=torch.int32),
+        prefill=(mode == "prefill"))
+    np.testing.assert_allclose(_np(ty), _np(ry), **LAYER_TOL)
+    if cache is not None:
+        for t, r in zip(tc, rc):
+            np.testing.assert_allclose(_np(t), _np(r), **LAYER_TOL)
+
+
+def _rglru_layer():
+    ref, port = _models("recurrentgemma")
+    return _cfg("recurrentgemma"), ref["prefix"][0]["mixer"], port.prefix[0].mixer
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv1d(with_state):
+    rng = np.random.RandomState(3)
+    x, w = rng.randn(2, 9, 8).astype(np.float32), rng.randn(4, 8).astype(np.float32)
+    st = rng.randn(2, 3, 8).astype(np.float32) if with_state else None
+    ry, rs = RR._causal_conv1d(jnp.asarray(x), jnp.asarray(w), None if st is None else jnp.asarray(st))
+    ty, ts = TR._causal_conv1d(torch.from_numpy(x), torch.from_numpy(w),
+                               None if st is None else torch.from_numpy(st))
+    np.testing.assert_allclose(_np(ty), _np(ry), **LAYER_TOL)
+    np.testing.assert_allclose(_np(ts), _np(rs), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [1, 12])
+def test_apply_rglru(with_state, s):
+    cfg, rp, tp = _rglru_layer()
+    w = cfg.rglru_width or cfg.d_model
+    rng = np.random.RandomState(4 + s)
+    x = rng.randn(1, s, cfg.d_model).astype(np.float32)
+    state = ((rng.randn(1, w).astype(np.float32), rng.randn(1, cfg.d_conv - 1, w).astype(np.float32))
+             if with_state else None)
+    ry, rst = RR.apply_rglru(rp, jnp.asarray(x), cfg,
+                             state=None if state is None else tuple(map(jnp.asarray, state)))
+    ty, tst = TR.apply_rglru(tp, torch.from_numpy(x), cfg,
+                             state=None if state is None else tuple(map(torch.from_numpy, state)))
+    np.testing.assert_allclose(_np(ty), _np(ry), **LAYER_TOL)
+    assert (tst is None) == (rst is None)
+    if with_state:
+        assert tst[0].dtype == torch.float32
+        for t, r in zip(tst, rst):
+            np.testing.assert_allclose(_np(t), _np(r), **LAYER_TOL)
+
+
+# ---------------------------------------------------------------------------
+# whole models
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_prefill_then_teacher_forced_decode(key):
+    cfg = _cfg(key)
+    ref, port = _models(key)
+    toks = _tokens(cfg, PROMPT)
+    rl, rc = RM.prefill(ref, cfg, jnp.asarray(toks), RM.init_cache(cfg, 1, MAX_LEN))
+    tl, tc = TM.prefill(port, cfg, torch.from_numpy(toks), TM.init_cache(cfg, 1, MAX_LEN, device="cpu"))
+    np.testing.assert_allclose(_np(tl), _np(rl), **MODEL_TOL)
+    ref_entries, port_entries = _flat_ref_cache(rc, cfg), _flat_cache(tc)
+    assert len(ref_entries) == len(port_entries)
+    for t, r in zip(port_entries, ref_entries):
+        assert t.shape == r.shape and t.dtype == r.dtype
+        np.testing.assert_allclose(_np(t), _np(r), **MODEL_TOL)
+    tok = int(np.argmax(np.asarray(rl)[0, -1, : cfg.vocab]))
+    for step in range(3):
+        pos = PROMPT + step
+        rl, rc = RM.decode_step(ref, cfg, jnp.asarray([[tok]], jnp.int32), rc,
+                                jnp.asarray(pos, jnp.int32))
+        tl, tc = TM.decode_step(port, cfg, torch.tensor([[tok]], dtype=torch.int32), tc,
+                                torch.tensor(pos, dtype=torch.int32))
+        np.testing.assert_allclose(_np(tl), _np(rl), **MODEL_TOL)
+        tok = int(np.argmax(np.asarray(rl)[0, -1, : cfg.vocab]))  # teacher-forced
+
+
+@pytest.mark.parametrize("key", sorted(CONFIGS))
+def test_forward_logits(key):
+    cfg = _cfg(key)
+    ref, port = _models(key)
+    toks = _tokens(cfg, 12, seed=5)
+    np.testing.assert_allclose(_np(TM.forward(port, cfg, torch.from_numpy(toks))),
+                               _np(RM.forward(ref, cfg, jnp.asarray(toks))), **MODEL_TOL)

@@ -101,3 +101,27 @@ def test_from_numpy_carries_reference_pool_state():
         assert (rb.name, rb.shape, rb.dtype) == (pb.name, pb.shape, pb.dtype)
         assert _spans([rb.segment]) == _spans([pb.segment])
         np.testing.assert_array_equal(np.asarray(rb.value), pb.value.numpy())
+
+
+def test_opaque_slot_value_round_trips():
+    """A server's ``(cache, token, pos)`` slot is an opaque value, as in
+    the reference's pool: it allocates as given, reads back through
+    ``Buffer.value``, and a task that reads and writes it through
+    ``run_serial`` leaves the tuple structure intact."""
+    pool = S.pool("port")
+    cache = {"k": torch.zeros(2, 3), "v": torch.ones(2, 3)}
+    buf = pool.alloc((1,), np.float32, name="slot0", value=(cache, None, 0))
+    got = buf.value
+    assert isinstance(got, tuple) and len(got) == 3
+    assert got[0] is cache and got[1] is None and got[2] == 0
+
+    def step(slot):
+        c, _, pos = slot
+        return [({k: t + 1 for k, t in c.items()}, torch.tensor([7]), pos + 1)]
+
+    stream = S.T.TaskStream()
+    S.T.AcsKernel(name="slot_step", fn=step).launch(stream, (buf,), (buf,))
+    S.T.run_serial(stream.tasks, device="cpu")
+    new_cache, tok, pos = buf.value
+    assert set(new_cache) == {"k", "v"} and pos == 1 and int(tok[0]) == 7
+    np.testing.assert_array_equal(new_cache["v"].numpy(), np.full((2, 3), 2.0, np.float32))
