@@ -6,38 +6,52 @@
 Phases, each fatal on failure (an exception, exit code != 0):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: the three CUDA kernels (ready queue, flash attention, RG-LRU
-   scan) from the sources in this checkout, one ``nvcc`` each, all started
-   together; each one's build seconds.
+2. Build: the four CUDA kernels (ready queue, wave megakernel, flash
+   attention, RG-LRU scan) from the sources in this checkout, one ``nvcc``
+   each, all started together; each one's build seconds.
 3. Kernel vs plain, on the card:
    a. ready queue: on random DAG streams the kernel's slab, completion
       flags and final ring are bit-equal to ``ready_queue_ref``;
-   b. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4},
+   b. wave megakernel: bit-equal to ``wave_rows_ref`` over S in
+      {1, 7, 32, 64} x D in {1, 37, 4096} (repeated input rows, a slot
+      reading its own out row); a bad descriptor raises;
+   c. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4},
       S in {1, 37, 512, 2048}, D 2560, float32 and bfloat16;
-   c. ``flash_attention``: within tolerance of ``attention_ref`` (float32
+   d. ``flash_attention``: within tolerance of ``attention_ref`` (float32
       1e-4, bfloat16 2e-2) at the recurrentgemma-2b and h2o-danube-3-4b
       prefill shapes, with softcap, prefix, decode (Sq = 1) and fully
       masked rows (exactly 0).
-4. ACS-HW main path: the chain universe (64 chains x width 4096 x depth 32,
-   2,048 tasks) and the 24-task mixed-tag hazard stream run through
-   ``DeviceWindowRunner(plan_mode="loop")`` on the CUDA kernel, bit-equal
-   to ``run_serial`` on the card.
+4. ACS-HW main paths, each bit-equal to ``run_serial`` on the card: the
+   chain universe (64 chains x width 4096 x depth 32, 2,048 tasks) and the
+   24-task mixed-tag hazard stream through
+   a. ``DeviceWindowRunner(plan_mode="loop")`` on the ready-queue kernel
+      (one launch);
+   b. ``DeviceWindowRunner(plan_mode="wave")`` and ``("frontier")`` on the
+      wave kernel (``wave_executor == "cuda"``, one launch per plan step;
+      wave widths and ``plan_active_fraction`` logged), and the cheetah
+      stream (64 envs, 8 groups, 2 steps) through both modes on the step
+      path;
+   c. ``DeviceSession`` under each plan mode, the chain universe fed in 4
+      interleaved chunks (loop epochs launch the ready-queue kernel, wave
+      and frontier epochs the wave kernel).
 5. ACS-SW main path: the cheetah physics stream (64 envs, 8 groups,
    5 steps) through the serial, wave and threaded (4 CUDA streams)
    schedulers, bit-equal across the three and finite.
 6. Serving main path: recurrentgemma-2b at its published config (26
    layers, d_model 2560, bf16 weights drawn from seed 0) serves 8 seeded
    prompts of 128-512 tokens, 16 new tokens each, through
-   ``SessionServer(scheduler="wave")`` and then ``ContinuousBatchingServer``
-   (4 slots, max_len 1024, window 32). Every request gets its 16 tokens,
-   the two servers' tokens are identical and equal a plain greedy loop
-   over ``prefill``/``decode_step``, every logit is finite, and each
-   server run launches the flash kernel once per request and local
-   attention layer (64) and the scan once per RG-LRU layer and prefill or
-   decode (2,448).
+   ``SessionServer(scheduler="wave")``, ``SessionServer(scheduler="device")``
+   (its ``"loop"`` plan mode; every serving task takes the session's
+   in-epoch host path) and ``ContinuousBatchingServer`` (4 slots, max_len
+   1024, window 32). Every request gets its 16 tokens, the three servers'
+   tokens are identical and equal a plain greedy loop over
+   ``prefill``/``decode_step``, every logit is finite, and each server run
+   launches the flash kernel once per request and local attention layer
+   (64) and the scan once per RG-LRU layer and prefill or decode (2,448).
 7. Numbers: CUDA-event medians of each kernel and its plain version at
-   its main path's shape (and SDPA's for attention), each kernel's bound,
-   and the wall time of each phase-4/5/6 policy and server.
+   its main path's shape (the wave kernel at the widest wave the chain
+   universe's wave plan produced; SDPA's for attention), each kernel's
+   bound, and the wall time of each phase-4/5/6 policy and server.
 8. Device busy share: one more pass of each phase-4/5 policy, and one
    serving pass, under ``torch.profiler``; the union of the CUDA kernels'
    intervals over the pass's wall ("not measured" if the profiler records
@@ -216,9 +230,9 @@ def phase_device():
 
 def phase_build():
     """Build every kernel of the port, one nvcc each, started together."""
-    from repro_torch.kernels import flash_attention, lru_scan, ready_queue
+    from repro_torch.kernels import flash_attention, lru_scan, ready_queue, wave_elementwise
 
-    mods = (ready_queue, flash_attention, lru_scan)
+    mods = (ready_queue, wave_elementwise, flash_attention, lru_scan)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, seconds) in zip(mods, built):
@@ -241,6 +255,57 @@ def phase_kernel_vs_plain(device):
                 check(bit_equal(g, w), f"kernel != plain on {name} (seed {seed}, n {n}, d {d})")
             check(bool(got[1].all()), f"queue did not drain (seed {seed}, n {n})")
             log(f"kernel == plain: seed {seed} n {n} d {d} slab {tuple(slab.shape)}")
+
+
+WAVE_SWEEP_S, WAVE_SWEEP_D = (1, 7, 32, 64), (1, 37, 4096)
+
+
+def wave_branches():
+    from repro_torch.kernels.ops import LOOP_BRANCHES
+
+    return (LOOP_BRANCHES["axpy"], LOOP_BRANCHES["mul"])
+
+
+def random_wave(device, seed, s, d):
+    """A random wave of ``s`` slots over ``s + 5`` rows of width ``d``:
+    unique out rows, every slot's second input the same row, slot 0 reading
+    its own out row. Returns (slab, desc)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    r = s + 5
+    slab = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(device)
+    ops = rng.randint(0, 2, s)
+    ins = rng.randint(0, r, (s, 2))
+    outs = rng.choice(r, s, replace=False)
+    ins[:, 1] = ins[0, 0]
+    ins[0, 0] = outs[0]
+    desc = np.concatenate([ops[:, None], ins, outs[:, None]], axis=1).astype(np.int32)
+    return slab, torch.from_numpy(desc).to(device)
+
+
+def phase_wave_vs_plain(device):
+    import torch
+    from repro_torch.kernels.ref import wave_rows_ref
+    from repro_torch.kernels.wave_elementwise import wave_elementwise
+
+    br = wave_branches()
+    for s in WAVE_SWEEP_S:
+        for d in WAVE_SWEEP_D:
+            slab, desc = random_wave(device, s * 100 + d, s, d)
+            got = wave_elementwise(slab, desc, branches=br)
+            want = wave_rows_ref(slab, desc, br)
+            torch.cuda.synchronize()
+            check(bit_equal(got, want), f"wave kernel != plain (S {s}, D {d})")
+    desc[-1, 2] = 10 ** 6
+    try:
+        wave_elementwise(slab, desc, branches=br)
+    except ValueError as exc:
+        log(f"wave kernel: a bad descriptor raises ({exc})")
+    else:
+        check(False, "wave kernel: a descriptor row outside the slab did not raise")
+    log(f"wave kernel == plain, bit for bit: S {set(WAVE_SWEEP_S)} x D {set(WAVE_SWEEP_D)}, "
+        "float32")
 
 
 def _int_bits(t):
@@ -357,6 +422,138 @@ def phase_acs_hw(device):
         if label == "chain_universe":
             main_launches = launches
     return main_launches, walls
+
+
+def loop_registry(tasks):
+    """An auto-registering registry whose switch table holds the loop
+    branches under their own names and under the tasks' opcodes (the
+    mixed-tag kernels carry names of their own)."""
+    from repro_torch.core import DeviceOpRegistry
+    from repro_torch.kernels.ops import register_loop_branches
+
+    reg = DeviceOpRegistry(strict=False)
+    register_loop_branches(reg)
+    for t in tasks:
+        reg.register_switch_branch(t.opcode, t.fn)
+    return reg
+
+
+def phase_acs_hw_waves(device):
+    """The wave and frontier device window: the chain universe and the
+    mixed-tag stream on the wave kernel, the cheetah stream on the step
+    path. Returns (wave-kernel launches of the chain universe's wave run,
+    its widest wave, wall seconds per run)."""
+    import torch
+    from repro_torch.core import DeviceWindowRunner, TaskStream, run_serial
+    from repro_torch.kernels import wave_elementwise as we
+    from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
+
+    walls, main = {}, None
+    for label, build in (("chain_universe", chain_universe), ("mixed_tag", mixed_tag)):
+        bufs, tasks = build(device)
+        run_serial(tasks, device=device)
+        expect = torch.stack([b.value for b in bufs])
+        for mode in ("wave", "frontier"):
+            bufs, tasks = build(device)
+            runner = DeviceWindowRunner(registry=loop_registry(tasks), window_size=WINDOW,
+                                        plan_mode=mode, device=device)
+            torch.cuda.synchronize()
+            we.reset_launches()  # the main path's count starts here
+            t0 = time.perf_counter()
+            report = runner.run(tasks)
+            walls[f"{label}/device_{mode}"] = time.perf_counter() - t0
+            launches = we.launches
+            got = torch.stack([b.value for b in bufs])
+            ex = report.exec_stats
+            check(report.wave_executor == "cuda",
+                  f"{label} {mode}: executor {report.wave_executor} "
+                  f"({report.wave_kernel_refusal})")
+            check(launches == report.wave_kernel_launches == len(report.waves),
+                  f"{label} {mode}: {launches} wave-kernel launches for "
+                  f"{len(report.waves)} plan steps")
+            check(bit_equal(got, expect), f"{label} {mode}: device window != run_serial")
+            log(f"ACS-HW {label} {mode}: {len(tasks)} tasks in {len(report.waves)} plan "
+                f"steps (mean width {ex['mean_wave_width']:.3f}, max "
+                f"{ex['max_wave_width']}), plan_active_fraction "
+                f"{report.plan_active_fraction:.4f}, executor {report.wave_executor}, "
+                f"launches {launches}, bit-equal to run_serial; host spans: plan+lower "
+                f"{report.plan_seconds * 1e3:.3f} ms, payload "
+                f"{report.payload_seconds * 1e3:.3f} ms, pack {report.pack_seconds * 1e3:.3f} "
+                f"ms, kernels+sync {report.exec_stats['exec_seconds'] * 1e3:.3f} ms, unpack "
+                f"{report.unpack_seconds * 1e3:.3f} ms")
+            if (label, mode) == ("chain_universe", "wave"):
+                main = (launches, ex["max_wave_width"])
+
+    snaps = {}
+    for policy in ("serial", "wave", "frontier"):
+        eng = PhysicsEngine(ENVIRONMENTS["cheetah"], n_envs=SIM_ENVS, group_size=SIM_GROUP,
+                            seed=0, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            stream = TaskStream()
+            eng.emit_step(stream)
+            if policy == "serial":
+                run_serial(stream.tasks, device=device)
+                continue
+            report = DeviceWindowRunner(window_size=WINDOW, plan_mode=policy,
+                                        device=device).run(stream.tasks)
+            check(report.wave_executor == "steps", f"cheetah {policy}: {report.wave_executor}")
+        torch.cuda.synchronize()
+        walls[f"cheetah 2 steps/{'serial' if policy == 'serial' else 'device_' + policy}"] = \
+            time.perf_counter() - t0
+        snaps[policy] = eng.state_snapshot()
+    for policy in ("wave", "frontier"):
+        check(np.array_equal(snaps[policy].view(np.int32), snaps["serial"].view(np.int32)),
+              f"cheetah {policy} device window state != serial state")
+    log(f"ACS-HW cheetah: wave and frontier device windows (step path, "
+        f"{report.arena_stats['device_steps']} vmapped steps in the last plan) bit-equal "
+        "to serial")
+    return main[0], main[1], walls
+
+
+def phase_session(device):
+    """``DeviceSession`` under each plan mode: the chain universe fed in 4
+    interleaved chunks. Returns wall seconds per mode."""
+    import torch
+    from repro_torch.core import DeviceSession, run_serial
+    from repro_torch.kernels import ready_queue as rq
+    from repro_torch.kernels import wave_elementwise as we
+
+    bufs, tasks = chain_universe(device)
+    run_serial(tasks, device=device)
+    expect = torch.stack([b.value for b in bufs])
+    walls = {}
+    for mode in ("wave", "frontier", "loop"):
+        bufs, tasks = chain_universe(device)
+        session = DeviceSession(window_size=WINDOW, registry=loop_registry(tasks),
+                                plan_mode=mode, device=device)
+        torch.cuda.synchronize()
+        rq.reset_launches()
+        we.reset_launches()
+        t0 = time.perf_counter()
+        n = len(tasks) // 4
+        for i in range(4):
+            session.submit(tasks[i * n:(i + 1) * n])
+            session.poll()
+        stats = session.close().session_stats
+        walls[f"chain_universe/session_{mode}"] = time.perf_counter() - t0
+        got = torch.stack([b.value for b in bufs])
+        check(bit_equal(got, expect), f"DeviceSession {mode} != run_serial")
+        if mode == "loop":
+            check(rq.launches == stats["loop_dispatches"] == stats["device_dispatches"] > 0,
+                  f"DeviceSession loop: {rq.launches} ready-queue launches for "
+                  f"{stats['loop_dispatches']} loop dispatches")
+        else:
+            check(stats["wave_kernel_dispatches"] == stats["device_dispatches"] > 0
+                  and we.launches == len(session.stats.wave_widths),
+                  f"DeviceSession {mode}: {we.launches} wave-kernel launches, stats {stats}")
+        keys = ("epochs", "device_dispatches", "loop_dispatches", "wave_kernel_dispatches",
+                "plan_cache_hits", "plan_cache_misses", "host_syncs", "host_syncs_d2h")
+        log(f"DeviceSession {mode}: bit-equal to run_serial; ready-queue launches "
+            f"{rq.launches}, wave-kernel launches {we.launches}; "
+            + ", ".join(f"{k} {stats[k]}" for k in keys))
+    return walls
 
 
 def phase_acs_sw(device):
@@ -495,6 +692,7 @@ def phase_serve(device, card):
 
     walls, tokens, main_launches = {}, {}, None
     for name, cls, kw in (("SessionServer(wave)", SessionServer, {"scheduler": "wave"}),
+                          ("SessionServer(device)", SessionServer, {"scheduler": "device"}),
                           ("ContinuousBatchingServer", ContinuousBatchingServer, {})):
         toks, wall, reads, launches = serve_once(cfg, params, cls, prompts, device, **kw)
         check(all(len(t) == SERVE_MAX_NEW for t in toks), f"{name}: a request lacks tokens")
@@ -508,9 +706,9 @@ def phase_serve(device, card):
         log(f"serve {name}: {SERVE_REQUESTS} requests x {SERVE_MAX_NEW} tokens, wall "
             f"{wall * 1e3:.3f} ms, {n_tok / wall:.2f} tokens/s, host reads {reads}, "
             f"launches {launches} [{card}]")
-    check(tokens["SessionServer(wave)"] == tokens["ContinuousBatchingServer"],
-          "serve: the two servers' tokens differ")
-    log(f"serve: prompt lengths {[len(p) for p in prompts]}; both servers' tokens identical "
+    check(tokens["SessionServer(wave)"] == tokens["SessionServer(device)"]
+          == tokens["ContinuousBatchingServer"], "serve: the servers' tokens differ")
+    log(f"serve: prompt lengths {[len(p) for p in prompts]}; the three servers' tokens identical "
         f"and equal to the plain greedy loop; median prefill "
         f"{statistics.median(prefill_s) * 1e3:.3f} ms, median decode step "
         f"{statistics.median(decode_s) * 1e3:.3f} ms (greedy loop, host clock, "
@@ -667,6 +865,60 @@ def numbers_flash(device, launches):
     }
 
 
+def numbers_wave(device, launches, widest):
+    """The wave kernel at the widest wave of the chain universe's wave plan:
+    that step's own descriptors over the chain universe's slab."""
+    import torch
+    from repro_torch.core import SlabArena
+    from repro_torch.core.device_dispatch import _wave_kernel_parts, plan_waves
+    from repro_torch.kernels.ops import LOOP_OPCODES
+    from repro_torch.kernels.ref import wave_rows_ref
+    from repro_torch.kernels.wave_elementwise import wave_elementwise
+
+    _, tasks = chain_universe(device)
+    plan = plan_waves(tasks, WINDOW)
+    arena = SlabArena()
+    arena.add_tasks(tasks)
+    prog, why = _wave_kernel_parts(plan, loop_registry(tasks), arena)
+    check(prog is not None, f"chain universe not wave-kernel eligible: {why}")
+    i = max(range(prog.n_steps), key=lambda k: prog.offsets[k + 1] - prog.offsets[k])
+    desc_np = prog.desc[prog.offsets[i]:prog.offsets[i + 1]]
+    check(len(desc_np) == widest, f"widest wave {len(desc_np)} != the run's {widest}")
+    slab = arena.pack(device)[prog.class_id]
+    desc = torch.from_numpy(desc_np).to(device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    got = wave_elementwise(slab, desc, branches=prog.branches)
+    want = wave_rows_ref(slab, desc, prog.branches)
+    torch.cuda.synchronize()
+    s, d = desc.shape[0], slab.shape[1]
+    rows_read = len(set(desc_np[:, 1].tolist()) | set(desc_np[:, 2].tolist()))
+    slab32, desc32 = random_wave(device, 0, 32, d)
+    br32 = wave_branches()
+    flops_per_elem = {0: 3, 1: 2}  # axpy: mul, add, add; mul: mul, sub
+    flops = sum(flops_per_elem[LOOP_OPCODES[prog.branches[b]]] for b in desc_np[:, 0]) * d
+    ms_bound, by = bound((rows_read + s) * d * 4 + desc.numel() * 4, flops, FP32_FLOP_PER_S)
+    return {
+        "name": "wave_elementwise",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wave_elementwise.cu",
+        "replaces": "src/repro/kernels/wave_elementwise.py:51",
+        "launches": launches,
+        "matches_plain": bit_equal(got, want),
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": median_ms(lambda: wave_elementwise(slab, desc, branches=prog.branches, err=err)),
+        "plain_ms": median_ms(lambda: wave_rows_ref(slab, desc, prog.branches)),
+        "bound_ms": ms_bound,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call computes an opcode-switched gather-apply
+        "shape": f"S {s} slots (the widest wave of the chain universe's wave plan) over slab "
+                 f"{tuple(slab.shape)} f32, {rows_read} distinct rows read",
+        # A 32-slot wave at the same width, for the launch-bound regime.
+        "s32_ms": median_ms(lambda: wave_elementwise(slab32, desc32, branches=br32, err=err)),
+        "s32_bound_ms": bound((len(set(desc32[:, 1:3].flatten().tolist())) + 32) * d * 4
+                              + desc32.numel() * 4, 3 * 32 * d, FP32_FLOP_PER_S)[0],
+    }
+
+
 def device_busy(fn):
     """Run ``fn()`` once under ``torch.profiler``. Returns (wall ms under
     the profiler, device-busy ms: the union of the CUDA kernels' intervals,
@@ -710,7 +962,8 @@ def phase_busy(device, card, served):
             return lambda: run_serial(tasks, device=device)
         reg = DeviceOpRegistry(strict=False)
         register_loop_branches(reg)
-        runner = DeviceWindowRunner(registry=reg, window_size=WINDOW, device=device)
+        runner = DeviceWindowRunner(registry=reg, window_size=WINDOW,
+                                    plan_mode=policy.removeprefix("device_"), device=device)
         return lambda: runner.run(tasks)
 
     def cheetah(policy):
@@ -734,6 +987,7 @@ def phase_busy(device, card, served):
 
     for label, make in (("chain_universe/serial", lambda: chain("serial")),
                         ("chain_universe/device_loop", lambda: chain("device_loop")),
+                        ("chain_universe/device_wave", lambda: chain("device_wave")),
                         *((f"cheetah step/{p}", lambda p=p: cheetah(p))
                           for p in ("serial", "wave", "threaded")),
                         (f"serve SessionServer(wave), 2 requests x {SERVE_MAX_NEW} tokens",
@@ -770,12 +1024,16 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     timed(phase_build)
     timed(phase_kernel_vs_plain, device)
+    timed(phase_wave_vs_plain, device)
     timed(phase_lru_vs_plain, device)
     timed(phase_flash_vs_plain, device)
     launches, hw_walls = timed(phase_acs_hw, device)
+    wave_launches, widest, wave_walls = timed(phase_acs_hw_waves, device)
+    session_walls = timed(phase_session, device)
     sw_walls = timed(phase_acs_sw, device)
     serve_launches, serve_walls, served = timed(phase_serve, device, card)
     kernels = [timed(phase_numbers, device, launches),
+               timed(numbers_wave, device, wave_launches, widest),
                timed(numbers_flash, device, serve_launches["flash_attention"]),
                timed(numbers_lru, device, serve_launches["lru_scan"])]
     for kernel in kernels:
@@ -784,7 +1042,8 @@ def main() -> int:
         check(kernel["launches"] >= 1, f"the main path launched no {kernel['name']} kernel")
 
     kind = torch.cuda.get_device_name(0)
-    for key, secs in {**hw_walls, **sw_walls, **serve_walls}.items():
+    for key, secs in {**hw_walls, **wave_walls, **session_walls, **sw_walls,
+                      **serve_walls}.items():
         log(f"wall {key}: {secs * 1e3:.3f} ms [{card}]")
     timed(phase_busy, device, card, served)
     log(f"total {time.perf_counter() - t_start:.1f} s")

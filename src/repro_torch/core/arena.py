@@ -18,10 +18,20 @@ plain integers:
   count and the fraction of slab cells occupied by padding.
 * ``free(buf)`` releases a row into its class's free-list and ``add``
   recycles free rows before growing the slab.
+* The arena may be **persistent** (the ``DeviceSession`` rolling window):
+  ``pack_incremental`` keeps the materialized slabs and appends only rows
+  added since the last pack, refreshing recycled rows inside the packed
+  watermark from host values; ``update_rows`` refreshes rows whose host
+  values changed. When a class's dead-row fraction crosses
+  ``compact_waste`` (``needs_compaction``), ``compact`` renumbers its live
+  rows densely (a device-side gather of the slab) and bumps the class's
+  **generation**, the signal a plan cache holding static row addresses
+  invalidates on.
 
-Slabs are torch tensors on the caller's device. The persistent-session
-half of the reference (``pack_incremental``, ``update_rows``, compaction)
-and ``ShardTransferTable`` come with the ``DeviceSession`` and mesh slices.
+Slabs are torch tensors on the caller's device; a persistent session
+updates its slabs in place, so ``unpack`` hands each buffer a copy of its
+row, never a view. ``ShardTransferTable`` and the row export/import of
+the mesh come with the mesh slice (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -111,18 +121,33 @@ class SlabArena:
     """Assigns buffers to (class, row) slab coordinates and moves values
     into and out of the slabs around a lowered epoch's single dispatch."""
 
-    def __init__(self, pad_multiple: int = 8):
+    def __init__(self, pad_multiple: int = 8, *, compact_waste: float = 0.5,
+                 compact_min_rows: int = 8):
         self.pad_multiple = pad_multiple
+        # Compaction policy: rebuild a class once it holds at least
+        # compact_min_rows rows and its dead fraction reaches compact_waste.
+        self.compact_waste = compact_waste
+        self.compact_min_rows = compact_min_rows
         self._class_ids: Dict[ShapeClass, int] = {}
         self._classes: List[ShapeClass] = []
         # per class, row -> Buffer (None = freed row awaiting reuse)
         self._rows: List[List[Optional[Buffer]]] = []
         # id(Buffer) -> (class, row); _rows holds the references.
         self._addr: Dict[int, Tuple[int, int]] = {}
+        # Per-class count of rows already materialized into device slabs
+        # (the pack_incremental watermark).
+        self._packed_rows: List[int] = []
         # Per-class LIFO free-lists of recyclable row indices.
         self._free: List[List[int]] = []
+        # Per-class rows below the watermark re-assigned to a new buffer
+        # since the last pack: the slab still holds the dead occupant's bits.
+        self._reused: List[set] = []
+        # Per-class compaction counters; `generation` is their sum.
+        self._generation: List[int] = []
+        self.generation = 0
         self.freed_rows = 0
         self.recycled_rows = 0
+        self.compactions = 0
         self.unpack_rows_written = 0
 
     # -- classification ----------------------------------------------------
@@ -131,6 +156,11 @@ class SlabArena:
             padded_shape=pad_shape(tuple(buf.shape), self.pad_multiple),
             dtype=str(np.dtype(buf.dtype)),
         )
+
+    def row_nbytes(self, buf: Buffer) -> int:
+        """Padded slab-row bytes of this buffer's class."""
+        cls = self.class_of(buf)
+        return cls.row_elems * np.dtype(cls.dtype).itemsize
 
     def add(self, buf: Buffer) -> Tuple[int, int]:
         """Assign ``buf`` a (class_id, row); idempotent per buffer object."""
@@ -144,11 +174,18 @@ class SlabArena:
             self._class_ids[cls] = cid
             self._classes.append(cls)
             self._rows.append([])
+            self._packed_rows.append(0)
             self._free.append([])
+            self._reused.append(set())
+            self._generation.append(0)
         if self._free[cid]:
             row = self._free[cid].pop()
             self._rows[cid][row] = buf
             self.recycled_rows += 1
+            if row < self._packed_rows[cid]:
+                # The materialized row holds the previous occupant's value:
+                # refresh it from host at the next incremental pack.
+                self._reused[cid].add(row)
         else:
             row = len(self._rows[cid])
             self._rows[cid].append(buf)
@@ -164,6 +201,7 @@ class SlabArena:
         cid, row = addr
         self._rows[cid][row] = None
         self._free[cid].append(row)
+        self._reused[cid].discard(row)
         self.freed_rows += 1
         return True
 
@@ -204,6 +242,9 @@ class SlabArena:
     def rows(self, class_id: int) -> List[Optional[Buffer]]:
         return list(self._rows[class_id])
 
+    def class_generation(self, class_id: int) -> int:
+        return self._generation[class_id]
+
     def device_address_table(self, operands: Sequence[Operand]
                              ) -> Tuple[np.ndarray, np.ndarray]:
         """Resolve operands to dense per-slot address arrays ``(rows,
@@ -221,6 +262,11 @@ class SlabArena:
         if class_id is not None:
             return len(self._rows[class_id]) - len(self._free[class_id])
         return sum(len(r) for r in self._rows) - sum(len(f) for f in self._free)
+
+    def free_rows(self, class_id: Optional[int] = None) -> int:
+        if class_id is not None:
+            return len(self._free[class_id])
+        return sum(len(f) for f in self._free)
 
     def slab_bytes(self) -> int:
         """Device footprint of the slabs a pack materializes."""
@@ -260,6 +306,68 @@ class SlabArena:
             )
         return 1.0 - used / padded if padded else 0.0
 
+    # -- compaction ---------------------------------------------------------
+    def needs_compaction(self) -> List[int]:
+        """Class ids whose dead-row fraction crossed the policy threshold."""
+        out = []
+        for cid in range(len(self._classes)):
+            total = len(self._rows[cid])
+            if total >= self.compact_min_rows and \
+                    len(self._free[cid]) / total >= self.compact_waste:
+                out.append(cid)
+        return out
+
+    def compact(self, slabs: Optional[Sequence[torch.Tensor]] = None,
+                class_ids: Optional[Iterable[int]] = None,
+                ) -> Tuple[Optional[List[torch.Tensor]], Dict[int, Dict[int, int]]]:
+        """Rebuild the given classes with dead rows squeezed out.
+
+        Live rows keep their relative order, so the packed live rows form a
+        dense prefix and the new slab is a device-side gather of the old
+        one: freed rows' values are dropped, never read back through the
+        host. Rows beyond the old watermark were never materialized; the
+        next :meth:`pack_incremental` appends them.
+
+        Returns ``(new_slabs, moved)`` with ``moved[cid]`` mapping old row
+        -> new row for every surviving row of a compacted class. Each
+        compacted class's generation (and the global ``generation``)
+        bumps. ``slabs=None`` skips the gather (an unmaterialized arena).
+        """
+        if class_ids is None:
+            class_ids = self.needs_compaction()
+        out = None if slabs is None else list(slabs)
+        moved: Dict[int, Dict[int, int]] = {}
+        for cid in class_ids:
+            if not self._free[cid]:
+                continue
+            rows = self._rows[cid]
+            packed = self._packed_rows[cid]
+            live_old = [r for r, b in enumerate(rows) if b is not None]
+            remap = {old: new for new, old in enumerate(live_old)}
+            n_packed_live = sum(1 for r in live_old if r < packed)
+            for old in live_old:
+                self._addr[id(rows[old])] = (cid, remap[old])
+            self._rows[cid] = [rows[r] for r in live_old]
+            self._free[cid] = []
+            self._reused[cid] = {remap[r] for r in self._reused[cid]}
+            self._packed_rows[cid] = n_packed_live
+            if out is not None and cid < len(out):
+                keep = torch.tensor(live_old[:n_packed_live], dtype=torch.long,
+                                    device=out[cid].device)
+                slab = out[cid].index_select(0, keep)
+                # Re-pad to the quantized capacity of the squeezed rows, so
+                # the next pack_incremental appends within capacity.
+                cap = row_capacity(len(self._rows[cid]))
+                if cap > slab.shape[0]:
+                    slab = torch.cat([slab, slab.new_zeros((cap - slab.shape[0],)
+                                                           + tuple(slab.shape[1:]))])
+                out[cid] = slab
+            moved[cid] = remap
+            self._generation[cid] += 1
+            self.generation += 1
+            self.compactions += 1
+        return out, moved
+
     # -- host <-> device movement ------------------------------------------
     def _row_value(self, buf: Optional[Buffer], cls: ShapeClass,
                    device: torch.device) -> torch.Tensor:
@@ -288,7 +396,56 @@ class SlabArena:
                                dtype=torch_dtype(cls.dtype), device=device)
             slab[: len(rows)] = torch.stack(rows)
             slabs.append(slab)
+            self._packed_rows[cid] = len(rows)
+            self._reused[cid].clear()  # every row just re-read from host
         return slabs
+
+    def pack_incremental(self, slabs: Optional[Sequence[torch.Tensor]],
+                         device: DeviceLike = "cuda") -> List[torch.Tensor]:
+        """Persistent-arena pack: keep the materialized slab rows (they hold
+        the latest device-side values), append the rows added since the
+        last pack, and refresh recycled rows inside the watermark from host
+        values. ``slabs=None`` is a full :meth:`pack`. A slab grows to the
+        next :func:`row_capacity` (a new tensor); rows are written in place.
+        Host changes to already-packed buffers go through
+        :meth:`update_rows`."""
+        if slabs is None:
+            return self.pack(device)
+        device = resolve_device(device)
+        out: List[torch.Tensor] = list(slabs)
+        for cid, cls in enumerate(self._classes):
+            total = len(self._rows[cid])
+            packed = self._packed_rows[cid] if cid < len(slabs) else 0
+            if packed < total:
+                fresh = torch.stack([self._row_value(b, cls, device)
+                                     for b in self._rows[cid][packed:]])
+                if cid < len(out):
+                    cap = out[cid].shape[0]
+                    if total > cap:
+                        out[cid] = torch.cat([out[cid], out[cid].new_zeros(
+                            (row_capacity(total) - cap,) + cls.padded_shape)])
+                else:
+                    out.append(torch.zeros((row_capacity(total),) + cls.padded_shape,
+                                           dtype=torch_dtype(cls.dtype), device=device))
+                out[cid][packed:total] = fresh
+                self._packed_rows[cid] = total
+            if self._reused[cid]:
+                rows = sorted(self._reused[cid])
+                out[cid][rows] = torch.stack(
+                    [self._row_value(self._rows[cid][r], cls, device) for r in rows])
+                self._reused[cid].clear()
+        return out
+
+    def update_rows(self, slabs: Sequence[torch.Tensor],
+                    buffers: Iterable[Buffer]) -> List[torch.Tensor]:
+        """Refresh the given buffers' slab rows from their current host
+        values, in place: the re-sync path for buffers written host-side
+        between device epochs."""
+        out = list(slabs)
+        for buf in buffers:
+            cid, row = self._addr[id(buf)]
+            out[cid][row] = self._row_value(buf, self._classes[cid], out[cid].device)
+        return out
 
     def unpack(self, slabs: Sequence[torch.Tensor],
                only: Optional[Iterable[Buffer]] = None) -> None:
@@ -315,8 +472,9 @@ class SlabArena:
                     cls: ShapeClass) -> None:
         val = slab[row]
         if tuple(buf.shape) != cls.padded_shape:
-            # Contiguous, like every value a task writes, so later kernels
-            # see the same memory layout whichever executor produced it.
-            val = val[tuple(slice(0, s) for s in buf.shape)].contiguous()
-        buf.value = val
+            val = val[tuple(slice(0, s) for s in buf.shape)]
+        # A contiguous copy, like every value a task writes (later kernels
+        # see the same layout whichever executor produced it), and never a
+        # view of a slab a persistent session goes on updating in place.
+        buf.value = val.clone(memory_format=torch.contiguous_format)
         self.unpack_rows_written += 1

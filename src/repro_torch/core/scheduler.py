@@ -33,8 +33,10 @@ __all__ = [
     "ThreadedStreamScheduler",
     "run_serial",
     "SCHEDULER_NAMES",
+    "SESSION_NAMES",
     "PLAN_MODES",
     "make_scheduler",
+    "make_session",
 ]
 
 
@@ -173,20 +175,26 @@ def run_serial(stream: Iterable[Task], device: DeviceLike = "cuda") -> Scheduler
 
 
 # Only the ported policies. "frontier" comes with the async-frontier slice
-# (ROADMAP queue 1, item 5).
+# (ROADMAP queue 1, item 5), "mesh" with the mesh window (item 10).
 SCHEDULER_NAMES = ("serial", "wave", "threaded", "device")
-# Device plan lowerings of the reference. The port has "loop" (the
-# device-resident ready queue); "wave"/"frontier" are still to port.
+# Policies that run as live-fed sessions. "device" is the persistent
+# device-resident window (DeviceSession).
+SESSION_NAMES = ("serial", "wave", "threaded", "device")
+# Device plan lowerings. "wave"/"frontier" lower an epoch to a fixed step
+# table (order decided on the host at plan time, each step a wave-kernel
+# launch or a loop of vmapped groups); "loop" lowers it to a
+# device-resident ready-queue program whose retirements decrement
+# dependents' counters ON the device.
 PLAN_MODES = ("wave", "frontier", "loop")
 
 
 def make_scheduler(name: str, window_size: int = 32, num_streams: int = 4,
-                   plan_mode: str = "loop", device: DeviceLike = "cuda"):
+                   plan_mode: str = "wave", device: DeviceLike = "cuda"):
     """Factory over the ported execution policies. Returns a persistent
     scheduler's bound ``run`` (``tasks -> SchedulerReport``).
 
-    ``plan_mode`` only affects ``name="device"``; the port implements
-    ``"loop"`` (the reference's default is ``"wave"``, not yet ported).
+    ``plan_mode`` (``"wave"``, ``"frontier"`` or ``"loop"``) selects the
+    device window's lowering and only affects ``name="device"``.
     """
     if plan_mode not in PLAN_MODES:
         raise ValueError(f"plan_mode must be one of {PLAN_MODES}, got {plan_mode!r}")
@@ -203,3 +211,38 @@ def make_scheduler(name: str, window_size: int = 32, num_streams: int = 4,
         return DeviceWindowRunner(window_size=window_size, plan_mode=plan_mode,
                                   device=device).run
     raise ValueError(f"unknown scheduler {name!r}; choose from {SCHEDULER_NAMES}")
+
+
+def make_session(name: str, window_size: int = 32, num_streams: int = 4,
+                 max_group: Optional[int] = None, plan_mode: str = "wave",
+                 history_limit: Optional[int] = None, device: DeviceLike = "cuda"):
+    """Factory over the live scheduler sessions: returns an open
+    :class:`~.session.SchedulerSession` that producers feed with
+    ``submit()``; ``close()`` returns the usual report.
+
+    ``"serial"`` is a window-1 session (program order, one call per kernel),
+    the live-fed equivalence baseline. ``"device"`` is the persistent
+    device-resident window (:class:`~.device_dispatch.DeviceSession`):
+    submissions drain in one-dispatch epochs over a session-lifetime slab
+    arena; ``plan_mode`` and ``max_group`` only affect it.
+    """
+    from .session import ThreadedSession, WaveSession
+
+    if plan_mode not in PLAN_MODES:
+        raise ValueError(f"plan_mode must be one of {PLAN_MODES}, got {plan_mode!r}")
+    if name == "serial":
+        return WaveSession(window_size=1, executor=SerialExecutor(device),
+                           history_limit=history_limit)
+    if name == "wave":
+        return WaveSession(window_size=window_size, history_limit=history_limit,
+                           device=device)
+    if name == "threaded":
+        return ThreadedSession(window_size=window_size, num_streams=num_streams,
+                               history_limit=history_limit, device=device)
+    if name == "device":
+        from .device_dispatch import DeviceSession
+
+        return DeviceSession(window_size=window_size, plan_mode=plan_mode,
+                             max_group=max_group, history_limit=history_limit,
+                             device=device)
+    raise ValueError(f"unknown session {name!r}; choose from {SESSION_NAMES}")

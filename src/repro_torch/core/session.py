@@ -189,12 +189,21 @@ class SchedulerSession:
         else:
             iv.insert(i, [tid, tid])
 
+    def _pre_observe_retired(self, task: Task) -> None:
+        """Hook (lock held) before an observer attaches to an ALREADY
+        retired task and reads its outputs. The host sessions retire
+        host-side, so values are always fresh; the device session overrides
+        this to sync slab values back first, so a late callback or ticket
+        holder reads host values as fresh as an early one's."""
+
     def on_task_retired(self, task: Task, cb: RetireCallback) -> None:
         """Per-task completion callback; fires immediately if the task has
         already retired."""
         with self._lock:
             fire_now = self._is_retired(task.tid)
-            if not fire_now:
+            if fire_now:
+                self._pre_observe_retired(task)
+            else:
                 self._watchers.setdefault(task.tid, []).append(cb)
         if fire_now:
             cb(task)
@@ -206,6 +215,7 @@ class SchedulerSession:
             if tk is None:
                 tk = TaskTicket(task)
                 if self._is_retired(task.tid):
+                    self._pre_observe_retired(task)
                     tk._event.set()
                 else:
                     self._tickets[task.tid] = tk

@@ -7,8 +7,11 @@ tensor's device, inside each kernel's wrapper: a CUDA tensor launches the
 hand-written kernel or raises, a CPU tensor takes the plain version. There
 is no fallback from a failed build or launch.
 
+``wave_step`` runs one ACS wave of elementwise tasks through the wave
+megakernel and scatters its rows back into the slab.
+
 ``LOOP_BRANCHES`` are elementwise, row-shape-preserving branches the
-device ready queue may dispatch. They ARE the fns the test and smoke
+device ready queue and the wave kernel may dispatch. They ARE the fns the test and smoke
 streams launch: fast-path eligibility checks fn identity against this
 table, so the kernel can never silently diverge from what the host path
 would have executed.
@@ -21,7 +24,7 @@ from __future__ import annotations
 from .flash_attention import flash_attention as attention
 from .lru_scan import lru_scan
 
-__all__ = ["attention", "lru_scan", "LOOP_BRANCHES", "LOOP_OPCODES",
+__all__ = ["attention", "lru_scan", "wave_step", "LOOP_BRANCHES", "LOOP_OPCODES",
            "register_loop_branches"]
 
 
@@ -35,7 +38,8 @@ def _mul_row(x, y):
 
 LOOP_BRANCHES = {"axpy": _axpy_row, "mul": _mul_row}
 
-# Branch fn -> its opcode in the CUDA kernel (csrc/ready_queue.cu, OP_*).
+# Branch fn -> its opcode in the CUDA kernels (csrc/ready_queue.cu and
+# csrc/wave_elementwise.cu, OP_*).
 LOOP_OPCODES = {_axpy_row: 0, _mul_row: 1}
 
 
@@ -44,3 +48,12 @@ def register_loop_branches(registry) -> dict:
     (the ready-queue kernel path). Returns name -> opcode."""
     return {name: registry.register_switch_branch(name, fn)
             for name, fn in LOOP_BRANCHES.items()}
+
+
+def wave_step(slab, desc, *, branches, err=None):
+    """Execute one ACS wave of elementwise tasks over the row slab and
+    scatter the results back, out of place (see ``wave_elementwise.py``;
+    ``err`` is its deferred error flag)."""
+    from .wave_elementwise import apply_wave, wave_elementwise
+
+    return apply_wave(slab, desc, wave_elementwise(slab, desc, branches=branches, err=err))

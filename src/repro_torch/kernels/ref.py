@@ -11,6 +11,10 @@ carries its state in float32.
 the reference package has no oracle for that kernel, so this one is
 written to do exactly what its Pallas kernel (``_ready_queue_kernel``)
 does, step for step.
+
+``wave_rows_ref`` is the plain version of ``kernels/wave_elementwise.py``
+(the ``[S, D]`` slot rows), and ``wave_elementwise_ref`` the reference's
+oracle of the same name (the rows scattered into the slab).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["attention_ref", "lru_scan_ref", "ready_queue_ref"]
+__all__ = ["attention_ref", "lru_scan_ref", "ready_queue_ref", "wave_rows_ref",
+           "wave_elementwise_ref"]
 
 
 def attention_ref(
@@ -142,3 +147,46 @@ def ready_queue_ref(
             tail += int(ready)
     as_int = dict(dtype=torch.int32, device=slab.device)
     return out, torch.tensor(done, **as_int), torch.tensor(ring, **as_int)
+
+
+def check_wave_desc(desc: torch.Tensor, rows: int, n_branches: int) -> None:
+    """Raise ``ValueError`` when a wave descriptor ``(branch, in0, in1,
+    out)`` names a branch outside ``[0, n_branches)`` or a row outside
+    ``[0, rows)`` (the CUDA kernel flags the same slots)."""
+    d = desc.reshape(-1, 4).cpu().numpy()
+    bad = ((d[:, 0] < 0) | (d[:, 0] >= n_branches)
+           | (d[:, 1:] < 0).any(axis=1) | (d[:, 1:] >= rows).any(axis=1))
+    if bad.any():
+        raise ValueError(
+            f"wave_elementwise: descriptor slots {np.flatnonzero(bad).tolist()} name a "
+            f"branch outside [0, {n_branches}) or a row outside [0, {rows})")
+
+
+def wave_rows_ref(
+    slab: torch.Tensor,   # [R, D] buffer rows
+    desc: torch.Tensor,   # [S, 4] int32 (branch, in0_row, in1_row, out_row)
+    branches: Sequence[Callable],  # per branch id: fn(x, y) -> [D]
+) -> torch.Tensor:
+    """One wave's ``[S, D]`` slot rows: row ``si`` is
+    ``branches[b](slab[in0], slab[in1])``, one slot at a time, every slot
+    reading the unmodified input slab. A bad descriptor raises
+    ``ValueError`` (:func:`check_wave_desc`)."""
+    check_wave_desc(desc, slab.shape[0], len(branches))
+    out = torch.empty((desc.shape[0],) + tuple(slab.shape[1:]), dtype=slab.dtype,
+                      device=slab.device)
+    for si, (b, i0, i1, _) in enumerate(desc.tolist()):
+        out[si] = branches[b](slab[i0], slab[i1])
+    return out
+
+
+def wave_elementwise_ref(slab, opcodes, in_ids, out_ids, branches) -> torch.Tensor:
+    """One ACS wave of elementwise tasks over a row slab (the reference's
+    loop oracle): slot ``i`` writes ``branches[opcodes[i]](src[in_ids[i,
+    0]], src[in_ids[i, 1]])`` at row ``out_ids[i]`` of a copy of the slab,
+    reading only the unmodified ``src``."""
+    desc = torch.as_tensor(np.concatenate(
+        [np.asarray(opcodes).reshape(-1, 1), np.asarray(in_ids).reshape(-1, 2),
+         np.asarray(out_ids).reshape(-1, 1)], axis=1).astype(np.int32))
+    new = slab.clone()
+    new[desc[:, 3].long().to(slab.device)] = wave_rows_ref(slab, desc, branches)
+    return new

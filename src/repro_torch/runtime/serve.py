@@ -18,7 +18,8 @@ serialized by its RAW hazards on the slot buffer.
 Two servers share the slot/admission machinery (:class:`_ServingCore`):
 
 * :class:`SessionServer` — the open-loop runtime. It owns a persistent
-  :class:`~..core.session.WaveSession`; admission emits a request's
+  session (a :class:`~..core.session.WaveSession`, or the device window's
+  :class:`~..core.device_dispatch.DeviceSession`); admission emits a request's
   *whole program* (prefill + its count-bounded per-slot decode chain)
   through a live per-request ``TaskStream`` into the live window while
   other requests' chains are still in flight; per-task retirement
@@ -65,6 +66,7 @@ import torch
 from ..core import BufferPool, TaskStream, WaveScheduler
 from ..core.buffers import DeviceLike
 from ..core.executors import SerialExecutor
+from ..core.device_dispatch import DeviceSession
 from ..core.session import WaveSession
 from ..core.wrapper import AcsKernel
 from ..models import LanguageModel, decode_step, init_cache, prefill
@@ -475,12 +477,16 @@ class SessionServer(_ServingCore):
     buffers, finish requests), then admit queued requests into freed
     slots.
 
-    ``scheduler="wave"`` (the port's only one, and its default) runs the
-    live :class:`~..core.session.WaveSession` with a serial executor: each
-    poll launches the READY set as one wave (one slot's decode co-resident
-    with another's prefill). The reference's default, ``"frontier"``, and
-    its ``"device"`` and ``"mesh"`` servers need sessions the port does not
-    have yet (ROADMAP queue 1 items 5, 6d and 10) and raise
+    ``scheduler="wave"`` (the port's default) runs the live
+    :class:`~..core.session.WaveSession` with a serial executor: each poll
+    launches the READY set as one wave (one slot's decode co-resident with
+    another's prefill). ``scheduler="device"`` runs the persistent
+    :class:`~..core.device_dispatch.DeviceSession` (``plan_mode``, default
+    ``"loop"`` as in the reference); every serving task has opaque slot
+    values, so each takes the session's in-epoch host path, and the pool's
+    free hook releases freed buffers' arena rows. The reference's default,
+    ``"frontier"``, and its ``"mesh"`` server need sessions the port does
+    not have yet (ROADMAP queue 1 items 5 and 10) and raise
     ``NotImplementedError``.
 
     **Cooperative preemption** (``preempt_rounds``): with the default
@@ -494,13 +500,14 @@ class SessionServer(_ServingCore):
     token stream is bit-identical to an unpreempted run.
     """
 
-    SCHEDULERS = ("wave",)
-    _NOT_PORTED = {"frontier": "item 5", "device": "item 6d", "mesh": "item 10"}
+    SCHEDULERS = ("wave", "device")
+    _NOT_PORTED = {"frontier": "item 5", "mesh": "item 10"}
 
     def __init__(self, cfg: ArchConfig, params: LanguageModel, *, max_slots: int = 4,
                  max_len: int = 64, window: int = 32, max_queue: int = 256,
                  scheduler: str = "wave",
                  history_limit: Optional[int] = 1024,
+                 plan_mode: str = "loop",
                  tenant_weights: Optional[Dict[str, float]] = None,
                  tenant_quota: Optional[Union[int, Dict[str, int]]] = None,
                  aging_s: Optional[float] = 5.0,
@@ -509,7 +516,8 @@ class SessionServer(_ServingCore):
         if scheduler in self._NOT_PORTED:
             raise NotImplementedError(
                 f"scheduler={scheduler!r} is not ported to repro_torch yet (ROADMAP queue 1 "
-                f"{self._NOT_PORTED[scheduler]}); the port serves with scheduler='wave'")
+                f"{self._NOT_PORTED[scheduler]}); the port serves with scheduler='wave' "
+                "or 'device'")
         if scheduler not in self.SCHEDULERS:
             raise ValueError(
                 f"session server scheduler must be one of {self.SCHEDULERS}, "
@@ -522,9 +530,17 @@ class SessionServer(_ServingCore):
             raise ValueError(
                 f"preempt_rounds must be >= 1 or None, got {preempt_rounds}")
         self.preempt_rounds = preempt_rounds
-        self.session = WaveSession(window_size=window,
-                                   executor=SerialExecutor(self.device),
-                                   history_limit=history_limit)
+        if scheduler == "device":
+            self.session = DeviceSession(window_size=window, plan_mode=plan_mode,
+                                         history_limit=history_limit, device=self.device)
+            # Freeing a pool buffer (a prompt) releases its arena row, so
+            # the session's slabs stay bounded under unbounded traffic.
+            self.pool.add_free_hook(self.session.release_buffer)
+        else:
+            self.session = WaveSession(window_size=window,
+                                       executor=SerialExecutor(self.device),
+                                       history_limit=history_limit)
+        self.scheduler_name = scheduler
         self._finished: List[Request] = []
         # set during close(): the flush retires chains (firing _finish_slot),
         # but a closing window must not receive fresh admissions

@@ -3,6 +3,12 @@
 * ready queue: bit-equal to its plain version on random DAG epochs, the
   same early stop on corrupted tables, the wrapper's input checks, and the
   device runner's route through it;
+* wave megakernel: bit-equal to its plain version over S in {1, 7, 32, 64}
+  x D in {1, 37, 4096} (repeated input rows, a slot reading its own out
+  row), its error on bad descriptors, the wrapper's input checks; the
+  wave/frontier device window through it (one launch per plan step) and
+  on its step path (the physics stream), and the ``DeviceSession`` in all
+  three plan modes, each bit-equal to ``run_serial``;
 * ``lru_scan``: bit-equal to ``lru_scan_ref``, float32 and bfloat16;
 * ``flash_attention``: within tolerance of ``attention_ref`` over the CPU
   tests' sweep and the serving shapes (float32 1e-4: summation order;
@@ -23,15 +29,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import BufferPool, DeviceOpRegistry, DeviceWindowRunner, SlabArena, Task
-from repro_torch.core import run_serial
+from repro_torch.core import BufferPool, DeviceOpRegistry, DeviceSession, DeviceWindowRunner
+from repro_torch.core import SlabArena, Task, run_serial
 from repro_torch.core.device_dispatch import _loop_kernel_parts, lower_epoch_program
 from repro_torch.core.task import default_segments
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lru_scan as ls
 from repro_torch.kernels import ready_queue as rq
-from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches
-from repro_torch.kernels.ref import attention_ref, lru_scan_ref, ready_queue_ref
+from repro_torch.kernels import wave_elementwise as we
+from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches, wave_step
+from repro_torch.kernels.ref import attention_ref, lru_scan_ref, ready_queue_ref, wave_rows_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -166,10 +173,152 @@ def test_device_runner_goes_through_the_kernel(device):
     reg = DeviceOpRegistry(strict=False)
     register_loop_branches(reg)
     before = rq.launches
-    report = DeviceWindowRunner(registry=reg, device=device).run(tasks)
+    report = DeviceWindowRunner(registry=reg, plan_mode="loop", device=device).run(tasks)
     assert report.loop_executor == "cuda"
     assert rq.launches == before + 1
     assert torch.equal(_bits(torch.stack([b.value for b in bufs])), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# The wave megakernel and the wave/frontier/session device window
+# ---------------------------------------------------------------------------
+
+def _wave(device, seed, s, d):
+    """A random wave of ``s`` slots over ``s + 5`` rows of width ``d``:
+    unique out rows, every slot's second input the same row, slot 0 reading
+    its own out row."""
+    rng = np.random.RandomState(seed)
+    r = s + 5
+    slab = torch.from_numpy(rng.randn(r, d).astype(np.float32)).to(device)
+    ops = rng.randint(0, 2, s)
+    ins = rng.randint(0, r, (s, 2))
+    outs = rng.choice(r, s, replace=False)
+    ins[:, 1] = ins[0, 0]
+    ins[0, 0] = outs[0]
+    desc = np.concatenate([ops[:, None], ins, outs[:, None]], axis=1).astype(np.int32)
+    return slab, torch.from_numpy(desc).to(device)
+
+
+WAVE_BRANCHES = (LOOP_BRANCHES["axpy"], LOOP_BRANCHES["mul"])
+
+
+@pytest.mark.parametrize("s", [1, 7, 32, 64])
+@pytest.mark.parametrize("d", [1, 37, 4096])
+def test_wave_kernel_bit_equal_to_plain(device, s, d):
+    slab, desc = _wave(device, s * 100 + d, s, d)
+    before = we.launches
+    got = we.wave_elementwise(slab, desc, branches=WAVE_BRANCHES)
+    assert we.launches == before + 1
+    want = wave_rows_ref(slab, desc, WAVE_BRANCHES)
+    assert torch.equal(_bits(got), _bits(want))
+    stepped = wave_step(slab, desc, branches=WAVE_BRANCHES)
+    torch.cuda.synchronize()
+    expect = slab.clone()
+    expect[desc[:, 3].long()] = want
+    assert torch.equal(_bits(stepped), _bits(expect))
+
+
+@pytest.mark.parametrize("col,bad", [(0, 2), (1, -1), (2, 10 ** 6), (3, 12)])
+def test_wave_kernel_raises_on_bad_descriptors(device, col, bad):
+    slab, desc = _wave(device, 0, 7, 64)
+    desc[3, col] = bad
+    with pytest.raises(ValueError, match="descriptor"):
+        we.wave_elementwise(slab, desc, branches=WAVE_BRANCHES)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    we.wave_elementwise(slab, desc, branches=WAVE_BRANCHES, err=err)  # deferred check
+    with pytest.raises(ValueError, match="descriptor"):
+        we.raise_on_error(err)
+
+
+def test_wave_wrapper_checks_inputs(device):
+    slab, desc = _wave(device, 1, 4, 32)
+    with pytest.raises(TypeError, match="int32"):
+        we.wave_elementwise(slab, desc.long(), branches=WAVE_BRANCHES)
+    with pytest.raises(TypeError, match="float32"):
+        we.wave_elementwise(slab.double(), desc, branches=WAVE_BRANCHES)
+    with pytest.raises(ValueError, match="is on"):
+        we.wave_elementwise(slab, desc.cpu(), branches=WAVE_BRANCHES)
+    with pytest.raises(ValueError, match="no kernel opcode"):
+        we.wave_elementwise(slab, desc, branches=(lambda x, y: x + y,) * 2)
+
+
+def _chain(device, n_chains=16, width=256, depth=8):
+    pool = BufferPool(device)
+    rng = np.random.RandomState(4)
+    states = [pool.alloc((width,), np.float32, value=rng.randn(width).astype(np.float32))
+              for _ in range(n_chains)]
+    weight = pool.alloc((width,), np.float32, value=rng.randn(width).astype(np.float32))
+    tasks = []
+    for st in states:
+        for k in range(depth):
+            name = "axpy" if k % 2 == 0 else "mul"
+            r, w = default_segments((st, weight), (st,))
+            tasks.append(Task(opcode=name, fn=LOOP_BRANCHES[name], inputs=(st, weight),
+                              outputs=(st,), read_segments=r, write_segments=w))
+    return states, tasks
+
+
+@pytest.mark.parametrize("mode", ["wave", "frontier"])
+@pytest.mark.parametrize("build", ["chain", "random"])
+def test_device_runner_wave_modes_go_through_the_wave_kernel(device, mode, build):
+    make = (lambda: _chain(device)) if build == "chain" else \
+        (lambda: _stream(device, 5, 200, 256, n_bufs=24))
+    bufs, tasks = make()
+    run_serial(tasks, device=device)
+    want = torch.stack([b.value for b in bufs])
+    bufs, tasks = make()
+    reg = DeviceOpRegistry(strict=False)
+    register_loop_branches(reg)
+    before = we.launches
+    report = DeviceWindowRunner(registry=reg, plan_mode=mode, device=device).run(tasks)
+    assert report.wave_executor == "cuda"
+    assert report.wave_kernel_launches == we.launches - before == len(report.waves)
+    assert torch.equal(_bits(torch.stack([b.value for b in bufs])), _bits(want))
+
+
+@pytest.mark.parametrize("mode", ["wave", "frontier"])
+def test_device_runner_steps_path_bit_equal_on_the_physics_stream(device, mode):
+    from repro_torch.core import TaskStream
+    from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
+
+    snaps = {}
+    for policy in ("serial", mode):
+        eng = PhysicsEngine(ENVIRONMENTS["cheetah"], n_envs=16, group_size=4, seed=3,
+                            device=device)
+        for _ in range(2):
+            stream = TaskStream()
+            eng.emit_step(stream)
+            if policy == "serial":
+                run_serial(stream.tasks, device=device)
+            else:
+                report = DeviceWindowRunner(window_size=32, plan_mode=mode,
+                                            device=device).run(stream.tasks)
+                assert report.wave_executor == "steps"
+        snaps[policy] = eng.state_snapshot()
+    np.testing.assert_array_equal(snaps[mode].view(np.int32), snaps["serial"].view(np.int32))
+
+
+@pytest.mark.parametrize("mode", ["wave", "frontier", "loop"])
+def test_device_session_bit_equal_to_serial(device, mode):
+    bufs, tasks = _chain(device)
+    run_serial(tasks, device=device)
+    want = torch.stack([b.value for b in bufs])
+    bufs, tasks = _chain(device)
+    reg = DeviceOpRegistry(strict=False)
+    register_loop_branches(reg)
+    session = DeviceSession(window_size=32, registry=reg, plan_mode=mode, device=device)
+    wave0, loop0 = we.launches, rq.launches
+    n = len(tasks) // 4
+    for i in range(4):
+        session.submit(tasks[i * n:(i + 1) * n])
+        session.poll()
+    stats = session.close().session_stats
+    assert torch.equal(_bits(torch.stack([b.value for b in bufs])), _bits(want))
+    if mode == "loop":
+        assert rq.launches - loop0 == stats["loop_dispatches"] == stats["device_dispatches"] > 0
+    else:
+        assert stats["wave_kernel_dispatches"] == stats["device_dispatches"] > 0
+        assert we.launches - wave0 == len(session.stats.wave_widths)
 
 
 # ---------------------------------------------------------------------------

@@ -52,8 +52,8 @@ def test_no_source_imports_jax_or_the_reference(path):
 
 
 def _entry_points():
-    from repro_torch.core import BufferPool, DeviceWindowRunner, SlabArena, make_scheduler
-    from repro_torch.core import run_serial
+    from repro_torch.core import BufferPool, DeviceSession, DeviceWindowRunner, SlabArena
+    from repro_torch.core import make_scheduler, make_session, run_serial
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_cache, init_params
     from repro_torch.runtime import ContinuousBatchingServer, SessionServer
@@ -70,6 +70,12 @@ def _entry_points():
         "SlabArena.pack": lambda: SlabArena().pack(),
         "PhysicsEngine": lambda: PhysicsEngine(ENVIRONMENTS["cheetah"], n_envs=2, group_size=1),
         "DeviceWindowRunner": lambda: DeviceWindowRunner(),
+        "DeviceWindowRunner[frontier]": lambda: DeviceWindowRunner(plan_mode="frontier"),
+        "DeviceSession": lambda: DeviceSession(),
+        "SessionServer[device]": lambda: SessionServer(
+            cfg, init_params(cfg, 0, device="cpu"), scheduler="device"),
+        "make_session[device]": lambda: make_session("device"),
+        "make_session[wave]": lambda: make_session("wave"),
         "make_scheduler[serial]": lambda: make_scheduler("serial"),
         "make_scheduler[wave]": lambda: make_scheduler("wave"),
         "make_scheduler[threaded]": lambda: make_scheduler("threaded"),

@@ -53,7 +53,7 @@ def _serial_snapshot(side, stream):
 
 def _port_loop(stream, loop_kernel):
     bufs, tasks = BUILD[stream]("port")
-    runner = S.T.DeviceWindowRunner(registry=_loop_registry("port", tasks),
+    runner = S.T.DeviceWindowRunner(registry=_loop_registry("port", tasks), plan_mode="loop",
                                     loop_kernel=loop_kernel, device="cpu")
     report = runner.run(tasks)
     return S.snapshot(bufs), report
@@ -170,7 +170,8 @@ def test_eligibility_routes_to_kernel_path(monkeypatch, stream, eligible):
         from repro_torch.sim import register_device_kernels
 
         register_device_kernels(reg)
-    report = S.T.DeviceWindowRunner(registry=reg, loop_kernel=True, device="cpu").run(tasks)
+    report = S.T.DeviceWindowRunner(registry=reg, plan_mode="loop", loop_kernel=True,
+                                    device="cpu").run(tasks)
     assert len(calls) == int(eligible)
     assert report.loop_executor == ("ref" if eligible else "interpreter")
     if eligible:
@@ -191,7 +192,7 @@ def test_corrupted_dep_tbl_raises_stall(monkeypatch, loop_kernel):
 
     monkeypatch.setattr(S.T_DD, "dependency_arrays", drop_first_edge)
     _, tasks = S.STREAMS["chain"]("port")
-    runner = S.T.DeviceWindowRunner(registry=_loop_registry("port", tasks),
+    runner = S.T.DeviceWindowRunner(registry=_loop_registry("port", tasks), plan_mode="loop",
                                     loop_kernel=loop_kernel, device="cpu")
     with pytest.raises(RuntimeError, match=r"ready-queue epoch stalled: tasks \[\d+"):
         runner.run(tasks)

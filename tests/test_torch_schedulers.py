@@ -67,12 +67,6 @@ def test_wave_executor_runs_one_call_per_signature_group(stream):
                                   S.snapshot(sbufs).view(np.int32))
 
 
-@pytest.mark.parametrize("plan_mode", ["wave", "frontier"])
-def test_unported_device_plan_modes_raise(plan_mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.T.make_scheduler("device", plan_mode=plan_mode, device="cpu")
-
-
 def test_unknown_names_fail_with_choices():
     with pytest.raises(ValueError, match="serial"):
         S.T.make_scheduler("frontier", device="cpu")

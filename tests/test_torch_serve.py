@@ -5,8 +5,10 @@ with its tokens, the live ``SessionServer`` and the batch-drain
 greedy loop over the port's own ``prefill``/``decode_step``. The window
 co-schedules one slot's prefill with another's decode; prompt buffers are
 freed; the admission FIFO pushes back; QoS orders admission; preempted
-token streams are bit-identical to unpreempted ones; and the schedulers
-the port does not have yet raise.
+token streams are bit-identical to unpreempted ones; the device server
+(``scheduler="device"``) gives the same tokens and releases prompt rows
+through the pool's free hook; and the schedulers the port does not have
+yet raise.
 
 Token streams are compared only inside the port: against the reference,
 the models are held by their logits (``tests/test_torch_models.py``).
@@ -238,8 +240,45 @@ def test_stalled_session_raises_drain_timeout(tiny):
     assert (ei.value.active_slots, ei.value.queue_depth) == (1, 1)
 
 
-@pytest.mark.parametrize("scheduler", ["frontier", "device", "mesh"])
+@pytest.mark.parametrize("scheduler", ["frontier", "mesh"])
 def test_unported_schedulers_raise(tiny, scheduler):
     cfg, params = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         SessionServer(cfg, params, scheduler=scheduler, **CPU)
+
+
+@pytest.mark.parametrize("plan_mode", [None, "wave", "frontier"])
+@pytest.mark.parametrize("key", ["danube", "recurrentgemma"])
+def test_device_server_matches_wave_server_and_greedy_loop(key, plan_mode):
+    """The device server (its default plan mode is the reference's "loop")
+    gives the wave server's tokens and the plain greedy loop's. Every
+    serving task has opaque slot values, so every one takes the device
+    session's in-epoch host path."""
+    cfg, params = _model(key)
+    prompts = _prompts(cfg, 5, seed=1, length=7)
+    mode = {} if plan_mode is None else {"plan_mode": plan_mode}
+    device = SessionServer(cfg, params, max_slots=2, max_len=32, scheduler="device", **mode,
+                           **CPU)
+    assert device.session.plan_mode == (plan_mode or "loop")
+    got = _serve(device, prompts, 3)
+    wave = _serve(SessionServer(cfg, params, max_slots=2, max_len=32, **CPU), prompts, 3)
+    assert got == wave
+    for p in prompts:
+        assert got[tuple(p)] == _greedy(cfg, params, p, 3, 32)
+    stats = device.session.session_stats()
+    assert stats["device_dispatches"] == 0
+    assert stats["host_task_dispatches"] == len(prompts) * (1 + 3)
+    assert device.host_reads == 3 * len(prompts)
+    assert _no_prompt_buffers(device.pool)
+
+
+def test_device_server_frees_prompt_rows_through_the_pool_hook(tiny):
+    cfg, params = tiny
+    server = SessionServer(cfg, params, max_slots=2, max_len=32, scheduler="device", **CPU)
+    hooks = server.pool._free_hooks
+    real = server.session.release_buffer
+    assert real in hooks
+    released = []
+    hooks[hooks.index(real)] = lambda buf: (released.append(buf.name), real(buf))
+    _serve(server, _prompts(cfg, 3), 2)
+    assert len(released) == 3 and all(n.endswith("_prompt") for n in released)
