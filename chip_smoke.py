@@ -6,9 +6,10 @@
 Phases, each fatal on failure (an exception, exit code != 0):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: the four CUDA kernels (ready queue, wave megakernel, flash
-   attention, RG-LRU scan) from the sources in this checkout, one ``nvcc``
-   each, all started together; each one's build seconds.
+2. Build: the five CUDA kernels (ready queue, wave megakernel, flash
+   attention, RG-LRU scan, grouped GEMM) from the sources in this
+   checkout, one ``nvcc`` each, all started together; each one's build
+   seconds.
 3. Kernel vs plain, on the card:
    a. ready queue: on random DAG streams the kernel's slab, completion
       flags and final ring are bit-equal to ``ready_queue_ref``;
@@ -18,9 +19,23 @@ Phases, each fatal on failure (an exception, exit code != 0):
    c. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4},
       S in {1, 37, 512, 2048}, D 2560, float32 and bfloat16;
    d. ``flash_attention``: within tolerance of ``attention_ref`` (float32
-      1e-4, bfloat16 2e-2) at the recurrentgemma-2b and h2o-danube-3-4b
-      prefill shapes, with softcap, prefix, decode (Sq = 1) and fully
-      masked rows (exactly 0).
+      1e-4, bfloat16 2e-2) at the recurrentgemma-2b, h2o-danube-3-4b and
+      granite-moe-3b-a800m prefill shapes, with softcap, prefix, decode
+      (Sq = 1) and fully masked rows (exactly 0);
+   e. ``grouped_matmul``: within tolerance of ``grouped_matmul_ref``
+      (float32 1e-4, float16 and bfloat16 8e-3: one bfloat16 ulp) over the
+      reference's ragged cases (N off the tile, groups with no tile),
+      K and N off the vector width, ``block_m = 1`` at M = 48 and
+      granite-moe's decode and prefill expert products, in float32,
+      float16 and bfloat16; the same bits on a second launch; a bad group
+      id raises;
+   f. the expert-wave stream of ``benchmarks/bench_moe_waves.py`` (8
+      experts, top-2, D 64, d_expert 32, 64 tokens routed from seed 0,
+      tiles of 8) through ``run_serial`` and ``WaveScheduler``: bit-equal
+      with an exactly rounded task fn, within 1e-5 (the difference logged)
+      with the benchmark's own ``a @ b``, which the wave executor batches
+      into one cuBLAS GEMM; one ``grouped_matmul`` launch over its ragged
+      tiles within 1e-4 of the tasks' outputs.
 4. ACS-HW main paths, each bit-equal to ``run_serial`` on the card: the
    chain universe (64 chains x width 4096 x depth 32, 2,048 tasks) and the
    24-task mixed-tag hazard stream through
@@ -37,25 +52,32 @@ Phases, each fatal on failure (an exception, exit code != 0):
 5. ACS-SW main path: the cheetah physics stream (64 envs, 8 groups,
    5 steps) through the serial, wave and threaded (4 CUDA streams)
    schedulers, bit-equal across the three and finite.
-6. Serving main path: recurrentgemma-2b at its published config (26
-   layers, d_model 2560, bf16 weights drawn from seed 0) serves 8 seeded
-   prompts of 128-512 tokens, 16 new tokens each, through
+6. Serving main paths, one model after the other (the first one's
+   weights freed before the second's are drawn), each at its published
+   config with bf16 weights drawn from seed 0: recurrentgemma-2b (26
+   layers, d_model 2560), then granite-moe-3b-a800m (32 attention layers
+   with MoE FFNs, d_model 1536, 40 experts padded to 48, top-8). Each
+   serves 8 seeded prompts of 128-512 tokens, 16 new tokens each, through
    ``SessionServer(scheduler="wave")``, ``SessionServer(scheduler="device")``
    (its ``"loop"`` plan mode; every serving task takes the session's
    in-epoch host path) and ``ContinuousBatchingServer`` (4 slots, max_len
    1024, window 32). Every request gets its 16 tokens, the three servers'
    tokens are identical and equal a plain greedy loop over
    ``prefill``/``decode_step``, every logit is finite, and each server run
-   launches the flash kernel once per request and local attention layer
-   (64) and the scan once per RG-LRU layer and prefill or decode (2,448).
+   launches exactly: the flash kernel once per request and attention layer
+   (recurrentgemma 64, granite 256), the scan once per RG-LRU layer and
+   prefill or decode (2,448; granite 0) and the grouped GEMM three times
+   per MoE layer and prefill or decode (granite 13,056; recurrentgemma 0).
+   After each model's server runs, one more serving pass (2 requests)
+   runs under ``torch.profiler`` for its device busy share (as in 8).
 7. Numbers: CUDA-event medians of each kernel and its plain version at
    its main path's shape (the wave kernel at the widest wave the chain
-   universe's wave plan produced; SDPA's for attention), each kernel's
-   bound, and the wall time of each phase-4/5/6 policy and server.
-8. Device busy share: one more pass of each phase-4/5 policy, and one
-   serving pass, under ``torch.profiler``; the union of the CUDA kernels'
-   intervals over the pass's wall ("not measured" if the profiler records
-   no kernel).
+   universe's wave plan produced; SDPA for attention and ``torch.bmm`` for
+   the grouped GEMM as the library calls), each kernel's bound, and the
+   wall time of each phase-4/5/6 policy and server.
+8. Device busy share: one more pass of each phase-4/5 policy under
+   ``torch.profiler``; the union of the CUDA kernels' intervals over the
+   pass's wall ("not measured" if the profiler records no kernel).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -88,8 +110,9 @@ CHAINS, WIDTH, DEPTH, WINDOW = 64, 4096, 32, 32
 SIM_ENVS, SIM_GROUP, SIM_STEPS, SIM_STREAMS = 64, 8, 5, 4
 TIMED_RUNS = 20
 
-# The serving pass: recurrentgemma-2b at its published widths.
-SERVE_ARCH, SERVE_SEED = "recurrentgemma-2b", 0
+# The serving passes: recurrentgemma-2b, then granite-moe-3b-a800m, at
+# their published widths.
+SERVE_ARCHS, SERVE_SEED = ("recurrentgemma-2b", "granite-moe-3b-a800m"), 0
 SERVE_REQUESTS, SERVE_MIN_PROMPT, SERVE_MAX_PROMPT, SERVE_MAX_NEW = 8, 128, 512, 16
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024
 
@@ -210,6 +233,69 @@ def lowered_payload(tasks, device):
     return slab, program.payload(device), branches
 
 
+# The expert-wave stream of benchmarks/bench_moe_waves.py: 8 experts,
+# top-2, d_model 64, d_expert 32, 64 tokens routed from the seed, token
+# tiles of 8 rows.
+MOE_E, MOE_TOP_K, MOE_D, MOE_DE, MOE_T, MOE_BM = 8, 2, 64, 32, 64, 8
+
+
+def expert_gemm(a, b):
+    return a @ b
+
+
+def expert_gemm_exact(a, b):
+    """``a @ b`` as K rank-1 updates, each multiply and add its own eager
+    elementwise kernel: it rounds alike whether the wave executor batches
+    it (``vmap``) or not. A library GEMM does not: on the H100 cuBLAS's
+    batched product sums in another order than its single one."""
+    out = a[:, 0:1] * b[0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[:, k:k + 1] * b[k:k + 1, :]
+    return out
+
+
+def build_expert_stream(device, seed=0, fn=expert_gemm):
+    """One task per (expert, token tile) of a routed token batch: the
+    paper-style small kernels of an MoE layer, with input-dependent
+    assignment; each task computes ``fn(x tile, w[e])``. Returns (tasks,
+    (xs [tiles, BM, D], w [E, D, De], tile group ids), output buffers)."""
+    from repro_torch.core import BufferPool, Task, TaskStream
+    from repro_torch.core.task import default_segments
+
+    rng = np.random.RandomState(seed)
+    probs = rng.rand(MOE_T, MOE_E)
+    top = np.argsort(-probs, axis=1)[:, :MOE_TOP_K]
+    x = rng.randn(MOE_T, MOE_D).astype(np.float32)
+    w = rng.randn(MOE_E, MOE_D, MOE_DE).astype(np.float32)
+
+    # sort token slots by expert, pad each expert's rows to whole tiles
+    flat = sorted((int(top[t, k]), t) for t in range(MOE_T) for k in range(MOE_TOP_K))
+    tiles, rows = [], []
+    for e in range(MOE_E):
+        toks = [t for ee, t in flat if ee == e]
+        for i in range(0, len(toks), MOE_BM):
+            chunk = toks[i:i + MOE_BM]
+            tiles.append(e)
+            rows.append(chunk + [0] * (MOE_BM - len(chunk)))
+    xs = np.stack([x[r] for r in rows])  # [tiles, BM, D]
+
+    pool = BufferPool(device)
+    stream = TaskStream()
+    wbufs = [pool.alloc((MOE_D, MOE_DE), np.float32, value=w[e]) for e in range(MOE_E)]
+    outs = []
+    for i, e in enumerate(tiles):
+        xb = pool.alloc((MOE_BM, MOE_D), np.float32, value=xs[i])
+        ob = pool.alloc((MOE_BM, MOE_DE), np.float32,
+                        value=np.zeros((MOE_BM, MOE_DE), np.float32))
+        outs.append(ob)
+        r, wseg = default_segments((xb, wbufs[e]), (ob,))
+        stream.push(Task(opcode="expert_gemm", fn=fn, inputs=(xb, wbufs[e]),
+                         outputs=(ob,), read_segments=r, write_segments=wseg,
+                         cost_flops=2 * MOE_BM * MOE_D * MOE_DE,
+                         cost_bytes=4 * (MOE_BM * MOE_D + MOE_D * MOE_DE + MOE_BM * MOE_DE)))
+    return stream.tasks, (xs, w, np.asarray(tiles, np.int32)), outs
+
+
 def run_queue(fn, slab, p, branches):
     return fn(slab, p["task_tbl"], p["dep_tbl"], p["ring0"], p["rem0"], p["tail0"],
               branches=branches)
@@ -230,9 +316,10 @@ def phase_device():
 
 def phase_build():
     """Build every kernel of the port, one nvcc each, started together."""
-    from repro_torch.kernels import flash_attention, lru_scan, ready_queue, wave_elementwise
+    from repro_torch.kernels import (flash_attention, grouped_matmul, lru_scan, ready_queue,
+                                     wave_elementwise)
 
-    mods = (ready_queue, wave_elementwise, flash_attention, lru_scan)
+    mods = (ready_queue, wave_elementwise, flash_attention, lru_scan, grouped_matmul)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, seconds) in zip(mods, built):
@@ -345,6 +432,8 @@ FLASH_SWEEP = [
     ((1, 10, 1, 1, 1024, 256), {"window": 2048, "q_offset": 1023}),
     ((1, 32, 8, 1, 777, 120), {"window": 4096, "q_offset": 776}),
     ((1, 10, 1, 40, 40, 256), {"q_offset": -8}),  # rows 0-7 see no key
+    *(((1, 24, 8, s, s, 64), {}) for s in (128, 512)),  # granite-moe, causal
+    ((1, 24, 8, 1, 1024, 64), {"q_offset": 1023}),
 ]
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -377,6 +466,109 @@ def phase_flash_vs_plain(device):
                   "flash_attention: a second launch gave other bits")
             log(f"flash_attention ~ plain: {(b, h, hkv, sq, sk, d)} {flags} "
                 f"{str(dtype).replace('torch.', '')} max abs err {float(err.max()):.3g}")
+
+
+# (G, K, N, block_m, tile group ids): the reference's ragged cases
+# (tests/test_kernels.py: N off the tile, groups 1, 3, 5, 6 with no tile),
+# K and N off the vector width, block_m = 1 at M = 48, and granite-moe's
+# expert products (48 experts; decode C = 1, a 512-token prefill C = 128).
+GMM_SWEEP = {
+    "ragged_g2": (2, 16, 16, 8, (0, 1)),
+    "ragged_g4": (4, 32, 48, 8, (0, 0, 1, 2, 2, 3)),
+    "ragged_g8_n24": (8, 64, 24, 16, (0, 2, 2, 4, 7)),
+    "k37_n131_bm70": (3, 37, 131, 70, (2, 0, 2)),
+    "bm1_m48": (48, 256, 96, 1, tuple(range(48))),
+    "granite_decode_gate": (48, 1536, 512, 1, tuple(range(48))),
+    "granite_decode_down": (48, 512, 1536, 1, tuple(range(48))),
+    "granite_prefill_gate": (48, 1536, 512, 128, tuple(range(48))),
+    "granite_prefill_down": (48, 512, 1536, 128, tuple(range(48))),
+}
+GMM_TOL = {"float32": 1e-4, "float16": 8e-3, "bfloat16": 8e-3}
+
+
+def gmm_inputs(device, gen, g, k, n, bm, tiles, dtype):
+    import torch
+
+    x = torch.randn(len(tiles) * bm, k, generator=gen, device=device).to(dtype)
+    w = torch.randn(g, k, n, generator=gen, device=device).to(dtype)
+    return x, w, torch.tensor(tiles, dtype=torch.int32, device=device)
+
+
+def phase_gmm_vs_plain(device):
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    for name, (g, k, n, bm, tiles) in GMM_SWEEP.items():
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            x, w, tg = gmm_inputs(device, gen, g, k, n, bm, tiles, dtype)
+            got = grouped_matmul(x, w, tg, block_m=bm)
+            want = grouped_matmul_ref(x, w, tg, block_m=bm)
+            torch.cuda.synchronize()
+            tol = GMM_TOL[str(dtype).replace("torch.", "")]
+            err = (got.float() - want.float()).abs()
+            check(got.dtype == dtype and bool((err <= tol + tol * want.float().abs()).all()),
+                  f"grouped_matmul != plain at {name} {dtype}: max abs err {float(err.max())}")
+            check(torch.equal(grouped_matmul(x, w, tg, block_m=bm), got),
+                  f"grouped_matmul: a second launch gave other bits at {name} {dtype}")
+            log(f"grouped_matmul ~ plain: {name} G {g} K {k} N {n} block_m {bm} M "
+                f"{len(tiles) * bm} {str(dtype).replace('torch.', '')} max abs err "
+                f"{float(err.max()):.3g}")
+    for bad in (-1, g, 10 ** 6):
+        tg_bad = tg.clone()
+        tg_bad[len(tiles) // 2] = bad
+        try:
+            grouped_matmul(x, w, tg_bad, block_m=bm)
+        except ValueError as exc:
+            log(f"grouped_matmul: group id {bad} raises ({exc})")
+        else:
+            check(False, f"grouped_matmul: group id {bad} of {g} groups did not raise")
+
+
+def phase_expert_stream(device):
+    """The expert-wave stream through run_serial and the wave scheduler,
+    and one grouped-GEMM launch over its ragged tiles. With the
+    exactly-rounded task fn the two schedules are bit-equal; with the
+    benchmark's own ``a @ b`` they are held to float32 tolerance and their
+    difference is logged (a batched cuBLAS GEMM against single ones)."""
+    import torch
+    from repro_torch.core import WaveScheduler, run_serial
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+
+    got = {}
+    for label, fn in (("exact", expert_gemm_exact), ("a @ b", expert_gemm)):
+        tasks, (xs, w, tiles), outs = build_expert_stream(device, 0, fn)
+        run_serial(tasks, device=device)
+        serial = torch.stack([o.value for o in outs])
+        tasks, _, outs = build_expert_stream(device, 0, fn)
+        report = WaveScheduler(window_size=WINDOW, device=device).run(tasks)
+        wave = torch.stack([o.value for o in outs])
+        torch.cuda.synchronize()
+        diff = float((wave - serial).abs().max())
+        got[label] = serial
+        log(f"expert stream ({label}): {len(tasks)} tasks over {MOE_E} experts (tiles per "
+            f"expert {np.bincount(tiles, minlength=MOE_E).tolist()}); dispatches: serial "
+            f"{len(tasks)}, wave scheduler {report.exec_stats['dispatches']}; wave vs serial "
+            f"bit-equal {bit_equal(wave, serial)}, max abs diff {diff:.3g}")
+        if label == "exact":
+            check(bit_equal(wave, serial), "expert stream: the wave scheduler != run_serial")
+        else:
+            check(bool(((wave - serial).abs() <= 1e-5 + 1e-5 * serial.abs()).all()),
+                  f"expert stream (a @ b): wave vs serial beyond 1e-5 ({diff})")
+    one = grouped_matmul(torch.from_numpy(xs.reshape(-1, MOE_D)).to(device),
+                         torch.from_numpy(w).to(device), torch.from_numpy(tiles).to(device),
+                         block_m=MOE_BM)
+    torch.cuda.synchronize()
+    for label, serial in got.items():
+        want = serial.reshape(one.shape)
+        err = (one - want).abs()
+        check(bool((err <= 1e-4 + 1e-4 * want.abs()).all()),
+              f"expert stream: one grouped GEMM != the {label} tasks (max abs err "
+              f"{float(err.max())})")
+        log(f"expert stream: one grouped GEMM launch over tile ids {tiles.tolist()} within "
+            f"1e-4 of the {label} tasks (max abs err {float(err.max()):.3g})")
 
 
 def phase_acs_hw(device):
@@ -639,14 +831,15 @@ def serve_once(cfg, params, server_cls, prompts, device, **kw):
     seconds, host reads, {kernel: launches})."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import lru_scan as ls
     from repro_torch.runtime import SessionServer
 
     server = server_cls(cfg, params, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                         window=WINDOW, device=device, **kw)
     torch.cuda.synchronize()
-    fa.reset_launches()  # the main path's counts start here
-    ls.reset_launches()
+    for mod in (fa, ls, gm):  # the main path's counts start here
+        mod.reset_launches()
     t0 = time.perf_counter()
     reqs = [server.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
     done = server.run_until_drained()
@@ -654,21 +847,40 @@ def serve_once(cfg, params, server_cls, prompts, device, **kw):
         server.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches, "lru_scan": ls.launches}
+    launches = {"flash_attention": fa.launches, "lru_scan": ls.launches,
+                "grouped_matmul": gm.launches}
     check(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
           f"{server_cls.__name__}: {len(done)} of {len(reqs)} requests finished")
     return [r.generated for r in reqs], wall, server.host_reads, launches
 
 
-def phase_serve(device, card):
-    """Returns (launches per kernel on the session server's run, wall
-    seconds per server, the model and its config)."""
+def expected_launches(cfg, n_requests):
+    """Each kernel's launches in one server run: flash once per prefill
+    and attention layer, the scan once per RG-LRU layer and forward, the
+    grouped GEMM three times per MoE layer and forward (prefix layers keep
+    a dense FFN)."""
+    from repro_torch.models import split_pattern
+
+    prefix, n_stages = split_pattern(cfg)
+    kinds = list(prefix) + list(cfg.pattern_unit) * n_stages
+    n_attn = sum(kind.startswith("attn") for kind in kinds)
+    n_moe = len(cfg.pattern_unit) * n_stages if cfg.moe is not None else 0
+    forwards = n_requests * (1 + SERVE_MAX_NEW)
+    return {"flash_attention": n_requests * n_attn,
+            "lru_scan": kinds.count("rglru") * forwards,
+            "grouped_matmul": 3 * n_moe * forwards}
+
+
+def phase_serve(device, card, arch):
+    """Serve ``arch`` at its published widths. Returns (launches per kernel
+    on the session server's run, wall seconds per server, the model, its
+    config and the prompts)."""
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.models import init_params, split_pattern
+    from repro_torch.models import init_params
     from repro_torch.runtime import ContinuousBatchingServer, SessionServer
 
-    cfg = ARCHS[SERVE_ARCH]
+    cfg = ARCHS[arch]
     t0 = time.perf_counter()
     params = init_params(cfg, SERVE_SEED, device=device)
     torch.cuda.synchronize()
@@ -677,15 +889,12 @@ def phase_serve(device, card):
         f"{n_params} parameters drawn from seed {SERVE_SEED} in "
         f"{time.perf_counter() - t0:.2f} s [{card}]")
     prompts = serve_prompts(cfg.vocab)
-    kinds = list(split_pattern(cfg)[0]) + list(cfg.pattern_unit) * split_pattern(cfg)[1]
-    n_local, n_rglru = kinds.count("attn_local"), kinds.count("rglru")
-    want = {"flash_attention": SERVE_REQUESTS * n_local,
-            "lru_scan": n_rglru * (SERVE_REQUESTS + SERVE_REQUESTS * SERVE_MAX_NEW)}
+    want = expected_launches(cfg, SERVE_REQUESTS)
 
     plain, prefill_s, decode_s = [], [], []
     for p in prompts:
         toks, t_pre, t_dec, finite = greedy(cfg, params, p, device)
-        check(finite, f"serve: non-finite logits for a prompt of {len(p)} tokens")
+        check(finite, f"serve {cfg.name}: non-finite logits for a prompt of {len(p)} tokens")
         plain.append(toks)
         prefill_s.append(t_pre)
         decode_s.extend(t_dec)
@@ -695,25 +904,39 @@ def phase_serve(device, card):
                           ("SessionServer(device)", SessionServer, {"scheduler": "device"}),
                           ("ContinuousBatchingServer", ContinuousBatchingServer, {})):
         toks, wall, reads, launches = serve_once(cfg, params, cls, prompts, device, **kw)
-        check(all(len(t) == SERVE_MAX_NEW for t in toks), f"{name}: a request lacks tokens")
-        check(all(0 <= x < cfg.vocab for t in toks for x in t), f"{name}: a token out of range")
-        check(launches == want, f"{name}: kernel launches {launches}, expected {want}")
-        check(toks == plain, f"{name}: tokens differ from the plain greedy loop")
-        tokens[name], walls[f"serve/{name}"] = toks, wall
+        check(all(len(t) == SERVE_MAX_NEW for t in toks),
+              f"{cfg.name} {name}: a request lacks tokens")
+        check(all(0 <= x < cfg.vocab for t in toks for x in t),
+              f"{cfg.name} {name}: a token out of range")
+        check(launches == want, f"{cfg.name} {name}: kernel launches {launches}, "
+                                f"expected {want}")
+        check(toks == plain, f"{cfg.name} {name}: tokens differ from the plain greedy loop")
+        tokens[name], walls[f"serve {cfg.name}/{name}"] = toks, wall
         if main_launches is None:
             main_launches = launches
         n_tok = SERVE_REQUESTS * SERVE_MAX_NEW
-        log(f"serve {name}: {SERVE_REQUESTS} requests x {SERVE_MAX_NEW} tokens, wall "
-            f"{wall * 1e3:.3f} ms, {n_tok / wall:.2f} tokens/s, host reads {reads}, "
+        log(f"serve {cfg.name} {name}: {SERVE_REQUESTS} requests x {SERVE_MAX_NEW} tokens, "
+            f"wall {wall * 1e3:.3f} ms, {n_tok / wall:.2f} tokens/s, host reads {reads}, "
             f"launches {launches} [{card}]")
     check(tokens["SessionServer(wave)"] == tokens["SessionServer(device)"]
-          == tokens["ContinuousBatchingServer"], "serve: the servers' tokens differ")
-    log(f"serve: prompt lengths {[len(p) for p in prompts]}; the three servers' tokens identical "
-        f"and equal to the plain greedy loop; median prefill "
+          == tokens["ContinuousBatchingServer"], f"serve {cfg.name}: the servers' tokens differ")
+    log(f"serve {cfg.name}: prompt lengths {[len(p) for p in prompts]}; the three servers' "
+        f"tokens identical and equal to the plain greedy loop; median prefill "
         f"{statistics.median(prefill_s) * 1e3:.3f} ms, median decode step "
         f"{statistics.median(decode_s) * 1e3:.3f} ms (greedy loop, host clock, "
         f"{len(decode_s)} steps) [{card}]")
     return main_launches, walls, (cfg, params, prompts)
+
+
+def busy_serve(device, card, served):
+    """One more serving pass (SessionServer(wave), 2 requests) under the
+    profiler: its device busy share."""
+    from repro_torch.runtime import SessionServer
+
+    cfg, params, prompts = served
+    profile_pass(f"serve {cfg.name} SessionServer(wave), 2 requests x {SERVE_MAX_NEW} tokens",
+                 lambda: serve_once(cfg, params, SessionServer, prompts[:2], device,
+                                    scheduler="wave"), card)
 
 
 def median_ms(fn, runs=TIMED_RUNS, warmup=3):
@@ -730,6 +953,26 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def back_to_back_ms(fn, launches=20, runs=5):
+    """Median over ``runs`` of the CUDA-event time of ``launches`` calls in a
+    row, per call: where a call's host work is shorter than its kernel, the
+    launches queue up and this is the kernel's own time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -848,6 +1091,15 @@ def numbers_flash(device, launches):
                          BF16_FLOP_PER_S)
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
                                                   enable_gqa=True)
+    # granite-moe-3b-a800m's prefill: 24 heads over 8 kv heads of 64, causal.
+    gq, gk, gv = (torch.randn(1, n, s, 64, generator=gen, device=device).to(torch.bfloat16)
+                  for n in (24, 8, 8))
+    g_got, g_want = flash_attention(gq, gk, gv), attention_ref(gq, gk, gv)
+    torch.cuda.synchronize()
+    g_bound, _ = bound(2 * (gq.numel() * 2 + gk.numel() + gv.numel()),
+                       4 * 24 * (s * (s + 1) // 2) * 64, BF16_FLOP_PER_S)
+    g_sdpa = lambda: F.scaled_dot_product_attention(gq, gk, gv, is_causal=True,  # noqa: E731
+                                                    enable_gqa=True)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -862,6 +1114,73 @@ def numbers_flash(device, launches):
         "bound_by": by,
         "library_ms": median_ms(sdpa),
         "shape": f"q [1, 10, 512, 256], k, v [1, 1, 512, 256] bf16, causal, window {window}",
+        "granite_max_abs_err": float((g_got.float() - g_want.float()).abs().max()),
+        "granite_ms": median_ms(lambda: flash_attention(gq, gk, gv)),
+        "granite_plain_ms": median_ms(lambda: attention_ref(gq, gk, gv)),
+        "granite_bound_ms": g_bound,
+        "granite_library_ms": median_ms(g_sdpa),
+        "granite_shape": "q [1, 24, 512, 64], k, v [1, 8, 512, 64] bf16, causal",
+    }
+
+
+def numbers_gmm(device, launches):
+    """The grouped GEMM at granite-moe's gate/up product (48 experts of
+    [1536, 512] bf16): decode (C = 1, M = 48) and a 512-token prefill
+    (C = 128, M = 6144); ``torch.bmm`` over the same capacity layout is the
+    library call."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    g, k, n = 48, 1536, 512
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    w = torch.randn(g, k, n, generator=gen, device=device).to(torch.bfloat16)
+    tiles = torch.arange(g, dtype=torch.int32, device=device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    out = {}
+    for label, cap in (("decode", 1), ("prefill", 128)):
+        x = torch.randn(g * cap, k, generator=gen, device=device).to(torch.bfloat16)
+        got = grouped_matmul(x, w, tiles, block_m=cap)
+        want = grouped_matmul_ref(x, w, tiles, block_m=cap)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        ok = bool((diff <= GMM_TOL["bfloat16"] * (1 + want.float().abs())).all())
+        x3 = x.view(g, cap, k)
+        ms_bound, by = bound(2 * (x.numel() + w.numel() + g * cap * n), 2 * g * cap * k * n,
+                             BF16_FLOP_PER_S)
+        out[label] = dict(
+            ms=median_ms(lambda: grouped_matmul(x, w, tiles, block_m=cap, err=err)),
+            b2b_ms=back_to_back_ms(lambda: grouped_matmul(x, w, tiles, block_m=cap, err=err)),
+            library_b2b_ms=back_to_back_ms(lambda: torch.bmm(x3, w)),
+            plain_ms=median_ms(lambda: grouped_matmul_ref(x, w, tiles, block_m=cap)),
+            library_ms=median_ms(lambda: torch.bmm(x3, w)),
+            bound_ms=ms_bound, bound_by=by, max_abs_err=float(diff.max()), ok=ok)
+    dec, pre = out["decode"], out["prefill"]
+    return {
+        "name": "grouped_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul.py:61",
+        "launches": launches,
+        "matches_plain": dec["ok"] and pre["ok"],
+        "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
+        "ms": dec["ms"],
+        "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        "back_to_back_ms": dec["b2b_ms"],
+        "library_back_to_back_ms": dec["library_b2b_ms"],
+        "prefill_ms": pre["ms"],
+        "prefill_back_to_back_ms": pre["b2b_ms"],
+        "prefill_library_back_to_back_ms": pre["library_b2b_ms"],
+        "prefill_plain_ms": pre["plain_ms"],
+        "prefill_bound_ms": pre["bound_ms"],
+        "prefill_bound_by": pre["bound_by"],
+        "prefill_library_ms": pre["library_ms"],
+        "shape": f"w [{g}, {k}, {n}] bf16, tile ids arange({g}); decode x [{g}, {k}] "
+                 f"(block_m 1); prefill x [{g * 128}, {k}] (block_m 128)",
     }
 
 
@@ -923,7 +1242,8 @@ def device_busy(fn):
     """Run ``fn()`` once under ``torch.profiler``. Returns (wall ms under
     the profiler, device-busy ms: the union of the CUDA kernels' intervals,
     or None when the profiler records no kernel; the number of CUDA
-    kernels; the three host ops with the most self CPU time)."""
+    kernels; the three host ops with the most self CPU time and the three
+    ops with the most self device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -936,8 +1256,13 @@ def device_busy(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
-    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:3]
-    top = ", ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.1f} ms x{a.count}" for a in host)
+    avgs = prof.key_averages()
+    host = sorted(avgs, key=lambda a: -a.self_cpu_time_total)[:3]
+    dev = sorted(avgs, key=lambda a: -a.self_device_time_total)[:3]
+    top = (", ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.1f} ms x{a.count}" for a in host)
+           + "; most device time: "
+           + ", ".join(f"{a.key[:60]} {a.self_device_time_total / 1e3:.1f} ms x{a.count}"
+                       for a in dev))
     if not spans:
         return wall_ms, None, 0, top
     busy_us, (lo, hi) = 0.0, spans[0]
@@ -950,7 +1275,15 @@ def device_busy(fn):
     return wall_ms, (busy_us + hi - lo) / 1e3, len(spans), top
 
 
-def phase_busy(device, card, served):
+def profile_pass(label, fn, card):
+    wall_ms, busy_ms, n_kernels, top = device_busy(fn)
+    busy = ("device busy not measured (no kernel in the trace)" if busy_ms is None
+            else f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, {busy}, "
+        f"{n_kernels} CUDA kernels; most host time: {top} [{card}]")
+
+
+def phase_busy(device, card):
     from repro_torch.core import DeviceOpRegistry, DeviceWindowRunner, TaskStream
     from repro_torch.core import make_scheduler, run_serial
     from repro_torch.kernels.ops import register_loop_branches
@@ -978,25 +1311,12 @@ def phase_busy(device, card, served):
             run(stream.tasks)
         return step
 
-    def serve():
-        from repro_torch.runtime import SessionServer
-
-        cfg, params, prompts = served
-        return lambda: serve_once(cfg, params, SessionServer, prompts[:2], device,
-                                  scheduler="wave")
-
     for label, make in (("chain_universe/serial", lambda: chain("serial")),
                         ("chain_universe/device_loop", lambda: chain("device_loop")),
                         ("chain_universe/device_wave", lambda: chain("device_wave")),
                         *((f"cheetah step/{p}", lambda p=p: cheetah(p))
-                          for p in ("serial", "wave", "threaded")),
-                        (f"serve SessionServer(wave), 2 requests x {SERVE_MAX_NEW} tokens",
-                         serve)):
-        wall_ms, busy_ms, n_kernels, top = device_busy(make())
-        busy = ("device busy not measured (no kernel in the trace)" if busy_ms is None
-                else f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
-        log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, {busy}, "
-            f"{n_kernels} CUDA kernels; most host time: {top} [{card}]")
+                          for p in ("serial", "wave", "threaded"))):
+        profile_pass(label, make(), card)
 
 
 def main() -> int:
@@ -1027,15 +1347,26 @@ def main() -> int:
     timed(phase_wave_vs_plain, device)
     timed(phase_lru_vs_plain, device)
     timed(phase_flash_vs_plain, device)
+    timed(phase_gmm_vs_plain, device)
+    timed(phase_expert_stream, device)
     launches, hw_walls = timed(phase_acs_hw, device)
     wave_launches, widest, wave_walls = timed(phase_acs_hw_waves, device)
     session_walls = timed(phase_session, device)
     sw_walls = timed(phase_acs_sw, device)
-    serve_launches, serve_walls, served = timed(phase_serve, device, card)
+    serve_launches, serve_walls = {}, {}
+    for arch in SERVE_ARCHS:
+        arch_launches, walls, served = timed(phase_serve, device, card, arch)
+        timed(busy_serve, device, card, served)
+        serve_launches[arch] = arch_launches
+        serve_walls.update(walls)
+        del served  # free this model's weights before the next one's are drawn
+        torch.cuda.empty_cache()
+    rg, granite = (serve_launches[a] for a in SERVE_ARCHS)
     kernels = [timed(phase_numbers, device, launches),
                timed(numbers_wave, device, wave_launches, widest),
-               timed(numbers_flash, device, serve_launches["flash_attention"]),
-               timed(numbers_lru, device, serve_launches["lru_scan"])]
+               timed(numbers_flash, device, rg["flash_attention"]),
+               timed(numbers_lru, device, rg["lru_scan"]),
+               timed(numbers_gmm, device, granite["grouped_matmul"])]
     for kernel in kernels:
         check(kernel["matches_plain"], f"{kernel['name']}: kernel != plain at the main "
                                        "path's shape")
@@ -1045,7 +1376,7 @@ def main() -> int:
     for key, secs in {**hw_walls, **wave_walls, **session_walls, **sw_walls,
                       **serve_walls}.items():
         log(f"wall {key}: {secs * 1e3:.3f} ms [{card}]")
-    timed(phase_busy, device, card, served)
+    timed(phase_busy, device, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

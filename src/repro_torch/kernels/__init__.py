@@ -3,15 +3,19 @@ version in ``ref.py``:
 
 ready_queue      — the ACS-HW device ready queue (CUDA, ``csrc/ready_queue.cu``)
 flash_attention  — online-softmax attention (CUDA, ``csrc/flash_attention.cu``)
+grouped_matmul   — the ragged grouped GEMM of the MoE experts (CUDA,
+                   ``csrc/grouped_matmul.cu``)
 lru_scan         — the RG-LRU diagonal recurrence (CUDA, ``csrc/lru_scan.cu``)
 wave_elementwise — the ACS-HW wave megakernel (CUDA, ``csrc/wave_elementwise.cu``)
 
-``ops.py`` holds the models' dispatch (``attention``, ``lru_scan``), the
-device window's ``wave_step`` and the fixed branch table the ready queue
-and the wave kernel share. Kernels build at first use
-(``_nvcc.py``); importing this package needs no compiler and no card.
+``ops.py`` holds the models' dispatch (``attention``, ``grouped_matmul``,
+``lru_scan``), ``register_device_ops``, the device window's ``wave_step``
+and the fixed branch table the ready queue and the wave kernel share.
+Kernels build at first use (``_nvcc.py``); importing this package needs
+no compiler and no card.
 """
 
-from . import flash_attention, lru_scan, ops, ready_queue, ref, wave_elementwise
+from . import flash_attention, grouped_matmul, lru_scan, ops, ready_queue, ref, wave_elementwise
 
-__all__ = ["flash_attention", "lru_scan", "ops", "ready_queue", "ref", "wave_elementwise"]
+__all__ = ["flash_attention", "grouped_matmul", "lru_scan", "ops", "ready_queue", "ref",
+           "wave_elementwise"]

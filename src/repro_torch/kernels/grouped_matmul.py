@@ -1,0 +1,147 @@
+"""Ragged grouped GEMM on the H100 (port of
+``repro/kernels/grouped_matmul.py``): many small matrix products in ONE
+launch, each row tile against its own group's weights.
+
+``out[t] = x[t] @ w[tile_groups[t // block_m]]`` with ``x [M, K]``,
+``w [G, K, N]``, ``tile_groups [M // block_m]`` int32 and the output
+``[M, N]`` in ``x``'s dtype, accumulated in float32. It serves the MoE
+FFN's three expert products (``models/ffn.py`` ``apply_moe``: the
+``[E_pad * C, D]`` capacity layout, ``block_m = C``, one tile per expert)
+and any ragged stream of same-shape expert tasks. The kernel is the
+hand-written CUDA in ``csrc/grouped_matmul.cu`` (its header says what
+bounds it and how it is laid out): any ``block_m >= 1``, any N with no
+padding copy, tensor cores for float16 and bfloat16, FMAs for float32, and
+the same bits for the same inputs run after run.
+
+A group id outside ``[0, G)`` never makes the kernel read outside ``w``:
+its tile writes nothing and sets an error flag. With ``err=None`` the
+wrapper reads the flag after the launch (one host sync) and raises
+``ValueError``; a caller that launches many passes its own ``err`` tensor
+and calls :func:`raise_on_error` where it synchronizes anyway. On the CPU
+the ids are checked before the plain version runs, so both devices refuse
+the same inputs.
+
+A CPU tensor goes to the plain version :func:`~.ref.grouped_matmul_ref`; a
+CUDA tensor launches the kernel or raises. The kernel builds at first use
+(``_nvcc.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from ._nvcc import CudaLibrary
+from .ref import grouped_matmul_ref
+
+__all__ = ["grouped_matmul", "raise_on_error", "build", "launches", "reset_launches",
+           "SOURCE"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# Kernel launches since the last reset_launches(): incremented once per
+# launch of the CUDA kernel, never by the plain version.
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.acs_grouped_matmul.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # x, w, tile_groups, out, err
+        i32, i32, i32, i32, i32,  # M, K, N, G, block_m
+        i32,                      # dtype
+        ptr,                      # stream
+    ]
+    lib.acs_grouped_matmul.restype = i32
+
+
+_LIB = CudaLibrary(SOURCE, _bind)
+
+
+def build() -> Tuple[Path, float]:
+    """Compile ``csrc/grouped_matmul.cu`` for ``sm_90a`` (once per source
+    and flag set). Returns the library's path and the compile's seconds."""
+    return _LIB.build()
+
+
+def raise_on_error(err: torch.Tensor) -> None:
+    """Read the kernel's error flag (a host sync) and raise ``ValueError``
+    if any launch that shared it met a group id outside ``[0, G)``."""
+    if int(err.reshape(-1)[0]) != 0:
+        raise ValueError("grouped_matmul: a tile's group id lies outside [0, G)")
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor, block_m: int) -> None:
+    if x.dim() != 2 or w.dim() != 3 or tile_groups.dim() != 1:
+        raise ValueError(f"grouped_matmul: x [M, K], w [G, K, N] and tile_groups [T] "
+                         f"expected, got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(tile_groups.shape)}")
+    m, k = x.shape
+    g, kw, _ = w.shape
+    if kw != k or g < 1:
+        raise ValueError(f"grouped_matmul: w {tuple(w.shape)} does not match x {tuple(x.shape)}")
+    if block_m < 1 or m % block_m:
+        raise ValueError(f"grouped_matmul: block_m {block_m} does not divide M {m}")
+    if tile_groups.shape[0] != m // block_m:
+        raise ValueError(f"grouped_matmul: {tile_groups.shape[0]} tile ids for "
+                         f"{m // block_m} tiles of {block_m} rows")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"grouped_matmul: x and w must share one of "
+                        f"{sorted(map(str, _DTYPES))}, got {x.dtype}, {w.dtype}")
+    if tile_groups.dtype != torch.int32:
+        raise TypeError(f"grouped_matmul: tile_groups must be int32, got {tile_groups.dtype}")
+    for name, t in (("w", w), ("tile_groups", tile_groups)):
+        if t.device != x.device:
+            raise ValueError(f"grouped_matmul: {name} is on {t.device}, x on {x.device}")
+
+
+def grouped_matmul(
+    x: torch.Tensor,            # [M, K] rows grouped, padded per group to block_m
+    w: torch.Tensor,            # [G, K, N]
+    tile_groups: torch.Tensor,  # [M // block_m] int32 group id per m-tile
+    *,
+    block_m: int,
+    err: Optional[torch.Tensor] = None,  # [1] int32 error flag the caller checks
+) -> torch.Tensor:
+    """``[M, N]`` in ``x``'s dtype, float32 inside. Launches on the current
+    CUDA stream; without ``err`` it then syncs once to check the group
+    ids."""
+    _check(x, w, tile_groups, block_m)
+    if x.device.type == "cpu":
+        if tile_groups.numel() and not bool(((tile_groups >= 0)
+                                             & (tile_groups < w.shape[0])).all()):
+            raise ValueError("grouped_matmul: a tile's group id lies outside [0, G)")
+        return grouped_matmul_ref(x, w, tile_groups, block_m=block_m)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_matmul: unsupported device {x.device}")
+    for name, t in (("x", x), ("w", w), ("tile_groups", tile_groups)):
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_matmul: {name} must be contiguous")
+    own = err is None
+    if own:
+        err = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if err.device != x.device or err.dtype != torch.int32 or err.numel() != 1:
+        raise ValueError("grouped_matmul: err must be one int32 on x's device")
+    m, k = x.shape
+    g, _, n = w.shape
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    rc = _LIB.get().acs_grouped_matmul(
+        x.data_ptr(), w.data_ptr(), tile_groups.data_ptr(), out.data_ptr(), err.data_ptr(),
+        m, k, n, g, block_m, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    if own:
+        raise_on_error(err)
+    return out

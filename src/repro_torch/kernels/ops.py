@@ -1,11 +1,11 @@
 """Dispatch to the port's kernels, and the ready-queue kernel's fixed
 branch table (PyTorch port of ``repro/kernels/ops.py``).
 
-``attention`` and ``lru_scan`` are what the models call. The reference
-chooses Pallas or its jnp oracle by JAX backend; the port chooses by the
-tensor's device, inside each kernel's wrapper: a CUDA tensor launches the
-hand-written kernel or raises, a CPU tensor takes the plain version. There
-is no fallback from a failed build or launch.
+``attention``, ``grouped_matmul`` and ``lru_scan`` are what the models
+call. The reference chooses Pallas or its jnp oracle by JAX backend; the
+port chooses by the tensor's device, inside each kernel's wrapper: a CUDA
+tensor launches the hand-written kernel or raises, a CPU tensor takes the
+plain version. There is no fallback from a failed build or launch.
 
 ``wave_step`` runs one ACS wave of elementwise tasks through the wave
 megakernel and scatters its rows back into the slab.
@@ -22,10 +22,20 @@ from __future__ import annotations
 # The models' entry names; each wrapper picks kernel or plain version by
 # its tensors' device.
 from .flash_attention import flash_attention as attention
+from .grouped_matmul import grouped_matmul
 from .lru_scan import lru_scan
 
-__all__ = ["attention", "lru_scan", "wave_step", "LOOP_BRANCHES", "LOOP_OPCODES",
-           "register_loop_branches"]
+__all__ = ["attention", "grouped_matmul", "lru_scan", "wave_step", "register_device_ops",
+           "LOOP_BRANCHES", "LOOP_OPCODES", "register_loop_branches"]
+
+
+def register_device_ops(registry) -> dict:
+    """Register the kernel dispatchers as device opcodes, so streams built
+    from :class:`~repro_torch.core.AcsKernel`s named after them lower
+    through the slab arena (fn-less entries: the arena path runs each
+    task's own callable). Returns name -> opcode."""
+    return {name: registry.register(name)
+            for name in ("attention", "grouped_matmul", "lru_scan")}
 
 
 def _axpy_row(x, y):

@@ -15,6 +15,9 @@ does, step for step.
 ``wave_rows_ref`` is the plain version of ``kernels/wave_elementwise.py``
 (the ``[S, D]`` slot rows), and ``wave_elementwise_ref`` the reference's
 oracle of the same name (the rows scattered into the slab).
+
+``grouped_matmul_ref`` follows the reference's ragged grouped-GEMM oracle:
+each ``block_m``-row tile times its group's weights, in float32.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["attention_ref", "lru_scan_ref", "ready_queue_ref", "wave_rows_ref",
-           "wave_elementwise_ref"]
+__all__ = ["attention_ref", "grouped_matmul_ref", "lru_scan_ref", "ready_queue_ref",
+           "wave_rows_ref", "wave_elementwise_ref"]
 
 
 def attention_ref(
@@ -71,6 +74,23 @@ def attention_ref(
     p = torch.nan_to_num(p, nan=0.0)  # fully masked rows -> zeros
     out = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
     return out.reshape(b, h, sq, dv).to(q.dtype)
+
+
+def grouped_matmul_ref(
+    x: torch.Tensor,            # [M, K] rows sorted by group, padded per group
+    w: torch.Tensor,            # [G, K, N]
+    tile_groups: torch.Tensor,  # [M // block_m] int32: group id of each m-tile
+    *,
+    block_m: int,
+) -> torch.Tensor:
+    """Ragged grouped GEMM: ``out[t] = x[t] @ w[tile_groups[t // block_m]]``,
+    accumulated in float32; the output is in ``x``'s dtype."""
+    m, k = x.shape
+    n = w.shape[2]
+    xt = x.reshape(m // block_m, block_m, k)
+    wt = w[tile_groups.long()]  # [T, K, N]
+    out = torch.einsum("tmk,tkn->tmn", xt.float(), wt.float())
+    return out.reshape(m, n).to(x.dtype)
 
 
 def lru_scan_ref(

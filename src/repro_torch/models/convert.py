@@ -3,7 +3,9 @@ numpy arrays (``jax.tree.map(np.asarray, params)``). It imports no JAX.
 
 The reference stacks each stage's leaves on a leading axis; the port holds
 one tuple of layer dicts (or cache entries) per stage, so that axis is
-split here. bfloat16 leaves (numpy's ``ml_dtypes`` type) go through
+split here (an MoE layer's stacked expert leaves ``[n_stages, E_pad, ...]``
+included; the port reads E_pad from the weights, so trees made with any
+``tp_size`` carry across). bfloat16 leaves (numpy's ``ml_dtypes`` type) go through
 float32, which is exact; every other leaf keeps its dtype.
 """
 

@@ -14,9 +14,10 @@ Modes (the reference's functional entry names, over a
 * ``prefill``      — forward + cache population -> (last logits, cache)
 * ``decode_step``  — one token against the cache -> (logits, cache)
 
-The port builds GQA (global and local) and RG-LRU layers with dense FFNs;
-MLA, Mamba, MoE, the frontends and ``loss_fn`` are still to port (ROADMAP
-queue 1 item 9), and ``init_params`` raises ``NotImplementedError`` for a
+The port builds GQA (global and local) and RG-LRU layers with dense or
+MoE FFNs (prefix layers, which absorb ``moe.first_dense``, stay dense);
+MLA, Mamba, the frontends and ``loss_fn`` are still to port (ROADMAP queue
+1 item 9), and ``init_params`` raises ``NotImplementedError`` for a
 configuration that needs them.
 """
 
@@ -31,7 +32,7 @@ from torch import nn
 from ..core.buffers import DeviceLike, resolve_device
 from .attention import GqaAttention, init_attn
 from .config import ATTN_LOCAL, MAMBA, MLA, RGLRU, ArchConfig
-from .ffn import GatedMlp, apply_ffn, init_ffn
+from .ffn import GatedMlp, MoeFfn, init_ffn, init_moe
 from .layers import DTYPES, dense_init, rms_norm
 from .recurrent import RgLru, init_rglru
 
@@ -67,7 +68,6 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not build yet."""
     missing = [what for what, needed in (
         ("the frontend archs", cfg.frontend is not None),
-        ("MoE FFNs", cfg.moe is not None),
         ("MLA attention", MLA in cfg.pattern_unit),
         ("Mamba blocks", MAMBA in cfg.pattern_unit),
     ) if needed]
@@ -82,7 +82,8 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One layer: pre-norm mixer and pre-norm gated MLP, both residual."""
+    """One layer: pre-norm mixer and pre-norm FFN (a gated MLP, or the MoE
+    FFN where the layer's FFN params hold a ``router``), both residual."""
 
     def __init__(self, cfg: ArchConfig, kind: str, params: Dict[str, Any]):
         super().__init__()
@@ -93,7 +94,8 @@ class Block(nn.Module):
         self.mixer = (RgLru(cfg, params["mixer"]) if kind == RGLRU
                       else GqaAttention(cfg, params["mixer"], local=(kind == ATTN_LOCAL)))
         self.ffn_norm = nn.Parameter(params["ffn_norm"], requires_grad=False)
-        self.ffn = GatedMlp(params["ffn"])
+        ffn = params["ffn"]
+        self.ffn = MoeFfn(cfg, ffn) if "router" in ffn else GatedMlp(ffn)
 
     def forward(self, x, positions, cache_entry, pos, prefill_mode):
         cfg = self.cfg
@@ -105,7 +107,7 @@ class Block(nn.Module):
                                   prefill=prefill_mode)
         x = x + y
         h = rms_norm(x, self.ffn_norm, cfg.norm_eps)
-        return x + apply_ffn(self.ffn, h), new_c
+        return x + self.ffn(h), new_c
 
 
 class LanguageModel(nn.Module):
@@ -138,19 +140,24 @@ class LanguageModel(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype) -> Dict[str, Any]:
+def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
+                layer_has_moe: bool, tp_size: int) -> Dict[str, Any]:
     d = cfg.d_model
     norm = lambda: torch.zeros((d,), dtype=torch.float32, device=gen.device)  # noqa: E731
     mixer = init_rglru(gen, cfg, dtype) if kind == RGLRU else init_attn(gen, cfg, dtype)
-    return {"norm": norm(), "mixer": mixer, "ffn_norm": norm(),
-            "ffn": init_ffn(gen, d, cfg.d_ff, dtype)}
+    ffn = (init_moe(gen, cfg, dtype, tp_size) if layer_has_moe
+           else init_ffn(gen, d, cfg.d_ff, dtype))
+    return {"norm": norm(), "mixer": mixer, "ffn_norm": norm(), "ffn": ffn}
 
 
 @torch.no_grad()
-def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda") -> LanguageModel:
+def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda",
+                tp_size: int = 16) -> LanguageModel:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device`` (the numbers differ from ``jax.random``'s; the tests carry
-    the reference's weights across with ``models.convert`` instead)."""
+    the reference's weights across with ``models.convert`` instead). MoE
+    layers pad their experts to a multiple of ``tp_size``, as the
+    reference does."""
     dev = resolve_device(device)
     check_supported(cfg)
     gen = torch.Generator(device=dev)
@@ -165,8 +172,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda") 
     }
     if not cfg.tied_embeddings:
         tree["head"] = dense_init(gen, (d, v_pad), dtype)
-    tree["prefix"] = [_init_layer(gen, kind, cfg, dtype) for kind in prefix]
-    tree["stages"] = [tuple(_init_layer(gen, kind, cfg, dtype) for kind in cfg.pattern_unit)
+    moe = cfg.moe is not None
+    tree["prefix"] = [_init_layer(gen, kind, cfg, dtype, False, tp_size) for kind in prefix]
+    tree["stages"] = [tuple(_init_layer(gen, kind, cfg, dtype, moe, tp_size)
+                            for kind in cfg.pattern_unit)
                       for _ in range(n_stages)]
     return LanguageModel(cfg, tree)
 

@@ -14,7 +14,14 @@
   tests' sweep and the serving shapes (float32 1e-4: summation order;
   bfloat16 2e-2: output rounding), fully masked rows exactly 0, the same
   bits on a second launch;
-* the two wrappers' input checks, and a model prefill that launches them.
+* ``grouped_matmul``: within tolerance of ``grouped_matmul_ref`` over the
+  CPU tests' ragged cases, ``block_m`` 1 and 3, K and N off the tile and
+  the vector width, and the granite-moe-3b-a800m decode and prefill expert
+  shapes (float32 1e-4: summation order; float16 and bfloat16 8e-3, one
+  bfloat16 ulp: both sum in float32 and round once), the same bits on a
+  second launch, its error on bad group ids and its input checks; the MoE
+  FFN on the card against its CPU run;
+* the wrappers' input checks, and model prefills that launch the kernels.
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use), so they carry the ``cuda`` marker and skip without a card.
@@ -34,11 +41,13 @@ from repro_torch.core import SlabArena, Task, run_serial
 from repro_torch.core.device_dispatch import _loop_kernel_parts, lower_epoch_program
 from repro_torch.core.task import default_segments
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import lru_scan as ls
 from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels import wave_elementwise as we
 from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches, wave_step
-from repro_torch.kernels.ref import attention_ref, lru_scan_ref, ready_queue_ref, wave_rows_ref
+from repro_torch.kernels.ref import (attention_ref, grouped_matmul_ref, lru_scan_ref,
+                                     ready_queue_ref, wave_rows_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -437,4 +446,123 @@ def test_model_prefill_launches_both_kernels(device):
     logits, _ = prefill(params, cfg, toks, init_cache(cfg, 1, 32, device=device))
     torch.cuda.synchronize()
     assert fa.launches == 1 and ls.launches == 4  # 1 local-attention, 4 RG-LRU layers
+    assert bool(torch.isfinite(logits).all())
+
+
+# (G, K, N, block_m, tile group ids): tests/test_torch_grouped_matmul.py's
+# cases, edges of the kernel's tiles, and granite-moe's expert products
+# (48 experts of [1536, 512] / [512, 1536]; decode C = 1, a 512-token
+# prefill C = 128).
+GMM = {
+    "two_groups": (2, 16, 16, 8, (0, 1)),
+    "ragged": (4, 32, 48, 8, (0, 0, 1, 2, 2, 3)),
+    "n_not_tile_multiple": (8, 64, 24, 16, (0, 2, 2, 4, 7)),
+    "block_m_1": (6, 24, 40, 1, (5, 0, 0, 3, 1, 2, 4, 4)),
+    "moe_capacity_layout": (16, 64, 32, 3, tuple(range(16))),
+    "k_n_off_vector_width": (3, 37, 131, 70, (2, 0, 2)),
+    "block_m_1_m_48": (48, 256, 96, 1, tuple(range(48))),
+    "granite_decode_gate": (48, 1536, 512, 1, tuple(range(48))),
+    "granite_decode_down": (48, 512, 1536, 1, tuple(range(48))),
+    "granite_prefill_gate": (48, 1536, 512, 128, tuple(range(48))),
+    "granite_prefill_down": (48, 512, 1536, 128, tuple(range(48))),
+}
+GMM_TOL = {torch.float32: 1e-4, torch.float16: 8e-3, torch.bfloat16: 8e-3}
+
+
+def _gmm_inputs(device, name, dtype):
+    g, k, n, bm, tiles = GMM[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    x = torch.from_numpy(rng.randn(len(tiles) * bm, k).astype(np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.randn(g, k, n).astype(np.float32)).to(device, dtype)
+    return x, w, torch.tensor(tiles, dtype=torch.int32, device=device), bm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(GMM))
+def test_grouped_matmul_matches_plain(device, name, dtype):
+    x, w, tiles, bm = _gmm_inputs(device, name, dtype)
+    before = gm.launches
+    got = gm.grouped_matmul(x, w, tiles, block_m=bm)
+    torch.cuda.synchronize()
+    assert gm.launches == before + 1 and got.dtype == dtype
+    want = grouped_matmul_ref(x, w, tiles, block_m=bm)
+    tol = GMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(gm.grouped_matmul(x, w, tiles, block_m=bm), got)  # the same bits again
+
+
+@pytest.mark.parametrize("bad", [-1, 4, 10 ** 6])
+def test_grouped_matmul_raises_on_bad_group_ids(device, bad):
+    x, w, tiles, bm = _gmm_inputs(device, "ragged", torch.bfloat16)
+    tiles[3] = bad
+    with pytest.raises(ValueError, match=r"outside \[0, G\)"):
+        gm.grouped_matmul(x, w, tiles, block_m=bm)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    gm.grouped_matmul(x, w, tiles, block_m=bm, err=err)  # the caller's flag: no raise yet
+    with pytest.raises(ValueError, match=r"outside \[0, G\)"):
+        gm.raise_on_error(err)
+
+
+def test_grouped_matmul_wrapper_checks_inputs(device):
+    x, w, tiles, bm = _gmm_inputs(device, "ragged", torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2), tiles, block_m=bm)
+    with pytest.raises(ValueError, match="is on"):
+        gm.grouped_matmul(x, w.cpu(), tiles, block_m=bm)
+    with pytest.raises(TypeError, match="share one of"):
+        gm.grouped_matmul(x, w.half(), tiles, block_m=bm)
+    with pytest.raises(ValueError, match="err must be"):
+        gm.grouped_matmul(x, w, tiles, block_m=bm, err=torch.zeros(2, dtype=torch.int32,
+                                                                   device=device))
+
+
+def _granite(device, seed=0):
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+
+    cfg = ARCHS["granite-moe-3b-a800m"].reduced()
+    return cfg, init_params(cfg, seed, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_the_card_matches_its_cpu_run(device, dtype):
+    import dataclasses
+
+    from repro_torch.models import ffn
+
+    cfg, params = _granite(device)
+    cfg = dataclasses.replace(cfg, dtype=str(dtype).replace("torch.", ""))
+    layer = params.stages[0][0].ffn
+    moe = ffn.MoeFfn(cfg, {n: getattr(layer, n).to(dtype if n != "router" else torch.float32)
+                           for n in ffn.MoeFfn.NAMES})
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 24, cfg.d_model)
+                         .astype(np.float32)).to(device, dtype)
+    before = gm.launches
+    got = moe(x)
+    torch.cuda.synchronize()
+    assert gm.launches == before + 3
+    route_gpu, route_cpu = ffn.route_moe(moe, x, cfg), ffn.route_moe(moe.cpu(), x.cpu(), cfg)
+    assert torch.equal(route_gpu.valid.cpu(), route_cpu.valid)
+    assert torch.equal(torch.where(route_gpu.valid, route_gpu.token_idx, -1).cpu(),
+                       torch.where(route_cpu.valid, route_cpu.token_idx, -1))
+    want = moe(x.cpu())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(moe.to(device)(x), got)
+
+
+def test_model_prefill_launches_the_grouped_gemm(device):
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cfg, params = _granite(device)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab, (1, 20))
+                            .astype(np.int32)).to(device)
+    fa.reset_launches()
+    gm.reset_launches()
+    logits, cache = prefill(params, cfg, toks, init_cache(cfg, 1, 32, device=device))
+    torch.cuda.synchronize()
+    assert fa.launches == 2 and gm.launches == 6  # 2 layers: attention, 3 expert products
+    logits, _ = decode_step(params, cfg, toks[:, :1], cache, 20)
+    torch.cuda.synchronize()
+    assert fa.launches == 2 and gm.launches == 12
     assert bool(torch.isfinite(logits).all())

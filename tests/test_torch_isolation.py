@@ -60,8 +60,10 @@ def _entry_points():
     from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
 
     cfg = ARCHS["recurrentgemma-2b"].reduced()
+    moe = ARCHS["granite-moe-3b-a800m"].reduced()
     return {
         "init_params": lambda: init_params(cfg, 0),
+        "init_params[moe]": lambda: init_params(moe, 0),
         "init_cache": lambda: init_cache(cfg, 1, 8),
         "SessionServer": lambda: SessionServer(cfg, init_params(cfg, 0, device="cpu")),
         "ContinuousBatchingServer": lambda: ContinuousBatchingServer(

@@ -6,8 +6,9 @@ three decode steps teacher-forced with the reference's greedy tokens).
 
 Sizes are the reduced configs in float32: recurrentgemma with 5 layers
 (its 2-layer prefix and one stage), h2o-danube, and gemma2, minicpm and
-mistral-large (softcaps, global caches, an untied head), and danube with
-its 4 heads padded to 8 (``pad_heads_to``). Layers are held
+mistral-large (softcaps, global caches, an untied head), danube with
+its 4 heads padded to 8 (``pad_heads_to``), and granite-moe (MoE FFNs, 4
+experts padded to 16 by both packages' default ``tp_size`` of 16). Layers are held
 to 1e-5; whole models to 1e-4, because XLA and torch sum the products in
 different orders across the layers. Argmax tokens are not compared against
 JAX: near-ties may break either way.
@@ -44,9 +45,10 @@ CONFIGS = {
     "minicpm": ("minicpm-2b", {}),
     "mistral": ("mistral-large-123b", {}),
     "danube_padded_heads": ("h2o-danube-3-4b", {"pad_heads_to": 8}),
+    "granite_moe": ("granite-moe-3b-a800m", {}),
 }
-UNPORTED = ["deepseek-v2-236b", "falcon-mamba-7b", "granite-moe-3b-a800m",
-            "musicgen-large", "paligemma-3b"]
+UNPORTED = ["deepseek-v2-236b", "falcon-mamba-7b", "musicgen-large", "paligemma-3b"]
+TP_SIZE = 16  # MoE expert padding, both packages' default
 PROMPT, MAX_LEN = 20, 32  # a prompt longer than the reduced window (16)
 
 
@@ -62,7 +64,7 @@ def _cfg(key):
 @functools.lru_cache(maxsize=None)
 def _models(key):
     cfg = _cfg(key)
-    ref = RM.init_params(cfg, jax.random.PRNGKey(0), tp_size=1)
+    ref = RM.init_params(cfg, jax.random.PRNGKey(0), tp_size=TP_SIZE)
     port = TM.params_from_numpy(jax.tree.map(np.asarray, ref), cfg, device="cpu")
     return ref, port
 
@@ -125,7 +127,7 @@ def test_params_from_numpy_round_trips_exactly(key):
 def test_init_params_matches_reference_layout(key):
     cfg = _cfg(key)
     _, converted = _models(key)
-    mine = TM.init_params(cfg, 0, device="cpu")
+    mine = TM.init_params(cfg, 0, device="cpu", tp_size=TP_SIZE)
     want = {n: (tuple(t.shape), t.dtype) for n, t in converted.named_parameters()}
     assert {n: (tuple(t.shape), t.dtype) for n, t in mine.named_parameters()} == want
     again = TM.init_params(cfg, 0, device="cpu")

@@ -8,7 +8,8 @@ freed; the admission FIFO pushes back; QoS orders admission; preempted
 token streams are bit-identical to unpreempted ones; the device server
 (``scheduler="device"``) gives the same tokens and releases prompt rows
 through the pool's free hook; and the schedulers the port does not have
-yet raise.
+yet raise. The server-against-greedy tests run reduced danube,
+recurrentgemma and granite-moe (MoE FFNs).
 
 Token streams are compared only inside the port: against the reference,
 the models are held by their logits (``tests/test_torch_models.py``).
@@ -40,6 +41,8 @@ def _model(key):
     if key == "danube":  # tests/test_serve.py's tiny config
         cfg = dataclasses.replace(ARCHS["h2o-danube-3-4b"].reduced(), n_layers=1, d_model=32,
                                   d_ff=64, vocab=64, n_heads=2, n_kv_heads=1, head_dim=16)
+    elif key == "granite":  # MoE FFNs: 4 experts padded to 16, top-2
+        cfg = ARCHS["granite-moe-3b-a800m"].reduced()
     else:
         cfg = dataclasses.replace(ARCHS["recurrentgemma-2b"].reduced(), n_layers=5)
     return cfg, init_params(cfg, 0, **CPU)
@@ -82,7 +85,7 @@ def _serve(server, prompts, max_new):
     return {tuple(r.prompt): r.generated for r in done}
 
 
-@pytest.mark.parametrize("key", ["danube", "recurrentgemma"])
+@pytest.mark.parametrize("key", ["danube", "recurrentgemma", "granite"])
 def test_servers_match_each_other_and_a_greedy_loop(key):
     cfg, params = _model(key)
     prompts = _prompts(cfg, 5, seed=1, length=7)
@@ -248,7 +251,7 @@ def test_unported_schedulers_raise(tiny, scheduler):
 
 
 @pytest.mark.parametrize("plan_mode", [None, "wave", "frontier"])
-@pytest.mark.parametrize("key", ["danube", "recurrentgemma"])
+@pytest.mark.parametrize("key", ["danube", "recurrentgemma", "granite"])
 def test_device_server_matches_wave_server_and_greedy_loop(key, plan_mode):
     """The device server (its default plan mode is the reference's "loop")
     gives the wave server's tokens and the plain greedy loop's. Every
