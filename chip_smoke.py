@@ -9,7 +9,8 @@ Phases, each fatal on failure (an exception, exit code != 0):
 2. Build: the five CUDA kernels (ready queue, wave megakernel, flash
    attention, RG-LRU scan, grouped GEMM) from the sources in this
    checkout, one ``nvcc`` each, all started together; each one's build
-   seconds.
+   seconds and, from ``ptxas -v``, each kernel's registers, static shared
+   memory and spills.
 3. Kernel vs plain, on the card:
    a. ready queue: on random DAG streams the kernel's slab, completion
       flags and final ring are bit-equal to ``ready_queue_ref``;
@@ -20,22 +21,29 @@ Phases, each fatal on failure (an exception, exit code != 0):
       S in {1, 37, 512, 2048}, D 2560, float32 and bfloat16;
    d. ``flash_attention``: within tolerance of ``attention_ref`` (float32
       1e-4, bfloat16 2e-2) at the recurrentgemma-2b, h2o-danube-3-4b and
-      granite-moe-3b-a800m prefill shapes, with softcap, prefix, decode
-      (Sq = 1) and fully masked rows (exactly 0);
+      granite-moe-3b-a800m prefill shapes and at the edges of the kernel's
+      64-row and 64-key tiles: Sq and Sk of 65, 127, 333 and 2500,
+      D in {8, 24, 64, 120, 128, 256}, the window edge and ``prefix_len``
+      inside a tile, softcap, decode (Sq = 1) and fully masked rows
+      (exactly 0, a whole query tile of them included); the same bits on a
+      second launch;
    e. ``grouped_matmul``: within tolerance of ``grouped_matmul_ref``
       (float32 1e-4, float16 and bfloat16 8e-3: one bfloat16 ulp) over the
       reference's ragged cases (N off the tile, groups with no tile),
-      K and N off the vector width, ``block_m = 1`` at M = 48 and
-      granite-moe's decode and prefill expert products, in float32,
-      float16 and bfloat16; the same bits on a second launch; a bad group
-      id raises;
+      ``block_m`` in {1, 2, 15, 16, 17, 63, 64, 65, 70, 128} (both tile
+      shapes and their edges), K and N off the 16-byte copy width and the
+      ring's tile widths, and granite-moe's decode and prefill expert
+      products, in float32, float16 and bfloat16; the same bits on a
+      second launch; a bad group id raises;
    f. the expert-wave stream of ``benchmarks/bench_moe_waves.py`` (8
       experts, top-2, D 64, d_expert 32, 64 tokens routed from seed 0,
-      tiles of 8) through ``run_serial`` and ``WaveScheduler``: bit-equal
-      with an exactly rounded task fn, within 1e-5 (the difference logged)
-      with the benchmark's own ``a @ b``, which the wave executor batches
-      into one cuBLAS GEMM; one ``grouped_matmul`` launch over its ragged
-      tiles within 1e-4 of the tasks' outputs.
+      tiles of 8) through ``run_serial``, ``WaveScheduler`` and the wave
+      device window's step path: bit-equal, with an exactly rounded task
+      fn and with the benchmark's own ``a @ b`` (on the card a
+      contraction's group runs task by task; both fns' dispatch counts
+      logged); one
+      ``grouped_matmul`` launch over its ragged tiles within 1e-4 of the
+      tasks' outputs.
 4. ACS-HW main paths, each bit-equal to ``run_serial`` on the card: the
    chain universe (64 chains x width 4096 x depth 32, 2,048 tasks) and the
    24-task mixed-tag hazard stream through
@@ -73,8 +81,10 @@ Phases, each fatal on failure (an exception, exit code != 0):
 7. Numbers: CUDA-event medians of each kernel and its plain version at
    its main path's shape (the wave kernel at the widest wave the chain
    universe's wave plan produced; SDPA for attention and ``torch.bmm`` for
-   the grouped GEMM as the library calls), each kernel's bound, and the
-   wall time of each phase-4/5/6 policy and server.
+   the grouped GEMM as the library calls; flash at both serving models'
+   prefills), flash and the grouped GEMM also 20 launches back to back
+   beside their library calls, each kernel's bound, and the wall time of
+   each phase-4/5/6 policy and server.
 8. Device busy share: one more pass of each phase-4/5 policy under
    ``torch.profiler``; the union of the CUDA kernels' intervals over the
    pass's wall ("not measured" if the profiler records no kernel).
@@ -318,12 +328,15 @@ def phase_build():
     """Build every kernel of the port, one nvcc each, started together."""
     from repro_torch.kernels import (flash_attention, grouped_matmul, lru_scan, ready_queue,
                                      wave_elementwise)
+    from repro_torch.kernels._nvcc import resources
 
     mods = (ready_queue, wave_elementwise, flash_attention, lru_scan, grouped_matmul)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, seconds) in zip(mods, built):
         log(f"build: {mod.SOURCE.name} -> {path.name} in {seconds:.2f} s (sm_90a)")
+        for line in resources(path):
+            log(f"ptxas: {mod.SOURCE.name}: {line}")
 
 
 def phase_kernel_vs_plain(device):
@@ -423,7 +436,10 @@ def phase_lru_vs_plain(device):
         "float32 and bfloat16")
 
 
-# (b, h, hkv, sq, sk, d), attention flags
+# (b, h, hkv, sq, sk, d), attention flags: the serving shapes, then the
+# edges of the bfloat16 kernel's tiles (64 query rows, 64 keys; D padded
+# to 64, 128 or 256 in shared memory, 16-byte copies only for
+# D % 8 == 0).
 FLASH_SWEEP = [
     *(((1, 10, 1, s, s, 256), {"window": 2048}) for s in (64, 333, 512, 2048, 2500)),
     *(((1, 32, 8, s, s, 120), {"window": 4096}) for s in (64, 333, 512)),
@@ -434,6 +450,14 @@ FLASH_SWEEP = [
     ((1, 10, 1, 40, 40, 256), {"q_offset": -8}),  # rows 0-7 see no key
     *(((1, 24, 8, s, s, 64), {}) for s in (128, 512)),  # granite-moe, causal
     ((1, 24, 8, 1, 1024, 64), {"q_offset": 1023}),
+    ((1, 4, 2, 65, 65, 64), {}),  # one row and one key past a tile
+    ((1, 4, 1, 127, 127, 128), {"window": 50}),  # the window edge inside tiles
+    ((2, 4, 2, 333, 333, 24), {}),  # element loads, D padded to 64
+    ((1, 8, 8, 100, 100, 8), {"causal": False}),
+    ((1, 4, 2, 130, 200, 64), {"q_offset": 70, "prefix_len": 100}),  # prefix past a tile
+    ((1, 2, 1, 127, 2500, 128), {"q_offset": 2373, "window": 300, "softcap": 20.0}),
+    ((1, 4, 4, 1, 2500, 128), {"q_offset": 2499, "window": 300}),
+    ((1, 4, 2, 70, 70, 64), {"q_offset": -66}),  # a whole query tile sees no key
 ]
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -470,13 +494,25 @@ def phase_flash_vs_plain(device):
 
 # (G, K, N, block_m, tile group ids): the reference's ragged cases
 # (tests/test_kernels.py: N off the tile, groups 1, 3, 5, 6 with no tile),
-# K and N off the vector width, block_m = 1 at M = 48, and granite-moe's
-# expert products (48 experts; decode C = 1, a 512-token prefill C = 128).
+# block_m at both tile shapes' edges (16-row tiles up to 16, 64 up to 64,
+# 128 above), K and N off the 16-byte copy width (8 elements) and the
+# ring's widths (BK 64 / 32, BN 64 / 128), block_m = 1 at M = 48, and
+# granite-moe's expert products (48 experts; decode C = 1, a 512-token
+# prefill C = 128).
 GMM_SWEEP = {
     "ragged_g2": (2, 16, 16, 8, (0, 1)),
     "ragged_g4": (4, 32, 48, 8, (0, 0, 1, 2, 2, 3)),
     "ragged_g8_n24": (8, 64, 24, 16, (0, 2, 2, 4, 7)),
     "k37_n131_bm70": (3, 37, 131, 70, (2, 0, 2)),
+    "k13_n11_bm1": (3, 13, 11, 1, (2, 0, 1, 1)),
+    "k96_n80_bm2": (8, 96, 80, 2, (0, 3, 3, 7, 1)),
+    "k40_n72_bm15": (4, 40, 72, 15, (1, 0, 3)),
+    "k128_n136_bm16": (5, 128, 136, 16, (4, 2, 2, 0)),
+    "k200_n24_bm17": (3, 200, 24, 17, (2, 2, 0)),
+    "k72_n264_bm63": (6, 72, 264, 63, (5, 1, 1, 3)),
+    "k1000_n128_bm64": (4, 1000, 128, 64, (3, 3, 0)),
+    "k52_n40_bm65": (3, 52, 40, 65, (1, 2)),
+    "k136_n200_bm128": (6, 136, 200, 128, (5, 0, 5)),
     "bm1_m48": (48, 256, 96, 1, tuple(range(48))),
     "granite_decode_gate": (48, 1536, 512, 1, tuple(range(48))),
     "granite_decode_down": (48, 512, 1536, 1, tuple(range(48))),
@@ -528,13 +564,15 @@ def phase_gmm_vs_plain(device):
 
 
 def phase_expert_stream(device):
-    """The expert-wave stream through run_serial and the wave scheduler,
-    and one grouped-GEMM launch over its ragged tiles. With the
-    exactly-rounded task fn the two schedules are bit-equal; with the
-    benchmark's own ``a @ b`` they are held to float32 tolerance and their
-    difference is logged (a batched cuBLAS GEMM against single ones)."""
+    """The expert-wave stream through run_serial, the wave scheduler and
+    the device window (wave plan, step path), and one grouped-GEMM launch
+    over its ragged tiles. Both task fns, the exactly rounded one and the
+    benchmark's own ``a @ b``, leave the wave scheduler's and the device
+    window's buffers bit-equal to ``run_serial``'s: the first's group runs
+    as one call, the second's, a contraction, task by task on the card."""
     import torch
-    from repro_torch.core import WaveScheduler, run_serial
+    from repro_torch.core import DeviceWindowRunner, WaveScheduler, run_serial
+    from repro_torch.core.executors import contraction_op
     from repro_torch.kernels.grouped_matmul import grouped_matmul
 
     got = {}
@@ -549,14 +587,21 @@ def phase_expert_stream(device):
         diff = float((wave - serial).abs().max())
         got[label] = serial
         log(f"expert stream ({label}): {len(tasks)} tasks over {MOE_E} experts (tiles per "
-            f"expert {np.bincount(tiles, minlength=MOE_E).tolist()}); dispatches: serial "
-            f"{len(tasks)}, wave scheduler {report.exec_stats['dispatches']}; wave vs serial "
-            f"bit-equal {bit_equal(wave, serial)}, max abs diff {diff:.3g}")
-        if label == "exact":
-            check(bit_equal(wave, serial), "expert stream: the wave scheduler != run_serial")
-        else:
-            check(bool(((wave - serial).abs() <= 1e-5 + 1e-5 * serial.abs()).all()),
-                  f"expert stream (a @ b): wave vs serial beyond 1e-5 ({diff})")
+            f"expert {np.bincount(tiles, minlength=MOE_E).tolist()}); contraction "
+            f"{contraction_op(tasks[0])}; dispatches: serial {len(tasks)}, wave scheduler "
+            f"{report.exec_stats['dispatches']} in {report.exec_stats['waves']} waves; wave vs "
+            f"serial bit-equal {bit_equal(wave, serial)}, max abs diff {diff:.3g}")
+        check(bit_equal(wave, serial), f"expert stream ({label}): the wave scheduler != "
+                                       f"run_serial (max abs diff {diff})")
+        tasks, _, outs = build_expert_stream(device, 0, fn)
+        report = DeviceWindowRunner(window_size=WINDOW, plan_mode="wave",
+                                    device=device).run(tasks)
+        window = torch.stack([o.value for o in outs])
+        check(report.wave_executor == "steps" and bit_equal(window, serial),
+              f"expert stream ({label}): the device window ({report.wave_executor}) != "
+              f"run_serial (max abs diff {float((window - serial).abs().max())})")
+        log(f"expert stream ({label}): device window (wave plan, step path, "
+            f"{len(report.waves)} plan step) bit-equal to run_serial")
     one = grouped_matmul(torch.from_numpy(xs.reshape(-1, MOE_D)).to(device),
                          torch.from_numpy(w).to(device), torch.from_numpy(tiles).to(device),
                          block_m=MOE_BM)
@@ -1069,7 +1114,11 @@ def numbers_lru(device, launches):
     }
 
 
-def numbers_flash(device, launches):
+def numbers_flash(device, launches, granite_launches):
+    """Flash at recurrentgemma-2b's prefill ([1, 10, 512, 256] over one kv
+    head, window 2048) and granite-moe-3b-a800m's ([1, 24, 512, 64], GQA
+    24/8, causal), each with its server run's launch count: single
+    launches and 20 back to back, beside SDPA the same two ways."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1089,6 +1138,7 @@ def numbers_flash(device, launches):
     seen = int(mask.sum())  # (row, key) pairs this input's mask keeps
     ms_bound, by = bound(2 * (q.numel() * 2 + k.numel() + v.numel()), 4 * b * h * seen * d,
                          BF16_FLOP_PER_S)
+    rg = lambda: flash_attention(q, k, v, **flags)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
                                                   enable_gqa=True)
     # granite-moe-3b-a800m's prefill: 24 heads over 8 kv heads of 64, causal.
@@ -1096,29 +1146,38 @@ def numbers_flash(device, launches):
                   for n in (24, 8, 8))
     g_got, g_want = flash_attention(gq, gk, gv), attention_ref(gq, gk, gv)
     torch.cuda.synchronize()
-    g_bound, _ = bound(2 * (gq.numel() * 2 + gk.numel() + gv.numel()),
-                       4 * 24 * (s * (s + 1) // 2) * 64, BF16_FLOP_PER_S)
+    g_bound, g_by = bound(2 * (gq.numel() * 2 + gk.numel() + gv.numel()),
+                          4 * 24 * (s * (s + 1) // 2) * 64, BF16_FLOP_PER_S)
+    gr = lambda: flash_attention(gq, gk, gv)  # noqa: E731
     g_sdpa = lambda: F.scaled_dot_product_attention(gq, gk, gv, is_causal=True,  # noqa: E731
                                                     enable_gqa=True)
+    ok = (torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+          and torch.allclose(g_got.float(), g_want.float(), rtol=2e-2, atol=2e-2))
     return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
         "launches": launches,
-        "matches_plain": bool(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)),
+        "matches_plain": bool(ok),
         "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": median_ms(lambda: flash_attention(q, k, v, **flags)),
+        "ms": median_ms(rg),
         "plain_ms": median_ms(lambda: attention_ref(q, k, v, **flags)),
         "bound_ms": ms_bound,
         "bound_by": by,
         "library_ms": median_ms(sdpa),
+        "back_to_back_ms": back_to_back_ms(rg),
+        "library_back_to_back_ms": back_to_back_ms(sdpa),
         "shape": f"q [1, 10, 512, 256], k, v [1, 1, 512, 256] bf16, causal, window {window}",
+        "granite_launches": granite_launches,
         "granite_max_abs_err": float((g_got.float() - g_want.float()).abs().max()),
-        "granite_ms": median_ms(lambda: flash_attention(gq, gk, gv)),
+        "granite_ms": median_ms(gr),
         "granite_plain_ms": median_ms(lambda: attention_ref(gq, gk, gv)),
         "granite_bound_ms": g_bound,
+        "granite_bound_by": g_by,
         "granite_library_ms": median_ms(g_sdpa),
+        "granite_back_to_back_ms": back_to_back_ms(gr),
+        "granite_library_back_to_back_ms": back_to_back_ms(g_sdpa),
         "granite_shape": "q [1, 24, 512, 64], k, v [1, 8, 512, 64] bf16, causal",
     }
 
@@ -1364,7 +1423,8 @@ def main() -> int:
     rg, granite = (serve_launches[a] for a in SERVE_ARCHS)
     kernels = [timed(phase_numbers, device, launches),
                timed(numbers_wave, device, wave_launches, widest),
-               timed(numbers_flash, device, rg["flash_attention"]),
+               timed(numbers_flash, device, rg["flash_attention"],
+                     granite["flash_attention"]),
                timed(numbers_lru, device, rg["lru_scan"]),
                timed(numbers_gmm, device, granite["grouped_matmul"])]
     for kernel in kernels:

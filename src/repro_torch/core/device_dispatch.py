@@ -13,8 +13,10 @@ into integer tables, in one of three plan modes:
   :class:`DeviceStep` groups with dense row tables. The epoch runs as a
   host loop over the steps, one ``torch.func.vmap`` call per group (the
   reference's ``lax.scan`` program; `_build_program` keeps its run-length
-  segmentation). When every task of the epoch fits the **wave
-  megakernel** (``kernels/wave_elementwise.py``, CUDA: one shape class of
+  segmentation; on a CUDA device, a group whose fn runs a contraction
+  makes one call per task, so the result keeps ``run_serial``'s bits).
+  When every task of the epoch fits the **wave megakernel**
+  (``kernels/wave_elementwise.py``, CUDA: one shape class of
   padding-free float32 1-D rows, no views, two inputs, one output, every
   fn its opcode's registered switch branch), each plan step lowers a
   second time, to one ``[S, 4]`` descriptor table, and runs as ONE
@@ -51,7 +53,8 @@ import torch
 
 from .arena import SlabArena, pad_to
 from .buffers import Buffer, BufferView, DeviceLike, resolve_device
-from .executors import ExecStats, SerialExecutor, group_by_signature, synchronize
+from .executors import (ExecStats, SerialExecutor, contraction_in, group_by_signature,
+                        synchronize)
 from .scheduler import PLAN_MODES, SchedulerReport
 from .scoreboard import dependency_arrays
 from .session import SchedulerSession
@@ -485,13 +488,22 @@ def _scatter_operand(slabs: Sequence[torch.Tensor], spec: _OperandSpec,
         slab.index_copy_(0, dev_rows, pad_to(val, (width,) + padded_row).to(slab.dtype))
 
 
+def _per_task(fn: Callable, signature: Tuple, ins: Sequence[torch.Tensor]) -> bool:
+    """A step group that must run one call per task: on a CUDA device, a fn
+    with a contraction or a long reduction."""
+    return ins[0].is_cuda and contraction_in(fn, signature, [x[0] for x in ins]) is not None
+
+
 def _apply_step(slabs: Sequence[torch.Tensor], spec: _StepSpec, fn: Callable,
                 tables: Dict[str, np.ndarray],
                 dev_rows: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Run one homogeneous group over the slabs: gather every input column,
     then one call (``fn`` for a group of one, else ``torch.func.vmap(fn)``),
     then scatter. Everything is gathered before anything is scattered: a
-    task may read the row it writes."""
+    task may read the row it writes. On a CUDA device a group whose fn runs
+    a contraction (``executors.contraction_in``) calls ``fn`` once per task
+    instead, each on its own copy of its inputs, as ``run_serial`` would:
+    the library's batched kernel sums in another order."""
     din = dev_rows.get("in_rows") if dev_rows else None
     dout = dev_rows.get("out_rows") if dev_rows else None
     ins = [
@@ -499,7 +511,12 @@ def _apply_step(slabs: Sequence[torch.Tensor], spec: _StepSpec, fn: Callable,
                         spec.width, None if din is None else din[i])
         for i, s in enumerate(spec.inputs)
     ]
-    out = torch.func.vmap(fn)(*ins) if spec.width > 1 else fn(*ins)
+    if spec.width > 1 and _per_task(fn, spec.signature, ins):
+        per = [fn(*(x[g].clone() for x in ins)) for g in range(spec.width)]
+        out = (tuple(torch.stack(o) for o in zip(*per)) if isinstance(per[0], (tuple, list))
+               else torch.stack(per))
+    else:
+        out = torch.func.vmap(fn)(*ins) if spec.width > 1 else fn(*ins)
     outs = tuple(out) if isinstance(out, (tuple, list)) else (out,)
     if len(outs) != len(spec.outputs):
         raise ValueError(

@@ -11,6 +11,8 @@ wave_elementwise — the ACS-HW wave megakernel (CUDA, ``csrc/wave_elementwise.c
 ``ops.py`` holds the models' dispatch (``attention``, ``grouped_matmul``,
 ``lru_scan``), ``register_device_ops``, the device window's ``wave_step``
 and the fixed branch table the ready queue and the wave kernel share.
+``tile_sweep.py`` times tile-shape variants of flash and the grouped GEMM
+on the card (``python -m repro_torch.kernels.tile_sweep``).
 Kernels build at first use (``_nvcc.py``); importing this package needs
 no compiler and no card.
 """

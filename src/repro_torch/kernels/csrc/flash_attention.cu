@@ -4,63 +4,69 @@
 // _flash_kernel (the Pallas kernel whose innermost key-block grid axis
 // carries m, l and acc in VMEM scratch, over Sq and Sk padded to blocks).
 //
-// Bound on this card: the larger of the bytes (q, k, v read once, o
-// written once, over 3.35 TB/s) and the visible score and PV operations
-// (4 * B * H * sum over rows of the keys each row sees * D, over
-// 989 TFLOP/s for bf16). At the serving prefill shapes it is the bytes.
-//
 // Semantics are the plain version's (kernels/ref.py attention_ref): GQA
 // (query head h reads kv head h / (H / Hkv)), a causal mask at a global
 // q_offset, a sliding window (key kept iff col > row - window), prefix_len
-// keys visible to every row, a softcap softcap * tanh(s / softcap), and
-// a ragged Sk with no padding copy. A masked key contributes exactly 0
-// (it is skipped, never filled with -1e30 as the Pallas body does), so a
-// row that sees no key ends with l == 0 and writes 0.
+// keys visible to every row, a softcap softcap * tanh(s / softcap), a
+// ragged Sk and any D from 1 to 256, with no padding copy in device
+// memory. A masked key contributes exactly 0, so a row that sees no key
+// ends with l == 0 and writes 0.
 //
-// This first design: one block of 4 warps per (batch, head, 16-row query
-// tile). The query tile is staged once in shared memory as float32; the
-// keys and values are looped over in tiles of 32, staged in shared memory
-// in the input dtype with an odd word stride per row (no bank conflicts
-// when lane j reads key j). Each warp owns 4 query rows: lane j computes
-// the score of key j for its 4 rows, the warp reduces the tile's max and
-// sum by butterfly shuffles, and each lane keeps D/32 output columns of
-// the float32 accumulator in registers. Key tiles wholly outside the
-// causal and window range of the block's rows are skipped. There are no
-// atomics and every sum runs in one fixed order, so the same inputs give
-// the same bits run after run. No tensor cores, wgmma or TMA yet: those
-// are later work.
+// Bound on this card: the larger of the bytes (q, k, v read once, o
+// written once, over 3.35 TB/s) and the visible score and PV operations
+// (4 * B * H * sum over rows of the keys each row sees * D, over
+// 989 TFLOP/s for bf16). At both serving prefills it is the bytes:
+// granite-moe [1, 24, 512, 64] causal 0.00125 ms, recurrentgemma
+// [1, 10, 512, 256] over one kv head 0.00172 ms. Neither shape fills the
+// card (192 and 80 blocks of 64 rows), so what sets the time is each
+// block's latency: how fast one block streams its key tiles through the
+// tensor cores.
+//
+// bfloat16 / float16 (the serving path), FlashAttention-2's design:
+// * A block of 4 warps owns 64 query rows of one (batch, head), 16 rows a
+//   warp. The query tile is loaded once; keys and values stream through a
+//   2-stage ring of 64-key tiles filled by 16-byte cp.async copies, so the
+//   next tile's load overlaps this one's products (at D = 256 the ring and
+//   the query tile take 165 KB, one block an SM; 32-key tiles there, which
+//   fit two, were 10 % slower on the card). Rows past Sk and columns past D land as zeros (src-size 0);
+//   D is padded to 64, 128 or 256 in shared memory only (three
+//   instantiations a dtype keep the build near 15 s), and rows are 8
+//   elements wider than that, so ldmatrix reads no bank twice.
+// * S = Q K^T and O = P V run on the tensor cores: mma.sync.m16n8k16
+//   with float32 accumulators, A and B fed by ldmatrix (.trans for V).
+// * The online softmax stays in registers in the accumulator layout: each
+//   thread holds two rows' scores, reduces their max across the 4 lanes of
+//   its quad, and rescales its slice of O. P is rounded to bf16 (f16) in
+//   registers and used directly as the A operand of the PV product, as
+//   FlashAttention-2 does; the row sums l add the unrounded P in float32.
+// * Masks cost only where they cut a tile: a key tile the block sees
+//   whole takes no per-element test, a tile it cannot see is skipped
+//   (causal tail, window head), and only tiles that straddle the causal
+//   diagonal, the window edge, the prefix end or Sk are masked.
+// * Blocks launch the heaviest query tiles first (the last ones under a
+//   causal mask), and the query heads of one kv group are adjacent in the
+//   grid, so their K and V tiles are read from L2.
+// * No atomics and no split across blocks: every sum runs in one fixed
+//   order, so the same inputs give the same bits run after run.
+// D = 8, 24 or 120 and other sizes whose rows are not 16-byte multiples,
+// or unaligned tensors, stage the same tiles with element loads.
+//
+// float32 (the tolerance tests only) keeps the first, scalar design: one
+// block of 4 warps per 16 query rows, lane j scoring key j of a 32-key
+// tile over the whole of D, butterfly shuffles for the max and the sum.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "sm90_tiles.cuh"
 
 #include <cmath>
 #include <cstddef>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 16 query rows per block
-constexpr int kBlockK = 32;                     // keys per tile: one per lane
-constexpr int kMaxD = 256;
-constexpr int kColsPerLane = kMaxD / 32;
+using namespace sm90;
+
 constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
+constexpr int kMaxD = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;  // [B, H, Sq, D]
@@ -68,14 +74,310 @@ struct Params {
   const void* v;  // [B, Hkv, Sk, D]
   void* o;        // [B, H, Sq, D]
   int n_batch, n_heads, n_kv_heads, sq, sk, dim;
-  int kv_stride;  // shared-memory row stride of the k and v tiles, in elements
+  int kv_stride;  // f32 kernel: shared-memory row stride of the k and v tiles
   float scale;
   int causal;
   int has_window, window;
   int has_softcap;
   float softcap;
   int q_offset, prefix_len;
+  int vec;  // 16-byte copies allowed: D % 8 == 0 and q, k, v 16-byte aligned
 };
+
+// ---------------------------------------------------------------------------
+// bfloat16 / float16: tensor cores, cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcRows = kTcWarps * 16;  // query rows per block
+
+constexpr int kTcKeys = 64;  // keys per tile
+
+template <int DP> struct TcTile {
+  static constexpr int LD = DP + 8;  // shared row stride, elements
+  static constexpr int SMEM_ELEMS = (kTcRows + 4 * kTcKeys) * LD;  // q + 2 stages of k, v
+};
+
+// dst[r][c] = src[r * dim + c] for r < rows and c < dim, else 0, for
+// r < R and c < DP: 16-byte cp.async copies (committed by the caller) when
+// vec, else element loads.
+template <typename T, int R, int DP, int LD>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows, int dim, bool vec) {
+  if (vec) {
+    constexpr int CH = DP / 8;
+    for (int i = threadIdx.x; i < R * CH; i += kTcThreads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 8;
+      const bool ok = r < rows && c < dim;
+      cp_async16(dst + r * LD + c, ok ? src + static_cast<size_t>(r) * dim + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DP; i += kTcThreads) {
+      const int r = i / DP;
+      const int c = i - r * DP;
+      dst[r * LD + c] =
+          (r < rows && c < dim) ? src[static_cast<size_t>(r) * dim + c] : from_f<T>(0.0f);
+    }
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
+  constexpr int BN = kTcKeys;
+  constexpr int LD = TcTile<DP>::LD;
+  constexpr int NB = BN / 8;  // 8-key column blocks of S
+  constexpr int DB = DP / 8;  // 8-wide column blocks of O
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [kTcRows][LD]
+  T* k_s = q_s + kTcRows * LD;              // [2][BN][LD]
+  T* v_s = k_s + 2 * BN * LD;               // [2][BN][LD]
+
+  // Block -> (query tile, batch, head): the last query tiles first, heads
+  // fastest (a kv group's heads adjacent).
+  const int n_qt = (p.sq + kTcRows - 1) / kTcRows;
+  const int bh = p.n_batch * p.n_heads;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh;
+  const int rem = static_cast<int>(blockIdx.x) - (n_qt - 1 - qt) * bh;
+  const int bi = rem / p.n_heads;
+  const int h = rem - bi * p.n_heads;
+  const int hk = h / (p.n_heads / p.n_kv_heads);
+  const int dim = p.dim;
+  const int q0 = qt * kTcRows;
+  const int rows_here = min(kTcRows, p.sq - q0);
+
+  const T* qg = static_cast<const T*>(p.q) +
+                ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
+  const T* kg = static_cast<const T*>(p.k) +
+                (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
+  const T* vg = static_cast<const T*>(p.v) +
+                (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
+  T* og = static_cast<T*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
+
+  // Which key tiles the block's rows (global positions row_lo..row_hi) see.
+  const int row_lo = p.q_offset + q0;
+  const int row_hi = row_lo + rows_here - 1;
+  const int n_kt = (p.sk + BN - 1) / BN;
+  int kt_end = n_kt;
+  if (p.causal) {  // no row sees a key past max(row_hi, prefix_len - 1)
+    const int last = max(row_hi, p.prefix_len - 1);
+    kt_end = last < 0 ? 0 : min(n_kt, last / BN + 1);
+  }
+  const int prefix_tiles = (p.prefix_len + BN - 1) / BN;
+  int window_tile = 0;  // tiles before it hold no key inside any row's window
+  if (p.has_window) {
+    const int lo = row_lo - p.window + 1;
+    window_tile = lo > 0 ? lo / BN : 0;
+  }
+  auto next_visible = [&](int kt) {
+    return (kt >= prefix_tiles && kt < window_tile) ? window_tile : kt;
+  };
+  // Every real row sees every key of the tile: no per-element mask.
+  auto whole = [&](int k0) {
+    const int c_hi = k0 + BN - 1;
+    if (c_hi >= p.sk) return false;
+    if (c_hi < p.prefix_len) return true;
+    if (p.causal && c_hi > row_lo) return false;
+    if (p.has_window && k0 <= row_hi - p.window) return false;
+    return true;
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int d16 = (dim + 15) >> 4;  // 16-column steps of D that hold data
+  const int row0 = row_lo + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const float qk_scale = p.scale * kLog2e;  // scores in the log2 domain
+
+  float o[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.0f, 0.0f};
+
+  int kt = next_visible(0);
+  if (kt < kt_end) {
+    stage_rows<T, kTcRows, DP, LD>(q_s, qg, rows_here, dim, p.vec);
+    stage_rows<T, BN, DP, LD>(k_s, kg + static_cast<size_t>(kt) * BN * dim,
+                              p.sk - kt * BN, dim, p.vec);
+    stage_rows<T, BN, DP, LD>(v_s, vg + static_cast<size_t>(kt) * BN * dim,
+                              p.sk - kt * BN, dim, p.vec);
+    cp_async_commit();
+  }
+  for (int stage = 0; kt < kt_end; stage ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed for every thread; the other stage is free
+    const int nxt = next_visible(kt + 1);
+    if (nxt < kt_end) {
+      const size_t off = static_cast<size_t>(nxt) * BN * dim;
+      stage_rows<T, BN, DP, LD>(k_s + (stage ^ 1) * BN * LD, kg + off, p.sk - nxt * BN, dim,
+                                p.vec);
+      stage_rows<T, BN, DP, LD>(v_s + (stage ^ 1) * BN * LD, vg + off, p.sk - nxt * BN, dim,
+                                p.vec);
+    }
+    cp_async_commit();
+    const T* ks = k_s + stage * BN * LD;
+    const T* vs = v_s + stage * BN * LD;
+    const int k0 = kt * BN;
+
+    // S = Q K^T for the warp's 16 rows and the tile's BN keys.
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      if (kk < d16) {
+        uint32_t a[4];
+        ldmatrix_x4(a, q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int nb = 0; nb < NB; nb += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, ks + (nb * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                             ((lane >> 3) & 1) * 8);
+          Mma<T>::run(s[nb], a, b[0], b[1]);
+          Mma<T>::run(s[nb + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // Scale, softcap and mask; element e of block nb is row row0 + 8 * (e / 2),
+    // key k0 + 8 * nb + 2 * t + e % 2.
+    const bool masked = !whole(k0);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nb][e];
+        x = p.has_softcap ? p.softcap * tanhf(x * p.scale / p.softcap) * kLog2e : x * qk_scale;
+        if (masked) {
+          const int col = k0 + nb * 8 + 2 * t + (e & 1);
+          const int row = row0 + (e >> 1) * 8;
+          bool vis = true;
+          if (p.causal) vis = col <= row;
+          if (p.has_window) vis = vis && col > row - p.window;
+          vis = (vis || col < p.prefix_len) && col < p.sk;
+          if (!vis) x = -INFINITY;
+        }
+        s[nb][e] = x;
+      }
+    }
+
+    // Online softmax: the quad's row max, rescale, P = 2^(s - m).
+    float mu[2], alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m_r[r], mx);
+      mu[r] = m_new == -INFINITY ? 0.0f : m_new;  // no key seen yet: every P is 0
+      alpha[r] = exp2f(m_r[r] - mu[r]);           // 0 while m_r is -inf
+      m_r[r] = m_new;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(s[nb][e] - mu[e >> 1]);
+        s[nb][e] = pe;
+        sum[e >> 1] += pe;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < DB; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V: P from registers as the A operand, V through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int db = 0; db < DB; db += 2) {
+        if (db * 8 < dim) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                   db * 8 + (lane >> 4) * 8);
+          Mma<T>::run(o[db], a, b[0], b[1]);
+          Mma<T>::run(o[db + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    kt = nxt;
+  }
+
+  // l over the quad, then O / l (0 for a row that saw no key).
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const float inv = l > 0.0f ? 1.0f / l : 0.0f;
+    const int local = warp * 16 + g + 8 * r;
+    if (local >= rows_here) continue;
+    T* orow = og + static_cast<size_t>(local) * dim;
+#pragma unroll
+    for (int db = 0; db < DB; ++db) {
+      const int col = db * 8 + 2 * t;
+      if (col >= dim) continue;
+      const float x0 = o[db][2 * r] * inv;
+      const float x1 = o[db][2 * r + 1] * inv;
+      if ((dim & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(orow + col) = Mma<T>::pack(x0, x1);
+      } else {
+        orow[col] = from_f<T>(x0);
+        if (col + 1 < dim) orow[col + 1] = from_f<T>(x1);
+      }
+    }
+  }
+}
+
+template <typename T, int DP>
+int launch_tc(Params p, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * TcTile<DP>::SMEM_ELEMS;
+  static bool opted_in = false;  // above 48 KB once per instantiation
+  if (smem > 48 * 1024 && !opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<T, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const int n_qt = (p.sq + kTcRows - 1) / kTcRows;
+  const int blocks = p.n_batch * p.n_heads * n_qt;
+  flash_tc_kernel<T, DP><<<blocks, kTcThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tc_dim(Params p, cudaStream_t stream) {
+  if (p.dim <= 64) return launch_tc<T, 64>(p, stream);
+  if (p.dim <= 128) return launch_tc<T, 128>(p, stream);
+  return launch_tc<T, 256>(p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// float32: scalar FMAs (the tolerance tests' path)
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 4;
+constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 16 query rows per block
+constexpr int kBlockK = 32;                     // keys per tile: one per lane
+constexpr int kColsPerLane = kMaxD / 32;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -91,13 +393,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int dim = p.dim;
-  float* q_s = reinterpret_cast<float*>(smem);                        // [kBlockQ][dim]
-  T* k_s = reinterpret_cast<T*>(smem + sizeof(float) * kBlockQ * dim);  // [kBlockK][kv_stride]
-  T* v_s = k_s + static_cast<size_t>(kBlockK) * p.kv_stride;
+  float* q_s = reinterpret_cast<float*>(smem);  // [kBlockQ][dim]
+  float* k_s = q_s + kBlockQ * dim;              // [kBlockK][kv_stride]
+  float* v_s = k_s + static_cast<size_t>(kBlockK) * p.kv_stride;
 
   const int n_qt = (p.sq + kBlockQ - 1) / kBlockQ;
   int blk = blockIdx.x;
@@ -109,16 +410,17 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
   const int q0 = qt * kBlockQ;
   const int rows_here = min(kBlockQ, p.sq - q0);
 
-  const T* qg = static_cast<const T*>(p.q) +
-                ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
-  const T* kg = static_cast<const T*>(p.k) +
-                (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
-  const T* vg = static_cast<const T*>(p.v) +
-                (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
-  T* og = static_cast<T*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
+  const float* qg = static_cast<const float*>(p.q) +
+                    ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
+  const float* kg = static_cast<const float*>(p.k) +
+                    (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
+  const float* vg = static_cast<const float*>(p.v) +
+                    (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
+  float* og =
+      static_cast<float*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
 
   for (int i = threadIdx.x; i < kBlockQ * dim; i += kThreads)
-    q_s[i] = i < rows_here * dim ? to_f<T>(qg[i]) : 0.0f;
+    q_s[i] = i < rows_here * dim ? qg[i] : 0.0f;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -158,9 +460,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.0f;
     if (key_ok) {
-      const T* krow = k_s + lane * p.kv_stride;
+      const float* krow = k_s + lane * p.kv_stride;
       for (int d = 0; d < dim; ++d) {
-        const float kd = to_f<T>(krow[d]);
+        const float kd = krow[d];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) s[r] += q_w[r * dim + d] * kd;
       }
@@ -189,11 +491,11 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
       for (int c = 0; c < kColsPerLane; ++c) acc[r][c] *= alpha;
       for (int jj = 0; jj < nk; ++jj) {
         const float pv = __shfl_sync(kFull, pj, jj);
-        const T* vrow = v_s + jj * p.kv_stride;
+        const float* vrow = v_s + jj * p.kv_stride;
 #pragma unroll
         for (int c = 0; c < kColsPerLane; ++c) {
           const int d = lane + 32 * c;
-          if (d < dim) acc[r][c] += pv * to_f<T>(vrow[d]);
+          if (d < dim) acc[r][c] += pv * vrow[d];
         }
       }
     }
@@ -207,33 +509,23 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) {
       const int d = lane + 32 * c;
-      if (d < dim) og[static_cast<size_t>(local) * dim + d] = from_f<T>(acc[r][c] * inv);
+      if (d < dim) og[static_cast<size_t>(local) * dim + d] = acc[r][c] * inv;
     }
   }
 }
 
-// Odd 32-bit-word stride for a row of ``dim`` elements, so that lane j's
-// read of row j, column d, falls in its own bank.
-int kv_stride_for(int dim, int elem) {
-  if (elem == 4) return dim | 1;
-  int s = dim;
-  while ((s * elem / 4) % 2 == 0 || (s * elem) % 4 != 0) ++s;
-  return s;
-}
-
-template <typename T>
-int launch(Params p, cudaStream_t stream) {
-  p.kv_stride = kv_stride_for(p.dim, sizeof(T));
-  const size_t smem = sizeof(float) * kBlockQ * p.dim + 2 * sizeof(T) * kBlockK * p.kv_stride;
+int launch_f32(Params p, cudaStream_t stream) {
+  p.kv_stride = p.dim | 1;  // odd word stride: lane j's read of row j in its own bank
+  const size_t smem = sizeof(float) * (kBlockQ * p.dim + 2 * kBlockK * p.kv_stride);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int n_qt = (p.sq + kBlockQ - 1) / kBlockQ;
   const int blocks = p.n_batch * p.n_heads * n_qt;
-  flash_kernel<T><<<blocks, kThreads, smem, stream>>>(p);
+  flash_f32_kernel<<<blocks, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,11 +541,12 @@ extern "C" int acs_flash_attention(const void* q, const void* k, const void* v, 
                                    float softcap, int q_offset, int prefix_len,
                                    void* stream) {
   if (dim < 1 || dim > kMaxD) return -1;
+  const int vec = dim % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   Params p{q, k, v, o, n_batch, n_heads, n_kv_heads, sq, sk, dim, 0, scale, causal,
-           has_window, window, has_softcap, softcap, q_offset, prefix_len};
+           has_window, window, has_softcap, softcap, q_offset, prefix_len, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
-  if (dtype == 2) return launch<__half>(p, s);
+  if (dtype == 0) return launch_f32(p, s);
+  if (dtype == 1) return launch_tc_dim<__nv_bfloat16>(p, s);
+  if (dtype == 2) return launch_tc_dim<__half>(p, s);
   return -1;
 }

@@ -14,43 +14,50 @@
 // float32 outside the tensor cores). At the MoE FFN's shapes it is the
 // bytes: granite-moe's decode reads 48 experts' [1536, 512] bf16 weights
 // for 48 rows (75.5 MB, 0.0226 ms); a 512-token prefill (M = 6144) moves
-// ~100 MB against 9.7 GFLOP (0.030 ms against 0.0098 ms).
+// ~100 MB against 9.7 GFLOP (0.030 ms against 0.0098 ms). Decode is a
+// GEMV per expert: the only way to its bound is enough bytes of w in
+// flight to cover the memory latency on every SM.
 //
-// This first design, simple and right:
-// * A block owns up to BM rows of ONE m-tile and 64 output columns. The
-//   grid's x axis walks m-tiles and, inside each, chunks of BM rows
-//   (ceil(block_m / BM) of them), so a block's rows always share a group,
-//   for any block_m >= 1: decode gives block_m = 1 (one expert row each),
-//   prefill 32-128. BM is 64 when block_m >= 64, else 16, to waste fewer
-//   rows on small tiles; the rows past the tile's end are staged as 0 and
-//   never stored.
+// float16 / bfloat16, one tiled kernel in two shapes, picked by block_m:
+// * A block owns up to BM rows of ONE m-tile and BN output columns. The
+//   grid walks n-tiles slowest, then m-tiles, then chunks of BM rows
+//   inside an m-tile (ceil(block_m / BM) of them), so a block's rows always
+//   share a group for any block_m >= 1, and the m-tiles of one group that
+//   follow each other in x run side by side while their w columns are in
+//   L2. Rows past the tile's end are staged as 0 and never stored.
+// * K streams through a 4-stage ring of (x, w) tiles filled by 16-byte
+//   cp.async copies: three tiles are in flight while the block multiplies
+//   the fourth. Rows past K and columns past N land as zeros (src-size
+//   0), so any K and N run with no padding copy of w.
+// * Products on the tensor cores: ldmatrix (.trans for w, which is
+//   row-major [K, N]) and mma.sync.m16n8k16 into float32 accumulators.
+// * The epilogue rounds the accumulators to x's dtype into shared memory
+//   and stores the tile with 16-byte writes.
+// * Decode (block_m <= 16): BM 16, BN 64, BK 64, 4 warps of 16 columns.
+//   The tile's few rows of x ride in the ring beside w (rows past block_m
+//   are zero-filled); a [1536, 512] expert splits into 8 blocks, so 48
+//   experts give 384 blocks, each with 24 KB of w in flight.
+// * Prefill: BM 128 (BM 64 when block_m <= 64), BN 128, BK 32, 8 warps of
+//   64 x 32 (32 x 32) outputs.
 // * The block reads its group id itself (the role of Pallas's scalar
 //   prefetch). An id outside [0, G) makes the block write nothing and set
 //   *err = 1; no load ever leaves w. The wrapper raises on the flag.
-// * K is looped over in tiles staged in shared memory (16-byte vector
-//   loads when K, N and the pointers allow, else element loads), with
-//   every edge bounds-checked: any K, and any N with no padding copy.
-// * float16 / bfloat16: WMMA 16x16x16 tensor-core products (mma.sync
-//   underneath) into float32 accumulator fragments, 4 warps a block; the
-//   tile goes through shared memory to the bounds-checked store.
-//   float32: a 256-thread FMA tile, each thread TM x 4 outputs.
 // * Deterministic: no split-K and no atomics; every output's sum runs over
 //   K in one fixed order, so the same inputs give the same bits.
-// wgmma, TMA and a multi-stage pipeline are later work.
+// K, N or pointers that do not allow 16-byte copies (K or N not a multiple
+// of 8) stage the same tiles with element loads.
+//
+// float32 keeps the first design: a 256-thread FMA tile of BM x 64, each
+// thread TM x 4 outputs, K staged synchronously in tiles of 16.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "sm90_tiles.cuh"
 
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kBN = 64;  // output columns per block
+using namespace sm90;
 
 struct Params {
   const void* x;            // [M, K]
@@ -60,28 +67,25 @@ struct Params {
   int* err;                 // [1], set to 1 by a block whose group id is bad
   int m, k, n, g, block_m;
   int chunks;               // blocks along M per m-tile: ceil(block_m / BM)
-  int vec_x, vec_w;         // 16-byte loads allowed for x / w
+  int m_tiles;              // M / block_m
+  int vec_x, vec_w;         // 16-byte copies allowed for x / w (and out)
 };
 
-// float32 -> the 16-bit output type, round to nearest even.
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-
-// The block's m-tile, first row, row count and group id; false (after
-// raising the flag) when the group id is outside [0, G).
+// The block's first row, row count, group id and first column; false
+// (after raising the flag) when the group id is outside [0, G).
 struct Tile {
-  int row0, rows, gid;
+  int row0, rows, gid, n0;
 };
 
-template <int BM>
+template <int BM, int BN>
 __device__ __forceinline__ bool block_tile(const Params& p, Tile* t) {
-  const int tile = blockIdx.x / p.chunks;
-  const int sub = blockIdx.x - tile * p.chunks;
-  t->row0 = tile * p.block_m + sub * BM;
-  t->rows = min(BM, p.block_m - sub * BM);
+  int id = static_cast<int>(blockIdx.x);
+  const int chunk = id % p.chunks;
+  id /= p.chunks;
+  const int tile = id % p.m_tiles;
+  t->n0 = (id / p.m_tiles) * BN;
+  t->row0 = tile * p.block_m + chunk * BM;
+  t->rows = min(BM, p.block_m - chunk * BM);
   t->gid = p.tile_groups[tile];
   if (t->gid < 0 || t->gid >= p.g) {
     if (threadIdx.x == 0) *p.err = 1;  // every writer stores the same value
@@ -90,20 +94,20 @@ __device__ __forceinline__ bool block_tile(const Params& p, Tile* t) {
   return true;
 }
 
-// dst[r * LD + c] = src[r * ld_src + c] for r < r_lim, c < c_lim, else 0.
-// With vec, 8 elements a load: c_lim and ld_src are multiples of 8 and src
-// is 16-byte aligned, so a vector is wholly inside or wholly outside.
+// dst[r * LD + c] = src[r * ld_src + c] for r < r_lim and c < c_lim, else
+// 0, for r < R and c < C: 16-byte cp.async copies (c_lim and ld_src are
+// multiples of 8 and src is 16-byte aligned, so a copy is wholly inside or
+// wholly outside) when vec, else element loads.
 template <typename T, int R, int C, int LD, int kThreads>
 __device__ __forceinline__ void stage(T* dst, const T* src, size_t ld_src, int r_lim,
                                       int c_lim, bool vec) {
   if (vec) {
-    constexpr int V = C / 8;
-    for (int i = threadIdx.x; i < R * V; i += kThreads) {
-      const int r = i / V;
-      const int c = (i - r * V) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < r_lim && c < c_lim) v = *reinterpret_cast<const uint4*>(src + r * ld_src + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+    constexpr int CH = C / 8;
+    for (int i = threadIdx.x; i < R * CH; i += kThreads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 8;
+      const bool ok = r < r_lim && c < c_lim;
+      cp_async16(dst + r * LD + c, ok ? src + r * ld_src + c : src, ok);
     }
   } else {
     for (int i = threadIdx.x; i < R * C; i += kThreads) {
@@ -114,102 +118,155 @@ __device__ __forceinline__ void stage(T* dst, const T* src, size_t ld_src, int r
   }
 }
 
-// float16 / bfloat16 on the tensor cores. WM x WN warps; each warp owns
-// FM x FN fragments of 16 x 16.
-template <typename T, int BM, int WM, int WN>
+template <int BM, int BN, int BK, int WM, int WN, int STAGES>
+struct TcShape {
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int LDA = BK + 8;  // shared row strides: 16-byte multiples, and
+  static constexpr int LDB = BN + 8;  // 8 rows of an ldmatrix hit 8 distinct bank groups
+  static constexpr int LDC = BN + 8;
+  static constexpr int A_ELEMS = BM * LDA;
+  static constexpr int STAGE_ELEMS = A_ELEMS + BK * LDB;
+  static constexpr int SMEM_ELEMS =
+      STAGES * STAGE_ELEMS > BM * LDC ? STAGES * STAGE_ELEMS : BM * LDC;
+};
+
+// float16 / bfloat16 on the tensor cores. WM x WN warps, each owning a
+// (BM / WM) x (BN / WN) block of outputs: FM x FN mma tiles of 16 x 8.
+template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES>
 __global__ void __launch_bounds__(WM * WN * 32)
-gmm_tc_kernel(Params p) {
-  constexpr int kThreads = WM * WN * 32;
-  constexpr int BK = 64;
-  constexpr int FM = BM / (WM * 16);
-  constexpr int FN = kBN / (WN * 16);
-  static_assert(FM * WM * 16 == BM && FN * WN * 16 == kBN, "warp tiling");
-  // Row strides: 16-byte aligned rows (WMMA and the vector stores need
-  // it), an odd number of 16-byte units (fewer bank conflicts).
-  constexpr int LDA = BK + 8;
-  constexpr int LDB = kBN + 8;
-  constexpr int LDC = kBN + 4;  // float32
-  constexpr int A_BYTES = BM * LDA * static_cast<int>(sizeof(T));
-  constexpr int B_BYTES = BK * LDB * static_cast<int>(sizeof(T));
-  constexpr int C_BYTES = BM * LDC * 4;
-  constexpr int SMEM = (A_BYTES + B_BYTES) > C_BYTES ? (A_BYTES + B_BYTES) : C_BYTES;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  T* as = reinterpret_cast<T*>(smem);
-  T* bs = reinterpret_cast<T*>(smem + A_BYTES);
-  float* cs = reinterpret_cast<float*>(smem);  // reused after the K loop
+gmm_tc_kernel(const Params p) {
+  using S = TcShape<BM, BN, BK, WM, WN, STAGES>;
+  constexpr int kThreads = S::kThreads;
+  constexpr int WTM = BM / WM;
+  constexpr int WTN = BN / WN;
+  constexpr int FM = WTM / 16;
+  constexpr int FN = WTN / 8;
+  static_assert(FM * 16 == WTM && FN * 8 == WTN && FN % 2 == 0, "warp tiling");
+  static_assert(BK % 16 == 0 && BN % 8 == 0, "tile shape");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   Tile t;
-  if (!block_tile<BM>(p, &t)) return;
-  const int n0 = blockIdx.y * kBN;
+  if (!block_tile<BM, BN>(p, &t)) return;
   const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(t.row0) * p.k;
-  const T* w = static_cast<const T*>(p.w) + static_cast<size_t>(t.gid) * p.k * p.n + n0;
+  const T* w = static_cast<const T*>(p.w) + static_cast<size_t>(t.gid) * p.k * p.n + t.n0;
+  const int cols = min(BN, p.n - t.n0);
+  const int nk = (p.k + BK - 1) / BK;
 
-  const int warp = threadIdx.x / 32;
+  auto load = [&](int kt, int slot) {
+    T* as = smem + slot * S::STAGE_ELEMS;
+    T* bs = as + S::A_ELEMS;
+    const int k0 = kt * BK;
+    stage<T, BM, BK, S::LDA, kThreads>(as, x + k0, p.k, t.rows, p.k - k0, p.vec_x);
+    stage<T, BK, BN, S::LDB, kThreads>(bs, w + static_cast<size_t>(k0) * p.n, p.n, p.k - k0,
+                                       cols, p.vec_w);
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int wm = warp / WN;
   const int wn = warp - wm * WN;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  float acc[FM][FN][4];
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int j = 0; j < FN; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
 
-  for (int k0 = 0; k0 < p.k; k0 += BK) {
-    stage<T, BM, BK, LDA, kThreads>(as, x + k0, p.k, t.rows, p.k - k0, p.vec_x);
-    stage<T, BK, kBN, LDB, kThreads>(bs, w + static_cast<size_t>(k0) * p.n, p.n, p.k - k0,
-                                     p.n - n0, p.vec_w);
+  // Ring: tiles 0 .. STAGES-2 in flight before the loop; iteration kt waits
+  // for tile kt, then refills the slot iteration kt-1 read (the barrier
+  // says every thread is done with it) with tile kt + STAGES - 1.
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load(nxt, nxt % STAGES);
+    cp_async_commit();
+
+    const T* as = smem + (kt % STAGES) * S::STAGE_ELEMS;
+    const T* bs = as + S::A_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[FN];
+      uint32_t a[FM][4];
+      uint32_t b[FN / 2][4];
 #pragma unroll
       for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * FM + i) * 16 * LDA + kk, LDA);
+        ldmatrix_x4(a[i], as + (wm * WTM + i * 16 + (lane & 15)) * S::LDA + kk + (lane >> 4) * 8);
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * LDB + (wn * FN + j) * 16, LDB);
+      for (int j = 0; j < FN / 2; ++j)
+        ldmatrix_x4_trans(b[j], bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::LDB +
+                                    wn * WTN + j * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        for (int j = 0; j < FN / 2; ++j) {
+          Mma<T>::run(acc[i][2 * j], a[i], b[j][0], b[j][1]);
+          Mma<T>::run(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
+        }
     }
-    __syncthreads();
   }
 
+  // Epilogue: round into shared memory (the ring is free once every copy
+  // has landed and every thread is past its last product), then 16-byte
+  // stores of the tile's live rows and columns.
+  cp_async_wait<0>();
+  __syncthreads();
+  T* cs = smem;  // [BM][LDC]
+  const int g = lane >> 2;
+  const int tq = lane & 3;
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cs + (wm * FM + i) * 16 * LDC + (wn * FN + j) * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
+    for (int j = 0; j < FN; ++j) {
+      const int r = wm * WTM + i * 16 + g;
+      const int c = wn * WTN + j * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(cs + r * S::LDC + c) = Mma<T>::pack(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<uint32_t*>(cs + (r + 8) * S::LDC + c) =
+          Mma<T>::pack(acc[i][j][2], acc[i][j][3]);
+    }
   __syncthreads();
-  T* out = static_cast<T*>(p.out) + static_cast<size_t>(t.row0) * p.n + n0;
-  const int cols = min(kBN, p.n - n0);
-  for (int i = threadIdx.x; i < t.rows * kBN; i += kThreads) {
-    const int r = i / kBN;
-    const int c = i - r * kBN;
-    if (c < cols) out[static_cast<size_t>(r) * p.n + c] = from_f<T>(cs[r * LDC + c]);
+  T* out = static_cast<T*>(p.out) + static_cast<size_t>(t.row0) * p.n + t.n0;
+  if (p.vec_w) {  // N % 8 == 0: whole 16-byte chunks of live columns
+    constexpr int CH = BN / 8;
+    for (int i = threadIdx.x; i < t.rows * CH; i += kThreads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 8;
+      if (c < cols)
+        *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * p.n + c) =
+            *reinterpret_cast<const uint4*>(cs + r * S::LDC + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < t.rows * BN; i += kThreads) {
+      const int r = i / BN;
+      const int c = i - r * BN;
+      if (c < cols) out[static_cast<size_t>(r) * p.n + c] = cs[r * S::LDC + c];
+    }
   }
 }
 
 // float32 with FMAs: 256 threads, thread (ty, tx) owns rows ty*TM .. +TM
 // and columns tx + 16*j, j < 4.
+constexpr int kF32BN = 64;
+
 template <int BM>
 __global__ void __launch_bounds__(256)
-gmm_f32_kernel(Params p) {
+gmm_f32_kernel(const Params p) {
   constexpr int kThreads = 256;
   constexpr int BK = 16;
   constexpr int TM = BM / 16;
   __shared__ float as[BK][BM + 1];  // transposed: as[k][row]
-  __shared__ float bs[BK][kBN];
+  __shared__ float bs[BK][kF32BN];
 
   Tile t;
-  if (!block_tile<BM>(p, &t)) return;
-  const int n0 = blockIdx.y * kBN;
+  if (!block_tile<BM, kF32BN>(p, &t)) return;
   const float* x = static_cast<const float*>(p.x) + static_cast<size_t>(t.row0) * p.k;
   const float* w =
-      static_cast<const float*>(p.w) + static_cast<size_t>(t.gid) * p.k * p.n + n0;
-  const int cols = min(kBN, p.n - n0);
+      static_cast<const float*>(p.w) + static_cast<size_t>(t.gid) * p.k * p.n + t.n0;
+  const int cols = min(kF32BN, p.n - t.n0);
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x - ty * 16;
 
@@ -226,9 +283,9 @@ gmm_f32_kernel(Params p) {
       const int c = i - r * BK;
       as[c][r] = (r < t.rows && c < klim) ? x[static_cast<size_t>(r) * p.k + k0 + c] : 0.0f;
     }
-    for (int i = threadIdx.x; i < BK * kBN; i += kThreads) {
-      const int r = i / kBN;
-      const int c = i - r * kBN;
+    for (int i = threadIdx.x; i < BK * kF32BN; i += kThreads) {
+      const int r = i / kF32BN;
+      const int c = i - r * kF32BN;
       bs[r][c] = (r < klim && c < cols) ? w[static_cast<size_t>(k0 + r) * p.n + c] : 0.0f;
     }
     __syncthreads();
@@ -247,7 +304,7 @@ gmm_f32_kernel(Params p) {
     __syncthreads();
   }
 
-  float* out = static_cast<float*>(p.out) + static_cast<size_t>(t.row0) * p.n + n0;
+  float* out = static_cast<float*>(p.out) + static_cast<size_t>(t.row0) * p.n + t.n0;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty * TM + i;
@@ -260,22 +317,42 @@ gmm_f32_kernel(Params p) {
   }
 }
 
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+dim3 grid_for(Params* p, int bm, int bn) {
+  p->chunks = (p->block_m + bm - 1) / bm;
+  p->m_tiles = p->m / p->block_m;
+  const long long blocks =
+      static_cast<long long>(p->m_tiles) * p->chunks * ((p->n + bn - 1) / bn);
+  return dim3(static_cast<unsigned>(blocks));
+}
+
+template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES>
+int launch_tc(Params p, cudaStream_t stream) {
+  using S = TcShape<BM, BN, BK, WM, WN, STAGES>;
+  constexpr size_t smem = sizeof(T) * S::SMEM_ELEMS;
+  static bool opted_in = false;  // above 48 KB once per instantiation
+  if (smem > 48 * 1024 && !opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(gmm_tc_kernel<T, BM, BN, BK, WM, WN, STAGES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const dim3 grid = grid_for(&p, BM, BN);
+  gmm_tc_kernel<T, BM, BN, BK, WM, WN, STAGES><<<grid, S::kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tc_shape(Params p, cudaStream_t stream) {
+  if (p.block_m <= 16) return launch_tc<T, 16, 64, 64, 1, 4, 4>(p, stream);  // decode
+  if (p.block_m <= 64) return launch_tc<T, 64, 128, 32, 2, 4, 4>(p, stream);
+  return launch_tc<T, 128, 128, 32, 2, 4, 4>(p, stream);
+}
 
 template <int BM>
-int launch(Params p, int dtype, cudaStream_t stream) {
-  p.chunks = (p.block_m + BM - 1) / BM;
-  const dim3 grid(static_cast<unsigned>((p.m / p.block_m) * p.chunks), (p.n + kBN - 1) / kBN);
-  // BM 64: 2 x 2 warps of 2 x 2 fragments; BM 16: 1 x 4 warps of one each.
-  constexpr int WM = BM == 64 ? 2 : 1;
-  constexpr int WN = BM == 64 ? 2 : 4;
-  if (dtype == 0) {
-    gmm_f32_kernel<BM><<<grid, 256, 0, stream>>>(p);
-  } else if (dtype == 1) {
-    gmm_tc_kernel<__nv_bfloat16, BM, WM, WN><<<grid, WM * WN * 32, 0, stream>>>(p);
-  } else {
-    gmm_tc_kernel<__half, BM, WM, WN><<<grid, WM * WN * 32, 0, stream>>>(p);
-  }
+int launch_f32(Params p, cudaStream_t stream) {
+  const dim3 grid = grid_for(&p, BM, kF32BN);
+  gmm_f32_kernel<BM><<<grid, 256, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,7 +378,9 @@ extern "C" int acs_grouped_matmul(const void* x, const void* w, const int* tile_
   p.g = g;
   p.block_m = block_m;
   p.vec_x = (k % 8 == 0) && aligned16(x);
-  p.vec_w = (n % 8 == 0) && aligned16(w);
+  p.vec_w = (n % 8 == 0) && aligned16(w) && aligned16(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return block_m >= 64 ? launch<64>(p, dtype, s) : launch<16>(p, dtype, s);
+  if (dtype == 0) return block_m >= 64 ? launch_f32<64>(p, s) : launch_f32<16>(p, s);
+  if (dtype == 1) return launch_tc_shape<__nv_bfloat16>(p, s);
+  return launch_tc_shape<__half>(p, s);
 }

@@ -6,7 +6,11 @@ through ``ops.attention``): GQA, a causal mask at a global ``q_offset``
 (decode: Sq = 1 against a cache), a sliding ``window``, ``prefix_len``
 keys visible to every query, a gemma2-style ``softcap`` and a ragged Sk.
 The kernel is the hand-written CUDA in ``csrc/flash_attention.cu`` (its
-header says what bounds it and how it is laid out). It computes what the
+header says what bounds it and how it is laid out): for bfloat16 and
+float16 both products on the tensor cores (``mma.sync``) with keys and
+values streamed through a 2-stage ``cp.async`` ring, P rounded to the
+input dtype before the PV product as FlashAttention-2 does; float32 (the
+tolerance tests) on scalar FMAs. It computes what the
 plain version :func:`~.ref.attention_ref` computes, fully masked rows
 included (they give 0, where the Pallas kernel gives the row's mean of
 ``v``).
@@ -23,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._nvcc import NVCC_FLAGS, CudaLibrary
+from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "build", "launches", "reset_launches", "SOURCE", "MAX_HEAD_DIM"]
@@ -60,6 +64,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 _LIB = CudaLibrary(SOURCE, _bind, _FLAGS)
+_ENTRY = None  # the bound C entry point, looked up at the first launch
 
 
 def build() -> Tuple[Path, float]:
@@ -110,15 +115,17 @@ def flash_attention(
             raise ValueError(f"flash_attention: {name} must be contiguous")
     scale = float(scale if scale is not None else 1.0 / dim ** 0.5)
     out = torch.empty_like(q)
-    err = _LIB.get().acs_flash_attention(
+    global _ENTRY, launches
+    if _ENTRY is None:
+        _ENTRY = _LIB.get().acs_flash_attention
+    err = _ENTRY(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         n_batch, n_heads, n_kv, sq, sk, dim, _DTYPES[q.dtype], scale, int(causal),
         int(window is not None), int(window or 0),
         int(softcap is not None), float(softcap or 0.0),
         int(q_offset), int(prefix_len),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    global launches
     launches += 1
     return out

@@ -9,9 +9,16 @@ FFN's three expert products (``models/ffn.py`` ``apply_moe``: the
 ``[E_pad * C, D]`` capacity layout, ``block_m = C``, one tile per expert)
 and any ragged stream of same-shape expert tasks. The kernel is the
 hand-written CUDA in ``csrc/grouped_matmul.cu`` (its header says what
-bounds it and how it is laid out): any ``block_m >= 1``, any N with no
-padding copy, tensor cores for float16 and bfloat16, FMAs for float32, and
-the same bits for the same inputs run after run.
+bounds it and how it is laid out): any ``block_m >= 1``, any K and N with
+no padding copy, tensor cores fed by a 4-stage ``cp.async`` ring for
+float16 and bfloat16 (a GEMV-shaped tile for ``block_m <= 16``, 128-row
+tiles for prefill), FMAs for float32, and the same bits for the same
+inputs run after run.
+
+The wrapper is on the MoE decode step's path 96 times a step, so its host
+work is kept short: the C entry point is looked up once, the shape and
+dtype checks run once per shape (cached), and the stream handle comes
+from PyTorch's raw accessor.
 
 A group id outside ``[0, G)`` never makes the kernel read outside ``w``:
 its tile writes nothing and sets an error flag. With ``err=None`` the
@@ -34,7 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._nvcc import CudaLibrary
+from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
 from .ref import grouped_matmul_ref
 
 __all__ = ["grouped_matmul", "raise_on_error", "build", "launches", "reset_launches",
@@ -65,7 +72,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.acs_grouped_matmul.restype = i32
 
 
-_LIB = CudaLibrary(SOURCE, _bind)
+# Held to its plain version within a tolerance, not bit for bit: it may
+# contract multiply-adds.
+_LIB = CudaLibrary(SOURCE, _bind, tuple(f for f in NVCC_FLAGS if f != "-fmad=false"))
+_ENTRY = None  # the bound C entry point, looked up at the first launch
+# (shapes, dtypes, block_m) that passed _check: checked once each.
+_CHECKED = set()
 
 
 def build() -> Tuple[Path, float]:
@@ -100,9 +112,12 @@ def _check(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor, block_m:
                         f"{sorted(map(str, _DTYPES))}, got {x.dtype}, {w.dtype}")
     if tile_groups.dtype != torch.int32:
         raise TypeError(f"grouped_matmul: tile_groups must be int32, got {tile_groups.dtype}")
-    for name, t in (("w", w), ("tile_groups", tile_groups)):
-        if t.device != x.device:
-            raise ValueError(f"grouped_matmul: {name} is on {t.device}, x on {x.device}")
+
+
+def _check_devices(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor) -> None:
+    if w.device != x.device or tile_groups.device != x.device:
+        raise ValueError(f"grouped_matmul: w is on {w.device}, tile_groups on "
+                         f"{tile_groups.device}, x on {x.device}")
 
 
 def grouped_matmul(
@@ -116,31 +131,36 @@ def grouped_matmul(
     """``[M, N]`` in ``x``'s dtype, float32 inside. Launches on the current
     CUDA stream; without ``err`` it then syncs once to check the group
     ids."""
-    _check(x, w, tile_groups, block_m)
+    key = (x.shape, w.shape, tile_groups.shape, x.dtype, w.dtype, tile_groups.dtype, block_m)
+    if key not in _CHECKED:
+        _check(x, w, tile_groups, block_m)
+        _CHECKED.add(key)
     if x.device.type == "cpu":
+        _check_devices(x, w, tile_groups)
         if tile_groups.numel() and not bool(((tile_groups >= 0)
                                              & (tile_groups < w.shape[0])).all()):
             raise ValueError("grouped_matmul: a tile's group id lies outside [0, G)")
         return grouped_matmul_ref(x, w, tile_groups, block_m=block_m)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
-    for name, t in (("x", x), ("w", w), ("tile_groups", tile_groups)):
-        if not t.is_contiguous():
-            raise ValueError(f"grouped_matmul: {name} must be contiguous")
+    _check_devices(x, w, tile_groups)
+    if not (x.is_contiguous() and w.is_contiguous() and tile_groups.is_contiguous()):
+        raise ValueError("grouped_matmul: x, w and tile_groups must be contiguous")
     own = err is None
     if own:
         err = torch.zeros(1, dtype=torch.int32, device=x.device)
-    if err.device != x.device or err.dtype != torch.int32 or err.numel() != 1:
+    elif err.device != x.device or err.dtype != torch.int32 or err.numel() != 1:
         raise ValueError("grouped_matmul: err must be one int32 on x's device")
     m, k = x.shape
     g, _, n = w.shape
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rc = _LIB.get().acs_grouped_matmul(
-        x.data_ptr(), w.data_ptr(), tile_groups.data_ptr(), out.data_ptr(), err.data_ptr(),
-        m, k, n, g, block_m, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    global _ENTRY, launches
+    if _ENTRY is None:
+        _ENTRY = _LIB.get().acs_grouped_matmul
+    rc = _ENTRY(x.data_ptr(), w.data_ptr(), tile_groups.data_ptr(), out.data_ptr(),
+                err.data_ptr(), m, k, n, g, block_m, _DTYPES[x.dtype], raw_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {rc}")
-    global launches
     launches += 1
     if own:
         raise_on_error(err)

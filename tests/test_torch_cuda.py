@@ -11,16 +11,25 @@
   three plan modes, each bit-equal to ``run_serial``;
 * ``lru_scan``: bit-equal to ``lru_scan_ref``, float32 and bfloat16;
 * ``flash_attention``: within tolerance of ``attention_ref`` over the CPU
-  tests' sweep and the serving shapes (float32 1e-4: summation order;
-  bfloat16 2e-2: output rounding), fully masked rows exactly 0, the same
+  tests' sweep, the serving shapes and the edges of the bfloat16 kernel's
+  tiles (Sq and Sk of 65, 127, 333, 2500; D of 8, 24, 64, 120, 128, 256;
+  the window edge and ``prefix_len`` inside a tile; float32 1e-4:
+  summation order; bfloat16 2e-2: P and the output rounded to bfloat16),
+  fully masked rows exactly 0 (a whole query tile of them too), the same
   bits on a second launch;
 * ``grouped_matmul``: within tolerance of ``grouped_matmul_ref`` over the
-  CPU tests' ragged cases, ``block_m`` 1 and 3, K and N off the tile and
-  the vector width, and the granite-moe-3b-a800m decode and prefill expert
-  shapes (float32 1e-4: summation order; float16 and bfloat16 8e-3, one
-  bfloat16 ulp: both sum in float32 and round once), the same bits on a
-  second launch, its error on bad group ids and its input checks; the MoE
-  FFN on the card against its CPU run;
+  CPU tests' ragged cases, ``block_m`` in {1, 2, 3, 15, 16, 17, 63, 64,
+  65, 70, 128} (both tile shapes and their edges), K and N off the 16-byte
+  copy width and the ring's tile widths, and the granite-moe-3b-a800m
+  decode and prefill expert shapes (float32 1e-4: summation order;
+  float16 and bfloat16 8e-3, one bfloat16 ulp: both sum in float32 and
+  round once), the same bits on a second launch, its error on bad group
+  ids and its input checks; the MoE FFN on the card against its CPU run;
+* the wave executor and the device window's step path: the
+  ``bench_moe_waves`` expert stream with the benchmark's ``a @ b`` task
+  through ``WaveScheduler`` and ``DeviceWindowRunner`` (wave and frontier)
+  bit-equal to ``run_serial`` (contraction groups run task by task on the
+  card);
 * the wrappers' input checks, and model prefills that launch the kernels.
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
@@ -370,6 +379,19 @@ FLASH = {
     "recurrentgemma_prefill": ((1, 10, 1, 333, 333, 256), {"window": 2048}),
     "recurrentgemma_window": ((1, 10, 1, 2500, 2500, 256), {"window": 2048}),
     "danube_prefill": ((1, 32, 8, 300, 300, 120), {"window": 4096}),
+    # The edges of the bfloat16 kernel's tiles: 64 query rows, 64 keys, D
+    # padded to 64/128/256, 16-byte copies at D % 8 == 0.
+    "granite_prefill": ((1, 24, 8, 127, 127, 64), {}),
+    "one_past_a_tile": ((1, 4, 2, 65, 65, 64), {}),
+    "window_edge_in_tile": ((1, 4, 1, 127, 127, 128), {"window": 50}),
+    "d24_two_batches": ((2, 4, 2, 333, 333, 24), {}),
+    "d8_noncausal": ((1, 8, 8, 100, 100, 8), {"causal": False}),
+    "prefix_past_a_tile": ((1, 4, 2, 130, 200, 64), {"q_offset": 70, "prefix_len": 100}),
+    "window_softcap_d128": ((1, 2, 1, 127, 2500, 128),
+                            {"q_offset": 2373, "window": 300, "softcap": 20.0}),
+    "decode_window_edge": ((1, 4, 4, 1, 2500, 128), {"q_offset": 2499, "window": 300}),
+    "d256_prefix_window": ((1, 2, 1, 100, 150, 256),
+                           {"q_offset": 50, "window": 40, "prefix_len": 33}),
 }
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -397,12 +419,21 @@ def test_flash_attention_matches_plain(device, name, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_fully_masked_rows_are_zero(device, dtype):
-    q, k, v = _qkv(device, "fully_masked_rows", dtype)
-    got = fa.flash_attention(q, k, v, q_offset=-4)
+@pytest.mark.parametrize("shape", [(1, 2, 2, 8, 8, 16), (1, 4, 2, 70, 70, 64)])
+def test_flash_attention_fully_masked_rows_are_zero(device, dtype, shape):
+    """Rows before the first key see nothing and write exactly 0: a few
+    rows of a tile, and (70 rows at offset -66) a whole 64-row tile."""
+    b, h, hkv, sq, sk, d = shape
+    rng = np.random.RandomState(sq)
+    q, k, v = (torch.from_numpy(rng.randn(b, n, s, d).astype(np.float32)).to(device, dtype)
+               for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
+    blind = sq - 4  # rows 0 .. blind - 1 lie before key 0
+    got = fa.flash_attention(q, k, v, q_offset=-blind)
     torch.cuda.synchronize()
-    assert bool((got[:, :, :4] == 0).all())
-    assert bool((got[:, :, 4:] != 0).any())
+    assert bool((got[:, :, :blind] == 0).all())
+    assert bool((got[:, :, blind:] != 0).any())
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, q_offset=-blind).float(),
+                               **FLASH_TOL[dtype])
 
 
 def test_kernel_wrappers_check_inputs(device):
@@ -465,6 +496,18 @@ GMM = {
     "granite_decode_down": (48, 512, 1536, 1, tuple(range(48))),
     "granite_prefill_gate": (48, 1536, 512, 128, tuple(range(48))),
     "granite_prefill_down": (48, 512, 1536, 128, tuple(range(48))),
+    # block_m at both tile shapes' edges (16 rows up to 16, 64 up to 64, 128
+    # above); K and N off 8 elements (the 16-byte copies) and off the ring's
+    # tile widths (BK 64 / 32, BN 64 / 128).
+    "k13_n11_bm1": (3, 13, 11, 1, (2, 0, 1, 1)),
+    "k96_n80_bm2": (8, 96, 80, 2, (0, 3, 3, 7, 1)),
+    "k40_n72_bm15": (4, 40, 72, 15, (1, 0, 3)),
+    "k128_n136_bm16": (5, 128, 136, 16, (4, 2, 2, 0)),
+    "k200_n24_bm17": (3, 200, 24, 17, (2, 2, 0)),
+    "k72_n264_bm63": (6, 72, 264, 63, (5, 1, 1, 3)),
+    "k1000_n128_bm64": (4, 1000, 128, 64, (3, 3, 0)),
+    "k52_n40_bm65": (3, 52, 40, 65, (1, 2)),
+    "k136_n200_bm128": (6, 136, 200, 128, (5, 0, 5)),
 }
 GMM_TOL = {torch.float32: 1e-4, torch.float16: 8e-3, torch.bfloat16: 8e-3}
 
@@ -566,3 +609,51 @@ def test_model_prefill_launches_the_grouped_gemm(device):
     torch.cuda.synchronize()
     assert fa.launches == 2 and gm.launches == 12
     assert bool(torch.isfinite(logits).all())
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_wave_scheduler_runs_the_expert_stream_bit_equal_to_serial(device):
+    """The ``bench_moe_waves`` expert stream with the benchmark's ``a @ b``:
+    a batched GEMM sums in another order than single ones on the card, so
+    the wave executor runs this contraction's group task by task, and the
+    buffers equal ``run_serial``'s bit for bit."""
+    from repro_torch.core import WaveScheduler
+    from repro_torch.core.executors import contraction_op
+
+    smoke = _chip_smoke()
+    tasks, _, outs = smoke.build_expert_stream(device, 0, smoke.expert_gemm)
+    run_serial(tasks, device=device)
+    serial = torch.stack([o.value for o in outs])
+    tasks, _, outs = smoke.build_expert_stream(device, 0, smoke.expert_gemm)
+    assert contraction_op(tasks[0]) == "mm"
+    report = WaveScheduler(window_size=32, device=device).run(tasks)
+    wave = torch.stack([o.value for o in outs])
+    torch.cuda.synchronize()
+    assert report.exec_stats["dispatches"] == len(tasks)  # one per task, as run
+    assert torch.equal(wave.view(torch.int32), serial.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["wave", "frontier"])
+def test_device_window_runs_the_expert_stream_bit_equal_to_serial(device, mode):
+    """The same stream through the device window's step path (one group of
+    21 GEMMs): one call per task on the card, bit-equal to ``run_serial``."""
+    smoke = _chip_smoke()
+    tasks, _, outs = smoke.build_expert_stream(device, 0, smoke.expert_gemm)
+    run_serial(tasks, device=device)
+    serial = torch.stack([o.value for o in outs])
+    tasks, _, outs = smoke.build_expert_stream(device, 0, smoke.expert_gemm)
+    report = DeviceWindowRunner(window_size=32, plan_mode=mode, device=device).run(tasks)
+    got = torch.stack([o.value for o in outs])
+    torch.cuda.synchronize()
+    assert report.wave_executor == "steps"
+    assert torch.equal(got.view(torch.int32), serial.view(torch.int32))

@@ -196,3 +196,82 @@ def test_expert_stream_serial_wave_and_one_grouped_gemm_agree(fn):
                              torch.from_numpy(tiles), block_m=xs.shape[1])
     np.testing.assert_allclose(one.numpy(), serial.reshape(one.shape).numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("fn, op", [("expert_gemm", "mm"), ("expert_gemm_exact", None)])
+def test_contraction_op_classifies_the_expert_fns(fn, op):
+    """``a @ b`` is a contraction; the exactly rounded fn (elementwise
+    multiplies and adds) is not. Both carry the opcode ``expert_gemm``:
+    the classification is cached by fn as well as by signature."""
+    from repro_torch.core.executors import contraction_op
+
+    smoke = _chip_smoke()
+    tasks, _, _ = smoke.build_expert_stream("cpu", 0, getattr(smoke, fn))
+    assert contraction_op(tasks[0]) == op
+
+
+@pytest.mark.parametrize("fn", ["expert_gemm", "expert_gemm_exact"])
+def test_expert_stream_cpu_dispatches_equal_the_reference(fn):
+    """On the CPU both fns' groups stay one vmapped call each, as in the
+    reference (whose benchmark task is ``a @ b``)."""
+    from benchmarks.bench_moe_waves import build_expert_stream as ref_stream
+
+    smoke = _chip_smoke()
+    tasks, _, _ = smoke.build_expert_stream("cpu", 0, getattr(smoke, fn))
+    r_tasks, _, _ = ref_stream(0)
+    ours = WaveScheduler(window_size=32, device="cpu").run(tasks)
+    theirs = RWaveScheduler(window_size=32).run(r_tasks)
+    assert ours.exec_stats["dispatches"] == theirs.exec_stats["dispatches"] < len(tasks)
+
+
+@pytest.mark.parametrize("fn, per_task", [("expert_gemm", True), ("expert_gemm_exact", False)])
+def test_wave_executor_on_a_cuda_device_runs_contraction_groups_task_by_task(
+        monkeypatch, fn, per_task):
+    """The executor's CUDA route, exercised on CPU tensors: with its device
+    set to ``cuda``, the ``a @ b`` group runs one call per task (one
+    dispatch each), the exact fn's group stays one call, and both leave
+    ``run_serial``'s bits."""
+    from repro_torch.core import FusedWaveExecutor
+    from repro_torch.core import executors
+
+    smoke = _chip_smoke()
+    fn = getattr(smoke, fn)
+    tasks, _, outs = smoke.build_expert_stream("cpu", 0, fn)
+    run_serial(tasks, device="cpu")
+    serial = torch.stack([o.value for o in outs])
+    tasks, _, outs = smoke.build_expert_stream("cpu", 0, fn)
+    monkeypatch.setattr(executors, "synchronize", lambda device: None)
+    ex = FusedWaveExecutor("cpu")
+    ex.device = torch.device("cuda")
+    report = WaveScheduler(window_size=32, executor=ex, device="cpu").run(tasks)
+    wave = torch.stack([o.value for o in outs])
+    assert report.exec_stats["dispatches"] == (len(tasks) if per_task else 1)
+    assert torch.equal(wave.view(torch.int32), serial.view(torch.int32))
+
+
+@pytest.mark.parametrize("per_task", [False, True])
+@pytest.mark.parametrize("mode", ["wave", "frontier"])
+def test_device_window_step_path_runs_the_expert_stream_bit_equal_to_serial(
+        monkeypatch, mode, per_task):
+    """The device window runs the ``a @ b`` expert stream on its step path
+    (one group of 21); vmapped, or (``per_task``, the card's route for a
+    contraction, forced on CPU tensors) one call per task, its buffers
+    equal ``run_serial``'s bit for bit."""
+    from repro_torch.core import DeviceWindowRunner
+    from repro_torch.core import device_dispatch
+
+    smoke = _chip_smoke()
+    tasks, _, outs = smoke.build_expert_stream("cpu", 0, smoke.expert_gemm)
+    run_serial(tasks, device="cpu")
+    serial = torch.stack([o.value for o in outs])
+    if per_task:
+        calls = []
+        monkeypatch.setattr(device_dispatch, "_per_task",
+                            lambda fn, sig, ins: calls.append(len(ins[0])) or True)
+    tasks, _, outs = smoke.build_expert_stream("cpu", 0, smoke.expert_gemm)
+    report = DeviceWindowRunner(window_size=32, plan_mode=mode, device="cpu").run(tasks)
+    wave = torch.stack([o.value for o in outs])
+    assert report.wave_executor == "steps"
+    assert torch.equal(wave.view(torch.int32), serial.view(torch.int32))
+    if per_task:
+        assert calls == [len(tasks)]  # one step group of 21, run task by task

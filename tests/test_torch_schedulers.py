@@ -5,6 +5,7 @@ policies schedule the same waves as the reference's."""
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_streams as S
 
@@ -141,3 +142,46 @@ def test_sink_stream_feeds_a_live_session():
     for _ in range(3):
         want = 1.5 * want + want + 1.0
     np.testing.assert_array_equal(a.value.numpy(), want)
+
+
+@pytest.mark.parametrize("stream", ["sim", "mixed_tag", "chain"])
+def test_contraction_op_keeps_elementwise_streams_fused(stream):
+    """The physics kernels (3-vector norms and sums) and ``LOOP_BRANCHES``
+    (elementwise) run no contraction: their wave groups stay one call on
+    the card too."""
+    from repro_torch.core.executors import contraction_op
+
+    _, tasks = S.STREAMS[stream]("port")
+    assert {t.opcode: contraction_op(t) for t in tasks} == {t.opcode: None for t in tasks}
+
+
+def _one_task(fn, *shapes):
+    pool = S.pool("port")
+    ins = tuple(pool.alloc(s, np.float32, value=np.ones(s, np.float32)) for s in shapes)
+    out = pool.alloc(shapes[0][:1], np.float32, value=np.zeros(shapes[0][:1], np.float32))
+    r, w = S.t_default_segments(ins, (out,))
+    return S.T.Task(opcode="probe", fn=fn, inputs=ins, outputs=(out,), read_segments=r,
+                    write_segments=w)
+
+
+@pytest.mark.parametrize("fn, shapes, want", [
+    (lambda a, b: (a @ b)[:, 0], [(8, 16), (16, 4)], "mm"),
+    (lambda a, b: torch.einsum("ik,kj->ij", a, b)[:, 0], [(8, 16), (16, 4)], "bmm"),
+    (lambda a: torch.nn.functional.linear(a, a)[:, 0], [(8, 16)], "mm"),
+    (lambda a: a.sum(-1), [(8, 33)], "sum"),
+    (lambda a: a.sum(-1), [(8, 32)], None),
+    (lambda a: torch.softmax(a, -1)[:, 0], [(8, 64)], "_softmax"),
+    (lambda a: torch.linalg.vector_norm(a, dim=-1), [(8, 3)], None),
+    (lambda a: (a * 2 + 1).amax(-1), [(8, 100)], None),
+])
+def test_contraction_op_finds_order_sensitive_ops(fn, shapes, want):
+    from repro_torch.core.executors import contraction_op
+
+    assert contraction_op(_one_task(fn, *shapes)) == want
+
+
+def test_contraction_op_counts_a_fn_meta_cannot_run():
+    from repro_torch.core.executors import contraction_op
+
+    got = contraction_op(_one_task(lambda a: a * float(a[0, 0]), (8, 4)))
+    assert got is not None and got.startswith("unknown")
