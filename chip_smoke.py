@@ -16,9 +16,17 @@ Phases, each fatal on failure (an exception, exit code != 0):
       flags and final ring are bit-equal to ``ready_queue_ref``;
    b. wave megakernel: bit-equal to ``wave_rows_ref`` over S in
       {1, 7, 32, 64} x D in {1, 37, 4096} (repeated input rows, a slot
-      reading its own out row); a bad descriptor raises;
-   c. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4},
-      S in {1, 37, 512, 2048}, D 2560, float32 and bfloat16;
+      reading its own out row); a bad descriptor raises. Its epoch entry
+      ``wave_epoch`` (one cooperative launch for a whole plan): bit-equal
+      to the plain step loop over random 40-step plans (self-reads, reads
+      of another slot's out row) at D in {37, 4096}, staged and with the
+      direct steps unstaged, and over steps wider than the co-resident
+      grid; a bad descriptor in a middle step raises at the check, and
+      every other slot and step still ran;
+   c. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4, 8},
+      S in {1, 37, 63, 64, 65, 512, 2048}, D in {2560, 1000, 7}, float32
+      and bfloat16 (both channel tiles, the 64-step time tile's edges,
+      element copies);
    d. ``flash_attention``: within tolerance of ``attention_ref`` (float32
       1e-4, bfloat16 2e-2) at the recurrentgemma-2b, h2o-danube-3-4b and
       granite-moe-3b-a800m prefill shapes and at the edges of the kernel's
@@ -50,13 +58,15 @@ Phases, each fatal on failure (an exception, exit code != 0):
    a. ``DeviceWindowRunner(plan_mode="loop")`` on the ready-queue kernel
       (one launch);
    b. ``DeviceWindowRunner(plan_mode="wave")`` and ``("frontier")`` on the
-      wave kernel (``wave_executor == "cuda"``, one launch per plan step;
-      wave widths and ``plan_active_fraction`` logged), and the cheetah
+      wave kernel (``wave_executor == "cuda"``, one epoch launch per run
+      whose steps equal the plan's; wave widths and
+      ``plan_active_fraction`` logged), and the cheetah
       stream (64 envs, 8 groups, 2 steps) through both modes on the step
       path;
    c. ``DeviceSession`` under each plan mode, the chain universe fed in 4
       interleaved chunks (loop epochs launch the ready-queue kernel, wave
-      and frontier epochs the wave kernel).
+      and frontier epochs the wave kernel: one launch per device
+      dispatch, its steps equal to the plan steps).
 5. ACS-SW main path: the cheetah physics stream (64 envs, 8 groups,
    5 steps) through the serial, wave and threaded (4 CUDA streams)
    schedulers, bit-equal across the three and finite.
@@ -79,12 +89,13 @@ Phases, each fatal on failure (an exception, exit code != 0):
    After each model's server runs, one more serving pass (2 requests)
    runs under ``torch.profiler`` for its device busy share (as in 8).
 7. Numbers: CUDA-event medians of each kernel and its plain version at
-   its main path's shape (the wave kernel at the widest wave the chain
-   universe's wave plan produced; SDPA for attention and ``torch.bmm`` for
-   the grouped GEMM as the library calls; flash at both serving models'
-   prefills), flash and the grouped GEMM also 20 launches back to back
-   beside their library calls, each kernel's bound, and the wall time of
-   each phase-4/5/6 policy and server.
+   its main path's shape (the wave kernel's epoch entry over the chain
+   universe's wave and frontier plans, staged and direct, and its
+   single-wave entry at the widest wave and at S = 32; SDPA for attention
+   and ``torch.bmm`` for the grouped GEMM as the library calls; flash at
+   both serving models' prefills), flash, the grouped GEMM and the scan
+   (prefill and decode) also 20 launches back to back, each kernel's
+   bound, and the wall time of each phase-4/5/6 policy and server.
 8. Device busy share: one more pass of each phase-4/5 policy under
    ``torch.profiler``; the union of the CUDA kernels' intervals over the
    pass's wall ("not measured" if the profiler records no kernel).
@@ -406,6 +417,79 @@ def phase_wave_vs_plain(device):
         check(False, "wave kernel: a descriptor row outside the slab did not raise")
     log(f"wave kernel == plain, bit for bit: S {set(WAVE_SWEEP_S)} x D {set(WAVE_SWEEP_D)}, "
         "float32")
+    phase_epoch_vs_plain(device)
+
+
+def random_plan(seed, n_steps, d, rows=48, min_slots=1, max_slots=6):
+    """A random plan of ``n_steps`` steps over a ``[rows, d]`` slab: unique
+    out rows per step, a step's first slot reading its own out row or
+    another slot's. Returns (slab [host], desc [host], offsets)."""
+    rng = np.random.RandomState(seed)
+    slab = (rng.randn(rows, d) * 0.5).astype(np.float32)
+    descs, offsets = [], [0]
+    for _ in range(n_steps):
+        s = rng.randint(min_slots, max_slots + 1)
+        outs = rng.choice(rows, s, replace=False)
+        ins = rng.randint(0, rows, (s, 2))
+        kind = rng.randint(3)
+        if kind == 1:
+            ins[0, 0] = outs[0]
+        elif kind == 2 and s > 1:
+            ins[0, 1] = outs[1]
+        ops = rng.randint(0, 2, s)
+        descs.append(np.concatenate([ops[:, None], ins, outs[:, None]], axis=1))
+        offsets.append(offsets[-1] + s)
+    return slab, np.concatenate(descs).astype(np.int32), offsets
+
+
+def plain_epoch(slab, desc, offsets, branches):
+    """The epoch's plain version on any device, in place: each step's
+    ``wave_rows_ref`` rows scattered to their out rows, step after step."""
+    from repro_torch.kernels.ref import wave_rows_ref
+
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        slab[desc[lo:hi, 3].long()] = wave_rows_ref(slab, desc[lo:hi], branches)
+    return slab
+
+
+def phase_epoch_vs_plain(device):
+    import torch
+    from repro_torch.kernels import wave_elementwise as we
+
+    br = wave_branches()
+    cases = [(seed, 40, d, {}) for seed in range(3) for d in (37, 4096)]
+    cases += [(5, 3, 4096, {"rows": 2516, "min_slots": 1250, "max_slots": 2500})]
+    for seed, n_steps, d, kw in cases:
+        slab_np, desc_np, offsets = random_plan(seed, n_steps, d, **kw)
+        desc = torch.from_numpy(desc_np).to(device)
+        want = plain_epoch(torch.from_numpy(slab_np).to(device), desc, offsets, br)
+        direct = we.direct_steps(desc_np, offsets)
+        for marks in (None, direct):
+            slab = torch.from_numpy(slab_np).to(device)
+            we.wave_epoch(slab, desc, offsets, branches=br, direct=marks)
+            torch.cuda.synchronize()
+            check(bit_equal(slab, want), f"wave epoch != plain (seed {seed}, D {d}, "
+                                         f"{'direct marks' if marks else 'staged'})")
+        log(f"wave epoch == plain, bit for bit: {n_steps} steps of up to "
+            f"{max(np.diff(offsets))} slots, D {d}, staged and with {sum(direct)} direct steps")
+    slab_np, desc_np, offsets = random_plan(9, 12, 64)
+    k = offsets[6]
+    want = plain_epoch(torch.from_numpy(slab_np).to(device),
+                       torch.from_numpy(np.delete(desc_np, k, axis=0)).to(device),
+                       [o - (o > k) for o in offsets], br)
+    desc_np[k, 3] = 10 ** 6
+    desc = torch.from_numpy(desc_np).to(device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    slab = torch.from_numpy(slab_np).to(device)
+    we.wave_epoch(slab, desc, offsets, branches=br, err=err)
+    try:
+        we.raise_on_error(err)
+    except ValueError as exc:
+        log(f"wave epoch: a bad descriptor in step 6 of 12 raises at the check ({exc})")
+    else:
+        check(False, "wave epoch: a bad descriptor in a middle step did not raise")
+    check(bit_equal(slab, want), "wave epoch: the slots and steps around a bad descriptor "
+                                 "did not all run")
 
 
 def _int_bits(t):
@@ -421,19 +505,21 @@ def phase_lru_vs_plain(device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    for b in (1, 4):
-        for s in (1, 37, 512, 2048):
-            for dtype in (torch.float32, torch.bfloat16):
-                a = torch.rand(b, s, 2560, generator=gen, device=device).to(dtype)
-                x = torch.randn(b, s, 2560, generator=gen, device=device).to(dtype)
-                h0 = torch.randn(b, 2560, generator=gen, device=device)
-                got = lru_scan(a, x, h0)
-                want = lru_scan_ref(a, x, h0)
-                torch.cuda.synchronize()
-                check(torch.equal(_int_bits(got), _int_bits(want)),
-                      f"lru_scan kernel != plain (B {b}, S {s}, {dtype})")
-    log("lru_scan kernel == plain, bit for bit: B {1, 4} x S {1, 37, 512, 2048} x D 2560, "
-        "float32 and bfloat16")
+    sweep_b, sweep_s, sweep_d = (1, 4, 8), (1, 37, 63, 64, 65, 512, 2048), (2560, 1000, 7)
+    for d in sweep_d:
+        for b in sweep_b:
+            for s in sweep_s:
+                for dtype in (torch.float32, torch.bfloat16):
+                    a = torch.rand(b, s, d, generator=gen, device=device).to(dtype)
+                    x = torch.randn(b, s, d, generator=gen, device=device).to(dtype)
+                    h0 = torch.randn(b, d, generator=gen, device=device)
+                    got = lru_scan(a, x, h0)
+                    want = lru_scan_ref(a, x, h0)
+                    torch.cuda.synchronize()
+                    check(torch.equal(_int_bits(got), _int_bits(want)),
+                          f"lru_scan kernel != plain (B {b}, S {s}, D {d}, {dtype})")
+    log(f"lru_scan kernel == plain, bit for bit: B {set(sweep_b)} x S {set(sweep_s)} x D "
+        f"{set(sweep_d)}, float32 and bfloat16")
 
 
 # (b, h, hkv, sq, sk, d), attention flags: the serving shapes, then the
@@ -699,21 +785,24 @@ def phase_acs_hw_waves(device):
             t0 = time.perf_counter()
             report = runner.run(tasks)
             walls[f"{label}/device_{mode}"] = time.perf_counter() - t0
-            launches = we.launches
+            launches, steps = we.launches, we.steps
             got = torch.stack([b.value for b in bufs])
             ex = report.exec_stats
             check(report.wave_executor == "cuda",
                   f"{label} {mode}: executor {report.wave_executor} "
                   f"({report.wave_kernel_refusal})")
-            check(launches == report.wave_kernel_launches == len(report.waves),
-                  f"{label} {mode}: {launches} wave-kernel launches for "
+            check(launches == report.wave_kernel_launches == 1,
+                  f"{label} {mode}: {launches} wave-kernel launches for one epoch")
+            check(steps == report.wave_kernel_steps == len(report.waves),
+                  f"{label} {mode}: the epoch kernel ran {steps} steps of "
                   f"{len(report.waves)} plan steps")
             check(bit_equal(got, expect), f"{label} {mode}: device window != run_serial")
             log(f"ACS-HW {label} {mode}: {len(tasks)} tasks in {len(report.waves)} plan "
                 f"steps (mean width {ex['mean_wave_width']:.3f}, max "
                 f"{ex['max_wave_width']}), plan_active_fraction "
                 f"{report.plan_active_fraction:.4f}, executor {report.wave_executor}, "
-                f"launches {launches}, bit-equal to run_serial; host spans: plan+lower "
+                f"launches {launches} running {steps} steps, bit-equal to run_serial; host "
+                f"spans: plan+lower "
                 f"{report.plan_seconds * 1e3:.3f} ms, payload "
                 f"{report.payload_seconds * 1e3:.3f} ms, pack {report.pack_seconds * 1e3:.3f} "
                 f"ms, kernels+sync {report.exec_stats['exec_seconds'] * 1e3:.3f} ms, unpack "
@@ -782,13 +871,14 @@ def phase_session(device):
                   f"DeviceSession loop: {rq.launches} ready-queue launches for "
                   f"{stats['loop_dispatches']} loop dispatches")
         else:
-            check(stats["wave_kernel_dispatches"] == stats["device_dispatches"] > 0
-                  and we.launches == len(session.stats.wave_widths),
-                  f"DeviceSession {mode}: {we.launches} wave-kernel launches, stats {stats}")
+            check(we.launches == stats["wave_kernel_dispatches"] == stats["device_dispatches"]
+                  > 0 and we.steps == len(session.stats.wave_widths),
+                  f"DeviceSession {mode}: {we.launches} wave-kernel launches running "
+                  f"{we.steps} steps, {len(session.stats.wave_widths)} plan steps, stats {stats}")
         keys = ("epochs", "device_dispatches", "loop_dispatches", "wave_kernel_dispatches",
                 "plan_cache_hits", "plan_cache_misses", "host_syncs", "host_syncs_d2h")
         log(f"DeviceSession {mode}: bit-equal to run_serial; ready-queue launches "
-            f"{rq.launches}, wave-kernel launches {we.launches}; "
+            f"{rq.launches}, wave-kernel launches {we.launches} ({we.steps} steps); "
             + ", ".join(f"{k} {stats[k]}" for k in keys))
     return walls
 
@@ -1089,6 +1179,7 @@ def numbers_lru(device, launches):
         elems = a.numel()
         ms_bound, by = bound((3 * elems + h0.numel()) * 4, 2 * elems, FP32_FLOP_PER_S)
         out[label] = dict(ms=median_ms(lambda: lru_scan(a, x, h0)),
+                          b2b_ms=back_to_back_ms(lambda: lru_scan(a, x, h0)),
                           plain_ms=median_ms(lambda: lru_scan_ref(a, x, h0)),
                           bound_ms=ms_bound, bound_by=by,
                           max_abs_err=float((got - want).abs().max()),
@@ -1107,7 +1198,9 @@ def numbers_lru(device, launches):
         "bound_ms": pre["bound_ms"],
         "bound_by": pre["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a linear recurrence
+        "back_to_back_ms": pre["b2b_ms"],
         "decode_ms": dec["ms"],
+        "decode_back_to_back_ms": dec["b2b_ms"],
         "decode_plain_ms": dec["plain_ms"],
         "decode_bound_ms": dec["bound_ms"],
         "shape": "prefill a, b [1, 512, 2560] f32; decode [1, 1, 2560] f32",
@@ -1243,26 +1336,100 @@ def numbers_gmm(device, launches):
     }
 
 
-def numbers_wave(device, launches, widest):
-    """The wave kernel at the widest wave of the chain universe's wave plan:
-    that step's own descriptors over the chain universe's slab."""
-    import torch
+def wave_program(device, tasks, mode):
+    """The chain universe lowered for the wave kernel under ``mode``'s plan,
+    as the device window lowers it: (program, the packed slab)."""
     from repro_torch.core import SlabArena
-    from repro_torch.core.device_dispatch import _wave_kernel_parts, plan_waves
+    from repro_torch.core.device_dispatch import _wave_kernel_parts, plan_frontier, plan_waves
+
+    plan = plan_waves(tasks, WINDOW) if mode == "wave" else plan_frontier(tasks, WINDOW)
+    arena = SlabArena()
+    arena.add_tasks(tasks)
+    prog, why = _wave_kernel_parts(plan, loop_registry(tasks), arena)
+    check(prog is not None, f"chain universe not wave-kernel eligible: {why}")
+    return prog, arena.pack(device)[prog.class_id]
+
+
+def epoch_ms(slab0, fn, runs=TIMED_RUNS, warmup=3):
+    """CUDA-event median of ``fn(slab)`` on a fresh copy of ``slab0`` each
+    run (the epoch updates its slab in place; the copy is outside the
+    events)."""
+    import torch
+
+    slab = slab0.clone()
+    for _ in range(warmup):
+        slab.copy_(slab0)
+        fn(slab)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        slab.copy_(slab0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(slab)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def numbers_epoch(device, tasks, mode):
+    """The epoch kernel over the chain universe's ``mode`` plan: its time
+    (direct steps unstaged, as the device window runs it, and every step
+    staged), the plain step loop's, and the bounds."""
+    import torch
+    from repro_torch.kernels.ops import LOOP_OPCODES
+    from repro_torch.kernels.wave_elementwise import wave_epoch
+
+    prog, slab0 = wave_program(device, tasks, mode)
+    desc = torch.from_numpy(prog.desc).to(device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    br, offs = prog.branches, prog.offsets
+    got = wave_epoch(slab0.clone(), desc, offs, branches=br, direct=prog.direct)
+    want = plain_epoch(slab0.clone(), desc, offs, br)
+    torch.cuda.synchronize()
+    d = slab0.shape[1]
+    flops_per_elem = {0: 3, 1: 2}  # axpy: mul, add, add; mul: mul, sub
+    flops = sum(flops_per_elem[LOOP_OPCODES[br[b]]] for b in prog.desc[:, 0]) * d
+    tables = (prog.desc.size + 2 * prog.n_steps + 1 + len(br)) * 4
+    # The function's bytes: every row it reads at all read once, every row
+    # it writes written once.
+    read_rows = len(set(prog.desc[:, 1].tolist()) | set(prog.desc[:, 2].tolist()))
+    written_rows = len(set(prog.desc[:, 3].tolist()))
+    ms_bound, by = bound((read_rows + written_rows) * d * 4 + tables, flops, FP32_FLOP_PER_S)
+    # Each step's rows through device memory (read rows + out rows per step).
+    step_bytes = sum((len(set(prog.desc[lo:hi, 1:3].flatten().tolist())) + hi - lo) * d * 4
+                     for lo, hi in zip(offs[:-1], offs[1:]))
+    return dict(
+        steps=prog.n_steps, direct_steps=sum(prog.direct), widest=max(np.diff(offs)),
+        matches_plain=bit_equal(got, want), max_abs_err=float((got - want).abs().max()),
+        ms=epoch_ms(slab0, lambda s: wave_epoch(s, desc, offs, branches=br, err=err,
+                                                direct=prog.direct)),
+        staged_ms=epoch_ms(slab0, lambda s: wave_epoch(s, desc, offs, branches=br, err=err)),
+        plain_ms=epoch_ms(slab0, lambda s: plain_epoch(s, desc, offs, br), runs=5, warmup=1),
+        bound_ms=ms_bound, bound_by=by,
+        step_bytes_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+        shape=f"{prog.n_steps} {mode} plan steps of 1-{max(np.diff(offs))} slots over slab "
+              f"{tuple(slab0.shape)} f32")
+
+
+def numbers_wave(device, launches, widest):
+    """The wave kernel as the main path runs it, one epoch launch over the
+    chain universe's wave plan (and over its frontier plan); then the
+    single-wave entry at the widest wave of that plan (that step's own
+    descriptors over the chain universe's slab) and at S = 32."""
+    import torch
     from repro_torch.kernels.ops import LOOP_OPCODES
     from repro_torch.kernels.ref import wave_rows_ref
     from repro_torch.kernels.wave_elementwise import wave_elementwise
 
     _, tasks = chain_universe(device)
-    plan = plan_waves(tasks, WINDOW)
-    arena = SlabArena()
-    arena.add_tasks(tasks)
-    prog, why = _wave_kernel_parts(plan, loop_registry(tasks), arena)
-    check(prog is not None, f"chain universe not wave-kernel eligible: {why}")
+    epoch = {mode: numbers_epoch(device, tasks, mode) for mode in ("wave", "frontier")}
+    wave, frontier = epoch["wave"], epoch["frontier"]
+    prog, slab = wave_program(device, tasks, "wave")
     i = max(range(prog.n_steps), key=lambda k: prog.offsets[k + 1] - prog.offsets[k])
     desc_np = prog.desc[prog.offsets[i]:prog.offsets[i + 1]]
     check(len(desc_np) == widest, f"widest wave {len(desc_np)} != the run's {widest}")
-    slab = arena.pack(device)[prog.class_id]
     desc = torch.from_numpy(desc_np).to(device)
     err = torch.zeros(1, dtype=torch.int32, device=device)
     got = wave_elementwise(slab, desc, branches=prog.branches)
@@ -1274,22 +1441,40 @@ def numbers_wave(device, launches, widest):
     br32 = wave_branches()
     flops_per_elem = {0: 3, 1: 2}  # axpy: mul, add, add; mul: mul, sub
     flops = sum(flops_per_elem[LOOP_OPCODES[prog.branches[b]]] for b in desc_np[:, 0]) * d
-    ms_bound, by = bound((rows_read + s) * d * 4 + desc.numel() * 4, flops, FP32_FLOP_PER_S)
+    single_bound, _ = bound((rows_read + s) * d * 4 + desc.numel() * 4, flops, FP32_FLOP_PER_S)
     return {
         "name": "wave_elementwise",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wave_elementwise.cu",
         "replaces": "src/repro/kernels/wave_elementwise.py:51",
         "launches": launches,
-        "matches_plain": bit_equal(got, want),
-        "max_abs_err": float((got - want).abs().max()),
-        "ms": median_ms(lambda: wave_elementwise(slab, desc, branches=prog.branches, err=err)),
-        "plain_ms": median_ms(lambda: wave_rows_ref(slab, desc, prog.branches)),
-        "bound_ms": ms_bound,
-        "bound_by": by,
+        "matches_plain": (wave["matches_plain"] and frontier["matches_plain"]
+                          and bit_equal(got, want)),
+        "max_abs_err": max(wave["max_abs_err"], frontier["max_abs_err"],
+                           float((got - want).abs().max())),
+        "ms": wave["ms"],
+        "plain_ms": wave["plain_ms"],
+        "bound_ms": wave["bound_ms"],
+        "bound_by": wave["bound_by"],
         "library_ms": None,  # no single PyTorch call computes an opcode-switched gather-apply
-        "shape": f"S {s} slots (the widest wave of the chain universe's wave plan) over slab "
-                 f"{tuple(slab.shape)} f32, {rows_read} distinct rows read",
+        "shape": f"wave_epoch: {wave['shape']} ({wave['direct_steps']} direct), one "
+                 f"cooperative launch",
+        "steps": wave["steps"],
+        "staged_ms": wave["staged_ms"],
+        "step_bytes_bound_ms": wave["step_bytes_bound_ms"],
+        "frontier_ms": frontier["ms"],
+        "frontier_staged_ms": frontier["staged_ms"],
+        "frontier_plain_ms": frontier["plain_ms"],
+        "frontier_bound_ms": frontier["bound_ms"],
+        "frontier_step_bytes_bound_ms": frontier["step_bytes_bound_ms"],
+        "frontier_shape": frontier["shape"],
+        # The single-wave entry, no longer on the main path.
+        "single_ms": median_ms(lambda: wave_elementwise(slab, desc, branches=prog.branches,
+                                                        err=err)),
+        "single_plain_ms": median_ms(lambda: wave_rows_ref(slab, desc, prog.branches)),
+        "single_bound_ms": single_bound,
+        "single_shape": f"S {s} slots (the widest wave of the chain universe's wave plan) "
+                        f"over slab {tuple(slab.shape)} f32, {rows_read} distinct rows read",
         # A 32-slot wave at the same width, for the launch-bound regime.
         "s32_ms": median_ms(lambda: wave_elementwise(slab32, desc32, branches=br32, err=err)),
         "s32_bound_ms": bound((len(set(desc32[:, 1:3].flatten().tolist())) + 32) * d * 4

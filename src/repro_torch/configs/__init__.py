@@ -2,8 +2,8 @@
 (a copy of ``repro/configs/``: pure data, no JAX).
 
 The port builds the models whose mixers and FFN it has (GQA global and
-local attention, RG-LRU, dense FFN); ``models.init_params`` raises
-``NotImplementedError`` for the others (MLA, Mamba, MoE, frontends).
+local attention, RG-LRU, dense and MoE FFN); ``models.init_params``
+raises ``NotImplementedError`` for the others (MLA, Mamba, frontends).
 
 Each module defines ``CONFIG`` with the exact published configuration
 (sources inline). ``SHAPES`` defines the assigned input-shape grid and

@@ -19,8 +19,9 @@ into integer tables, in one of three plan modes:
   (``kernels/wave_elementwise.py``, CUDA: one shape class of
   padding-free float32 1-D rows, no views, two inputs, one output, every
   fn its opcode's registered switch branch), each plan step lowers a
-  second time, to one ``[S, 4]`` descriptor table, and runs as ONE
-  ``wave_step`` launch in place of its groups.
+  second time, to one ``[S, 4]`` descriptor table, and the whole plan runs
+  as ONE persistent ``wave_epoch`` launch, in place on the slab, with a
+  grid barrier between steps where the host loop had a round per step.
 * ``"loop"``: the epoch lowers to a ready-queue program
   (`lower_epoch_program`): per-task operand rows, in-degrees, forward
   edges from :func:`~.scoreboard.dependency_arrays` and an initial ready
@@ -598,12 +599,16 @@ def _device_tables(tables: Sequence[Dict[str, np.ndarray]], runs,
 class WaveKernelProgram:
     """A plan lowered for the wave megakernel: one ``[S_i, 4]`` descriptor
     block ``(branch, in0_row, in1_row, out_row)`` per plan step, stacked
-    into ``desc`` with ``offsets[i]:offsets[i + 1]`` the rows of step i."""
+    into ``desc`` with ``offsets[i]:offsets[i + 1]`` the rows of step i;
+    ``direct[i]`` says step i may write its rows in place at once (no slot
+    reads a row another slot of the step writes), marked once per
+    program."""
 
     class_id: int
     branches: Tuple[Callable, ...]
     desc: np.ndarray      # [sum S_i, 4] int32
     offsets: Tuple[int, ...]
+    direct: Tuple[bool, ...]
 
     @property
     def n_steps(self) -> int:
@@ -653,22 +658,22 @@ def _wave_kernel_parts(plan: Sequence[Sequence[Task]], registry: DeviceOpRegistr
                        arena.address(t.inputs[1]).row, arena.address(t.outputs[0]).row)
             i += 1
         offsets.append(i)
-    return WaveKernelProgram(cids.pop(), tuple(branches), desc, tuple(offsets)), ""
+    from ..kernels.wave_elementwise import direct_steps
+
+    return WaveKernelProgram(cids.pop(), tuple(branches), desc, tuple(offsets),
+                             direct_steps(desc, offsets)), ""
 
 
 def _run_wave_kernel(slabs: List[torch.Tensor], program: WaveKernelProgram,
                      payload: Dict[str, Any], err: Optional[torch.Tensor]) -> List[torch.Tensor]:
-    """One ``wave_step`` launch per plan step over the program's slab; the
+    """The whole plan as ONE ``wave_epoch`` launch, in place on the
+    program's slab (the runner's and the session's own: no copy); the
     caller checks ``err`` where it syncs."""
-    from ..kernels.ops import wave_step
+    from ..kernels.wave_elementwise import wave_epoch
 
-    desc, offsets = payload["desc"], payload["offsets"]
-    slab = slabs[program.class_id]
-    for lo, hi in zip(offsets[:-1], offsets[1:]):
-        slab = wave_step(slab, desc[lo:hi], branches=program.branches, err=err)
-    out = list(slabs)
-    out[program.class_id] = slab
-    return out
+    wave_epoch(slabs[program.class_id], payload["desc"], payload["offsets"],
+               branches=program.branches, err=err, direct=program.direct)
+    return slabs
 
 
 def _wave_err(device: torch.device) -> Optional[torch.Tensor]:
@@ -877,10 +882,11 @@ def _kernel_executor(device: torch.device) -> str:
     return "cuda" if device.type == "cuda" else "ref"
 
 
-def _wave_launches() -> int:
+def _wave_counts() -> Tuple[int, int]:
+    """The wave kernel's (launches, epoch steps) counters."""
     from ..kernels import wave_elementwise
 
-    return wave_elementwise.launches
+    return wave_elementwise.launches, wave_elementwise.steps
 
 
 class DeviceWindowRunner:
@@ -908,7 +914,9 @@ class DeviceWindowRunner:
     plain version), False = never. ``report.wave_executor`` is ``"cuda"``,
     ``"ref"`` or ``"steps"`` (with ``report.wave_kernel_refusal`` saying
     why the kernel did not take the stream, and
-    ``report.wave_kernel_launches`` its launches); ``report.loop_executor``
+    ``report.wave_kernel_launches`` its launches, one per run on the card,
+    and ``report.wave_kernel_steps`` the plan steps they ran, equal to
+    ``len(report.waves)``); ``report.loop_executor``
     is ``"cuda"``, ``"ref"`` or ``"interpreter"``.
     """
 
@@ -1003,7 +1011,7 @@ class DeviceWindowRunner:
         t2 = time.perf_counter()
         slabs = arena.pack(self.device)
         t3 = time.perf_counter()
-        launches0 = _wave_launches()
+        launches0, steps0 = _wave_counts()
         if wave is not None:
             out_slabs = _run_wave_kernel(slabs, wave, payload, err)
         else:
@@ -1013,7 +1021,8 @@ class DeviceWindowRunner:
             from ..kernels.wave_elementwise import raise_on_error
 
             raise_on_error(err)
-        launches = _wave_launches() - launches0
+        launches, kernel_steps = _wave_counts()
+        launches, kernel_steps = launches - launches0, kernel_steps - steps0
         t4 = time.perf_counter()
         written = [operand_base(op) for t in tasks for op in t.outputs]
         arena.unpack(out_slabs, only=None if buffers is not None else written)
@@ -1030,6 +1039,7 @@ class DeviceWindowRunner:
             "steps" if wave is None else _kernel_executor(self.device))
         report.wave_kernel_refusal = refusal  # type: ignore[attr-defined]
         report.wave_kernel_launches = launches  # type: ignore[attr-defined]
+        report.wave_kernel_steps = kernel_steps  # type: ignore[attr-defined]
         return report
 
     def _execute_loop(self, tasks: List[Task],

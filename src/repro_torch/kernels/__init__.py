@@ -6,10 +6,11 @@ flash_attention  — online-softmax attention (CUDA, ``csrc/flash_attention.cu``
 grouped_matmul   — the ragged grouped GEMM of the MoE experts (CUDA,
                    ``csrc/grouped_matmul.cu``)
 lru_scan         — the RG-LRU diagonal recurrence (CUDA, ``csrc/lru_scan.cu``)
-wave_elementwise — the ACS-HW wave megakernel (CUDA, ``csrc/wave_elementwise.cu``)
+wave_elementwise — the ACS-HW wave megakernel, one wave or a whole epoch in one
+                   persistent launch (CUDA, ``csrc/wave_elementwise.cu``)
 
 ``ops.py`` holds the models' dispatch (``attention``, ``grouped_matmul``,
-``lru_scan``), ``register_device_ops``, the device window's ``wave_step``
+``lru_scan``), ``register_device_ops``, the reference's ``wave_step``
 and the fixed branch table the ready queue and the wave kernel share.
 ``tile_sweep.py`` times tile-shape variants of flash and the grouped GEMM
 on the card (``python -m repro_torch.kernels.tile_sweep``).

@@ -94,30 +94,6 @@ __device__ __forceinline__ bool block_tile(const Params& p, Tile* t) {
   return true;
 }
 
-// dst[r * LD + c] = src[r * ld_src + c] for r < r_lim and c < c_lim, else
-// 0, for r < R and c < C: 16-byte cp.async copies (c_lim and ld_src are
-// multiples of 8 and src is 16-byte aligned, so a copy is wholly inside or
-// wholly outside) when vec, else element loads.
-template <typename T, int R, int C, int LD, int kThreads>
-__device__ __forceinline__ void stage(T* dst, const T* src, size_t ld_src, int r_lim,
-                                      int c_lim, bool vec) {
-  if (vec) {
-    constexpr int CH = C / 8;
-    for (int i = threadIdx.x; i < R * CH; i += kThreads) {
-      const int r = i / CH;
-      const int c = (i - r * CH) * 8;
-      const bool ok = r < r_lim && c < c_lim;
-      cp_async16(dst + r * LD + c, ok ? src + r * ld_src + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * C; i += kThreads) {
-      const int r = i / C;
-      const int c = i - r * C;
-      dst[r * LD + c] = (r < r_lim && c < c_lim) ? src[r * ld_src + c] : from_f<T>(0.0f);
-    }
-  }
-}
-
 template <int BM, int BN, int BK, int WM, int WN, int STAGES>
 struct TcShape {
   static constexpr int kThreads = WM * WN * 32;

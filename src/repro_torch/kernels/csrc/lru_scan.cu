@@ -6,69 +6,172 @@
 //
 // Bound on this card: bytes. Each call reads a and b once ([B, S, D]),
 // reads h0 ([B, D]) and writes h ([B, S, D]): (3*B*S*D + B*D) * elem bytes
-// over 3.35 TB/s. It does two float operations per element, far below the
+// over 3.35 TB/s (recurrentgemma's prefill [1, 512, 2560] f32: 15.7 MB,
+// 0.0047 ms). It does two float operations per element, far below the
 // byte line.
 //
-// This first design: one thread per (batch, channel), neighbouring threads
-// on neighbouring channels, so every load of a[b, t, :] and b[b, t, :] and
-// every store of h[b, t, :] is coalesced. Each thread loops over t in order
-// with the carry in a float32 register; any S >= 1 runs with no padding
-// copy. The step is __fadd_rn(__fmul_rn(a, h), b): a multiply then an add,
-// each rounded, never contracted into a fused multiply-add (the file is
-// also built with -fmad=false). The plain version (kernels/ref.py
-// lru_scan_ref: h = a[:, t] * h + b[:, t], two eager kernels) rounds the
-// same way, so the two are bit-equal. B*D threads over B*D/128 blocks:
-// at B = 1, D = 2560 that is 20 blocks, and the recurrence's latency, not
-// the bytes, sets the time; splitting S across blocks with a second pass
-// is later work.
+// The recurrence is serial in t for each channel, and it stays serial
+// here: each step is __fadd_rn(__fmul_rn(a, h), b), a multiply then an
+// add, each rounded, never contracted into a fused multiply-add (the file
+// is built with -fmad=false), in time order. The plain version
+// (kernels/ref.py lru_scan_ref: h = a[:, t] * h + b[:, t], two eager
+// kernels) rounds the same way, so the two are bit-equal. A chunked
+// parallel scan would re-associate the carry and lose that.
+//
+// Time-tiled design (the first design, one thread per channel loading
+// straight from device memory, filled 20 of 132 SMs at B = 1, D = 2560 and
+// paid a memory latency per step):
+// * A block owns one batch row and a tile of C channels: C = 32 (a 128-byte
+//   float32 row segment) when that gives at least two blocks per SM, else
+//   C = 16 (recurrentgemma at B = 1, D = 2560: 160 blocks, not 20).
+// * a and b stream through a 3-stage ring of [T, C] time tiles in shared
+//   memory (T * C = 1024 elements: T = 32 or 64 steps), filled by 16-byte
+//   cp.async copies (csrc/sm90_tiles.cuh stage), so the loads of tiles
+//   k + 1 and k + 2 are in flight while tile k is scanned. Rows that are
+//   not 16-byte multiples (D * elem % 16 != 0, or an unaligned pointer)
+//   stage with element loads.
+// * The C scanning threads read their channel's steps from shared memory:
+//   the only serial chain left is the multiply and the add. Each h
+//   overwrites its b in the tile, and the whole block then stores the tile
+//   with 16-byte writes.
+// * Any B, S, D with no padding copy: the last time tile and the last
+//   channel tile are masked.
+//
+// Measured on an H100 80GB HBM3 at 700 W (kernels/scan_epoch_times.py,
+// the first design and this one in one call, device time from
+// torch.profiler): recurrentgemma's prefill [1, 512, 2560] f32 takes
+// 0.0105 ms (the first design 0.0296), 2.2x its byte bound; a decode
+// launch [1, 1, 2560] takes 0.0017 ms (0.0012), and there the wrapper's
+// host path, 15-30 us a call, sets the time. 59 registers (48 for
+// bfloat16), 24 KB (12 KB) of static shared memory, no spills.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90_tiles.cuh"
 
 #include <cstddef>
 
 namespace {
 
+using namespace sm90;
+
 constexpr int kThreads = 128;
+constexpr int kTileElems = 1024;  // T * C elements of a (and of b) per stage
+constexpr int kStages = 3;
+constexpr int kMaxDevices = 64;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, typename H>
-__global__ void __launch_bounds__(kThreads)
-lru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                const H* __restrict__ h0, T* __restrict__ out, int n_batch,
-                int seq, int dim) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // over B*D
-  if (idx >= n_batch * dim) return;
-  const int bi = idx / dim;
-  const int d = idx - bi * dim;
-  size_t off = static_cast<size_t>(bi) * seq * dim + d;
-  float h = to_f<H>(h0[idx]);
-#pragma unroll 4
-  for (int t = 0; t < seq; ++t, off += dim) {
-    h = __fadd_rn(__fmul_rn(to_f<T>(a[off]), h), to_f<T>(b[off]));
-    out[off] = from_f<T>(h);
+// src [R, C] from shared memory to dst rows r < r_lim, columns c < c_lim
+// (row stride ld_dst): 16-byte writes when vec (as in stage), else element
+// writes.
+template <typename T, int R, int C>
+__device__ __forceinline__ void unstage(T* dst, size_t ld_dst, const T* src, int r_lim,
+                                        int c_lim, bool vec) {
+  if (vec) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+    constexpr int CH = C / kPer;
+    for (int i = threadIdx.x; i < R * CH; i += kThreads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * kPer;
+      if (r < r_lim && c < c_lim) {
+        *reinterpret_cast<int4*>(dst + r * ld_dst + c) =
+            *reinterpret_cast<const int4*>(src + r * C + c);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * C; i += kThreads) {
+      const int r = i / C;
+      const int c = i - r * C;
+      if (r < r_lim && c < c_lim) dst[r * ld_dst + c] = src[r * C + c];
+    }
   }
 }
 
+template <typename T, typename H, int C>
+__global__ void __launch_bounds__(kThreads)
+lru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b, const H* __restrict__ h0,
+                T* __restrict__ out, int seq, int dim, int vec) {
+  constexpr int TT = kTileElems / C;  // time steps per tile
+  // The ring: a's stages, then b's ([kStages][kTileElems] each).
+  __shared__ __align__(16) unsigned char smem_raw[2 * kStages * kTileElems * sizeof(T)];
+  T* sa = reinterpret_cast<T*>(smem_raw);
+  T* sb = sa + kStages * kTileElems;
+
+  const int tiles_c = (dim + C - 1) / C;
+  const int bi = blockIdx.x / tiles_c;
+  const int c0 = (blockIdx.x - bi * tiles_c) * C;
+  const int c_lim = min(C, dim - c0);
+  const size_t base = static_cast<size_t>(bi) * seq * dim + c0;
+  const T* ga = a + base;
+  const T* gb = b + base;
+  T* go = out + base;
+  const int nt = (seq + TT - 1) / TT;
+
+  auto load = [&](int k) {
+    const size_t t0 = static_cast<size_t>(k) * TT;
+    const int r_lim = seq - k * TT;
+    T* ta = sa + (k % kStages) * kTileElems;
+    T* tb = sb + (k % kStages) * kTileElems;
+    stage<T, TT, C, C, kThreads>(ta, ga + t0 * dim, dim, r_lim, c_lim, vec);
+    stage<T, TT, C, C, kThreads>(tb, gb + t0 * dim, dim, r_lim, c_lim, vec);
+  };
+
+  // Ring: tiles 0 .. kStages-2 in flight before the loop; iteration k
+  // waits for tile k, refills the stage tile k-1 used, scans, stores.
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < nt) load(k);
+    cp_async_commit();
+  }
+  const int c = threadIdx.x;
+  const bool scans = c < c_lim;
+  float h = scans ? to_f<H>(h0[static_cast<size_t>(bi) * dim + c0 + c]) : 0.0f;
+  for (int k = 0; k < nt; ++k) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile k is in shared memory; tile k-1's store is done
+    if (k + kStages - 1 < nt) load(k + kStages - 1);
+    cp_async_commit();
+    const int rows = min(TT, seq - k * TT);
+    const T* ta = sa + (k % kStages) * kTileElems;
+    T* tb = sb + (k % kStages) * kTileElems;
+    if (scans) {
+#pragma unroll 8
+      for (int t = 0; t < rows; ++t) {
+        h = __fadd_rn(__fmul_rn(to_f<T>(ta[t * C + c]), h), to_f<T>(tb[t * C + c]));
+        tb[t * C + c] = from_f<T>(h);
+      }
+    }
+    __syncthreads();  // the tile's h is complete
+    unstage<T, TT, C>(go + static_cast<size_t>(k) * TT * dim, dim, tb, rows, c_lim, vec);
+  }
+}
+
+int sm_count() {
+  static int cache[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 132;
+  if (cache[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      return 132;
+    cache[dev] = n;
+  }
+  return cache[dev];
+}
+
 template <typename T, typename H>
-int launch(const void* a, const void* b, const void* h0, void* out, int n_batch,
-           int seq, int dim, cudaStream_t stream) {
-  const int n = n_batch * dim;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  lru_scan_kernel<T, H><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const H*>(h0),
-      static_cast<T*>(out), n_batch, seq, dim);
+int launch(const void* a, const void* b, const void* h0, void* out, int n_batch, int seq,
+           int dim, cudaStream_t stream) {
+  const bool vec = (static_cast<size_t>(dim) * sizeof(T)) % 16 == 0 && aligned16(a) &&
+                   aligned16(b) && aligned16(out);
+  const int tiles32 = n_batch * ((dim + 31) / 32);
+  const T* pa = static_cast<const T*>(a);
+  const T* pb = static_cast<const T*>(b);
+  const H* ph = static_cast<const H*>(h0);
+  T* po = static_cast<T*>(out);
+  if (tiles32 >= 2 * sm_count()) {
+    lru_scan_kernel<T, H, 32><<<tiles32, kThreads, 0, stream>>>(pa, pb, ph, po, seq, dim, vec);
+  } else {
+    const int tiles16 = n_batch * ((dim + 15) / 16);
+    lru_scan_kernel<T, H, 16><<<tiles16, kThreads, 0, stream>>>(pa, pb, ph, po, seq, dim, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
 // Tensor-core and async-copy building blocks shared by the port's tiled
-// kernels (flash_attention.cu, grouped_matmul.cu) on Hopper (sm_90a):
+// kernels (flash_attention.cu, grouped_matmul.cu, lru_scan.cu) on Hopper
+// (sm_90a):
 //
 // * cp_async16: one 16-byte cp.async global -> shared copy that zero-fills
 //   its destination when the source lies outside the tensor (src-size 0),
@@ -9,7 +10,11 @@
 //   the fragment layout of mma.sync;
 // * Mma<T>::run: mma.sync.m16n8k16, D = A * B + D with A 16x16 and B 16x8
 //   in bfloat16 or float16, accumulated in float32; Mma<T>::pack rounds two
-//   float32 values into one A-operand register.
+//   float32 values into one A-operand register;
+// * stage: a [R, C] tile from global into shared memory, 16-byte cp.async
+//   copies where rows allow them, element loads where they do not (also
+//   lru_scan.cu's time tiles); from_f / to_f convert float32 and the
+//   storage types.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -97,13 +102,49 @@ template <> struct Mma<__half> {
   }
 };
 
-// float32 -> the 16-bit storage types, round to nearest even.
+// float32 -> the storage types, round to nearest even (float32 as is).
 template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
+}
+
+// The storage types -> float32 (exact).
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
+
+// dst[r * LD + c] = src[r * ld_src + c] for r < r_lim and c < c_lim, else
+// 0, for r < R and c < C: 16-byte cp.async copies (c_lim and ld_src are
+// multiples of 16 / sizeof(T) and src is 16-byte aligned, so a copy is
+// wholly inside or wholly outside) when vec, else element loads. The
+// element path is for rows that are not 16-byte multiples.
+template <typename T, int R, int C, int LD, int kThreads>
+__device__ __forceinline__ void stage(T* dst, const T* src, size_t ld_src, int r_lim,
+                                      int c_lim, bool vec) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements per copy
+  static_assert(C % kPer == 0, "a staged row is whole 16-byte copies");
+  if (vec) {
+    constexpr int CH = C / kPer;
+    for (int i = threadIdx.x; i < R * CH; i += kThreads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * kPer;
+      const bool ok = r < r_lim && c < c_lim;
+      cp_async16(dst + r * LD + c, ok ? src + r * ld_src + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * C; i += kThreads) {
+      const int r = i / C;
+      const int c = i - r * C;
+      dst[r * LD + c] = (r < r_lim && c < c_lim) ? src[r * ld_src + c] : from_f<T>(0.0f);
+    }
+  }
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }

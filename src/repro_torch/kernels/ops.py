@@ -8,7 +8,9 @@ tensor launches the hand-written kernel or raises, a CPU tensor takes the
 plain version. There is no fallback from a failed build or launch.
 
 ``wave_step`` runs one ACS wave of elementwise tasks through the wave
-megakernel and scatters its rows back into the slab.
+megakernel and scatters its rows back into the slab (the reference's
+API; the device window runs a whole plan through
+``wave_elementwise.wave_epoch`` instead).
 
 ``LOOP_BRANCHES`` are elementwise, row-shape-preserving branches the
 device ready queue and the wave kernel may dispatch. They ARE the fns the test and smoke

@@ -6,10 +6,18 @@
 * wave megakernel: bit-equal to its plain version over S in {1, 7, 32, 64}
   x D in {1, 37, 4096} (repeated input rows, a slot reading its own out
   row), its error on bad descriptors, the wrapper's input checks; the
-  wave/frontier device window through it (one launch per plan step) and
-  on its step path (the physics stream), and the ``DeviceSession`` in all
-  three plan modes, each bit-equal to ``run_serial``;
-* ``lru_scan``: bit-equal to ``lru_scan_ref``, float32 and bfloat16;
+  epoch entry ``wave_epoch`` bit-equal to its plain version over random
+  plans (self-reads, reads of another slot's out row, steps wider than
+  the co-resident grid), on its staged and its direct path, with a bad
+  descriptor in a middle step (flagged; every other slot and step still
+  runs); the wave/frontier device window through it (one launch per run,
+  its steps equal to the plan's) and on its step path (the physics
+  stream), and the ``DeviceSession`` in all three plan modes, each
+  bit-equal to ``run_serial``;
+* ``lru_scan``: bit-equal to ``lru_scan_ref``, float32 and bfloat16, over
+  the time-tiled kernel's edges (D of 2560, 1000, 40, 7: both channel
+  tiles, 16-byte and element copies; B up to 8; S of 1, 63, 64, 65,
+  2048: around the 64-step tile);
 * ``flash_attention``: within tolerance of ``attention_ref`` over the CPU
   tests' sweep, the serving shapes and the edges of the bfloat16 kernel's
   tiles (Sq and Sk of 65, 127, 333, 2500; D of 8, 24, 64, 120, 128, 256;
@@ -260,6 +268,87 @@ def test_wave_wrapper_checks_inputs(device):
         we.wave_elementwise(slab, desc, branches=(lambda x, y: x + y,) * 2)
 
 
+def _epoch_plan(seed, n_steps, d, **kw):
+    """``chip_smoke.random_plan``: ``n_steps`` random steps over a
+    ``[48, d]`` slab with self-reads and reads of another slot's out row.
+    Returns (slab, desc, offsets) on the host."""
+    return _chip_smoke().random_plan(seed, n_steps, d, **kw)
+
+
+def _plain_epoch(slab, desc, offsets):
+    """The plain per-step loop on the CPU (the wrapper's plain path)."""
+    return we.wave_epoch(slab.cpu().clone(), desc.cpu(), offsets, branches=WAVE_BRANCHES)
+
+
+@pytest.mark.parametrize("d", [1, 37, 4096])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wave_epoch_bit_equal_to_plain(device, seed, d):
+    slab_np, desc_np, offsets = _epoch_plan(seed, 40, d)
+    desc = torch.from_numpy(desc_np).to(device)
+    want = _plain_epoch(torch.from_numpy(slab_np), desc, offsets)
+    direct = we.direct_steps(desc_np, offsets)
+    assert any(direct) and not all(direct)
+    for marks in (None, direct):  # the staged path, then the direct one where allowed
+        slab = torch.from_numpy(slab_np).to(device)
+        before, steps0 = we.launches, we.steps
+        out = we.wave_epoch(slab, desc, offsets, branches=WAVE_BRANCHES, direct=marks)
+        torch.cuda.synchronize()
+        assert out is slab
+        assert (we.launches - before, we.steps - steps0) == (1, len(offsets) - 1)
+        assert torch.equal(_bits(slab.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("slots,d", [(64, 4096), (2500, 4096), (3000, 37)])
+def test_wave_epoch_steps_wider_than_the_grid(device, slots, d):
+    """Steps whose (slot, chunk) items outnumber the co-resident blocks:
+    each block strides over several items in both phases."""
+    slab_np, desc_np, offsets = _epoch_plan(5, 3, d, rows=slots + 16, max_slots=slots,
+                                            min_slots=slots // 2)
+    desc = torch.from_numpy(desc_np).to(device)
+    want = _plain_epoch(torch.from_numpy(slab_np), desc, offsets)
+    slab = torch.from_numpy(slab_np).to(device)
+    we.wave_epoch(slab, desc, offsets, branches=WAVE_BRANCHES)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(slab.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("col,bad", [(0, 2), (1, -1), (2, 10 ** 6), (3, 48)])
+def test_wave_epoch_flags_a_bad_descriptor_mid_epoch(device, col, bad):
+    slab_np, desc_np, offsets = _epoch_plan(9, 12, 64)
+    k = offsets[6]  # the first slot of the middle step
+    good = np.delete(desc_np, k, axis=0)  # the bad slot writes nothing
+    want = _plain_epoch(torch.from_numpy(slab_np), torch.from_numpy(good),
+                        [o - (o > k) for o in offsets])
+    desc_np[k, col] = bad
+    desc = torch.from_numpy(desc_np).to(device)
+    with pytest.raises(ValueError, match="descriptor"):
+        we.wave_epoch(torch.from_numpy(slab_np).to(device), desc, offsets,
+                      branches=WAVE_BRANCHES)
+    for marks in (None, we.direct_steps(desc_np, offsets)):
+        err = torch.zeros(1, dtype=torch.int32, device=device)
+        slab = torch.from_numpy(slab_np).to(device)
+        we.wave_epoch(slab, desc, offsets, branches=WAVE_BRANCHES, err=err, direct=marks)
+        torch.cuda.synchronize()
+        assert int(err) == 1
+        assert torch.equal(_bits(slab.cpu()), _bits(want))  # every other slot and step ran
+
+
+def test_wave_epoch_wrapper_checks_inputs(device):
+    slab_np, desc_np, offsets = _epoch_plan(1, 4, 32)
+    slab = torch.from_numpy(slab_np).to(device)
+    desc = torch.from_numpy(desc_np).to(device)
+    with pytest.raises(TypeError, match="int32"):
+        we.wave_epoch(slab, desc.long(), offsets, branches=WAVE_BRANCHES)
+    with pytest.raises(TypeError, match="float32"):
+        we.wave_epoch(slab.double(), desc, offsets, branches=WAVE_BRANCHES)
+    with pytest.raises(ValueError, match="is on"):
+        we.wave_epoch(slab, desc.cpu(), offsets, branches=WAVE_BRANCHES)
+    with pytest.raises(ValueError, match="must not decrease"):
+        we.wave_epoch(slab, desc, [0, 3, 2] + offsets[3:], branches=WAVE_BRANCHES)
+    with pytest.raises(ValueError, match="from 0 to the"):
+        we.wave_epoch(slab, desc, offsets[:-1], branches=WAVE_BRANCHES)
+
+
 def _chain(device, n_chains=16, width=256, depth=8):
     pool = BufferPool(device)
     rng = np.random.RandomState(4)
@@ -287,10 +376,11 @@ def test_device_runner_wave_modes_go_through_the_wave_kernel(device, mode, build
     bufs, tasks = make()
     reg = DeviceOpRegistry(strict=False)
     register_loop_branches(reg)
-    before = we.launches
+    before, steps0 = we.launches, we.steps
     report = DeviceWindowRunner(registry=reg, plan_mode=mode, device=device).run(tasks)
     assert report.wave_executor == "cuda"
-    assert report.wave_kernel_launches == we.launches - before == len(report.waves)
+    assert report.wave_kernel_launches == we.launches - before == 1  # one epoch launch
+    assert report.wave_kernel_steps == we.steps - steps0 == len(report.waves)
     assert torch.equal(_bits(torch.stack([b.value for b in bufs])), _bits(want))
 
 
@@ -325,7 +415,7 @@ def test_device_session_bit_equal_to_serial(device, mode):
     reg = DeviceOpRegistry(strict=False)
     register_loop_branches(reg)
     session = DeviceSession(window_size=32, registry=reg, plan_mode=mode, device=device)
-    wave0, loop0 = we.launches, rq.launches
+    wave0, steps0, loop0 = we.launches, we.steps, rq.launches
     n = len(tasks) // 4
     for i in range(4):
         session.submit(tasks[i * n:(i + 1) * n])
@@ -336,7 +426,8 @@ def test_device_session_bit_equal_to_serial(device, mode):
         assert rq.launches - loop0 == stats["loop_dispatches"] == stats["device_dispatches"] > 0
     else:
         assert stats["wave_kernel_dispatches"] == stats["device_dispatches"] > 0
-        assert we.launches - wave0 == len(session.stats.wave_widths)
+        assert we.launches - wave0 == stats["wave_kernel_dispatches"]  # one per epoch
+        assert we.steps - steps0 == len(session.stats.wave_widths)
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +452,26 @@ def test_lru_scan_bit_equal_to_plain(device, b, s, d, dtype):
     want = lru_scan_ref(a, x, h0)
     assert got.dtype == dtype
     assert torch.equal(_int_bits(got), _int_bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2560, 1000, 40, 7])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 2048])
+@pytest.mark.parametrize("b", [1, 8])
+def test_lru_scan_tiles_bit_equal_to_plain(device, b, s, d, dtype):
+    """The time-tiled kernel's edges: 16- and 32-channel tiles (B = 1 and
+    8 at D = 2560), a ragged last channel tile (1000, 40, 7), element
+    copies (D = 7; bfloat16 at D = 1000, 40 copies 16 bytes), and S around
+    the 64-step tile and across many tiles."""
+    rng = np.random.RandomState(b * 7 + s + d)
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, s, d)).astype(np.float32)).to(device, dtype)
+    x = torch.from_numpy(rng.randn(b, s, d).astype(np.float32)).to(device, dtype)
+    h0 = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(device, dtype)
+    before = ls.launches
+    got = ls.lru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert ls.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(_int_bits(got), _int_bits(lru_scan_ref(a, x, h0)))
 
 
 # (b, h, hkv, sq, sk, d), flags: tests/test_torch_attention.py's sweep
