@@ -12,8 +12,15 @@ Phases, each fatal on failure (an exception, exit code != 0):
    seconds and, from ``ptxas -v``, each kernel's registers, static shared
    memory and spills.
 3. Kernel vs plain, on the card:
-   a. ready queue: on random DAG streams the kernel's slab, completion
-      flags and final ring are bit-equal to ``ready_queue_ref``;
+   a. ready queue: the kernel's slab and completion flags bit-equal to
+      ``ready_queue_ref``, and its ring a start order (a permutation of
+      the tasks and a topological order of the edges; a concurrent queue
+      does not fix the order), on random DAG streams (n from 1 to 8,192,
+      m up to ~200), the chain universe, one chain 2,048 deep (every
+      earlier task an upstream, and one), one task with 1,000 dependents;
+      on 14 kinds of corrupted tables nothing runs and the ring is
+      ``ring0``, as in the plain version; 20 launches of one random DAG
+      give the same bits;
    b. wave megakernel: bit-equal to ``wave_rows_ref`` over S in
       {1, 7, 32, 64} x D in {1, 37, 4096} (repeated input rows, a slot
       reading its own out row); a bad descriptor raises. Its epoch entry
@@ -93,12 +100,21 @@ Phases, each fatal on failure (an exception, exit code != 0):
    universe's wave and frontier plans, staged and direct, and its
    single-wave entry at the widest wave and at S = 32; SDPA for attention
    and ``torch.bmm`` for the grouped GEMM as the library calls; flash at
-   both serving models' prefills), flash, the grouped GEMM and the scan
-   (prefill and decode) also 20 launches back to back, each kernel's
-   bound, and the wall time of each phase-4/5/6 policy and server.
-8. Device busy share: one more pass of each phase-4/5 policy under
-   ``torch.profiler``; the union of the CUDA kernels' intervals over the
-   pass's wall ("not measured" if the profiler records no kernel).
+   both serving models' prefills), flash, the grouped GEMM, the scan
+   (prefill and decode) and the ready queue also 20 launches back to
+   back, each kernel's bound, and the wall time of each phase-4/5/6
+   policy and server. The ready queue also: its device time from
+   ``torch.profiler`` (the mean over the kernels the trace holds), that
+   of ONE 32-deep chain (over 32: the hop that bounds it) and of one
+   task, its grid and the blocks that ran tasks.
+8. Device busy share, run after phase 5 and before phase 6: one more
+   pass of each phase-4/5 policy under ``torch.profiler``; the union of
+   the CUDA kernels' intervals over the pass's wall ("not measured" if the
+   profiler records no kernel), and whether the loop and wave passes' own
+   kernels are in the trace. After phase 6's profiled serving passes
+   (58k and 130k kernels), a trace in the same process loses the first
+   device events of a pass (the loop pass's ready-queue kernel among
+   them): one more loop pass is profiled at the end to show it.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -322,6 +338,123 @@ def run_queue(fn, slab, p, branches):
               branches=branches)
 
 
+def queue_tables(device, slab, tasks, dependents):
+    """The ready queue's arguments for an epoch written by hand: ``tasks``
+    holds each task's ``(branch, in0, in1, out)`` over ``slab``'s rows (the
+    branches are ``wave_branches()``), ``dependents[t]`` the later tasks
+    that wait for task ``t``. Returns (slab, payload, branches)."""
+    import torch
+
+    n = len(tasks)
+    dep = np.full((n, max([1] + [len(d) for d in dependents])), n, np.int32)
+    for t, ds in enumerate(dependents):
+        dep[t, :len(ds)] = ds
+    rem = np.zeros(n + 1, np.int32)
+    np.add.at(rem, dep[dep < n], 1)
+    ready = np.flatnonzero(rem[:n] == 0)
+    ring = np.full(n + 1, n, np.int32)
+    ring[:len(ready)] = ready
+    task_tbl = np.array([(b, i0, i1, i0, o) for b, i0, i1, o in tasks], np.int32)
+    payload = {k: torch.from_numpy(np.asarray(v, np.int32)).to(device)
+               for k, v in (("task_tbl", task_tbl), ("dep_tbl", dep), ("ring0", ring),
+                            ("rem0", rem), ("tail0", [len(ready)]))}
+    return slab.to(device), payload, wave_branches()
+
+
+def _state_and_weight(seed, rows, width):
+    """``rows`` random rows, the second of which is a weight in (-0.6, 0.6):
+    a chain x -> (1.5 x + w + 1) w - 0.5 then stays finite however deep."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    slab = rng.randn(rows, width).astype(np.float32)
+    slab[1] = rng.uniform(-0.6, 0.6, width)
+    return torch.from_numpy(slab)
+
+
+def serial_chain(device, depth, width=WIDTH, all_edges=True, seed=0):
+    """One chain of ``depth`` tasks on one state row (row 0), each reading
+    the weight row (row 1): pure serial work. With ``all_edges`` every task
+    waits for every earlier one, as the lowering's exact upstream sets
+    give (task k has in-degree k); else each waits for the one before."""
+    tasks = [(k % 2, 0, 1, 0) for k in range(depth)]
+    dependents = [np.arange(k + 1, depth if all_edges else min(k + 2, depth))
+                  for k in range(depth)]
+    return queue_tables(device, _state_and_weight(seed, 2, width), tasks, dependents)
+
+
+def fan_out(device, fan, width=WIDTH, seed=0):
+    """Task 0 writes row 0; ``fan`` tasks each read it and write a row of
+    their own: one task with ``fan`` dependents (more than a warp's 32
+    lanes retire in one round)."""
+    tasks = [(0, 0, 1, 0)] + [(i % 2, 0, 1, 1 + i) for i in range(1, fan + 1)]
+    dependents = [np.arange(1, fan + 1)] + [()] * fan
+    return queue_tables(device, _state_and_weight(seed, fan + 2, width), tasks, dependents)
+
+
+def corrupt_tables(kind, slab, p, n_branches):
+    """A copy of the ready queue's payload ``p`` with one fault of ``kind``
+    (``CORRUPTIONS``); returns (payload, words of the message of
+    ``ready_queue_tables_error`` that names it). ``"bad_in2"`` is the one
+    harmless kind: no branch reads in2."""
+    q = {k: v.clone() for k, v in p.items()}
+    n, rows = q["dep_tbl"].shape[0], slab.shape[0]
+    waiting = int((q["rem0"][:n] > 0).nonzero()[0])
+    t, j = (q["dep_tbl"] < n).nonzero()[0].tolist()
+    if kind == "bad_in2":
+        q["task_tbl"][:, 3] = rows + 5
+        return q, None
+    if kind == "dropped_edge":
+        q["dep_tbl"][t, j] = n  # the dependent keeps its count: it never wakes
+        return q, "in-degrees"
+    if kind == "extra_count":
+        q["rem0"][waiting] += 1
+        return q, "in-degrees"
+    if kind in ("bad_in0", "bad_in1", "bad_out"):
+        col, bad = {"bad_in0": (1, rows), "bad_in1": (2, -1), "bad_out": (4, rows + 5)}[kind]
+        q["task_tbl"][waiting, col] = bad
+        return q, "row outside"
+    if kind == "bad_branch":
+        q["task_tbl"][waiting, 0] = n_branches
+        return q, "branch outside"
+    if kind in ("negative_edge", "edge_past_n", "backward_edge", "self_edge"):
+        q["dep_tbl"][t, j] = {"negative_edge": -7, "edge_past_n": n + 3,
+                              "backward_edge": max(t - 1, 0), "self_edge": t}[kind]
+        return q, "point forward"
+    if kind == "ring_lists_a_waiting_task":
+        q["ring0"][0] = waiting
+    elif kind == "ring_duplicate":
+        q["ring0"][1] = q["ring0"][0]
+    elif kind == "tail_short":
+        q["tail0"][0] -= 1
+    else:
+        check(kind == "tail_past_n", f"unknown corruption {kind}")
+        q["tail0"][0] = n + 1
+        return q, "tail0"
+    return q, "ring0"
+
+
+CORRUPTIONS = ("dropped_edge", "extra_count", "bad_in0", "bad_in1", "bad_out", "bad_branch",
+               "negative_edge", "edge_past_n", "backward_edge", "self_edge",
+               "ring_lists_a_waiting_task", "ring_duplicate", "tail_short", "tail_past_n")
+
+
+def is_start_order(ring, dep_tbl) -> bool:
+    """The kernel's ``ring``: ``ring[:n]`` a permutation of the tasks and a
+    topological order of ``dep_tbl`` (every live edge from an earlier to a
+    later place), ``ring[n] == n``."""
+    n = dep_tbl.shape[0]
+    r = ring.cpu().numpy()
+    order = r[:n]
+    if r[n] != n or not np.array_equal(np.sort(order), np.arange(n)):
+        return False
+    where = np.empty(n, np.int64)
+    where[order] = np.arange(n)
+    dep = dep_tbl.cpu().numpy()
+    t, j = np.nonzero(dep < n)
+    return bool((where[t] < where[dep[t, j]]).all())
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -350,22 +483,69 @@ def phase_build():
             log(f"ptxas: {mod.SOURCE.name}: {line}")
 
 
-def phase_kernel_vs_plain(device):
+def queue_vs_plain(label, slab, p, branches):
+    """The ready-queue kernel against its plain version on one epoch: slab
+    and ``done`` bit-equal; a valid epoch drains with its ``ring`` a start
+    order, a faulty one runs nothing and returns ``ring0``. Returns the
+    kernel's outputs."""
     import torch
     from repro_torch.kernels.ready_queue import ready_queue
-    from repro_torch.kernels.ref import ready_queue_ref
+    from repro_torch.kernels.ref import ready_queue_ref, ready_queue_tables_error
+
+    got = run_queue(ready_queue, slab, p, branches)
+    torch.cuda.synchronize()
+    want = run_queue(ready_queue_ref, slab, p, branches)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("slab", "done"), got, want):
+        check(bit_equal(g, w), f"ready queue: kernel != plain on {name} ({label})")
+    valid = ready_queue_tables_error(p["task_tbl"], p["dep_tbl"], p["ring0"], p["rem0"],
+                                     p["tail0"], rows=slab.shape[0], branches=branches) is None
+    if valid:
+        check(bool(got[1].all()), f"ready queue: did not drain ({label})")
+        check(is_start_order(got[2], p["dep_tbl"]), f"ready queue: ring is no start order "
+                                                    f"({label})")
+    else:
+        check(not bool(got[1].any()) and bit_equal(got[2], p["ring0"]),
+              f"ready queue: faulty tables ran tasks or moved the ring ({label})")
+    return got
+
+
+def launched(rq):
+    stats = rq.launch_stats()
+    return f"{stats['blocks_ran']} of {stats['blocks']} blocks ran tasks"
+
+
+def phase_kernel_vs_plain(device):
+    from repro_torch.kernels import ready_queue as rq
 
     for seed in range(3):
-        for n, d in ((64, 128), (512, 1024), (2048, 4096)):
+        for n, d in ((1, 8), (64, 128), (512, 1024), (2048, 4096), (8192, 256)):
             slab, p, branches = random_dag(device, seed, n, d)
-            got = run_queue(ready_queue, slab, p, branches)
-            torch.cuda.synchronize()
-            want = run_queue(ready_queue_ref, slab, p, branches)
-            torch.cuda.synchronize()
-            for name, g, w in zip(("slab", "done", "ring"), got, want):
-                check(bit_equal(g, w), f"kernel != plain on {name} (seed {seed}, n {n}, d {d})")
-            check(bool(got[1].all()), f"queue did not drain (seed {seed}, n {n})")
-            log(f"kernel == plain: seed {seed} n {n} d {d} slab {tuple(slab.shape)}")
+            queue_vs_plain(f"random DAG seed {seed} n {n} d {d}", slab, p, branches)
+            log(f"ready queue == plain: random DAG seed {seed} n {n} d {d} m "
+                f"{p['dep_tbl'].shape[1]}, {launched(rq)}")
+    slab, p, branches = random_dag(device, 0, 200, 64)
+    for kind in CORRUPTIONS + ("bad_in2",):
+        queue_vs_plain(f"corrupted: {kind}", slab, corrupt_tables(kind, slab, p,
+                                                                  len(branches))[0], branches)
+    log(f"ready queue == plain on {len(CORRUPTIONS)} corrupted tables (nothing ran, ring == "
+        "ring0) and with a corrupted in2 (everything ran)")
+    _, tasks = chain_universe(device)
+    cases = {"chain universe (64 chains x 32)": lowered_payload(tasks, device),
+             "one chain 2048 deep, every edge": serial_chain(device, 2048),
+             "one chain 2048 deep, one edge a task": serial_chain(device, 2048, all_edges=False),
+             "fan-out: one task, 1000 dependents": fan_out(device, 1000, width=256)}
+    for label, (slab, p, branches) in cases.items():
+        queue_vs_plain(label, slab, p, branches)
+        log(f"ready queue == plain: {label}: n {p['dep_tbl'].shape[0]} m "
+            f"{p['dep_tbl'].shape[1]}, {launched(rq)}")
+    slab, p, branches = random_dag(device, 4, 2048, 4096)
+    first = queue_vs_plain("random DAG n 2048, launch 1 of 20", slab, p, branches)
+    for i in range(19):
+        got = run_queue(rq.ready_queue, slab, p, branches)
+        check(bit_equal(got[0], first[0]) and bit_equal(got[1], first[1]),
+              f"ready queue: launch {i + 2} of 20 gave other bits")
+    log("ready queue: 20 launches of one random DAG (n 2048) gave the same bits")
 
 
 WAVE_SWEEP_S, WAVE_SWEEP_D = (1, 7, 32, 64), (1, 37, 4096)
@@ -1112,19 +1292,37 @@ def back_to_back_ms(fn, launches=20, runs=5):
 
 
 def phase_numbers(device, launches):
+    """The ready queue over the chain universe as the loop runner launches
+    it: CUDA-event time of single launches and back to back, its device
+    time from the profiler, the same for ONE 32-deep chain (its device time
+    over 32 is the hop that bounds the kernel: the universe's 64 chains run
+    side by side in about one chain's time), its grid and the blocks that
+    ran tasks."""
     import torch
+    from repro_torch.kernels import ready_queue as rq
     from repro_torch.kernels.ops import LOOP_OPCODES
-    from repro_torch.kernels.ready_queue import ready_queue
     from repro_torch.kernels.ref import ready_queue_ref
 
     _, tasks = chain_universe(device)
     slab, p, branches = lowered_payload(tasks, device)
-    got = run_queue(ready_queue, slab, p, branches)
+    got = run_queue(rq.ready_queue, slab, p, branches)
     want = run_queue(ready_queue_ref, slab, p, branches)
     torch.cuda.synchronize()
+    stats = rq.launch_stats()
     max_abs_err = float((got[0] - want[0]).abs().max())
-    ms = median_ms(lambda: run_queue(ready_queue, slab, p, branches))
+    call = lambda: run_queue(rq.ready_queue, slab, p, branches)  # noqa: E731
+    ms, b2b_ms = median_ms(call), back_to_back_ms(call)
+    device_ms, recorded = kernel_device_ms(call, "ready_queue_kernel")
     plain_ms = median_ms(lambda: run_queue(ready_queue_ref, slab, p, branches))
+    chain = {}  # depth -> (events ms, device ms, kernels the trace holds)
+    for depth in (1, DEPTH):
+        _, one = chain_universe(device, n_chains=1, depth=depth)
+        cslab, cp, cbr = lowered_payload(one, device)
+        chain_call = lambda: run_queue(rq.ready_queue, cslab, cp, cbr)  # noqa: E731
+        chain[depth] = (median_ms(chain_call),) + kernel_device_ms(chain_call,
+                                                                    "ready_queue_kernel")
+    chain_ms, chain_device_ms, _ = chain[DEPTH]
+    fixed_ms = chain[1][1]
 
     n, d = len(tasks), slab.shape[1]
     ops_tbl = len(branches) * 4
@@ -1137,19 +1335,36 @@ def phase_numbers(device, launches):
     flops_ms = flops / FP32_FLOP_PER_S * 1e3
     # Each task's rows through device memory (the source note's bound).
     rows_ms = n * 3 * d * 4 / HBM_BYTES_PER_S * 1e3
+    hop_us = chain_device_ms / DEPTH * 1e3 if chain_device_ms else None
+    ratio = device_ms / chain_device_ms if device_ms and chain_device_ms else None
+    log(f"ready queue, chain universe: events {ms:.4f} ms, back to back {b2b_ms:.4f} ms, "
+        f"device {device_ms} ms ({recorded} of {TIMED_RUNS} kernels in the trace); one "
+        f"{DEPTH}-deep chain: events {chain_ms:.4f} ms, device {chain_device_ms} ms "
+        f"({chain[DEPTH][2]} in the trace), hop {hop_us} us; one task: device {fixed_ms} ms "
+        f"({chain[1][2]} in the trace); universe / one chain (device) {ratio}; grid {stats['blocks']} blocks, "
+        f"{stats['blocks_ran']} ran tasks")
     return {
         "name": "ready_queue",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ready_queue.cu",
         "replaces": "src/repro/kernels/ready_queue.py:47",
         "launches": launches,
-        "matches_plain": bit_equal(got[0], want[0]),
+        "matches_plain": bit_equal(got[0], want[0]) and bit_equal(got[1], want[1]),
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
+        "b2b_ms": b2b_ms,
+        "device_ms": device_ms,
+        "chain_ms": chain_ms,
+        "chain_device_ms": chain_device_ms,
+        "hop_us": hop_us,
+        "one_task_device_ms": fixed_ms,
+        "universe_over_chain": ratio,
+        "grid": stats["blocks"],
+        "blocks_ran": stats["blocks_ran"],
         "row_traffic_bound_ms": rows_ms,
         "shape": f"slab {tuple(slab.shape)} f32, n {n}, m {p['dep_tbl'].shape[1]}",
     }
@@ -1482,14 +1697,10 @@ def numbers_wave(device, launches, widest):
     }
 
 
-def device_busy(fn):
-    """Run ``fn()`` once under ``torch.profiler``. Returns (wall ms under
-    the profiler, device-busy ms: the union of the CUDA kernels' intervals,
-    or None when the profiler records no kernel; the number of CUDA
-    kernels; the three host ops with the most self CPU time and the three
-    ops with the most self device time)."""
+def profiled(fn):
+    """Run ``fn()`` once under ``torch.profiler``. Returns (the profile, the
+    wall ms of ``fn`` under it)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1498,8 +1709,33 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    return prof, wall_ms
+
+
+def kernel_device_ms(fn, name, runs=TIMED_RUNS):
+    """The device time of one kernel whose name holds ``name``: the mean
+    over the ones the profiler recorded in ``runs`` calls of ``fn`` (a
+    trace can lose some, see ``phase_busy``). Returns (ms or None when the
+    trace holds none, how many it holds)."""
+    prof, _ = profiled(lambda: [fn() for _ in range(runs)])
+    hits = [a for a in prof.key_averages() if name in a.key]
+    count = sum(a.count for a in hits)
+    total = sum(a.self_device_time_total for a in hits)
+    return (total / 1e3 / count if count else None), count
+
+
+def device_busy(fn):
+    """Run ``fn()`` once under ``torch.profiler``. Returns (wall ms under
+    the profiler, device-busy ms: the union of the CUDA kernels' intervals,
+    or None when the profiler records no kernel; the number of CUDA
+    kernels; the three host ops with the most self CPU time and the three
+    ops with the most self device time; the names of the device events)."""
+    from torch.autograd import DeviceType
+
+    prof, wall_ms = profiled(fn)
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     avgs = prof.key_averages()
     host = sorted(avgs, key=lambda a: -a.self_cpu_time_total)[:3]
     dev = sorted(avgs, key=lambda a: -a.self_device_time_total)[:3]
@@ -1507,8 +1743,12 @@ def device_busy(fn):
            + "; most device time: "
            + ", ".join(f"{a.key[:60]} {a.self_device_time_total / 1e3:.1f} ms x{a.count}"
                        for a in dev))
+    names = {e.name for e in device}
+    if spans:  # where the trace's device events begin, after its first host event
+        first = min(e.time_range.start for e in events if e.device_type != DeviceType.CUDA)
+        top += f"; first device event +{(spans[0][0] - first) / 1e3:.3f} ms"
     if not spans:
-        return wall_ms, None, 0, top
+        return wall_ms, None, 0, top, names
     busy_us, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -1516,32 +1756,43 @@ def device_busy(fn):
             lo, hi = start, end
         else:
             hi = max(hi, end)
-    return wall_ms, (busy_us + hi - lo) / 1e3, len(spans), top
+    return wall_ms, (busy_us + hi - lo) / 1e3, len(spans), top, names
 
 
-def profile_pass(label, fn, card):
-    wall_ms, busy_ms, n_kernels, top = device_busy(fn)
+def profile_pass(label, fn, card, kernel=None):
+    """Log one profiled pass; with ``kernel``, also whether the trace holds
+    a device event whose name holds it."""
+    wall_ms, busy_ms, n_kernels, top, names = device_busy(fn)
     busy = ("device busy not measured (no kernel in the trace)" if busy_ms is None
             else f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    seen = ("" if kernel is None else
+            f"; {kernel} in the trace: {any(kernel in name for name in names)}")
     log(f"profile {label}: wall {wall_ms:.3f} ms under the profiler, {busy}, "
-        f"{n_kernels} CUDA kernels; most host time: {top} [{card}]")
+        f"{n_kernels} CUDA kernels{seen}; most host time: {top} [{card}]")
+
+
+def busy_chain(device, policy):
+    """One chain-universe pass of ``policy`` ("serial" or "device_<plan
+    mode>"), ready to run under the profiler."""
+    from repro_torch.core import DeviceOpRegistry, DeviceWindowRunner, run_serial
+    from repro_torch.kernels.ops import register_loop_branches
+
+    _, tasks = chain_universe(device)
+    if policy == "serial":
+        return lambda: run_serial(tasks, device=device)
+    reg = DeviceOpRegistry(strict=False)
+    register_loop_branches(reg)
+    runner = DeviceWindowRunner(registry=reg, window_size=WINDOW,
+                                plan_mode=policy.removeprefix("device_"), device=device)
+    return lambda: runner.run(tasks)
 
 
 def phase_busy(device, card):
-    from repro_torch.core import DeviceOpRegistry, DeviceWindowRunner, TaskStream
-    from repro_torch.core import make_scheduler, run_serial
-    from repro_torch.kernels.ops import register_loop_branches
+    from repro_torch.core import TaskStream, make_scheduler
     from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
 
     def chain(policy):
-        _, tasks = chain_universe(device)
-        if policy == "serial":
-            return lambda: run_serial(tasks, device=device)
-        reg = DeviceOpRegistry(strict=False)
-        register_loop_branches(reg)
-        runner = DeviceWindowRunner(registry=reg, window_size=WINDOW,
-                                    plan_mode=policy.removeprefix("device_"), device=device)
-        return lambda: runner.run(tasks)
+        return busy_chain(device, policy)
 
     def cheetah(policy):
         eng = PhysicsEngine(ENVIRONMENTS["cheetah"], n_envs=SIM_ENVS,
@@ -1555,12 +1806,13 @@ def phase_busy(device, card):
             run(stream.tasks)
         return step
 
-    for label, make in (("chain_universe/serial", lambda: chain("serial")),
-                        ("chain_universe/device_loop", lambda: chain("device_loop")),
-                        ("chain_universe/device_wave", lambda: chain("device_wave")),
-                        *((f"cheetah step/{p}", lambda p=p: cheetah(p))
-                          for p in ("serial", "wave", "threaded"))):
-        profile_pass(label, make(), card)
+    for label, make, kernel in (
+            ("chain_universe/serial", lambda: chain("serial"), None),
+            ("chain_universe/device_loop", lambda: chain("device_loop"), "ready_queue_kernel"),
+            ("chain_universe/device_wave", lambda: chain("device_wave"), "wave_epoch_kernel"),
+            *((f"cheetah step/{p}", lambda p=p: cheetah(p), None)
+              for p in ("serial", "wave", "threaded"))):
+        profile_pass(label, make(), card, kernel)
 
 
 def main() -> int:
@@ -1597,6 +1849,7 @@ def main() -> int:
     wave_launches, widest, wave_walls = timed(phase_acs_hw_waves, device)
     session_walls = timed(phase_session, device)
     sw_walls = timed(phase_acs_sw, device)
+    timed(phase_busy, device, card)
     serve_launches, serve_walls = {}, {}
     for arch in SERVE_ARCHS:
         arch_launches, walls, served = timed(phase_serve, device, card, arch)
@@ -1621,7 +1874,8 @@ def main() -> int:
     for key, secs in {**hw_walls, **wave_walls, **session_walls, **sw_walls,
                       **serve_walls}.items():
         log(f"wall {key}: {secs * 1e3:.3f} ms [{card}]")
-    timed(phase_busy, device, card)
+    profile_pass("chain_universe/device_loop, after the serving passes",
+                 busy_chain(device, "device_loop"), card, "ready_queue_kernel")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

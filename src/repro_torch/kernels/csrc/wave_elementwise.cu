@@ -45,10 +45,11 @@
 //   in phase 1 and skips phase 2 and one barrier; a slot reading its own
 //   out row is direct-safe, since each element is read then written by one
 //   thread. The last step needs no closing barrier.
-// * The barrier is one global arrival counter, zeroed by the wrapper per
-//   launch, that only grows: a block's threads sync, its first thread
-//   fences, adds one, and spins until the count reaches the barrier's
-//   number times the grid (no reset, no second word: one atomic a block).
+// * The barrier (grid_barrier.cuh, shared with ready_queue.cu) is one
+//   global arrival counter, zeroed by the wrapper per launch, that only
+//   grows: a block's threads sync, its first thread fences, adds one, and
+//   spins until the count reaches the barrier's number times the grid (no
+//   reset, no second word: one atomic a block).
 // * No block returns early: a bad slot skips its work, and every block
 //   reaches every barrier.
 // * Slab and scratch are read with ld.global.cg (L2, never the
@@ -76,6 +77,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "grid_barrier.cuh"
 
 namespace {
 
@@ -146,23 +149,6 @@ struct EpochParams {
   unsigned int* arrivals;   // [1], 0 at launch
   int chunks;               // ceil(d / kChunk)
 };
-
-// Every block of the grid waits here until all have arrived; writes made
-// before the barrier are visible to every block after it. The arrival
-// count only grows: the n-th barrier of the launch (n from 1) is passed
-// once it reaches n * gridDim.x.
-__device__ __forceinline__ void grid_barrier(unsigned int* arrivals, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(arrivals, 1u);
-    const volatile unsigned int* seen = arrivals;
-    while (*seen < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads) wave_epoch_kernel(const EpochParams p) {
   unsigned int target = 0;  // the arrival count the next barrier waits for

@@ -21,6 +21,8 @@ would have executed.
 
 from __future__ import annotations
 
+import torch
+
 # The models' entry names; each wrapper picks kernel or plain version by
 # its tensors' device.
 from .flash_attention import flash_attention as attention
@@ -28,7 +30,7 @@ from .grouped_matmul import grouped_matmul
 from .lru_scan import lru_scan
 
 __all__ = ["attention", "grouped_matmul", "lru_scan", "wave_step", "register_device_ops",
-           "LOOP_BRANCHES", "LOOP_OPCODES", "register_loop_branches"]
+           "LOOP_BRANCHES", "LOOP_OPCODES", "branch_table", "register_loop_branches"]
 
 
 def register_device_ops(registry) -> dict:
@@ -53,6 +55,21 @@ LOOP_BRANCHES = {"axpy": _axpy_row, "mul": _mul_row}
 # Branch fn -> its opcode in the CUDA kernels (csrc/ready_queue.cu and
 # csrc/wave_elementwise.cu, OP_*).
 LOOP_OPCODES = {_axpy_row: 0, _mul_row: 1}
+
+# (device, opcodes) -> a branch table on that device, uploaded once.
+_TABLES: dict = {}
+
+
+def branch_table(branches, device):
+    """The CUDA kernels' ``[len(branches)] int32`` opcode table for
+    ``branches`` (each a :data:`LOOP_BRANCHES` fn) on ``device``: copied to
+    the device at its first use, then reused, so a launch makes no
+    host-to-device copy of it."""
+    key = (device, tuple(LOOP_OPCODES[fn] for fn in branches))
+    table = _TABLES.get(key)
+    if table is None:
+        table = _TABLES[key] = torch.tensor(key[1], dtype=torch.int32, device=device)
+    return table
 
 
 def register_loop_branches(registry) -> dict:

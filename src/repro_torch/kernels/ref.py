@@ -8,9 +8,10 @@ the same names: fully masked attention rows give 0, and the recurrence
 carries its state in float32.
 
 ``ready_queue_ref`` is the plain version of ``kernels/ready_queue.py``;
-the reference package has no oracle for that kernel, so this one is
-written to do exactly what its Pallas kernel (``_ready_queue_kernel``)
-does, step for step.
+the reference package has no oracle for that kernel, so this one pops
+the ring as its Pallas kernel (``_ready_queue_kernel``) does, after the
+checks of ``ready_queue_tables_error``, which the CUDA kernel makes on
+the device: tables that fail one run no task.
 
 ``wave_rows_ref`` is the plain version of ``kernels/wave_elementwise.py``
 (the ``[S, D]`` slot rows), and ``wave_elementwise_ref`` the reference's
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["attention_ref", "grouped_matmul_ref", "lru_scan_ref", "ready_queue_ref",
-           "wave_rows_ref", "wave_elementwise_ref"]
+           "ready_queue_tables_error", "wave_rows_ref", "wave_elementwise_ref"]
 
 
 def attention_ref(
@@ -111,60 +112,103 @@ def lru_scan_ref(
     return out.to(b.dtype)
 
 
+def ready_queue_tables_error(
+    task_tbl: torch.Tensor,   # [n, 5] int32 (branch, in0, in1, in2, out_row)
+    dep_tbl: torch.Tensor,    # [n, m] int32 forward edges, sentinel n
+    ring0: torch.Tensor,      # [n+1] int32 initially-ready positions, pad n
+    rem0: torch.Tensor,       # [n+1] int32 in-degrees + one unused slot
+    tail0: torch.Tensor,      # [1] int32 count of initially-ready tasks
+    *,
+    rows: int,                # the slab's rows
+    branches: Sequence[Callable],  # per branch id: fn over 1-3 rows
+) -> Optional[str]:
+    """What is wrong with one ready-queue epoch's tables, or None when they
+    provably drain: every branch id in the table; every row a task's
+    branch reads (in0 and in1 always, as every kernel opcode reads two
+    rows; in2 only where the branch reads three) and its out row in
+    ``[0, rows)``; every live edge pointing forward (``t < dep < n``;
+    ``dep == n`` is the sentinel); the in-degrees counted from ``dep_tbl``
+    equal to ``rem0[:n]``; and ``ring0[:tail0]`` listing each task whose
+    ``rem0`` is 0 exactly once, and nothing else. The CUDA kernel makes the
+    same checks on the device before it runs any task."""
+    tasks = task_tbl.cpu().numpy().reshape(-1, 5).astype(np.int64)
+    deps = dep_tbl.cpu().numpy().astype(np.int64)
+    n = deps.shape[0]
+    rem = rem0.cpu().numpy().astype(np.int64)[:n]
+    tail = int(tail0.reshape(-1)[0])
+    if not 0 <= tail <= n:
+        return f"tail0 {tail} outside [0, {n}]"
+    b = tasks[:, 0]
+    bad = (b < 0) | (b >= len(branches))
+    if bad.any():
+        return f"tasks {np.flatnonzero(bad).tolist()} name a branch outside the table"
+    arity = np.array([fn.__code__.co_argcount for fn in branches])[b]
+    read = np.concatenate([tasks[:, 1:3], np.where(arity > 2, tasks[:, 3], 0)[:, None],
+                           tasks[:, 4:5]], axis=1)
+    bad = ((read < 0) | (read >= rows)).any(axis=1)
+    if bad.any():
+        return f"tasks {np.flatnonzero(bad).tolist()} name a row outside [0, {rows})"
+    live = deps != n
+    src = np.broadcast_to(np.arange(n)[:, None], deps.shape)
+    bad = live & ((deps <= src) | (deps > n))
+    if bad.any():
+        return f"edges {np.argwhere(bad).tolist()} do not point forward to a task"
+    counts = np.bincount(deps[live], minlength=n)
+    if not np.array_equal(counts, rem):
+        return f"rem0 differs from dep_tbl's in-degrees at {np.flatnonzero(counts != rem).tolist()}"
+    ready = ring0.cpu().numpy().astype(np.int64)[:tail]
+    if ((ready < 0) | (ready >= n)).any() or len(np.unique(ready)) != tail \
+            or (rem[ready] != 0).any() or tail != int((rem == 0).sum()):
+        return "ring0[:tail0] is not the set of tasks whose rem0 is 0"
+    return None
+
+
 def ready_queue_ref(
     slab: torch.Tensor,       # [rows, d] the single shape class's slab
     task_tbl: torch.Tensor,   # [n, 5] int32 (branch, in0, in1, in2, out_row)
     dep_tbl: torch.Tensor,    # [n, m] int32 forward edges, sentinel n
     ring0: torch.Tensor,      # [n+1] int32 initially-ready positions, pad n
-    rem0: torch.Tensor,       # [n+1] int32 in-degrees + one trash slot
+    rem0: torch.Tensor,       # [n+1] int32 in-degrees + one unused slot
     tail0: torch.Tensor,      # [1] int32 count of initially-ready tasks
     *,
     branches: Sequence[Callable],  # per branch id: fn over 1-3 rows
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One epoch of the ready queue; returns ``(slab', done, ring)``.
 
-    Pops ``n`` tasks from the ring in order. Each pop applies
+    Checks the tables first (:func:`ready_queue_tables_error`). If a check
+    fails, no task runs: ``slab'`` is a copy of the slab, ``done`` all 0 and
+    ``ring`` a copy of ``ring0``, for the caller to report as a stall. Else
+    it pops the ``n`` tasks from the ring in order (FIFO): each pop applies
     ``branches[task[0]]`` to the rows ``task[1:1+arity]`` and writes row
     ``task[4]``, sets ``done[t]``, then walks ``dep_tbl[t]`` in column
-    order: decrement the dependent's counter and write it at ``ring[tail]``
-    if it just reached zero (``tail`` advances), else at the trash slot
-    ``ring[n]``. A pop that finds no task (``ring[i] >= n``: the queue ran
-    dry, which only corrupted tables cause) or a row or branch id out of
-    range ends the epoch early, leaving the rest of ``done`` at zero for the
-    caller to report; an edge outside ``[0, n]`` counts as the sentinel.
-    ``in0``/``in1`` are checked always (every kernel opcode reads two rows),
-    ``in2`` only when the branch reads it. The CUDA kernel does the same.
+    order, decrementing each dependent's counter and appending it to the
+    ring when it reaches zero. ``ring[:n]`` is then the pop order, a
+    topological order of ``dep_tbl``, and ``ring[n]`` keeps ``ring0[n]``.
+    The CUDA kernel gives the same ``slab'`` and ``done``; its ``ring`` is
+    the order in which its blocks started the tasks.
     """
     n, m = dep_tbl.shape
-    rows = slab.shape[0]
     out = slab.clone()
-    tasks = task_tbl.tolist()
-    deps = dep_tbl.tolist()
     ring = ring0.tolist()
-    rem = rem0.tolist()
-    tail = int(tail0.reshape(-1)[0])
     done = [0] * n
-    for i in range(n):
-        t = ring[i]
-        if not 0 <= t < n:
-            break
-        b, i0, i1, i2, o = tasks[t]
-        if not (0 <= b < len(branches) and 0 <= i0 < rows and 0 <= i1 < rows
-                and 0 <= o < rows):
-            break
-        fn = branches[b]
-        k = fn.__code__.co_argcount
-        if k > 2 and not 0 <= i2 < rows:
-            break
-        out[o] = fn(*(out[r] for r in (i0, i1, i2)[:k]))
-        done[t] = 1
-        for d in deps[t]:
-            if not 0 <= d <= n:
-                d = n  # a corrupted edge hits the trash slot
-            rem[d] -= 1
-            ready = d < n and rem[d] == 0
-            ring[tail if ready else n] = d
-            tail += int(ready)
+    if ready_queue_tables_error(task_tbl, dep_tbl, ring0, rem0, tail0, rows=slab.shape[0],
+                                branches=branches) is None:
+        tasks = task_tbl.tolist()
+        deps = dep_tbl.tolist()
+        rem = rem0.tolist()
+        tail = int(tail0.reshape(-1)[0])
+        for i in range(n):
+            t = ring[i]
+            b, i0, i1, i2, o = tasks[t]
+            fn = branches[b]
+            out[o] = fn(*(out[r] for r in (i0, i1, i2)[:fn.__code__.co_argcount]))
+            done[t] = 1
+            for d in deps[t]:
+                if d < n:
+                    rem[d] -= 1
+                    if rem[d] == 0:
+                        ring[tail] = d
+                        tail += 1
     as_int = dict(dtype=torch.int32, device=slab.device)
     return out, torch.tensor(done, **as_int), torch.tensor(ring, **as_int)
 

@@ -1,6 +1,7 @@
-"""Time the RG-LRU scan and the device window's wave-kernel path on the
-card at their main-path shapes, through entry points that every version
-of the port has, so that two trees can be compared in one chip call:
+"""Time the RG-LRU scan, the ready queue and the device window's kernel
+paths on the card at their main-path shapes, through entry points that
+every version of the port has, so that two trees can be compared in one
+chip call:
 
     PYTHONPATH=src python -m repro_torch.kernels.scan_epoch_times [label]
 
@@ -9,10 +10,15 @@ of the port has, so that two trees can be compared in one chip call:
   launches (20, after warm-up), 20 launches back to back (per launch,
   median of 5 rounds), and the kernel's own device time per launch from
   ``torch.profiler`` (20 launches);
+* ``ready_queue`` over the chain universe's lowered epoch (below), over
+  ONE 32-deep chain and over one task, as the loop runner calls it:
+  single launches, back to back and device time (the mean over the
+  launches the trace holds), as for the scan (the one chain's device
+  time over 32 is the queue's hop, the one task's its fixed cost);
 * the chain universe (64 chains x width 4096 f32 x depth 32, window 32:
-  ``chip_smoke.py``'s) through ``DeviceWindowRunner`` in the wave and
-  frontier plan modes: the median over 7 runs of the report's
-  kernels+sync span (``exec_stats["exec_seconds"]``) and of the run's
+  ``chip_smoke.py``'s) through ``DeviceWindowRunner`` in the loop, wave
+  and frontier plan modes: the median over 7 runs of the report's
+  kernel(s)+sync span (``exec_stats["exec_seconds"]``) and of the run's
   wall, and the device time by kernel name of one more run under
   ``torch.profiler``;
 * recurrentgemma-2b at its published widths (bf16 weights from seed 0),
@@ -25,16 +31,31 @@ Prints one JSON object: the label, the card's name and power limit, and
 the times in ms. To time another tree, copy this file into its
 ``src/repro_torch/kernels/`` and run it there. Needs a CUDA card and
 ``nvcc``.
+
+    PYTHONPATH=src python -m repro_torch.kernels.scan_epoch_times --sweep
+
+times the ready queue's launch shapes instead, each a copy of
+``csrc/ready_queue.cu`` with its launch constants changed (built into
+``_build/variants/``, as ``tile_sweep.py`` builds its variants): grids of
+one block an SM, 66 and 264 blocks x 512 and 256 threads x work-first on
+and off x a longest spin backoff of 256, 0 and 2048 ns. Each is checked
+against the plain version on the chain universe, then timed over the
+chain universe, one 32-deep chain and one task (device time over 20
+launches, and the CUDA-event median of single launches), one JSON line
+per shape.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -72,15 +93,19 @@ def _back_to_back_ms(fn: Callable[[], object], launches: int = 20, rounds: int =
     return statistics.median(times)
 
 
-def _device_ms(fn: Callable[[], object]) -> Dict[str, float]:
-    """Device time (ms) by kernel name of one ``fn()`` under the profiler."""
+def _profile(fn: Callable[[], object]):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {a.key[:80]: a.self_device_time_total / 1e3 for a in prof.key_averages()
+    return prof
+
+
+def _device_ms(fn: Callable[[], object]) -> Dict[str, float]:
+    """Device time (ms) by kernel name of one ``fn()`` under the profiler."""
+    out = {a.key[:80]: a.self_device_time_total / 1e3 for a in _profile(fn).key_averages()
            if a.self_device_time_total > 0}
     return dict(sorted(out.items(), key=lambda kv: -kv[1])[:6])
 
@@ -125,12 +150,124 @@ def scan_times(device: torch.device) -> Dict[str, object]:
     return out
 
 
+def _queue_inputs(device: torch.device) -> Dict[str, tuple]:
+    """The chain universe's lowered epoch, one 32-deep chain's and one
+    task's, as the loop runner hands them to ``ready_queue``: label ->
+    (slab, payload, branches)."""
+    from ..core import DeviceOpRegistry, SlabArena
+    from ..core.device_dispatch import _loop_kernel_parts, lower_epoch_program
+    from .ops import register_loop_branches
+
+    out = {}
+    for label, n_chains, depth in (("chain_universe", 64, 32), ("one_chain", 1, 32),
+                                   ("one_task", 1, 1)):
+        tasks = _chain(device, n_chains=n_chains, depth=depth)
+        reg = DeviceOpRegistry(strict=False)
+        register_loop_branches(reg)
+        arena = SlabArena()
+        arena.add_tasks(tasks)
+        program = lower_epoch_program(tasks, reg, arena)
+        cid, branches = _loop_kernel_parts(program, reg, arena)
+        out[label] = (arena.pack(device)[cid], program.payload(device), branches)
+    return out
+
+
+def _queue_device_ms(call: Callable[[], object]) -> Optional[float]:
+    """The ready-queue kernel's device time over ``RUNS`` calls: the mean
+    over the launches the trace holds (a process's later traces can lose
+    the first device events of a pass; PERF.md)."""
+    hits = [a for a in _profile(lambda: [call() for _ in range(RUNS)]).key_averages()
+            if "ready_queue" in a.key]
+    count = sum(a.count for a in hits)
+    return sum(a.self_device_time_total for a in hits) / 1e3 / count if count else None
+
+
+def queue_times(device: torch.device) -> Dict[str, object]:
+    from .ready_queue import ready_queue
+
+    out: Dict[str, object] = {}
+    for label, (slab, p, branches) in _queue_inputs(device).items():
+        call = functools.partial(ready_queue, slab, p["task_tbl"], p["dep_tbl"], p["ring0"],
+                                 p["rem0"], p["tail0"], branches=branches)
+        out[label] = {"ms": _events_ms(call), "back_to_back_ms": _back_to_back_ms(call),
+                      "device_ms": _queue_device_ms(call)}
+    return out
+
+
+# The ready queue's launch-shape constants (csrc/ready_queue.cu) and the
+# values the sweep tries; the first of each is the committed one.
+QUEUE_SHAPES = {"constexpr int kGrid = 0;": (0, 66, 264),
+                "constexpr int kThreads = 512;": (512, 256),
+                "constexpr bool kWorkFirst = true;": ("true", "false"),
+                "constexpr int kSleepNs = 256;": (256, 0, 2048)}
+
+
+def queue_sweep(device: torch.device) -> None:
+    """Each launch shape of QUEUE_SHAPES as a copy of the kernel's source,
+    built like the kernel, checked against the plain version on the chain
+    universe (slab and done bit-equal) and timed over _queue_inputs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from . import ready_queue as rq
+    from ._nvcc import build
+    from .ops import branch_table
+    from .ref import ready_queue_ref
+    from .tile_sweep import _variant_sources
+
+    variants = {}
+    for values in itertools.product(*QUEUE_SHAPES.values()):
+        name = "grid{}_threads{}_workfirst_{}_sleep{}".format(*values)
+        variants[name] = {line: line.replace(str(QUEUE_SHAPES[line][0]).lower() + ";",
+                                             f"{str(v).lower()};")
+                          for line, v in zip(QUEUE_SHAPES, values)}
+    sources = _variant_sources(rq, variants)
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(lambda src: build(src[1], rq._LIB.flags), sources))
+    inputs = _queue_inputs(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    slab, p, branches = inputs["chain_universe"]
+    want = ready_queue_ref(slab, p["task_tbl"], p["dep_tbl"], p["ring0"], p["rem0"],
+                           p["tail0"], branches=branches)
+    for (name, _), (path, _) in zip(sources, built):
+        lib = ctypes.CDLL(str(path))
+        rq._bind(lib)
+
+        def launch(slab, p, branches, lib=lib):
+            n, m = p["dep_tbl"].shape
+            out = slab.clone()
+            ring = torch.empty(n + 1, dtype=torch.int32, device=device)
+            done = torch.empty(n, dtype=torch.int32, device=device)
+            scratch = torch.zeros(rq._HEADER + 3 * n, dtype=torch.int32, device=device)
+            rc = lib.acs_ready_queue(
+                out.data_ptr(), out.shape[0], out.shape[1], p["task_tbl"].data_ptr(),
+                p["dep_tbl"].data_ptr(), n, m, branch_table(branches, device).data_ptr(),
+                len(branches), p["ring0"].data_ptr(), p["rem0"].data_ptr(),
+                p["tail0"].data_ptr(), ring.data_ptr(), done.data_ptr(), scratch.data_ptr(),
+                stream)
+            if rc != 0:
+                raise RuntimeError(f"scan_epoch_times: {name}: CUDA error {rc}")
+            return out, done, scratch
+
+        out, done, scratch = launch(slab, p, branches)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in ((out, want[0]), (done, want[1])))
+        if not same:
+            raise RuntimeError(f"scan_epoch_times: {name} != plain on the chain universe")
+        row: Dict[str, object] = {"variant": name, "grid": int(scratch[rq._GRID_SIZE]),
+                                  "blocks_ran": int(scratch[rq._BLOCKS_RAN])}
+        for label, args in inputs.items():
+            call = functools.partial(launch, *args)
+            row[f"{label}_device_ms"] = _queue_device_ms(call)
+            row[f"{label}_ms"] = _events_ms(call)
+        print(json.dumps(row), flush=True)
+
+
 def window_times(device: torch.device) -> Dict[str, object]:
     from ..core import DeviceOpRegistry, DeviceWindowRunner
     from .ops import register_loop_branches
 
     out: Dict[str, object] = {}
-    for mode in ("wave", "frontier"):
+    for mode in ("loop", "wave", "frontier"):
         reg = DeviceOpRegistry(strict=False)
         register_loop_branches(reg)
         runner = DeviceWindowRunner(registry=reg, window_size=32, plan_mode=mode,
@@ -192,8 +329,12 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     device = torch.device("cuda", 0)
+    if label == "--sweep":
+        print(json.dumps({"card": card}), flush=True)
+        queue_sweep(device)
+        return 0
     print(json.dumps({"label": label, "card": card, "scan": scan_times(device),
-                      "window": window_times(device),
+                      "queue": queue_times(device), "window": window_times(device),
                       "recurrentgemma": serve_times(device)}), flush=True)
     return 0
 

@@ -54,14 +54,14 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
 import torch
 
 from ._nvcc import CudaLibrary, raw_stream
-from .ops import LOOP_OPCODES
+from .ops import LOOP_OPCODES, branch_table
 from .ref import wave_rows_ref
 
 __all__ = ["wave_elementwise", "wave_epoch", "direct_steps", "apply_wave", "raise_on_error",
@@ -74,9 +74,6 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "wave_elementwise.cu"
 launches = 0
 # Plan steps the epoch kernel ran since the last reset_launches().
 steps = 0
-
-# (device, opcodes) -> the kernel's branch table on that device, uploaded once.
-_OPS: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -150,14 +147,6 @@ def _check_branches(branches: Sequence[Callable]) -> None:
                          "only kernels/ops.py LOOP_BRANCHES run in the wave kernel")
 
 
-def _branch_ops(branches: Sequence[Callable], device: torch.device) -> torch.Tensor:
-    key = (device, tuple(LOOP_OPCODES[fn] for fn in branches))
-    ops = _OPS.get(key)
-    if ops is None:
-        ops = _OPS[key] = torch.tensor(key[1], dtype=torch.int32, device=device)
-    return ops
-
-
 def wave_elementwise(
     slab: torch.Tensor,   # [R, D] float32 buffer rows
     desc: torch.Tensor,   # [S, 4] int32 (branch, in0_row, in1_row, out_row)
@@ -180,7 +169,7 @@ def wave_elementwise(
     s = desc.shape[0]
     _check("slab", slab, torch.float32, slab.shape, dev)
     _check("desc", desc, torch.int32, (s, 4), dev)
-    ops = _branch_ops(branches, dev)
+    ops = branch_table(branches, dev)
     own = err is None
     if own:
         err = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -276,7 +265,7 @@ def wave_epoch(
     dev = slab.device
     _check("slab", slab, torch.float32, slab.shape, dev)
     _check("desc", desc, torch.int32, (desc.shape[0], 4), dev)
-    ops = _branch_ops(branches, dev)
+    ops = branch_table(branches, dev)
     own = err is None
     if own:
         err = torch.zeros(1, dtype=torch.int32, device=dev)

@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card.
 
-* ready queue: bit-equal to its plain version on random DAG epochs, the
-  same early stop on corrupted tables, the wrapper's input checks, and the
-  device runner's route through it;
+* ready queue: slab and completion flags bit-equal to its plain version,
+  its ring a start order (a permutation and a topological order of the
+  edges), on random DAG epochs, one chain 2,048 deep, the chain universe
+  and a task with 1,000 dependents (``m`` > 32); nothing run, as in the
+  plain version, on corrupted tables; the same bits over 20 launches; the
+  wrapper's input checks, and the device runner's route through it;
 * wave megakernel: bit-equal to its plain version over S in {1, 7, 32, 64}
   x D in {1, 37, 4096} (repeated input rows, a slot reading its own out
   row), its error on bad descriptors, the wrapper's input checks; the
@@ -48,6 +51,10 @@ Run them on the card with::
 
 This module imports no JAX: the card's machine has none.
 """
+
+import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -113,41 +120,73 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _payload(args):
+    return dict(zip(("task_tbl", "dep_tbl", "ring0", "rem0", "tail0"), args[1:]))
+
+
 @pytest.mark.parametrize("seed", range(3))
 @pytest.mark.parametrize("n,d", [(1, 8), (64, 128), (300, 1000), (1024, 4096), (8192, 256)])
 def test_kernel_bit_equal_to_plain(device, seed, n, d):
+    """Slab and done bit for bit; the ring a start order of the tasks (a
+    concurrent queue does not fix the order, so it is not compared with
+    the plain version's FIFO order)."""
     _, tasks = _stream(device, seed, n, d)
     args, branches = _kernel_args(device, tasks)
     got = rq.ready_queue(*args, branches=branches)
     torch.cuda.synchronize()
     want = ready_queue_ref(*args, branches=branches)
-    for g, w in zip(got, want):
+    for g, w in zip(got[:2], want[:2]):
         assert torch.equal(_bits(g), _bits(w))
     assert bool(got[1].all())
+    assert _smoke().is_start_order(got[2], args[2])
 
 
-@pytest.mark.parametrize("corrupt", ["dropped_edge", "bad_task_row", "bad_edge", "bad_in2"])
+@pytest.mark.parametrize("corrupt", ("bad_in2",) + _smoke().CORRUPTIONS)
 def test_kernel_stops_like_plain_on_corrupted_tables(device, corrupt):
+    """A fault found by the checks runs no task (slab unchanged, done all 0,
+    ring == ring0) on the card as in the plain version; a corrupted in2,
+    which no opcode reads, runs everything."""
     _, tasks = _stream(device, 0, 200, 64)
     args, branches = _kernel_args(device, tasks)
-    slab, task_tbl, dep_tbl, ring0, rem0, tail0 = (a.clone() for a in args)
-    n = len(tasks)
-    if corrupt == "dropped_edge":
-        t, j = (dep_tbl < n).nonzero()[0].tolist()
-        dep_tbl[t, j] = n
-    elif corrupt == "bad_task_row":
-        task_tbl[int(ring0[0]), 4] = slab.shape[0] + 5
-    elif corrupt == "bad_in2":
-        task_tbl[:, 3] = slab.shape[0] + 5  # no opcode reads in2
+    q, _ = _smoke().corrupt_tables(corrupt, args[0], _payload(args), len(branches))
+    _smoke().queue_vs_plain(corrupt, args[0], q, branches)
+
+
+@pytest.mark.parametrize("case", ["chain_2048_every_edge", "chain_2048_one_edge",
+                                  "fan_out_1000", "chain_universe"])
+def test_kernel_bit_equal_on_deep_and_wide_epochs(device, case):
+    """Pure serial work (one chain 2,048 deep), 64 chains side by side, and
+    one task whose 1,000 dependents take 32 warp lanes a round."""
+    smoke = _smoke()
+    if case == "chain_universe":
+        _, tasks = smoke.chain_universe(device)
+        slab, p, branches = smoke.lowered_payload(tasks, device)
+    elif case == "fan_out_1000":
+        slab, p, branches = smoke.fan_out(device, 1000, width=256)
     else:
-        dep_tbl[0, 0] = -7
-    got = rq.ready_queue(slab, task_tbl, dep_tbl, ring0, rem0, tail0, branches=branches)
-    torch.cuda.synchronize()
-    want = ready_queue_ref(slab, task_tbl, dep_tbl, ring0, rem0, tail0, branches=branches)
-    for g, w in zip(got, want):
-        assert torch.equal(_bits(g), _bits(w))
-    if corrupt != "bad_edge":
-        assert bool(got[1].all()) == (corrupt == "bad_in2")
+        slab, p, branches = smoke.serial_chain(device, 2048,
+                                               all_edges=case.endswith("every_edge"))
+    smoke.queue_vs_plain(case, slab, p, branches)
+
+
+def test_kernel_same_bits_over_20_launches(device):
+    _, tasks = _stream(device, 4, 2048, 4096)
+    args, branches = _kernel_args(device, tasks)
+    first = rq.ready_queue(*args, branches=branches)
+    for _ in range(19):
+        got = rq.ready_queue(*args, branches=branches)
+        assert torch.equal(_bits(got[0]), _bits(first[0])) and torch.equal(got[1], first[1])
+    want = ready_queue_ref(*args, branches=branches)
+    assert torch.equal(_bits(first[0]), _bits(want[0]))
 
 
 def test_wrapper_checks_inputs(device):

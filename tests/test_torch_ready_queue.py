@@ -1,7 +1,8 @@
 """The port's ACS-HW path on the CPU: the ready-queue lowering against the
 reference's, the plain ready queue (``ready_queue_ref``, the oracle of the
 CUDA kernel) against ``run_serial`` and the reference's loop interpreter,
-the kernel-path eligibility, and the stall error.
+its table checks (every lowered stream passes them; each corruption runs
+no task), the kernel-path eligibility, and the stall error.
 
 The reference's Pallas ready-queue kernel does not trace on the installed
 JAX, so the reference side runs its ``lax.while_loop`` interpreter
@@ -9,16 +10,20 @@ JAX, so the reference side runs its ``lax.while_loop`` interpreter
 kernel itself runs only on the card (``chip_smoke.py``).
 """
 
+import functools
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from _prophelper import given, settings, st
 
 import _torch_streams as S
 from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels.ops import LOOP_BRANCHES, LOOP_OPCODES
-from repro_torch.kernels.ref import ready_queue_ref
+from repro_torch.kernels.ref import ready_queue_ref, ready_queue_tables_error
 
 # XLA may contract a*b+c into one FMA on the CPU where eager PyTorch
 # rounds twice, so the reference side agrees to a few ulps, not bitwise.
@@ -207,6 +212,15 @@ def test_opcodes_match_the_cuda_source():
     assert consts == {name: LOOP_OPCODES[fn] for name, fn in LOOP_BRANCHES.items()}
 
 
+def test_scratch_layout_matches_the_cuda_source():
+    """The wrapper reads the grid and the blocks that ran tasks from the
+    words of the scratch where the kernel leaves them."""
+    src = rq.SOURCE.read_text()
+    words = dict(re.findall(r"\b(k[A-Z]\w*) = (\d+)", src))
+    assert (int(words["kHeader"]), int(words["kGridSize"]), int(words["kBlocksRan"])) == \
+        (rq._HEADER, rq._GRID_SIZE, rq._BLOCKS_RAN)
+
+
 @pytest.mark.parametrize("name", sorted(LOOP_BRANCHES))
 def test_branches_match_reference_formulas(name):
     rng = np.random.RandomState(3)
@@ -223,3 +237,100 @@ def test_wrapper_rejects_non_cpu_non_cuda_device():
         rq.ready_queue(slab, torch.zeros((1, 5), **i32), torch.zeros((1, 1), **i32),
                        torch.zeros(2, **i32), torch.zeros(2, **i32), torch.zeros(1, **i32),
                        branches=(LOOP_BRANCHES["axpy"],))
+
+
+# ---------------------------------------------------------------------------
+# The table checks that the plain version and the CUDA kernel make first
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _queue_args(stream, seed, size):
+    """The kernel's arguments ``(slab, payload, branches)`` for a lowered
+    stream on the CPU: the chain universe (``size`` chains of depth 4), the
+    mixed-tag hazard stream (``size`` tasks) or ``chip_smoke``'s random DAG
+    (``size`` tasks over 12 rows)."""
+    if stream == "random_dag":
+        return _chip_smoke().random_dag(torch.device("cpu"), seed, size, 8, n_bufs=12)
+    if stream == "chain":
+        _, tasks = S.chain_universe("port", seed, n_chains=size, width=8)
+    else:
+        _, tasks = S.mixed_tag("port", seed, d=8, n_tasks=size)
+    program, _, arena = S.lower("port", tasks)
+    slabs, cid, p, branches = _kernel_args(program, arena)
+    return slabs[cid], p, branches
+
+
+def _table_error(slab, p, branches):
+    return ready_queue_tables_error(p["task_tbl"], p["dep_tbl"], p["ring0"], p["rem0"],
+                                    p["tail0"], rows=slab.shape[0], branches=branches)
+
+
+def _topological(ring, dep_tbl, n):
+    order = ring[:n].tolist()
+    if sorted(order) != list(range(n)):
+        return False
+    where = np.empty(n, np.int64)
+    where[order] = np.arange(n)
+    dep = dep_tbl.numpy()
+    t, j = np.nonzero(dep < n)
+    return bool((where[t] < where[dep[t, j]]).all())
+
+
+@given(st.sampled_from(["chain", "mixed_tag", "random_dag"]), st.integers(0, 10_000),
+       st.integers(1, 60))
+@settings(max_examples=30, deadline=None)
+def test_every_lowered_stream_passes_the_checks_and_drains(stream, seed, size):
+    slab, p, branches = _queue_args(stream, seed, size)
+    assert _table_error(slab, p, branches) is None
+    n = p["dep_tbl"].shape[0]
+    out, done, ring = ready_queue_ref(slab, p["task_tbl"], p["dep_tbl"], p["ring0"], p["rem0"],
+                                      p["tail0"], branches=branches)
+    assert bool(done.all())
+    assert _topological(ring, p["dep_tbl"], n)
+    assert int(ring[n]) == int(p["ring0"][n]) == n
+
+
+CORRUPTIONS = _chip_smoke().CORRUPTIONS
+
+
+@pytest.mark.parametrize("kind", CORRUPTIONS)
+@pytest.mark.parametrize("stream", ["chain", "random_dag"])
+def test_corrupted_tables_run_no_task(stream, kind):
+    """Each fault is named by its check, and the epoch then runs nothing:
+    the slab's bits unchanged, ``done`` all 0 and ``ring == ring0``, through
+    the plain version and through the wrapper's CPU path."""
+    slab, p, branches = _queue_args(stream, 0, 6 if stream == "chain" else 40)
+    q, words = _chip_smoke().corrupt_tables(kind, slab, p, len(branches))
+    assert words in (_table_error(slab, q, branches) or "")
+    args = (slab, q["task_tbl"], q["dep_tbl"], q["ring0"], q["rem0"], q["tail0"])
+    for fn in (ready_queue_ref, rq.ready_queue):
+        out, done, ring = fn(*args, branches=branches)
+        assert torch.equal(out.view(torch.int32), slab.view(torch.int32))
+        assert done.dtype == torch.int32 and not bool(done.any())
+        assert torch.equal(ring, q["ring0"])
+
+
+def test_a_lone_task_and_an_empty_epoch():
+    """n = 1 runs its task; n = 0 returns the inputs' copies."""
+    slab, p, branches = _queue_args("random_dag", 3, 1)
+    assert p["dep_tbl"].shape[0] == 1
+    out, done, ring = ready_queue_ref(slab, p["task_tbl"], p["dep_tbl"], p["ring0"],
+                                      p["rem0"], p["tail0"], branches=branches)
+    assert done.tolist() == [1] and ring.tolist() == [0, 1]
+    b, i0, i1, _, o = p["task_tbl"][0].tolist()
+    want = slab.clone()
+    want[o] = branches[b](slab[i0], slab[i1])
+    assert torch.equal(out, want)
+    i32 = dict(dtype=torch.int32)
+    empty = (slab, torch.zeros((0, 5), **i32), torch.zeros((0, 1), **i32),
+             torch.zeros(1, **i32), torch.zeros(1, **i32), torch.zeros(1, **i32))
+    out, done, ring = ready_queue_ref(*empty, branches=branches)
+    assert torch.equal(out, slab) and done.numel() == 0 and ring.tolist() == [0]

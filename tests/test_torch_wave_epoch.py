@@ -41,6 +41,7 @@ from repro.kernels.wave_elementwise import apply_wave as r_apply_wave
 from repro.kernels.wave_elementwise import wave_elementwise as r_wave_elementwise
 from repro_torch.core.device_dispatch import _wave_kernel_parts, plan_waves
 from repro_torch.kernels import lru_scan as ls
+from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels import wave_elementwise as we
 from repro_torch.kernels.ops import LOOP_BRANCHES, wave_step
 
@@ -278,7 +279,8 @@ class _Lib:
 
 
 @pytest.mark.parametrize("mod,entries", [(we, ("acs_wave_elementwise", "acs_wave_epoch")),
-                                         (ls, ("acs_lru_scan",))])
+                                         (ls, ("acs_lru_scan",)),
+                                         (rq, ("acs_ready_queue",))])
 def test_bound_argtypes_match_the_c_entry_points(mod, entries):
     """ctypes passes each argument as its ``argtypes`` entry says; a count
     that differs from the C signature would shift every argument after it.
