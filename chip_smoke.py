@@ -77,6 +77,20 @@ Phases, each fatal on failure (an exception, exit code != 0):
 5. ACS-SW main path: the cheetah physics stream (64 envs, 8 groups,
    5 steps) through the serial, wave and threaded (4 CUDA streams)
    schedulers, bit-equal across the three and finite.
+5b. The dynamic-DNN workloads (``dyn/``): all seven (InstaNAS, Dynamic
+   Routing, CondConv; NASNet, AmoebaNet, SqueezeNet, RandWire) at the
+   reference's sizes (batch 1, 3x32x32), each on 8 seeded inputs through
+   the serial, wave, threaded and frontier schedulers, the device window
+   and ``DeviceSession`` in the loop, wave and frontier plan modes, and
+   ``DagRunner`` (the static nets also constructing once and replaying):
+   every output finite and bit-equal to ``run_serial``'s, InstaNAS's and
+   Dynamic Routing's task counts varying with the input and the others'
+   not (CondConv's input dependence is in its mixed weights), the
+   frontier's ``max_inflight_groups()`` above 1 (InstaNAS's too), and none
+   of the five kernels launched (their routes take only padding-free 1-D
+   rows; a dyn epoch runs the step path or the loop interpreter). Tasks,
+   dispatches, wave widths, blocking syncs, in-flight groups, the DAG's
+   construction time and dependency checks, and walls are logged.
 6. Serving main paths, one model after the other (the first one's
    weights freed before the second's are drawn), each at its published
    config with bf16 weights drawn from seed 0: recurrentgemma-2b (26
@@ -85,8 +99,10 @@ Phases, each fatal on failure (an exception, exit code != 0):
    serves 8 seeded prompts of 128-512 tokens, 16 new tokens each, through
    ``SessionServer(scheduler="wave")``, ``SessionServer(scheduler="device")``
    (its ``"loop"`` plan mode; every serving task takes the session's
-   in-epoch host path) and ``ContinuousBatchingServer`` (4 slots, max_len
-   1024, window 32). Every request gets its 16 tokens, the three servers'
+   in-epoch host path), ``SessionServer(scheduler="frontier")`` (the
+   reference's default: one task a group, up to 8 in flight, each retired
+   on its CUDA event) and ``ContinuousBatchingServer`` (4 slots, max_len
+   1024, window 32). Every request gets its 16 tokens, the four servers'
    tokens are identical and equal a plain greedy loop over
    ``prefill``/``decode_step``, every logit is finite, and each server run
    launches exactly: the flash kernel once per request and attention layer
@@ -107,8 +123,9 @@ Phases, each fatal on failure (an exception, exit code != 0):
    ``torch.profiler`` (the mean over the kernels the trace holds), that
    of ONE 32-deep chain (over 32: the hop that bounds it) and of one
    task, its grid and the blocks that ran tasks.
-8. Device busy share, run after phase 5 and before phase 6: one more
-   pass of each phase-4/5 policy under ``torch.profiler``; the union of
+8. Device busy share, run after phase 5b and before phase 6: one more
+   pass of each phase-4/5 policy, and of InstaNAS's 8 inputs under the
+   serial and frontier schedulers, under ``torch.profiler``; the union of
    the CUDA kernels' intervals over the pass's wall ("not measured" if the
    profiler records no kernel), and whether the loop and wave passes' own
    kernels are in the trace. After phase 6's profiled serving passes
@@ -1106,6 +1123,183 @@ def phase_acs_sw(device):
     return walls
 
 
+DYN_INPUTS, DYN_CHUNK = 8, 8
+# The nets whose task graph depends on the input. CondConv's input
+# dependence is in its values (weights mixed at run time): its graph is
+# fixed, as in the reference.
+DYN_GRAPH_VARIES = ("instanas", "dynamic_routing")
+DYN_POLICIES = ("serial", "wave", "threaded", "frontier", "device_loop", "device_wave",
+                "device_frontier", "session_loop", "session_wave", "session_frontier", "dag")
+# One pass of 8 inputs takes 20-60 ms, which the host's noise can swing by
+# 1.5x from one run to the next: serial, wave and frontier are timed again
+# in rounds, their order rotated each round, and compared by medians.
+DYN_TIMED, DYN_ROUNDS = ("serial", "wave", "frontier"), 7
+
+
+def dyn_input(seed):
+    """``benchmarks/bench_dynamic_dnn.py``'s inputs: 3x32x32, scaled by
+    1 + 0.3 * seed."""
+    rng = np.random.RandomState(seed)
+    return rng.randn(1, 3, 32, 32).astype(np.float32) * (1.0 + 0.3 * seed)
+
+
+def dyn_stream(name, params, seed):
+    """One input's task stream of workload ``name``. Returns (the output
+    buffer, the tasks)."""
+    from repro_torch.core import TaskStream
+    from repro_torch.dyn import WORKLOADS
+
+    stream = TaskStream()
+    out = WORKLOADS[name][1](params, stream, dyn_input(seed))
+    return out, stream.tasks
+
+
+def dyn_runner(policy, device):
+    """A fresh runner of ``policy`` (one of ``DYN_POLICIES``): ``run(tasks)
+    -> report``. ``device_*`` is ``DeviceWindowRunner`` and ``session_*``
+    a ``DeviceSession`` fed in chunks of ``DYN_CHUNK`` with a poll after
+    each, in that plan mode, on the dyn kernel registry; ``dag`` is
+    ``DagRunner``, constructing the graph of every input."""
+    from repro_torch.core import (DagRunner, DeviceOpRegistry, DeviceSession,
+                                  DeviceWindowRunner, make_scheduler)
+    from repro_torch.dyn.blocks import register_device_kernels
+
+    kind, _, mode = policy.partition("_")
+    if kind == "dag":
+        return DagRunner(device=device).execute
+    if not mode:
+        return make_scheduler(policy, window_size=WINDOW, num_streams=SIM_STREAMS,
+                              device=device)
+    reg = DeviceOpRegistry()
+    register_device_kernels(reg)
+    if kind == "device":
+        return DeviceWindowRunner(reg, window_size=WINDOW, plan_mode=mode, device=device).run
+
+    def run(tasks):
+        session = DeviceSession(window_size=WINDOW, registry=reg, plan_mode=mode,
+                                device=device)
+        for i in range(0, len(tasks), DYN_CHUNK):
+            session.submit(tasks[i:i + DYN_CHUNK])
+            session.poll()
+        return session.close()
+    return run
+
+
+def kernel_modules():
+    """The five hand-written kernels' wrapper modules."""
+    from repro_torch.kernels import flash_attention, grouped_matmul, lru_scan, ready_queue
+    from repro_torch.kernels import wave_elementwise
+
+    return (ready_queue, wave_elementwise, flash_attention, lru_scan, grouped_matmul)
+
+
+def phase_dyn(device, card):
+    """The paper's dynamic-DNN workloads (``dyn/``), all seven at the
+    reference's sizes, each on ``DYN_INPUTS`` seeded inputs through every
+    policy of ``DYN_POLICIES`` (the static nets also through a DagRunner
+    that constructs once and replays): every output finite and bit-equal to
+    ``run_serial``'s; the task counts vary with the input exactly for
+    ``DYN_GRAPH_VARIES``; the frontier keeps more than one group in
+    flight; none of the five hand-written kernels is launched (their
+    routes take only padding-free 1-D rows). Each line's wall is the runs
+    alone, ended by a synchronize; building the streams is not in it. The
+    dynamic nets are also timed in rounds (:func:`dyn_rounds`)."""
+    import torch
+    from repro_torch.core import DagRunner
+    from repro_torch.dyn import WORKLOADS
+
+    peak_inflight = {}
+    for mod in kernel_modules():
+        mod.reset_launches()
+    for name, (init, _, dynamic) in WORKLOADS.items():
+        params = init(0, device=device)
+        out, tasks = dyn_stream(name, params, 0)  # warm-up: first calls, the classifier
+        dyn_runner("serial", device)(tasks)
+        expect, counts = [], []
+        for seed in range(DYN_INPUTS):
+            out, tasks = dyn_stream(name, params, seed)
+            dyn_runner("serial", device)(tasks)
+            check(bool(torch.isfinite(out.value).all()), f"{name} input {seed}: non-finite")
+            expect.append(out.value)
+            counts.append(len(tasks))
+        varies = name in DYN_GRAPH_VARIES
+        check((len(set(counts)) > 1) == varies,
+              f"{name}: task counts {counts} over {DYN_INPUTS} inputs "
+              f"({'dynamic' if dynamic else 'static'} net)")
+        policies = DYN_POLICIES + (() if dynamic else ("dag_replay",))
+        replay = DagRunner(device=device)  # constructs on input 0, replays the rest
+        for policy in policies:
+            wall, dispatches, widths, syncs, inflight = 0.0, 0, [], 0, []
+            construct_s, dep_checks = 0.0, 0
+            for seed in range(DYN_INPUTS):
+                out, tasks = dyn_stream(name, params, seed)
+                run = (replay.execute if policy == "dag_replay" else dyn_runner(policy, device))
+                kw = {"construct": seed == 0} if policy == "dag_replay" else {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                report = run(tasks, **kw)
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+                check(bit_equal(out.value, expect[seed]),
+                      f"{name} {policy} input {seed}: output != run_serial")
+                ex = report.exec_stats
+                check(ex["tasks_run"] == len(tasks),
+                      f"{name} {policy} input {seed}: {ex['tasks_run']} of {len(tasks)} tasks ran")
+                dispatches += ex["dispatches"]
+                widths.append(ex["mean_wave_width"])
+                syncs += ex["blocking_syncs"]
+                if policy == "frontier":
+                    inflight.append(report.max_inflight_groups())
+                if policy == "dag":  # a fresh runner an input
+                    construct_s += report.construct_seconds
+                    dep_checks += report.dep_checks
+                elif policy == "dag_replay":  # one runner, its totals
+                    construct_s, dep_checks = report.construct_seconds, report.dep_checks
+            extra = ""
+            if policy == "frontier":
+                peak_inflight[name] = max(inflight)
+                extra = f", max_inflight_groups {inflight}"
+            if policy.startswith("dag"):
+                extra = (f", construct {construct_s * 1e3:.3f} ms "
+                         f"({100 * construct_s / wall:.1f} % of the wall), dep_checks {dep_checks}")
+            log(f"dyn {name} {policy}: {DYN_INPUTS} inputs, tasks {counts}, dispatches "
+                f"{dispatches}, mean wave width {statistics.mean(widths):.3f}, blocking syncs "
+                f"{syncs}{extra}, wall {wall * 1e3:.3f} ms, bit-equal to run_serial [{card}]")
+        if dynamic:
+            dyn_rounds(name, params, device, card)
+    launched = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernel_modules()}
+    check(not any(launched.values()), f"dyn: the hand-written kernels launched {launched}")
+    check(max(peak_inflight.values()) > 1 and peak_inflight["instanas"] > 1,
+          f"dyn frontier: max_inflight_groups {peak_inflight}")
+    log(f"dyn: {len(WORKLOADS)} workloads x {DYN_INPUTS} inputs bit-equal to run_serial under "
+        f"every policy; the five kernels launched {launched}; frontier max_inflight_groups "
+        f"{peak_inflight}")
+
+
+def dyn_rounds(name, params, device, card):
+    """Time ``DYN_TIMED`` on workload ``name`` in ``DYN_ROUNDS`` rounds of
+    ``DYN_INPUTS`` inputs each (streams built first), the policies' order
+    rotated every round; log each policy's median, its range and the
+    median's ratio to serial's."""
+    import torch
+
+    walls = {policy: [] for policy in DYN_TIMED}
+    for r in range(DYN_ROUNDS):
+        for i in range(len(DYN_TIMED)):
+            policy = DYN_TIMED[(r + i) % len(DYN_TIMED)]
+            streams = [dyn_stream(name, params, seed)[1] for seed in range(DYN_INPUTS)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for tasks in streams:
+                dyn_runner(policy, device)(tasks)
+            torch.cuda.synchronize()
+            walls[policy].append((time.perf_counter() - t0) * 1e3)
+    base = statistics.median(walls["serial"])
+    log(f"dyn {name} rounds: {DYN_ROUNDS} x {DYN_INPUTS} inputs, order rotated; " + "; ".join(
+        f"{p} median {statistics.median(w):.3f} ms (min {min(w):.3f}, max {max(w):.3f}, "
+        f"{statistics.median(w) / base:.3f}x serial)" for p, w in walls.items()) + f" [{card}]")
+
+
 def serve_prompts(vocab):
     rng = np.random.RandomState(SERVE_SEED)
     lengths = rng.randint(SERVE_MIN_PROMPT, SERVE_MAX_PROMPT + 1, SERVE_REQUESTS)
@@ -1217,6 +1411,7 @@ def phase_serve(device, card, arch):
     walls, tokens, main_launches = {}, {}, None
     for name, cls, kw in (("SessionServer(wave)", SessionServer, {"scheduler": "wave"}),
                           ("SessionServer(device)", SessionServer, {"scheduler": "device"}),
+                          ("SessionServer(frontier)", SessionServer, {"scheduler": "frontier"}),
                           ("ContinuousBatchingServer", ContinuousBatchingServer, {})):
         toks, wall, reads, launches = serve_once(cfg, params, cls, prompts, device, **kw)
         check(all(len(t) == SERVE_MAX_NEW for t in toks),
@@ -1233,9 +1428,9 @@ def phase_serve(device, card, arch):
         log(f"serve {cfg.name} {name}: {SERVE_REQUESTS} requests x {SERVE_MAX_NEW} tokens, "
             f"wall {wall * 1e3:.3f} ms, {n_tok / wall:.2f} tokens/s, host reads {reads}, "
             f"launches {launches} [{card}]")
-    check(tokens["SessionServer(wave)"] == tokens["SessionServer(device)"]
-          == tokens["ContinuousBatchingServer"], f"serve {cfg.name}: the servers' tokens differ")
-    log(f"serve {cfg.name}: prompt lengths {[len(p) for p in prompts]}; the three servers' "
+    check(all(t == tokens["SessionServer(wave)"] for t in tokens.values()),
+          f"serve {cfg.name}: the servers' tokens differ")
+    log(f"serve {cfg.name}: prompt lengths {[len(p) for p in prompts]}; the four servers' "
         f"tokens identical and equal to the plain greedy loop; median prefill "
         f"{statistics.median(prefill_s) * 1e3:.3f} ms, median decode step "
         f"{statistics.median(decode_s) * 1e3:.3f} ms (greedy loop, host clock, "
@@ -1787,6 +1982,16 @@ def busy_chain(device, policy):
     return lambda: runner.run(tasks)
 
 
+def busy_dyn(device, policy):
+    """InstaNAS on ``DYN_INPUTS`` inputs through ``policy``, the streams
+    built first, ready to run under the profiler."""
+    from repro_torch.dyn import WORKLOADS
+
+    params = WORKLOADS["instanas"][0](0, device=device)
+    streams = [dyn_stream("instanas", params, seed)[1] for seed in range(DYN_INPUTS)]
+    return lambda: [dyn_runner(policy, device)(tasks) for tasks in streams]
+
+
 def phase_busy(device, card):
     from repro_torch.core import TaskStream, make_scheduler
     from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
@@ -1811,7 +2016,9 @@ def phase_busy(device, card):
             ("chain_universe/device_loop", lambda: chain("device_loop"), "ready_queue_kernel"),
             ("chain_universe/device_wave", lambda: chain("device_wave"), "wave_epoch_kernel"),
             *((f"cheetah step/{p}", lambda p=p: cheetah(p), None)
-              for p in ("serial", "wave", "threaded"))):
+              for p in ("serial", "wave", "threaded")),
+            *((f"instanas {DYN_INPUTS} inputs/{p}", lambda p=p: busy_dyn(device, p), None)
+              for p in ("serial", "frontier"))):
         profile_pass(label, make(), card, kernel)
 
 
@@ -1849,6 +2056,7 @@ def main() -> int:
     wave_launches, widest, wave_walls = timed(phase_acs_hw_waves, device)
     session_walls = timed(phase_session, device)
     sw_walls = timed(phase_acs_sw, device)
+    timed(phase_dyn, device, card)
     timed(phase_busy, device, card)
     serve_launches, serve_walls = {}, {}
     for arch in SERVE_ARCHS:

@@ -2,10 +2,11 @@
 PyTorch (port of ``repro.core``): the segment algebra, buffers and tasks,
 the scheduling window, the ACS-SW schedulers and sessions, and the ACS-HW
 device window (wave, frontier and ready-queue lowerings, closed-batch and
-persistent) over a slab arena."""
+persistent) over a slab arena, and the full-DAG baseline."""
 
 from .arena import ArenaAddress, ShapeClass, SlabArena, pad_shape, row_capacity
 from .buffers import Buffer, BufferPool, BufferView, resolve_device
+from .dag_baseline import DagRunner, build_full_dag, level_schedule
 from .device_dispatch import (
     DeviceOpRegistry,
     DeviceSession,
@@ -19,7 +20,9 @@ from .device_dispatch import (
     plan_frontier,
     plan_waves,
 )
-from .executors import FusedWaveExecutor, SerialExecutor
+from .executors import (FusedWaveExecutor, GroupExecutor, GroupHandle, SerialExecutor,
+                        group_by_signature)
+from .frontier import AsyncFrontierScheduler, DispatchQueue, FrontierSession
 from .scheduler import (
     GroupTrace,
     PLAN_MODES,
@@ -42,10 +45,12 @@ from .wrapper import KERNEL_REGISTRY, AcsKernel, TaskStream, acs_kernel
 __all__ = [
     "ArenaAddress", "ShapeClass", "SlabArena", "pad_shape", "row_capacity",
     "Buffer", "BufferPool", "BufferView", "resolve_device",
+    "DagRunner", "build_full_dag", "level_schedule",
     "DeviceOpRegistry", "DeviceSession", "DeviceStep", "DeviceWindowRunner", "EpochProgram",
     "compile_wave_plan", "lower_epoch_program", "lower_plan", "plan_active_fraction",
     "plan_frontier", "plan_waves",
-    "FusedWaveExecutor", "SerialExecutor",
+    "FusedWaveExecutor", "GroupExecutor", "GroupHandle", "SerialExecutor", "group_by_signature",
+    "AsyncFrontierScheduler", "DispatchQueue", "FrontierSession",
     "GroupTrace", "PLAN_MODES", "SCHEDULER_NAMES", "SESSION_NAMES", "SchedulerReport",
     "ThreadedStreamScheduler", "WaveScheduler", "make_scheduler", "make_session", "run_serial",
     "IntervalScoreboard",

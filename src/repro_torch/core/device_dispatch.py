@@ -13,8 +13,9 @@ into integer tables, in one of three plan modes:
   :class:`DeviceStep` groups with dense row tables. The epoch runs as a
   host loop over the steps, one ``torch.func.vmap`` call per group (the
   reference's ``lax.scan`` program; `_build_program` keeps its run-length
-  segmentation; on a CUDA device, a group whose fn runs a contraction
-  makes one call per task, so the result keeps ``run_serial``'s bits).
+  segmentation; a group whose fn runs a contraction on a CUDA device, or
+  a convolution on the CPU, makes one call per task, so the result keeps
+  ``run_serial``'s bits: ``executors.per_task_group``).
   When every task of the epoch fits the **wave megakernel**
   (``kernels/wave_elementwise.py``, CUDA: one shape class of
   padding-free float32 1-D rows, no views, two inputs, one output, every
@@ -28,6 +29,11 @@ into integer tables, in one of three plan modes:
   ring, run by the **ready-queue kernel** (``kernels/ready_queue.py``,
   CUDA, one launch for the epoch) when eligible, else by a host
   interpreter over the same ring.
+
+Both kernels take only padding-free 1-D rows of one shape class, so the
+dynamic-DNN streams (``dyn/``: NCHW maps of many classes, convs and pools)
+never reach them, as in the reference: their wave and frontier epochs run
+the step path and their loop epochs the interpreter.
 
 :class:`DeviceWindowRunner` is the closed-batch form: each ``run`` plans,
 lowers, packs a fresh arena and syncs once. :class:`DeviceSession` is the
@@ -54,7 +60,7 @@ import torch
 
 from .arena import SlabArena, pad_to
 from .buffers import Buffer, BufferView, DeviceLike, resolve_device
-from .executors import (ExecStats, SerialExecutor, contraction_in, group_by_signature,
+from .executors import (ExecStats, SerialExecutor, group_by_signature, per_task_group,
                         synchronize)
 from .scheduler import PLAN_MODES, SchedulerReport
 from .scoreboard import dependency_arrays
@@ -490,9 +496,10 @@ def _scatter_operand(slabs: Sequence[torch.Tensor], spec: _OperandSpec,
 
 
 def _per_task(fn: Callable, signature: Tuple, ins: Sequence[torch.Tensor]) -> bool:
-    """A step group that must run one call per task: on a CUDA device, a fn
-    with a contraction or a long reduction."""
-    return ins[0].is_cuda and contraction_in(fn, signature, [x[0] for x in ins]) is not None
+    """A step group that must run one call per task
+    (``executors.per_task_group``: on a CUDA device a fn with a contraction
+    or a long reduction, on the CPU a convolution)."""
+    return per_task_group(fn, signature, [x[0] for x in ins], ins[0].device)
 
 
 def _apply_step(slabs: Sequence[torch.Tensor], spec: _StepSpec, fn: Callable,
@@ -501,10 +508,10 @@ def _apply_step(slabs: Sequence[torch.Tensor], spec: _StepSpec, fn: Callable,
     """Run one homogeneous group over the slabs: gather every input column,
     then one call (``fn`` for a group of one, else ``torch.func.vmap(fn)``),
     then scatter. Everything is gathered before anything is scattered: a
-    task may read the row it writes. On a CUDA device a group whose fn runs
-    a contraction (``executors.contraction_in``) calls ``fn`` once per task
-    instead, each on its own copy of its inputs, as ``run_serial`` would:
-    the library's batched kernel sums in another order."""
+    task may read the row it writes. A group that ``_per_task`` picks (on
+    a CUDA device a contraction, on the CPU a convolution) calls ``fn`` once
+    per task instead, each on its own copy of its inputs, as ``run_serial``
+    would: the batched call sums in another order."""
     din = dev_rows.get("in_rows") if dev_rows else None
     dout = dev_rows.get("out_rows") if dev_rows else None
     ins = [

@@ -20,8 +20,22 @@
   GEMMs by ~1e-5), and every scheduler must leave ``run_serial``'s bits.
   :func:`contraction_op` finds such an op once per signature by running
   the fn on ``meta`` tensors, with no device work and no host sync, as the
-  reference compiles one program per signature. On the CPU the batched
-  ops round as the single ones do, so every group stays one call there.
+  reference compiles one program per signature. On the CPU a group whose
+  fn runs a convolution runs task by task too (:func:`per_task_group`):
+  a vmapped stride-1 or stride-2 3x3 conv over six ``[1,12,16,16]`` maps
+  is ~1e-5 off the per-task calls there (``tests/test_torch_dyn.py``),
+  while pooling, the elementwise ops, ``gap`` and ``mix_weights`` are
+  bit-equal (torch 2.13, CPU). Other CPU groups stay one call: the expert
+  stream's GEMM groups are bit-equal there, and its dispatches equal the
+  reference's.
+* :class:`GroupExecutor` — the frontier half-executor: one homogeneous
+  group per launch, split into non-blocking ``launch()`` / ``poll()``
+  halves. ``launch`` runs the group on the current CUDA stream (by the
+  route above) and records a ``torch.cuda.Event`` after it; ``poll`` is
+  that event's ``query()``; ``sync`` is its ``synchronize()``, the
+  blocking fallback, counted in ``ExecStats.blocking_syncs``. Downstream
+  groups read the written tensors in stream order, so no host sync stands
+  between dependent groups.
 
 The reference's end-of-run barrier (``jax.block_until_ready``) becomes a
 synchronize of the executor's device.
@@ -29,9 +43,10 @@ synchronize of the executor's device.
 
 from __future__ import annotations
 
+import collections
 import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +55,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from .buffers import DeviceLike, resolve_device
 from .task import Task
 
-__all__ = ["ExecStats", "SerialExecutor", "FusedWaveExecutor",
-           "group_by_signature", "synchronize", "contraction_op", "contraction_in"]
+__all__ = ["ExecStats", "SerialExecutor", "FusedWaveExecutor", "GroupExecutor", "GroupHandle",
+           "group_by_signature", "synchronize", "contraction_op", "contraction_in",
+           "per_task_group"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -61,8 +77,8 @@ class ExecStats:
         self.tasks_run = 0
         self.wave_widths: List[int] = []
         self.exec_seconds = 0.0
-        # Host-blocking device syncs the scheduler issued per task (the
-        # threaded scheduler's StreamSync).
+        # Host-blocking device syncs: the threaded scheduler's StreamSync
+        # per task, the frontier's fallback sync of its oldest group.
         self.blocking_syncs = 0
 
     def as_dict(self) -> Dict[str, Any]:
@@ -118,8 +134,9 @@ _CONTRACTIONS = frozenset({
     "mm", "bmm", "addmm", "baddbmm", "addbmm", "mv", "addmv", "dot", "vdot", "matmul",
     "linear", "einsum", "tensordot", "_int_mm", "_scaled_mm", "_weight_int8pack_mm",
 })
-_CONTRACTION_PREFIXES = ("conv", "_conv", "cudnn_conv", "_scaled_dot_product",
-                         "_flash_attention", "_efficient_attention")
+_CONVOLUTIONS = ("conv", "_conv", "cudnn_conv", "mkldnn_conv")
+_CONTRACTION_PREFIXES = _CONVOLUTIONS + ("_scaled_dot_product", "_flash_attention",
+                                         "_efficient_attention")
 # Reductions, which keep their order only over a short axis (at most
 # SHORT_REDUCTION terms an output: the physics stream's 3-vectors).
 _REDUCTIONS = frozenset({"sum", "nansum", "mean", "prod", "norm", "linalg_vector_norm",
@@ -196,6 +213,23 @@ def contraction_in(fn: Any, signature: Tuple, values: Sequence[Any]) -> Optional
     return found
 
 
+def per_task_group(fn: Any, signature: Tuple, values: Sequence[Any],
+                   device: torch.device) -> bool:
+    """The route every executor and the device window's step path share:
+    True when a homogeneous group of two or more tasks (given as for
+    :func:`contraction_in`) runs one call per task, as ``run_serial``
+    would, instead of one vmapped call. On a CUDA device: any op
+    :func:`contraction_in` finds. On the CPU: a convolution (the module
+    docstring has the measurements)."""
+    found = contraction_in(fn, signature, values)
+    return found is not None and (device.type == "cuda" or found.startswith(_CONVOLUTIONS))
+
+
+def _run_per_task(group: Sequence[Task]) -> None:
+    for task in group:
+        task.write_outputs(task.fn(*task.input_values()))
+
+
 def _run_group(group: Sequence[Task]) -> None:
     """One call for a homogeneous group: the task's own fn for a group of
     one, else ``vmap(fn)`` over the inputs stacked along a new axis 0."""
@@ -214,8 +248,7 @@ def _run_group(group: Sequence[Task]) -> None:
 
 class FusedWaveExecutor:
     """ACS-SW wave: one (vmapped) call per signature group of the READY
-    set; on a CUDA device, one call per task for a group whose fn runs a
-    contraction or a long reduction (:func:`contraction_op`)."""
+    set, or one call per task where :func:`per_task_group` says so."""
 
     def __init__(self, device: DeviceLike = "cuda") -> None:
         self.device = resolve_device(device)
@@ -225,11 +258,11 @@ class FusedWaveExecutor:
         if not tasks:
             return
         t0 = time.perf_counter()
-        per_task = self.device.type == "cuda"
         for group in group_by_signature(tasks):
-            if per_task and len(group) > 1 and contraction_op(group[0]) is not None:
-                for task in group:
-                    task.write_outputs(task.fn(*task.input_values()))
+            t = group[0]
+            if len(group) > 1 and per_task_group(t.fn, t.signature, t.input_values(),
+                                                 self.device):
+                _run_per_task(group)
                 self.stats.dispatches += len(group)
             else:
                 _run_group(group)
@@ -237,6 +270,110 @@ class FusedWaveExecutor:
         self.stats.tasks_run += len(tasks)
         self.stats.wave_widths.append(len(tasks))
         self.stats.exec_seconds += time.perf_counter() - t0
+
+    def finalize(self) -> None:
+        synchronize(self.device)
+
+
+class GroupHandle:
+    """An in-flight homogeneous group: its tasks (whose window slots it
+    still occupies), the event recorded after its launch (None on the CPU,
+    where a launch has landed when it returns) and the host launch stamp."""
+
+    __slots__ = ("tasks", "event", "t_launch")
+
+    def __init__(self, tasks: Sequence[Task], event: Optional[torch.cuda.Event],
+                 t_launch: float):
+        self.tasks = list(tasks)
+        self.event = event
+        self.t_launch = t_launch
+
+
+class GroupExecutor:
+    """Non-blocking group launches for the frontier scheduler.
+
+    ``launch`` runs one homogeneous group on the current CUDA stream — one
+    ``vmap`` call, or one call per task where :func:`per_task_group` says
+    so, exactly as :class:`FusedWaveExecutor` runs it — writes the results
+    into the output buffers and records an event. The host does not wait:
+    a downstream group reads those tensors later in the same stream.
+    ``poll`` is the non-blocking completion probe (``event.query()``);
+    ``sync`` is the blocking fallback (``event.synchronize()``), counted in
+    ``stats.blocking_syncs``.
+
+    ``warm`` is the reference's compile-ahead half. Eager PyTorch compiles
+    nothing, and running the fn on zeros would be real device work (and
+    would launch the hand-written kernels a serving fn reaches), so it only
+    classifies the group's route (:func:`per_task_group`: one ``meta`` run
+    per signature and process).
+
+    The executor owns the **in-flight ledger**: ``launch`` appends to
+    ``inflight`` (oldest first) and ``poll_landed``/``sync_oldest`` consume
+    it, so groups stay in flight across session submissions. One live
+    session per executor.
+    """
+
+    def __init__(self, device: DeviceLike = "cuda") -> None:
+        self.device = resolve_device(device)
+        self.stats = ExecStats()
+        self.inflight: Deque[GroupHandle] = collections.deque()
+
+    def warm(self, group: Sequence[Task]) -> bool:
+        """The group's route: True when it runs one call per task. No
+        device work."""
+        t = group[0]
+        return len(group) > 1 and per_task_group(t.fn, t.signature, t.input_values(),
+                                                 self.device)
+
+    def launch(self, group: Sequence[Task]) -> GroupHandle:
+        if self.warm(group):
+            _run_per_task(group)
+            self.stats.dispatches += len(group)
+        else:
+            _run_group(group)
+            self.stats.dispatches += 1
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self.stats.tasks_run += len(group)
+        self.stats.wave_widths.append(len(group))
+        handle = GroupHandle(group, event, time.perf_counter())
+        self.inflight.append(handle)
+        return handle
+
+    def poll(self, handle: GroupHandle) -> bool:
+        """True iff the group's work has finished on the device."""
+        return handle.event is None or handle.event.query()
+
+    def poll_landed(self) -> List[GroupHandle]:
+        """Remove and return every in-flight group that has landed
+        (non-blocking) — the session's rolling-retire probe."""
+        landed: List[GroupHandle] = []
+        still: Deque[GroupHandle] = collections.deque()
+        for handle in self.inflight:
+            (landed if self.poll(handle) else still).append(handle)
+        self.inflight = still
+        return landed
+
+    def sync(self, handle: GroupHandle) -> None:
+        """Blocking fallback: wait for the group (the §II-D overhead)."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        self.stats.blocking_syncs += 1
+        try:
+            self.inflight.remove(handle)
+        except ValueError:
+            pass  # already consumed via poll_landed/sync_oldest
+
+    def sync_oldest(self) -> Optional[GroupHandle]:
+        """Blocking-sync the oldest in-flight group (its downstreams have
+        waited longest); None when nothing is in flight."""
+        if not self.inflight:
+            return None
+        handle = self.inflight.popleft()
+        self.sync(handle)
+        return handle
 
     def finalize(self) -> None:
         synchronize(self.device)

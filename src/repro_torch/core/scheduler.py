@@ -10,6 +10,10 @@ module plus K scheduler threads, each driving its own CUDA stream
 (Algorithm 2's poll/launch/StreamSync/retire loop) — on the card, the
 paper's own design on the hardware it was built for.
 
+:class:`~.frontier.AsyncFrontierScheduler` (``core/frontier.py``) retires
+homogeneous groups as their CUDA events complete, with no wave barrier and
+no host sync per kernel.
+
 Every scheduler is a closed-batch facade over a live
 :class:`~.session.SchedulerSession`: ``run(tasks)`` opens a session,
 submits the whole list, and closes. All leave the same final buffer
@@ -174,12 +178,11 @@ def run_serial(stream: Iterable[Task], device: DeviceLike = "cuda") -> Scheduler
     return sched.run(stream)
 
 
-# Only the ported policies. "frontier" comes with the async-frontier slice
-# (ROADMAP queue 1, item 5), "mesh" with the mesh window (item 10).
-SCHEDULER_NAMES = ("serial", "wave", "threaded", "device")
+SCHEDULER_NAMES = ("serial", "wave", "threaded", "frontier", "device")
 # Policies that run as live-fed sessions. "device" is the persistent
-# device-resident window (DeviceSession).
-SESSION_NAMES = ("serial", "wave", "threaded", "device")
+# device-resident window (DeviceSession). The reference's "mesh" session
+# comes with the mesh window (ROADMAP queue 1, item 10).
+SESSION_NAMES = ("serial", "wave", "threaded", "frontier", "device")
 # Device plan lowerings. "wave"/"frontier" lower an epoch to a fixed step
 # table (order decided on the host at plan time, each step a wave-kernel
 # launch or a loop of vmapped groups); "loop" lowers it to a
@@ -189,7 +192,8 @@ PLAN_MODES = ("wave", "frontier", "loop")
 
 
 def make_scheduler(name: str, window_size: int = 32, num_streams: int = 4,
-                   plan_mode: str = "wave", device: DeviceLike = "cuda"):
+                   max_inflight: int = 8, plan_mode: str = "wave",
+                   device: DeviceLike = "cuda"):
     """Factory over the ported execution policies. Returns a persistent
     scheduler's bound ``run`` (``tasks -> SchedulerReport``).
 
@@ -205,6 +209,11 @@ def make_scheduler(name: str, window_size: int = 32, num_streams: int = 4,
     if name == "threaded":
         return ThreadedStreamScheduler(window_size=window_size,
                                        num_streams=num_streams, device=device).run
+    if name == "frontier":
+        from .frontier import AsyncFrontierScheduler
+
+        return AsyncFrontierScheduler(window_size=window_size, max_inflight=max_inflight,
+                                      device=device).run
     if name == "device":
         from .device_dispatch import DeviceWindowRunner
 
@@ -214,7 +223,8 @@ def make_scheduler(name: str, window_size: int = 32, num_streams: int = 4,
 
 
 def make_session(name: str, window_size: int = 32, num_streams: int = 4,
-                 max_group: Optional[int] = None, plan_mode: str = "wave",
+                 max_inflight: int = 8, max_group: Optional[int] = None,
+                 plan_mode: str = "wave",
                  history_limit: Optional[int] = None, device: DeviceLike = "cuda"):
     """Factory over the live scheduler sessions: returns an open
     :class:`~.session.SchedulerSession` that producers feed with
@@ -224,7 +234,8 @@ def make_session(name: str, window_size: int = 32, num_streams: int = 4,
     the live-fed equivalence baseline. ``"device"`` is the persistent
     device-resident window (:class:`~.device_dispatch.DeviceSession`):
     submissions drain in one-dispatch epochs over a session-lifetime slab
-    arena; ``plan_mode`` and ``max_group`` only affect it.
+    arena; ``plan_mode`` only affects it. ``max_inflight`` only affects
+    ``"frontier"``, ``max_group`` the frontier and the device session.
     """
     from .session import ThreadedSession, WaveSession
 
@@ -239,6 +250,12 @@ def make_session(name: str, window_size: int = 32, num_streams: int = 4,
     if name == "threaded":
         return ThreadedSession(window_size=window_size, num_streams=num_streams,
                                history_limit=history_limit, device=device)
+    if name == "frontier":
+        from .frontier import FrontierSession
+
+        return FrontierSession(window_size=window_size, max_inflight=max_inflight,
+                               max_group=max_group, history_limit=history_limit,
+                               device=device)
     if name == "device":
         from .device_dispatch import DeviceSession
 

@@ -18,7 +18,8 @@ serialized by its RAW hazards on the slot buffer.
 Two servers share the slot/admission machinery (:class:`_ServingCore`):
 
 * :class:`SessionServer` — the open-loop runtime. It owns a persistent
-  session (a :class:`~..core.session.WaveSession`, or the device window's
+  session (a :class:`~..core.session.WaveSession`, the async
+  :class:`~..core.frontier.FrontierSession`, or the device window's
   :class:`~..core.device_dispatch.DeviceSession`); admission emits a request's
   *whole program* (prefill + its count-bounded per-slot decode chain)
   through a live per-request ``TaskStream`` into the live window while
@@ -67,6 +68,7 @@ from ..core import BufferPool, TaskStream, WaveScheduler
 from ..core.buffers import DeviceLike
 from ..core.executors import SerialExecutor
 from ..core.device_dispatch import DeviceSession
+from ..core.frontier import FrontierSession
 from ..core.session import WaveSession
 from ..core.wrapper import AcsKernel
 from ..models import LanguageModel, decode_step, init_cache, prefill
@@ -480,13 +482,17 @@ class SessionServer(_ServingCore):
     ``scheduler="wave"`` (the port's default) runs the live
     :class:`~..core.session.WaveSession` with a serial executor: each poll
     launches the READY set as one wave (one slot's decode co-resident with
-    another's prefill). ``scheduler="device"`` runs the persistent
-    :class:`~..core.device_dispatch.DeviceSession` (``plan_mode``, default
-    ``"loop"`` as in the reference); every serving task has opaque slot
-    values, so each takes the session's in-epoch host path, and the pool's
-    free hook releases freed buffers' arena rows. The reference's default,
-    ``"frontier"``, and its ``"mesh"`` server need sessions the port does
-    not have yet (ROADMAP queue 1 items 5 and 10) and raise
+    another's prefill). ``scheduler="frontier"`` (the reference's default)
+    runs the async :class:`~..core.frontier.FrontierSession` with
+    ``max_group=1``, because slot values are opaque and cannot be stacked,
+    and up to ``max_inflight`` tasks in flight: each retires when its CUDA
+    event completes, with no host sync per task. ``scheduler="device"``
+    runs the persistent :class:`~..core.device_dispatch.DeviceSession`
+    (``plan_mode``, default ``"loop"`` as in the reference); every serving
+    task has opaque slot values, so each takes the session's in-epoch host
+    path, and the pool's free hook releases freed buffers' arena rows. The
+    reference's ``"mesh"`` server needs the mesh window, which the port
+    does not have yet (ROADMAP queue 1 item 10), and raises
     ``NotImplementedError``.
 
     **Cooperative preemption** (``preempt_rounds``): with the default
@@ -500,12 +506,12 @@ class SessionServer(_ServingCore):
     token stream is bit-identical to an unpreempted run.
     """
 
-    SCHEDULERS = ("wave", "device")
-    _NOT_PORTED = {"frontier": "item 5", "mesh": "item 10"}
+    SCHEDULERS = ("wave", "frontier", "device")
+    _NOT_PORTED = {"mesh": "item 10"}
 
     def __init__(self, cfg: ArchConfig, params: LanguageModel, *, max_slots: int = 4,
                  max_len: int = 64, window: int = 32, max_queue: int = 256,
-                 scheduler: str = "wave",
+                 scheduler: str = "wave", max_inflight: int = 8,
                  history_limit: Optional[int] = 1024,
                  plan_mode: str = "loop",
                  tenant_weights: Optional[Dict[str, float]] = None,
@@ -516,8 +522,8 @@ class SessionServer(_ServingCore):
         if scheduler in self._NOT_PORTED:
             raise NotImplementedError(
                 f"scheduler={scheduler!r} is not ported to repro_torch yet (ROADMAP queue 1 "
-                f"{self._NOT_PORTED[scheduler]}); the port serves with scheduler='wave' "
-                "or 'device'")
+                f"{self._NOT_PORTED[scheduler]}); the port serves with scheduler='wave', "
+                "'frontier' or 'device'")
         if scheduler not in self.SCHEDULERS:
             raise ValueError(
                 f"session server scheduler must be one of {self.SCHEDULERS}, "
@@ -536,6 +542,10 @@ class SessionServer(_ServingCore):
             # Freeing a pool buffer (a prompt) releases its arena row, so
             # the session's slabs stay bounded under unbounded traffic.
             self.pool.add_free_hook(self.session.release_buffer)
+        elif scheduler == "frontier":
+            self.session = FrontierSession(window_size=window, max_inflight=max_inflight,
+                                           max_group=1, history_limit=history_limit,
+                                           device=self.device)
         else:
             self.session = WaveSession(window_size=window,
                                        executor=SerialExecutor(self.device),

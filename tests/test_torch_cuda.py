@@ -41,7 +41,12 @@
   through ``WaveScheduler`` and ``DeviceWindowRunner`` (wave and frontier)
   bit-equal to ``run_serial`` (contraction groups run task by task on the
   card);
-* the wrappers' input checks, and model prefills that launch the kernels.
+* the wrappers' input checks, and model prefills that launch the kernels;
+* the dynamic-DNN workloads (``dyn/``) bit-equal to ``run_serial`` under
+  every ACS-SW and ACS-HW policy and ``DagRunner``, launching none of the
+  five kernels; the frontier keeping more than one group in flight on
+  InstaNAS; ``GroupExecutor``'s event poll and its ``sync`` counting
+  blocking syncs; the frontier server's exact kernel launches and tokens.
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use), so they carry the ``cuda`` marker and skip without a card.
@@ -807,3 +812,109 @@ def test_device_window_runs_the_expert_stream_bit_equal_to_serial(device, mode):
     torch.cuda.synchronize()
     assert report.wave_executor == "steps"
     assert torch.equal(got.view(torch.int32), serial.view(torch.int32))
+
+
+# The dynamic-DNN workloads, the async frontier and the full-DAG baseline
+
+DYN_POLICIES = ("wave", "threaded", "frontier", "device_loop", "device_wave",
+                "device_frontier", "session_loop", "session_wave", "session_frontier", "dag")
+
+
+@pytest.mark.parametrize("policy", DYN_POLICIES)
+@pytest.mark.parametrize("name", ["instanas", "dynamic_routing", "condconv", "nasnet",
+                                  "amoebanet", "squeezenet", "randwire"])
+def test_dyn_workloads_bit_equal_to_serial_under_every_policy(device, name, policy):
+    """``chip_smoke.py``'s phase 5b at three inputs: the policy's output
+    bit-equal to ``run_serial``'s, and none of the five kernels launched."""
+    from repro_torch.dyn import WORKLOADS
+
+    smoke = _smoke()
+    params = WORKLOADS[name][0](0, device=device)
+    for mod in smoke.kernel_modules():
+        mod.reset_launches()
+    for seed in range(3):
+        out, tasks = smoke.dyn_stream(name, params, seed)
+        run_serial(tasks, device=device)
+        want = out.value
+        out, tasks = smoke.dyn_stream(name, params, seed)
+        report = smoke.dyn_runner(policy, device)(tasks)
+        torch.cuda.synchronize()
+        assert torch.equal(out.value.view(torch.int32), want.view(torch.int32)), seed
+        assert report.exec_stats["tasks_run"] == len(tasks)
+    assert not any(mod.launches for mod in smoke.kernel_modules())
+
+
+def test_frontier_keeps_groups_in_flight_on_instanas(device):
+    from repro_torch.dyn import WORKLOADS
+
+    smoke = _smoke()
+    params = WORKLOADS["instanas"][0](0, device=device)
+    peaks = []
+    for seed in range(4):
+        _, tasks = smoke.dyn_stream("instanas", params, seed)
+        report = smoke.dyn_runner("frontier", device)(tasks)
+        peaks.append(report.max_inflight_groups())
+        assert report.exec_stats["blocking_syncs"] < report.exec_stats["dispatches"]
+    assert max(peaks) > 1, peaks
+
+
+def test_group_executor_polls_its_event_and_counts_blocking_syncs(device):
+    """A launch records an event on the current stream and returns at once;
+    ``poll`` queries it, ``sync`` waits on it and counts a blocking sync."""
+    from repro_torch.core import GroupExecutor
+
+    pool = BufferPool(device)
+    a = pool.alloc((2048, 2048), np.float32, value=np.ones((2048, 2048), np.float32))
+    out = pool.alloc((2048, 2048), np.float32)
+    r, w = default_segments((a,), (out,))
+    def chained(x):  # 32 products of 2048^3, ~8 ms on an H100; ones stay ones
+        y = x
+        for _ in range(32):
+            y = (y @ x) / 2048
+        return y
+
+    slow = Task(opcode="slow", fn=chained, inputs=(a,), outputs=(out,), read_segments=r,
+                write_segments=w)
+    ex = GroupExecutor(device)
+    torch.cuda.synchronize()
+    handle = ex.launch([slow])
+    assert isinstance(handle.event, torch.cuda.Event) and list(ex.inflight) == [handle]
+    landed_at_once = ex.poll(handle)
+    ex.sync(handle)
+    assert ex.poll(handle) and not ex.inflight
+    assert ex.stats.blocking_syncs == 1 and ex.stats.dispatches == 1
+    assert not landed_at_once  # the products outlast the launch's host call
+    torch.testing.assert_close(out.value, torch.ones_like(out.value))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-moe-3b-a800m"])
+def test_frontier_server_launches_exactly_and_matches_the_wave_server(device, arch):
+    """Reduced models: the frontier server's tokens equal the wave
+    server's, and its flash, scan and grouped-GEMM launches equal
+    ``chip_smoke.expected_launches`` (``warm`` launches nothing)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.runtime import SessionServer
+
+    smoke = _smoke()
+    cfg = ARCHS[arch].reduced()
+    params = init_params(cfg, 0, device=device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, 7).astype(np.int32) for _ in range(3)]
+    tokens = {}
+    for scheduler in ("wave", "frontier"):
+        server = SessionServer(cfg, params, max_slots=2, max_len=64, scheduler=scheduler,
+                               device=device)
+        for mod in (fa, ls, gm):
+            mod.reset_launches()
+        reqs = [server.submit(p, max_new=smoke.SERVE_MAX_NEW) for p in prompts]
+        server.run_until_drained()
+        report = server.close()
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fa.launches, "lru_scan": ls.launches,
+                    "grouped_matmul": gm.launches}
+        assert launches == smoke.expected_launches(cfg, len(prompts)), scheduler
+        tokens[scheduler] = [r.generated for r in reqs]
+    assert tokens["frontier"] == tokens["wave"]
+    assert all(len(t) == smoke.SERVE_MAX_NEW for t in tokens["frontier"])
+    assert report.max_inflight_groups() >= 1

@@ -114,9 +114,9 @@ def test_make_session_host_policies_match_serial(name):
 
 
 def test_session_names_and_refusals():
-    assert S.T.SESSION_NAMES == ("serial", "wave", "threaded", "device")
+    assert S.T.SESSION_NAMES == ("serial", "wave", "threaded", "frontier", "device")
     with pytest.raises(ValueError, match="device"):
-        S.T.make_session("frontier", device="cpu")
+        S.T.make_session("mesh", device="cpu")
     with pytest.raises(ValueError, match="loop"):
         S.T.make_session("device", plan_mode="bogus", device="cpu")
     session = S.T.DeviceSession(device="cpu")

@@ -52,8 +52,10 @@ def test_no_source_imports_jax_or_the_reference(path):
 
 
 def _entry_points():
-    from repro_torch.core import BufferPool, DeviceSession, DeviceWindowRunner, SlabArena
+    from repro_torch.core import (AsyncFrontierScheduler, BufferPool, DagRunner, DeviceSession,
+                                  DeviceWindowRunner, FrontierSession, GroupExecutor, SlabArena)
     from repro_torch.core import make_scheduler, make_session, run_serial
+    from repro_torch.dyn import WORKLOADS, params_from_numpy
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_cache, init_params
     from repro_torch.runtime import ContinuousBatchingServer, SessionServer
@@ -83,6 +85,17 @@ def _entry_points():
         "make_scheduler[threaded]": lambda: make_scheduler("threaded"),
         "make_scheduler[device]": lambda: make_scheduler("device"),
         "run_serial": lambda: run_serial([]),
+        "GroupExecutor": lambda: GroupExecutor(),
+        "FrontierSession": lambda: FrontierSession(),
+        "AsyncFrontierScheduler": lambda: AsyncFrontierScheduler(),
+        "DagRunner": lambda: DagRunner(),
+        "SessionServer[frontier]": lambda: SessionServer(
+            cfg, init_params(cfg, 0, device="cpu"), scheduler="frontier"),
+        "make_session[frontier]": lambda: make_session("frontier"),
+        "make_scheduler[frontier]": lambda: make_scheduler("frontier"),
+        **{f"dyn.init[{name}]": lambda init=init: init(0)
+           for name, (init, _, _) in WORKLOADS.items()},
+        "dyn.params_from_numpy": lambda: params_from_numpy("squeezenet", {}),
     }
 
 

@@ -69,8 +69,8 @@ def test_wave_executor_runs_one_call_per_signature_group(stream):
 
 
 def test_unknown_names_fail_with_choices():
-    with pytest.raises(ValueError, match="serial"):
-        S.T.make_scheduler("frontier", device="cpu")
+    with pytest.raises(ValueError, match="frontier"):
+        S.T.make_scheduler("mesh", device="cpu")
     with pytest.raises(ValueError, match="loop"):
         S.T.make_scheduler("device", plan_mode="bogus", device="cpu")
 

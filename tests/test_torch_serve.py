@@ -243,7 +243,7 @@ def test_stalled_session_raises_drain_timeout(tiny):
     assert (ei.value.active_slots, ei.value.queue_depth) == (1, 1)
 
 
-@pytest.mark.parametrize("scheduler", ["frontier", "mesh"])
+@pytest.mark.parametrize("scheduler", ["mesh"])
 def test_unported_schedulers_raise(tiny, scheduler):
     cfg, params = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
