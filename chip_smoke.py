@@ -6,11 +6,11 @@
 Phases, each fatal on failure (an exception, exit code != 0):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: the five CUDA kernels (ready queue, wave megakernel, flash
-   attention, RG-LRU scan, grouped GEMM) from the sources in this
-   checkout, one ``nvcc`` each, all started together; each one's build
-   seconds and, from ``ptxas -v``, each kernel's registers, static shared
-   memory and spills.
+2. Build: the six CUDA kernels (ready queue, wave megakernel, flash
+   attention, RG-LRU scan, grouped GEMM, selective scan) from the sources
+   in this checkout, one ``nvcc`` each, all started together; each one's
+   build seconds and, from ``ptxas -v``, each kernel's registers, static
+   shared memory and spills.
 3. Kernel vs plain, on the card:
    a. ready queue: the kernel's slab and completion flags bit-equal to
       ``ready_queue_ref``, and its ring a start order (a permutation of
@@ -33,15 +33,23 @@ Phases, each fatal on failure (an exception, exit code != 0):
    c. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4, 8},
       S in {1, 37, 63, 64, 65, 512, 2048}, D in {2560, 1000, 7}, float32
       and bfloat16 (both channel tiles, the 64-step time tile's edges,
-      element copies);
+      element copies); ``selective_scan``: ys and hT within 1e-5 (abs and
+      rel) of ``selective_scan_ref`` at falcon-mamba-7b's prefill and
+      decode ([1, 512, 8192] and S = 1, N 16), S around the 32-step tile,
+      E off the 32-channel tile and the 16-byte width, N from 1 to 16, B
+      up to 4; the same bits on a second launch; bad inputs raise;
    d. ``flash_attention``: within tolerance of ``attention_ref`` (float32
       1e-4, bfloat16 2e-2) at the recurrentgemma-2b, h2o-danube-3-4b and
-      granite-moe-3b-a800m prefill shapes and at the edges of the kernel's
+      granite-moe-3b-a800m prefill shapes, musicgen-large's and
+      paligemma-3b's prefill and forward shapes (paligemma's 256-key
+      prefix over four tiles) and at the edges of the kernel's
       64-row and 64-key tiles: Sq and Sk of 65, 127, 333 and 2500,
       D in {8, 24, 64, 120, 128, 256}, the window edge and ``prefix_len``
       inside a tile, softcap, decode (Sq = 1) and fully masked rows
-      (exactly 0, a whole query tile of them included); the same bits on a
-      second launch;
+      (exactly 0, a whole query tile of them included); with v narrower or
+      wider than q and k: deepseek-v2's MLA prefill (D 192, Dv 128,
+      [1, 128, 512, *]) and the (192, 128) instantiation's edges; the same
+      bits on a second launch; head widths with no instantiation raise;
    e. ``grouped_matmul``: within tolerance of ``grouped_matmul_ref``
       (float32 1e-4, float16 and bfloat16 8e-3: one bfloat16 ulp) over the
       reference's ragged cases (N off the tile, groups with no tile),
@@ -87,15 +95,19 @@ Phases, each fatal on failure (an exception, exit code != 0):
    Dynamic Routing's task counts varying with the input and the others'
    not (CondConv's input dependence is in its mixed weights), the
    frontier's ``max_inflight_groups()`` above 1 (InstaNAS's too), and none
-   of the five kernels launched (their routes take only padding-free 1-D
+   of the six kernels launched (their routes take only padding-free 1-D
    rows; a dyn epoch runs the step path or the loop interpreter). Tasks,
    dispatches, wave widths, blocking syncs, in-flight groups, the DAG's
    construction time and dependency checks, and walls are logged.
-6. Serving main paths, one model after the other (the first one's
-   weights freed before the second's are drawn), each at its published
-   config with bf16 weights drawn from seed 0: recurrentgemma-2b (26
-   layers, d_model 2560), then granite-moe-3b-a800m (32 attention layers
-   with MoE FFNs, d_model 1536, 40 experts padded to 48, top-8). Each
+6. Serving main paths, one model after the other (each one's weights
+   freed before the next one's are drawn), each at its published widths
+   with bf16 weights drawn from seed 0: recurrentgemma-2b (26 layers,
+   d_model 2560), granite-moe-3b-a800m (32 attention layers with MoE
+   FFNs, d_model 1536, 40 experts padded to 48, top-8), falcon-mamba-7b
+   whole (64 Mamba layers, d_model 4096, d_inner 8192, N 16) and
+   deepseek-v2-236b cut to 4 layers (SERVE_CUTS: its dense first layer and
+   3 MoE layers; MLA with 128 heads, kv_lora 512, q_lora 1536; 160
+   experts, top-6, 2 shared, d_expert 1536; 13.3 B parameters). Each
    serves 8 seeded prompts of 128-512 tokens, 16 new tokens each, through
    ``SessionServer(scheduler="wave")``, ``SessionServer(scheduler="device")``
    (its ``"loop"`` plan mode; every serving task takes the session's
@@ -105,21 +117,39 @@ Phases, each fatal on failure (an exception, exit code != 0):
    1024, window 32). Every request gets its 16 tokens, the four servers'
    tokens are identical and equal a plain greedy loop over
    ``prefill``/``decode_step``, every logit is finite, and each server run
-   launches exactly: the flash kernel once per request and attention layer
-   (recurrentgemma 64, granite 256), the scan once per RG-LRU layer and
-   prefill or decode (2,448; granite 0) and the grouped GEMM three times
-   per MoE layer and prefill or decode (granite 13,056; recurrentgemma 0).
-   After each model's server runs, one more serving pass (2 requests)
-   runs under ``torch.profiler`` for its device busy share (as in 8).
+   launches exactly: the flash kernel once per request and attention or
+   MLA layer (recurrentgemma 64, granite 256, deepseek 32), the RG-LRU
+   scan once per RG-LRU layer and prefill or decode (2,448), the
+   selective scan once per Mamba layer and prefill or decode (falcon
+   8,704) and the grouped GEMM three times per MoE layer and prefill or
+   decode (granite 13,056, deepseek 1,224). After recurrentgemma's and
+   granite's server runs, one more serving pass (2 requests) runs under
+   ``torch.profiler`` for its device busy share (as in 8).
+6b. The frontend path, at full width, in float32 and then in bf16:
+   musicgen-large (48 layers, audio_stub, 256 seeded frame embeddings of
+   512) and paligemma-3b (18 layers, vision_stub, prefix_len 256, D 256
+   over one kv head; 256 patch embeddings of 1152 and 64 more positions):
+   ``forward`` over the whole sequence, ``prefill`` of the prompt and 16
+   teacher-forced ``decode_step``s. Prefill's last logits and every
+   step's are within FRONTEND_TOL of forward's at that position (float32
+   1e-3 abs and rel, bf16 6 % of forward's largest logit). The bf16 pass
+   runs again with the plain attention in place of flash, held to the
+   same bound: the witness that bf16's distance comes from the GEMMs'
+   rounding; flash's forward logits are within that bound of the plain
+   pass's. Flash launches
+   once per layer in forward and in prefill, never in decode, and never
+   in the plain pass.
 7. Numbers: CUDA-event medians of each kernel and its plain version at
    its main path's shape (the wave kernel's epoch entry over the chain
    universe's wave and frontier plans, staged and direct, and its
-   single-wave entry at the widest wave and at S = 32; SDPA for attention
-   and ``torch.bmm`` for the grouped GEMM as the library calls; flash at
-   both serving models' prefills), flash, the grouped GEMM, the scan
-   (prefill and decode) and the ready queue also 20 launches back to
-   back, each kernel's bound, and the wall time of each phase-4/5/6
-   policy and server. The ready queue also: its device time from
+   single-wave entry at the widest wave and at S = 32; SDPA, its backend
+   named, for attention and ``torch.bmm`` for the grouped GEMM as the
+   library calls; flash at recurrentgemma's, granite's, deepseek's MLA,
+   danube's and paligemma's prefills; the grouped GEMM at granite's and deepseek's
+   expert products; both scans at prefill and decode), flash, the
+   grouped GEMM, the scans and the ready queue also 20 launches back to
+   back, flash's and the scans' device times, each kernel's bound, and
+   the wall time of each phase-4/5/6 policy and server. The ready queue also: its device time from
    ``torch.profiler`` (the mean over the kernels the trace holds), that
    of ONE 32-deep chain (over 32: the hop that bounds it) and of one
    task, its grid and the blocks that ran tasks.
@@ -159,16 +189,45 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+# Exponentials on the special-function units: 16 a clock on each of the
+# 132 SMs (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0) at the H100 SXM's 1.98 GHz boost clock.
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 CHAINS, WIDTH, DEPTH, WINDOW = 64, 4096, 32, 32
 SIM_ENVS, SIM_GROUP, SIM_STEPS, SIM_STREAMS = 64, 8, 5, 4
 TIMED_RUNS = 20
 
-# The serving passes: recurrentgemma-2b, then granite-moe-3b-a800m, at
-# their published widths.
-SERVE_ARCHS, SERVE_SEED = ("recurrentgemma-2b", "granite-moe-3b-a800m"), 0
+# The serving passes, at their published widths: recurrentgemma-2b,
+# granite-moe-3b-a800m, falcon-mamba-7b whole, and deepseek-v2-236b cut
+# to its first 4 layers (SERVE_CUTS: the dense prefix layer and 3 MoE
+# layers; all 60 would take 471 GB in bf16). The first two also get a
+# profiled pass.
+SERVE_ARCHS, SERVE_SEED = ("recurrentgemma-2b", "granite-moe-3b-a800m", "falcon-mamba-7b",
+                           "deepseek-v2-236b"), 0
+SERVE_CUTS = {"deepseek-v2-236b": {"n_layers": 4}}
+PROFILED_SERVE = ("recurrentgemma-2b", "granite-moe-3b-a800m")
 SERVE_REQUESTS, SERVE_MIN_PROMPT, SERVE_MAX_PROMPT, SERVE_MAX_NEW = 8, 128, 512, 16
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024
+
+# The frontend archs, whole: their prompt length in frames or patches
+# (paligemma: its 256-patch image prefix and 64 text positions), then
+# FRONTEND_STEPS teacher-forced decode steps, in float32 and in bf16. The
+# logits are held to forward's at each position within FRONTEND_TOL: abs,
+# rel, and a share of forward's largest logit. The decode path attends in
+# ``_cached_attention`` where prefill and forward go through flash, and
+# the GEMMs have other shapes, over 18-48 layers; a wrong position, mask
+# or cache row moves logits by the order of the largest. float32 rounds
+# at 2^-24: 1e-3 abs and rel. In bf16 the same paths differ by a few bf16
+# ulps of the logits already between prefill and forward (GEMMs over 256
+# and 272 rows round differently), and as much with the plain attention
+# in place of flash; on an H100 80GB HBM3 at 700 W, musicgen-large: 0.1025
+# with flash, 0.1094 with the plain attention, logits up to 4.66. So bf16
+# is held to 6 % of the largest logit (0.28 there, 0.031 on paligemma's
+# 0.52).
+FRONTEND_ARCHS = {"musicgen-large": 256, "paligemma-3b": 256 + 64}
+FRONTEND_STEPS = 16
+FRONTEND_TOL = {"float32": (1e-3, 1e-3, 0.0), "bfloat16": (0.0, 0.0, 0.06)}
 
 
 def log(msg: str) -> None:
@@ -487,11 +546,9 @@ def phase_device():
 
 def phase_build():
     """Build every kernel of the port, one nvcc each, started together."""
-    from repro_torch.kernels import (flash_attention, grouped_matmul, lru_scan, ready_queue,
-                                     wave_elementwise)
     from repro_torch.kernels._nvcc import resources
 
-    mods = (ready_queue, wave_elementwise, flash_attention, lru_scan, grouped_matmul)
+    mods = kernel_modules()
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     for mod, (path, seconds) in zip(mods, built):
@@ -732,6 +789,11 @@ FLASH_SWEEP = [
     ((1, 32, 8, 1, 777, 120), {"window": 4096, "q_offset": 776}),
     ((1, 10, 1, 40, 40, 256), {"q_offset": -8}),  # rows 0-7 see no key
     *(((1, 24, 8, s, s, 64), {}) for s in (128, 512)),  # granite-moe, causal
+    # musicgen-large (32 heads over 32 kv heads, D 64, causal) and
+    # paligemma-3b (8 heads over 1, D 256, a bidirectional 256-key prefix
+    # over four query and key tiles): their prefill and forward lengths
+    *(((1, 32, 32, s, s, 64), {}) for s in (256, 272)),
+    *(((1, 8, 1, s, s, 256), {"prefix_len": 256}) for s in (320, 336)),
     ((1, 24, 8, 1, 1024, 64), {"q_offset": 1023}),
     ((1, 4, 2, 65, 65, 64), {}),  # one row and one key past a tile
     ((1, 4, 1, 127, 127, 128), {"window": 50}),  # the window edge inside tiles
@@ -741,6 +803,21 @@ FLASH_SWEEP = [
     ((1, 2, 1, 127, 2500, 128), {"q_offset": 2373, "window": 300, "softcap": 20.0}),
     ((1, 4, 4, 1, 2500, 128), {"q_offset": 2499, "window": 300}),
     ((1, 4, 2, 70, 70, 64), {"q_offset": -66}),  # a whole query tile sees no key
+    # Dv != D, (b, h, hkv, sq, sk, d, dv): deepseek-v2's MLA prefill (q and k
+    # 128 nope + 64 rope wide, v 128), then the edges of the (192, 128)
+    # instantiation: one row and key past a tile, D and Dv below the
+    # padding, element loads, Dv above D, a one-wide v or q, masks inside
+    # tiles, decode, fully masked rows.
+    ((1, 128, 128, 512, 512, 192, 128), {}),
+    ((1, 4, 4, 65, 65, 192, 128), {}),
+    ((1, 4, 2, 127, 127, 136, 120), {"window": 50}),
+    ((2, 4, 4, 333, 333, 130, 66), {}),
+    ((1, 2, 1, 100, 100, 64, 128), {"causal": False}),
+    ((1, 2, 2, 90, 90, 192, 1), {}),
+    ((1, 2, 2, 90, 90, 1, 128), {}),
+    ((1, 4, 4, 300, 300, 192, 128), {"window": 100, "softcap": 30.0, "prefix_len": 17}),
+    ((1, 4, 4, 1, 700, 192, 128), {"q_offset": 699}),
+    ((1, 4, 4, 70, 70, 192, 128), {"q_offset": -66}),
 ]
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -752,27 +829,106 @@ def phase_flash_vs_plain(device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    for (b, h, hkv, sq, sk, d), flags in FLASH_SWEEP:
+    for shape, flags in FLASH_SWEEP:
+        (b, h, hkv, sq, sk, d), dv = shape[:6], shape[-1]
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(b, h, sq, d, generator=gen, device=device).to(dtype)
             k = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
-            v = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+            v = torch.randn(b, hkv, sk, dv, generator=gen, device=device).to(dtype)
             got = flash_attention(q, k, v, **flags)
             want = attention_ref(q, k, v, **flags)
             torch.cuda.synchronize()
             tol = FLASH_TOL[str(dtype).replace("torch.", "")]
             err = (got.float() - want.float()).abs()
             bound = tol + tol * want.float().abs()
-            check(bool((err <= bound).all()),
-                  f"flash_attention != plain at {(b, h, hkv, sq, sk, d)} {flags} {dtype}: "
+            check(got.shape == want.shape and bool((err <= bound).all()),
+                  f"flash_attention != plain at {shape} {flags} {dtype}: "
                   f"max abs err {float(err.max())}")
             if flags.get("q_offset", 0) < 0:
                 check(bool((got[:, :, :-flags["q_offset"]] == 0).all()),
                       "flash_attention: a fully masked row is not 0")
             check(torch.equal(flash_attention(q, k, v, **flags), got),
                   "flash_attention: a second launch gave other bits")
-            log(f"flash_attention ~ plain: {(b, h, hkv, sq, sk, d)} {flags} "
+            log(f"flash_attention ~ plain: {shape} {flags} "
                 f"{str(dtype).replace('torch.', '')} max abs err {float(err.max()):.3g}")
+    for d, dv in ((192, 129), (200, 128), (264, 264)):  # no instantiation takes these
+        q = torch.zeros(1, 1, 4, d, device=device, dtype=torch.bfloat16)
+        v = torch.zeros(1, 1, 4, dv, device=device, dtype=torch.bfloat16)
+        try:
+            flash_attention(q, q, v)
+        except ValueError as exc:
+            log(f"flash_attention: D {d}, Dv {dv} raises ({exc})")
+        else:
+            check(False, f"flash_attention: D {d}, Dv {dv} did not raise")
+
+
+def scan_inputs(gen, b, s, e, n, device):
+    """Selective-scan inputs as a Mamba layer makes them: dt a softplus,
+    ``a = -exp(A_log)`` with the reference's ``A_log = log(1..N)`` scaled
+    per channel, x, b, c and h0 standard normal."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = F.softplus(torch.randn(b, s, e, generator=gen, device=device))
+    x, bm, cm = (torch.randn(b, s, w, generator=gen, device=device) for w in (e, n, n))
+    scale = 0.5 + torch.rand(e, 1, generator=gen, device=device)
+    a = -(torch.arange(1, n + 1, device=device, dtype=torch.float32)[None] * scale)
+    h0 = torch.randn(b, e, n, generator=gen, device=device)
+    return dt, x, bm, cm, a.contiguous(), h0
+
+
+SCAN_TOL = 1e-5  # float32: the kernel sums y's N terms in another order
+
+
+def phase_scan_vs_plain(device):
+    """The selective scan against ``selective_scan_ref`` within SCAN_TOL
+    (abs and rel) for ys and hT: falcon-mamba-7b's prefill and decode
+    ([1, 512, 8192] and [1, 1, 8192], N 16), S around the 32-step time tile,
+    E off the 32-channel tile and off the 16-byte copy width, N off the
+    4-state lane share and the 16-byte width, B 1 and 3; a second launch
+    gives the same bits; bad inputs raise."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    cases = [(1, 512, 8192, 16), (1, 1, 8192, 16), (4, 1, 8192, 16)]
+    cases += [(b, s, e, n) for b in (1, 3) for s in (1, 31, 32, 33, 100) for e in (1000, 37)
+              for n in (16, 5)]
+    cases += [(1, 70, 64, n) for n in (1, 3, 4, 8, 15)] + [(2, 65, 6, 16)]
+    worst = 0.0
+    for b, s, e, n in cases:
+        args = scan_inputs(gen, b, s, e, n, device)
+        ys, ht = selective_scan(*args)
+        want_ys, want_ht = selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        for got, want, name in ((ys, want_ys, "ys"), (ht, want_ht, "hT")):
+            err = (got - want).abs()
+            check(got.shape == want.shape
+                  and bool((err <= SCAN_TOL + SCAN_TOL * want.abs()).all()),
+                  f"selective_scan {name} != plain at B {b}, S {s}, E {e}, N {n}: "
+                  f"max abs err {float(err.max())}")
+            worst = max(worst, float(err.max()))
+        again = selective_scan(*args)
+        check(torch.equal(again[0], ys) and torch.equal(again[1], ht),
+              f"selective_scan: a second launch gave other bits at {(b, s, e, n)}")
+    log(f"selective_scan ~ plain within {SCAN_TOL} over {len(cases)} shapes "
+        f"(B, S, E, N) {cases[:3]} ...: max abs err {worst:.3g}")
+    dt, x, bm, cm, a, h0 = scan_inputs(gen, 1, 8, 64, 16, device)
+    bad = {"a state size of 17": (dt, x, bm, cm, torch.zeros(64, 17, device=device),
+                                  torch.zeros(1, 64, 17, device=device)),
+           "float64 x": (dt, x.double(), bm, cm, a, h0),
+           "a non-contiguous b": (dt, x, bm.transpose(1, 2).contiguous().transpose(1, 2), cm,
+                                   a, h0),
+           "h0 of another batch": (dt, x, bm, cm, a, h0.expand(2, 64, 16).contiguous())}
+    for what, args in bad.items():
+        try:
+            selective_scan(*args)
+        except (ValueError, TypeError) as exc:
+            log(f"selective_scan: {what} raises ({exc})")
+        else:
+            check(False, f"selective_scan: {what} did not raise")
 
 
 # (G, K, N, block_m, tile group ids): the reference's ragged cases
@@ -1186,11 +1342,12 @@ def dyn_runner(policy, device):
 
 
 def kernel_modules():
-    """The five hand-written kernels' wrapper modules."""
+    """The six hand-written kernels' wrapper modules."""
     from repro_torch.kernels import flash_attention, grouped_matmul, lru_scan, ready_queue
-    from repro_torch.kernels import wave_elementwise
+    from repro_torch.kernels import selective_scan, wave_elementwise
 
-    return (ready_queue, wave_elementwise, flash_attention, lru_scan, grouped_matmul)
+    return (ready_queue, wave_elementwise, flash_attention, lru_scan, grouped_matmul,
+            selective_scan)
 
 
 def phase_dyn(device, card):
@@ -1200,7 +1357,7 @@ def phase_dyn(device, card):
     that constructs once and replays): every output finite and bit-equal to
     ``run_serial``'s; the task counts vary with the input exactly for
     ``DYN_GRAPH_VARIES``; the frontier keeps more than one group in
-    flight; none of the five hand-written kernels is launched (their
+    flight; none of the six hand-written kernels is launched (their
     routes take only padding-free 1-D rows). Each line's wall is the runs
     alone, ended by a synchronize; building the streams is not in it. The
     dynamic nets are also timed in rounds (:func:`dyn_rounds`)."""
@@ -1272,7 +1429,7 @@ def phase_dyn(device, card):
     check(max(peak_inflight.values()) > 1 and peak_inflight["instanas"] > 1,
           f"dyn frontier: max_inflight_groups {peak_inflight}")
     log(f"dyn: {len(WORKLOADS)} workloads x {DYN_INPUTS} inputs bit-equal to run_serial under "
-        f"every policy; the five kernels launched {launched}; frontier max_inflight_groups "
+        f"every policy; the six kernels launched {launched}; frontier max_inflight_groups "
         f"{peak_inflight}")
 
 
@@ -1342,12 +1499,13 @@ def serve_once(cfg, params, server_cls, prompts, device, **kw):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import lru_scan as ls
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.runtime import SessionServer
 
     server = server_cls(cfg, params, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                         window=WINDOW, device=device, **kw)
     torch.cuda.synchronize()
-    for mod in (fa, ls, gm):  # the main path's counts start here
+    for mod in (fa, ls, gm, ss):  # the main path's counts start here
         mod.reset_launches()
     t0 = time.perf_counter()
     reqs = [server.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
@@ -1357,7 +1515,7 @@ def serve_once(cfg, params, server_cls, prompts, device, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa.launches, "lru_scan": ls.launches,
-                "grouped_matmul": gm.launches}
+                "grouped_matmul": gm.launches, "selective_scan": ss.launches}
     check(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
           f"{server_cls.__name__}: {len(done)} of {len(reqs)} requests finished")
     return [r.generated for r in reqs], wall, server.host_reads, launches
@@ -1365,38 +1523,45 @@ def serve_once(cfg, params, server_cls, prompts, device, **kw):
 
 def expected_launches(cfg, n_requests):
     """Each kernel's launches in one server run: flash once per prefill
-    and attention layer, the scan once per RG-LRU layer and forward, the
-    grouped GEMM three times per MoE layer and forward (prefix layers keep
-    a dense FFN)."""
+    and attention or MLA layer (decode attends in plain PyTorch), the
+    RG-LRU scan once per RG-LRU layer and forward, the selective scan once
+    per Mamba layer and forward, the grouped GEMM three times per MoE
+    layer and forward (prefix layers keep a dense FFN)."""
     from repro_torch.models import split_pattern
 
     prefix, n_stages = split_pattern(cfg)
     kinds = list(prefix) + list(cfg.pattern_unit) * n_stages
-    n_attn = sum(kind.startswith("attn") for kind in kinds)
+    n_attn = sum(kind.startswith("attn") or kind == "mla" for kind in kinds)
     n_moe = len(cfg.pattern_unit) * n_stages if cfg.moe is not None else 0
     forwards = n_requests * (1 + SERVE_MAX_NEW)
     return {"flash_attention": n_requests * n_attn,
             "lru_scan": kinds.count("rglru") * forwards,
-            "grouped_matmul": 3 * n_moe * forwards}
+            "grouped_matmul": 3 * n_moe * forwards,
+            "selective_scan": kinds.count("mamba") * forwards}
 
 
 def phase_serve(device, card, arch):
-    """Serve ``arch`` at its published widths. Returns (launches per kernel
-    on the session server's run, wall seconds per server, the model, its
-    config and the prompts)."""
+    """Serve ``arch`` at its published widths (its depth cut as
+    SERVE_CUTS says). Returns (launches per kernel on the session server's
+    run, wall seconds per server, the model, its config and the
+    prompts)."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_params
     from repro_torch.runtime import ContinuousBatchingServer, SessionServer
 
-    cfg = ARCHS[arch]
+    cfg = dataclasses.replace(ARCHS[arch], **SERVE_CUTS.get(arch, {}))
     t0 = time.perf_counter()
     params = init_params(cfg, SERVE_SEED, device=device)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype}, "
+    cut = f" (cut: {SERVE_CUTS[arch]})" if arch in SERVE_CUTS else ""
+    log(f"serve: {cfg.name} {cfg.n_layers} layers{cut} d_model {cfg.d_model} {cfg.dtype}, "
         f"{n_params} parameters drawn from seed {SERVE_SEED} in "
-        f"{time.perf_counter() - t0:.2f} s [{card}]")
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated [{card}]")
     prompts = serve_prompts(cfg.vocab)
     want = expected_launches(cfg, SERVE_REQUESTS)
 
@@ -1447,6 +1612,116 @@ def busy_serve(device, card, served):
     profile_pass(f"serve {cfg.name} SessionServer(wave), 2 requests x {SERVE_MAX_NEW} tokens",
                  lambda: serve_once(cfg, params, SessionServer, prompts[:2], device,
                                     scheduler="wave"), card)
+
+
+def phase_frontend(device, card, arch):
+    """A frontend arch at its published config, weights from seed 0, in
+    float32 and then in its bf16: ``forward`` over seeded frame or patch
+    embeddings ``[1, S + 16, F]``, then ``prefill`` of the first S and 16
+    ``decode_step``s fed the next embeddings (teacher-forced). Prefill's
+    last logits and each step's are held to forward's at that position
+    within FRONTEND_TOL. The bf16 pass runs again with ``ops.attention``
+    swapped for the plain ``attention_ref``: held to the same bound, and
+    flash's forward logits to its. Flash launches once per layer in
+    forward and once per layer in prefill, never in a decode step or the
+    plain pass. Returns the bf16 prefill's flash launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import init_params
+
+    for dtype in ("float32", ARCHS[arch].dtype):
+        cfg = dataclasses.replace(ARCHS[arch], dtype=dtype)
+        params = init_params(cfg, SERVE_SEED, device=device)
+        want, launches = frontend_pass(device, card, cfg, params, FRONTEND_ARCHS[arch])
+        if dtype != "float32":
+            kernel = ops.attention
+            ops.attention = attention_ref
+            try:
+                plain, _ = frontend_pass(device, card, cfg, params, FRONTEND_ARCHS[arch],
+                                         plain=True)
+            finally:
+                ops.attention = kernel
+            err = float((want.float() - plain.float()).abs().max())
+            limit = FRONTEND_TOL[dtype][2] * float(plain.float().abs().max())
+            check(err <= limit, f"frontend {cfg.name} {dtype}: flash's forward logits {err} "
+                                f"off the plain attention's, above {limit}")
+            log(f"frontend {cfg.name} {dtype}: forward with flash against forward with the "
+                f"plain attention: max abs err {err:.4g} (bound {limit:.4g}) [{card}]")
+        del params, want
+        torch.cuda.empty_cache()
+    return launches
+
+
+def frontend_pass(device, card, cfg, params, s, plain=False):
+    """One frontend pass (see ``phase_frontend``): returns forward's
+    logits and prefill's flash launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import FRONTEND_DIMS, decode_step, forward, init_cache, prefill
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "float32 matmuls must not run in TF32")
+    per_pass = 0 if plain else cfg.n_layers  # flash launches in forward and in prefill
+    atol, rtol, share = FRONTEND_TOL[cfg.dtype]
+    attention = "the plain attention" if plain else "flash"
+    n_params = sum(p.numel() for p in params.parameters())
+    total = s + FRONTEND_STEPS
+    emb = torch.from_numpy(np.random.RandomState(SERVE_SEED).randn(
+        1, total, FRONTEND_DIMS[cfg.frontend]).astype(np.float32)).to(device)
+    log(f"frontend: {cfg.name} ({cfg.frontend}) {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.dtype}, {n_params} parameters from seed {SERVE_SEED}, through {attention}; "
+        f"embeddings {tuple(emb.shape)}, prefix_len {cfg.prefix_len} [{card}]")
+    fa.reset_launches()
+    want = forward(params, cfg, emb)
+    torch.cuda.synchronize()
+    check(fa.launches == per_pass,
+          f"frontend {cfg.name}: forward launched flash {fa.launches} times, expected "
+          f"{per_pass}")
+    check(bool(torch.isfinite(want).all()), f"frontend {cfg.name}: non-finite forward logits")
+    scale = float(want.abs().max())
+    atol += share * scale
+
+    def compare(got, at, what):
+        ref = want[:, at]
+        err = (got.float() - ref.float()).abs()
+        check(bool(torch.isfinite(got).all()), f"frontend {cfg.name}: non-finite {what} logits")
+        check(bool((err <= atol + rtol * ref.float().abs()).all()),
+              f"frontend {cfg.name} {cfg.dtype} through {attention}: {what} logits off "
+              f"forward's at position {at}: max abs err {float(err.max())} (logits up to "
+              f"{scale:.3f})")
+        return float(err.max()), bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, cfg, emb[:, :s], init_cache(cfg, 1, total, device=device))
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    launches = fa.launches
+    check(launches == per_pass,
+          f"frontend {cfg.name}: prefill launched flash {launches} times, expected {per_pass}")
+    err, agree = compare(last[:, -1], s - 1, "prefill")
+    errs, same = [err], [agree]
+    t0 = time.perf_counter()
+    for i in range(FRONTEND_STEPS):
+        logits, cache = decode_step(params, cfg, emb[:, s + i: s + i + 1], cache, s + i)
+        err, agree = compare(logits[:, -1], s + i, f"decode step {i}")
+        errs.append(err)
+        same.append(agree)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / FRONTEND_STEPS
+    check(fa.launches == per_pass,
+          f"frontend {cfg.name}: prefill and decode launched flash {fa.launches} times, "
+          f"expected {per_pass}")
+    log(f"frontend {cfg.name} {cfg.dtype} through {attention}: prefill of {s} and "
+        f"{FRONTEND_STEPS} teacher-forced decode steps within {atol:.4g} abs, {rtol} rel of "
+        f"forward's logits (max abs err {max(errs):.4g}, logits up to {scale:.3f}; argmax "
+        f"equal at {sum(same)} of {len(same)} positions); flash {per_pass} launches in "
+        f"forward and in prefill, 0 in decode; prefill {t_prefill * 1e3:.3f} ms, decode step "
+        f"{t_decode * 1e3:.3f} ms (host clock) [{card}]")
+    return want, launches
 
 
 def median_ms(fn, runs=TIMED_RUNS, warmup=3):
@@ -1572,7 +1847,7 @@ def bound(n_bytes, n_ops, ops_per_s):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def numbers_lru(device, launches):
+def numbers_lru(device):
     import torch
     from repro_torch.kernels.lru_scan import lru_scan
     from repro_torch.kernels.ref import lru_scan_ref
@@ -1600,7 +1875,7 @@ def numbers_lru(device, launches):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
         "replaces": "src/repro/kernels/lru_scan.py:27",
-        "launches": launches,
+        "launches": None,  # main() adds recurrentgemma's server run's
         "matches_plain": pre["matches_plain"] and dec["matches_plain"],
         "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
         "ms": pre["ms"],
@@ -1617,91 +1892,204 @@ def numbers_lru(device, launches):
     }
 
 
-def numbers_flash(device, launches, granite_launches):
-    """Flash at recurrentgemma-2b's prefill ([1, 10, 512, 256] over one kv
-    head, window 2048) and granite-moe-3b-a800m's ([1, 24, 512, 64], GQA
-    24/8, causal), each with its server run's launch count: single
-    launches and 20 back to back, beside SDPA the same two ways."""
+def numbers_scan(device):
+    """The selective scan at falcon-mamba-7b's prefill ([1, 512, 8192],
+    N 16) and decode ([1, 1, 8192]): single launches, 20 back to back, its
+    device time, the plain version's time and its bound: the larger of the
+    bytes (dt, x, ys; b, c; a; h0, hT), the float32 operations (6 a state
+    and step, 1 a channel and step) and the exponentials on the SFUs."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    out = {}
+    for label, s in (("prefill", 512), ("decode", 1)):
+        b, e, n = 1, 8192, 16
+        args = scan_inputs(gen, b, s, e, n, device)
+        got, want = selective_scan(*args), selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        n_bytes = 4 * (3 * b * s * e + 2 * b * s * n + e * n + 2 * b * e * n)
+        flops_ms = (6 * b * s * e * n + b * s * e) / FP32_FLOP_PER_S * 1e3
+        exp_ms = b * s * e * n / SFU_EXP_PER_S * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        kernel = lambda: selective_scan(*args)  # noqa: E731
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        ok = all(bool(((g - w).abs() <= SCAN_TOL + SCAN_TOL * w.abs()).all())
+                 for g, w in zip(got, want))
+        out[label] = dict(
+            ms=median_ms(kernel), b2b_ms=back_to_back_ms(kernel),
+            device_ms=kernel_device_ms(kernel, "selective_scan_kernel")[0],
+            plain_ms=median_ms(lambda: selective_scan_ref(*args), runs=5),
+            bound_ms=max(bytes_ms, flops_ms, exp_ms),
+            bound_by="bytes" if bytes_ms >= max(flops_ms, exp_ms) else "operations",
+            bytes_ms=bytes_ms, exp_ms=exp_ms, flops_ms=flops_ms, max_abs_err=err,
+            matches_plain=ok, ht_bit_equal=bool(torch.equal(got[1], want[1])))
+        log(f"selective_scan {label} [{b}, {s}, {e}] N {n}: {out[label]} "
+            f"[{torch.cuda.get_device_name(0)}]")
+    pre, dec = out["prefill"], out["decode"]
+    return {
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/recurrent.py:151 (lax.scan; no pallas_call)",
+        "launches": None,  # main() adds falcon-mamba's server run's
+        "matches_plain": pre["matches_plain"] and dec["matches_plain"],
+        "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
+        "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a selective scan
+        "back_to_back_ms": pre["b2b_ms"],
+        "device_ms": pre["device_ms"],
+        "bytes_bound_ms": pre["bytes_ms"],
+        "exp_bound_ms": pre["exp_ms"],
+        "ht_bit_equal": pre["ht_bit_equal"],
+        "decode_ms": dec["ms"],
+        "decode_back_to_back_ms": dec["b2b_ms"],
+        "decode_device_ms": dec["device_ms"],
+        "decode_plain_ms": dec["plain_ms"],
+        "decode_bound_ms": dec["bound_ms"],
+        "shape": "prefill dt, x [1, 512, 8192], b, c [1, 512, 16] f32; decode S = 1",
+    }
+
+
+def sdpa_backend(fn):
+    """The kernel SDPA ran for ``fn`` (the CUDA kernel with the most device
+    time in one profiled call, after a warm-up call) and the backend that
+    name shows: "flash", "efficient", "cudnn" or "math" (None, None when
+    the trace holds no kernel)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    prof, _ = profiled(fn)
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not kernels:
+        return None, None
+    name = max(kernels, key=kernels.get)
+    low = name.lower()
+    kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+            else "efficient" if "fmha" in low or "efficient" in low else "math")
+    return kind, name[:120]
+
+
+def flash_case(device, gen, shape, flags, sdpa_kw):
+    """Flash at one main-path shape ``(b, h, hkv, s, d, dv)``, bf16: the
+    error against the plain version, its bound, single launches (CUDA
+    events), 20 back to back, its device time (profiler), the plain
+    version's time, and SDPA's the same ways with the backend it took."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
 
-    b, h, hkv, s, d, window = 1, 10, 1, 512, 256, 2048
-    gen = torch.Generator(device=device)
-    gen.manual_seed(3)
-    q, k, v = (torch.randn(b, n, s, d, generator=gen, device=device).to(torch.bfloat16)
-               for n in (h, hkv, hkv))
-    flags = dict(causal=True, window=window)
+    b, h, hkv, s, d, dv = shape
+    q, k = (torch.randn(b, n, s, d, generator=gen, device=device).to(torch.bfloat16)
+            for n in (h, hkv))
+    v = torch.randn(b, hkv, s, dv, generator=gen, device=device).to(torch.bfloat16)
     got, want = flash_attention(q, k, v, **flags), attention_ref(q, k, v, **flags)
     torch.cuda.synchronize()
     rows = torch.arange(s, device=device)[:, None]
     cols = torch.arange(s, device=device)[None, :]
-    mask = (cols <= rows) & (cols > rows - window)
+    mask = cols <= rows
+    if flags.get("window") is not None:
+        mask &= cols > rows - flags["window"]
+    if flags.get("prefix_len"):
+        mask |= cols < flags["prefix_len"]
     seen = int(mask.sum())  # (row, key) pairs this input's mask keeps
-    ms_bound, by = bound(2 * (q.numel() * 2 + k.numel() + v.numel()), 4 * b * h * seen * d,
-                         BF16_FLOP_PER_S)
-    rg = lambda: flash_attention(q, k, v, **flags)  # noqa: E731
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
-                                                  enable_gqa=True)
-    # granite-moe-3b-a800m's prefill: 24 heads over 8 kv heads of 64, causal.
-    gq, gk, gv = (torch.randn(1, n, s, 64, generator=gen, device=device).to(torch.bfloat16)
-                  for n in (24, 8, 8))
-    g_got, g_want = flash_attention(gq, gk, gv), attention_ref(gq, gk, gv)
-    torch.cuda.synchronize()
-    g_bound, g_by = bound(2 * (gq.numel() * 2 + gk.numel() + gv.numel()),
-                          4 * 24 * (s * (s + 1) // 2) * 64, BF16_FLOP_PER_S)
-    gr = lambda: flash_attention(gq, gk, gv)  # noqa: E731
-    g_sdpa = lambda: F.scaled_dot_product_attention(gq, gk, gv, is_causal=True,  # noqa: E731
-                                                    enable_gqa=True)
-    ok = (torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
-          and torch.allclose(g_got.float(), g_want.float(), rtol=2e-2, atol=2e-2))
+    ms_bound, by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
+                         2 * b * h * seen * (d + dv), BF16_FLOP_PER_S)
+    kernel = lambda: flash_attention(q, k, v, **flags)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw(mask))  # noqa: E731
+    backend, sdpa_kernel = sdpa_backend(sdpa)
+    err = (got.float() - want.float()).abs()
     return {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:37",
-        "launches": launches,
-        "matches_plain": bool(ok),
-        "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "ms": median_ms(rg),
+        "matches_plain": bool(got.shape == want.shape
+                              and (err <= 2e-2 + 2e-2 * want.float().abs()).all()),
+        "max_abs_err": float(err.max()),
+        "ms": median_ms(kernel),
+        "back_to_back_ms": back_to_back_ms(kernel),
+        "device_ms": kernel_device_ms(kernel, "flash_tc_kernel")[0],
         "plain_ms": median_ms(lambda: attention_ref(q, k, v, **flags)),
         "bound_ms": ms_bound,
         "bound_by": by,
         "library_ms": median_ms(sdpa),
-        "back_to_back_ms": back_to_back_ms(rg),
         "library_back_to_back_ms": back_to_back_ms(sdpa),
-        "shape": f"q [1, 10, 512, 256], k, v [1, 1, 512, 256] bf16, causal, window {window}",
-        "granite_launches": granite_launches,
-        "granite_max_abs_err": float((g_got.float() - g_want.float()).abs().max()),
-        "granite_ms": median_ms(gr),
-        "granite_plain_ms": median_ms(lambda: attention_ref(gq, gk, gv)),
-        "granite_bound_ms": g_bound,
-        "granite_bound_by": g_by,
-        "granite_library_ms": median_ms(g_sdpa),
-        "granite_back_to_back_ms": back_to_back_ms(gr),
-        "granite_library_back_to_back_ms": back_to_back_ms(g_sdpa),
-        "granite_shape": "q [1, 24, 512, 64], k, v [1, 8, 512, 64] bf16, causal",
+        "library_backend": backend,
+        "library_kernel": sdpa_kernel,
     }
 
 
-def numbers_gmm(device, launches):
+def numbers_flash(device):
+    """Flash at the serving prefills (main() adds each one's launches in a
+    server run): recurrentgemma-2b's ([1, 10, 512, 256] over one kv head, window
+    2048), granite-moe-3b-a800m's ([1, 24, 512, 64], GQA 24/8, causal) and
+    deepseek-v2's MLA (q, k [1, 128, 512, 192], v [1, 128, 512, 128],
+    causal), h2o-danube-3-4b's ([1, 32, 512, 120] over 8 kv heads,
+    window 4096, causal at 512) and paligemma-3b's ([1, 8, 320, 256] over
+    one kv head, causal with a 256-key bidirectional prefix), beside SDPA
+    (``enable_gqa`` where the heads are grouped)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    masked = lambda mask: {"attn_mask": mask, "enable_gqa": True}  # noqa: E731
+    causal = lambda mask: {"is_causal": True, "enable_gqa": True}  # noqa: E731
+    cases = {
+        "": ((1, 10, 1, 512, 256, 256), {"window": 2048}, masked,
+             "q [1, 10, 512, 256], k, v [1, 1, 512, 256] bf16, causal, window 2048"),
+        "granite_": ((1, 24, 8, 512, 64, 64), {}, causal,
+                     "q [1, 24, 512, 64], k, v [1, 8, 512, 64] bf16, causal"),
+        "mla_": ((1, 128, 128, 512, 192, 128), {}, lambda mask: {"is_causal": True},
+                 "q, k [1, 128, 512, 192], v [1, 128, 512, 128] bf16, causal"),
+        "danube_": ((1, 32, 8, 512, 120, 120), {"window": 4096}, causal,
+                    "q [1, 32, 512, 120], k, v [1, 8, 512, 120] bf16, causal (window 4096)"),
+        "paligemma_": ((1, 8, 1, 320, 256, 256), {"prefix_len": 256}, masked,
+                       "q [1, 8, 320, 256], k, v [1, 1, 320, 256] bf16, causal, prefix_len 256"),
+    }
+    out = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:37", "launches": None}
+    for prefix, (shape, flags, sdpa_kw, label) in cases.items():
+        case = flash_case(device, gen, shape, flags, sdpa_kw)
+        if prefix:
+            out.update({prefix + key: val for key, val in case.items()})
+        else:
+            out.update(case)
+        out[prefix + "shape"] = label
+        log(f"flash {label}: {case} [{torch.cuda.get_device_name(0)}]")
+    out["matches_plain"] = all(out[p + "matches_plain"] for p in cases)
+    return out
+
+
+def numbers_gmm(device):
     """The grouped GEMM at granite-moe's gate/up product (48 experts of
     [1536, 512] bf16): decode (C = 1, M = 48) and a 512-token prefill
-    (C = 128, M = 6144); ``torch.bmm`` over the same capacity layout is the
-    library call."""
+    (C = 128, M = 6144), and at deepseek-v2's (160 experts of [5120, 1536]):
+    decode (C = 1) and a 512-token prefill (C = 24); ``torch.bmm`` over the
+    same capacity layout is the library call."""
     import torch
     from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.ref import grouped_matmul_ref
 
-    g, k, n = 48, 1536, 512
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-    w = torch.randn(g, k, n, generator=gen, device=device).to(torch.bfloat16)
-    tiles = torch.arange(g, dtype=torch.int32, device=device)
     err = torch.zeros(1, dtype=torch.int32, device=device)
-    out = {}
-    for label, cap in (("decode", 1), ("prefill", 128)):
+    out, weights = {}, {}
+    for label, (g, k, n), cap in (("decode", (48, 1536, 512), 1),
+                                  ("prefill", (48, 1536, 512), 128),
+                                  ("deepseek_decode", (160, 5120, 1536), 1),
+                                  ("deepseek_prefill", (160, 5120, 1536), 24)):
+        if (g, k, n) not in weights:
+            weights[(g, k, n)] = torch.randn(g, k, n, generator=gen,
+                                             device=device).to(torch.bfloat16)
+        w = weights[(g, k, n)]
+        tiles = torch.arange(g, dtype=torch.int32, device=device)
         x = torch.randn(g * cap, k, generator=gen, device=device).to(torch.bfloat16)
         got = grouped_matmul(x, w, tiles, block_m=cap)
         want = grouped_matmul_ref(x, w, tiles, block_m=cap)
@@ -1718,15 +2106,18 @@ def numbers_gmm(device, launches):
             plain_ms=median_ms(lambda: grouped_matmul_ref(x, w, tiles, block_m=cap)),
             library_ms=median_ms(lambda: torch.bmm(x3, w)),
             bound_ms=ms_bound, bound_by=by, max_abs_err=float(diff.max()), ok=ok)
+        log(f"grouped_matmul {label} w [{g}, {k}, {n}] block_m {cap}: {out[label]} "
+            f"[{torch.cuda.get_device_name(0)}]")
     dec, pre = out["decode"], out["prefill"]
+    ds_dec, ds_pre = out["deepseek_decode"], out["deepseek_prefill"]
     return {
         "name": "grouped_matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul.py:61",
-        "launches": launches,
-        "matches_plain": dec["ok"] and pre["ok"],
-        "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
+        "launches": None,  # main() adds granite's and deepseek's server runs
+        "matches_plain": all(case["ok"] for case in out.values()),
+        "max_abs_err": max(case["max_abs_err"] for case in out.values()),
         "ms": dec["ms"],
         "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"],
@@ -1741,8 +2132,15 @@ def numbers_gmm(device, launches):
         "prefill_bound_ms": pre["bound_ms"],
         "prefill_bound_by": pre["bound_by"],
         "prefill_library_ms": pre["library_ms"],
-        "shape": f"w [{g}, {k}, {n}] bf16, tile ids arange({g}); decode x [{g}, {k}] "
-                 f"(block_m 1); prefill x [{g * 128}, {k}] (block_m 128)",
+        "shape": "w [48, 1536, 512] bf16, tile ids arange(48); decode x [48, 1536] "
+                 "(block_m 1); prefill x [6144, 1536] (block_m 128)",
+        **{f"deepseek_{which}_{key}": case[key]
+           for which, case in (("decode", ds_dec), ("prefill", ds_pre))
+           for key in ("ms", "b2b_ms", "plain_ms", "library_ms", "library_b2b_ms", "bound_ms",
+                       "bound_by")},
+        "deepseek_shape": "w [160, 5120, 1536] bf16 (one of a layer's three products); "
+                          "decode x [160, 5120] (block_m 1); prefill x [3840, 5120] "
+                          "(block_m 24)",
     }
 
 
@@ -2049,6 +2447,7 @@ def main() -> int:
     timed(phase_kernel_vs_plain, device)
     timed(phase_wave_vs_plain, device)
     timed(phase_lru_vs_plain, device)
+    timed(phase_scan_vs_plain, device)
     timed(phase_flash_vs_plain, device)
     timed(phase_gmm_vs_plain, device)
     timed(phase_expert_stream, device)
@@ -2059,20 +2458,34 @@ def main() -> int:
     timed(phase_dyn, device, card)
     timed(phase_busy, device, card)
     serve_launches, serve_walls = {}, {}
+    # The kernels' times before the serving passes, whose profiled passes
+    # make later traces lose device events; each serving path's launch
+    # counts are filled in after it runs.
+    kernels = [timed(phase_numbers, device, launches),
+               timed(numbers_wave, device, wave_launches, widest),
+               timed(numbers_flash, device),
+               timed(numbers_lru, device),
+               timed(numbers_gmm, device),
+               timed(numbers_scan, device)]
+    torch.cuda.empty_cache()
     for arch in SERVE_ARCHS:
         arch_launches, walls, served = timed(phase_serve, device, card, arch)
-        timed(busy_serve, device, card, served)
+        if arch in PROFILED_SERVE:
+            timed(busy_serve, device, card, served)
         serve_launches[arch] = arch_launches
         serve_walls.update(walls)
         del served  # free this model's weights before the next one's are drawn
         torch.cuda.empty_cache()
-    rg, granite = (serve_launches[a] for a in SERVE_ARCHS)
-    kernels = [timed(phase_numbers, device, launches),
-               timed(numbers_wave, device, wave_launches, widest),
-               timed(numbers_flash, device, rg["flash_attention"],
-                     granite["flash_attention"]),
-               timed(numbers_lru, device, rg["lru_scan"]),
-               timed(numbers_gmm, device, granite["grouped_matmul"])]
+    frontend_launches = {arch: timed(phase_frontend, device, card, arch)
+                         for arch in FRONTEND_ARCHS}
+    rg, granite, mamba, deepseek = (serve_launches[a] for a in SERVE_ARCHS)
+    flash, lru, gmm, scan = kernels[2:]
+    flash.update(launches=rg["flash_attention"], granite_launches=granite["flash_attention"],
+                 mla_launches=deepseek["flash_attention"],
+                 paligemma_launches=frontend_launches["paligemma-3b"])
+    lru["launches"] = rg["lru_scan"]
+    gmm.update(launches=granite["grouped_matmul"], deepseek_launches=deepseek["grouped_matmul"])
+    scan["launches"] = mamba["selective_scan"]
     for kernel in kernels:
         check(kernel["matches_plain"], f"{kernel['name']}: kernel != plain at the main "
                                        "path's shape")

@@ -8,16 +8,21 @@
 // (query head h reads kv head h / (H / Hkv)), a causal mask at a global
 // q_offset, a sliding window (key kept iff col > row - window), prefix_len
 // keys visible to every row, a softcap softcap * tanh(s / softcap), a
-// ragged Sk and any D from 1 to 256, with no padding copy in device
-// memory. A masked key contributes exactly 0, so a row that sees no key
-// ends with l == 0 and writes 0.
+// ragged Sk, any D from 1 to 256 and a value width Dv that is D, or, with
+// D <= 192, any Dv up to 128 (MLA: q and k at 128 + 64 rope columns, v at
+// 128), with no padding copy in device memory. A masked key contributes
+// exactly 0, so a row that sees no key ends with l == 0 and writes 0.
+// (The reference's Pallas kernel takes v's width from q's and leaves the
+// columns past Dv undefined; this kernel follows attention_ref.)
 //
 // Bound on this card: the larger of the bytes (q, k, v read once, o
 // written once, over 3.35 TB/s) and the visible score and PV operations
-// (4 * B * H * sum over rows of the keys each row sees * D, over
-// 989 TFLOP/s for bf16). At both serving prefills it is the bytes:
+// (2 * B * H * sum over rows of the keys each row sees * (D + Dv), over
+// 989 TFLOP/s for bf16). At the serving prefills it is the bytes:
 // granite-moe [1, 24, 512, 64] causal 0.00125 ms, recurrentgemma
-// [1, 10, 512, 256] over one kv head 0.00172 ms. Neither shape fills the
+// [1, 10, 512, 256] over one kv head 0.00172 ms, deepseek-v2's MLA
+// (q, k [1, 128, 512, 192], v [1, 128, 512, 128], causal) 0.0250 ms: its
+// 83.9 MB take that, its 10.8 GFLOP 0.0109 ms. The first two do not fill the
 // card (192 and 80 blocks of 64 rows), so what sets the time is each
 // block's latency: how fast one block streams its key tiles through the
 // tensor cores.
@@ -29,9 +34,16 @@
 //   next tile's load overlaps this one's products (at D = 256 the ring and
 //   the query tile take 165 KB, one block an SM; 32-key tiles there, which
 //   fit two, were 10 % slower on the card). Rows past Sk and columns past D land as zeros (src-size 0);
-//   D is padded to 64, 128 or 256 in shared memory only (three
-//   instantiations a dtype keep the build near 15 s), and rows are 8
-//   elements wider than that, so ldmatrix reads no bank twice.
+//   D and Dv are padded in shared memory only, to (64, 64), (128, 128),
+//   (256, 256) or, where Dv differs from D, (192, 128): the Q K^T product
+//   runs over the padded D and the P V product and the output tile over
+//   the padded Dv (four instantiations a dtype).
+//   Rows are 8 elements wider than the padded width, so ldmatrix reads no
+//   bank twice. At (192, 128) the ring and the query tile take 109 KB,
+//   two blocks an SM. Measured on an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py): the MLA prefill takes 0.126 ms of device time, 5x its
+//   bound and 2.7x cuDNN's wgmma SDPA kernel back to back (0.046); its
+//   168 registers spill 4 bytes.
 // * S = Q K^T and O = P V run on the tensor cores: mma.sync.m16n8k16
 //   with float32 accumulators, A and B fed by ldmatrix (.trans for V).
 // * The online softmax stays in registers in the accumulator layout: each
@@ -53,7 +65,8 @@
 //
 // float32 (the tolerance tests only) keeps the first, scalar design: one
 // block of 4 warps per 16 query rows, lane j scoring key j of a 32-key
-// tile over the whole of D, butterfly shuffles for the max and the sum.
+// tile over the whole of D, butterfly shuffles for the max and the sum,
+// each lane accumulating Dv / 32 output columns.
 
 #include "sm90_tiles.cuh"
 
@@ -64,24 +77,36 @@ namespace {
 
 using namespace sm90;
 
+#if !defined(ACS_FLASH_MAX_D) || !defined(ACS_FLASH_SPLIT_D) || !defined(ACS_FLASH_SPLIT_DV)
+#error "build through flash_attention.py, which defines the head widths"
+#endif
+
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxD = 256;
+// The head widths, defined once, in flash_attention.py: Dv == D up to
+// kMaxD, and the instantiation with Dv != D, D up to kMlaD with Dv up to
+// kMlaDv.
+constexpr int kMaxD = ACS_FLASH_MAX_D;
+constexpr int kMlaD = ACS_FLASH_SPLIT_D;
+constexpr int kMlaDv = ACS_FLASH_SPLIT_DV;
+static_assert(kMaxD == 256 && kMlaD % 16 == 0 && kMlaD <= kMaxD && kMlaDv % 16 == 0 &&
+                  kMlaDv <= kMaxD,
+              "tile widths: the Dv == D path pads to 64, 128 or 256; the split one to 16s");
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;  // [B, H, Sq, D]
   const void* k;  // [B, Hkv, Sk, D]
-  const void* v;  // [B, Hkv, Sk, D]
-  void* o;        // [B, H, Sq, D]
-  int n_batch, n_heads, n_kv_heads, sq, sk, dim;
-  int kv_stride;  // f32 kernel: shared-memory row stride of the k and v tiles
+  const void* v;  // [B, Hkv, Sk, Dv]
+  void* o;        // [B, H, Sq, Dv]
+  int n_batch, n_heads, n_kv_heads, sq, sk, dim, dv;
+  int k_stride, v_stride;  // f32 kernel: shared-memory row strides of the k and v tiles
   float scale;
   int causal;
   int has_window, window;
   int has_softcap;
   float softcap;
   int q_offset, prefix_len;
-  int vec;  // 16-byte copies allowed: D % 8 == 0 and q, k, v 16-byte aligned
+  int vec;  // 16-byte copies allowed: D % 8 == 0, Dv % 8 == 0, q, k, v 16-byte aligned
 };
 
 // ---------------------------------------------------------------------------
@@ -94,9 +119,10 @@ constexpr int kTcRows = kTcWarps * 16;  // query rows per block
 
 constexpr int kTcKeys = 64;  // keys per tile
 
-template <int DP> struct TcTile {
-  static constexpr int LD = DP + 8;  // shared row stride, elements
-  static constexpr int SMEM_ELEMS = (kTcRows + 4 * kTcKeys) * LD;  // q + 2 stages of k, v
+template <int DP, int DVP> struct TcTile {
+  static constexpr int LD = DP + 8;    // shared row stride of q and k, elements
+  static constexpr int LDV = DVP + 8;  // of v
+  static constexpr int SMEM_ELEMS = (kTcRows + 2 * kTcKeys) * LD + 2 * kTcKeys * LDV;
 };
 
 // dst[r][c] = src[r * dim + c] for r < rows and c < dim, else 0, for
@@ -122,16 +148,17 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows, int d
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int DVP>
 __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
   constexpr int BN = kTcKeys;
-  constexpr int LD = TcTile<DP>::LD;
-  constexpr int NB = BN / 8;  // 8-key column blocks of S
-  constexpr int DB = DP / 8;  // 8-wide column blocks of O
+  constexpr int LD = TcTile<DP, DVP>::LD;
+  constexpr int LDV = TcTile<DP, DVP>::LDV;
+  constexpr int NB = BN / 8;   // 8-key column blocks of S
+  constexpr int DB = DVP / 8;  // 8-wide column blocks of O
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);  // [kTcRows][LD]
   T* k_s = q_s + kTcRows * LD;              // [2][BN][LD]
-  T* v_s = k_s + 2 * BN * LD;               // [2][BN][LD]
+  T* v_s = k_s + 2 * BN * LD;               // [2][BN][LDV]
 
   // Block -> (query tile, batch, head): the last query tiles first, heads
   // fastest (a kv group's heads adjacent).
@@ -143,6 +170,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
   const int h = rem - bi * p.n_heads;
   const int hk = h / (p.n_heads / p.n_kv_heads);
   const int dim = p.dim;
+  const int dv = p.dv;
   const int q0 = qt * kTcRows;
   const int rows_here = min(kTcRows, p.sq - q0);
 
@@ -151,8 +179,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
   const T* kg = static_cast<const T*>(p.k) +
                 (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
   const T* vg = static_cast<const T*>(p.v) +
-                (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
-  T* og = static_cast<T*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
+                (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dv;
+  T* og = static_cast<T*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dv;
 
   // Which key tiles the block's rows (global positions row_lo..row_hi) see.
   const int row_lo = p.q_offset + q0;
@@ -201,8 +229,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
     stage_rows<T, kTcRows, DP, LD>(q_s, qg, rows_here, dim, p.vec);
     stage_rows<T, BN, DP, LD>(k_s, kg + static_cast<size_t>(kt) * BN * dim,
                               p.sk - kt * BN, dim, p.vec);
-    stage_rows<T, BN, DP, LD>(v_s, vg + static_cast<size_t>(kt) * BN * dim,
-                              p.sk - kt * BN, dim, p.vec);
+    stage_rows<T, BN, DVP, LDV>(v_s, vg + static_cast<size_t>(kt) * BN * dv,
+                                p.sk - kt * BN, dv, p.vec);
     cp_async_commit();
   }
   for (int stage = 0; kt < kt_end; stage ^= 1) {
@@ -210,15 +238,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
     __syncthreads();  // tile kt landed for every thread; the other stage is free
     const int nxt = next_visible(kt + 1);
     if (nxt < kt_end) {
-      const size_t off = static_cast<size_t>(nxt) * BN * dim;
-      stage_rows<T, BN, DP, LD>(k_s + (stage ^ 1) * BN * LD, kg + off, p.sk - nxt * BN, dim,
-                                p.vec);
-      stage_rows<T, BN, DP, LD>(v_s + (stage ^ 1) * BN * LD, vg + off, p.sk - nxt * BN, dim,
-                                p.vec);
+      const size_t row = static_cast<size_t>(nxt) * BN;
+      stage_rows<T, BN, DP, LD>(k_s + (stage ^ 1) * BN * LD, kg + row * dim, p.sk - nxt * BN,
+                                dim, p.vec);
+      stage_rows<T, BN, DVP, LDV>(v_s + (stage ^ 1) * BN * LDV, vg + row * dv, p.sk - nxt * BN,
+                                  dv, p.vec);
     }
     cp_async_commit();
     const T* ks = k_s + stage * BN * LD;
-    const T* vs = v_s + stage * BN * LD;
+    const T* vs = v_s + stage * BN * LDV;
     const int k0 = kt * BN;
 
     // S = Q K^T for the warp's 16 rows and the tile's BN keys.
@@ -306,9 +334,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
       a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int db = 0; db < DB; db += 2) {
-        if (db * 8 < dim) {
+        if (db * 8 < dv) {
           uint32_t b[4];
-          ldmatrix_x4_trans(b, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+          ldmatrix_x4_trans(b, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                                    db * 8 + (lane >> 4) * 8);
           Mma<T>::run(o[db], a, b[0], b[1]);
           Mma<T>::run(o[db + 1], a, b[2], b[3]);
@@ -327,29 +355,29 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
     const float inv = l > 0.0f ? 1.0f / l : 0.0f;
     const int local = warp * 16 + g + 8 * r;
     if (local >= rows_here) continue;
-    T* orow = og + static_cast<size_t>(local) * dim;
+    T* orow = og + static_cast<size_t>(local) * dv;
 #pragma unroll
     for (int db = 0; db < DB; ++db) {
       const int col = db * 8 + 2 * t;
-      if (col >= dim) continue;
+      if (col >= dv) continue;
       const float x0 = o[db][2 * r] * inv;
       const float x1 = o[db][2 * r + 1] * inv;
-      if ((dim & 1) == 0) {
+      if ((dv & 1) == 0) {
         *reinterpret_cast<uint32_t*>(orow + col) = Mma<T>::pack(x0, x1);
       } else {
         orow[col] = from_f<T>(x0);
-        if (col + 1 < dim) orow[col + 1] = from_f<T>(x1);
+        if (col + 1 < dv) orow[col + 1] = from_f<T>(x1);
       }
     }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int DVP>
 int launch_tc(Params p, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * TcTile<DP>::SMEM_ELEMS;
+  const size_t smem = sizeof(T) * TcTile<DP, DVP>::SMEM_ELEMS;
   static bool opted_in = false;  // above 48 KB once per instantiation
   if (smem > 48 * 1024 && !opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<T, DP>,
+    cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<T, DP, DVP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -357,15 +385,22 @@ int launch_tc(Params p, cudaStream_t stream) {
   }
   const int n_qt = (p.sq + kTcRows - 1) / kTcRows;
   const int blocks = p.n_batch * p.n_heads * n_qt;
-  flash_tc_kernel<T, DP><<<blocks, kTcThreads, smem, stream>>>(p);
+  flash_tc_kernel<T, DP, DVP><<<blocks, kTcThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether an instantiation takes q and k of width dim and v of width dv.
+bool tc_widths(int dim, int dv) {
+  return dv == dim ? (dim >= 1 && dim <= kMaxD)
+                   : (dim >= 1 && dim <= kMlaD && dv >= 1 && dv <= kMlaDv);
 }
 
 template <typename T>
 int launch_tc_dim(Params p, cudaStream_t stream) {
-  if (p.dim <= 64) return launch_tc<T, 64>(p, stream);
-  if (p.dim <= 128) return launch_tc<T, 128>(p, stream);
-  return launch_tc<T, 256>(p, stream);
+  if (p.dv != p.dim) return launch_tc<T, kMlaD, kMlaDv>(p, stream);
+  if (p.dim <= 64) return launch_tc<T, 64, 64>(p, stream);
+  if (p.dim <= 128) return launch_tc<T, 128, 128>(p, stream);
+  return launch_tc<T, kMaxD, kMaxD>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -377,7 +412,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // 16 query rows per block
 constexpr int kBlockK = 32;                     // keys per tile: one per lane
-constexpr int kColsPerLane = kMaxD / 32;
+constexpr int kColsPerLane = kMaxD / 32;  // output columns a lane holds: Dv <= kMaxD
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -396,9 +431,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int dim = p.dim;
+  const int dv = p.dv;
   float* q_s = reinterpret_cast<float*>(smem);  // [kBlockQ][dim]
-  float* k_s = q_s + kBlockQ * dim;              // [kBlockK][kv_stride]
-  float* v_s = k_s + static_cast<size_t>(kBlockK) * p.kv_stride;
+  float* k_s = q_s + kBlockQ * dim;              // [kBlockK][k_stride]
+  float* v_s = k_s + static_cast<size_t>(kBlockK) * p.k_stride;  // [kBlockK][v_stride]
 
   const int n_qt = (p.sq + kBlockQ - 1) / kBlockQ;
   int blk = blockIdx.x;
@@ -415,9 +451,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
   const float* kg = static_cast<const float*>(p.k) +
                     (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
   const float* vg = static_cast<const float*>(p.v) +
-                    (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
+                    (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dv;
   float* og =
-      static_cast<float*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dim;
+      static_cast<float*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dv;
 
   for (int i = threadIdx.x; i < kBlockQ * dim; i += kThreads)
     q_s[i] = i < rows_here * dim ? qg[i] : 0.0f;
@@ -447,9 +483,11 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = threadIdx.x; i < nk * dim; i += kThreads) {
       const int j = i / dim;
-      const int d = i - j * dim;
-      k_s[j * p.kv_stride + d] = kg[static_cast<size_t>(k0) * dim + i];
-      v_s[j * p.kv_stride + d] = vg[static_cast<size_t>(k0) * dim + i];
+      k_s[j * p.k_stride + i - j * dim] = kg[static_cast<size_t>(k0) * dim + i];
+    }
+    for (int i = threadIdx.x; i < nk * dv; i += kThreads) {
+      const int j = i / dv;
+      v_s[j * p.v_stride + i - j * dv] = vg[static_cast<size_t>(k0) * dv + i];
     }
     __syncthreads();
 
@@ -460,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.0f;
     if (key_ok) {
-      const float* krow = k_s + lane * p.kv_stride;
+      const float* krow = k_s + lane * p.k_stride;
       for (int d = 0; d < dim; ++d) {
         const float kd = krow[d];
 #pragma unroll
@@ -491,11 +529,11 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
       for (int c = 0; c < kColsPerLane; ++c) acc[r][c] *= alpha;
       for (int jj = 0; jj < nk; ++jj) {
         const float pv = __shfl_sync(kFull, pj, jj);
-        const float* vrow = v_s + jj * p.kv_stride;
+        const float* vrow = v_s + jj * p.v_stride;
 #pragma unroll
         for (int c = 0; c < kColsPerLane; ++c) {
           const int d = lane + 32 * c;
-          if (d < dim) acc[r][c] += pv * vrow[d];
+          if (d < dv) acc[r][c] += pv * vrow[d];
         }
       }
     }
@@ -509,14 +547,15 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) {
       const int d = lane + 32 * c;
-      if (d < dim) og[static_cast<size_t>(local) * dim + d] = acc[r][c] * inv;
+      if (d < dv) og[static_cast<size_t>(local) * dv + d] = acc[r][c] * inv;
     }
   }
 }
 
 int launch_f32(Params p, cudaStream_t stream) {
-  p.kv_stride = p.dim | 1;  // odd word stride: lane j's read of row j in its own bank
-  const size_t smem = sizeof(float) * (kBlockQ * p.dim + 2 * kBlockK * p.kv_stride);
+  p.k_stride = p.dim | 1;  // odd word strides: lane j's read of row j in its own bank
+  p.v_stride = p.dv | 1;
+  const size_t smem = sizeof(float) * (kBlockQ * p.dim + kBlockK * (p.k_stride + p.v_stride));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -531,18 +570,19 @@ int launch_f32(Params p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. has_window/has_softcap
-// select the optional masks. Returns cudaGetLastError() after the launch
-// (0 on success), or -1 for a dtype code or head dim it does not take.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. dim is q's and k's head
+// width, dv v's and o's. has_window/has_softcap select the optional
+// masks. Returns cudaGetLastError() after the launch (0 on success), or -1
+// for a dtype code or (dim, dv) it has no instantiation for.
 extern "C" int acs_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int n_batch, int n_heads, int n_kv_heads, int sq, int sk,
-                                   int dim, int dtype, float scale, int causal,
+                                   int dim, int dv, int dtype, float scale, int causal,
                                    int has_window, int window, int has_softcap,
                                    float softcap, int q_offset, int prefix_len,
                                    void* stream) {
-  if (dim < 1 || dim > kMaxD) return -1;
-  const int vec = dim % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  Params p{q, k, v, o, n_batch, n_heads, n_kv_heads, sq, sk, dim, 0, scale, causal,
+  if (!tc_widths(dim, dv)) return -1;
+  const int vec = dim % 8 == 0 && dv % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  Params p{q, k, v, o, n_batch, n_heads, n_kv_heads, sq, sk, dim, dv, 0, 0, scale, causal,
            has_window, window, has_softcap, softcap, q_offset, prefix_len, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(p, s);

@@ -19,6 +19,11 @@ oracle of the same name (the rows scattered into the slab).
 
 ``grouped_matmul_ref`` follows the reference's ragged grouped-GEMM oracle:
 each ``block_m``-row tile times its group's weights, in float32.
+
+``selective_scan_ref`` is the plain version of ``kernels/selective_scan.py``,
+the Mamba recurrence: the reference has no kernel for it, and runs the
+``step`` of ``repro/models/recurrent.py`` ``apply_mamba`` under
+``lax.scan``; this loop makes the same products in the same order.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import numpy as np
 import torch
 
 __all__ = ["attention_ref", "grouped_matmul_ref", "lru_scan_ref", "ready_queue_ref",
-           "ready_queue_tables_error", "wave_rows_ref", "wave_elementwise_ref"]
+           "ready_queue_tables_error", "selective_scan_ref", "wave_rows_ref",
+           "wave_elementwise_ref"]
 
 
 def attention_ref(
@@ -110,6 +116,30 @@ def lru_scan_ref(
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out.to(b.dtype)
+
+
+def selective_scan_ref(
+    dt: torch.Tensor,    # [B, S, E] step sizes
+    x: torch.Tensor,     # [B, S, E] inputs
+    bmat: torch.Tensor,  # [B, S, N] input projections
+    cmat: torch.Tensor,  # [B, S, N] output projections
+    a: torch.Tensor,     # [E, N] state decay rates (negative)
+    h0: torch.Tensor,    # [B, E, N] initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan in float32: for each step ``t``,
+    ``h = exp(dt_t[..., None] * a) * h + (dt_t * x_t)[..., None] * b_t[:, None, :]``
+    and ``y_t = einsum("ben,bn->be", h, c_t)``. Returns ``(ys [B, S, E],
+    hT [B, E, N])``. Each product and sum is its own eager kernel, rounded
+    to float32, as in the reference's ``step``."""
+    dt, x, bmat, cmat, a = dt.float(), x.float(), bmat.float(), cmat.float(), a.float()
+    h = h0.float()
+    ys = torch.empty(dt.shape, dtype=torch.float32, device=dt.device)
+    for t in range(dt.shape[1]):
+        dt_t = dt[:, t]
+        da = torch.exp(dt_t[..., None] * a[None])
+        h = da * h + (dt_t * x[:, t])[..., None] * bmat[:, t, None, :]
+        ys[:, t] = torch.einsum("ben,bn->be", h, cmat[:, t])
+    return ys, h
 
 
 def ready_queue_tables_error(

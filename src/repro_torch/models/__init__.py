@@ -1,25 +1,30 @@
 """LM model stack (PyTorch port of ``repro/models``): GQA (global and
-sliding-window) and RG-LRU layers with dense gated or MoE FFNs, as
-``nn.Module``s behind the reference's functional entry names. MLA, Mamba,
-the frontends and ``loss_fn`` are still to port (ROADMAP queue 1 item 9)."""
+sliding-window), MLA, RG-LRU and Mamba layers with dense gated or MoE FFNs,
+and the audio and vision frontend stubs, as ``nn.Module``s behind the
+reference's functional entry names. ``loss_fn`` is still to port with the
+training path (ROADMAP queue 1 item 11)."""
 
 from .config import ArchConfig, MLAConfig, MoEConfig
 from .convert import cache_from_numpy, params_from_numpy
 from .transformer import (
+    FRONTEND_DIMS,
+    LAYER_KINDS,
     Block,
     LanguageModel,
+    LayerKind,
     decode_step,
     forward,
     init_cache,
     init_params,
     pad_vocab,
+    layer_kind,
     prefill,
     split_pattern,
 )
 
 __all__ = [
     "ArchConfig", "MLAConfig", "MoEConfig",
-    "Block", "LanguageModel",
+    "FRONTEND_DIMS", "LAYER_KINDS", "Block", "LanguageModel", "LayerKind", "layer_kind",
     "cache_from_numpy", "params_from_numpy",
     "decode_step", "forward", "init_cache", "init_params",
     "pad_vocab", "prefill", "split_pattern",

@@ -1,10 +1,14 @@
-"""GQA attention mixer: global, sliding-window, softcap and prefix-LM
-(PyTorch port of the GQA part of ``repro/models/attention.py``; MLA is
-still to port, ROADMAP queue 1 item 9).
+"""Attention mixers (PyTorch port of ``repro/models/attention.py``): GQA
+(global, sliding-window, softcap and prefix-LM) and deepseek-v2's
+multi-head latent attention (MLA).
 
 Activations are [B, S, D]; attention runs in [B, H, S, hd]. Caches are
-functional ``(k, v)`` pairs [B, Hkv, Sc, hd]: every step returns new
-tensors and never writes into the ones it was given. The reference's
+functional pairs: GQA's ``(k, v)`` [B, Hkv, Sc, hd], MLA's compressed
+``(c_kv [B, Sc, kv_lora], k_rope [B, Sc, rope_dim])``. Every step returns
+new tensors and never writes into the ones it was given. Prefill and
+training attend through ``ops.attention`` (the flash kernel on the card;
+MLA's q and k are 192 wide and its v 128); decode attends through the
+plain ``_cached_attention``, as the reference does. The reference's
 ``parallel.shard`` calls are no-ops without a mesh and are dropped here.
 """
 
@@ -19,7 +23,7 @@ from ..kernels import ops
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, rope
 
-__all__ = ["GqaAttention", "init_attn", "apply_attn"]
+__all__ = ["GqaAttention", "MlaAttention", "init_attn", "apply_attn", "init_mla", "apply_mla"]
 
 Pos = Union[int, torch.Tensor]
 
@@ -73,13 +77,13 @@ class GqaAttention(nn.Module):
                           cache=cache, pos=pos, prefill=prefill)
 
 
-def _update_rows(c: torch.Tensor, new: torch.Tensor, pos: Pos) -> torch.Tensor:
-    """``c`` with rows ``[pos, pos + s)`` of axis 2 replaced by ``new``; the
-    start clamps into range like ``lax.dynamic_update_slice``. ``pos`` may
-    be a device scalar: no host read."""
-    rows, s = c.shape[2], new.shape[2]
+def _update_rows(c: torch.Tensor, new: torch.Tensor, pos: Pos, dim: int = 2) -> torch.Tensor:
+    """``c`` with rows ``[pos, pos + s)`` of axis ``dim`` replaced by
+    ``new``; the start clamps into range like ``lax.dynamic_update_slice``.
+    ``pos`` may be a device scalar: no host read."""
+    rows, s = c.shape[dim], new.shape[dim]
     start = torch.clamp(torch.as_tensor(pos, device=c.device).long(), 0, rows - s)
-    return c.index_copy(2, start + torch.arange(s, device=c.device), new)
+    return c.index_copy(dim, start + torch.arange(s, device=c.device), new)
 
 
 def apply_attn(
@@ -174,3 +178,92 @@ def _cached_attention(q, k, v, *, q_offset: Pos, window, softcap, prefix_len,
     prob = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgql,bkld->bkgqd", prob, v.float())
     return out.reshape(b, h, sq, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): low-rank compressed KV; the cache is (c_kv, k_rope)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_dim
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora), dtype),
+        "wq_b": dense_init(gen, (m.q_lora, h, qd), dtype),
+        "wkv_a": dense_init(gen, (d, m.kv_lora + m.rope_dim), dtype),
+        "wkv_b": dense_init(gen, (m.kv_lora, h, m.nope_head_dim + m.v_head_dim), dtype),
+        "wo": dense_init(gen, (h * m.v_head_dim, d), dtype),
+    }
+
+
+class MlaAttention(nn.Module):
+    """Multi-head latent attention over ``wq_a [D, q_lora]``, ``wq_b
+    [q_lora, H, nope + rope]``, ``wkv_a [D, kv_lora + rope]``, ``wkv_b
+    [kv_lora, H, nope + v]`` and ``wo [H * v, D]`` (the reference's
+    layout)."""
+
+    NAMES = ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")
+
+    def __init__(self, cfg: ArchConfig, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        for name in self.NAMES:
+            setattr(self, name, nn.Parameter(params[name], requires_grad=False))
+
+    def forward(self, x, *, positions, cache=None, pos=None, prefill=False):
+        return apply_mla(self, x, self.cfg, positions=positions, cache=cache, pos=pos,
+                         prefill=prefill)
+
+
+def apply_mla(
+    p: MlaAttention,
+    x: torch.Tensor,                    # [B, S, D]
+    cfg: ArchConfig,
+    *,
+    positions: torch.Tensor,            # [S] global positions of x
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # c_kv, k_rope [B, Sc, *]
+    pos: Optional[Pos] = None,          # scalar write offset into the cache
+    prefill: bool = False,
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+
+    q = torch.einsum("bsd,dr->bsr", x, p.wq_a)
+    q = torch.einsum("bsr,rhk->bhsk", q, p.wq_b)  # [B, H, S, nope + rope]
+    q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim:]
+
+    kv_a = torch.einsum("bsd,dr->bsr", x, p.wkv_a)
+    c_kv, k_rope_new = kv_a[..., : m.kv_lora], kv_a[..., m.kv_lora:]
+
+    cos, sin = rope(positions, m.rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope_new = apply_rope(k_rope_new[:, None], cos, sin)[:, 0]  # [B, S, rope]
+
+    new_cache = None
+    if cache is not None:
+        cc, cr = cache
+        new_cache = (_update_rows(cc, c_kv, pos, dim=1), _update_rows(cr, k_rope_new, pos, dim=1))
+
+    if cache is None or prefill:
+        c_all, r_all = c_kv, k_rope_new  # the local segment
+    else:
+        c_all, r_all = new_cache
+
+    # per-head keys and values reconstructed from the latent
+    kv = torch.einsum("bsr,rhk->bhsk", c_all, p.wkv_b)
+    k_nope, v = kv[..., : m.nope_head_dim], kv[..., m.nope_head_dim:]
+    k_rope_b = r_all[:, None].expand((b, h) + tuple(r_all.shape[1:]))
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+
+    if cache is None or prefill:
+        out = ops.attention(q_full.contiguous(), k_full.contiguous(), v.contiguous(),
+                            causal=True)
+    else:
+        out = _cached_attention(q_full, k_full, v, q_offset=pos, window=None, softcap=None,
+                                prefix_len=0)
+    out = out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
+    y = torch.einsum("bsk,kd->bsd", out, p.wo)
+    return y, new_cache

@@ -6,7 +6,12 @@ one tuple of layer dicts (or cache entries) per stage, so that axis is
 split here (an MoE layer's stacked expert leaves ``[n_stages, E_pad, ...]``
 included; the port reads E_pad from the weights, so trees made with any
 ``tp_size`` carry across). bfloat16 leaves (numpy's ``ml_dtypes`` type) go through
-float32, which is exact; every other leaf keeps its dtype.
+float32, which is exact; every other leaf keeps its dtype (so Mamba's
+``A_log``, ``D`` and ``dt_bias`` stay float32 in a bfloat16 model). The
+walk is generic over the tree: MLA and Mamba leaves, a Mamba layer's
+missing FFN and a frontend arch's ``frontend_proj`` carry across as they
+are, and so do MLA's ``(c_kv, k_rope)`` and Mamba's ``(h, conv tail)``
+cache entries.
 """
 
 from __future__ import annotations

@@ -1,11 +1,17 @@
-"""RG-LRU recurrent mixer of recurrentgemma (PyTorch port of the RG-LRU
-part of ``repro/models/recurrent.py``; Mamba is still to port, ROADMAP
-queue 1 item 9).
+"""Recurrent mixers (PyTorch port of ``repro/models/recurrent.py``):
+recurrentgemma's RG-LRU and falcon-mamba's Mamba-1 block.
 
-A causal depthwise conv1d and a gated diagonal linear recurrence
-``h_t = a_t * h_{t-1} + b_t`` served by ``kernels.ops.lru_scan``, in
-prefill (S = prompt length) and in every decode step (S = 1). The scan
-runs in float32; its output is cast to the model dtype after it.
+Both open with a causal depthwise conv1d and run a recurrence in float32,
+in prefill (S = prompt length) and in every decode step (S = 1):
+
+* RG-LRU: the gated diagonal recurrence ``h_t = a_t * h_{t-1} + b_t``,
+  served by ``kernels.ops.lru_scan``; its output is cast to the model
+  dtype after it. The state is ``(h [B, W] f32, conv tail [B, K-1, W])``.
+* Mamba: the selective scan over ``N`` states a channel, served by
+  ``kernels.ops.selective_scan`` (the reference runs it as ``lax.scan``).
+  The projections, the ``D`` skip term and the ``silu(z)`` gate stay
+  PyTorch ops, as the reference leaves them outside any kernel. The state
+  is ``(h [B, di, N] f32, conv tail [B, K-1, di])``.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from ..kernels import ops
 from .config import ArchConfig
 from .layers import dense_init
 
-__all__ = ["RgLru", "init_rglru", "apply_rglru"]
+__all__ = ["RgLru", "Mamba", "init_rglru", "apply_rglru", "init_mamba", "apply_mamba"]
 
 
 def init_rglru(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict[str, torch.Tensor]:
@@ -96,3 +102,80 @@ def apply_rglru(
     y = torch.einsum("bsw,wd->bsd", hs * g, p.w_out)
     new_state = (hs[:, -1].float(), new_conv) if state is not None else None
     return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 block (falcon-mamba)
+# ---------------------------------------------------------------------------
+
+def init_mamba(gen: torch.Generator, cfg: ArchConfig, dtype) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    di = cfg.expand * d
+    n = cfg.ssm_state
+    dt_rank = max(d // 16, 1)
+    dev = gen.device
+    return {
+        "w_in": dense_init(gen, (d, 2 * di), dtype),
+        "conv_w": dense_init(gen, (cfg.d_conv, di), dtype, scale=0.5),
+        "x_proj": dense_init(gen, (di, dt_rank + 2 * n), dtype),
+        "dt_proj": dense_init(gen, (dt_rank, di), dtype),
+        "dt_bias": torch.zeros((di,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+                           .expand(di, n).contiguous()),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "w_out": dense_init(gen, (di, d), dtype),
+    }
+
+
+class Mamba(nn.Module):
+    """The Mamba-1 block's weights (the reference's names and layout;
+    ``dt_bias``, ``A_log`` and ``D`` are float32 in every model dtype)."""
+
+    NAMES = ("w_in", "conv_w", "x_proj", "dt_proj", "dt_bias", "A_log", "D", "w_out")
+
+    def __init__(self, cfg: ArchConfig, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        for name in self.NAMES:
+            setattr(self, name, nn.Parameter(params[name], requires_grad=False))
+
+    def forward(self, x, *, state=None):
+        return apply_mamba(self, x, self.cfg, state=state)
+
+
+def apply_mamba(
+    p: Mamba,
+    x: torch.Tensor,  # [B, S, D]
+    cfg: ArchConfig,
+    *,
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (h [B,di,N] f32, conv [B,K-1,di])
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    b = x.shape[0]
+    di = cfg.expand * cfg.d_model
+    n = cfg.ssm_state
+    dt_rank = p.dt_proj.shape[0]
+
+    xz = torch.einsum("bsd,de->bse", x, p.w_in)
+    xi, z = xz[..., :di], xz[..., di:]
+
+    conv_state = state[1] if state is not None else None
+    xi, new_conv = _causal_conv1d(xi, p.conv_w, conv_state)
+    xi = F.silu(xi)
+
+    proj = torch.einsum("bse,ef->bsf", xi, p.x_proj)
+    dt = F.softplus(torch.einsum("bsr,re->bse", proj[..., :dt_rank], p.dt_proj)
+                    + p.dt_bias[None, None]).float()                  # [B, S, di]
+    bmat = proj[..., dt_rank: dt_rank + n].float().contiguous()        # [B, S, N]
+    cmat = proj[..., dt_rank + n:].float().contiguous()                # [B, S, N]
+    a = -torch.exp(p.A_log)                                            # [di, N]
+
+    h0 = (state[0].float() if state is not None
+          else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
+    xf = xi.float()
+    ys, h_t = ops.selective_scan(dt.contiguous(), xf.contiguous(), bmat, cmat, a.contiguous(),
+                                 h0.contiguous())
+    y = ys + p.D[None, None] * xf                                      # [B, S, di]
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = torch.einsum("bse,ed->bsd", y, p.w_out)
+    new_state = (h_t, new_conv) if state is not None else None
+    return out, new_state

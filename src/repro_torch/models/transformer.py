@@ -1,5 +1,6 @@
-"""Model assembly: embedding -> (prefix layers + stages) -> final norm ->
-LM head (PyTorch port of ``repro/models/transformer.py``).
+"""Model assembly: embedding or frontend projection -> (prefix layers +
+stages) -> final norm -> LM head (PyTorch port of
+``repro/models/transformer.py``). One code path builds all ten configs.
 
 Layer layout: ``cfg.pattern`` (length n_layers) is split into an unscanned
 *prefix* (the pattern remainder) and ``n_stages`` repetitions of
@@ -10,36 +11,42 @@ stage modules and caches, and loops.
 Modes (the reference's functional entry names, over a
 :class:`LanguageModel`):
 
-* ``forward``      — training/eval forward (no cache) -> logits [B, S, V_pad]
+* ``forward``      — eval forward (no cache) -> logits [B, S, V_pad]
 * ``prefill``      — forward + cache population -> (last logits, cache)
 * ``decode_step``  — one token against the cache -> (logits, cache)
 
-The port builds GQA (global and local) and RG-LRU layers with dense or
-MoE FFNs (prefix layers, which absorb ``moe.first_dense``, stay dense);
-MLA, Mamba, the frontends and ``loss_fn`` are still to port (ROADMAP queue
-1 item 9), and ``init_params`` raises ``NotImplementedError`` for a
-configuration that needs them.
+Mixers: GQA (global and local), MLA, RG-LRU and Mamba. Every layer but a
+Mamba one has a dense or MoE FFN (prefix layers, which absorb
+``moe.first_dense``, stay dense). A frontend arch (``audio_stub``,
+``vision_stub``) takes precomputed frame or patch embeddings ``[B, S, F]``
+in place of tokens and projects them with ``frontend_proj``, in all three
+modes. The training path's ``loss_fn`` is still to port with training
+(ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core.buffers import DeviceLike, resolve_device
-from .attention import GqaAttention, init_attn
-from .config import ATTN_LOCAL, MAMBA, MLA, RGLRU, ArchConfig
+from .attention import GqaAttention, MlaAttention, init_attn, init_mla
+from .config import ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLA, RGLRU, ArchConfig
 from .ffn import GatedMlp, MoeFfn, init_ffn, init_moe
 from .layers import DTYPES, dense_init, rms_norm
-from .recurrent import RgLru, init_rglru
+from .recurrent import Mamba, RgLru, init_mamba, init_rglru
 
 __all__ = [
-    "Block", "LanguageModel", "pad_vocab", "split_pattern", "check_supported",
+    "FRONTEND_DIMS", "LAYER_KINDS", "LayerKind", "layer_kind", "Block", "LanguageModel", "pad_vocab", "split_pattern",
     "init_params", "init_cache", "forward", "prefill", "decode_step",
 ]
+
+# The width of a frontend's precomputed embeddings (EnCodec frames, SigLIP
+# patches), projected to d_model by ``frontend_proj``.
+FRONTEND_DIMS = {"audio_stub": 512, "vision_stub": 1152}
 
 Cache = Dict[str, List[Any]]
 Pos = Union[int, torch.Tensor]
@@ -64,17 +71,65 @@ def split_pattern(cfg: ArchConfig) -> Tuple[Tuple[str, ...], int]:
     return prefix, n_stages
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not build yet."""
-    missing = [what for what, needed in (
-        ("the frontend archs", cfg.frontend is not None),
-        ("MLA attention", MLA in cfg.pattern_unit),
-        ("Mamba blocks", MAMBA in cfg.pattern_unit),
-    ) if needed]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 9)")
+# ---------------------------------------------------------------------------
+# layer kinds
+# ---------------------------------------------------------------------------
+
+def _attn_cache(local: bool) -> Callable:
+    def build(cfg: ArchConfig, batch: int, max_len: int, zeros: Callable):
+        rows = max_len
+        if local and cfg.window is not None:
+            rows = min(cfg.window, max_len)
+        shape = (batch, cfg.eff_kv_heads, rows, cfg.head_dim)
+        return (zeros(shape), zeros(shape))
+    return build
+
+
+def _mla_cache(cfg: ArchConfig, batch: int, max_len: int, zeros: Callable):
+    m = cfg.mla
+    return (zeros((batch, max_len, m.kv_lora)), zeros((batch, max_len, m.rope_dim)))
+
+
+def _rglru_cache(cfg: ArchConfig, batch: int, max_len: int, zeros: Callable):
+    w = cfg.rglru_width or cfg.d_model
+    return (zeros((batch, w), torch.float32), zeros((batch, cfg.d_conv - 1, w)))
+
+
+def _mamba_cache(cfg: ArchConfig, batch: int, max_len: int, zeros: Callable):
+    di = cfg.expand * cfg.d_model
+    return (zeros((batch, di, cfg.ssm_state), torch.float32),
+            zeros((batch, cfg.d_conv - 1, di)))
+
+
+class LayerKind(NamedTuple):
+    """What one layer kind builds: its mixer's params (``init(gen, cfg,
+    dtype)``), its mixer module (``module(cfg, params)``) and its cache
+    entry (``cache(cfg, batch, max_len, zeros)``); whether the mixer is a
+    recurrence, called with ``state=`` rather than positions and a cache;
+    and whether the layer has an FFN."""
+
+    init: Callable
+    module: Callable
+    cache: Callable
+    recurrent: bool
+    ffn: bool
+
+
+LAYER_KINDS: Dict[str, LayerKind] = {
+    ATTN_GLOBAL: LayerKind(init_attn, lambda cfg, p: GqaAttention(cfg, p, local=False),
+                           _attn_cache(False), False, True),
+    ATTN_LOCAL: LayerKind(init_attn, lambda cfg, p: GqaAttention(cfg, p, local=True),
+                          _attn_cache(True), False, True),
+    MLA: LayerKind(init_mla, MlaAttention, _mla_cache, False, True),
+    RGLRU: LayerKind(init_rglru, RgLru, _rglru_cache, True, True),
+    MAMBA: LayerKind(init_mamba, Mamba, _mamba_cache, True, False),  # a Mamba block has no FFN
+}
+
+
+def layer_kind(kind: str) -> LayerKind:
+    if kind not in LAYER_KINDS:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    return LAYER_KINDS[kind]
 
 
 # ---------------------------------------------------------------------------
@@ -82,46 +137,54 @@ def check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One layer: pre-norm mixer and pre-norm FFN (a gated MLP, or the MoE
-    FFN where the layer's FFN params hold a ``router``), both residual."""
+    """One layer: pre-norm mixer and, where the layer's params hold an
+    ``ffn`` (every kind but Mamba: ``LayerKind.ffn``), a pre-norm FFN (a
+    gated MLP, or the MoE FFN where those params hold a ``router``), both
+    residual."""
 
     def __init__(self, cfg: ArchConfig, kind: str, params: Dict[str, Any]):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
+        spec = layer_kind(kind)
+        self.recurrent = spec.recurrent
         self.norm = nn.Parameter(params["norm"], requires_grad=False)
-        # check_supported admits only attention and RG-LRU layers
-        self.mixer = (RgLru(cfg, params["mixer"]) if kind == RGLRU
-                      else GqaAttention(cfg, params["mixer"], local=(kind == ATTN_LOCAL)))
-        self.ffn_norm = nn.Parameter(params["ffn_norm"], requires_grad=False)
-        ffn = params["ffn"]
-        self.ffn = MoeFfn(cfg, ffn) if "router" in ffn else GatedMlp(ffn)
+        self.mixer = spec.module(cfg, params["mixer"])
+        self.ffn = None
+        if "ffn" in params:
+            self.ffn_norm = nn.Parameter(params["ffn_norm"], requires_grad=False)
+            ffn = params["ffn"]
+            self.ffn = MoeFfn(cfg, ffn) if "router" in ffn else GatedMlp(ffn)
 
     def forward(self, x, positions, cache_entry, pos, prefill_mode):
         cfg = self.cfg
         h = rms_norm(x, self.norm, cfg.norm_eps)
-        if self.kind == RGLRU:
+        if self.recurrent:
             y, new_c = self.mixer(h, state=cache_entry)
         else:
             y, new_c = self.mixer(h, positions=positions, cache=cache_entry, pos=pos,
                                   prefill=prefill_mode)
         x = x + y
-        h = rms_norm(x, self.ffn_norm, cfg.norm_eps)
-        return x + self.ffn(h), new_c
+        if self.ffn is not None:
+            h = rms_norm(x, self.ffn_norm, cfg.norm_eps)
+            x = x + self.ffn(h)
+        return x, new_c
 
 
 class LanguageModel(nn.Module):
     """Embedding, prefix blocks, stages of ``pattern_unit`` blocks, final
-    norm and (tied or separate) head. ``tree`` holds tensors in the
-    reference's parameter layout, with ``stages`` as one tuple of layer
-    dicts per stage instead of stacked leaves."""
+    norm and (tied or separate) head, and a frontend arch's
+    ``frontend_proj``. ``tree`` holds tensors in the reference's parameter
+    layout, with ``stages`` as one tuple of layer dicts per stage instead
+    of stacked leaves."""
 
     def __init__(self, cfg: ArchConfig, tree: Dict[str, Any]):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         prefix, n_stages = split_pattern(cfg)
         self.embed = nn.Parameter(tree["embed"], requires_grad=False)
+        self.frontend_proj = (nn.Parameter(tree["frontend_proj"], requires_grad=False)
+                              if cfg.frontend else None)
         self.final_norm = nn.Parameter(tree["final_norm"], requires_grad=False)
         self.head = (None if cfg.tied_embeddings
                      else nn.Parameter(tree["head"], requires_grad=False))
@@ -144,10 +207,13 @@ def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
                 layer_has_moe: bool, tp_size: int) -> Dict[str, Any]:
     d = cfg.d_model
     norm = lambda: torch.zeros((d,), dtype=torch.float32, device=gen.device)  # noqa: E731
-    mixer = init_rglru(gen, cfg, dtype) if kind == RGLRU else init_attn(gen, cfg, dtype)
-    ffn = (init_moe(gen, cfg, dtype, tp_size) if layer_has_moe
-           else init_ffn(gen, d, cfg.d_ff, dtype))
-    return {"norm": norm(), "mixer": mixer, "ffn_norm": norm(), "ffn": ffn}
+    spec = layer_kind(kind)
+    layer = {"norm": norm(), "mixer": spec.init(gen, cfg, dtype)}
+    if spec.ffn:
+        layer["ffn_norm"] = norm()
+        layer["ffn"] = (init_moe(gen, cfg, dtype, tp_size) if layer_has_moe
+                        else init_ffn(gen, d, cfg.d_ff, dtype))
+    return layer
 
 
 @torch.no_grad()
@@ -159,7 +225,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda",
     layers pad their experts to a multiple of ``tp_size``, as the
     reference does."""
     dev = resolve_device(device)
-    check_supported(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dtype = DTYPES[cfg.dtype]
@@ -170,6 +235,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda",
         "embed": dense_init(gen, (v_pad, d), dtype),
         "final_norm": torch.zeros((d,), dtype=torch.float32, device=dev),
     }
+    if cfg.frontend:
+        tree["frontend_proj"] = dense_init(gen, (FRONTEND_DIMS[cfg.frontend], d), dtype)
     if not cfg.tied_embeddings:
         tree["head"] = dense_init(gen, (d, v_pad), dtype)
     moe = cfg.moe is not None
@@ -184,31 +251,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda",
 # caches
 # ---------------------------------------------------------------------------
 
-def _layer_cache(kind: str, cfg: ArchConfig, batch: int, max_len: int, dtype, dev):
-    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
-    if kind == RGLRU:
-        w = cfg.rglru_width or cfg.d_model
-        return (zeros((batch, w), torch.float32), zeros((batch, cfg.d_conv - 1, w)))
-    rows = max_len  # attention (check_supported admits no other kind)
-    if kind == ATTN_LOCAL and cfg.window is not None:
-        rows = min(cfg.window, max_len)
-    shape = (batch, cfg.eff_kv_heads, rows, cfg.head_dim)
-    return (zeros(shape), zeros(shape))
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device: DeviceLike = "cuda") -> Cache:
     """Zero caches: ``{"prefix": [entry per layer], "stages": [tuple of
-    entries per stage]}``; an attention entry is ``(k, v)``, an RG-LRU entry
-    ``(h float32, conv tail)``."""
+    entries per stage]}``; an attention entry is ``(k, v)``, an MLA entry
+    ``(c_kv, k_rope)``, an RG-LRU or Mamba entry ``(h float32, conv
+    tail)``."""
     dev = resolve_device(device)
-    check_supported(cfg)
     dtype = DTYPES[cfg.dtype]
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
+    entry = lambda kind: layer_kind(kind).cache(cfg, batch, max_len, zeros)  # noqa: E731
     prefix, n_stages = split_pattern(cfg)
     return {
-        "prefix": [_layer_cache(k, cfg, batch, max_len, dtype, dev) for k in prefix],
-        "stages": [tuple(_layer_cache(k, cfg, batch, max_len, dtype, dev)
-                         for k in cfg.pattern_unit) for _ in range(n_stages)],
+        "prefix": [entry(k) for k in prefix],
+        "stages": [tuple(entry(k) for k in cfg.pattern_unit) for _ in range(n_stages)],
     }
 
 
@@ -217,7 +273,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 
 def _embed(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
-    x = params.embed[inputs.long()]
+    """Tokens [B, S] through the embedding table, or a frontend arch's
+    embeddings [B, S, F] through ``frontend_proj`` (in the promoted dtype
+    of the two, as ``jnp.einsum`` computes it)."""
+    if cfg.frontend:
+        dt = torch.promote_types(inputs.dtype, params.frontend_proj.dtype)
+        x = torch.einsum("bsf,fd->bsd", inputs.to(dt), params.frontend_proj.to(dt))
+    else:
+        x = params.embed[inputs.long()]
     if cfg.embed_scale:
         # sqrt(d) as float32, applied in float32 before the cast to the
         # model dtype (the reference's order, which matters for bf16)
@@ -253,8 +316,8 @@ def _run_layers(params: LanguageModel, x, positions, cache, pos, prefill_mode):
 
 
 def forward(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
-    """Training/eval forward. inputs: tokens [B, S] int. Returns logits
-    [B, S, V_pad] (f32)."""
+    """Eval forward. inputs: tokens [B, S] int (or embeddings [B, S, F]
+    for frontend archs). Returns logits [B, S, V_pad] (f32)."""
     s = inputs.shape[1]
     x = _embed(params, cfg, inputs)
     positions = torch.arange(s, device=x.device)
@@ -277,7 +340,7 @@ def prefill(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor, cache:
 def decode_step(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor, cache: Cache,
                 pos: Pos):
     """One decode step at position ``pos`` (an int, or an int32 device
-    scalar: then no host read). inputs [B, 1]."""
+    scalar: then no host read). inputs [B, 1] (or [B, 1, F] embeddings)."""
     x = _embed(params, cfg, inputs)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     positions = pos + torch.arange(inputs.shape[1], device=x.device)

@@ -164,6 +164,9 @@ class _ServingCore:
                  tenant_quota: Optional[Union[int, Dict[str, int]]] = None,
                  aging_s: Optional[float] = 5.0,
                  device: DeviceLike = "cuda"):
+        if cfg.frontend is not None:  # the reference's rule
+            raise ValueError(f"{cfg.name}: the servers take token models; a frontend arch "
+                             f"({cfg.frontend}) runs through forward, prefill and decode_step")
         self.pool = BufferPool(device)
         self.device = self.pool.device
         self.cfg = cfg
@@ -338,7 +341,7 @@ class _ServingCore:
         cache, no token and position 0, so nothing of the previous
         occupant carries over. (The reference keeps the previous cache:
         harmless for attention, whose stale rows are masked, but an RG-LRU
-        prefill then starts from the old recurrent state and conv tail, so
+        or Mamba prefill then starts from the old recurrent state and conv tail, so
         its tokens depend on the slot's history; ROADMAP queue 3.)"""
         req.slot = self.free.pop(0)
         if req.t_admit == 0.0:  # first grant only: resume keeps the original

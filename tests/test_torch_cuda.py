@@ -27,7 +27,13 @@
   the window edge and ``prefix_len`` inside a tile; float32 1e-4:
   summation order; bfloat16 2e-2: P and the output rounded to bfloat16),
   fully masked rows exactly 0 (a whole query tile of them too), the same
-  bits on a second launch;
+  bits on a second launch; musicgen-large's and paligemma-3b's prefill
+  shapes; values of another width than the keys (MLA's D 192 / Dv 128
+  and the edges of that instantiation);
+* ``selective_scan``: within 1e-5 (abs and rel) of ``selective_scan_ref``
+  for ys and hT over falcon-mamba's prefill and decode shapes, S around the
+  32-step tile, E off the 32-channel tile and the 16-byte copy width, N
+  from 1 to 16, the same bits on a second launch, its input checks;
 * ``grouped_matmul``: within tolerance of ``grouped_matmul_ref`` over the
   CPU tests' ragged cases, ``block_m`` in {1, 2, 3, 15, 16, 17, 63, 64,
   65, 70, 128} (both tile shapes and their edges), K and N off the 16-byte
@@ -41,10 +47,12 @@
   through ``WaveScheduler`` and ``DeviceWindowRunner`` (wave and frontier)
   bit-equal to ``run_serial`` (contraction groups run task by task on the
   card);
-* the wrappers' input checks, and model prefills that launch the kernels;
+* the wrappers' input checks, and model prefills that launch the kernels
+  (recurrentgemma: flash and the scan; deepseek: MLA through flash and
+  the grouped GEMM; falcon-mamba: the selective scan, in decode too);
 * the dynamic-DNN workloads (``dyn/``) bit-equal to ``run_serial`` under
   every ACS-SW and ACS-HW policy and ``DagRunner``, launching none of the
-  five kernels; the frontier keeping more than one group in flight on
+  six kernels; the frontier keeping more than one group in flight on
   InstaNAS; ``GroupExecutor``'s event poll and its ``sync`` counting
   blocking syncs; the frontier server's exact kernel launches and tokens.
 
@@ -73,10 +81,11 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import lru_scan as ls
 from repro_torch.kernels import ready_queue as rq
+from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels import wave_elementwise as we
 from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches, wave_step
 from repro_torch.kernels.ref import (attention_ref, grouped_matmul_ref, lru_scan_ref,
-                                     ready_queue_ref, wave_rows_ref)
+                                     ready_queue_ref, selective_scan_ref, wave_rows_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -519,7 +528,8 @@ def test_lru_scan_tiles_bit_equal_to_plain(device, b, s, d, dtype):
 
 
 # (b, h, hkv, sq, sk, d), flags: tests/test_torch_attention.py's sweep
-# plus the serving shapes of recurrentgemma-2b and h2o-danube-3-4b.
+# plus the serving shapes of recurrentgemma-2b and h2o-danube-3-4b and the
+# frontends' prefill shapes.
 FLASH = {
     "mha": ((1, 2, 2, 32, 32, 16), {}),
     "gqa_ragged_seq": ((2, 4, 2, 48, 48, 32), {}),
@@ -534,6 +544,11 @@ FLASH = {
     "recurrentgemma_prefill": ((1, 10, 1, 333, 333, 256), {"window": 2048}),
     "recurrentgemma_window": ((1, 10, 1, 2500, 2500, 256), {"window": 2048}),
     "danube_prefill": ((1, 32, 8, 300, 300, 120), {"window": 4096}),
+    # The frontends: musicgen-large (32 heads over 32 kv, D 64, causal) and
+    # paligemma-3b (8 over 1, D 256, a 256-key bidirectional prefix across
+    # four tiles), at their prefill lengths.
+    "musicgen_prefill": ((1, 32, 32, 256, 256, 64), {}),
+    "paligemma_prefill": ((1, 8, 1, 320, 320, 256), {"prefix_len": 256}),
     # The edges of the bfloat16 kernel's tiles: 64 query rows, 64 keys, D
     # padded to 64/128/256, 16-byte copies at D % 8 == 0.
     "granite_prefill": ((1, 24, 8, 127, 127, 64), {}),
@@ -547,16 +562,24 @@ FLASH = {
     "decode_window_edge": ((1, 4, 4, 1, 2500, 128), {"q_offset": 2499, "window": 300}),
     "d256_prefix_window": ((1, 2, 1, 100, 150, 256),
                            {"q_offset": 50, "window": 40, "prefix_len": 33}),
+    # Dv != D, (b, h, hkv, sq, sk, d, dv): MLA's widths, the (192, 128)
+    # instantiation's edges, values wider than keys, element loads.
+    "mla_prefill": ((1, 16, 16, 300, 300, 192, 128), {}),
+    "mla_decode": ((1, 8, 8, 1, 300, 192, 128), {"q_offset": 299}),
+    "mla_reduced": ((1, 4, 4, 20, 20, 16, 8), {}),
+    "dv_wider_gqa": ((1, 4, 2, 70, 70, 64, 128), {"window": 30}),
+    "dv_ragged_element_loads": ((2, 4, 4, 100, 100, 130, 66), {"prefix_len": 10}),
 }
 FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
 def _qkv(device, name, dtype):
-    (b, h, hkv, sq, sk, d), _ = FLASH[name]
+    shape = FLASH[name][0]
+    (b, h, hkv, sq, sk, d), dv = shape[:6], shape[-1]
     rng = np.random.RandomState(sum(map(ord, name)))
     make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
-    return make(b, h, sq, d), make(b, hkv, sk, d), make(b, hkv, sk, d)
+    return make(b, h, sq, d), make(b, hkv, sk, d), make(b, hkv, sk, dv)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -569,6 +592,7 @@ def test_flash_attention_matches_plain(device, name, dtype):
     torch.cuda.synchronize()
     assert fa.launches == before + 1 and got.dtype == dtype
     want = attention_ref(q, k, v, **flags)
+    assert got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
     assert torch.equal(fa.flash_attention(q, k, v, **flags), got)  # the same bits again
 
@@ -633,6 +657,79 @@ def test_model_prefill_launches_both_kernels(device):
     torch.cuda.synchronize()
     assert fa.launches == 1 and ls.launches == 4  # 1 local-attention, 4 RG-LRU layers
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch,want", [("deepseek-v2-236b", {"fa": 2, "gm": 3, "ss": 0}),
+                                       ("falcon-mamba-7b", {"fa": 0, "gm": 0, "ss": 2})])
+def test_model_prefill_and_decode_launch_their_kernels(device, arch, want):
+    """Reduced deepseek (MLA prefill through flash at D 16 / Dv 8, one MoE
+    layer's three expert products) and falcon-mamba (two Mamba layers):
+    each prefill and decode step launches its kernels, and the logits
+    match the same model's on the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    cfg = ARCHS[arch].reduced()
+    cpu = init_params(cfg, 0, device="cpu")
+    params = init_params(cfg, 0, device="cpu").to(device)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab, (1, 20))
+                            .astype(np.int32))
+    for mod in (fa, gm, ss):
+        mod.reset_launches()
+    logits, cache = prefill(params, cfg, toks.to(device), init_cache(cfg, 1, 32, device=device))
+    torch.cuda.synchronize()
+    assert (fa.launches, gm.launches, ss.launches) == (want["fa"], want["gm"], want["ss"])
+    step, _ = decode_step(params, cfg, toks[:, :1].to(device), cache, 20)
+    torch.cuda.synchronize()
+    assert fa.launches == want["fa"]  # decode attends in plain PyTorch
+    assert (gm.launches, ss.launches) == (2 * want["gm"], 2 * want["ss"])
+    cpu_logits, cpu_cache = prefill(cpu, cfg, toks, init_cache(cfg, 1, 32, device="cpu"))
+    torch.testing.assert_close(logits.cpu(), cpu_logits, rtol=1e-4, atol=1e-4)
+    cpu_step, _ = decode_step(cpu, cfg, toks[:, :1], cpu_cache, 20)
+    torch.testing.assert_close(step.cpu(), cpu_step, rtol=1e-4, atol=1e-4)
+
+
+def _scan_args(device, b, s, e, n, seed):
+    rng = np.random.RandomState(seed)
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)  # noqa: E731
+    dt = torch.nn.functional.softplus(make(b, s, e))
+    a = -(torch.arange(1, n + 1, dtype=torch.float32, device=device)[None]
+          * (0.5 + torch.from_numpy(rng.rand(e, 1).astype(np.float32)).to(device)))
+    return dt, make(b, s, e), make(b, s, n), make(b, s, n), a.contiguous(), make(b, e, n)
+
+
+# (B, S, E, N): falcon-mamba's prefill and decode, the 32-step time tile's
+# edges, E off the 32-channel tile and the 16-byte width, N from 1 to 16.
+SCAN = [(1, 512, 8192, 16), (1, 1, 8192, 16), (3, 33, 1000, 16), (2, 32, 37, 5),
+        (1, 31, 64, 1), (1, 65, 6, 8), (4, 1, 40, 16), (1, 100, 96, 15)]
+
+
+@pytest.mark.parametrize("b,s,e,n", SCAN)
+def test_selective_scan_matches_plain(device, b, s, e, n):
+    args = _scan_args(device, b, s, e, n, seed=b + s + e + n)
+    before = ss.launches
+    ys, h_t = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    want_ys, want_h = selective_scan_ref(*args)
+    torch.testing.assert_close(ys, want_ys, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h_t, want_h, rtol=1e-5, atol=1e-5)
+    again = ss.selective_scan(*args)
+    assert torch.equal(again[0], ys) and torch.equal(again[1], h_t)
+
+
+def test_selective_scan_checks_inputs(device):
+    dt, x, bm, cm, a, h0 = _scan_args(device, 1, 8, 64, 16, seed=0)
+    with pytest.raises(TypeError, match="float32"):
+        ss.selective_scan(dt, x.bfloat16(), bm, cm, a, h0)
+    with pytest.raises(ValueError, match="is on"):
+        ss.selective_scan(dt, x, bm.cpu(), cm, a, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.selective_scan(dt, x, bm, cm.transpose(1, 2).contiguous().transpose(1, 2), a, h0)
+    with pytest.raises(ValueError, match="state size"):
+        ss.selective_scan(dt, x, torch.zeros(1, 8, 17, device=device),
+                          torch.zeros(1, 8, 17, device=device), torch.zeros(64, 17, device=device),
+                          torch.zeros(1, 64, 17, device=device))
 
 
 # (G, K, N, block_m, tile group ids): tests/test_torch_grouped_matmul.py's
@@ -825,7 +922,7 @@ DYN_POLICIES = ("wave", "threaded", "frontier", "device_loop", "device_wave",
                                   "amoebanet", "squeezenet", "randwire"])
 def test_dyn_workloads_bit_equal_to_serial_under_every_policy(device, name, policy):
     """``chip_smoke.py``'s phase 5b at three inputs: the policy's output
-    bit-equal to ``run_serial``'s, and none of the five kernels launched."""
+    bit-equal to ``run_serial``'s, and none of the six kernels launched."""
     from repro_torch.dyn import WORKLOADS
 
     smoke = _smoke()
@@ -887,11 +984,13 @@ def test_group_executor_polls_its_event_and_counts_blocking_syncs(device):
     torch.testing.assert_close(out.value, torch.ones_like(out.value))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-moe-3b-a800m",
+                                  "falcon-mamba-7b", "deepseek-v2-236b"])
 def test_frontier_server_launches_exactly_and_matches_the_wave_server(device, arch):
     """Reduced models: the frontier server's tokens equal the wave
-    server's, and its flash, scan and grouped-GEMM launches equal
-    ``chip_smoke.expected_launches`` (``warm`` launches nothing)."""
+    server's, and its flash, scan, selective-scan and grouped-GEMM
+    launches equal ``chip_smoke.expected_launches`` (``warm`` launches
+    nothing)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_params
     from repro_torch.runtime import SessionServer
@@ -905,14 +1004,14 @@ def test_frontier_server_launches_exactly_and_matches_the_wave_server(device, ar
     for scheduler in ("wave", "frontier"):
         server = SessionServer(cfg, params, max_slots=2, max_len=64, scheduler=scheduler,
                                device=device)
-        for mod in (fa, ls, gm):
+        for mod in (fa, ls, gm, ss):
             mod.reset_launches()
         reqs = [server.submit(p, max_new=smoke.SERVE_MAX_NEW) for p in prompts]
         server.run_until_drained()
         report = server.close()
         torch.cuda.synchronize()
         launches = {"flash_attention": fa.launches, "lru_scan": ls.launches,
-                    "grouped_matmul": gm.launches}
+                    "grouped_matmul": gm.launches, "selective_scan": ss.launches}
         assert launches == smoke.expected_launches(cfg, len(prompts)), scheduler
         tokens[scheduler] = [r.generated for r in reqs]
     assert tokens["frontier"] == tokens["wave"]

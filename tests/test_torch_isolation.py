@@ -67,6 +67,9 @@ def _entry_points():
         "init_params": lambda: init_params(cfg, 0),
         "init_params[moe]": lambda: init_params(moe, 0),
         "init_cache": lambda: init_cache(cfg, 1, 8),
+        **{f"init_params[{name}]": lambda name=name: init_params(ARCHS[name].reduced(), 0)
+           for name in ("deepseek-v2-236b", "falcon-mamba-7b", "musicgen-large")},
+        "init_cache[mamba]": lambda: init_cache(ARCHS["falcon-mamba-7b"].reduced(), 1, 8),
         "SessionServer": lambda: SessionServer(cfg, init_params(cfg, 0, device="cpu")),
         "ContinuousBatchingServer": lambda: ContinuousBatchingServer(
             cfg, init_params(cfg, 0, device="cpu")),

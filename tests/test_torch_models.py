@@ -1,17 +1,26 @@
 """The port's models against the reference's, on the reference's weights
 carried across with ``models.convert``: the layer primitives, the GQA
-mixer (training, prefill and ring-cache decode), the RG-LRU mixer (with
-and without state), and whole models (prefill logits and caches, then
-three decode steps teacher-forced with the reference's greedy tokens).
+mixer (training, prefill and ring-cache decode), the MLA mixer (training,
+prefill, decode against a filled cache), the RG-LRU and Mamba mixers
+(with and without state, S of 1 and 12), and whole models (prefill logits
+and caches, then three decode steps teacher-forced with the reference's
+greedy tokens, or with the next seeded embeddings for a frontend arch;
+and ``forward``).
 
 Sizes are the reduced configs in float32: recurrentgemma with 5 layers
 (its 2-layer prefix and one stage), h2o-danube, and gemma2, minicpm and
 mistral-large (softcaps, global caches, an untied head), danube with
-its 4 heads padded to 8 (``pad_heads_to``), and granite-moe (MoE FFNs, 4
-experts padded to 16 by both packages' default ``tp_size`` of 16). Layers are held
-to 1e-5; whole models to 1e-4, because XLA and torch sum the products in
-different orders across the layers. Argmax tokens are not compared against
-JAX: near-ties may break either way.
+its 4 heads padded to 8 (``pad_heads_to``), granite-moe (MoE FFNs, 4
+experts padded to 16 by both packages' default ``tp_size`` of 16),
+deepseek-v2 (MLA with q and k 16 wide and v 8, a dense first layer, then
+MoE with a shared expert), falcon-mamba (Mamba layers, no FFN), and the
+frontend archs musicgen and paligemma (seeded ``[1, S, F]`` frame or
+patch embeddings through ``frontend_proj``; paligemma's bidirectional
+prefix). The reference's MLA prefill takes its jnp attention on the CPU:
+its Pallas kernel is wrong where v is narrower than q (ROADMAP queue 3).
+Layers are held to 1e-5; whole models to 1e-4, because XLA and torch sum
+the products in different orders across the layers. Argmax tokens are
+not compared against JAX: near-ties may break either way.
 """
 
 import dataclasses
@@ -29,6 +38,7 @@ from repro.configs import ARCHS as R_ARCHS
 from repro.models import attention as RA
 from repro.models import layers as RL
 from repro.models import recurrent as RR
+from repro.models.transformer import FRONTEND_DIMS as R_FRONTEND_DIMS
 from repro_torch import models as TM
 from repro_torch.configs import ARCHS
 from repro_torch.models import attention as TA
@@ -46,8 +56,11 @@ CONFIGS = {
     "mistral": ("mistral-large-123b", {}),
     "danube_padded_heads": ("h2o-danube-3-4b", {"pad_heads_to": 8}),
     "granite_moe": ("granite-moe-3b-a800m", {}),
+    "deepseek": ("deepseek-v2-236b", {}),
+    "falcon_mamba": ("falcon-mamba-7b", {}),
+    "musicgen": ("musicgen-large", {}),
+    "paligemma": ("paligemma-3b", {}),
 }
-UNPORTED = ["deepseek-v2-236b", "falcon-mamba-7b", "musicgen-large", "paligemma-3b"]
 TP_SIZE = 16  # MoE expert padding, both packages' default
 PROMPT, MAX_LEN = 20, 32  # a prompt longer than the reduced window (16)
 
@@ -74,7 +87,13 @@ def _np(t):
 
 
 def _tokens(cfg, n, seed=0):
-    return np.random.RandomState(seed).randint(0, cfg.vocab, (1, n)).astype(np.int32)
+    """``n`` seeded tokens [1, n], or for a frontend arch ``n`` seeded
+    embeddings [1, n, F]."""
+    rng = np.random.RandomState(seed)
+    if cfg.frontend:
+        assert TM.FRONTEND_DIMS == R_FRONTEND_DIMS
+        return rng.randn(1, n, TM.FRONTEND_DIMS[cfg.frontend]).astype(np.float32)
+    return rng.randint(0, cfg.vocab, (1, n)).astype(np.int32)
 
 
 def _ref_leaf(tree, name):
@@ -136,13 +155,38 @@ def test_init_params_matches_reference_layout(key):
     assert not torch.equal(mine.embed, other.embed)
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_architectures_raise(name):
-    cfg = ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        TM.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("kind", sorted(TM.LAYER_KINDS))
+def test_layer_kind_table_builds_what_the_reference_builds(kind):
+    # one entry per kind decides the mixer, its params, its cache and its
+    # FFN; a reduced config that uses the kind shows each
+    key = next(k for k in sorted(CONFIGS) if kind in _cfg(k).pattern)
+    cfg = _cfg(key)
+    spec = TM.LAYER_KINDS[kind]
+    ref = RM.init_params(cfg, jax.random.PRNGKey(0), tp_size=TP_SIZE)
+    prefix, _ = TM.split_pattern(cfg)
+    for where, kinds in (("prefix", prefix), ("stages", cfg.pattern_unit)):
+        if kind in kinds:
+            layer = ref[where][kinds.index(kind)]
+            assert ("ffn" in layer) == spec.ffn
+    model = TM.init_params(cfg, 0, device="cpu", tp_size=TP_SIZE)
+    blocks = [b for b in (*model.prefix, *(b for st in model.stages for b in st))
+              if b.kind == kind]
+    assert blocks and all((b.ffn is not None) == spec.ffn for b in blocks)
+    assert all(b.recurrent == spec.recurrent for b in blocks)
+    cache = TM.init_cache(cfg, 2, MAX_LEN, device="cpu")
+    rcache = RM.init_cache(cfg, 2, MAX_LEN)
+    kinds = (*prefix, *cfg.pattern_unit)
+    entries = (*cache["prefix"], *cache["stages"][0])
+    rentries = (*rcache["prefix"], *(jax.tree.map(lambda a: a[0], rcache["stages"])))
+    for k, got, want in zip(kinds, entries, rentries):
+        if k == kind:
+            assert [(tuple(t.shape), str(t.dtype)[len("torch."):]) for t in got] == [
+                (tuple(a.shape), str(a.dtype)) for a in want]
+
+
+def test_unknown_layer_kind_raises():
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        TM.layer_kind("conv")
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +291,86 @@ def test_apply_rglru(with_state, s):
             np.testing.assert_allclose(_np(t), _np(r), **LAYER_TOL)
 
 
+def _mla_layer():
+    """(cfg, reference mixer params, port mixer) of deepseek's dense first
+    (MLA) layer."""
+    ref, port = _models("deepseek")
+    return _cfg("deepseek"), ref["prefix"][0]["mixer"], port.prefix[0].mixer
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+def test_apply_mla(mode):
+    cfg, rp, tp = _mla_layer()
+    m = cfg.mla
+    rng = np.random.RandomState(7)
+    s = 1 if mode == "decode" else PROMPT
+    x = rng.randn(1, s, cfg.d_model).astype(np.float32)
+    cache = pos = None
+    if mode != "train":
+        shapes = ((1, MAX_LEN, m.kv_lora), (1, MAX_LEN, m.rope_dim))
+        if mode == "decode":  # a cache filled by an earlier prompt
+            cache = tuple(rng.randn(*sh).astype(np.float32) for sh in shapes)
+            pos = PROMPT
+        else:
+            cache = tuple(np.zeros(sh, np.float32) for sh in shapes)
+            pos = 0
+    positions = np.arange(s) + (pos or 0)
+    ry, rc = RA.apply_mla(
+        rp, jnp.asarray(x), cfg, positions=jnp.asarray(positions),
+        cache=None if cache is None else tuple(map(jnp.asarray, cache)),
+        pos=None if pos is None else jnp.asarray(pos, jnp.int32), prefill=(mode == "prefill"))
+    ty, tc = TA.apply_mla(
+        tp, torch.from_numpy(x), cfg, positions=torch.from_numpy(positions),
+        cache=None if cache is None else tuple(map(torch.from_numpy, cache)),
+        pos=None if pos is None else torch.tensor(pos, dtype=torch.int32),
+        prefill=(mode == "prefill"))
+    np.testing.assert_allclose(_np(ty), _np(ry), **LAYER_TOL)
+    assert (tc is None) == (rc is None)
+    if cache is not None:
+        for t, r in zip(tc, rc):
+            assert tuple(t.shape) == r.shape
+            np.testing.assert_allclose(_np(t), _np(r), **LAYER_TOL)
+
+
+def _mamba_layer():
+    ref, port = _models("falcon_mamba")
+    r = jax.tree.map(lambda a: a[0], ref["stages"][0]["mixer"])
+    return _cfg("falcon_mamba"), r, port.stages[0][0].mixer
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [1, 12])
+def test_apply_mamba(with_state, s):
+    cfg, rp, tp = _mamba_layer()
+    di, n = cfg.expand * cfg.d_model, cfg.ssm_state
+    rng = np.random.RandomState(8 + s)
+    x = rng.randn(1, s, cfg.d_model).astype(np.float32)
+    state = ((rng.randn(1, di, n).astype(np.float32),
+              rng.randn(1, cfg.d_conv - 1, di).astype(np.float32)) if with_state else None)
+    ry, rst = RR.apply_mamba(rp, jnp.asarray(x), cfg,
+                             state=None if state is None else tuple(map(jnp.asarray, state)))
+    ty, tst = TR.apply_mamba(tp, torch.from_numpy(x), cfg,
+                             state=None if state is None else tuple(map(torch.from_numpy, state)))
+    np.testing.assert_allclose(_np(ty), _np(ry), **LAYER_TOL)
+    assert (tst is None) == (rst is None)
+    if with_state:
+        assert tst[0].dtype == torch.float32
+        for t, r in zip(tst, rst):
+            assert tuple(t.shape) == r.shape
+            np.testing.assert_allclose(_np(t), _np(r), **LAYER_TOL)
+
+
+def test_mamba_params_stay_float32_in_a_bf16_model():
+    cfg = dataclasses.replace(ARCHS["falcon-mamba-7b"].reduced(), dtype="bfloat16")
+    model = TM.init_params(cfg, 0, device="cpu")
+    mixer = model.stages[0][0].mixer
+    assert {mixer.A_log.dtype, mixer.D.dtype, mixer.dt_bias.dtype} == {torch.float32}
+    assert mixer.w_in.dtype == torch.bfloat16
+    cache = TM.init_cache(cfg, 1, 8, device="cpu")
+    h, conv = cache["stages"][0][0]
+    assert h.dtype == torch.float32 and conv.dtype == torch.bfloat16
+
+
 # ---------------------------------------------------------------------------
 # whole models
 # ---------------------------------------------------------------------------
@@ -255,7 +379,8 @@ def test_apply_rglru(with_state, s):
 def test_prefill_then_teacher_forced_decode(key):
     cfg = _cfg(key)
     ref, port = _models(key)
-    toks = _tokens(cfg, PROMPT)
+    seq = _tokens(cfg, PROMPT + 3)  # a frontend arch decodes the next embeddings
+    toks = seq[:, :PROMPT]
     rl, rc = RM.prefill(ref, cfg, jnp.asarray(toks), RM.init_cache(cfg, 1, MAX_LEN))
     tl, tc = TM.prefill(port, cfg, torch.from_numpy(toks), TM.init_cache(cfg, 1, MAX_LEN, device="cpu"))
     np.testing.assert_allclose(_np(tl), _np(rl), **MODEL_TOL)
@@ -267,9 +392,10 @@ def test_prefill_then_teacher_forced_decode(key):
     tok = int(np.argmax(np.asarray(rl)[0, -1, : cfg.vocab]))
     for step in range(3):
         pos = PROMPT + step
-        rl, rc = RM.decode_step(ref, cfg, jnp.asarray([[tok]], jnp.int32), rc,
-                                jnp.asarray(pos, jnp.int32))
-        tl, tc = TM.decode_step(port, cfg, torch.tensor([[tok]], dtype=torch.int32), tc,
+        nxt = (seq[:, pos: pos + 1] if cfg.frontend
+               else np.asarray([[tok]], np.int32))
+        rl, rc = RM.decode_step(ref, cfg, jnp.asarray(nxt), rc, jnp.asarray(pos, jnp.int32))
+        tl, tc = TM.decode_step(port, cfg, torch.from_numpy(nxt), tc,
                                 torch.tensor(pos, dtype=torch.int32))
         np.testing.assert_allclose(_np(tl), _np(rl), **MODEL_TOL)
         tok = int(np.argmax(np.asarray(rl)[0, -1, : cfg.vocab]))  # teacher-forced

@@ -9,7 +9,10 @@ token streams are bit-identical to unpreempted ones; the device server
 (``scheduler="device"``) gives the same tokens and releases prompt rows
 through the pool's free hook; and the schedulers the port does not have
 yet raise. The server-against-greedy tests run reduced danube,
-recurrentgemma and granite-moe (MoE FFNs).
+recurrentgemma, granite-moe (MoE FFNs), deepseek-v2 (MLA caches, MoE with
+a shared expert) and falcon-mamba (Mamba states). A fresh admission on a
+reused slot starts from a zero recurrent state and conv tail (RG-LRU and
+Mamba), and the servers refuse a frontend arch, as the reference's do.
 
 Token streams are compared only inside the port: against the reference,
 the models are held by their logits (``tests/test_torch_models.py``).
@@ -43,6 +46,10 @@ def _model(key):
                                   d_ff=64, vocab=64, n_heads=2, n_kv_heads=1, head_dim=16)
     elif key == "granite":  # MoE FFNs: 4 experts padded to 16, top-2
         cfg = ARCHS["granite-moe-3b-a800m"].reduced()
+    elif key == "deepseek":  # MLA, a dense first layer, MoE with a shared expert
+        cfg = ARCHS["deepseek-v2-236b"].reduced()
+    elif key == "falcon_mamba":  # Mamba layers, no FFN
+        cfg = ARCHS["falcon-mamba-7b"].reduced()
     else:
         cfg = dataclasses.replace(ARCHS["recurrentgemma-2b"].reduced(), n_layers=5)
     return cfg, init_params(cfg, 0, **CPU)
@@ -85,7 +92,10 @@ def _serve(server, prompts, max_new):
     return {tuple(r.prompt): r.generated for r in done}
 
 
-@pytest.mark.parametrize("key", ["danube", "recurrentgemma", "granite"])
+SERVED = ["danube", "recurrentgemma", "granite", "deepseek", "falcon_mamba"]
+
+
+@pytest.mark.parametrize("key", SERVED)
 def test_servers_match_each_other_and_a_greedy_loop(key):
     cfg, params = _model(key)
     prompts = _prompts(cfg, 5, seed=1, length=7)
@@ -251,7 +261,7 @@ def test_unported_schedulers_raise(tiny, scheduler):
 
 
 @pytest.mark.parametrize("plan_mode", [None, "wave", "frontier"])
-@pytest.mark.parametrize("key", ["danube", "recurrentgemma", "granite"])
+@pytest.mark.parametrize("key", SERVED)
 def test_device_server_matches_wave_server_and_greedy_loop(key, plan_mode):
     """The device server (its default plan mode is the reference's "loop")
     gives the wave server's tokens and the plain greedy loop's. Every
@@ -285,3 +295,41 @@ def test_device_server_frees_prompt_rows_through_the_pool_hook(tiny):
     hooks[hooks.index(real)] = lambda buf: (released.append(buf.name), real(buf))
     _serve(server, _prompts(cfg, 3), 2)
     assert len(released) == 3 and all(n.endswith("_prompt") for n in released)
+
+
+@pytest.mark.parametrize("key", ["recurrentgemma", "falcon_mamba"])
+def test_fresh_admission_resets_a_reused_slots_recurrent_state(key):
+    """One slot serves two requests in turn: when the second is admitted,
+    the slot's recurrent states and conv tails are zero again (the first
+    request left them non-zero), and its tokens are the greedy loop's from
+    a fresh cache. (The reference keeps the old state; ROADMAP queue 3.)"""
+    cfg, params = _model(key)
+    first, second = _prompts(cfg, 2, seed=11, length=7)
+    server = SessionServer(cfg, params, max_slots=1, max_len=32, **CPU)
+    _serve(server, [first], 3)
+
+    def recurrent(cache):
+        entries = list(cache["prefix"]) + [e for stage in cache["stages"] for e in stage]
+        kinds = list(cfg.pattern[: len(cache["prefix"])]) + list(cfg.pattern_unit) * len(
+            cache["stages"])
+        return [t for e, kind in zip(entries, kinds) if kind in ("rglru", "mamba") for t in e]
+
+    stale = recurrent(server.slots[0].value[0])
+    assert stale and all(bool(t.abs().sum() > 0) for t in stale)
+    req = server.submit(second, max_new=3)
+    server._pick_next()
+    server._grant_slot(req)
+    assert all(not bool(t.abs().sum() > 0) for t in recurrent(server.slots[0].value[0]))
+
+    again = SessionServer(cfg, params, max_slots=1, max_len=32, **CPU)
+    got = _serve(again, [first, second], 3)
+    assert got[tuple(second)] == _greedy(cfg, params, second, 3, 32)
+
+
+@pytest.mark.parametrize("server_cls", [SessionServer, ContinuousBatchingServer])
+@pytest.mark.parametrize("name", ["musicgen-large", "paligemma-3b"])
+def test_servers_refuse_frontend_archs(name, server_cls):
+    cfg = ARCHS[name].reduced()
+    params = init_params(cfg, 0, **CPU)
+    with pytest.raises(ValueError, match="token models"):
+        server_cls(cfg, params, max_slots=1, max_len=16, **CPU)
