@@ -33,11 +33,18 @@ Phases, each fatal on failure (an exception, exit code != 0):
    c. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4, 8},
       S in {1, 37, 63, 64, 65, 512, 2048}, D in {2560, 1000, 7}, float32
       and bfloat16 (both channel tiles, the 64-step time tile's edges,
-      element copies); ``selective_scan``: ys and hT within 1e-5 (abs and
-      rel) of ``selective_scan_ref`` at falcon-mamba-7b's prefill and
-      decode ([1, 512, 8192] and S = 1, N 16), S around the 32-step tile,
-      E off the 32-channel tile and the 16-byte width, N from 1 to 16, B
-      up to 4; the same bits on a second launch; bad inputs raise;
+      element copies); the selective scan (SCAN_SWEEP, FUSED_SWEEP):
+      ``selective_scan``'s ys and hT within 1e-5 (abs and rel) of
+      ``selective_scan_ref`` at falcon-mamba-7b's prefills ([1, 512, 8192]
+      and [1, 128, 8192], N 16) and decode (B 1 and 4), S on both sides of
+      the kernel's 4-step segments and 64-step chunks (1, 127, 128, 129,
+      511, 512, 513, 2049) for B 1, 3 and 4, E off the channel tile and the
+      16-byte width, N from 1 to 16; the fused ``mamba_scan`` (softplus,
+      the scan, the D skip and the silu gate in one launch) against
+      ``mamba_scan_ref`` in float32 and bf16 with z, b and c strided views
+      of the projections (bf16: y the rounding of a value within 1e-5 of
+      the plain float32 y); the same bits on a second launch; each row of
+      a B = 4 launch equal to a B = 1 launch of that row; bad inputs raise;
    d. ``flash_attention``: within tolerance of ``attention_ref`` (float32
       1e-4, bfloat16 2e-2) at the recurrentgemma-2b, h2o-danube-3-4b and
       granite-moe-3b-a800m prefill shapes, musicgen-large's and
@@ -146,7 +153,10 @@ Phases, each fatal on failure (an exception, exit code != 0):
    named, for attention and ``torch.bmm`` for the grouped GEMM as the
    library calls; flash at recurrentgemma's, granite's, deepseek's MLA,
    danube's and paligemma's prefills; the grouped GEMM at granite's and deepseek's
-   expert products; both scans at prefill and decode), flash, the
+   expert products; both scans at prefill and decode, the selective scan
+   through the fused entry at S 512 and 128 and a decode step and alone
+   in float32 at S 512, with its grid, warps an SM and SASS instructions
+   a state and step), flash, the
    grouped GEMM, the scans and the ready queue also 20 launches back to
    back, flash's and the scans' device times, each kernel's bound, and
    the wall time of each phase-4/5/6 policy and server. The ready queue also: its device time from
@@ -877,58 +887,159 @@ def scan_inputs(gen, b, s, e, n, device):
     return dt, x, bm, cm, a.contiguous(), h0
 
 
-SCAN_TOL = 1e-5  # float32: the kernel sums y's N terms in another order
+SCAN_TOL = 1e-5  # float32: the carry into a lane's segment comes from the combine, and
+# y sums its N terms in another order than the plain version's einsum
+
+# (B, S, E, N) of the scan's sweep: falcon-mamba-7b's prefill (S 512 and the
+# serving runs' shortest prompt, 128) and decode (B 1, and the continuous-
+# batching server's 4 slots); S on both sides of the kernel's 8-step
+# segments, 128- and 256-step chunks and 2-chunk carries, for B 1, 3, 4,
+# with E off the channel tile (1000: 16-byte rows; 37: element copies) and
+# N 16 and 5; N from 1 to 16.
+SCAN_FALCON = [(1, 512, 8192, 16), (1, 128, 8192, 16), (1, 1, 8192, 16), (4, 1, 8192, 16)]
+SCAN_SWEEP = (SCAN_FALCON
+              + [(b, s, e, n) for b in (1, 3, 4) for s in (1, 127, 128, 129, 511, 512, 513, 2049)
+                 for e, n in ((1000, 16), (37, 5))]
+              + [(1, 70, 64, n) for n in range(1, 17)])
+# The fused entry at falcon's shapes and the sweep's edges, float32 and bf16.
+FUSED_SWEEP = SCAN_FALCON + [(3, 129, 1000, 5), (2, 513, 40, 16), (1, 2049, 37, 16),
+                             (4, 1, 1000, 16), (1, 127, 96, 1), (3, 256, 64, 16)]
+
+
+def fused_inputs(gen, b, s, e, n, dtype, device, rank=256):
+    """The fused entry's arguments as a Mamba layer passes them: dt_raw, x
+    (a silu output) in the model dtype, z the second half of an in
+    projection ``[B, S, 2E]``, b and c slices of an x projection ``[B, S,
+    rank + 2N]`` past the dt rank (falcon's 256), dt_bias, A_log =
+    log(1..N) plus noise, D and h0 float32."""
+    import torch
+
+    xz = torch.randn(b, s, 2 * e, generator=gen, device=device).to(dtype)
+    proj = torch.randn(b, s, rank + 2 * n, generator=gen, device=device).to(dtype)
+    dt_raw = torch.randn(b, s, e, generator=gen, device=device).to(dtype)
+    x = torch.nn.functional.silu(torch.randn(b, s, e, generator=gen, device=device)).to(dtype)
+    a_log = (torch.log(torch.arange(1, n + 1, device=device, dtype=torch.float32))[None]
+             + 0.1 * torch.randn(e, n, generator=gen, device=device))
+    return (dt_raw, 0.5 * torch.randn(e, generator=gen, device=device), x, xz[..., e:],
+            proj[..., rank: rank + n], proj[..., rank + n:], a_log.contiguous(),
+            torch.randn(e, generator=gen, device=device),
+            torch.randn(b, e, n, generator=gen, device=device))
+
+
+def within_scan_tol(got, want32):
+    """``got`` (float32 or rounded to a narrower type) is the rounding of a
+    value within SCAN_TOL (abs and rel) of the plain version's float32
+    ``want32``: rounding is monotonic, so ``got`` lies between the
+    roundings of the interval's ends. Returns (ok, max abs err, max err
+    over its tolerance; for a narrower type the error includes the cast's
+    own rounding, and the share is None)."""
+    tol = SCAN_TOL + SCAN_TOL * want32.abs()
+    lo, hi = (want32 - tol).to(got.dtype), (want32 + tol).to(got.dtype)
+    err = (got.float() - want32).abs()
+    ok = got.shape == want32.shape and bool(((got >= lo) & (got <= hi)).all())
+    share = float((err / tol).max()) if got.dtype == want32.dtype else None
+    return ok, float(err.max()), share
+
+
+def scan_rows_alone(fn, args, batched):
+    """Each row r of a batched launch ``fn(*args)`` against ``fn`` on row r
+    alone (the batch-dimension tensors sliced, the weights as they are),
+    bit for bit: a row's results must not depend on B or the other rows."""
+    import torch
+
+    n_batch = batched[0].shape[0]
+    for r in range(n_batch):
+        one = [t[r: r + 1] if t.dim() == 3 and t.shape[0] == n_batch else t for t in args]
+        alone = fn(*one)
+        if not all(torch.equal(a[0], b[r]) for a, b in zip(alone, batched)):
+            return False
+    return True
 
 
 def phase_scan_vs_plain(device):
-    """The selective scan against ``selective_scan_ref`` within SCAN_TOL
-    (abs and rel) for ys and hT: falcon-mamba-7b's prefill and decode
-    ([1, 512, 8192] and [1, 1, 8192], N 16), S around the 32-step time tile,
-    E off the 32-channel tile and off the 16-byte copy width, N off the
-    4-state lane share and the 16-byte width, B 1 and 3; a second launch
-    gives the same bits; bad inputs raise."""
+    """The selective scan against its plain versions within SCAN_TOL (abs
+    and rel): the scan alone (``selective_scan``: ys and hT against
+    ``selective_scan_ref``) over SCAN_SWEEP; the fused layer span
+    (``mamba_scan``: y and hT against ``mamba_scan_ref``; in bf16, y is the
+    rounding of a value within SCAN_TOL of the plain version's float32 y)
+    over FUSED_SWEEP in float32 and bf16, with z, b and c strided views of
+    wider projections. A second launch gives the same bits; each row of a
+    B = 4 launch equals a B = 1 launch of that row bit for bit (S 1, 129,
+    513); bad inputs raise."""
     import torch
-    from repro_torch.kernels.ref import selective_scan_ref
-    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.ref import mamba_scan_ref, selective_scan_ref
+    from repro_torch.kernels.selective_scan import mamba_scan, selective_scan
 
     gen = torch.Generator(device=device)
     gen.manual_seed(6)
-    cases = [(1, 512, 8192, 16), (1, 1, 8192, 16), (4, 1, 8192, 16)]
-    cases += [(b, s, e, n) for b in (1, 3) for s in (1, 31, 32, 33, 100) for e in (1000, 37)
-              for n in (16, 5)]
-    cases += [(1, 70, 64, n) for n in (1, 3, 4, 8, 15)] + [(2, 65, 6, 16)]
-    worst = 0.0
-    for b, s, e, n in cases:
+    worst, worst_rel = 0.0, 0.0
+    for b, s, e, n in SCAN_SWEEP:
         args = scan_inputs(gen, b, s, e, n, device)
-        ys, ht = selective_scan(*args)
-        want_ys, want_ht = selective_scan_ref(*args)
+        got = selective_scan(*args)
+        want = selective_scan_ref(*args)
         torch.cuda.synchronize()
-        for got, want, name in ((ys, want_ys, "ys"), (ht, want_ht, "hT")):
-            err = (got - want).abs()
-            check(got.shape == want.shape
-                  and bool((err <= SCAN_TOL + SCAN_TOL * want.abs()).all()),
-                  f"selective_scan {name} != plain at B {b}, S {s}, E {e}, N {n}: "
-                  f"max abs err {float(err.max())}")
-            worst = max(worst, float(err.max()))
+        for g, w, name in zip(got, want, ("ys", "hT")):
+            ok, err, rel = within_scan_tol(g, w)
+            check(ok, f"selective_scan {name} != plain at B {b}, S {s}, E {e}, N {n}: "
+                      f"max abs err {err}, {rel:.3f} of the tolerance")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
         again = selective_scan(*args)
-        check(torch.equal(again[0], ys) and torch.equal(again[1], ht),
+        check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
               f"selective_scan: a second launch gave other bits at {(b, s, e, n)}")
-    log(f"selective_scan ~ plain within {SCAN_TOL} over {len(cases)} shapes "
-        f"(B, S, E, N) {cases[:3]} ...: max abs err {worst:.3g}")
+    log(f"selective_scan ~ plain within {SCAN_TOL} over {len(SCAN_SWEEP)} shapes (B, S, E, N) "
+        f"{SCAN_FALCON} ...: max abs err {worst:.3g}, {worst_rel:.3f} of the tolerance; "
+        f"a second launch gives the same bits")
+    for dtype in (torch.float32, torch.bfloat16):
+        worst, worst_rel = 0.0, 0.0
+        for b, s, e, n in FUSED_SWEEP:
+            args = fused_inputs(gen, b, s, e, n, dtype, device)
+            got = mamba_scan(*args)
+            want_y, want_h = mamba_scan_ref(*args, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            for g, w, name in ((got[0], want_y, "y"), (got[1], want_h, "hT")):
+                ok, err, rel = within_scan_tol(g, w)
+                check(ok and g.dtype == (dtype if name == "y" else torch.float32),
+                      f"mamba_scan {name} != plain at B {b}, S {s}, E {e}, N {n}, {dtype}: "
+                      f"max abs err {err}, outside the {dtype} rounding of the tolerance")
+                worst = max(worst, err)
+                worst_rel = max(worst_rel, rel) if rel is not None else worst_rel
+            again = mamba_scan(*args)
+            check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+                  f"mamba_scan: a second launch gave other bits at {(b, s, e, n)}, {dtype}")
+        log(f"mamba_scan ({dtype}, z, b and c strided) ~ plain within {SCAN_TOL} over "
+            f"{len(FUSED_SWEEP)} shapes: max abs err {worst:.3g} (y's own {dtype} rounding "
+            f"included); float32 shares of the tolerance at most {worst_rel:.3f}")
+    for s in (1, 129, 513):
+        args = scan_inputs(gen, 4, s, 1000, 16, device)
+        check(scan_rows_alone(selective_scan, args, selective_scan(*args)),
+              f"selective_scan: a row of a B = 4 launch differs from its B = 1 launch (S {s})")
+        fargs = fused_inputs(gen, 4, s, 1000, 16, torch.bfloat16, device)
+        check(scan_rows_alone(mamba_scan, fargs, mamba_scan(*fargs)),
+              f"mamba_scan: a row of a B = 4 launch differs from its B = 1 launch (S {s})")
+    log("selective_scan, mamba_scan: each row of a B = 4 launch equals its B = 1 launch, bit "
+        "for bit (S 1, 129, 513)")
     dt, x, bm, cm, a, h0 = scan_inputs(gen, 1, 8, 64, 16, device)
-    bad = {"a state size of 17": (dt, x, bm, cm, torch.zeros(64, 17, device=device),
-                                  torch.zeros(1, 64, 17, device=device)),
-           "float64 x": (dt, x.double(), bm, cm, a, h0),
-           "a non-contiguous b": (dt, x, bm.transpose(1, 2).contiguous().transpose(1, 2), cm,
-                                   a, h0),
-           "h0 of another batch": (dt, x, bm, cm, a, h0.expand(2, 64, 16).contiguous())}
-    for what, args in bad.items():
+    fa = fused_inputs(gen, 1, 8, 64, 16, torch.bfloat16, device)
+    bad = {"a state size of 17": (selective_scan, (dt, x, bm, cm, torch.zeros(64, 17, device=device),
+                                                   torch.zeros(1, 64, 17, device=device))),
+           "float64 x": (selective_scan, (dt, x.double(), bm, cm, a, h0)),
+           "a non-contiguous b": (selective_scan,
+                                  (dt, x, bm.transpose(1, 2).contiguous().transpose(1, 2), cm,
+                                   a, h0)),
+           "h0 of another batch": (selective_scan, (dt, x, bm, cm, a,
+                                                    h0.expand(2, 64, 16).contiguous())),
+           "fused: a float32 z in a bf16 span": (mamba_scan, fa[:3] + (fa[3].float(),) + fa[4:]),
+           "fused: dt_bias of 63": (mamba_scan, (fa[0], fa[1][:63]) + fa[2:]),
+           "fused: c strided along N": (mamba_scan, fa[:5] + (torch.zeros(
+               1, 8, 32, dtype=torch.bfloat16, device=device)[..., ::2],) + fa[6:]),
+           "fused: h0 on the CPU": (mamba_scan, fa[:8] + (fa[8].cpu(),))}
+    for what, (fn, args) in bad.items():
         try:
-            selective_scan(*args)
+            fn(*args)
         except (ValueError, TypeError) as exc:
-            log(f"selective_scan: {what} raises ({exc})")
+            log(f"{fn.__name__}: {what} raises ({exc})")
         else:
-            check(False, f"selective_scan: {what} did not raise")
+            check(False, f"{fn.__name__}: {what} did not raise")
 
 
 # (G, K, N, block_m, tile group ids): the reference's ragged cases
@@ -1893,50 +2004,82 @@ def numbers_lru(device):
 
 
 def numbers_scan(device):
-    """The selective scan at falcon-mamba-7b's prefill ([1, 512, 8192],
-    N 16) and decode ([1, 1, 8192]): single launches, 20 back to back, its
-    device time, the plain version's time and its bound: the larger of the
-    bytes (dt, x, ys; b, c; a; h0, hT), the float32 operations (6 a state
-    and step, 1 a channel and step) and the exponentials on the SFUs."""
+    """The selective scan at falcon-mamba-7b's main-path shapes, through
+    the fused entry the model calls (``mamba_scan``, bf16, z, b and c
+    strided): prefill ``[1, 512, 8192]`` and ``[1, 128, 8192]`` (the
+    serving runs' longest and shortest prompts), N 16, and a decode launch
+    ``[1, 1, 8192]``; each its single launches, 20 back to back, its device
+    time, the plain version's time and its bound. Also the scan alone in
+    float32 at the 512-step prefill (the first design's timed shape),
+    the launch shape (grid, warps an SM, registers, shared memory) and the
+    SASS instructions a state and step of both entries' prefill instance.
+    The fused span's bound: bytes (dt_raw, x, z and y, b and c in bf16;
+    dt_bias, A_log, D, h0 and hT in float32) against the special-function
+    work, one exponential a state and step plus the softplus's exp and log
+    and the gate's exp and reciprocal a channel and step, on the SFUs."""
     import torch
-    from repro_torch.kernels.ref import selective_scan_ref
-    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.ref import mamba_scan_ref, selective_scan_ref
 
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
+    name = "mamba_scan_kernel"
     out = {}
-    for label, s in (("prefill", 512), ("decode", 1)):
+    for label, s in (("prefill", 512), ("prefill_128", 128), ("decode", 1)):
         b, e, n = 1, 8192, 16
-        args = scan_inputs(gen, b, s, e, n, device)
-        got, want = selective_scan(*args), selective_scan_ref(*args)
+        args = fused_inputs(gen, b, s, e, n, torch.bfloat16, device)
+        got = ss.mamba_scan(*args)
+        want = mamba_scan_ref(*args, out_dtype=torch.float32)
+        plain_y = mamba_scan_ref(*args)[0]  # the plain version's own bf16 output
         torch.cuda.synchronize()
-        n_bytes = 4 * (3 * b * s * e + 2 * b * s * n + e * n + 2 * b * e * n)
-        flops_ms = (6 * b * s * e * n + b * s * e) / FP32_FLOP_PER_S * 1e3
-        exp_ms = b * s * e * n / SFU_EXP_PER_S * 1e3
+        (ok_y, _, _), (ok_h, err_h, _) = (within_scan_tol(g, w) for g, w in zip(got, want))
+        err_y = float((got[0].float() - plain_y.float()).abs().max())
+        n_bytes = 2 * (4 * b * s * e + 2 * b * s * n) + 4 * (2 * e + e * n + 2 * b * e * n)
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        kernel = lambda: selective_scan(*args)  # noqa: E731
-        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
-        ok = all(bool(((g - w).abs() <= SCAN_TOL + SCAN_TOL * w.abs()).all())
-                 for g, w in zip(got, want))
+        sfu_ms = b * s * e * (n + 4) / SFU_EXP_PER_S * 1e3
+        flops_ms = (6 * b * s * e * n + 8 * b * s * e) / FP32_FLOP_PER_S * 1e3
+        kernel = lambda: ss.mamba_scan(*args)  # noqa: E731
         out[label] = dict(
             ms=median_ms(kernel), b2b_ms=back_to_back_ms(kernel),
-            device_ms=kernel_device_ms(kernel, "selective_scan_kernel")[0],
-            plain_ms=median_ms(lambda: selective_scan_ref(*args), runs=5),
-            bound_ms=max(bytes_ms, flops_ms, exp_ms),
-            bound_by="bytes" if bytes_ms >= max(flops_ms, exp_ms) else "operations",
-            bytes_ms=bytes_ms, exp_ms=exp_ms, flops_ms=flops_ms, max_abs_err=err,
-            matches_plain=ok, ht_bit_equal=bool(torch.equal(got[1], want[1])))
-        log(f"selective_scan {label} [{b}, {s}, {e}] N {n}: {out[label]} "
+            device_ms=kernel_device_ms(kernel, name)[0],
+            plain_ms=median_ms(lambda: mamba_scan_ref(*args), runs=5),
+            bound_ms=max(bytes_ms, sfu_ms, flops_ms),
+            bound_by="bytes" if bytes_ms >= max(sfu_ms, flops_ms) else "operations",
+            bytes_ms=bytes_ms, sfu_ms=sfu_ms, flops_ms=flops_ms,
+            max_abs_err=max(err_y, err_h), matches_plain=ok_y and ok_h,
+            launch=ss.launch_config(torch.bfloat16, b, s, e, n))
+        log(f"mamba_scan {label} [{b}, {s}, {e}] N {n} bf16: {out[label]} "
             f"[{torch.cuda.get_device_name(0)}]")
-    pre, dec = out["prefill"], out["decode"]
+    args = scan_inputs(gen, 1, 512, 8192, 16, device)
+    got, want = ss.selective_scan(*args), selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    kernel = lambda: ss.selective_scan(*args)  # noqa: E731
+    alone = dict(ms=median_ms(kernel), b2b_ms=back_to_back_ms(kernel),
+                 device_ms=kernel_device_ms(kernel, name)[0],
+                 bytes_ms=4 * (3 * 512 * 8192 + 2 * 512 * 16 + 3 * 8192 * 16)
+                 / HBM_BYTES_PER_S * 1e3,
+                 exp_ms=512 * 8192 * 16 / SFU_EXP_PER_S * 1e3,
+                 matches_plain=all(within_scan_tol(g, w)[0] for g, w in zip(got, want)),
+                 ht_bit_equal=bool(torch.equal(got[1], want[1])),
+                 launch=ss.launch_config(None, 1, 512, 8192, 16))
+    lib = ss.build()[0]
+    # the prefill instances (4 steps a lane, 16 lanes a channel) of both entries
+    sass = {"scan_float32": ss.sass_per_step(lib, "mamba_scan_kernelIfLb0ELi4ELi4E"),
+            "fused_bf16": ss.sass_per_step(lib, "mamba_scan_kernelI13__nv_bfloat16Lb1ELi4ELi4E")}
+    log(f"selective_scan (the scan alone, float32) [1, 512, 8192] N 16: {alone}; SASS a state "
+        f"and step: {sass} [{torch.cuda.get_device_name(0)}]")
+    pre, short, dec = out["prefill"], out["prefill_128"], out["decode"]
     return {
         "name": "selective_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/models/recurrent.py:151 (lax.scan; no pallas_call)",
         "launches": None,  # main() adds falcon-mamba's server run's
-        "matches_plain": pre["matches_plain"] and dec["matches_plain"],
-        "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
+        "matches_plain": pre["matches_plain"] and dec["matches_plain"]
+        and short["matches_plain"] and alone["matches_plain"],
+        # bf16 y against the plain version's bf16 y (where the N-term sum's
+        # order tips a rounding, one bf16 ulp), and the float32 hT
+        "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"], short["max_abs_err"]),
         "ms": pre["ms"],
         "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"],
@@ -1945,14 +2088,27 @@ def numbers_scan(device):
         "back_to_back_ms": pre["b2b_ms"],
         "device_ms": pre["device_ms"],
         "bytes_bound_ms": pre["bytes_ms"],
-        "exp_bound_ms": pre["exp_ms"],
-        "ht_bit_equal": pre["ht_bit_equal"],
+        "sfu_bound_ms": pre["sfu_ms"],
+        "grid": pre["launch"]["grid"],
+        "warps_an_sm": pre["launch"]["warps_an_sm"],
+        "prefill_128_ms": short["ms"],
+        "prefill_128_back_to_back_ms": short["b2b_ms"],
+        "prefill_128_device_ms": short["device_ms"],
+        "prefill_128_bound_ms": short["bound_ms"],
+        "prefill_128_warps_an_sm": short["launch"]["warps_an_sm"],
         "decode_ms": dec["ms"],
         "decode_back_to_back_ms": dec["b2b_ms"],
         "decode_device_ms": dec["device_ms"],
         "decode_plain_ms": dec["plain_ms"],
         "decode_bound_ms": dec["bound_ms"],
-        "shape": "prefill dt, x [1, 512, 8192], b, c [1, 512, 16] f32; decode S = 1",
+        "scan_alone_ms": alone["ms"],
+        "scan_alone_back_to_back_ms": alone["b2b_ms"],
+        "scan_alone_device_ms": alone["device_ms"],
+        "scan_alone_exp_bound_ms": alone["exp_ms"],
+        "ht_bit_equal": alone["ht_bit_equal"],
+        "sass_a_state_and_step": {k: v["instructions_a_state_and_step"] for k, v in sass.items()},
+        "shape": "fused bf16: dt_raw, x, z [1, 512, 8192], b, c [1, 512, 16] (strided), decode "
+                 "S = 1; the scan alone in float32 at [1, 512, 8192]",
     }
 
 

@@ -1,192 +1,593 @@
-// Mamba's selective scan on Hopper (sm_90a).
+// Mamba's selective scan on Hopper (sm_90a), alone or fused with the
+// Mamba layer's neighbours.
 //
 // Replaces: no pallas_call. The reference runs the recurrence of
 // src/repro/models/recurrent.py apply_mamba as jax.lax.scan over a step
 // function; eagerly on the card that loop costs about 7 launches a step
-// and layer. This kernel runs the whole scan of one layer in one launch:
+// and layer. For each batch row, channel e and step t, over N <= 16 states:
 //
 //   da  = exp(dt_t[e] * a[e, n])
 //   h   = da * h + (dt_t[e] * x_t[e]) * b_t[n]
 //   y_t = sum over n of h[e, n] * c_t[n]
 //
-// over dt, x [B, S, E], b, c [B, S, N], a [E, N], h0 [B, E, N], all
-// float32; it writes ys [B, S, E] and hT [B, E, N].
+// Two entries share one kernel template:
+// * plain (acs_mamba_scan variant 0): dt, x [B, S, E], b, c [B, S, N],
+//   a [E, N], h0 [B, E, N], all float32; it writes ys [B, S, E] and
+//   hT [B, E, N];
+// * fused (variants 1-3: float32, bfloat16, float16 inputs): the span of
+//   apply_mamba from the dt projection's output to the gated output, in
+//   one launch. dt = softplus(dt_raw + dt_bias) (torch's threshold of 20),
+//   a = -exp(A_log), the scan, then y = (ys + D * x) * silu(z) cast to the
+//   model dtype. dt_raw, x, z, b and c are read in the model dtype through
+//   their batch and row strides (z, b and c are slices of wider
+//   projections); dt_bias, A_log, D, h0 and hT are float32.
 //
-// Bound on this card, at falcon-mamba-7b's prefill [1, 512, 8192], N = 16:
-// the bytes are dt, x and ys (16.8 MB each) and b, c, a, h0 and hT (under
-// 1.1 MB): 51.4 MB, 0.0153 ms at 3.35 TB/s. The arithmetic is B*S*E*N =
-// 67.1 M exponentials and 6 float operations beside each (0.407 GFLOP,
-// 0.0061 ms at 67 TFLOP/s). An exponential is one MUFU.EX2 on the
+// Bound on this card, at falcon-mamba-7b's prefill [1, 512, 8192], N = 16,
+// plain float32: the bytes are dt, x and ys (16.8 MB each) and b, c, a, h0
+// and hT (under 1.1 MB): 51.4 MB, 0.0153 ms at 3.35 TB/s. The arithmetic
+// is B*S*E*N = 67.1 M exponentials and 6 float operations beside each
+// (0.0061 ms at 67 TFLOP/s). An exponential is one MUFU.EX2 on the
 // special-function units, 16 results a clock on each of the 132 SMs: at
 // 1.98 GHz, 4.18 T a second, so the 67.1 M take 0.0161 ms. The
 // exponentials bind, just above the bytes.
 //
-// Design:
-// * Four lanes own one (batch row, channel) and hold its N <= 16 states
-//   in registers, N / 4 each (states 4 * sub .. 4 * sub + 3 of lane sub),
-//   so the exponentials spread over all four SM sub-partitions: one lane
-//   per channel gave falcon-mamba's 8,192 channels only 2 warps an SM.
-//   Each lane sums its states' terms of y in order, then two butterfly
-//   shuffles add the four partial sums; the quad's first lane stores y.
-// * A block of 128 threads owns 32 channels of one batch row. dt and x
-//   stream through a 3-stage ring of [32 steps, 32 channels] tiles in
-//   shared memory, b and c through [32 steps, 16] tiles beside them,
-//   filled by 16-byte cp.async copies (csrc/sm90_tiles.cuh stage), so the
-//   loads of tiles k + 1 and k + 2 are in flight while tile k is scanned.
-//   Rows that are not 16-byte multiples (E or N not a multiple of 4, or an
-//   unaligned pointer) stage with element loads.
-// * Any B, S, E and N from 1 to 16 with no padding copy: the last time
-//   tile and channel tile are masked, and a state past N is never
-//   updated.
-// * Time order per channel is kept. Each product and sum rounds to float32
-//   on its own (the file is built with -fmad=false), in the plain
-//   version's order (kernels/ref.py selective_scan_ref); expf is the CUDA
-//   math library's, as torch's exp on the card. The sum over n for y runs
-//   in another order than the plain version's einsum, so the kernel is
-//   held to it within a tolerance (float32, 1e-5 relative) and not bit
-//   for bit; hT comes out bit-equal at falcon-mamba's shapes.
+// Design (the first design, four lanes a channel each running the whole
+// sequence in time order, filled 8 warps an SM at falcon's 8,192 channels
+// and took 0.162 ms, 10x its bound):
+// * Parallel in time. A block of 512 threads owns C channels of one batch
+//   row and walks the sequence in chunks of T = P * L steps. Each channel
+//   has P lanes of one warp (P a power of two, 1..16, from S; a template
+//   parameter, so the scan unrolls); lane j owns the L = 4 consecutive
+//   steps j*L .. j*L+3 of the chunk (L = 1 at S = 1, a decode step, in
+//   blocks of 64 threads). C = 512 / P, so a [T, C] tile is 2,048
+//   elements. Falcon at S = 512 and S = 128: P = 16, T = 64, C = 32, 256
+//   blocks of 16 warps, two an SM: 32 warps an SM (64 registers, 45.5 KB
+//   of shared memory in float32, 37.4 KB in bf16).
+// * The N states loop inside the thread, two at a time so their chains and
+//   shuffles interleave. For each state a lane computes its steps' decays
+//   and inputs (dt * x) * b once and keeps them in registers, with the pair
+//   (A, B) of its segment: h_end = A * h_start + B. The channel's first
+//   lane folds in the carry from the previous chunk; a Kogge-Stone scan
+//   over the P lanes with warp shuffles combines (A1, B1) then (A2, B2)
+//   into (A1 * A2, A2 * B1 + B2), so each lane gets its segment's true
+//   start state; it replays its L steps from there in time order and adds
+//   h * c into its y registers, in state order. The serial chain is L steps
+//   and log2 P combines, not S steps, and y needs no reduction across
+//   lanes. The last lane's final h is the next chunk's carry (shared
+//   memory), and after the last chunk hT. No atomics: a row's results
+//   depend on S alone, not on B or the other rows.
+// * Coalesced staging. The layout is [B, S, E] with channels contiguous,
+//   so dt and x (dt_raw and x) stream through a 2-stage ring of [T, C]
+//   tiles filled by 16-byte cp.async copies (csrc/sm90_tiles.cuh
+//   cp_async16; element loads where a row is not 16-byte aligned), chunk
+//   k + 1 in flight while chunk k is scanned. The tile's 16-byte chunks are
+//   XOR-swizzled by the row's segment (tile_pos), so the lanes of a
+//   channel, which read one column at rows L apart, spread over the bank
+//   groups. b and c are staged transposed, [N, T], a lane's 4 steps of a
+//   state in one 16-byte read; the next chunk's b and c (and, fused, this
+//   chunk's z and D) are loaded into registers while the chunk's y leaves.
+// * The chunk's y goes back through the dt tile and leaves as whole rows:
+//   the fused epilogue adds D * x (x from the tile), multiplies by
+//   silu(z) = z / (1 + exp(-z)) and rounds to the model dtype there.
+// * Rounding: each product and sum rounds to float32 on its own (the file
+//   is built with -fmad=false); softplus's expf and log1pf, -exp(A_log),
+//   silu's expf and the division are the CUDA math library's, as torch's
+//   eager kernels. The state loop's decay is ex2.approx (within 2 ulp of
+//   exp) of dt * (a * log2 e): the accurate expf was the loop's largest
+//   part (8 of ~28 instructions a state and step), and the loop's time
+//   follows its instruction count.
+//   Within a segment the steps run in the plain version's order; the carry
+//   into a segment comes from the combine and y sums its N terms in state
+//   order, so the kernel is held to its plain versions (kernels/ref.py
+//   selective_scan_ref, mamba_scan_ref) within 1e-5 (abs and rel), not bit
+//   for bit.
+// * Any B, S, E and N from 1 to 16 with no padding copy: the last chunk and
+//   channel tile are masked (a masked step has dt = 0: decay 1, input 0).
 //
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): falcon-mamba's
-// prefill 0.166 ms back to back, 10x its bound (the same loop unrolled by
-// 4 took 0.148 ms of device time in another call: no clear gain, not
-// kept); a decode launch [1, 1, 8192] 0.0026 ms on the device, 0.03-0.05
-// ms with the wrapper's host path. 80 registers, 36 KB of static shared
-// memory, no spills. What holds it at 10x is not known yet: the
-// instruction count of the accurate expf, about 15 a state and step,
-// bounds it near 0.03 ms.
+// What binds it: the state loop issues about 20 instructions a state and
+// step (chip_smoke.py counts them from the SASS) against one exponential
+// on the SFUs, which take 8 of a scheduler's clocks for a warp's 32, so
+// instruction issue, not the SFUs or the bytes, is the limit; the kernel
+// issues at about 60 % of the schedulers' peak, and which stall holds the
+// rest is not measured. On an H100 80GB HBM3 at 700 W (chip_smoke.py):
+// falcon's prefill, the scan alone in float32, 0.072 ms of device (the
+// first design 0.162), the fused bf16 entry 0.093-0.097, S = 128 0.025; a
+// decode launch 0.005 (0.05-0.07 ms single with the host path).
 
 #include "sm90_tiles.cuh"
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
 using namespace sm90;
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 128;
-constexpr int kLanes = 4;                  // lanes per channel
+constexpr int kThreads = 512;       // a block, S > 1
+constexpr int kDecodeThreads = 64;  // a block, S = 1: 128 blocks at E = 8192
 constexpr int kMaxN = 16;
-constexpr int kPer = kMaxN / kLanes;       // states per lane
-constexpr int kC = kThreads / kLanes;      // channels per block
-constexpr int kT = 32;                     // time steps per tile
-constexpr int kStages = 3;
+constexpr int kSeg = 4;           // steps a lane owns in a chunk (S > 1)
+constexpr int kMaxLanesLog2 = 4;  // up to 16 lanes a channel: chunks of 64 steps
+constexpr int kMaxDevices = 64;
 
 struct Params {
-  const float* dt;  // [B, S, E]
-  const float* x;   // [B, S, E]
-  const float* b;   // [B, S, N]
-  const float* c;   // [B, S, N]
-  const float* a;   // [E, N]
-  const float* h0;  // [B, E, N]
-  float* ys;        // [B, S, E]
-  float* ht;        // [B, E, N]
+  const void* dt;        // [B, S, E]: dt (plain, float32) or dt_raw (fused, T)
+  const void* x;         // [B, S, E] T
+  const void* z;         // [B, S, E] T (fused)
+  const void* b;         // [B, S, N] T
+  const void* c;         // [B, S, N] T
+  const float* a;        // [E, N]: a (plain) or A_log (fused)
+  const float* dt_bias;  // [E] (fused)
+  const float* d;        // [E] (fused)
+  const float* h0;       // [B, E, N]
+  void* y;               // [B, S, E]: ys float32 (plain) or the gated output in T (fused)
+  float* ht;             // [B, E, N]
+  // Batch and row strides in elements; the last dimension is unit-stride.
+  long long sb_dt, ss_dt, sb_x, ss_x, sb_z, ss_z, sb_b, ss_b, sb_c, ss_c;
   int seq, ch, n;
-  int vec_e, vec_n;  // 16-byte copies allowed for the [.., E] and [.., N] tiles
+  int vec_dt, vec_x;   // 16-byte copies allowed for the dt and x tiles
 };
 
-__global__ void __launch_bounds__(kThreads) selective_scan_kernel(const Params p) {
-  __shared__ __align__(16) float s_dt[kStages][kT * kC];
-  __shared__ __align__(16) float s_x[kStages][kT * kC];
-  __shared__ __align__(16) float s_b[kStages][kT * kMaxN];
-  __shared__ __align__(16) float s_c[kStages][kT * kMaxN];
+// The row stride of transposed b and c ([n][step]) for a chunk of
+// `steps`: 16-byte rows, padded by 4 words so the transposing stores of
+// one step's n values spread over the banks.
+__host__ __device__ constexpr int bc_stride(int steps) { return ((steps + 3) & ~3) + 4; }
 
-  const int tiles_c = (p.ch + kC - 1) / kC;
+// Shared memory of one block, in bytes from the base: two stages of the dt
+// tile (float32-sized, as the chunk's y reuses it) and of the x tile, then
+// b and c transposed ([n][ldb]), the carry h and the decays a ([C][n]).
+struct Layout {
+  int threads, lanes, steps, chans, ldb;
+  size_t dt_stage, x_stage, off_x, off_b, off_c, off_h, off_a, bytes;
+};
+
+__host__ __device__ inline Layout layout(int seg, int lanes_log2, int n, int elem) {
+  Layout o;
+  o.threads = seg == 1 ? kDecodeThreads : kThreads;
+  o.lanes = 1 << lanes_log2;
+  o.steps = o.lanes * seg;
+  o.chans = o.threads >> lanes_log2;
+  o.ldb = bc_stride(o.steps);
+  const size_t tile = static_cast<size_t>(o.threads) * seg;  // steps * chans
+  o.dt_stage = tile * 4;
+  o.x_stage = tile * elem;
+  o.off_x = 2 * o.dt_stage;
+  o.off_b = o.off_x + 2 * o.x_stage;
+  o.off_c = o.off_b + static_cast<size_t>(n) * o.ldb * 4;
+  o.off_h = o.off_c + static_cast<size_t>(n) * o.ldb * 4;
+  o.off_a = o.off_h + static_cast<size_t>(o.chans) * n * 4;
+  o.bytes = o.off_a + static_cast<size_t>(o.chans) * n * 4;
+  return o;
+}
+
+// Element (t, c) of a [steps, chans] tile: 16-byte chunk (t, c / kq) goes
+// to chunk slot (t * chans / kq + c / kq) XOR (t's segment mod 8), so the
+// lanes of a channel, reading one column at rows L apart, spread over the
+// eight 16-byte bank groups (at most 2-way conflicts at 16 lanes a
+// channel). A segment's rows are whole groups of 8 slots, so the XOR
+// stays inside them and the map is one-to-one.
+template <typename E>
+__device__ __forceinline__ int tile_pos(int t, int c, int chans, int seg_log2) {
+  constexpr int kq = 16 / static_cast<int>(sizeof(E));
+  return (((t * (chans / kq) + c / kq) ^ ((t >> seg_log2) & 7)) * kq) + (c % kq);
+}
+
+// dst (a [steps, chans] tile) from src rows r < r_lim, columns c < c_lim
+// (row stride ld), 0 elsewhere: 16-byte cp.async copies when vec (c_lim, ld
+// and src in whole 16-byte chunks), else element loads.
+template <typename E, int kThr>
+__device__ __forceinline__ void stage_tile(E* dst, const E* src, long long ld, int steps,
+                                           int r_lim, int chans, int c_lim, int seg_log2,
+                                           bool vec) {
+  constexpr int kq = 16 / static_cast<int>(sizeof(E));
+  if (vec) {
+    const int nq = chans / kq;
+    for (int i = threadIdx.x; i < steps * nq; i += kThr) {
+      const int r = i / nq;
+      const int c = (i - r * nq) * kq;
+      const bool ok = r < r_lim && c < c_lim;
+      cp_async16(dst + tile_pos<E>(r, c, chans, seg_log2), ok ? src + r * ld + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < steps * chans; i += kThr) {
+      const int r = i / chans;
+      const int c = i - r * chans;
+      dst[tile_pos<E>(r, c, chans, seg_log2)] =
+          (r < r_lim && c < c_lim) ? src[r * ld + c] : from_f<E>(0.0f);
+    }
+  }
+}
+
+// A lane's L values of one transposed b or c row, from its segment's
+// first step: one 16-byte read for L = 4 (eight lanes read 128 contiguous
+// bytes: no bank conflict).
+template <int L>
+__device__ __forceinline__ void load_seg(float (&v)[L], const float* seg) {
+  if constexpr (L == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(seg);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    static_assert(L == 1, "a lane owns 1 or 4 steps");
+    v[0] = seg[0];
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^v in one MUFU.EX2 (ex2.approx: within 2 ulp): the state loop's decay
+// exp(dt * a) as 2^(dt * (a * log2 e)), the rates stored pre-scaled.
+__device__ __forceinline__ float exp2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// torch.nn.functional.softplus with beta 1 and threshold 20.
+__device__ __forceinline__ float softplus(float v) { return v > 20.0f ? v : log1pf(expf(v)); }
+
+template <typename T, bool kFused, int L, int kLanesLog2>
+__global__ void __launch_bounds__(L == 1 ? kDecodeThreads : kThreads, L > 1 ? 2 : 1)
+    mamba_scan_kernel(const Params p) {
+  static_assert(L == 1 || L == kSeg, "a lane owns 1 or 4 steps of a chunk");
+  static_assert(kLanesLog2 <= kMaxLanesLog2 && (L > 1 || kLanesLog2 == 0), "lanes a channel");
+  constexpr int kLanes = 1 << kLanesLog2;
+  constexpr int kSegLog2 = L == 1 ? 0 : 2;
+  constexpr int kThr = L == 1 ? kDecodeThreads : kThreads;
+  // b and c elements a thread stages a chunk: steps * n <= kBc * kThr.
+  constexpr int kBc = L == 1 ? 1 : (kSeg << kMaxLanesLog2) * kMaxN / kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay = layout(L, kLanesLog2, p.n, sizeof(T));
+  const int n = p.n;
+  constexpr int steps = kLanes * L;         // a chunk
+  constexpr int chans = kThr >> kLanesLog2;  // a block
+  constexpr int ldb = bc_stride(steps);
+  float* s_b = reinterpret_cast<float*>(smem + lay.off_b);
+  float* s_c = reinterpret_cast<float*>(smem + lay.off_c);
+  float* s_h = reinterpret_cast<float*>(smem + lay.off_h);
+  float* s_a = reinterpret_cast<float*>(smem + lay.off_a);
+
+  const int tiles_c = (p.ch + chans - 1) / chans;
   const int bi = blockIdx.x / tiles_c;
-  const int c0 = (blockIdx.x - bi * tiles_c) * kC;
-  const int c_lim = min(kC, p.ch - c0);
-  const size_t row_e = static_cast<size_t>(bi) * p.seq * p.ch + c0;  // [bi, 0, c0]
-  const size_t row_n = static_cast<size_t>(bi) * p.seq * p.n;        // [bi, 0, 0]
-  const int nt = (p.seq + kT - 1) / kT;
+  const int c0 = (blockIdx.x - bi * tiles_c) * chans;
+  const int c_lim = min(chans, p.ch - c0);
+  const int nt = (p.seq + steps - 1) / steps;
 
+  const T* dt_src = static_cast<const T*>(p.dt) + bi * p.sb_dt + c0;
+  const T* x_src = static_cast<const T*>(p.x) + bi * p.sb_x + c0;
+  const T* b_src = static_cast<const T*>(p.b) + bi * p.sb_b;
+  const T* c_src = static_cast<const T*>(p.c) + bi * p.sb_c;
+  const T* z_src = kFused ? static_cast<const T*>(p.z) + bi * p.sb_z + c0 : nullptr;
+
+  auto dt_tile = [&](int st) { return reinterpret_cast<T*>(smem + st * lay.dt_stage); };
+  auto y_tile = [&](int st) { return reinterpret_cast<float*>(smem + st * lay.dt_stage); };
+  auto x_tile = [&](int st) { return reinterpret_cast<T*>(smem + lay.off_x + st * lay.x_stage); };
+  auto rows_of = [&](int k) { return min(steps, p.seq - k * steps); };
+  // dt and x of chunk k into stage k & 1 (cp.async).
   auto load = [&](int k) {
-    const size_t t0 = static_cast<size_t>(k) * kT;
-    const int r_lim = p.seq - k * kT;
-    const int st = k % kStages;
-    stage<float, kT, kC, kC, kThreads>(s_dt[st], p.dt + row_e + t0 * p.ch, p.ch, r_lim, c_lim,
-                                       p.vec_e);
-    stage<float, kT, kC, kC, kThreads>(s_x[st], p.x + row_e + t0 * p.ch, p.ch, r_lim, c_lim,
-                                       p.vec_e);
-    stage<float, kT, kMaxN, kMaxN, kThreads>(s_b[st], p.b + row_n + t0 * p.n, p.n, r_lim, p.n,
-                                             p.vec_n);
-    stage<float, kT, kMaxN, kMaxN, kThreads>(s_c[st], p.c + row_n + t0 * p.n, p.n, r_lim, p.n,
-                                             p.vec_n);
+    const int st = k & 1;
+    const long long t0 = static_cast<long long>(k) * steps;
+    stage_tile<T, kThr>(dt_tile(st), dt_src + t0 * p.ss_dt, p.ss_dt, steps, rows_of(k), chans,
+                        c_lim, kSegLog2, p.vec_dt);
+    stage_tile<T, kThr>(x_tile(st), x_src + t0 * p.ss_x, p.ss_x, steps, rows_of(k), chans,
+                        c_lim, kSegLog2, p.vec_x);
+  };
+  // b and c of chunk k into registers (in flight while the block works)...
+  auto bc_fetch = [&](int k, float (&bv)[kBc], float (&cv)[kBc]) {
+    const int rows = rows_of(k);
+#pragma unroll
+    for (int u = 0; u < kBc; ++u) {
+      const int i = threadIdx.x + u * kThr;
+      const int r = i / n;
+      const long long t = static_cast<long long>(k) * steps + r;
+      const bool ok = i < steps * n && r < rows;
+      bv[u] = ok ? to_f(b_src[t * p.ss_b + (i - r * n)]) : 0.0f;
+      cv[u] = ok ? to_f(c_src[t * p.ss_c + (i - r * n)]) : 0.0f;
+    }
+  };
+  // ... then transposed to [n][step] in shared memory.
+  auto bc_store = [&](const float (&bv)[kBc], const float (&cv)[kBc]) {
+#pragma unroll
+    for (int u = 0; u < kBc; ++u) {
+      const int i = threadIdx.x + u * kThr;
+      const int r = i / n;
+      if (i < steps * n) {
+        s_b[(i - r * n) * ldb + r] = bv[u];
+        s_c[(i - r * n) * ldb + r] = cv[u];
+      }
+    }
+  };
+  // The gate z and skip weight D of this thread's L output elements of
+  // chunk k (element u is tile element threadIdx.x + u * kThr).
+  auto zd_fetch = [&](int k, float (&zv)[L], float (&dv)[L]) {
+    const int rows = rows_of(k);
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+      const int i = threadIdx.x + u * kThr;
+      const int r = i / chans;
+      const int cc = i - r * chans;
+      const bool ok = r < rows && cc < c_lim;
+      const long long t = static_cast<long long>(k) * steps + r;
+      zv[u] = ok ? to_f(z_src[t * p.ss_z + cc]) : 0.0f;
+      dv[u] = ok ? p.d[c0 + cc] : 0.0f;
+    }
   };
 
+  load(0);
+  cp_async_commit();
+  float zv[L], dv[L];  // the fused epilogue's z and D (a decode step's fetched now)
+  if constexpr (kFused && L == 1) zd_fetch(0, zv, dv);
+  {
+    float bv[kBc], cv[kBc];
+    bc_fetch(0, bv, cv);
+    // The block's channels: the initial state and the decay rates, all of
+    // a thread's loads in flight at once (kPro of them).
+    constexpr int kPro = L == 1 ? kMaxN : 8;
+    const int hn = c_lim * n;
+    const float* h0_src = p.h0 + (static_cast<size_t>(bi) * p.ch + c0) * n;
+    const float* a_src = p.a + static_cast<size_t>(c0) * n;
+    for (int i0 = threadIdx.x; i0 < chans * n; i0 += kPro * kThr) {
+      float hv[kPro], av[kPro];
 #pragma unroll
-  for (int k = 0; k < kStages - 1; ++k) {
-    if (k < nt) load(k);
-    cp_async_commit();
-  }
-
-  const int cl = threadIdx.x / kLanes;  // this quad's channel in the tile
-  const int sub = threadIdx.x % kLanes;
-  const int e = c0 + cl;
-  const bool live = cl < c_lim;
-  float a_r[kPer], h[kPer];
+      for (int u = 0; u < kPro; ++u) {
+        const int i = i0 + u * kThr;
+        hv[u] = i < hn ? h0_src[i] : 0.0f;
+        av[u] = i < hn ? a_src[i] : 0.0f;
+      }
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int n = sub * kPer + j;
-    const bool ok = live && n < p.n;
-    a_r[j] = ok ? p.a[static_cast<size_t>(e) * p.n + n] : 0.0f;
-    h[j] = ok ? p.h0[(static_cast<size_t>(bi) * p.ch + e) * p.n + n] : 0.0f;
-  }
-  float* ys = p.ys + row_e + cl;
-
-  for (int k = 0; k < nt; ++k) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile k is in shared memory; every reader of tile k-1 is done
-    if (k + kStages - 1 < nt) load(k + kStages - 1);
-    cp_async_commit();
-    const int st = k % kStages;
-    const int rows = min(kT, p.seq - k * kT);
-    const float* tdt = s_dt[st] + cl;
-    const float* tx = s_x[st] + cl;
-    const float* tb = s_b[st] + sub * kPer;
-    const float* tc = s_c[st] + sub * kPer;
-    for (int t = 0; t < rows; ++t) {
-      const float dtv = tdt[t * kC];
-      const float dx = __fmul_rn(dtv, tx[t * kC]);
-      float y = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (sub * kPer + j < p.n) {
-          const float da = expf(__fmul_rn(dtv, a_r[j]));
-          h[j] = __fadd_rn(__fmul_rn(da, h[j]), __fmul_rn(dx, tb[t * kMaxN + j]));
-          y = __fadd_rn(y, __fmul_rn(h[j], tc[t * kMaxN + j]));
+      for (int u = 0; u < kPro; ++u) {
+        const int i = i0 + u * kThr;
+        if (i < chans * n) {
+          s_h[i] = hv[u];
+          const float a = (kFused && i < hn) ? -expf(av[u]) : av[u];
+          s_a[i] = __fmul_rn(a, kLog2e);
         }
       }
-      y = __fadd_rn(y, __shfl_xor_sync(kFull, y, 1));
-      y = __fadd_rn(y, __shfl_xor_sync(kFull, y, 2));
-      if (sub == 0 && live) ys[(static_cast<size_t>(k) * kT + t) * p.ch] = y;
     }
+    bc_store(bv, cv);
   }
 
-  if (live) {
+  const int j = threadIdx.x & (kLanes - 1);  // this lane's segment of the chunk
+  const int cl = threadIdx.x >> kLanesLog2;  // its channel in the block
+  const bool live = cl < c_lim;
+  const float bias = (kFused && live) ? p.dt_bias[c0 + cl] : 0.0f;
+  const int t_seg = j * L;
+
+  for (int k = 0; k < nt; ++k) {
+    const int st = k & 1;
+    const int rows = rows_of(k);
+    cp_async_wait<0>();
+    // Tile k, b and c of chunk k (and h and a) are in shared memory; every
+    // thread is done with chunk k - 1, so stage (k + 1) & 1 is free.
+    __syncthreads();
+    if (k + 1 < nt) load(k + 1);  // in flight while chunk k is scanned
+    cp_async_commit();
+
+    const T* tdt = dt_tile(st);
+    const T* tx = x_tile(st);
+    float dtv[L], dx[L], y[L];
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int n = sub * kPer + j;
-      if (n < p.n) p.ht[(static_cast<size_t>(bi) * p.ch + e) * p.n + n] = h[j];
+    for (int i = 0; i < L; ++i) {
+      const int t = t_seg + i;
+      float v = to_f(tdt[tile_pos<T>(t, cl, chans, kSegLog2)]);
+      if constexpr (kFused) v = (live && t < rows) ? softplus(__fadd_rn(v, bias)) : 0.0f;
+      dtv[i] = v;
+      dx[i] = __fmul_rn(v, to_f(tx[tile_pos<T>(t, cl, chans, kSegLog2)]));
+      y[i] = 0.0f;
     }
+
+    // kS states at once (two, so their chains and shuffles interleave; one
+    // for an odd last state), from state nn.
+    const float* a_row = s_a + cl * n;
+    float* h_row = s_h + cl * n;
+    auto states = [&](auto ks, int nn) {
+      constexpr int kS = decltype(ks)::value;
+      float da[kS][L], bx[kS][L], A[kS], B[kS], hc[kS];
+#pragma unroll
+      for (int q = 0; q < kS; ++q) {
+        const float an = a_row[nn + q];
+        float bv[L];
+        load_seg<L>(bv, s_b + (nn + q) * ldb + t_seg);
+        // This segment from a zero start: h_end = A * h_start + B.
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          da[q][i] = exp2_approx(__fmul_rn(dtv[i], an));
+          bx[q][i] = __fmul_rn(dx[i], bv[i]);
+          if (i == 0) {
+            A[q] = da[q][0];
+            B[q] = bx[q][0];
+          } else {
+            B[q] = __fadd_rn(__fmul_rn(da[q][i], B[q]), bx[q][i]);
+            A[q] = __fmul_rn(A[q], da[q][i]);
+          }
+        }
+        hc[q] = h_row[nn + q];  // the carry into the chunk
+        if (j == 0) B[q] = __fadd_rn(__fmul_rn(A[q], hc[q]), B[q]);
+      }
+      // Inclusive scan over the channel's lanes: B becomes the true state at
+      // the end of this lane's segment.
+#pragma unroll
+      for (int d = 1; d < kLanes; d <<= 1) {
+#pragma unroll
+        for (int q = 0; q < kS; ++q) {
+          const float a_up = __shfl_up_sync(kFull, A[q], d, kLanes);
+          const float b_up = __shfl_up_sync(kFull, B[q], d, kLanes);
+          if (j >= d) {
+            B[q] = __fadd_rn(__fmul_rn(A[q], b_up), B[q]);
+            A[q] = __fmul_rn(a_up, A[q]);
+          }
+        }
+      }
+      // Replay the segment from its true start, adding h * c into y in
+      // state order.
+#pragma unroll
+      for (int q = 0; q < kS; ++q) {
+        float h = kLanes > 1 ? __shfl_up_sync(kFull, B[q], 1, kLanes) : B[q];
+        if (j == 0) h = hc[q];
+        float cv[L];
+        load_seg<L>(cv, s_c + (nn + q) * ldb + t_seg);
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          h = __fadd_rn(__fmul_rn(da[q][i], h), bx[q][i]);
+          y[i] = __fadd_rn(y[i], __fmul_rn(h, cv[i]));
+        }
+        if (j == kLanes - 1) h_row[nn + q] = h;  // the next chunk's carry
+      }
+    };
+    int nn = 0;
+    for (; nn + 1 < n; nn += 2) states(std::integral_constant<int, 2>{}, nn);
+    if (nn < n) states(std::integral_constant<int, 1>{}, nn);
+
+    __syncthreads();  // every lane has read its dt (the y tile overwrites it), b and c
+    float bv[kBc], cv[kBc];
+    if (k + 1 < nt) bc_fetch(k + 1, bv, cv);             // in flight through the epilogue
+    if constexpr (kFused && L > 1) zd_fetch(k, zv, dv);  // likewise
+    float* ty = y_tile(st);
+#pragma unroll
+    for (int i = 0; i < L; ++i) ty[tile_pos<float>(t_seg + i, cl, chans, kSegLog2)] = y[i];
+    __syncthreads();  // the chunk's y tile is whole
+
+    // The chunk's rows out: this thread's L elements of the tile.
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+      const int i = threadIdx.x + u * kThr;
+      const int r = i / chans;
+      const int cc = i - r * chans;
+      if (r >= rows || cc >= c_lim) continue;
+      const size_t o = (static_cast<size_t>(bi) * p.seq + static_cast<size_t>(k) * steps + r)
+                       * p.ch + c0 + cc;
+      float v = ty[tile_pos<float>(r, cc, chans, kSegLog2)];
+      if constexpr (kFused) {
+        const float xv = to_f(tx[tile_pos<T>(r, cc, chans, kSegLog2)]);
+        v = __fadd_rn(v, __fmul_rn(dv[u], xv));
+        const float gate = __fdiv_rn(zv[u], __fadd_rn(1.0f, expf(-zv[u])));
+        static_cast<T*>(p.y)[o] = from_f<T>(__fmul_rn(v, gate));
+      } else {
+        static_cast<float*>(p.y)[o] = v;
+      }
+    }
+    if (k + 1 < nt) bc_store(bv, cv);  // read after the next chunk's first barrier
+  }
+
+  for (int i = threadIdx.x; i < c_lim * n; i += kThr) {
+    p.ht[(static_cast<size_t>(bi) * p.ch + c0) * n + i] = s_h[i];
+  }
+}
+
+// (grid, threads, shared bytes, lanes a channel, steps a lane, steps a
+// chunk, channels a block, blocks an SM, registers a thread) of a launch,
+// into out[0..8] when out is not null; the launch itself when run.
+template <typename T, bool kFused, int L, int kLanesLog2>
+int run(const Params& p, int n_batch, cudaStream_t stream, int* out, bool launch) {
+  auto kernel = mamba_scan_kernel<T, kFused, L, kLanesLog2>;
+  const Layout lay = layout(L, kLanesLog2, p.n, sizeof(T));
+  static size_t allowed[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -3;
+  if (lay.bytes > allowed[dev]) {
+    const size_t most = layout(L, kLanesLog2, kMaxN, sizeof(T)).bytes;  // this instance's largest
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = most;
+  }
+  const int blocks = n_batch * ((p.ch + lay.chans - 1) / lay.chans);
+  if (out != nullptr) {
+    int per_sm = 0;
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                    lay.threads, lay.bytes);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int cfg[9] = {blocks, lay.threads, static_cast<int>(lay.bytes), lay.lanes, L,
+                        lay.steps, lay.chans, per_sm, attr.numRegs};
+    for (int i = 0; i < 9; ++i) out[i] = cfg[i];
+  }
+  if (launch) kernel<<<blocks, lay.threads, lay.bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lanes a channel (log2) and steps a lane for a sequence of seq steps: one
+// step a lane at S = 1, else 8, over as many lanes (up to 16) as the
+// sequence fills.
+int lanes_log2_for(int seq, int* seg) {
+  if (seq == 1) {
+    *seg = 1;
+    return 0;
+  }
+  *seg = kSeg;
+  const int segs = (seq + kSeg - 1) / kSeg;
+  int lg = 0;
+  while (lg < kMaxLanesLog2 && (1 << lg) < segs) ++lg;
+  return lg;
+}
+
+template <typename T, bool kFused>
+int dispatch(Params& p, int n_batch, cudaStream_t stream, int* out, bool launch) {
+  constexpr int kq = 16 / static_cast<int>(sizeof(T));
+  auto vec = [&](const void* ptr, long long sb, long long ss) {
+    return p.ch % kq == 0 && aligned16(ptr) && (n_batch == 1 || sb % kq == 0) &&
+           (p.seq == 1 || ss % kq == 0);
+  };
+  p.vec_dt = vec(p.dt, p.sb_dt, p.ss_dt);
+  p.vec_x = vec(p.x, p.sb_x, p.ss_x);
+  int seg = kSeg;
+  switch (lanes_log2_for(p.seq, &seg)) {
+    case 0: return seg == 1 ? run<T, kFused, 1, 0>(p, n_batch, stream, out, launch)
+                            : run<T, kFused, kSeg, 0>(p, n_batch, stream, out, launch);
+    case 1: return run<T, kFused, kSeg, 1>(p, n_batch, stream, out, launch);
+    case 2: return run<T, kFused, kSeg, 2>(p, n_batch, stream, out, launch);
+    case 3: return run<T, kFused, kSeg, 3>(p, n_batch, stream, out, launch);
+    default: return run<T, kFused, kSeg, kMaxLanesLog2>(p, n_batch, stream, out, launch);
+  }
+}
+
+int select_variant(int variant, Params& p, int n_batch, cudaStream_t stream, int* out, bool launch) {
+  if (p.n < 1 || p.n > kMaxN || n_batch < 1 || p.seq < 1 || p.ch < 1) return -1;
+  switch (variant) {
+    case 0: return dispatch<float, false>(p, n_batch, stream, out, launch);
+    case 1: return dispatch<float, true>(p, n_batch, stream, out, launch);
+    case 2: return dispatch<__nv_bfloat16, true>(p, n_batch, stream, out, launch);
+    case 3: return dispatch<__half, true>(p, n_batch, stream, out, launch);
+    default: return -2;
   }
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success), or -1 for a
-// state size outside 1..16.
-extern "C" int acs_selective_scan(const void* dt, const void* x, const void* b, const void* c,
-                                  const void* a, const void* h0, void* ys, void* ht,
-                                  int n_batch, int seq, int ch, int n, void* stream) {
-  if (n < 1 || n > kMaxN) return -1;
-  const int vec_e = ch % 4 == 0 && aligned16(dt) && aligned16(x);
-  const int vec_n = n % 4 == 0 && aligned16(b) && aligned16(c);
-  Params p{static_cast<const float*>(dt), static_cast<const float*>(x),
-           static_cast<const float*>(b),  static_cast<const float*>(c),
-           static_cast<const float*>(a),  static_cast<const float*>(h0),
-           static_cast<float*>(ys),       static_cast<float*>(ht),
-           seq, ch, n, vec_e, vec_n};
-  const int blocks = n_batch * ((ch + kC - 1) / kC);
-  selective_scan_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// Launch with the pointers of one call and the sizes of its key, both as
+// arrays of 64-bit integers (a short host path: the sizes are packed once
+// per key, the pointers written into one array per call):
+//   call[0..11]: dt, x, z, b, c, a, dt_bias, d, h0, y, hT, the stream;
+//   sizes[0..14]: variant, B, S, E, N, then the batch and row strides of
+//   dt, x, z, b and c, in elements.
+// variant: 0 = the plain scan (float32; a is the decay, z, dt_bias and d
+// unused, y gets ys), 1 / 2 / 3 = the fused layer span with float32 /
+// bfloat16 / float16 dt_raw, x, z, b, c and y (a is A_log). Returns
+// cudaGetLastError() after the launch (0 on success), -1 for an empty
+// scan or a state size outside 1..16, -2 for an unknown variant.
+extern "C" int acs_mamba_scan(const long long* call, const long long* sizes) {
+  auto ptr = [&](int i) { return reinterpret_cast<void*>(call[i]); };
+  Params p{ptr(0), ptr(1), ptr(2), ptr(3), ptr(4),
+           static_cast<const float*>(ptr(5)), static_cast<const float*>(ptr(6)),
+           static_cast<const float*>(ptr(7)), static_cast<const float*>(ptr(8)), ptr(9),
+           static_cast<float*>(ptr(10)),
+           sizes[5], sizes[6], sizes[7], sizes[8], sizes[9],
+           sizes[10], sizes[11], sizes[12], sizes[13], sizes[14],
+           static_cast<int>(sizes[2]), static_cast<int>(sizes[3]), static_cast<int>(sizes[4]),
+           0, 0};
+  return select_variant(static_cast<int>(sizes[0]), p, static_cast<int>(sizes[1]),
+                        static_cast<cudaStream_t>(ptr(11)), nullptr, true);
+}
+
+// The launch acs_mamba_scan would make for these sizes (strides unused),
+// into out[9] (see run); no launch. Returns 0 or a CUDA error.
+extern "C" int acs_mamba_scan_config(const long long* sizes, int* out) {
+  Params p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+           nullptr, nullptr, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+           static_cast<int>(sizes[2]), static_cast<int>(sizes[3]), static_cast<int>(sizes[4]),
+           0, 0};
+  return select_variant(static_cast<int>(sizes[0]), p, static_cast<int>(sizes[1]), nullptr, out,
+                        false);
 }

@@ -1,8 +1,9 @@
 """Dispatch to the port's kernels, and the ready-queue kernel's fixed
 branch table (PyTorch port of ``repro/kernels/ops.py``).
 
-``attention``, ``grouped_matmul``, ``lru_scan`` and ``selective_scan``
-are what the models call. The reference chooses Pallas or its jnp oracle by JAX backend; the
+``attention``, ``grouped_matmul``, ``lru_scan`` and ``mamba_scan`` (a
+Mamba layer's scan with its softplus, skip and gate; ``selective_scan`` is
+the scan alone) are what the models call. The reference chooses Pallas or its jnp oracle by JAX backend; the
 port chooses by the tensor's device, inside each kernel's wrapper: a CUDA
 tensor launches the hand-written kernel or raises, a CPU tensor takes the
 plain version. There is no fallback from a failed build or launch.
@@ -28,9 +29,9 @@ import torch
 from .flash_attention import flash_attention as attention
 from .grouped_matmul import grouped_matmul
 from .lru_scan import lru_scan
-from .selective_scan import selective_scan
+from .selective_scan import mamba_scan, selective_scan
 
-__all__ = ["attention", "grouped_matmul", "lru_scan", "selective_scan", "wave_step",
+__all__ = ["attention", "grouped_matmul", "lru_scan", "mamba_scan", "selective_scan", "wave_step",
            "register_device_ops",
            "LOOP_BRANCHES", "LOOP_OPCODES", "branch_table", "register_loop_branches"]
 

@@ -24,6 +24,10 @@ each ``block_m``-row tile times its group's weights, in float32.
 the Mamba recurrence: the reference has no kernel for it, and runs the
 ``step`` of ``repro/models/recurrent.py`` ``apply_mamba`` under
 ``lax.scan``; this loop makes the same products in the same order.
+``mamba_scan_ref`` is the plain version of ``selective_scan.mamba_scan``:
+the span of a Mamba layer around that scan as eager ops, each its own
+kernel (softplus of the biased dt projection, ``-exp(A_log)``, the scan,
+the ``D`` skip and the ``silu(z)`` gate, the cast to the model dtype).
 """
 
 from __future__ import annotations
@@ -32,10 +36,11 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 __all__ = ["attention_ref", "grouped_matmul_ref", "lru_scan_ref", "ready_queue_ref",
-           "ready_queue_tables_error", "selective_scan_ref", "wave_rows_ref",
-           "wave_elementwise_ref"]
+           "ready_queue_tables_error", "selective_scan_ref", "mamba_scan_ref",
+           "wave_rows_ref", "wave_elementwise_ref"]
 
 
 def attention_ref(
@@ -140,6 +145,36 @@ def selective_scan_ref(
         h = da * h + (dt_t * x[:, t])[..., None] * bmat[:, t, None, :]
         ys[:, t] = torch.einsum("ben,bn->be", h, cmat[:, t])
     return ys, h
+
+
+def mamba_scan_ref(
+    dt_raw: torch.Tensor,   # [B, S, E] the dt projection's output, model dtype
+    dt_bias: torch.Tensor,  # [E] float32
+    x: torch.Tensor,        # [B, S, E] the conv + silu output, model dtype
+    z: torch.Tensor,        # [B, S, E] the gate branch
+    bmat: torch.Tensor,     # [B, S, N]
+    cmat: torch.Tensor,     # [B, S, N]
+    a_log: torch.Tensor,    # [E, N] float32
+    d: torch.Tensor,        # [E] float32 skip weights
+    h0: torch.Tensor,       # [B, E, N] float32 initial state
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Mamba layer from its dt projection to its gated output, eagerly:
+    ``dt = softplus(dt_raw + dt_bias)`` in float32, ``a = -exp(A_log)``,
+    :func:`selective_scan_ref`, ``y = (ys + D * x) * silu(z)``, cast to
+    ``out_dtype`` (default: x's dtype, the model's). Returns ``(y,
+    hT [B, E, N] float32)``."""
+    dt = F.softplus(dt_raw + dt_bias[None, None]).float()
+    bmat = bmat.float().contiguous()
+    cmat = cmat.float().contiguous()
+    a = -torch.exp(a_log)
+    xf = x.float()
+    ys, h_t = selective_scan_ref(dt.contiguous(), xf.contiguous(), bmat, cmat, a.contiguous(),
+                                 h0.contiguous())
+    y = ys + d[None, None] * xf
+    y = (y * F.silu(z.float())).to(out_dtype or x.dtype)
+    return y, h_t
 
 
 def ready_queue_tables_error(

@@ -7,11 +7,11 @@ in prefill (S = prompt length) and in every decode step (S = 1):
 * RG-LRU: the gated diagonal recurrence ``h_t = a_t * h_{t-1} + b_t``,
   served by ``kernels.ops.lru_scan``; its output is cast to the model
   dtype after it. The state is ``(h [B, W] f32, conv tail [B, K-1, W])``.
-* Mamba: the selective scan over ``N`` states a channel, served by
-  ``kernels.ops.selective_scan`` (the reference runs it as ``lax.scan``).
-  The projections, the ``D`` skip term and the ``silu(z)`` gate stay
-  PyTorch ops, as the reference leaves them outside any kernel. The state
-  is ``(h [B, di, N] f32, conv tail [B, K-1, di])``.
+* Mamba: the selective scan over ``N`` states a channel (the reference
+  runs it as ``lax.scan``) with its neighbours, ``softplus(dt + dt_bias)``,
+  ``-exp(A_log)``, the ``D`` skip term and the ``silu(z)`` gate, in one
+  launch of ``kernels.ops.mamba_scan``; the projections and the conv stay
+  PyTorch ops. The state is ``(h [B, di, N] f32, conv tail [B, K-1, di])``.
 """
 
 from __future__ import annotations
@@ -163,19 +163,14 @@ def apply_mamba(
     xi = F.silu(xi)
 
     proj = torch.einsum("bse,ef->bsf", xi, p.x_proj)
-    dt = F.softplus(torch.einsum("bsr,re->bse", proj[..., :dt_rank], p.dt_proj)
-                    + p.dt_bias[None, None]).float()                  # [B, S, di]
-    bmat = proj[..., dt_rank: dt_rank + n].float().contiguous()        # [B, S, N]
-    cmat = proj[..., dt_rank + n:].float().contiguous()                # [B, S, N]
-    a = -torch.exp(p.A_log)                                            # [di, N]
+    dt_raw = torch.einsum("bsr,re->bse", proj[..., :dt_rank], p.dt_proj)  # [B, S, di]
 
     h0 = (state[0].float() if state is not None
           else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
-    xf = xi.float()
-    ys, h_t = ops.selective_scan(dt.contiguous(), xf.contiguous(), bmat, cmat, a.contiguous(),
-                                 h0.contiguous())
-    y = ys + p.D[None, None] * xf                                      # [B, S, di]
-    y = (y * F.silu(z.float())).to(x.dtype)
+    # softplus(dt_raw + dt_bias), the scan over -exp(A_log), the D skip and
+    # the silu(z) gate, in x's dtype: one launch on the card.
+    y, h_t = ops.mamba_scan(dt_raw, p.dt_bias, xi, z, proj[..., dt_rank: dt_rank + n],
+                            proj[..., dt_rank + n:], p.A_log, p.D, h0.contiguous())
     out = torch.einsum("bse,ed->bsd", y, p.w_out)
     new_state = (h_t, new_conv) if state is not None else None
     return out, new_state

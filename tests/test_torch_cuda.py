@@ -31,9 +31,15 @@
   shapes; values of another width than the keys (MLA's D 192 / Dv 128
   and the edges of that instantiation);
 * ``selective_scan``: within 1e-5 (abs and rel) of ``selective_scan_ref``
-  for ys and hT over falcon-mamba's prefill and decode shapes, S around the
-  32-step tile, E off the 32-channel tile and the 16-byte copy width, N
-  from 1 to 16, the same bits on a second launch, its input checks;
+  for ys and hT over falcon-mamba's prefill (S 512 and 128) and decode
+  shapes, S on both sides of the kernel's 8-step segments and 128- and
+  256-step chunks (1, 127, 128, 129, 511, 512, 513, 2049) for B 1, 3 and 4,
+  E off the channel tile and the 16-byte copy width, N from 1 to 16; the
+  fused entry ``mamba_scan`` within 1e-5 of ``mamba_scan_ref`` in float32
+  and bf16 (bf16: the rounding of a value within 1e-5 of the plain float32
+  y) with z, b and c strided views of the projections; the same bits on a
+  second launch; each row of a B = 4 launch equal to a B = 1 launch of that
+  row; both entries' input checks;
 * ``grouped_matmul``: within tolerance of ``grouped_matmul_ref`` over the
   CPU tests' ragged cases, ``block_m`` in {1, 2, 3, 15, 16, 17, 63, 64,
   65, 70, 128} (both tile shapes and their edges), K and N off the 16-byte
@@ -85,7 +91,8 @@ from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels import wave_elementwise as we
 from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches, wave_step
 from repro_torch.kernels.ref import (attention_ref, grouped_matmul_ref, lru_scan_ref,
-                                     ready_queue_ref, selective_scan_ref, wave_rows_ref)
+                                     mamba_scan_ref, ready_queue_ref, selective_scan_ref,
+                                     wave_rows_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -698,10 +705,16 @@ def _scan_args(device, b, s, e, n, seed):
     return dt, make(b, s, e), make(b, s, n), make(b, s, n), a.contiguous(), make(b, e, n)
 
 
-# (B, S, E, N): falcon-mamba's prefill and decode, the 32-step time tile's
-# edges, E off the 32-channel tile and the 16-byte width, N from 1 to 16.
-SCAN = [(1, 512, 8192, 16), (1, 1, 8192, 16), (3, 33, 1000, 16), (2, 32, 37, 5),
-        (1, 31, 64, 1), (1, 65, 6, 8), (4, 1, 40, 16), (1, 100, 96, 15)]
+# (B, S, E, N): falcon-mamba's prefill (512 and 128) and decode, S around
+# the kernel's 8-step segments and its 128- and 256-step chunks for B 1, 3
+# and 4, E off the channel tile and the 16-byte width, N from 1 to 16.
+SCAN = [(1, 512, 8192, 16), (1, 128, 8192, 16), (1, 1, 8192, 16), (4, 1, 8192, 16),
+        (3, 33, 1000, 16), (2, 32, 37, 5), (1, 31, 64, 1), (1, 65, 6, 8), (4, 1, 40, 16),
+        (1, 100, 96, 15)]
+SCAN += [(b, s, 1000, 16) for b, s in ((1, 127), (3, 128), (4, 129), (1, 511), (3, 512),
+                                       (4, 513), (1, 2049), (3, 1))]
+SCAN += [(1, 70, 64, n) for n in (2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 16)]
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("b,s,e,n", SCAN)
@@ -712,10 +725,58 @@ def test_selective_scan_matches_plain(device, b, s, e, n):
     torch.cuda.synchronize()
     assert ss.launches == before + 1
     want_ys, want_h = selective_scan_ref(*args)
-    torch.testing.assert_close(ys, want_ys, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(h_t, want_h, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ys, want_ys, **SCAN_TOL)
+    torch.testing.assert_close(h_t, want_h, **SCAN_TOL)
     again = ss.selective_scan(*args)
     assert torch.equal(again[0], ys) and torch.equal(again[1], h_t)
+
+
+def _fused_args(device, b, s, e, n, dtype, seed, rank=24):
+    """``mamba_scan``'s arguments as ``apply_mamba`` passes them: z the
+    second half of an in projection, b and c slices of an x projection."""
+    rng = np.random.RandomState(seed)
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)  # noqa: E731
+    xz, proj = make(b, s, 2 * e).to(dtype), make(b, s, rank + 2 * n).to(dtype)
+    a_log = (torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device))[None]
+             + 0.1 * make(e, n)).contiguous()
+    return (make(b, s, e).to(dtype), 0.5 * make(e), torch.nn.functional.silu(make(b, s, e))
+            .to(dtype), xz[..., e:], proj[..., rank: rank + n], proj[..., rank + n:], a_log,
+            make(e), make(b, e, n))
+
+
+FUSED = [(1, 512, 8192, 16), (1, 128, 8192, 16), (1, 1, 8192, 16), (4, 1, 8192, 16),
+         (3, 129, 1000, 5), (2, 513, 40, 16), (1, 2049, 37, 16), (1, 127, 96, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,e,n", FUSED)
+def test_mamba_scan_matches_plain(device, b, s, e, n, dtype):
+    """The fused entry against ``mamba_scan_ref`` within 1e-5: in bf16 its
+    y is the rounding of a value within 1e-5 of the plain float32 y."""
+    args = _fused_args(device, b, s, e, n, dtype, seed=b + s + e + n)
+    before = ss.launches
+    y, h_t = ss.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1 and y.dtype == dtype and h_t.dtype == torch.float32
+    want_y, want_h = mamba_scan_ref(*args, out_dtype=torch.float32)
+    tol = SCAN_TOL["atol"] + SCAN_TOL["rtol"] * want_y.abs()
+    assert bool(((y >= (want_y - tol).to(dtype)) & (y <= (want_y + tol).to(dtype))).all())
+    torch.testing.assert_close(h_t, want_h, **SCAN_TOL)
+    again = ss.mamba_scan(*args)
+    assert torch.equal(again[0], y) and torch.equal(again[1], h_t)
+
+
+@pytest.mark.parametrize("s", [1, 129, 513])
+def test_scan_rows_do_not_depend_on_the_batch(device, s):
+    """Row r of a B = 4 launch equals a B = 1 launch of row r, bit for bit,
+    through both entries."""
+    plain = _scan_args(device, 4, s, 1000, 16, seed=s)
+    fused = _fused_args(device, 4, s, 1000, 16, torch.bfloat16, seed=s)
+    for fn, args in ((ss.selective_scan, plain), (ss.mamba_scan, fused)):
+        whole = fn(*args)
+        for r in range(4):
+            alone = fn(*(t[r: r + 1] if t.dim() == 3 and t.shape[0] == 4 else t for t in args))
+            assert all(torch.equal(a[0], w[r]) for a, w in zip(alone, whole)), (fn.__name__, r)
 
 
 def test_selective_scan_checks_inputs(device):
@@ -730,6 +791,16 @@ def test_selective_scan_checks_inputs(device):
         ss.selective_scan(dt, x, torch.zeros(1, 8, 17, device=device),
                           torch.zeros(1, 8, 17, device=device), torch.zeros(64, 17, device=device),
                           torch.zeros(1, 64, 17, device=device))
+    fa = _fused_args(device, 1, 8, 64, 16, torch.bfloat16, seed=0)
+    with pytest.raises(TypeError, match="z must be"):
+        ss.mamba_scan(*fa[:3], fa[3].float(), *fa[4:])
+    with pytest.raises(ValueError, match="is on"):
+        ss.mamba_scan(*fa[:8], fa[8].cpu())
+    with pytest.raises(ValueError, match="unit-stride"):
+        ss.mamba_scan(*fa[:5], torch.zeros(1, 8, 32, dtype=torch.bfloat16, device=device)[..., ::2],
+                      *fa[6:])
+    with pytest.raises(ValueError, match="dt_bias must be"):
+        ss.mamba_scan(fa[0], fa[1][:63], *fa[2:])
 
 
 # (G, K, N, block_m, tile group ids): tests/test_torch_grouped_matmul.py's

@@ -16,7 +16,9 @@ deepseek-v2 (MLA with q and k 16 wide and v 8, a dense first layer, then
 MoE with a shared expert), falcon-mamba (Mamba layers, no FFN), and the
 frontend archs musicgen and paligemma (seeded ``[1, S, F]`` frame or
 patch embeddings through ``frontend_proj``; paligemma's bidirectional
-prefix). The reference's MLA prefill takes its jnp attention on the CPU:
+prefix). On the CPU ``apply_mamba`` gives the bits of the eager
+composition the fused ``mamba_scan`` replaced, in float32 and bfloat16.
+The reference's MLA prefill takes its jnp attention on the CPU:
 its Pallas kernel is wrong where v is narrower than q (ROADMAP queue 3).
 Layers are held to 1e-5; whole models to 1e-4, because XLA and torch sum
 the products in different orders across the layers. Argmax tokens are
@@ -41,6 +43,7 @@ from repro.models import recurrent as RR
 from repro.models.transformer import FRONTEND_DIMS as R_FRONTEND_DIMS
 from repro_torch import models as TM
 from repro_torch.configs import ARCHS
+from repro_torch.kernels import ref as TK
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import recurrent as TR
@@ -358,6 +361,59 @@ def test_apply_mamba(with_state, s):
         for t, r in zip(tst, rst):
             assert tuple(t.shape) == r.shape
             np.testing.assert_allclose(_np(t), _np(r), **LAYER_TOL)
+
+
+def _eager_mamba(p, x, cfg, state):
+    """``apply_mamba`` as the port ran it before the fused ``mamba_scan``:
+    every op of the span around the scan its own eager kernel."""
+    b, di, n = x.shape[0], cfg.expand * cfg.d_model, cfg.ssm_state
+    dt_rank = p.dt_proj.shape[0]
+    xz = torch.einsum("bsd,de->bse", x, p.w_in)
+    xi, z = xz[..., :di], xz[..., di:]
+    xi, new_conv = TR._causal_conv1d(xi, p.conv_w, state[1] if state is not None else None)
+    xi = torch.nn.functional.silu(xi)
+    proj = torch.einsum("bse,ef->bsf", xi, p.x_proj)
+    dt = torch.nn.functional.softplus(torch.einsum("bsr,re->bse", proj[..., :dt_rank], p.dt_proj)
+                                      + p.dt_bias[None, None]).float()
+    bmat = proj[..., dt_rank: dt_rank + n].float().contiguous()
+    cmat = proj[..., dt_rank + n:].float().contiguous()
+    a = -torch.exp(p.A_log)
+    h0 = state[0].float() if state is not None else torch.zeros((b, di, n))
+    xf = xi.float()
+    ys, h_t = TK.selective_scan_ref(dt.contiguous(), xf.contiguous(), bmat, cmat, a.contiguous(),
+                                    h0.contiguous())
+    y = ys + p.D[None, None] * xf
+    y = (y * torch.nn.functional.silu(z.float())).to(x.dtype)
+    out = torch.einsum("bse,ed->bsd", y, p.w_out)
+    return out, ((h_t, new_conv) if state is not None else None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [1, 12])
+def test_apply_mamba_on_cpu_is_the_eager_composition(dtype, with_state, s):
+    """On the CPU the fused entry is its plain version: ``apply_mamba``
+    gives the bits of the eager composition it replaced (non-zero
+    ``dt_bias`` and ``D``, so every term counts)."""
+    cfg = dataclasses.replace(ARCHS["falcon-mamba-7b"].reduced(), dtype=dtype)
+    mixer = TM.init_params(cfg, 0, device="cpu").stages[0][0].mixer
+    rng = np.random.RandomState(30 + s)
+    di, n = cfg.expand * cfg.d_model, cfg.ssm_state
+    with torch.no_grad():
+        mixer.dt_bias.copy_(torch.from_numpy(0.5 * rng.randn(di).astype(np.float32)))
+        mixer.D.copy_(torch.from_numpy(rng.randn(di).astype(np.float32)))
+    md = getattr(torch, dtype)
+    x = torch.from_numpy(rng.randn(2, s, cfg.d_model).astype(np.float32)).to(md)
+    state = ((torch.from_numpy(rng.randn(2, di, n).astype(np.float32)),
+              torch.from_numpy(rng.randn(2, cfg.d_conv - 1, di).astype(np.float32)).to(md))
+             if with_state else None)
+    got, got_state = TR.apply_mamba(mixer, x, cfg, state=state)
+    want, want_state = _eager_mamba(mixer, x, cfg, state)
+    assert got.dtype == md and torch.equal(got, want)
+    if with_state:
+        assert all(torch.equal(g, w) for g, w in zip(got_state, want_state))
+    else:
+        assert got_state is None and want_state is None
 
 
 def test_mamba_params_stay_float32_in_a_bf16_model():
