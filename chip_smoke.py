@@ -88,10 +88,32 @@ Phases, each fatal on failure (an exception, exit code != 0):
    c. ``DeviceSession`` under each plan mode, the chain universe fed in 4
       interleaved chunks (loop epochs launch the ready-queue kernel, wave
       and frontier epochs the wave kernel: one launch per device
-      dispatch, its steps equal to the plan steps).
+      dispatch, its steps equal to the plan steps);
+   d. ``MeshDeviceSession`` with 1, 2 and 4 shards on ``cuda:0``, each on
+      its own CUDA stream, under the loop and wave plan modes: the chain
+      universe (4 chunks; its shared weight row keeps it on one shard),
+      the same with a weight row a chain (spread over the shards), the
+      mixed-tag stream, and the cross-shard
+      join stream of ``tests/test_mesh_transfers.py`` (4 chains of two
+      rows at width 4096, 4 rounds) under each transfer mode (d2d,
+      staged, auto). Every run bit-equal to ``run_serial``; the shards'
+      ready-queue launches equal their loop dispatches and their
+      wave-kernel launches their wave-kernel dispatches (one launch per
+      device dispatch); d2d moves every edge without a host sync, staged
+      with them; the transfer table's bytes equal the rows moved times
+      16,384; two shards in flight at once on the join stream. Logged: each
+      run's wall, and whether two shards' cooperative epochs share the
+      card (the kernels' intervals per stream under ``torch.profiler``,
+      summed and united: the spread chains through a 2-shard mesh, and
+      two half chain universes launched back to back on two streams).
 5. ACS-SW main path: the cheetah physics stream (64 envs, 8 groups,
    5 steps) through the serial, wave and threaded (4 CUDA streams)
    schedulers, bit-equal across the three and finite.
+5a. The analytic model (``core/perfmodel.py``): the card's launch and sync
+   latency (medians of 200 small launches and synchronizes), the values
+   ``H100_LIKE`` holds, and ``simulate`` under ``H100_LIKE`` for serial,
+   ACS-SW, ACS-HW and the CUDA-graph policy on one cheetah step and on the
+   chain universe, beside this run's walls. Logged, not checked.
 5b. The dynamic-DNN workloads (``dyn/``): all seven (InstaNAS, Dynamic
    Routing, CondConv; NASNet, AmoebaNet, SqueezeNet, RandWire) at the
    reference's sizes (batch 1, 3x32x32), each on 8 seeded inputs through
@@ -119,10 +141,12 @@ Phases, each fatal on failure (an exception, exit code != 0):
    ``SessionServer(scheduler="wave")``, ``SessionServer(scheduler="device")``
    (its ``"loop"`` plan mode; every serving task takes the session's
    in-epoch host path), ``SessionServer(scheduler="frontier")`` (the
-   reference's default: one task a group, up to 8 in flight, each retired
-   on its CUDA event) and ``ContinuousBatchingServer`` (4 slots, max_len
-   1024, window 32). Every request gets its 16 tokens, the four servers'
-   tokens are identical and equal a plain greedy loop over
+   default: one task a group, up to 8 in flight, each retired on its CUDA
+   event) and ``ContinuousBatchingServer`` (4 slots, max_len 1024, window
+   32); recurrentgemma-2b and granite-moe-3b-a800m also through
+   ``SessionServer(scheduler="mesh", n_shards=2)`` (two shards on the
+   card, a stream each; MESH_SERVE). Every request gets its 16 tokens, the
+   servers' tokens are identical and equal a plain greedy loop over
    ``prefill``/``decode_step``, every logit is finite, and each server run
    launches exactly: the flash kernel once per request and attention or
    MLA layer (recurrentgemma 64, granite 256, deepseek 32), the RG-LRU
@@ -181,6 +205,7 @@ file, it exits with an error and prints no result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -205,6 +230,11 @@ BF16_FLOP_PER_S = 989e12
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 CHAINS, WIDTH, DEPTH, WINDOW = 64, 4096, 32, 32
+# The mesh-sharded window (phase 4d): logical shards on the one card, each
+# on its own stream; tests/test_mesh_transfers.py's join stream at width
+# 4096, cut to 4 rounds (at its 6 the values overflow to inf).
+MESH_SHARDS, MESH_MODES, TRANSFER_MODES = (1, 2, 4), ("loop", "wave"), ("d2d", "staged", "auto")
+JOIN_CHAINS, JOIN_ROUNDS = 4, 4
 SIM_ENVS, SIM_GROUP, SIM_STEPS, SIM_STREAMS = 64, 8, 5, 4
 TIMED_RUNS = 20
 
@@ -217,6 +247,10 @@ SERVE_ARCHS, SERVE_SEED = ("recurrentgemma-2b", "granite-moe-3b-a800m", "falcon-
                            "deepseek-v2-236b"), 0
 SERVE_CUTS = {"deepseek-v2-236b": {"n_layers": 4}}
 PROFILED_SERVE = ("recurrentgemma-2b", "granite-moe-3b-a800m")
+# The mesh server (MESH_SERVE_SHARDS shards on the card) serves these two;
+# falcon-mamba-7b and deepseek-v2 skip it to keep the script near half its
+# time limit.
+MESH_SERVE, MESH_SERVE_SHARDS = ("recurrentgemma-2b", "granite-moe-3b-a800m"), 2
 SERVE_REQUESTS, SERVE_MIN_PROMPT, SERVE_MAX_PROMPT, SERVE_MAX_NEW = 8, 128, 512, 16
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024
 
@@ -267,10 +301,12 @@ def bit_equal(a, b) -> bool:
 # Streams
 # ---------------------------------------------------------------------------
 
-def chain_universe(device, seed=0, n_chains=CHAINS, width=WIDTH, depth=DEPTH):
-    """Per-chain state buffers and one shared read-only weight row; each
-    chain applies ``depth`` RAW-serialized kernels (axpy/mul alternating),
-    chains are mutually independent."""
+def chain_universe(device, seed=0, n_chains=CHAINS, width=WIDTH, depth=DEPTH,
+                   shared_weight=True):
+    """Per-chain state buffers and one shared read-only weight row (with
+    ``shared_weight=False``, a weight row for each chain); each chain
+    applies ``depth`` RAW-serialized kernels (axpy/mul alternating), chains
+    are mutually independent."""
     from repro_torch.core import BufferPool, Task
     from repro_torch.core.task import default_segments
     from repro_torch.kernels.ops import LOOP_BRANCHES
@@ -280,10 +316,12 @@ def chain_universe(device, seed=0, n_chains=CHAINS, width=WIDTH, depth=DEPTH):
     states = [pool.alloc((width,), np.float32, name=f"chain{i}",
                          value=rng.randn(width).astype(np.float32))
               for i in range(n_chains)]
-    weight = pool.alloc((width,), np.float32, name="weight",
-                        value=rng.randn(width).astype(np.float32))
+    weights = [pool.alloc((width,), np.float32, name=f"weight{i}",
+                          value=rng.randn(width).astype(np.float32))
+               for i in range(1 if shared_weight else n_chains)]
     tasks = []
-    for s in states:
+    for i, s in enumerate(states):
+        weight = weights[0 if shared_weight else i]
         for d in range(depth):
             name = "axpy" if d % 2 == 0 else "mul"
             ins, outs = (s, weight), (s,)
@@ -313,6 +351,36 @@ def mixed_tag(device, seed=0, width=WIDTH, n_bufs=6, n_tasks=24):
         outs = (bufs[rng.randint(n_bufs)],)
         tasks.append(kern.launch(streams[tag], inputs=ins, outputs=outs))
     return bufs, tasks
+
+
+def cross_shard_joins(device, seed=0, n_chains=JOIN_CHAINS, width=WIDTH, rounds=JOIN_ROUNDS):
+    """``n_chains`` independent two-buffer chains (a mesh spreads them over
+    its shards) joined to their neighbour on odd rounds: each join is a
+    cross-shard edge once the chains sit on different shards."""
+    from repro_torch.core import BufferPool, Task
+    from repro_torch.core.task import default_segments
+    from repro_torch.kernels.ops import LOOP_BRANCHES
+
+    rng = np.random.RandomState(seed)
+    pool = BufferPool(device)
+    chains = [[pool.alloc((width,), np.float32, name=f"c{c}b{k}",
+                          value=rng.randn(width).astype(np.float32)) for k in range(2)]
+              for c in range(n_chains)]
+    tasks = []
+
+    def task(name, ins, outs):
+        r, w = default_segments(ins, outs)
+        tasks.append(Task(opcode=name, fn=LOOP_BRANCHES[name], inputs=ins, outputs=outs,
+                          read_segments=r, write_segments=w))
+
+    for r in range(rounds):
+        for a, b in chains:
+            task("axpy", (a, b), (a,))
+            task("mul", (a, b), (b,))
+        if r % 2 == 1:
+            for c in range(n_chains):
+                task("axpy", (chains[(c + 1) % n_chains][0], chains[c][0]), (chains[c][0],))
+    return [b for ch in chains for b in ch], tasks
 
 
 def random_dag(device, seed, n, d, n_bufs=256):
@@ -718,7 +786,7 @@ def plain_epoch(slab, desc, offsets, branches):
 
 def phase_epoch_vs_plain(device):
     import torch
-    from repro_torch.kernels import wave_elementwise as we
+    we = importlib.import_module("repro_torch.kernels.wave_elementwise")
 
     br = wave_branches()
     cases = [(seed, 40, d, {}) for seed in range(3) for d in (37, 4096)]
@@ -1232,7 +1300,7 @@ def phase_acs_hw_waves(device):
     its widest wave, wall seconds per run)."""
     import torch
     from repro_torch.core import DeviceWindowRunner, TaskStream, run_serial
-    from repro_torch.kernels import wave_elementwise as we
+    we = importlib.import_module("repro_torch.kernels.wave_elementwise")
     from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
 
     walls, main = {}, None
@@ -1308,7 +1376,7 @@ def phase_session(device):
     import torch
     from repro_torch.core import DeviceSession, run_serial
     from repro_torch.kernels import ready_queue as rq
-    from repro_torch.kernels import wave_elementwise as we
+    we = importlib.import_module("repro_torch.kernels.wave_elementwise")
 
     bufs, tasks = chain_universe(device)
     run_serial(tasks, device=device)
@@ -1345,6 +1413,278 @@ def phase_session(device):
             f"{rq.launches}, wave-kernel launches {we.launches} ({we.steps} steps); "
             + ", ".join(f"{k} {stats[k]}" for k in keys))
     return walls
+
+
+def mesh_run(device, build, n_shards, mode, transfer_mode="auto", chunks=4):
+    """One feed of ``build``'s stream through ``MeshDeviceSession`` in
+    ``chunks`` interleaved submits: the shards' ready-queue and wave-kernel
+    launches counted from 0. Returns (buffers, session stats, the link's
+    moves as (mode, row bytes), launches, wall seconds)."""
+    import torch
+    from repro_torch.core import MeshDeviceSession
+    from repro_torch.kernels import ready_queue as rq
+    we = importlib.import_module("repro_torch.kernels.wave_elementwise")
+
+    bufs, tasks = build(device)
+    session = MeshDeviceSession(window_size=WINDOW, n_shards=n_shards,
+                                registry=loop_registry(tasks), plan_mode=mode,
+                                transfer_mode=transfer_mode, device=device)
+    check(len({sh.stream.cuda_stream for sh in session.shards}) == n_shards,
+          f"mesh {n_shards} shards: not one stream a shard")
+    moves = []
+    move = session.link.move
+
+    def counted(base, owner, dest):
+        nbytes = session.shards[owner].arena.row_nbytes(base)
+        used = move(base, owner, dest)
+        moves.append((used, nbytes))
+        return used
+
+    session.link.move = counted
+    torch.cuda.synchronize()
+    rq.reset_launches()
+    we.reset_launches()
+    t0 = time.perf_counter()
+    n = -(-len(tasks) // chunks)
+    for i in range(chunks):
+        session.submit(tasks[i * n:(i + 1) * n])
+        session.poll()
+    session.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return bufs, session.session_stats(), moves, (rq.launches, we.launches), wall
+
+
+def phase_mesh(device, card):
+    """The mesh-sharded device window on the card: ``MeshDeviceSession`` at
+    MESH_SHARDS shards on ``cuda:0`` (each shard its own stream) under the
+    loop and wave plan modes, over the chain universe (4 chunks), the
+    mixed-tag stream and the cross-shard join stream (every transfer mode).
+    Every run is bit-equal to ``run_serial``; its ready-queue launches
+    equal the shards' loop dispatches and its wave-kernel launches their
+    wave-kernel dispatches, each dispatch one launch; d2d moves no row
+    through the host, staged does; the transfer table's bytes are the rows
+    moved times the row bytes; the overlapped drain has two shards in
+    flight on the join stream. Returns (ready-queue launches, wave-kernel
+    launches, wall seconds per run)."""
+    import torch
+    from repro_torch.core import run_serial
+
+    launched = [0, 0]
+    walls = {}
+    # The chain universe's shared weight row gives every chain the same
+    # read home, so the mesh keeps the whole universe on one shard; with a
+    # weight row a chain, placement spreads the chains over the shards.
+    builds = {"chain_universe": chain_universe,
+              "spread_chains": lambda dev: chain_universe(dev, shared_weight=False),
+              "mixed_tag": mixed_tag, "joins": cross_shard_joins}
+    for label, build in builds.items():
+        bufs, tasks = build(device)
+        run_serial(tasks, device=device)
+        expect = torch.stack([b.value for b in bufs])
+        for n_shards in MESH_SHARDS:
+            for mode in MESH_MODES:
+                for transfer in (TRANSFER_MODES if label == "joins" else ("auto",)):
+                    bufs, stats, moves, (rq_n, we_n), wall = mesh_run(
+                        device, build, n_shards, mode, transfer)
+                    name = f"mesh {label} {n_shards} shards {mode} {transfer}"
+                    launched[0] += rq_n
+                    launched[1] += we_n
+                    walls[f"{label}/mesh_{n_shards}_{mode}_{transfer}"] = wall
+                    got = torch.stack([b.value for b in bufs])
+                    check(bit_equal(got, expect), f"{name}: != run_serial")
+                    per = stats["per_shard"]
+                    check(rq_n == sum(s["loop_dispatches"] for s in per)
+                          and we_n == sum(s["wave_kernel_dispatches"] for s in per)
+                          and rq_n + we_n == stats["device_dispatches"] > 0,
+                          f"{name}: {rq_n} ready-queue and {we_n} wave-kernel launches for "
+                          f"{stats['device_dispatches']} device dispatches")
+                    table = stats["transfers"]
+                    check(table["transfers"] == len(moves)
+                          and table["bytes"] == sum(b for _, b in moves)
+                          == len(moves) * WIDTH * 4,
+                          f"{name}: table {table} against {len(moves)} rows moved")
+                    syncs = sum(s["host_syncs_by_tag"].get("mesh-transfer", 0) for s in per)
+                    if stats["transfer_mode"] == "d2d":
+                        check(syncs == 0 and stats["staged_moves"] == 0,
+                              f"{name}: {syncs} mesh-transfer syncs under d2d")
+                    elif moves:
+                        check(syncs > 0, f"{name}: staged moves without a host sync")
+                    if label == "joins" and n_shards >= 2:
+                        check(stats["drain_overlap"] >= 2 and moves,
+                              f"{name}: drain_overlap {stats['drain_overlap']}, "
+                              f"{len(moves)} moves")
+                    log(f"{name}: bit-equal to run_serial; transfer {stats['transfer_mode']} "
+                        f"({stats['transfer_probe']}); launches: ready queue {rq_n}, wave "
+                        f"kernel {we_n}; epochs {stats['epochs']}, sub-epoch barriers "
+                        f"{stats['sub_epoch_barriers']}, cross-shard edges "
+                        f"{stats['cross_shard_edges']}, moves {len(moves)} "
+                        f"({table['bytes']} B), mesh-transfer syncs {syncs}, drain overlap "
+                        f"{stats['drain_overlap']}, placements {stats['placements']}, wall "
+                        f"{wall * 1e3:.3f} ms [{card}]")
+    mesh_overlap(device, card)
+    return launched[0], launched[1], walls
+
+
+def stream_intervals(fn):
+    """Run ``fn()`` under ``torch.profiler``; returns {stream: [(start,
+    end) us]} of its CUDA kernels, from the exported trace."""
+    import os
+    import tempfile
+
+    prof, _ = profiled(fn)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.unlink(path)
+    out = {}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("cat") == "kernel":
+            stream = ev.get("args", {}).get("stream")
+            out.setdefault(stream, []).append((ev["ts"], ev["ts"] + ev.get("dur", 0)))
+    return out
+
+
+def overlap_of(intervals):
+    """(sum, union) in ms of every stream's intervals: their difference is
+    the time two or more ran at once."""
+    spans = sorted(iv for ivs in intervals.values() for iv in ivs)
+    if not spans:
+        return None, None
+    total = sum(e - s for s, e in spans)
+    union, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            union += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return total / 1e3, (union + hi - lo) / 1e3
+
+
+def mesh_overlap(device, card):
+    """Do two shards' cooperative epochs share the card? (a) The chain
+    universe with a weight row a chain (so the chains spread over the
+    shards) through a 2-shard mesh under the profiler, loop and wave: each
+    stream's kernel intervals, their sum and their union. (b) Each
+    kernel's epoch over one half of the chain universe, the two halves
+    launched back to back on two streams with nothing between: sum and
+    union again. Logged, not checked."""
+    import torch
+    from repro_torch.core import MeshDeviceSession
+    from repro_torch.kernels import ready_queue as rq
+    from repro_torch.kernels.wave_elementwise import wave_epoch
+
+    for mode in MESH_MODES:
+        def run(mode=mode):
+            bufs, tasks = chain_universe(device, shared_weight=False)
+            session = MeshDeviceSession(window_size=WINDOW, n_shards=2,
+                                        registry=loop_registry(tasks), plan_mode=mode,
+                                        device=device)
+            session.submit(tasks)
+            session.close()
+        run()  # warm: plans, programs, allocator
+        ivs = stream_intervals(run)
+        name = "ready_queue_kernel" if mode == "loop" else "wave_epoch_kernel"
+        total, union = overlap_of(ivs)
+        log(f"mesh overlap, chain universe (a weight row a chain) through 2 shards ({mode}): "
+            f"kernels a stream "
+            f"{ {k: len(v) for k, v in ivs.items()} }, kernel time summed {total} ms, "
+            f"union {union} ms ({name} and the packs' copies) [{card}]")
+
+    half = CHAINS // 2
+    _, tasks = chain_universe(device)
+    halves = [tasks[:half * DEPTH], tasks[half * DEPTH:]]
+    queues = [lowered_payload(h, device) for h in halves]
+    waves = [wave_program(device, h, "wave") for h in halves]
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+
+    def both(launch):
+        def go():
+            torch.cuda.synchronize()
+            for i, stream in enumerate(streams):
+                with torch.cuda.stream(stream):
+                    launch(i)
+            torch.cuda.synchronize()
+        return go
+
+    runs = {
+        "ready queue": both(lambda i: run_queue(rq.ready_queue, *queues[i])),
+        "wave epoch": both(lambda i: wave_epoch(waves[i][1], torch.from_numpy(
+            waves[i][0].desc).to(device), waves[i][0].offsets, branches=waves[i][0].branches,
+            direct=waves[i][0].direct)),
+    }
+    for label, go in runs.items():
+        go()  # warm
+        ivs = stream_intervals(lambda: [go() for _ in range(5)])
+        total, union = overlap_of(ivs)
+        log(f"mesh overlap probe, {label}: two half chain universes ({half} chains each) on two "
+            f"streams back to back, 5 rounds: kernels a stream "
+            f"{ {k: len(v) for k, v in ivs.items()} }, summed {total} ms, union {union} ms "
+            f"(union = sum: one after the other; union = sum / 2: side by side) [{card}]")
+
+
+def phase_perfmodel(device, card, measured):
+    """The analytic model under ``H100_LIKE`` beside this run's walls: the
+    card's launch and sync latency measured here (the constants H100_LIKE
+    takes), then ``simulate`` for serial, ACS-SW, ACS-HW and the CUDA-graph
+    policy on one cheetah step and on the chain universe. Host only; no
+    claim that the model predicts the card."""
+    import torch
+    from repro_torch.core import TaskStream, build_full_dag, level_schedule
+    from repro_torch.core.device_dispatch import plan_waves
+    from repro_torch.core.perfmodel import H100_LIKE, simulate
+    from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
+
+    x = torch.zeros(4, device=device)
+    for _ in range(100):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    launch, sync = [], []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        x.add_(1.0)
+        launch.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        sync.append(time.perf_counter() - t0)
+    launch_us, sync_us = statistics.median(launch) * 1e6, statistics.median(sync) * 1e6
+    log(f"perfmodel: one small launch {launch_us:.2f} us (median host time to enqueue), "
+        f"torch.cuda.synchronize after it {sync_us:.2f} us (median), 200 each; H100_LIKE "
+        f"holds launch_us {H100_LIKE.launch_us}, sync_us {H100_LIKE.sync_us}, hw_dispatch_us "
+        f"{H100_LIKE.hw_dispatch_us} [{card}]")
+
+    eng = PhysicsEngine(ENVIRONMENTS["cheetah"], n_envs=SIM_ENVS, group_size=SIM_GROUP, seed=0,
+                        device=device)
+    stream = TaskStream()
+    eng.emit_step(stream)
+    streams = {"cheetah": stream.tasks, "chain_universe": chain_universe(device)[1]}
+    for label, tasks in streams.items():
+        # The cheetah step is a new graph every step: the CUDA-graph policy
+        # pays its construction (the all-pairs DAG, timed here) each time.
+        # The chain universe is static: construction amortizes to 0 (and
+        # its 2,048-task all-pairs DAG takes a minute of host).
+        construct_us = 0.0
+        if label == "cheetah":
+            t0 = time.perf_counter()
+            level_schedule(tasks, build_full_dag(tasks)[0])
+            construct_us = (time.perf_counter() - t0) * 1e6
+        waves = plan_waves(tasks, WINDOW)
+        model = {p: simulate([[t] for t in tasks] if p == "serial" else waves, H100_LIKE, p,
+                             construct_us=construct_us if p == "cudagraph" else 0.0)
+                 for p in ("serial", "acs_sw", "acs_hw", "cudagraph")}
+        walls = {k: f"{v * 1e3:.3f} ms" for k, v in measured.items()
+                 if k.startswith(label + "/")}
+        steps = f" ({SIM_STEPS} steps)" if label == "cheetah" else ""
+        log(f"perfmodel {label}: one pass, {len(tasks)} tasks, {len(waves)} waves, CUDA-graph "
+            f"construction {construct_us:.1f} us; H100_LIKE: "
+            + ", ".join(f"{p} {m['time_us']:.1f} us (occupancy {m['occupancy']:.3f})"
+                        for p, m in model.items())
+            + f"; this run's walls{steps}: {walls} [{card}]")
 
 
 def phase_acs_sw(device):
@@ -1454,11 +1794,9 @@ def dyn_runner(policy, device):
 
 def kernel_modules():
     """The six hand-written kernels' wrapper modules."""
-    from repro_torch.kernels import flash_attention, grouped_matmul, lru_scan, ready_queue
-    from repro_torch.kernels import selective_scan, wave_elementwise
-
-    return (ready_queue, wave_elementwise, flash_attention, lru_scan, grouped_matmul,
-            selective_scan)
+    return tuple(importlib.import_module(f"repro_torch.kernels.{name}")
+                 for name in ("ready_queue", "wave_elementwise", "flash_attention", "lru_scan",
+                              "grouped_matmul", "selective_scan"))
 
 
 def phase_dyn(device, card):
@@ -1607,9 +1945,9 @@ def serve_once(cfg, params, server_cls, prompts, device, **kw):
     """One server run over ``prompts``; returns (per-prompt tokens, wall
     seconds, host reads, {kernel: launches})."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import grouped_matmul as gm
-    from repro_torch.kernels import lru_scan as ls
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    ls = importlib.import_module("repro_torch.kernels.lru_scan")
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.runtime import SessionServer
 
@@ -1625,6 +1963,14 @@ def serve_once(cfg, params, server_cls, prompts, device, **kw):
         server.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if getattr(server, "scheduler_name", None) == "mesh":
+        entry = server.report_log[-1]
+        stats = entry["device_session"]
+        log(f"serve {cfg.name} mesh: shards {stats['n_shards']} on {stats['n_devices']} "
+            f"device(s), slots a shard (mean) {entry['shard_slots_mean']}, placements "
+            f"{stats['placements']}, cross-shard edges {stats['cross_shard_edges']}, transfer "
+            f"{entry['transfer_mode']}, drain overlap {entry['drain_overlap']}, host-path tasks "
+            f"{stats['host_task_dispatches']}")
     launches = {"flash_attention": fa.launches, "lru_scan": ls.launches,
                 "grouped_matmul": gm.launches, "selective_scan": ss.launches}
     check(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
@@ -1685,10 +2031,14 @@ def phase_serve(device, card, arch):
         decode_s.extend(t_dec)
 
     walls, tokens, main_launches = {}, {}, None
-    for name, cls, kw in (("SessionServer(wave)", SessionServer, {"scheduler": "wave"}),
-                          ("SessionServer(device)", SessionServer, {"scheduler": "device"}),
-                          ("SessionServer(frontier)", SessionServer, {"scheduler": "frontier"}),
-                          ("ContinuousBatchingServer", ContinuousBatchingServer, {})):
+    servers = [("SessionServer(wave)", SessionServer, {"scheduler": "wave"}),
+               ("SessionServer(device)", SessionServer, {"scheduler": "device"}),
+               ("SessionServer(frontier)", SessionServer, {"scheduler": "frontier"}),
+               ("ContinuousBatchingServer", ContinuousBatchingServer, {})]
+    if arch in MESH_SERVE:
+        servers.append((f"SessionServer(mesh, {MESH_SERVE_SHARDS} shards)", SessionServer,
+                        {"scheduler": "mesh", "n_shards": MESH_SERVE_SHARDS}))
+    for name, cls, kw in servers:
         toks, wall, reads, launches = serve_once(cfg, params, cls, prompts, device, **kw)
         check(all(len(t) == SERVE_MAX_NEW for t in toks),
               f"{cfg.name} {name}: a request lacks tokens")
@@ -1706,7 +2056,8 @@ def phase_serve(device, card, arch):
             f"launches {launches} [{card}]")
     check(all(t == tokens["SessionServer(wave)"] for t in tokens.values()),
           f"serve {cfg.name}: the servers' tokens differ")
-    log(f"serve {cfg.name}: prompt lengths {[len(p) for p in prompts]}; the four servers' "
+    log(f"serve {cfg.name}: prompt lengths {[len(p) for p in prompts]}; the {len(servers)} "
+        f"servers' "
         f"tokens identical and equal to the plain greedy loop; median prefill "
         f"{statistics.median(prefill_s) * 1e3:.3f} ms, median decode step "
         f"{statistics.median(decode_s) * 1e3:.3f} ms (greedy loop, host clock, "
@@ -1771,7 +2122,7 @@ def frontend_pass(device, card, cfg, params, s, plain=False):
     """One frontend pass (see ``phase_frontend``): returns forward's
     logits and prefill's flash launches."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import FRONTEND_DIMS, decode_step, forward, init_cache, prefill
 
     check(not torch.backends.cuda.matmul.allow_tf32, "float32 matmuls must not run in TF32")
@@ -1928,7 +2279,7 @@ def phase_numbers(device, launches):
         "name": "ready_queue",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ready_queue.cu",
-        "replaces": "src/repro/kernels/ready_queue.py:47",
+        "replaces": "src/repro/kernels/ready_queue.py:107",
         "launches": launches,
         "matches_plain": bit_equal(got[0], want[0]) and bit_equal(got[1], want[1]),
         "max_abs_err": max_abs_err,
@@ -2610,7 +2961,10 @@ def main() -> int:
     launches, hw_walls = timed(phase_acs_hw, device)
     wave_launches, widest, wave_walls = timed(phase_acs_hw_waves, device)
     session_walls = timed(phase_session, device)
+    mesh_rq, mesh_we, mesh_walls = timed(phase_mesh, device, card)
     sw_walls = timed(phase_acs_sw, device)
+    timed(phase_perfmodel, device, card, {**hw_walls, **wave_walls, **session_walls, **mesh_walls,
+                                  **sw_walls})
     timed(phase_dyn, device, card)
     timed(phase_busy, device, card)
     serve_launches, serve_walls = {}, {}
@@ -2635,7 +2989,10 @@ def main() -> int:
     frontend_launches = {arch: timed(phase_frontend, device, card, arch)
                          for arch in FRONTEND_ARCHS}
     rg, granite, mamba, deepseek = (serve_launches[a] for a in SERVE_ARCHS)
-    flash, lru, gmm, scan = kernels[2:]
+    queue, wave, flash, lru, gmm, scan = kernels
+    # The mesh phase's shards launched both device-window kernels too.
+    queue.update(launches=queue["launches"] + mesh_rq, mesh_launches=mesh_rq)
+    wave.update(launches=wave["launches"] + mesh_we, mesh_launches=mesh_we)
     flash.update(launches=rg["flash_attention"], granite_launches=granite["flash_attention"],
                  mla_launches=deepseek["flash_attention"],
                  paligemma_launches=frontend_launches["paligemma-3b"])
@@ -2648,7 +3005,7 @@ def main() -> int:
         check(kernel["launches"] >= 1, f"the main path launched no {kernel['name']} kernel")
 
     kind = torch.cuda.get_device_name(0)
-    for key, secs in {**hw_walls, **wave_walls, **session_walls, **sw_walls,
+    for key, secs in {**hw_walls, **wave_walls, **session_walls, **mesh_walls, **sw_walls,
                       **serve_walls}.items():
         log(f"wall {key}: {secs * 1e3:.3f} ms [{card}]")
     profile_pass("chain_universe/device_loop, after the serving passes",

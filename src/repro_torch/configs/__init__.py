@@ -1,9 +1,10 @@
 """Assigned architecture registry: ``get_config(name)`` / ``--arch <id>``
 (a copy of ``repro/configs/``: pure data, no JAX).
 
-The port builds the models whose mixers and FFN it has (GQA global and
-local attention, RG-LRU, dense and MoE FFN); ``models.init_params``
-raises ``NotImplementedError`` for the others (MLA, Mamba, frontends).
+The port builds all ten: GQA global and local attention, MLA, RG-LRU,
+Mamba, dense and MoE FFN, and the two frontends' projections
+(``models.init_params`` takes every config; the servers refuse the
+frontend archs, whose inputs are embeddings, not tokens).
 
 Each module defines ``CONFIG`` with the exact published configuration
 (sources inline). ``SHAPES`` defines the assigned input-shape grid and

@@ -2,9 +2,12 @@
 PyTorch (port of ``repro.core``): the segment algebra, buffers and tasks,
 the scheduling window, the ACS-SW schedulers and sessions, and the ACS-HW
 device window (wave, frontier and ready-queue lowerings, closed-batch and
-persistent) over a slab arena, and the full-DAG baseline."""
+persistent) over a slab arena, its mesh-sharded form (one shard, arena
+and CUDA stream a device slot), the full-DAG baseline, and the analytic
+device model of the policies (``perfmodel``)."""
 
-from .arena import ArenaAddress, ShapeClass, SlabArena, pad_shape, row_capacity
+from .arena import (ArenaAddress, ShapeClass, ShardTransferTable, SlabArena, pad_shape,
+                    row_capacity)
 from .buffers import Buffer, BufferPool, BufferView, resolve_device
 from .dag_baseline import DagRunner, build_full_dag, level_schedule
 from .device_dispatch import (
@@ -23,6 +26,9 @@ from .device_dispatch import (
 from .executors import (FusedWaveExecutor, GroupExecutor, GroupHandle, SerialExecutor,
                         group_by_signature)
 from .frontier import AsyncFrontierScheduler, DispatchQueue, FrontierSession
+from .mesh_session import MeshDeviceSession, ShardLink
+from .perfmodel import (H100_LIKE, RTX3060_LIKE, RTX3070_LIKE, TPU_V5E_CORE, DeviceModel,
+                        simulate)
 from .scheduler import (
     GroupTrace,
     PLAN_MODES,
@@ -43,7 +49,7 @@ from .window import SchedulingWindow, TaskState
 from .wrapper import KERNEL_REGISTRY, AcsKernel, TaskStream, acs_kernel
 
 __all__ = [
-    "ArenaAddress", "ShapeClass", "SlabArena", "pad_shape", "row_capacity",
+    "ArenaAddress", "ShapeClass", "ShardTransferTable", "SlabArena", "pad_shape", "row_capacity",
     "Buffer", "BufferPool", "BufferView", "resolve_device",
     "DagRunner", "build_full_dag", "level_schedule",
     "DeviceOpRegistry", "DeviceSession", "DeviceStep", "DeviceWindowRunner", "EpochProgram",
@@ -51,6 +57,8 @@ __all__ = [
     "plan_frontier", "plan_waves",
     "FusedWaveExecutor", "GroupExecutor", "GroupHandle", "SerialExecutor", "group_by_signature",
     "AsyncFrontierScheduler", "DispatchQueue", "FrontierSession",
+    "MeshDeviceSession", "ShardLink",
+    "DeviceModel", "H100_LIKE", "RTX3060_LIKE", "RTX3070_LIKE", "TPU_V5E_CORE", "simulate",
     "GroupTrace", "PLAN_MODES", "SCHEDULER_NAMES", "SESSION_NAMES", "SchedulerReport",
     "ThreadedStreamScheduler", "WaveScheduler", "make_scheduler", "make_session", "run_serial",
     "IntervalScoreboard",

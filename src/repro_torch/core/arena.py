@@ -30,8 +30,8 @@ plain integers:
 
 Slabs are torch tensors on the caller's device; a persistent session
 updates its slabs in place, so ``unpack`` hands each buffer a copy of its
-row, never a view. ``ShardTransferTable`` and the row export/import of
-the mesh come with the mesh slice (ROADMAP queue 1 item 10).
+row, never a view, and ``export_row`` (the mesh's d2d edge) a copy too.
+``ShardTransferTable`` is the mesh's ledger of rows moved between shards.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ import torch.nn.functional as F
 from .buffers import Buffer, BufferView, DeviceLike, resolve_device
 from .task import Operand, Task, operand_base
 
-__all__ = ["ShapeClass", "ArenaAddress", "SlabArena", "pad_shape", "row_capacity",
-           "torch_dtype"]
+__all__ = ["ShapeClass", "ArenaAddress", "ShardTransferTable", "SlabArena", "pad_shape",
+           "row_capacity", "torch_dtype"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -115,6 +115,50 @@ class ArenaAddress:
     @property
     def is_view(self) -> bool:
         return self.row_count > 0
+
+
+class ShardTransferTable:
+    """Cross-shard row-transfer ledger for a mesh-sharded window.
+
+    Each shard owns its own :class:`SlabArena`, a shard-local address
+    space: ``(class_id, row)`` means something only against the owning
+    shard's slabs, so a buffer consumed on another shard than the one that
+    produced it has its row MOVED across at a sub-epoch boundary, either
+    as a device-to-device copy of the slab row (``mode="d2d"``) or through
+    the host (the owner syncs the row back, the destination refreshes it
+    at its next dispatch; ``mode="staged"``). The table records every
+    such move: source and destination shard, shape-class label, row bytes
+    and mode.
+    """
+
+    def __init__(self) -> None:
+        self.transfers = 0
+        self.bytes = 0
+        # (src_shard, dst_shard) -> count; class label -> count;
+        # mode -> {transfers, bytes} (the d2d-vs-staged audit split).
+        self.by_route: Dict[Tuple[int, int], int] = {}
+        self.by_class: Dict[str, int] = {}
+        self.by_mode: Dict[str, Dict[str, int]] = {}
+
+    def record(self, src_shard: int, dst_shard: int, class_label: str,
+               nbytes: int, mode: str = "staged") -> None:
+        self.transfers += 1
+        self.bytes += int(nbytes)
+        route = (src_shard, dst_shard)
+        self.by_route[route] = self.by_route.get(route, 0) + 1
+        self.by_class[class_label] = self.by_class.get(class_label, 0) + 1
+        slot = self.by_mode.setdefault(mode, {"transfers": 0, "bytes": 0})
+        slot["transfers"] += 1
+        slot["bytes"] += int(nbytes)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "transfers": self.transfers,
+            "bytes": self.bytes,
+            "by_route": {f"{s}->{d}": n for (s, d), n in sorted(self.by_route.items())},
+            "by_class": dict(sorted(self.by_class.items())),
+            "by_mode": {m: dict(v) for m, v in sorted(self.by_mode.items())},
+        }
 
 
 class SlabArena:
@@ -231,6 +275,57 @@ class SlabArena:
     def addr_of(self, buf: Buffer) -> Optional[Tuple[int, int]]:
         """``(class_id, row)`` for a resident buffer, ``None`` otherwise."""
         return self._addr.get(id(buf))
+
+    # -- row-granular transfer (the mesh's d2d edges) -------------------------
+    def _row_addr(self, what: str, buf: Buffer,
+                  expected_generation: Optional[int]) -> Tuple[int, int]:
+        addr = self._addr.get(id(buf))
+        if addr is None:
+            raise KeyError(f"{what}: {buf.name!r} is not arena-resident")
+        cid, row = addr
+        if expected_generation is not None and self._generation[cid] != expected_generation:
+            raise RuntimeError(
+                f"{what}: class {cid} generation moved {expected_generation} -> "
+                f"{self._generation[cid]} (compaction invalidated the captured row address)")
+        return cid, row
+
+    def export_row(self, slabs: Sequence[torch.Tensor], buf: Buffer, *,
+                   expected_generation: Optional[int] = None) -> torch.Tensor:
+        """A copy of the device row holding ``buf``'s padded value, the
+        unit a ``ShardLink`` moves to another shard without a host hop. A
+        copy, not a view: the owner's next epoch writes its slab in place.
+        Raises if the buffer is not resident, its row was never packed or
+        awaits a host refresh, or a compaction moved the class's rows
+        since the caller captured ``expected_generation``."""
+        cid, row = self._row_addr("export_row", buf, expected_generation)
+        if row >= self._packed_rows[cid] or row in self._reused[cid]:
+            raise RuntimeError(
+                f"export_row: {buf.name!r} row {row} is not materialized "
+                "device-side (unpacked or pending host refresh)")
+        return slabs[cid][row].clone()
+
+    def import_row(self, slabs: Sequence[torch.Tensor], buf: Buffer, value: torch.Tensor, *,
+                   expected_generation: Optional[int] = None) -> List[torch.Tensor]:
+        """Write ``value`` (a padded row exported from a peer shard) into
+        ``buf``'s slab row, in place, on the slab's device: the receiving
+        half of a d2d edge. The row must already be materialized (inside
+        the packed watermark); the generation check is ``export_row``'s."""
+        cid, row = self._row_addr("import_row", buf, expected_generation)
+        if row >= self._packed_rows[cid]:
+            raise RuntimeError(
+                f"import_row: {buf.name!r} row {row} is not materialized "
+                "device-side yet (pack before importing)")
+        cls = self._classes[cid]
+        if tuple(value.shape) != cls.padded_shape:
+            raise ValueError(
+                f"import_row: {buf.name!r} expects a padded row of shape "
+                f"{cls.padded_shape}, got {tuple(value.shape)}")
+        out = list(slabs)
+        out[cid][row].copy_(value.to(dtype=out[cid].dtype), non_blocking=True)
+        # The row now holds the peer's bits; a pending host-refresh mark
+        # would clobber them at the next pack.
+        self._reused[cid].discard(row)
+        return out
 
     @property
     def classes(self) -> List[ShapeClass]:

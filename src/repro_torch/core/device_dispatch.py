@@ -49,7 +49,9 @@ The seed's uniform-shape interpreter survives as the legacy path
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import itertools
 import time
 from collections import deque
@@ -80,12 +82,10 @@ __all__ = [
     "DeviceStep",
     "DeviceWindowRunner",
     "DeviceSession",
+    "ExportedRow",
 ]
 
 MAX_ARITY = 3  # legacy uniform-slab path only; the arena path has no limit
-
-# What the mesh slice brings (ROADMAP queue 1 item 10).
-_MESH_ONLY = "is not ported yet: it comes with the mesh window, ROADMAP queue 1 item 10"
 
 
 class DeviceOpRegistry:
@@ -891,9 +891,8 @@ def _kernel_executor(device: torch.device) -> str:
 
 def _wave_counts() -> Tuple[int, int]:
     """The wave kernel's (launches, epoch steps) counters."""
-    from ..kernels import wave_elementwise
-
-    return wave_elementwise.launches, wave_elementwise.steps
+    we = importlib.import_module("..kernels.wave_elementwise", __package__)
+    return we.launches, we.steps
 
 
 class DeviceWindowRunner:
@@ -1175,6 +1174,30 @@ def _device_lowerable(task: Task) -> bool:
     return True
 
 
+def _tensors(value: Any) -> Iterable[torch.Tensor]:
+    """Every CUDA tensor inside a host value: a tensor, or tuples, lists
+    and dicts of them (a server slot's ``(cache, token, pos)``)."""
+    if isinstance(value, torch.Tensor):
+        if value.is_cuda:
+            yield value
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _tensors(v)
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+
+
+@dataclasses.dataclass
+class ExportedRow:
+    """A slab row in flight between two shards (``DeviceSession.export_row``):
+    a copy of the row, and the CUDA event recorded after the copy on the
+    owner's stream (None on the CPU, where the copy is done on return)."""
+
+    value: torch.Tensor
+    event: Optional[torch.cuda.Event]
+
+
 def _event_ready(event: Optional[torch.cuda.Event]) -> bool:
     """Non-blocking completion probe of a dispatch (the reference's
     ``jax.Array.is_ready``): the CUDA event recorded after it has been
@@ -1221,11 +1244,21 @@ class DeviceSession(SchedulerSession):
     and ``poll_inflight()`` retires landed segments oldest-first (FIFO,
     program order), probing the events with ``query()``.
 
-    ``device`` is where the slabs live (default ``"cuda"``).
-    ``pad_payloads`` (an XLA retrace guard in the reference) and the mesh's
-    ``export_row``/``import_row``/``invalidate_row`` are not ported
-    (ROADMAP queue 1 item 10) and raise ``NotImplementedError``; the mesh's
-    ``sync_buffers``/``mark_host_dirty`` come with them.
+    ``device`` is where the slabs live (default ``"cuda"``). ``stream``
+    (a ``torch.cuda.Stream`` on that device; the mesh gives each shard its
+    own) carries every dispatch, event and sync of the session: a sync
+    waits on that stream alone, not on the whole card, and each dispatch
+    first waits for the work its producer queued on the stream that was
+    current when the session was made. ``None`` (the default) runs on the
+    current stream and syncs the device.
+
+    The mesh's halves (:class:`~.mesh_session.ShardLink`): ``sync_buffers``
+    and ``mark_host_dirty`` stage a row through the host; ``export_row``
+    copies a device-authoritative row on this session's stream and records
+    an event, ``import_row`` makes this session's stream wait for that
+    event before writing the row; ``invalidate_row`` drops a superseded
+    copy's claim. ``pad_payloads=True`` is refused: the reference pads
+    payloads to keep XLA from retracing, and eager PyTorch does not trace.
     """
 
     def __init__(
@@ -1243,13 +1276,23 @@ class DeviceSession(SchedulerSession):
         wave_kernel: Optional[bool] = None,
         device: DeviceLike = "cuda",
         pad_payloads: bool = False,
+        stream: Optional["torch.cuda.Stream"] = None,
     ):
         if plan_mode not in PLAN_MODES:
             raise ValueError(
                 f"plan_mode must be one of {PLAN_MODES}, got {plan_mode!r}")
         if pad_payloads:
-            raise NotImplementedError(f"DeviceSession(pad_payloads=True) {_MESH_ONLY}")
+            raise NotImplementedError(
+                "DeviceSession(pad_payloads=True) is refused: the reference pads payloads "
+                "to keep XLA from retracing, and eager PyTorch does not trace")
         self.device = resolve_device(device)
+        if stream is not None and self.device.type != "cuda":
+            raise ValueError(f"a CUDA stream cannot carry a session on {self.device}")
+        self.stream = stream
+        # The stream the producer's values are queued on (initial state,
+        # uploads): every dispatch on ``stream`` waits for it first.
+        self._producer = (torch.cuda.current_stream(self.device) if stream is not None
+                          else None)
         super().__init__(window_size, history_limit=history_limit)
         self.registry = registry if registry is not None else DeviceOpRegistry(strict=False)
         self.plan_mode = plan_mode
@@ -1263,6 +1306,9 @@ class DeviceSession(SchedulerSession):
         # (slab newer than host) / host-side (host newer than slab).
         self._device_dirty: Dict[int, Buffer] = {}
         self._host_dirty: Dict[int, Buffer] = {}
+        # id(Buffer) -> the stream tag that made it host-dirty from outside
+        # (the mesh's "mesh-transfer"), added to its h2d refresh's tags.
+        self._host_dirty_tags: Dict[int, str] = {}
         # structure key -> (run, payload, n_steps, class generations,
         # executor): the session-scope plan cache, insertion order = LRU.
         self._plan_cache: Dict[Tuple, Tuple] = {}
@@ -1288,6 +1334,10 @@ class DeviceSession(SchedulerSession):
         self.host_syncs_d2h = 0
         self.host_syncs_h2d = 0
         self.host_syncs_by_tag: Dict[str, int] = {}
+        # The mesh's d2d row moves and write-owner invalidations.
+        self.d2d_row_exports = 0
+        self.d2d_row_imports = 0
+        self.row_invalidations = 0
         # The wave kernel's error flag, shared by every launch and read
         # where the session syncs anyway (None on the CPU).
         self._wave_err = _wave_err(self.device)
@@ -1346,16 +1396,35 @@ class DeviceSession(SchedulerSession):
             self._wave_unchecked = False
             raise_on_error(self._wave_err)
 
+    def _on_stream(self):
+        """The context every device call of the session runs in: its own
+        stream, after that stream waits for the producer's (a no-op
+        context without a stream)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        self.stream.wait_stream(self._producer)
+        return torch.cuda.stream(self.stream)
+
+    def _wait(self) -> None:
+        """Block the host until the session's work has finished: its
+        stream's, or the whole device's without one."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        else:
+            synchronize(self.device)
+
     def _sync_to_host(self, buffers: Iterable[Buffer], tags: Iterable[str] = ()) -> None:
         """Write the given buffers' slab rows back to host values (ONE
         blocking sync, counted; ``tags`` attributes it to the stream tags
-        that forced it)."""
+        that forced it). The copies are queued on the session's stream
+        before the wait, so the values are complete when it returns."""
         bufs = [b for b in buffers if id(b) in self._device_dirty]
         if not bufs or self._slabs is None:
             return
-        synchronize(self.device)
+        with self._on_stream():
+            self.arena.unpack(self._slabs, only=bufs)
+        self._wait()
         self._check_wave_errors()
-        self.arena.unpack(self._slabs, only=bufs)
         for b in bufs:
             del self._device_dirty[id(b)]
         self._count_sync("d2h", tuple(tags))
@@ -1365,14 +1434,105 @@ class DeviceSession(SchedulerSession):
         with self._lock:
             self._sync_to_host(list(self._device_dirty.values()), tags=("sync",))
 
-    def export_row(self, buf: Buffer):
-        raise NotImplementedError(f"DeviceSession.export_row {_MESH_ONLY}")
+    def sync_buffers(self, buffers: Iterable[Buffer],
+                     tags: Iterable[str] = ("transfer",)) -> None:
+        """Sync just the given buffers' device values back to host (one
+        counted d2h when any is device-dirty). The mesh stages a
+        cross-shard edge as: owner ``sync_buffers``, destination
+        ``mark_host_dirty``, destination's next dispatch re-uploads."""
+        with self._lock:
+            self._sync_to_host(list(buffers), tags=tuple(tags))
 
-    def import_row(self, buf: Buffer, value: Any) -> bool:
-        raise NotImplementedError(f"DeviceSession.import_row {_MESH_ONLY}")
+    def mark_host_dirty(self, buf: Buffer, tag: Optional[str] = None) -> None:
+        """The buffer's HOST value is now authoritative (another shard
+        produced it): drop any device-dirty claim and refresh its row at
+        the next dispatch. A no-op for buffers this arena never packed
+        (their next pack reads the host value anyway). ``tag`` attributes
+        the eventual h2d refresh to the stream that forced it (the mesh's
+        staged path passes ``"mesh-transfer"``)."""
+        with self._lock:
+            self._device_dirty.pop(id(buf), None)
+            if buf in self.arena:
+                self._host_dirty[id(buf)] = buf
+                if tag is not None:
+                    self._host_dirty_tags[id(buf)] = tag
+
+    # -- d2d row transfer (the mesh ShardLink's halves) --------------------
+    def export_row(self, buf: Buffer) -> Optional["ExportedRow"]:
+        """A copy of the slab row holding ``buf``'s device-authoritative
+        padded value, for a peer shard to import without a host hop, or
+        ``None`` when this session holds no such value (host value
+        current, row never packed, pending a host refresh, or moved by a
+        compaction): the caller then stages through the host. The copy is
+        queued on this session's stream, after the epoch that wrote the
+        row and before any later one, with an event recorded after it; the
+        host does not wait."""
+        with self._lock:
+            if self._slabs is None or id(buf) not in self._device_dirty:
+                return None
+            addr = self.arena.addr_of(buf)
+            if addr is None:
+                return None
+            try:
+                with self._on_stream():
+                    value = self.arena.export_row(
+                        self._slabs, buf,
+                        expected_generation=self.arena.class_generation(addr[0]))
+                    event = None
+                    if self.device.type == "cuda":
+                        event = torch.cuda.Event()
+                        event.record()
+            except RuntimeError:
+                return None
+            self.d2d_row_exports += 1
+            return ExportedRow(value, event)
+
+    def import_row(self, buf: Buffer, row: "ExportedRow") -> bool:
+        """Write a peer shard's exported row into this session's slab (a
+        d2d edge): the row becomes device-authoritative here, the state a
+        local dispatch leaves, so every later sync and observer path is
+        unchanged. This session's stream waits for the export's event
+        first, and the copy is marked as used on it, so the allocator
+        does not hand its memory out before the write ends."""
+        with self._lock:
+            self.arena.add(buf)
+            cid, _row = self.arena.addr_of(buf)
+            with self._on_stream():
+                # A first-touch import needs its row inside the packed
+                # watermark (an admission upload, not a counted sync).
+                self._slabs = self.arena.pack_incremental(self._slabs, device=self.device)
+                stream = (torch.cuda.current_stream(self.device)
+                          if self.device.type == "cuda" else None)
+                if row.event is not None:
+                    stream.wait_event(row.event)
+                if stream is not None and row.value.device == self.device:
+                    row.value.record_stream(stream)
+                self._slabs = self.arena.import_row(
+                    self._slabs, buf, row.value,
+                    expected_generation=self.arena.class_generation(cid))
+                if stream is not None and row.value.device != self.device:
+                    # A copy from another card (not run on one card): the
+                    # source copy must outlive it, so wait for it here.
+                    stream.synchronize()
+            self._host_dirty.pop(id(buf), None)
+            self._host_dirty_tags.pop(id(buf), None)
+            self._device_dirty[id(buf)] = buf
+            self.d2d_row_imports += 1
+            return True
 
     def invalidate_row(self, buf: Buffer) -> bool:
-        raise NotImplementedError(f"DeviceSession.invalidate_row {_MESH_ONLY}")
+        """Drop any authoritative claim this session holds on ``buf``:
+        the write-owner invalidation half of the mesh protocol (another
+        shard took write ownership, so a later sync here must not clobber
+        the fresh value). The slab row keeps its bits; a future read on
+        this shard re-stages through the link first."""
+        with self._lock:
+            had = self._device_dirty.pop(id(buf), None) is not None
+            self._host_dirty.pop(id(buf), None)
+            self._host_dirty_tags.pop(id(buf), None)
+            if had:
+                self.row_invalidations += 1
+            return had
 
     # -- row lifecycle -------------------------------------------------------
     def release_buffer(self, buf: Buffer) -> bool:
@@ -1384,6 +1544,7 @@ class DeviceSession(SchedulerSession):
         with self._lock:
             self._device_dirty.pop(id(buf), None)
             self._host_dirty.pop(id(buf), None)
+            self._host_dirty_tags.pop(id(buf), None)
             return self.arena.free(buf)
 
     def _maybe_compact(self) -> None:
@@ -1496,6 +1657,7 @@ class DeviceSession(SchedulerSession):
                 b = operand_base(op)
                 self._device_dirty[id(b)] = b
                 self._host_dirty.pop(id(b), None)
+                self._host_dirty_tags.pop(id(b), None)
 
     def _refresh_slabs(self, tasks: List[Task]) -> None:
         """Bring the slabs up to date before a dispatch: append rows for
@@ -1506,9 +1668,13 @@ class DeviceSession(SchedulerSession):
         stale = [b for b in self._host_dirty.values() if b in self.arena]
         if stale:
             self._slabs = self.arena.update_rows(self._slabs, stale)
+            tags = set(self._tags_of(tasks))
             for b in stale:
                 del self._host_dirty[id(b)]
-            self._count_sync("h2d", self._tags_of(tasks))
+                forced = self._host_dirty_tags.pop(id(b), None)
+                if forced is not None:
+                    tags.add(forced)
+            self._count_sync("h2d", tuple(tags))
 
     def _execute_host_step(self, tasks: List[Task]) -> None:
         """In-epoch host path (opaque operands): one call per task, reading
@@ -1524,11 +1690,19 @@ class DeviceSession(SchedulerSession):
         if need:
             self._sync_to_host(need.values(), tags=self._tags_of(tasks))
         for task in tasks:
+            if self.stream is not None:
+                # Values made on another stream (a server's prompt, a fresh
+                # cache) are read on this one: the allocator must not hand
+                # their memory out before this use ends.
+                for op in task.inputs:
+                    for t in _tensors(operand_base(op).value):
+                        t.record_stream(self.stream)
             self._host_exec.execute_wave([task])
             self.host_task_dispatches += 1
             for op in task.outputs:
                 b = operand_base(op)
                 self._host_dirty[id(b)] = b
+                self._host_dirty_tags.pop(id(b), None)
                 self._device_dirty.pop(id(b), None)
             self.waves.append([task.tid])
             self._note_retired(task)
@@ -1605,10 +1779,11 @@ class DeviceSession(SchedulerSession):
 
     # -- the epoch ----------------------------------------------------------
     def _run_any_epoch(self) -> None:
-        if self.plan_mode == "loop":
-            self._run_epoch_loop()
-        else:
-            self._run_epoch()
+        with self._on_stream():
+            if self.plan_mode == "loop":
+                self._run_epoch_loop()
+            else:
+                self._run_epoch()
 
     def _pump(self) -> bool:
         # Segments a prior launch() left in flight retire first (blocking:
@@ -1743,6 +1918,9 @@ class DeviceSession(SchedulerSession):
                 "host_syncs_d2h": self.host_syncs_d2h,
                 "host_syncs_h2d": self.host_syncs_h2d,
                 "host_syncs_by_tag": dict(self.host_syncs_by_tag),
+                "d2d_row_exports": self.d2d_row_exports,
+                "d2d_row_imports": self.d2d_row_imports,
+                "row_invalidations": self.row_invalidations,
                 "n_classes": self.arena.n_classes(),
                 "padding_waste_frac": round(self.arena.total_waste_frac(), 4),
                 "slab_bytes": self.arena.slab_bytes(),
@@ -1756,7 +1934,7 @@ class DeviceSession(SchedulerSession):
             }
 
     def _finalize(self) -> SchedulerReport:
-        synchronize(self.device)
+        self._wait()
         self._check_wave_errors()
         wall = time.perf_counter() - self._t0
         self.stats.exec_seconds = wall

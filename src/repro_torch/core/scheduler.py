@@ -180,9 +180,9 @@ def run_serial(stream: Iterable[Task], device: DeviceLike = "cuda") -> Scheduler
 
 SCHEDULER_NAMES = ("serial", "wave", "threaded", "frontier", "device")
 # Policies that run as live-fed sessions. "device" is the persistent
-# device-resident window (DeviceSession). The reference's "mesh" session
-# comes with the mesh window (ROADMAP queue 1, item 10).
-SESSION_NAMES = ("serial", "wave", "threaded", "frontier", "device")
+# device-resident window (DeviceSession); "mesh" shards that window across
+# devices, one DeviceSession (and CUDA stream) a shard (MeshDeviceSession).
+SESSION_NAMES = ("serial", "wave", "threaded", "frontier", "device", "mesh")
 # Device plan lowerings. "wave"/"frontier" lower an epoch to a fixed step
 # table (order decided on the host at plan time, each step a wave-kernel
 # launch or a loop of vmapped groups); "loop" lowers it to a
@@ -234,8 +234,10 @@ def make_session(name: str, window_size: int = 32, num_streams: int = 4,
     the live-fed equivalence baseline. ``"device"`` is the persistent
     device-resident window (:class:`~.device_dispatch.DeviceSession`):
     submissions drain in one-dispatch epochs over a session-lifetime slab
-    arena; ``plan_mode`` only affects it. ``max_inflight`` only affects
-    ``"frontier"``, ``max_group`` the frontier and the device session.
+    arena; ``plan_mode`` only affects it. ``"mesh"`` shards that window
+    over ``launch.mesh.make_window_mesh(device=device)``
+    (:class:`~.mesh_session.MeshDeviceSession`). ``max_inflight`` only
+    affects ``"frontier"``, ``max_group`` the frontier and the device session.
     """
     from .session import ThreadedSession, WaveSession
 
@@ -262,4 +264,13 @@ def make_session(name: str, window_size: int = 32, num_streams: int = 4,
         return DeviceSession(window_size=window_size, plan_mode=plan_mode,
                              max_group=max_group, history_limit=history_limit,
                              device=device)
+    if name == "mesh":
+        from .mesh_session import MeshDeviceSession
+
+        # One shard per device of make_window_mesh (construct
+        # MeshDeviceSession directly for n_shards or a device list). As in
+        # the reference, the shards run the ready-queue "loop" lowering:
+        # plan_mode, validated above, is not forwarded.
+        return MeshDeviceSession(window_size=window_size, history_limit=history_limit,
+                                 device=device)
     raise ValueError(f"unknown session {name!r}; choose from {SESSION_NAMES}")

@@ -19,10 +19,19 @@ and the fixed branch table the ready queue and the wave kernel share.
 on the card (``python -m repro_torch.kernels.tile_sweep``).
 Kernels build at first use (``_nvcc.py``); importing this package needs
 no compiler and no card.
+
+As in the reference's ``repro.kernels``, the package binds
+``flash_attention``, ``grouped_matmul``, ``lru_scan``, ``wave_elementwise``
+and ``apply_wave`` to the functions; their modules (launch counters,
+``build``) are ``importlib.import_module("repro_torch.kernels.<name>")``.
+``ready_queue``, ``selective_scan``, ``ops`` and ``ref`` are modules.
 """
 
-from . import (flash_attention, grouped_matmul, lru_scan, ops, ready_queue, ref, selective_scan,
-               wave_elementwise)
+from . import ops, ready_queue, ref, selective_scan
+from .flash_attention import flash_attention
+from .grouped_matmul import grouped_matmul
+from .lru_scan import lru_scan
+from .wave_elementwise import apply_wave, wave_elementwise
 
-__all__ = ["flash_attention", "grouped_matmul", "lru_scan", "ops", "ready_queue", "ref",
-           "selective_scan", "wave_elementwise"]
+__all__ = ["apply_wave", "flash_attention", "grouped_matmul", "lru_scan", "ops", "ready_queue",
+           "ref", "selective_scan", "wave_elementwise"]

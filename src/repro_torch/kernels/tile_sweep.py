@@ -21,15 +21,17 @@ with every time. Needs a CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import statistics
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
-from . import flash_attention as fa
-from . import grouped_matmul as gm
 from ._nvcc import BUILD_DIR, build, resources
+
+fa = importlib.import_module(".flash_attention", __package__)
+gm = importlib.import_module(".grouped_matmul", __package__)
 
 # The grouped GEMM's three launch shapes <T, BM, BN, BK, WM, WN, STAGES>.
 _DECODE = "launch_tc<T, 16, 64, 64, 1, 4, 4>"

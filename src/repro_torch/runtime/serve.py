@@ -18,9 +18,10 @@ serialized by its RAW hazards on the slot buffer.
 Two servers share the slot/admission machinery (:class:`_ServingCore`):
 
 * :class:`SessionServer` — the open-loop runtime. It owns a persistent
-  session (a :class:`~..core.session.WaveSession`, the async
-  :class:`~..core.frontier.FrontierSession`, or the device window's
-  :class:`~..core.device_dispatch.DeviceSession`); admission emits a request's
+  session (the async :class:`~..core.frontier.FrontierSession`, a
+  :class:`~..core.session.WaveSession`, the device window's
+  :class:`~..core.device_dispatch.DeviceSession` or its mesh-sharded
+  :class:`~..core.mesh_session.MeshDeviceSession`); admission emits a request's
   *whole program* (prefill + its count-bounded per-slot decode chain)
   through a live per-request ``TaskStream`` into the live window while
   other requests' chains are still in flight; per-task retirement
@@ -69,6 +70,7 @@ from ..core.buffers import DeviceLike
 from ..core.executors import SerialExecutor
 from ..core.device_dispatch import DeviceSession
 from ..core.frontier import FrontierSession
+from ..core.mesh_session import MeshDeviceSession
 from ..core.session import WaveSession
 from ..core.wrapper import AcsKernel
 from ..models import LanguageModel, decode_step, init_cache, prefill
@@ -482,21 +484,27 @@ class SessionServer(_ServingCore):
     buffers, finish requests), then admit queued requests into freed
     slots.
 
-    ``scheduler="wave"`` (the port's default) runs the live
-    :class:`~..core.session.WaveSession` with a serial executor: each poll
-    launches the READY set as one wave (one slot's decode co-resident with
-    another's prefill). ``scheduler="frontier"`` (the reference's default)
-    runs the async :class:`~..core.frontier.FrontierSession` with
-    ``max_group=1``, because slot values are opaque and cannot be stacked,
-    and up to ``max_inflight`` tasks in flight: each retires when its CUDA
-    event completes, with no host sync per task. ``scheduler="device"``
-    runs the persistent :class:`~..core.device_dispatch.DeviceSession`
-    (``plan_mode``, default ``"loop"`` as in the reference); every serving
-    task has opaque slot values, so each takes the session's in-epoch host
-    path, and the pool's free hook releases freed buffers' arena rows. The
-    reference's ``"mesh"`` server needs the mesh window, which the port
-    does not have yet (ROADMAP queue 1 item 10), and raises
-    ``NotImplementedError``.
+    ``scheduler="frontier"`` (the default, as in the reference) runs the
+    async :class:`~..core.frontier.FrontierSession` with ``max_group=1``,
+    because slot values are opaque and cannot be stacked, and up to
+    ``max_inflight`` tasks in flight: each retires when its CUDA event
+    completes, with no host sync per task. ``scheduler="wave"`` runs the
+    live :class:`~..core.session.WaveSession` with a serial executor: each
+    poll launches the READY set as one wave (one slot's decode co-resident
+    with another's prefill). ``scheduler="device"`` runs the persistent
+    :class:`~..core.device_dispatch.DeviceSession` (``plan_mode``, default
+    ``"loop"`` as in the reference); every serving task has opaque slot
+    values, so each takes the session's in-epoch host path, and the pool's
+    free hook releases freed buffers' arena rows. ``scheduler="mesh"``
+    serves through :class:`~..core.mesh_session.MeshDeviceSession`
+    (``n_shards``, default one a visible card; ``transfer_mode``,
+    ``overlap_drains``): the admission plane places each request's chain
+    on one shard (its slot buffer's RAW chain pins it there), each shard
+    runs on its own CUDA stream, and the free hook reaches every shard's
+    arena. Each pump samples how many active slots each shard owns
+    (``shard_occupancy``) into the bounded ``shard_slot_samples`` trace,
+    whose means, with the session's transfer counters, land in the close
+    report.
 
     **Cooperative preemption** (``preempt_rounds``): with the default
     ``None``, a request's whole decode chain is emitted at admission. With
@@ -509,24 +517,20 @@ class SessionServer(_ServingCore):
     token stream is bit-identical to an unpreempted run.
     """
 
-    SCHEDULERS = ("wave", "frontier", "device")
-    _NOT_PORTED = {"mesh": "item 10"}
+    SCHEDULERS = ("frontier", "wave", "device", "mesh")
 
     def __init__(self, cfg: ArchConfig, params: LanguageModel, *, max_slots: int = 4,
                  max_len: int = 64, window: int = 32, max_queue: int = 256,
-                 scheduler: str = "wave", max_inflight: int = 8,
+                 scheduler: str = "frontier", max_inflight: int = 8,
                  history_limit: Optional[int] = 1024,
-                 plan_mode: str = "loop",
+                 plan_mode: str = "loop", n_shards: Optional[int] = None,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  tenant_quota: Optional[Union[int, Dict[str, int]]] = None,
                  aging_s: Optional[float] = 5.0,
                  preempt_rounds: Optional[int] = None,
+                 transfer_mode: str = "auto",
+                 overlap_drains: bool = True,
                  device: DeviceLike = "cuda"):
-        if scheduler in self._NOT_PORTED:
-            raise NotImplementedError(
-                f"scheduler={scheduler!r} is not ported to repro_torch yet (ROADMAP queue 1 "
-                f"{self._NOT_PORTED[scheduler]}); the port serves with scheduler='wave', "
-                "'frontier' or 'device'")
         if scheduler not in self.SCHEDULERS:
             raise ValueError(
                 f"session server scheduler must be one of {self.SCHEDULERS}, "
@@ -544,6 +548,14 @@ class SessionServer(_ServingCore):
                                          history_limit=history_limit, device=self.device)
             # Freeing a pool buffer (a prompt) releases its arena row, so
             # the session's slabs stay bounded under unbounded traffic.
+            self.pool.add_free_hook(self.session.release_buffer)
+        elif scheduler == "mesh":
+            self.session = MeshDeviceSession(window_size=window, n_shards=n_shards,
+                                             history_limit=history_limit,
+                                             transfer_mode=transfer_mode,
+                                             overlap_drains=overlap_drains, device=self.device)
+            # As for "device", reaching every shard's arena (a freed buffer
+            # may hold rows on several).
             self.pool.add_free_hook(self.session.release_buffer)
         elif scheduler == "frontier":
             self.session = FrontierSession(window_size=window, max_inflight=max_inflight,
@@ -563,9 +575,17 @@ class SessionServer(_ServingCore):
         self.task_kinds: Dict[int, str] = {}
         self.occupancy_samples: Deque[int] = collections.deque(
             maxlen=history_limit)
+        # mesh only: one {shard: active slots} sample per pump and per
+        # request retirement, bounded like every monitoring trace.
+        self.shard_slot_samples: Deque[Dict[int, int]] = collections.deque(
+            maxlen=history_limit)
 
     # -- retirement callbacks (fire inside session.poll/drive) --------------
     def _finish_slot(self, slot: int) -> None:
+        if self.scheduler_name == "mesh":
+            # Sampled while the finishing slot is still active: its chain
+            # just ran, so its shard is known.
+            self.shard_slot_samples.append(self.shard_occupancy())
         req = self._release_slot(slot)
         req.t_finish = time.perf_counter()
         self._finished.append(req)
@@ -703,8 +723,25 @@ class SessionServer(_ServingCore):
             self.session.poll()
             self._admit_ready()
             self.occupancy_samples.append(self.session.window.resident())
+            if self.scheduler_name == "mesh":
+                self.shard_slot_samples.append(self.shard_occupancy())
         out, self._finished = self._finished, []
         return out
+
+    def shard_occupancy(self) -> Dict[int, int]:
+        """Per-shard slot accounting (mesh scheduler): how many ACTIVE
+        request slots each shard owns, a slot being the shard's that last
+        wrote its buffer (where its chain runs). Slots whose chain has not
+        run yet are not attributed."""
+        counts: Dict[int, int] = {}
+        shard_of = getattr(self.session, "shard_of", None)
+        if shard_of is None:
+            return counts
+        for s in self.active:
+            shard = shard_of(self.slots[s])
+            if shard is not None:
+                counts[shard] = counts.get(shard, 0) + 1
+        return counts
 
     def run_until_drained(self, max_iters: int = 10_000) -> List[Request]:
         """Serve until queue and slots empty. Raises :class:`DrainTimeout`
@@ -742,5 +779,19 @@ class SessionServer(_ServingCore):
         entry["host_reads"] = self.host_reads
         entry["occupancy_mean"] = (
             float(np.mean(self.occupancy_samples)) if self.occupancy_samples else 0.0)
+        if hasattr(report, "session_stats"):  # device and mesh session counters
+            entry["device_session"] = dict(report.session_stats)
+        if self.shard_slot_samples:  # mesh per-shard slot accounting
+            shards: Dict[int, List[int]] = {}
+            for sample in self.shard_slot_samples:
+                for shard, n in sample.items():
+                    shards.setdefault(shard, []).append(n)
+            entry["shard_slots_mean"] = {
+                str(shard): float(np.mean(v)) for shard, v in sorted(shards.items())}
+        if self.scheduler_name == "mesh":
+            stats = report.session_stats
+            for key in ("transfer_mode", "d2d_moves", "staged_moves", "d2d_fallbacks",
+                        "drain_overlap", "overlap_drains"):
+                entry[key] = stats[key]
         self.report_log.append(entry)
         return report

@@ -133,3 +133,52 @@ def lower(side, tasks):
     arena = pkg.SlabArena()
     arena.add_tasks(tasks)
     return DISPATCH[side].lower_epoch_program(tasks, reg, arena), reg, arena
+
+
+def cross_shard_joins(side, seed=0, n_chains=4, width=8, rounds=6):
+    """``tests/test_mesh_transfers.py``'s stream: ``n_chains`` independent
+    two-buffer chains (a mesh's placement spreads them over its shards)
+    with neighbour-chain joins on odd rounds, each a cross-shard edge once
+    the chains sit on different shards. Returns (buffers, tasks)."""
+    pkg, br = PKG[side], BRANCHES[side]
+    rng = np.random.RandomState(seed)
+    p = pool(side)
+    axpy = pkg.AcsKernel(name="axpy_xfer", fn=br["axpy"])
+    mul = pkg.AcsKernel(name="mul_xfer", fn=br["mul"])
+    chains = [[p.alloc((width,), np.float32, name=f"c{c}b{k}",
+                       value=value(side, rng.randn(width).astype(np.float32)))
+               for k in range(2)]
+              for c in range(n_chains)]
+    stream = pkg.TaskStream()
+    tasks = []
+    for r in range(rounds):
+        for c in range(n_chains):
+            a, b = chains[c]
+            tasks.append(axpy.launch(stream, inputs=(a, b), outputs=(a,)))
+            tasks.append(mul.launch(stream, inputs=(a, b), outputs=(b,)))
+        if r % 2 == 1:
+            for c in range(n_chains):
+                other = chains[(c + 1) % n_chains][0]
+                a = chains[c][0]
+                tasks.append(axpy.launch(stream, inputs=(other, a), outputs=(a,)))
+    return [b for ch in chains for b in ch], tasks
+
+
+def dyn_routing(side, seed=0):
+    """The differential matrix's dyn stream: Dynamic Routing on one seeded
+    ``[1, 3, 32, 32]`` input, weights from seed 0. Returns ([output],
+    tasks)."""
+    x = np.random.RandomState(seed).randn(1, 3, 32, 32).astype(np.float32)
+    if side == "ref":
+        from repro.dyn import WORKLOADS
+
+        init, build, _ = WORKLOADS["dynamic_routing"]
+        params = init(0)
+    else:
+        from repro_torch.dyn import WORKLOADS
+
+        init, build, _ = WORKLOADS["dynamic_routing"]
+        params = init(0, device="cpu")
+    stream = PKG[side].TaskStream()
+    out = build(params, stream, x)
+    return [out], stream.tasks

@@ -56,6 +56,12 @@
 * the wrappers' input checks, and model prefills that launch the kernels
   (recurrentgemma: flash and the scan; deepseek: MLA through flash and
   the grouped GEMM; falcon-mamba: the selective scan, in decode too);
+* the mesh window on one card: ``MeshDeviceSession`` with 2 and 4 shards,
+  each on its own stream, in loop and wave plan modes, on the cross-shard
+  join stream at width 4096, bit-equal to ``run_serial``, every dispatch
+  a ready-queue or wave-kernel launch, every edge a d2d row copy without a
+  host sync; an exported row unchanged by its owner's next epoch; the
+  threaded scheduler's 200-task stress on 8 real streams;
 * the dynamic-DNN workloads (``dyn/``) bit-equal to ``run_serial`` under
   every ACS-SW and ACS-HW policy and ``DagRunner``, launching none of the
   six kernels; the frontier keeping more than one group in flight on
@@ -72,6 +78,7 @@ This module imports no JAX: the card's machine has none.
 """
 
 import functools
+import importlib
 import importlib.util
 from pathlib import Path
 
@@ -80,19 +87,21 @@ import pytest
 import torch
 
 from repro_torch.core import BufferPool, DeviceOpRegistry, DeviceSession, DeviceWindowRunner
-from repro_torch.core import SlabArena, Task, run_serial
+from repro_torch.core import (MeshDeviceSession, SlabArena, Task, ThreadedStreamScheduler,
+                              run_serial)
 from repro_torch.core.device_dispatch import _loop_kernel_parts, lower_epoch_program
 from repro_torch.core.task import default_segments
-from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import grouped_matmul as gm
-from repro_torch.kernels import lru_scan as ls
 from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels import selective_scan as ss
-from repro_torch.kernels import wave_elementwise as we
 from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches, wave_step
 from repro_torch.kernels.ref import (attention_ref, grouped_matmul_ref, lru_scan_ref,
                                      mamba_scan_ref, ready_queue_ref, selective_scan_ref,
                                      wave_rows_ref)
+
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
+ls = importlib.import_module("repro_torch.kernels.lru_scan")
+we = importlib.import_module("repro_torch.kernels.wave_elementwise")
 
 pytestmark = pytest.mark.cuda
 
@@ -1088,3 +1097,96 @@ def test_frontier_server_launches_exactly_and_matches_the_wave_server(device, ar
     assert tokens["frontier"] == tokens["wave"]
     assert all(len(t) == smoke.SERVE_MAX_NEW for t in tokens["frontier"])
     assert report.max_inflight_groups() >= 1
+
+
+# -- the mesh window on one card, and the threaded stress on real streams -----
+
+def _joins(device, seed=0, n_chains=4, width=4096, rounds=6):
+    """``tests/test_mesh_transfers.py``'s cross-shard join stream (tasks
+    carry the branch opcodes, so both device kernels take them)."""
+    rng = np.random.RandomState(seed)
+    pool = BufferPool(device)
+    chains = [[pool.alloc((width,), np.float32, value=rng.randn(width).astype(np.float32))
+               for _ in range(2)] for _ in range(n_chains)]
+    tasks = []
+
+    def task(name, ins, outs):
+        r, w = default_segments(ins, outs)
+        tasks.append(Task(opcode=name, fn=LOOP_BRANCHES[name], inputs=ins, outputs=outs,
+                          read_segments=r, write_segments=w))
+
+    for r in range(rounds):
+        for a, b in chains:
+            task("axpy", (a, b), (a,))
+            task("mul", (a, b), (b,))
+        if r % 2 == 1:
+            for c in range(n_chains):
+                task("axpy", (chains[(c + 1) % n_chains][0], chains[c][0]), (chains[c][0],))
+    return [b for ch in chains for b in ch], tasks
+
+
+def _bits_of(bufs):
+    return torch.stack([b.value for b in bufs]).cpu().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["loop", "wave"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_mesh_session_on_one_card_bit_equal_to_serial(device, n_shards, mode):
+    sbufs, stasks = _joins(device)
+    run_serial(stasks, device=device)
+    bufs, tasks = _joins(device)
+    reg = DeviceOpRegistry(strict=False)
+    register_loop_branches(reg)
+    rq.reset_launches()
+    we.reset_launches()
+    session = MeshDeviceSession(window_size=32, n_shards=n_shards, registry=reg,
+                                plan_mode=mode, device=device)
+    assert len({sh.stream.cuda_stream for sh in session.shards}) == n_shards
+    for i in range(0, len(tasks), 12):
+        session.submit(tasks[i: i + 12])
+        session.poll()
+    session.close()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_bits_of(bufs), _bits_of(sbufs))
+    stats = session.session_stats()
+    kernel = "loop_dispatches" if mode == "loop" else "wave_kernel_dispatches"
+    launched = rq.launches if mode == "loop" else we.launches
+    assert launched == stats[kernel] == stats["device_dispatches"] > 0
+    assert stats["transfer_mode"] == "d2d" and stats["cross_shard_edges"] > 0
+    assert stats["d2d_moves"] > 0 and stats["staged_moves"] == 0
+    assert all(s["host_syncs_by_tag"].get("mesh-transfer", 0) == 0 for s in stats["per_shard"])
+    assert stats["drain_overlap"] >= 2
+
+
+def test_exported_row_survives_the_owners_next_epoch(device):
+    bufs, tasks = _joins(device, n_chains=1, rounds=2)
+    reg = DeviceOpRegistry(strict=False)
+    register_loop_branches(reg)
+    owner = DeviceSession(window_size=8, registry=reg, plan_mode="loop", device=device,
+                          stream=torch.cuda.Stream(device))
+    owner.submit(tasks[:2])
+    owner.poll()
+    row = owner.export_row(bufs[0])
+    assert row is not None and row.event is not None
+    owner.submit(tasks[2:])  # writes the exported row in place, on the owner's stream
+    owner.poll()
+    owner.close()
+    row.event.synchronize()
+    sbufs, stasks = _joins(device, n_chains=1, rounds=2)
+    run_serial(stasks[:2], device=device)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(row.value.cpu().numpy().view(np.int32),
+                                  sbufs[0].value.cpu().numpy().view(np.int32))
+    assert not torch.equal(row.value, bufs[0].value)
+
+
+def test_threaded_stress_on_real_streams(device):
+    """``tests/test_torch_threaded_stress.py``'s shape: 8 workers, each on
+    its own CUDA stream, over the 200-task dense stream."""
+    sbufs, stasks = _stream(device, 42, 200, 4, n_bufs=10)
+    run_serial(stasks, device=device)
+    bufs, tasks = _stream(device, 42, 200, 4, n_bufs=10)
+    report = ThreadedStreamScheduler(window_size=32, num_streams=8, device=device).run(tasks)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(_bits_of(bufs), _bits_of(sbufs))
+    assert report.exec_stats["tasks_run"] == report.window_stats["retired"] == 200

@@ -114,17 +114,18 @@ def test_make_session_host_policies_match_serial(name):
 
 
 def test_session_names_and_refusals():
-    assert S.T.SESSION_NAMES == ("serial", "wave", "threaded", "frontier", "device")
+    assert S.T.SESSION_NAMES == S.R.SESSION_NAMES == (
+        "serial", "wave", "threaded", "frontier", "device", "mesh")
+    assert isinstance(S.T.make_session("mesh", device="cpu"), S.T.MeshDeviceSession)
     with pytest.raises(ValueError, match="device"):
-        S.T.make_session("mesh", device="cpu")
+        S.T.make_session("teleport", device="cpu")
     with pytest.raises(ValueError, match="loop"):
         S.T.make_session("device", plan_mode="bogus", device="cpu")
-    session = S.T.DeviceSession(device="cpu")
-    for call in (lambda: session.export_row(None), lambda: session.import_row(None, None),
-                 lambda: session.invalidate_row(None),
-                 lambda: S.T.DeviceSession(device="cpu", pad_payloads=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            call()
+    # The reference's XLA retrace guard: eager PyTorch does not trace.
+    with pytest.raises(NotImplementedError, match="does not trace"):
+        S.T.DeviceSession(device="cpu", pad_payloads=True)
+    with pytest.raises(ValueError, match="CUDA stream"):
+        S.T.DeviceSession(device="cpu", stream=object())
 
 
 def test_runner_session_shares_registry():

@@ -11,6 +11,7 @@ Streams: the mixed-tag hazard stream (at width 4 it pads, at width 8 it is
 wave-kernel eligible), the reduced chain universe and one cheetah physics
 step (row views, mixed classes, variable arity)."""
 
+import importlib
 import dataclasses
 
 import numpy as np
@@ -23,7 +24,7 @@ from repro.core.device_dispatch import _run_tables as r_run_tables
 from repro_torch.core.device_dispatch import _build_program as t_build_program
 from repro_torch.core.device_dispatch import _run_tables as t_run_tables
 from repro_torch.core.device_dispatch import _wave_kernel_parts
-from repro_torch.kernels import wave_elementwise as we
+we = importlib.import_module("repro_torch.kernels.wave_elementwise")
 from repro_torch.kernels.ref import wave_rows_ref
 
 RTOL = ATOL = 1e-6

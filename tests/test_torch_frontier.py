@@ -428,7 +428,7 @@ def test_frontier_server_matches_the_other_servers_and_a_greedy_loop(key, inflig
     assert len(got) == len(prompts) and all(len(t) == 3 for t in got.values())
     for p in prompts:
         assert got[tuple(p)] == _greedy(cfg, params, p, 3, 32)
-    for name, other in (("wave", SessionServer(cfg, params, **kw)),
+    for name, other in (("wave", SessionServer(cfg, params, scheduler="wave", **kw)),
                         ("device", SessionServer(cfg, params, scheduler="device", **kw)),
                         ("batch", ContinuousBatchingServer(cfg, params, **kw))):
         assert _serve(other, prompts, 3)[0] == got, name

@@ -13,6 +13,7 @@ order); float16 and bfloat16 one output ulp of the type (2^-10 and 2^-7
 relative), since every version sums in float32 and rounds once.
 """
 
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -24,7 +25,7 @@ from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
 from repro.kernels.grouped_matmul import grouped_matmul as r_gmm
 from repro_torch.core import DeviceOpRegistry
-from repro_torch.kernels import grouped_matmul as gm
+gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import grouped_matmul_ref
 

@@ -1,7 +1,10 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither JAX nor the reference package, no source line imports them, and an
 entry point called without ``device=`` on a host without a card raises
-instead of moving to the CPU."""
+instead of moving to the CPU. Its public surface matches the reference's:
+``repro_torch.core`` exports every name of ``repro.core``, and each name
+the two ``kernels`` packages share is a function in both or a module in
+both."""
 
 import os
 import pkgutil
@@ -53,7 +56,9 @@ def test_no_source_imports_jax_or_the_reference(path):
 
 def _entry_points():
     from repro_torch.core import (AsyncFrontierScheduler, BufferPool, DagRunner, DeviceSession,
-                                  DeviceWindowRunner, FrontierSession, GroupExecutor, SlabArena)
+                                  DeviceWindowRunner, FrontierSession, GroupExecutor,
+                                  MeshDeviceSession, SlabArena)
+    from repro_torch.launch import make_window_mesh
     from repro_torch.core import make_scheduler, make_session, run_serial
     from repro_torch.dyn import WORKLOADS, params_from_numpy
     from repro_torch.configs import ARCHS
@@ -96,6 +101,12 @@ def _entry_points():
             cfg, init_params(cfg, 0, device="cpu"), scheduler="frontier"),
         "make_session[frontier]": lambda: make_session("frontier"),
         "make_scheduler[frontier]": lambda: make_scheduler("frontier"),
+        "MeshDeviceSession": lambda: MeshDeviceSession(),
+        "MeshDeviceSession[n_shards]": lambda: MeshDeviceSession(n_shards=2),
+        "make_window_mesh": lambda: make_window_mesh(),
+        "make_session[mesh]": lambda: make_session("mesh"),
+        "SessionServer[mesh]": lambda: SessionServer(
+            cfg, init_params(cfg, 0, device="cpu"), scheduler="mesh"),
         **{f"dyn.init[{name}]": lambda init=init: init(0)
            for name, (init, _, _) in WORKLOADS.items()},
         "dyn.params_from_numpy": lambda: params_from_numpy("squeezenet", {}),
@@ -117,3 +128,22 @@ def test_explicit_cpu_device_runs():
     buf = pool.alloc((4,), np.float32, value=np.ones(4, np.float32))
     assert buf.value.device.type == "cpu"
     assert run_serial([], device="cpu").exec_stats["tasks_run"] == 0
+
+
+def test_public_surface_matches_the_reference():
+    import inspect
+
+    import repro.core as R_core
+    import repro.kernels as R_kernels
+    import repro_torch.core as T_core
+    import repro_torch.kernels as T_kernels
+
+    assert set(R_core.__all__) <= set(T_core.__all__)
+    shared = set(R_kernels.__all__) & set(T_kernels.__all__)
+    assert shared >= {"flash_attention", "grouped_matmul", "lru_scan", "wave_elementwise",
+                      "apply_wave", "ops", "ref"}
+    for name in sorted(shared):
+        assert inspect.ismodule(getattr(T_kernels, name)) == \
+            inspect.ismodule(getattr(R_kernels, name)), name
+    for name in ("ready_queue", "selective_scan", "ops", "ref"):
+        assert inspect.ismodule(getattr(T_kernels, name)), name

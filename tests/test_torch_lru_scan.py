@@ -8,6 +8,7 @@ Tolerances: float32 2e-5 (the reference's own kernel tests); bfloat16
 2e-2, because bf16 rounds at other places in the two frameworks.
 """
 
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -16,7 +17,7 @@ import jax.numpy as jnp
 
 from repro.kernels import lru_scan as pallas_lru
 from repro.kernels import ref as R
-from repro_torch.kernels import lru_scan as ls
+ls = importlib.import_module("repro_torch.kernels.lru_scan")
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as T
 

@@ -34,6 +34,7 @@ and the plain attention with values narrower or wider than the keys.
 The kernel itself runs on the card only (``tests/test_torch_cuda.py``).
 """
 
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -42,7 +43,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref as R
-from repro_torch.kernels import flash_attention as fa
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as T
 from repro_torch.kernels import selective_scan as ss

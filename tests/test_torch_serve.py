@@ -7,8 +7,9 @@ co-schedules one slot's prefill with another's decode; prompt buffers are
 freed; the admission FIFO pushes back; QoS orders admission; preempted
 token streams are bit-identical to unpreempted ones; the device server
 (``scheduler="device"``) gives the same tokens and releases prompt rows
-through the pool's free hook; and the schedulers the port does not have
-yet raise. The server-against-greedy tests run reduced danube,
+through the pool's free hook; and every scheduler of the reference
+builds (the mesh server's own tests are in ``test_torch_mesh.py``). The
+server-against-greedy tests run reduced danube,
 recurrentgemma, granite-moe (MoE FFNs), deepseek-v2 (MLA caches, MoE with
 a shared expert) and falcon-mamba (Mamba states). A fresh admission on a
 reused slot starts from a zero recurrent state and conv tail (RG-LRU and
@@ -37,6 +38,7 @@ from repro_torch.runtime import (
 )
 
 CPU = dict(device="cpu")
+WAVE = dict(CPU, scheduler="wave")
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,7 +101,7 @@ SERVED = ["danube", "recurrentgemma", "granite", "deepseek", "falcon_mamba"]
 def test_servers_match_each_other_and_a_greedy_loop(key):
     cfg, params = _model(key)
     prompts = _prompts(cfg, 5, seed=1, length=7)
-    live = SessionServer(cfg, params, max_slots=2, max_len=32, **CPU)
+    live = SessionServer(cfg, params, max_slots=2, max_len=32, **WAVE)
     got = _serve(live, prompts, 3)
     batch = _serve(ContinuousBatchingServer(cfg, params, max_slots=2, max_len=32, **CPU),
                    prompts, 3)
@@ -113,7 +115,7 @@ def test_servers_match_each_other_and_a_greedy_loop(key):
 
 def test_requests_finish_with_their_token_counts(tiny):
     cfg, params = tiny
-    server = SessionServer(cfg, params, max_slots=2, max_len=32, **CPU)
+    server = SessionServer(cfg, params, max_slots=2, max_len=32, **WAVE)
     reqs = [server.submit(p, max_new=3) for p in _prompts(cfg, 4)]
     done = server.run_until_drained()
     server.close()
@@ -126,7 +128,7 @@ def test_requests_finish_with_their_token_counts(tiny):
 
 def test_window_coschedules_prefill_with_inflight_decode(tiny):
     cfg, params = tiny
-    server = SessionServer(cfg, params, max_slots=2, max_len=32, **CPU)
+    server = SessionServer(cfg, params, max_slots=2, max_len=32, **WAVE)
     kinds = {}
     server.session.add_retire_listener(lambda t: kinds.__setitem__(t.tid, t.opcode))
     prompts = _prompts(cfg, 2, seed=2)
@@ -186,7 +188,7 @@ def test_priority_class_admitted_first(tiny):
 
 def test_tenant_fairness_oldest_first_tiebreak(tiny):
     cfg, params = tiny
-    server = SessionServer(cfg, params, max_slots=2, max_len=32, **CPU)
+    server = SessionServer(cfg, params, max_slots=2, max_len=32, **WAVE)
     a = [server.submit(p, max_new=2, tenant="A") for p in _prompts(cfg, 4, seed=4)]
     b = server.submit(_prompts(cfg, 1, seed=5)[0], max_new=2, tenant="B")
     server.run_until_drained()
@@ -200,7 +202,7 @@ def test_preempted_tokens_bit_identical_to_unpreempted(tiny):
 
     def run(preempt_rounds):
         server = SessionServer(cfg, params, max_slots=1, max_len=32,
-                               preempt_rounds=preempt_rounds, **CPU)
+                               preempt_rounds=preempt_rounds, **WAVE)
         flood = server.submit(p[0], max_new=10, priority=PRIORITY_LOW)
         server.pump()
         high = server.submit(p[1], max_new=2, priority=PRIORITY_HIGH)
@@ -233,7 +235,7 @@ def test_zero_rounds_finish_on_prefill(tiny, server_cls):
 
 def test_close_drains_inflight_chains(tiny):
     cfg, params = tiny
-    server = SessionServer(cfg, params, max_slots=2, max_len=32, **CPU)
+    server = SessionServer(cfg, params, max_slots=2, max_len=32, **WAVE)
     req = server.submit(_prompts(cfg, 1, seed=9)[0], max_new=2)
     server.pump()
     server.close()
@@ -243,7 +245,7 @@ def test_close_drains_inflight_chains(tiny):
 
 def test_stalled_session_raises_drain_timeout(tiny):
     cfg, params = tiny
-    server = SessionServer(cfg, params, max_slots=1, max_len=16, **CPU)
+    server = SessionServer(cfg, params, max_slots=1, max_len=16, **WAVE)
     server.submit(_prompts(cfg, 1)[0], max_new=2)
     server.submit(_prompts(cfg, 2)[1], max_new=2)
     server.session.poll = lambda: []
@@ -255,9 +257,15 @@ def test_stalled_session_raises_drain_timeout(tiny):
 
 @pytest.mark.parametrize("scheduler", ["mesh"])
 def test_unported_schedulers_raise(tiny, scheduler):
+    """Every scheduler of the reference is ported (the mesh last): it
+    builds, the default is the reference's ``"frontier"``, and a name
+    neither package has raises."""
     cfg, params = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        SessionServer(cfg, params, scheduler=scheduler, **CPU)
+    assert SessionServer(cfg, params, scheduler=scheduler, **CPU).scheduler_name == scheduler
+    assert SessionServer(cfg, params, **CPU).scheduler_name == "frontier"
+    assert SessionServer.SCHEDULERS == ("frontier", "wave", "device", "mesh")
+    with pytest.raises(ValueError, match="scheduler"):
+        SessionServer(cfg, params, scheduler="teleport", **CPU)
 
 
 @pytest.mark.parametrize("plan_mode", [None, "wave", "frontier"])
@@ -274,7 +282,7 @@ def test_device_server_matches_wave_server_and_greedy_loop(key, plan_mode):
                            **CPU)
     assert device.session.plan_mode == (plan_mode or "loop")
     got = _serve(device, prompts, 3)
-    wave = _serve(SessionServer(cfg, params, max_slots=2, max_len=32, **CPU), prompts, 3)
+    wave = _serve(SessionServer(cfg, params, max_slots=2, max_len=32, **WAVE), prompts, 3)
     assert got == wave
     for p in prompts:
         assert got[tuple(p)] == _greedy(cfg, params, p, 3, 32)
@@ -305,7 +313,7 @@ def test_fresh_admission_resets_a_reused_slots_recurrent_state(key):
     a fresh cache. (The reference keeps the old state; ROADMAP queue 3.)"""
     cfg, params = _model(key)
     first, second = _prompts(cfg, 2, seed=11, length=7)
-    server = SessionServer(cfg, params, max_slots=1, max_len=32, **CPU)
+    server = SessionServer(cfg, params, max_slots=1, max_len=32, **WAVE)
     _serve(server, [first], 3)
 
     def recurrent(cache):
@@ -321,7 +329,7 @@ def test_fresh_admission_resets_a_reused_slots_recurrent_state(key):
     server._grant_slot(req)
     assert all(not bool(t.abs().sum() > 0) for t in recurrent(server.slots[0].value[0]))
 
-    again = SessionServer(cfg, params, max_slots=1, max_len=32, **CPU)
+    again = SessionServer(cfg, params, max_slots=1, max_len=32, **WAVE)
     got = _serve(again, [first, second], 3)
     assert got[tuple(second)] == _greedy(cfg, params, second, 3, 32)
 

@@ -7,6 +7,7 @@ branch fns and bad descriptors; and its opcode table against the CUDA
 source. The CUDA kernel itself runs only on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
+import importlib
 import re
 
 import jax.numpy as jnp
@@ -20,7 +21,7 @@ from repro.kernels.ops import LOOP_BRANCHES as R_BRANCHES
 from repro.kernels.ops import wave_step as r_wave_step
 from repro.kernels.wave_elementwise import apply_wave as r_apply_wave
 from repro.kernels.wave_elementwise import wave_elementwise as r_wave_elementwise
-from repro_torch.kernels import wave_elementwise as we
+we = importlib.import_module("repro_torch.kernels.wave_elementwise")
 from repro_torch.kernels.ops import LOOP_BRANCHES, LOOP_OPCODES, wave_step
 from repro_torch.kernels.ref import wave_elementwise_ref, wave_rows_ref
 

@@ -22,6 +22,7 @@ over 48 rows, so a row is rewritten a few times in an epoch, not dozens
 (over 12 rows, 40 steps grow rows past 1e3, and the half ulp of such a
 term exceeds 1e-6 where it cancels)."""
 
+import importlib
 import ctypes
 import functools
 import importlib.util
@@ -40,9 +41,9 @@ from repro.kernels.ops import wave_step as r_wave_step
 from repro.kernels.wave_elementwise import apply_wave as r_apply_wave
 from repro.kernels.wave_elementwise import wave_elementwise as r_wave_elementwise
 from repro_torch.core.device_dispatch import _wave_kernel_parts, plan_waves
-from repro_torch.kernels import lru_scan as ls
+ls = importlib.import_module("repro_torch.kernels.lru_scan")
 from repro_torch.kernels import ready_queue as rq
-from repro_torch.kernels import wave_elementwise as we
+we = importlib.import_module("repro_torch.kernels.wave_elementwise")
 from repro_torch.kernels.ops import LOOP_BRANCHES, wave_step
 
 RTOL = ATOL = 1e-6
