@@ -6,11 +6,12 @@
 Phases, each fatal on failure (an exception, exit code != 0):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: the six CUDA kernels (ready queue, wave megakernel, flash
-   attention, RG-LRU scan, grouped GEMM, selective scan) from the sources
-   in this checkout, one ``nvcc`` each, all started together; each one's
-   build seconds and, from ``ptxas -v``, each kernel's registers, static
-   shared memory and spills.
+2. Build: the seven CUDA kernel libraries (ready queue, wave megakernel,
+   flash attention, flash attention's backward, RG-LRU scan, grouped
+   GEMM, selective scan) from the sources in this checkout, one ``nvcc``
+   each, all started together; each one's build seconds and, from
+   ``ptxas -v``, each kernel's registers, static shared memory and
+   spills.
 3. Kernel vs plain, on the card:
    a. ready queue: the kernel's slab and completion flags bit-equal to
       ``ready_queue_ref``, and its ring a start order (a permutation of
@@ -57,6 +58,14 @@ Phases, each fatal on failure (an exception, exit code != 0):
       wider than q and k: deepseek-v2's MLA prefill (D 192, Dv 128,
       [1, 128, 512, *]) and the (192, 128) instantiation's edges; the same
       bits on a second launch; head widths with no instantiation raise;
+   d'. flash's backward (``flash_attention_bwd``, FLASH_BWD_SWEEP): dq,
+      dk and dv within tolerance of ``attention_bwd_ref`` (float32 1e-4,
+      bf16 2e-2 of the largest entry) on the forward kernel's o and row
+      log-sum-exp, at minicpm-2b's training shape [4, 36, 512, 64] causal
+      and over GQA, window, prefix, softcap, a ragged Sk, rows that see no
+      key, no causal mask, D 24, 120 and 128; lse within 1e-4 of
+      ``attention_lse_ref``; the forward's bits the same with and without
+      lse; the same bits on a second launch; D 256 raises under grad;
    e. ``grouped_matmul``: within tolerance of ``grouped_matmul_ref``
       (float32 1e-4, float16 and bfloat16 8e-3: one bfloat16 ulp) over the
       reference's ragged cases (N off the tile, groups with no tile),
@@ -196,6 +205,24 @@ Phases, each fatal on failure (an exception, exit code != 0):
    (58k and 130k kernels), a trace in the same process loses the first
    device events of a pass (the loop pass's ready-queue kernel among
    them): one more loop pass is profiled at the end to show it.
+9. Training, after phase 7 and before phase 6 (each model freed after):
+   minicpm-2b whole (40 layers, d_model 2304, bf16, 2.72 B parameters from
+   seed 0, AdamW's float32 master, m and v on the card), batches of
+   TokenPipeline(vocab, 512, 4, seed=0): step 0's loss and gradients
+   through flash and its backward against the same step with the plain
+   attention (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COSINE), then 5
+   ``StepBundle.train_step``s (remat, lr 3e-4, clip 1.0): losses and
+   gradient norms finite, flash launched 80 times a step (the forward and
+   remat's recompute of 40 layers) and its backward 40; step ms, tokens/s,
+   MFU (6 N D over the bf16 peak) and peak device memory logged, and one
+   more step under ``torch.profiler`` (device time by kernel group). Phase 7
+   also times the backward at that shape beside the plain version and
+   SDPA's backward through autograd, and the forward with and without its
+   lse output.
+9b. The ``Trainer`` at a reduced minicpm (TRAINER_CUT, bf16): 20 steps
+   uninterrupted; a run checkpointed every 10 steps crashed at 15 and
+   resumed by a fresh ``Trainer``, whose steps 10-19 give the
+   uninterrupted run's losses and gradient norms bit for bit.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -272,6 +299,34 @@ SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024
 FRONTEND_ARCHS = {"musicgen-large": 256, "paligemma-3b": 256 + 64}
 FRONTEND_STEPS = 16
 FRONTEND_TOL = {"float32": (1e-3, 1e-3, 0.0), "bfloat16": (0.0, 0.0, 0.06)}
+
+# The training phase (9): minicpm-2b whole (40 layers, d_model 2304, 36
+# heads of 64, vocab 122,753 padded to 122,880, bf16, weights from seed 0)
+# on TokenPipeline(vocab, 512, 4, seed=0) batches, TRAIN_STEPS steps of
+# StepBundle.train_step at lr 3e-4 and clip 1.0 (each stage recomputed in
+# the backward, the reference's remat).
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR, TRAIN_CLIP = (
+    "minicpm-2b", 512, 4, 5, 3e-4, 1.0)
+# Step 0's loss and gradients through flash (forward and the hand-written
+# backward) held to the same step with ops.attention swapped for the plain
+# attention_ref, both in bf16 on the card. The two attentions differ by
+# bf16 roundings only: flash rounds P to bf16 before its PV product and P
+# and dS before its backward products, the plain version computes in
+# float32 and rounds its output; each attention output or gradient is a
+# few bf16 ulps (2^-8 relative) apart, and 40 layers of bf16 GEMMs carry
+# that into the weights' gradients as noise of about that relative size.
+# The loss at initialisation is about ln(122,753) = 11.7; a wrong mask,
+# scale or row moves it by far more than 1e-2 and turns a gradient's
+# direction: loss within 1e-2 absolute, the global gradient norm within
+# 2 %, and each weight's gradient at cosine >= 0.99 with its plain twin.
+TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COSINE = 1e-2, 0.02, 0.99
+# The Trainer's crash and resume on the card (phase 9b), at a reduced
+# minicpm: a full-width checkpoint would be ~38 GB of files. 20 steps, a
+# checkpoint at step 10, a crash at step 15, a fresh Trainer resuming;
+# its losses for steps 10-19 must equal an uninterrupted run's bit for bit.
+TRAINER_CUT = {"n_layers": 2, "d_model": 256, "n_heads": 4, "n_kv_heads": 4, "head_dim": 64,
+               "d_ff": 640, "vocab": 8192}
+TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAIL = 20, 10, 15
 
 
 def log(msg: str) -> None:
@@ -622,17 +677,25 @@ def phase_device():
     return card
 
 
+def kernel_builds():
+    """(source, build) of every kernel library of the port: one per wrapper
+    module, and flash attention's backward."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    return [(m.SOURCE, m.build) for m in kernel_modules()] + [
+        (fa.BACKWARD_SOURCE, fa.build_backward)]
+
+
 def phase_build():
     """Build every kernel of the port, one nvcc each, started together."""
     from repro_torch.kernels._nvcc import resources
 
-    mods = kernel_modules()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        built = list(pool.map(lambda m: m.build(), mods))
-    for mod, (path, seconds) in zip(mods, built):
-        log(f"build: {mod.SOURCE.name} -> {path.name} in {seconds:.2f} s (sm_90a)")
+    builds = kernel_builds()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(lambda b: b[1](), builds))
+    for (source, _), (path, seconds) in zip(builds, built):
+        log(f"build: {source.name} -> {path.name} in {seconds:.2f} s (sm_90a)")
         for line in resources(path):
-            log(f"ptxas: {mod.SOURCE.name}: {line}")
+            log(f"ptxas: {source.name}: {line}")
 
 
 def queue_vs_plain(label, slab, p, branches):
@@ -938,6 +1001,81 @@ def phase_flash_vs_plain(device):
             log(f"flash_attention: D {d}, Dv {dv} raises ({exc})")
         else:
             check(False, f"flash_attention: D {d}, Dv {dv} did not raise")
+
+
+# Flash's backward against attention_bwd_ref (phase 3d'), (b, h, hkv, sq,
+# sk, d) with Dv == D: minicpm-2b's training shape, GQA, the window, the
+# prefix and softcap, a ragged Sk (a chunk at q_offset), rows that see no
+# key (a whole query tile of them), no causal mask, element loads (D 24),
+# D 120 off the padding, and h2o-danube-3-4b's widths (D 128 over 8 kv
+# heads). float32 sums in another order (1e-4 of the largest entry); bf16
+# rounds P and dS to bf16 before their products and the gradients on the
+# way out (2e-2 of the largest entry).
+FLASH_BWD_SWEEP = [
+    ((4, 36, 36, 512, 512, 64), {}),
+    ((2, 8, 2, 130, 130, 64), {}),
+    ((1, 4, 4, 200, 200, 64), {"window": 50}),
+    ((1, 4, 1, 150, 150, 128), {"prefix_len": 70}),
+    ((1, 4, 2, 97, 97, 128), {"softcap": 2.0}),
+    ((1, 4, 2, 33, 300, 64), {"q_offset": 267}),
+    ((1, 2, 1, 100, 100, 64), {"q_offset": -70}),
+    ((1, 2, 2, 100, 77, 64), {"causal": False, "window": 20}),
+    ((2, 4, 2, 70, 70, 24), {}),
+    ((1, 4, 4, 129, 129, 120), {"window": 40, "prefix_len": 9}),
+    ((1, 32, 8, 512, 512, 128), {"window": 4096}),
+]
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def phase_flash_bwd_vs_plain(device):
+    """The backward kernel against ``attention_bwd_ref`` on the forward
+    kernel's o and lse over FLASH_BWD_SWEEP, float32 and bf16; lse against
+    ``attention_lse_ref`` (1e-4; -inf on a row that sees no key); the
+    forward's output bits the same with and without lse; the backward's
+    bits the same on a second launch (no atomics); widths the backward
+    does not take raise under grad."""
+    import torch
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    for (b, h, hkv, sq, sk, d), flags in FLASH_BWD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(b, h, sq, d, generator=gen, device=device).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+            out, lse = fa.flash_attention_lse(q, k, v, **flags)
+            check(torch.equal(out, fa.flash_attention(q, k, v, **flags)),
+                  f"flash_attention: the lse output changed the forward's bits at {flags}")
+            want_lse = attention_lse_ref(q, k, **flags)
+            check(bool(torch.isclose(lse, want_lse, rtol=1e-4, atol=1e-4).all()),
+                  f"flash_attention lse != plain at {(b, h, hkv, sq, sk, d)} {flags} {dtype}")
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+            want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
+            torch.cuda.synchronize()
+            tol = FLASH_BWD_TOL[str(dtype).replace("torch.", "")]
+            rel = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err, scale = float((g.float() - w).abs().max()), float(w.abs().max())
+                check(g.dtype == dtype and g.shape == w.shape and err <= tol * scale,
+                      f"flash backward {name} != plain at {(b, h, hkv, sq, sk, d)} {flags} "
+                      f"{dtype}: max abs err {err}, largest entry {scale}")
+                rel.append(err / scale if scale else err)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+            check(all(torch.equal(x, y) for x, y in zip(again, got)),
+                  "flash backward: a second launch gave other bits")
+            log(f"flash backward ~ plain: {(b, h, hkv, sq, sk, d)} {flags} "
+                f"{str(dtype).replace('torch.', '')} max err / largest entry "
+                f"dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g}")
+    wide = torch.zeros(1, 2, 8, 256, device=device, dtype=torch.bfloat16, requires_grad=True)
+    try:
+        fa.flash_attention(wide, wide, wide)
+    except ValueError as exc:
+        log(f"flash_attention under grad at D 256 raises ({exc})")
+    else:
+        check(False, "flash_attention under grad at D 256 did not raise")
 
 
 def scan_inputs(gen, b, s, e, n, device):
@@ -2118,6 +2256,206 @@ def phase_frontend(device, card, arch):
     return launches
 
 
+def grad_stats(grads):
+    """(global norm in float32, {leaf name: gradient in float32}) of a
+    gradient tree."""
+    import torch
+    from repro_torch.tree import tree_leaves_with_names
+
+    leaves = dict(tree_leaves_with_names(grads))
+    norm = torch.sqrt(sum(torch.sum(g.float().square()) for g in leaves.values()))
+    return float(norm), leaves
+
+
+def phase_train(device, card):
+    """minicpm-2b whole, trained on the card (see TRAIN_ARCH): step 0's loss
+    and gradients through flash and its backward held to the plain
+    attention's (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COSINE), then
+    TRAIN_STEPS ``StepBundle.train_step``s: every loss and gradient norm
+    finite, flash launched exactly twice per layer and step (the forward
+    and remat's recompute) and its backward once. Logs step ms (median of
+    steps 1 on), tokens/s, MFU against the bf16 peak from
+    ``model_flops_per_device`` and the peak device memory. Returns the
+    forward's and the backward's launches and the walls."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.launch.roofline_run import model_flops_per_device
+    from repro_torch.launch.steps import StepBundle
+    from repro_torch.models import init_params, loss_and_grads
+    from repro_torch.optim import adamw_init
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg = ARCHS[TRAIN_ARCH]
+    n_attn = sum(kind.startswith("attn") for kind in cfg.pattern)
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device=device, tp_size=1).requires_grad_(True)
+    opt = adamw_init(model.param_tree())
+    n_params = sum(p.numel() for p in model.parameters())
+    pipeline = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(device) for a in pipeline.next_batch())
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.n_heads} heads "
+        f"of {cfg.head_dim} vocab {cfg.vocab} {cfg.dtype}, {n_params} parameters from seed 0, "
+        f"AdamW state {3 * 4 * n_params / 1e9:.1f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s; batches [{TRAIN_BATCH}, {TRAIN_SEQ}] [{card}]")
+
+    fa.reset_launches()
+    loss_k, grads_k = loss_and_grads(model, cfg, *batches[0])
+    torch.cuda.synchronize()
+    check((fa.launches, fa.backward_launches) == (2 * n_attn, n_attn),
+          f"train: step 0 launched flash {fa.launches} and its backward "
+          f"{fa.backward_launches} times, expected {2 * n_attn} and {n_attn}")
+    kernel = ops.attention
+    ops.attention = attention_ref
+    try:
+        loss_p, grads_p = loss_and_grads(model, cfg, *batches[0])
+    finally:
+        ops.attention = kernel
+    torch.cuda.synchronize()
+    check((fa.launches, fa.backward_launches) == (2 * n_attn, n_attn),
+          "train: the plain pass launched flash")
+    norm_k, leaves_k = grad_stats(grads_k)
+    norm_p, leaves_p = grad_stats(grads_p)
+    cosines = {}
+    for name, a in leaves_k.items():
+        b = leaves_p[name].float()
+        a = a.float()
+        denom = float(a.norm() * b.norm())
+        cosines[name] = float((a * b).sum()) / denom if denom else 1.0
+    worst = min(cosines, key=cosines.get)
+    loss_err = abs(float(loss_k) - float(loss_p))
+    log(f"train: step 0 through flash against the plain attention: loss {float(loss_k):.6f} "
+        f"vs {float(loss_p):.6f} (|diff| {loss_err:.3g}, bound {TRAIN_LOSS_ATOL}), gradient "
+        f"norm {norm_k:.6g} vs {norm_p:.6g} (rel diff {abs(norm_k - norm_p) / norm_p:.3g}, "
+        f"bound {TRAIN_GNORM_RTOL}), lowest leaf cosine {cosines[worst]:.6f} ({worst}; bound "
+        f"{TRAIN_MIN_COSINE}), median leaf cosine {statistics.median(cosines.values()):.6f} "
+        f"[{card}]")
+    check(loss_err <= TRAIN_LOSS_ATOL, f"train: step 0's loss through flash {float(loss_k)} "
+                                       f"off the plain attention's {float(loss_p)}")
+    check(abs(norm_k - norm_p) <= TRAIN_GNORM_RTOL * norm_p,
+          f"train: gradient norm through flash {norm_k} off the plain attention's {norm_p}")
+    check(cosines[worst] >= TRAIN_MIN_COSINE,
+          f"train: {worst}'s gradient through flash at cosine {cosines[worst]} with the plain "
+          f"attention's")
+    del grads_k, grads_p, leaves_k, leaves_p
+    torch.cuda.empty_cache()
+
+    bundle = StepBundle(cfg, lr=TRAIN_LR, clip=TRAIN_CLIP)
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, gnorms = [], [], []
+    for inputs, labels in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, metrics = bundle.train_step(model, opt, inputs, labels)
+        losses.append(float(metrics["loss"]))  # a host read: the step has ended
+        gnorms.append(float(metrics["gnorm"]))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: non-finite loss or gradient norm: {losses} {gnorms}")
+    want = (2 * n_attn * TRAIN_STEPS, n_attn * TRAIN_STEPS)
+    check((fa.launches, fa.backward_launches) == want,
+          f"train: {TRAIN_STEPS} steps launched flash {fa.launches} and its backward "
+          f"{fa.backward_launches} times, expected {want}")
+    step_ms = statistics.median(walls[1:]) * 1e3
+    flops = model_flops_per_device(cfg, "train", 1,
+                                   shapes={"train": (TRAIN_SEQ, TRAIN_BATCH, "train")})
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"train: {TRAIN_STEPS} steps of {tokens} tokens: losses {losses}, gradient norms "
+        f"{gnorms}; step ms {[round(w * 1e3, 3) for w in walls]} (host clock), median of "
+        f"steps 1-{TRAIN_STEPS - 1} {step_ms:.3f} ms, {tokens / step_ms * 1e3:.1f} tokens/s, "
+        f"model FLOPs {flops:.4g} a step (6 N D) = MFU {flops / (step_ms / 1e3) / BF16_FLOP_PER_S:.4f} "
+        f"of {BF16_FLOP_PER_S:.3g} FLOP/s, peak device memory {peak / 2**30:.2f} GiB; flash "
+        f"{fa.launches} forward and {fa.backward_launches} backward launches [{card}]")
+    launches = (fa.launches, fa.backward_launches)
+    # One more step under torch.profiler: where the step's device time goes.
+    from torch.autograd import DeviceType
+
+    prof, wall_ms = profiled(lambda: bundle.train_step(model, opt, *batches[-1]))
+    groups = dict.fromkeys(("flash forward", "flash backward", "GEMM", "elementwise",
+                            "reduction", "other"), 0.0)
+    counts = dict.fromkeys(groups, 0)
+    others = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        group = ("flash backward" if "flash_bwd" in name else
+                 "flash forward" if "flash_tc_kernel" in name else
+                 "GEMM" if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")) else
+                 "elementwise" if "elementwise" in name else
+                 "reduction" if "reduce" in name else "other")
+        groups[group] += e.time_range.elapsed_us() / 1e3
+        counts[group] += 1
+        if group == "other":
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(((a.self_device_time_total / 1e3, a.count, a.key[:70])
+                  for a in prof.key_averages() if a.self_device_time_total > 0), reverse=True)[:6]
+    log(f"train: one more step under torch.profiler: wall {wall_ms:.3f} ms; device time by "
+        f"kernel group (ms, kernels): "
+        + ", ".join(f"{k} {v:.3f} ({counts[k]})" for k, v in groups.items())
+        + f", sum {sum(groups.values()):.3f}; other's largest: "
+        + "; ".join(f"{k} {v:.3f}" for k, v in sorted(others.items(), key=lambda kv: -kv[1])[:4])
+        + "; most device time: "
+        + "; ".join(f"{key} {ms:.3f} ms x{n}" for ms, n, key in top) + f" [{card}]")
+    del model, opt, batches, prof
+    torch.cuda.empty_cache()
+    return launches, {f"train {TRAIN_ARCH} step (median)": step_ms / 1e3}
+
+
+def phase_trainer(device, card):
+    """The fault-tolerant ``Trainer`` on the card at a reduced minicpm
+    (TRAINER_CUT, bf16): TRAINER_STEPS steps uninterrupted; the same with a
+    checkpoint every TRAINER_EVERY steps and a crash at TRAINER_FAIL; a
+    fresh ``Trainer`` on that directory resumes at TRAINER_EVERY and its
+    losses and gradient norms equal the uninterrupted run's bit for bit
+    (every kernel of the step is deterministic)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], **TRAINER_CUT)
+    tc = TrainerConfig(seq_len=128, batch=4, lr=3e-3, warmup=5, total_steps=TRAINER_STEPS,
+                       checkpoint_every=TRAINER_EVERY)
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = Trainer(cfg, tc, Path(tmp) / "whole", device=device).run()
+        crashed = Trainer(cfg, tc, Path(tmp) / "crash", fail_at_step=TRAINER_FAIL, device=device)
+        try:
+            crashed.run()
+        except RuntimeError as exc:
+            if "injected failure" not in str(exc):
+                raise
+            log(f"trainer: crashed as injected ({exc})")
+        else:
+            check(False, "trainer: the injected failure did not happen")
+        resumed = Trainer(cfg, tc, Path(tmp) / "crash", device=device)
+        check(resumed.start_step == TRAINER_EVERY,
+              f"trainer: resumed at step {resumed.start_step}, expected {TRAINER_EVERY}")
+        tail = resumed.run()
+    want = {m["step"]: (m["loss"], m["gnorm"]) for m in whole if m["step"] >= TRAINER_EVERY}
+    got = {m["step"]: (m["loss"], m["gnorm"]) for m in tail}
+    check(got == want, f"trainer: resumed losses and norms {got} != uninterrupted {want}")
+    check(fa.launches > 0 and fa.backward_launches > 0, "trainer: flash was not launched")
+    check(all(np.isfinite(m["loss"]) for m in whole) and whole[-1]["loss"] < whole[0]["loss"],
+          f"trainer: the loss did not fall: {[m['loss'] for m in whole]}")
+    log(f"trainer: {cfg.name} cut to {TRAINER_CUT} bf16, {TRAINER_STEPS} steps: losses "
+        f"{[round(m['loss'], 5) for m in whole]}; crash at {TRAINER_FAIL}, resumed at "
+        f"{TRAINER_EVERY}: steps {TRAINER_EVERY}-{TRAINER_STEPS - 1} bit-equal to the "
+        f"uninterrupted run; step {statistics.median(m['dt'] for m in whole) * 1e3:.3f} ms "
+        f"(median, host clock, batch fetch included); flash {fa.launches} forward and "
+        f"{fa.backward_launches} backward launches [{card}]")
+
+
 def frontend_pass(device, card, cfg, params, s, plain=False):
     """One frontend pass (see ``phase_frontend``): returns forward's
     logits and prefill's flash launches."""
@@ -2574,6 +2912,84 @@ def numbers_flash(device):
     return out
 
 
+def numbers_flash_bwd(device):
+    """Flash's backward at minicpm-2b's training shape ([4, 36, 512, 64]
+    bf16, causal): the error against the plain version, its bound (the
+    bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once; the
+    operations: the five products S, dP, dV, dQ, dK over the visible pairs),
+    single launches, 20 back to back, device time per call and per kernel
+    (profiler), the plain version's time, and, as the library call, the
+    backward of ``F.scaled_dot_product_attention`` (causal) on the same
+    inputs through autograd. Also the forward with and without the lse
+    output (the serving call must not be slower)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import attention_bwd_ref
+    from torch.nn.attention import SDPBackend
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, h, s, d = TRAIN_BATCH, 36, TRAIN_SEQ, 64
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=device).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.flash_attention_lse(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    want = attention_bwd_ref(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
+    scales = [float(w.abs().max()) for w in want]
+    seen = s * (s + 1) // 2  # (row, key) pairs a causal head sees
+    n_bytes = 2 * 5 * q.numel() + 4 * lse.numel() + 2 * 3 * q.numel()
+    ms_bound, by = bound(n_bytes, 2 * 5 * d * b * h * seen, BF16_FLOP_PER_S)
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do)  # noqa: E731
+    # Device time: the three kernels' means over the launches the trace
+    # holds (a trace can lose some, see phase_busy), summed.
+    prof, _ = profiled(lambda: [call() for _ in range(TIMED_RUNS)])
+    per_kernel = {a.key[:60]: (a.self_device_time_total / 1e3 / a.count, a.count)
+                  for a in prof.key_averages() if "flash_bwd" in a.key}
+    device_ms = sum(ms for ms, _ in per_kernel.values()) if len(per_kernel) == 3 else None
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do, retain_graph=True)  # noqa: E731
+    backend, sdpa_kernel = sdpa_backend(sdpa_bwd)
+    # The backend SDPA's dispatcher picks for these inputs, without a trace.
+    choice = SDPBackend(torch._fused_sdp_choice(qs, ks, vs, is_causal=True)).name
+    fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v))
+    fwd_lse_ms = median_ms(lambda: fa.flash_attention_lse(q, k, v))
+    check(fwd_ms <= 1.25 * fwd_lse_ms, f"flash forward without lse {fwd_ms} ms, slower than "
+                                       f"with it ({fwd_lse_ms} ms)")
+    out_dict = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:37",
+        "replaces_note": "the Pallas kernel has no backward: the reference trains through "
+                         "XLA's derivative of ref.attention_ref",
+        "launches": None,
+        "matches_plain": all(e <= FLASH_BWD_TOL["bfloat16"] * sc for e, sc in zip(errs, scales)),
+        "max_abs_err": max(errs),
+        "ms": median_ms(call),
+        "plain_ms": median_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do)),
+        "bound_ms": ms_bound,
+        "bound_by": by,
+        "library_ms": median_ms(sdpa_bwd),
+        "back_to_back_ms": back_to_back_ms(call),
+        "device_ms": device_ms,
+        "device_ms_by_kernel": {key: ms for key, (ms, _) in per_kernel.items()},
+        "device_kernels_recorded": sum(n for _, n in per_kernel.values()),
+        "library_back_to_back_ms": back_to_back_ms(sdpa_bwd),
+        "library_backend": backend,
+        "library_kernel": sdpa_kernel,
+        "library_choice": choice,
+        "forward_ms": fwd_ms,
+        "forward_with_lse_ms": fwd_lse_ms,
+        "shape": "q, k, v, o, dO [4, 36, 512, 64] bf16, causal (minicpm-2b's training step)",
+    }
+    log(f"flash backward: {out_dict} [{torch.cuda.get_device_name(0)}]")
+    return out_dict
+
+
 def numbers_gmm(device):
     """The grouped GEMM at granite-moe's gate/up product (48 experts of
     [1536, 512] bf16): decode (C = 1, M = 48) and a 512-token prefill
@@ -2956,6 +3372,7 @@ def main() -> int:
     timed(phase_lru_vs_plain, device)
     timed(phase_scan_vs_plain, device)
     timed(phase_flash_vs_plain, device)
+    timed(phase_flash_bwd_vs_plain, device)
     timed(phase_gmm_vs_plain, device)
     timed(phase_expert_stream, device)
     launches, hw_walls = timed(phase_acs_hw, device)
@@ -2976,8 +3393,12 @@ def main() -> int:
                timed(numbers_flash, device),
                timed(numbers_lru, device),
                timed(numbers_gmm, device),
-               timed(numbers_scan, device)]
+               timed(numbers_scan, device),
+               timed(numbers_flash_bwd, device)]
     torch.cuda.empty_cache()
+    # Training before the profiled serving passes, each model freed after.
+    (train_fwd, train_bwd), train_walls = timed(phase_train, device, card)
+    timed(phase_trainer, device, card)
     for arch in SERVE_ARCHS:
         arch_launches, walls, served = timed(phase_serve, device, card, arch)
         if arch in PROFILED_SERVE:
@@ -2989,13 +3410,15 @@ def main() -> int:
     frontend_launches = {arch: timed(phase_frontend, device, card, arch)
                          for arch in FRONTEND_ARCHS}
     rg, granite, mamba, deepseek = (serve_launches[a] for a in SERVE_ARCHS)
-    queue, wave, flash, lru, gmm, scan = kernels
+    queue, wave, flash, lru, gmm, scan, flash_bwd = kernels
     # The mesh phase's shards launched both device-window kernels too.
     queue.update(launches=queue["launches"] + mesh_rq, mesh_launches=mesh_rq)
     wave.update(launches=wave["launches"] + mesh_we, mesh_launches=mesh_we)
     flash.update(launches=rg["flash_attention"], granite_launches=granite["flash_attention"],
                  mla_launches=deepseek["flash_attention"],
-                 paligemma_launches=frontend_launches["paligemma-3b"])
+                 paligemma_launches=frontend_launches["paligemma-3b"],
+                 train_launches=train_fwd)
+    flash_bwd["launches"] = train_bwd
     lru["launches"] = rg["lru_scan"]
     gmm.update(launches=granite["grouped_matmul"], deepseek_launches=deepseek["grouped_matmul"])
     scan["launches"] = mamba["selective_scan"]
@@ -3006,7 +3429,7 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     for key, secs in {**hw_walls, **wave_walls, **session_walls, **mesh_walls, **sw_walls,
-                      **serve_walls}.items():
+                      **serve_walls, **train_walls}.items():
         log(f"wall {key}: {secs * 1e3:.3f} ms [{card}]")
     profile_pass("chain_universe/device_loop, after the serving passes",
                  busy_chain(device, "device_loop"), card, "ready_queue_kernel")

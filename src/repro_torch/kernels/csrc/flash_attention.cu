@@ -14,6 +14,11 @@
 // exactly 0, so a row that sees no key ends with l == 0 and writes 0.
 // (The reference's Pallas kernel takes v's width from q's and leaves the
 // columns past Dv undefined; this kernel follows attention_ref.)
+// Given an lse pointer it also writes each row's log-sum-exp of its scaled
+// (and softcapped) visible scores, float32 [B, H, Sq], -inf for a row that
+// sees no key: what the backward (flash_attention_bwd.cu) recomputes P
+// from. With a null pointer nothing else changes: the output's bits and
+// the work are the same.
 //
 // Bound on this card: the larger of the bytes (q, k, v read once, o
 // written once, over 3.35 TB/s) and the visible score and PV operations
@@ -92,12 +97,14 @@ static_assert(kMaxD == 256 && kMlaD % 16 == 0 && kMlaD <= kMaxD && kMlaDv % 16 =
                   kMlaDv <= kMaxD,
               "tile widths: the Dv == D path pads to 64, 128 or 256; the split one to 16s");
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;  // [B, H, Sq, D]
   const void* k;  // [B, Hkv, Sk, D]
   const void* v;  // [B, Hkv, Sk, Dv]
   void* o;        // [B, H, Sq, Dv]
+  float* lse;     // [B, H, Sq] row log-sum-exp, or null
   int n_batch, n_heads, n_kv_heads, sq, sk, dim, dv;
   int k_stride, v_stride;  // f32 kernel: shared-memory row strides of the k and v tiles
   float scale;
@@ -181,6 +188,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
   const T* vg = static_cast<const T*>(p.v) +
                 (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dv;
   T* og = static_cast<T*>(p.o) + ((static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0) * dv;
+  const size_t lse_row0 = (static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0;
 
   // Which key tiles the block's rows (global positions row_lo..row_hi) see.
   const int row_lo = p.q_offset + q0;
@@ -355,6 +363,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(const Params p) {
     const float inv = l > 0.0f ? 1.0f / l : 0.0f;
     const int local = warp * 16 + g + 8 * r;
     if (local >= rows_here) continue;
+    if (p.lse != nullptr && t == 0)  // m_r is in the log2 domain, shared by the quad
+      p.lse[lse_row0 + local] = l > 0.0f ? (m_r[r] + log2f(l)) * kLn2 : -INFINITY;
     T* orow = og + static_cast<size_t>(local) * dv;
 #pragma unroll
     for (int db = 0; db < DB; ++db) {
@@ -544,6 +554,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
     const int local = warp * kRowsPerWarp + r;
     if (local >= rows_here) break;
     const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0 + local] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : -INFINITY;
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) {
       const int d = lane + 32 * c;
@@ -572,9 +585,11 @@ int launch_f32(Params p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. dim is q's and k's head
 // width, dv v's and o's. has_window/has_softcap select the optional
-// masks. Returns cudaGetLastError() after the launch (0 on success), or -1
-// for a dtype code or (dim, dv) it has no instantiation for.
+// masks. lse, when not null, receives the rows' log-sum-exp. Returns
+// cudaGetLastError() after the launch (0 on success), or -1 for a dtype
+// code or (dim, dv) it has no instantiation for.
 extern "C" int acs_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   float* lse,
                                    int n_batch, int n_heads, int n_kv_heads, int sq, int sk,
                                    int dim, int dv, int dtype, float scale, int causal,
                                    int has_window, int window, int has_softcap,
@@ -582,7 +597,7 @@ extern "C" int acs_flash_attention(const void* q, const void* k, const void* v, 
                                    void* stream) {
   if (!tc_widths(dim, dv)) return -1;
   const int vec = dim % 8 == 0 && dv % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  Params p{q, k, v, o, n_batch, n_heads, n_kv_heads, sq, sk, dim, dv, 0, 0, scale, causal,
+  Params p{q, k, v, o, lse, n_batch, n_heads, n_kv_heads, sq, sk, dim, dv, 0, 0, scale, causal,
            has_window, window, has_softcap, softcap, q_offset, prefix_len, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(p, s);

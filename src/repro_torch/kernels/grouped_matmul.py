@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
+from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream, refuse_grad
 from .ref import grouped_matmul_ref
 
 __all__ = ["grouped_matmul", "raise_on_error", "build", "launches", "reset_launches",
@@ -143,6 +143,7 @@ def grouped_matmul(
         return grouped_matmul_ref(x, w, tile_groups, block_m=block_m)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
+    refuse_grad("grouped_matmul", x, w)
     _check_devices(x, w, tile_groups)
     if not (x.is_contiguous() and w.is_contiguous() and tile_groups.is_contiguous()):
         raise ValueError("grouped_matmul: x, w and tile_groups must be contiguous")

@@ -30,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from ._nvcc import CudaLibrary, raw_stream
+from ._nvcc import CudaLibrary, raw_stream, refuse_grad
 from .ref import lru_scan_ref
 
 __all__ = ["lru_scan", "build", "launches", "reset_launches", "SOURCE"]
@@ -102,6 +102,7 @@ def lru_scan(
         if a.device.type == "cpu":
             return lru_scan_ref(a, b, h0)
         raise ValueError(f"lru_scan: unsupported device {a.device}")
+    refuse_grad("lru_scan", a, b, h0)
     key = (a.shape, b.shape, h0.shape, a.dtype, b.dtype, h0.dtype, a.get_device(),
            b.get_device(), h0.get_device(), a.is_contiguous(), b.is_contiguous(),
            h0.is_contiguous())

@@ -4,8 +4,12 @@ device; ``chip_smoke.py`` holds every kernel against its plain version on
 the card.
 
 ``attention_ref`` and ``lru_scan_ref`` follow the reference's oracles of
-the same names: fully masked attention rows give 0, and the recurrence
-carries its state in float32.
+the same names: fully masked attention rows give 0 (and a gradient of 0,
+not NaN: training differentiates ``attention_ref`` on the CPU), and the
+recurrence carries its state in float32. ``attention_bwd_ref`` is the
+plain version of the flash backward (``flash_attention_bwd.cu``): dq, dk
+and dv from the formulas, in float32, given the forward's output and row
+log-sum-exp (``attention_lse_ref`` computes the latter).
 
 ``ready_queue_ref`` is the plain version of ``kernels/ready_queue.py``;
 the reference package has no oracle for that kernel, so this one pops
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["attention_ref", "grouped_matmul_ref", "lru_scan_ref", "ready_queue_ref",
+__all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref", "grouped_matmul_ref", "lru_scan_ref", "ready_queue_ref",
            "ready_queue_tables_error", "selective_scan_ref", "mamba_scan_ref",
            "wave_rows_ref", "wave_elementwise_ref"]
 
@@ -59,33 +63,93 @@ def attention_ref(
     softcap, in float32; the output is in ``q``'s dtype. Masked logits are
     ``-inf``, so a query row with no visible key gives 0."""
     b, h, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
     dv = v.shape[-1]
+    s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap, scale=scale,
+                      q_offset=q_offset, prefix_len=prefix_len)
+    s = s.masked_fill(~mask, float("-inf"))
+    # A row that sees no key softmaxes zeros in place of its -inf logits and
+    # is then zeroed: 0 out, and 0 (not NaN) back through the softmax.
+    seen = mask.any(dim=-1, keepdim=True)
+    p = torch.softmax(torch.where(seen, s, 0.0), dim=-1)
+    p = torch.where(seen, p, 0.0)
+    out = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
+    return out.reshape(b, h, sq, dv).to(q.dtype)
+
+
+def _scores(q, k, *, causal, window, softcap, scale, q_offset, prefix_len):
+    """The scaled (and softcapped) scores ``[B, Hkv, group, Sq, Sk]`` in
+    float32, and the ``[Sq, Sk]`` mask of the keys each row sees."""
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
     if h % hkv:
         raise ValueError(f"attention_ref: {h} query heads over {hkv} kv heads")
-    group = h // hkv
     scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
-
-    qg = q.reshape(b, hkv, group, sq, d).float()
+    qg = q.reshape(b, hkv, h // hkv, sq, d).float()
     s = torch.einsum("bkgqd,bkld->bkgql", qg, k.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
+    return s, _visible(sq, sk, q.device, causal=causal, window=window, q_offset=q_offset,
+                       prefix_len=prefix_len)
 
-    rows = q_offset + torch.arange(sq, device=q.device)[:, None]  # global q positions
-    cols = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+
+def _visible(sq, sk, device, *, causal, window, q_offset, prefix_len) -> torch.Tensor:
+    """The ``[Sq, Sk]`` mask of the keys each query row sees."""
+    rows = q_offset + torch.arange(sq, device=device)[:, None]  # global q positions
+    cols = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= cols <= rows
     if window is not None:
         mask &= cols > rows - window
     if prefix_len:
         mask |= cols < prefix_len
-    s = s.masked_fill(~mask, float("-inf"))
+    return mask
 
-    p = torch.softmax(s, dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)  # fully masked rows -> zeros
-    out = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
-    return out.reshape(b, h, sq, dv).to(q.dtype)
+
+def attention_lse_ref(q, k, *, causal=True, window=None, softcap=None, scale=None,
+                      q_offset=0, prefix_len=0) -> torch.Tensor:
+    """Each row's log-sum-exp of its visible scaled (softcapped) scores,
+    float32 ``[B, H, Sq]``; -inf for a row that sees no key."""
+    b, h, sq, _ = q.shape
+    s, mask = _scores(q, k, causal=causal, window=window, softcap=softcap, scale=scale,
+                      q_offset=q_offset, prefix_len=prefix_len)
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1).reshape(b, h, sq)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None, softcap=None,
+                      scale=None, q_offset=0, prefix_len=0):
+    """The gradient of :func:`attention_ref` (Dv == D) from the formulas, in
+    float32: with the visible keys' ``P = exp(s' - lse)`` (s' the scaled,
+    softcapped score; 0 for a masked key or a row whose lse is -inf),
+    ``Di = rowsum(dO * O)``, ``dS = P * (dO V^T - Di)`` times
+    ``1 - tanh^2`` under a softcap, ``dq = scale * dS K``,
+    ``dk = scale * dS^T Q`` and ``dv = P^T dO`` (dk and dv summed over each
+    kv group's query heads). ``o`` and ``lse`` are the forward's. Returns
+    ``(dq, dk, dv)`` in float32."""
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = h // hkv
+    scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
+    qg = q.reshape(b, hkv, group, sq, d).float()
+    s = torch.einsum("bkgqd,bkld->bkgql", qg, k.float()) * scale
+    fac = 1.0
+    if softcap is not None:
+        th = torch.tanh(s / softcap)
+        s = softcap * th
+        fac = 1.0 - th * th
+    mask = _visible(sq, sk, q.device, causal=causal, window=window, q_offset=q_offset,
+                    prefix_len=prefix_len)
+    lse_g = lse.float().reshape(b, hkv, group, sq, 1)
+    live = mask & (lse_g > float("-inf"))
+    p = torch.where(live, torch.exp(s - torch.where(live, lse_g, 0.0)), 0.0)
+    dog = do.reshape(b, hkv, group, sq, d).float()
+    di = (dog * o.reshape(b, hkv, group, sq, d).float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgqd,bkld->bkgql", dog, v.float())
+    ds = p * (dp - di) * fac
+    dq = torch.einsum("bkgql,bkld->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgql,bkgqd->bkld", ds, qg) * scale
+    dv = torch.einsum("bkgql,bkgqd->bkld", p, dog)
+    return dq.reshape(b, h, sq, d), dk, dv
 
 
 def grouped_matmul_ref(

@@ -66,7 +66,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ._nvcc import CudaLibrary, _find_nvcc, raw_stream
+from ._nvcc import CudaLibrary, _find_nvcc, raw_stream, refuse_grad
 from .ref import mamba_scan_ref, selective_scan_ref
 
 __all__ = ["selective_scan", "mamba_scan", "build", "launches", "reset_launches",
@@ -237,6 +237,7 @@ def selective_scan(
         if dt.device.type == "cpu":
             return selective_scan_ref(*args)
         raise ValueError(f"selective_scan: unsupported device {dt.device}")
+    refuse_grad("selective_scan", *args)
     ys = torch.empty_like(dt)
     ht = torch.empty_like(h0)
     call = _call()
@@ -282,6 +283,7 @@ def mamba_scan(
         if dt_raw.device.type == "cpu":
             return mamba_scan_ref(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
         raise ValueError(f"mamba_scan: unsupported device {dt_raw.device}")
+    refuse_grad("mamba_scan", dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     ht = torch.empty_like(h0)
     call = _call()

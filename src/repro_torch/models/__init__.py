@@ -1,11 +1,13 @@
 """LM model stack (PyTorch port of ``repro/models``): GQA (global and
 sliding-window), MLA, RG-LRU and Mamba layers with dense gated or MoE FFNs,
 and the audio and vision frontend stubs, as ``nn.Module``s behind the
-reference's functional entry names. ``loss_fn`` is still to port with the
-training path (ROADMAP queue 1 item 11)."""
+reference's functional entry names, ``loss_fn`` (the training loss) among
+them. ``convert`` carries weights, caches and AdamW state across from the
+JAX package's numpy trees and back."""
 
 from .config import ArchConfig, MLAConfig, MoEConfig
-from .convert import cache_from_numpy, params_from_numpy
+from .convert import (cache_from_numpy, opt_state_from_numpy, opt_state_to_numpy,
+                      params_from_numpy, params_to_numpy)
 from .transformer import (
     FRONTEND_DIMS,
     LAYER_KINDS,
@@ -16,6 +18,8 @@ from .transformer import (
     forward,
     init_cache,
     init_params,
+    loss_and_grads,
+    loss_fn,
     pad_vocab,
     layer_kind,
     prefill,
@@ -25,7 +29,8 @@ from .transformer import (
 __all__ = [
     "ArchConfig", "MLAConfig", "MoEConfig",
     "FRONTEND_DIMS", "LAYER_KINDS", "Block", "LanguageModel", "LayerKind", "layer_kind",
-    "cache_from_numpy", "params_from_numpy",
-    "decode_step", "forward", "init_cache", "init_params",
+    "cache_from_numpy", "params_from_numpy", "params_to_numpy", "opt_state_from_numpy",
+    "opt_state_to_numpy",
+    "decode_step", "forward", "init_cache", "init_params", "loss_and_grads", "loss_fn",
     "pad_vocab", "prefill", "split_pattern",
 ]

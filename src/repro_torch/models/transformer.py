@@ -11,17 +11,25 @@ stage modules and caches, and loops.
 Modes (the reference's functional entry names, over a
 :class:`LanguageModel`):
 
-* ``forward``      — eval forward (no cache) -> logits [B, S, V_pad]
+* ``forward``      — training/eval forward (no cache) -> logits [B, S, V_pad]
+* ``loss_fn``      — mean next-token cross-entropy over ``forward``
 * ``prefill``      — forward + cache population -> (last logits, cache)
 * ``decode_step``  — one token against the cache -> (logits, cache)
+
+Training: ``model.requires_grad_(True)`` makes every weight trainable
+(``init_params`` and ``params_from_numpy`` build them frozen, as serving
+wants them); ``loss_fn(...).backward()`` then leaves each weight's
+gradient in ``.grad``. ``remat=True`` (the reference's default) recomputes
+each stage in the backward (``torch.utils.checkpoint``), equal in value to
+no remat. ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
+the weights say.
 
 Mixers: GQA (global and local), MLA, RG-LRU and Mamba. Every layer but a
 Mamba one has a dense or MoE FFN (prefix layers, which absorb
 ``moe.first_dense``, stay dense). A frontend arch (``audio_stub``,
 ``vision_stub``) takes precomputed frame or patch embeddings ``[B, S, F]``
 in place of tokens and projects them with ``frontend_proj``, in all three
-modes. The training path's ``loss_fn`` is still to port with training
-(ROADMAP queue 1 item 11).
+modes.
 """
 
 from __future__ import annotations
@@ -30,9 +38,12 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.buffers import DeviceLike, resolve_device
+from ..parallel import shard
+from ..tree import tree_map
 from .attention import GqaAttention, MlaAttention, init_attn, init_mla
 from .config import ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLA, RGLRU, ArchConfig
 from .ffn import GatedMlp, MoeFfn, init_ffn, init_moe
@@ -41,7 +52,8 @@ from .recurrent import Mamba, RgLru, init_mamba, init_rglru
 
 __all__ = [
     "FRONTEND_DIMS", "LAYER_KINDS", "LayerKind", "layer_kind", "Block", "LanguageModel", "pad_vocab", "split_pattern",
-    "init_params", "init_cache", "forward", "prefill", "decode_step",
+    "init_params", "init_cache", "forward", "loss_fn", "loss_and_grads", "prefill",
+    "decode_step",
 ]
 
 # The width of a frontend's precomputed embeddings (EnCodec frames, SigLIP
@@ -198,6 +210,20 @@ class LanguageModel(nn.Module):
                              f"and {len(self.stages)} stages, the config {len(prefix)} "
                              f"and {n_stages}")
 
+    def param_tree(self) -> Dict[str, Any]:
+        """The model's parameters (the tensors themselves) in the layout
+        ``__init__`` takes: the reference's keys, ``prefix`` a list of layer
+        dicts, ``stages`` a list of one tuple of layer dicts per stage."""
+        tree: Dict[str, Any] = {"prefix": [{} for _ in self.prefix],
+                                "stages": [tuple({} for _ in st) for st in self.stages]}
+        for name, param in self.named_parameters():
+            parts = name.split(".")
+            node: Any = tree
+            for part in parts[:-1]:
+                node = node[int(part)] if part.isdigit() else node.setdefault(part, {})
+            node[parts[-1]] = param
+        return tree
+
 
 # ---------------------------------------------------------------------------
 # init
@@ -285,7 +311,7 @@ def _embed(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor) -> torc
         # sqrt(d) as float32, applied in float32 before the cast to the
         # model dtype (the reference's order, which matters for bf16)
         x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
-    return x.to(DTYPES[cfg.dtype])
+    return shard(x.to(DTYPES[cfg.dtype]), "act_btd")
 
 
 def _head(params: LanguageModel, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -294,15 +320,29 @@ def _head(params: LanguageModel, cfg: ArchConfig, x: torch.Tensor) -> torch.Tens
     logits = torch.einsum("bsd,dv->bsv", x, w).float()  # the product in the model dtype
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    return shard(logits, "logits")
 
 
-def _run_layers(params: LanguageModel, x, positions, cache, pos, prefill_mode):
+def _run_stage(stage: nn.ModuleList, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One stage's blocks without a cache (the unit ``remat`` recomputes)."""
+    for block in stage:
+        x, _ = block(x, positions, None, None, False)
+    return x
+
+
+def _run_layers(params: LanguageModel, x, positions, cache, pos, prefill_mode, remat=False):
     new_prefix = []
     for i, block in enumerate(params.prefix):
         entry = cache["prefix"][i] if cache is not None else None
         x, nc = block(x, positions, entry, pos, prefill_mode)
         new_prefix.append(nc)
+    if remat and cache is None and torch.is_grad_enabled():
+        # As the reference's jax.checkpoint(nothing_saveable) per stage: keep
+        # each stage's input, recompute the rest in the backward.
+        for stage in params.stages:
+            x = torch.utils.checkpoint.checkpoint(_run_stage, stage, x, positions,
+                                                  use_reentrant=False)
+        return x, None
     new_stages = []
     for si, stage in enumerate(params.stages):
         entries = []
@@ -315,14 +355,46 @@ def _run_layers(params: LanguageModel, x, positions, cache, pos, prefill_mode):
     return x, new_cache
 
 
-def forward(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
-    """Eval forward. inputs: tokens [B, S] int (or embeddings [B, S, F]
-    for frontend archs). Returns logits [B, S, V_pad] (f32)."""
+def forward(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
+    """Training/eval forward. inputs: tokens [B, S] int (or embeddings
+    [B, S, F] for frontend archs). Returns logits [B, S, V_pad] (f32).
+    ``remat`` recomputes each stage in the backward where autograd records
+    the forward; it changes no value."""
     s = inputs.shape[1]
     x = _embed(params, cfg, inputs)
     positions = torch.arange(s, device=x.device)
-    x, _ = _run_layers(params, x, positions, None, None, False)
+    x, _ = _run_layers(params, x, positions, None, None, False, remat)
     return _head(params, cfg, x)
+
+
+def loss_fn(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor,
+            labels: torch.Tensor, *, remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy; the padded vocab columns are masked
+    out (logit -1e30), as in the reference."""
+    logits = forward(params, cfg, inputs, remat=remat)
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(col < cfg.vocab, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_and_grads(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor,
+                   labels: torch.Tensor, *, remat: bool = True):
+    """``loss_fn`` and its gradient with respect to every weight (the
+    reference's ``jax.value_and_grad(loss_fn)``); the weights must be
+    trainable (``params.requires_grad_(True)``). Returns the detached loss
+    and the gradients in ``param_tree``'s layout, each in its weight's dtype
+    (zeros for a weight the loss does not reach); the weights' ``.grad`` is
+    left cleared."""
+    params.zero_grad(set_to_none=True)
+    loss = loss_fn(params, cfg, inputs, labels, remat=remat)
+    loss.backward()
+    grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+                     params.param_tree())
+    params.zero_grad(set_to_none=True)
+    return loss.detach(), grads
 
 
 @torch.no_grad()

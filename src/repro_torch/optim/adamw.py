@@ -1,0 +1,79 @@
+"""AdamW with fp32 master weights over bf16 (or fp32) compute params
+(PyTorch port of ``repro/optim/adamw.py``).
+
+The state is the reference's: ``{"step", "master", "m", "v"}``, with
+master, m and v trees of the params' structure. The update is the
+reference's formula, weight decay inside the step
+(``master - lr * (mh / (sqrt(vh) + eps) + wd * master)``), not
+``torch.optim.AdamW``'s decoupled decay, which rounds differently. It runs
+leaf by leaf and in place: the params, master, m, v and step are updated
+where they lie, so a 2.7 B-parameter model's state (32.7 GB of float32
+master, m and v) is never held twice, as a functional update would hold
+it."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..tree import tree_leaves, tree_map
+
+__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm"]
+
+
+def adamw_init(params: Any) -> Dict[str, Any]:
+    """Fresh state for a tree of params: the float32 master a copy (also
+    where the params are float32 already), m and v zeros."""
+    device = tree_leaves(params)[0].device
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+    }
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
+    """``(grads scaled by min(1, max_norm / (norm + 1e-9)) in float32, norm)``,
+    the norm over every leaf in float32."""
+    leaves = tree_leaves(grads)
+    sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g in leaves:
+        sq = sq + torch.sum(torch.square(g.float()))
+    gnorm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), gnorm
+
+
+@torch.no_grad()
+def adamw_update(
+    params: Any,
+    grads: Any,
+    state: Dict[str, Any],
+    lr,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+) -> Tuple[Any, Dict[str, Any]]:
+    """One AdamW step, in place on ``params`` (each the rounding of its new
+    master to its dtype) and ``state``; ``lr`` a float or 0-d tensor.
+    Returns ``(params, state)``, the same objects."""
+    state["step"] += 1
+    step = state["step"].float()
+    c1 = 1.0 - torch.pow(b1, step)
+    c2 = 1.0 - torch.pow(b2, step)
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
+    for p, master, g, m, v in zip(tree_leaves(params), tree_leaves(state["master"]),
+                                  tree_leaves(grads), tree_leaves(state["m"]),
+                                  tree_leaves(state["v"])):
+        g = g.float()
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        update = (m / c1).div_(torch.sqrt(v / c2).add_(eps)).add_(weight_decay * master)
+        master.sub_(lr * update)
+        p.copy_(master)
+    return params, state

@@ -1,7 +1,6 @@
-"""Serving runtime (PyTorch port of ``repro/runtime``): the live
-``SessionServer`` on the ACS window and the ``ContinuousBatchingServer``
-baseline. Training (``runtime/train.py``) is still to port (ROADMAP queue 1
-item 11)."""
+"""Runtime loops (PyTorch port of ``repro/runtime``): the fault-tolerant
+``Trainer``, the live ``SessionServer`` on the ACS window and the
+``ContinuousBatchingServer`` baseline."""
 
 from .serve import (
     PRIORITY_HIGH,
@@ -13,8 +12,10 @@ from .serve import (
     Request,
     SessionServer,
 )
+from .train import Trainer, TrainerConfig
 
 __all__ = [
     "AdmissionQueueFull", "ContinuousBatchingServer", "DrainTimeout",
     "PRIORITY_HIGH", "PRIORITY_LOW", "PRIORITY_NORMAL", "Request", "SessionServer",
+    "Trainer", "TrainerConfig",
 ]

@@ -1190,3 +1190,182 @@ def test_threaded_stress_on_real_streams(device):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(_bits_of(bufs), _bits_of(sbufs))
     assert report.exec_stats["tasks_run"] == report.window_stats["retired"] == 200
+
+
+# ---------------------------------------------------------------------------
+# Training: flash attention's backward, its forward's row log-sum-exp, and
+# the wrappers that have no backward refusing to run under grad
+# ---------------------------------------------------------------------------
+
+# (b, h, hkv, sq, sk, d) and masks: minicpm-2b's training shape cut to one
+# batch row, GQA, the window, prefix and softcap, a ragged Sk (a chunk at
+# q_offset), rows that see no key (a whole query tile of them), no causal
+# mask, and widths off the 64/128 padding and the 16-byte copies.
+FLASH_BWD = {
+    "minicpm": ((1, 36, 36, 512, 512, 64), {}),
+    "gqa": ((2, 8, 2, 130, 130, 64), {}),
+    "window": ((1, 4, 4, 200, 200, 64), {"window": 50}),
+    "prefix_d128": ((1, 4, 1, 150, 150, 128), {"prefix_len": 70}),
+    "softcap_gqa_d128": ((1, 4, 2, 97, 97, 128), {"softcap": 2.0}),
+    "ragged_chunk": ((1, 4, 2, 33, 300, 64), {"q_offset": 267}),
+    "blind_rows": ((1, 2, 1, 100, 100, 64), {"q_offset": -70}),
+    "noncausal_window": ((1, 2, 2, 100, 77, 64), {"causal": False, "window": 20}),
+    "d24": ((2, 4, 2, 70, 70, 24), {}),
+    "d120_window_prefix": ((1, 4, 4, 129, 129, 120), {"window": 40, "prefix_len": 9}),
+    "d8": ((1, 2, 1, 65, 65, 8), {"causal": False}),
+}
+# float32: summation order only, 1e-4 of the largest gradient entry.
+# bfloat16 / float16: P and dS are rounded to the input type (2^-9) before
+# their products, and the gradients once more on the way out: 2e-2 of the
+# largest entry.
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def _bwd_inputs(device, name, dtype):
+    (b, h, hkv, sq, sk, d), flags = FLASH_BWD[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    return make(b, h, sq, d), make(b, hkv, sk, d), make(b, hkv, sk, d), make(b, h, sq, d), flags
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(FLASH_BWD))
+def test_flash_backward_matches_plain(device, name, dtype):
+    """The backward kernel against ``attention_bwd_ref`` on the same q, k,
+    v, dO and the forward kernel's o and lse; lse against
+    ``attention_lse_ref``; the same bits on a second launch."""
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref
+
+    q, k, v, do, flags = _bwd_inputs(device, name, dtype)
+    out, lse = fa.flash_attention_lse(q, k, v, **flags)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, **flags), rtol=1e-4, atol=1e-4)
+    before = fa.backward_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+    torch.cuda.synchronize()
+    assert fa.backward_launches == before + 1
+    want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
+    for name_, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name_
+        err = float((g.float() - w).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * float(w.abs().max()), (name_, err)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_flash_backward_float16(device):
+    from repro_torch.kernels.ref import attention_bwd_ref
+
+    q, k, v, do, flags = _bwd_inputs(device, "softcap_gqa_d128", torch.float16)
+    out, lse = fa.flash_attention_lse(q, k, v, **flags)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+    want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
+    for g, w in zip(got, want):
+        assert float((g.float() - w).abs().max()) <= 2e-2 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_leaves_the_forward_bits(device, dtype):
+    q, k, v, _, flags = _bwd_inputs(device, "window", dtype)
+    out, _ = fa.flash_attention_lse(q, k, v, **flags)
+    assert torch.equal(fa.flash_attention(q, k, v, **flags), out)
+    blind_q, blind_k, blind_v, _, blind = _bwd_inputs(device, "blind_rows", dtype)
+    _, lse = fa.flash_attention_lse(blind_q, blind_k, blind_v, **blind)
+    assert bool(torch.isneginf(lse[:, :, :70]).all()) and bool(torch.isfinite(lse[:, :, 70:]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_goes_through_both_kernels(device, dtype):
+    """``flash_attention`` on inputs that need a gradient: one forward and
+    one backward launch, gradients within tolerance of autograd through
+    ``attention_ref``, a blind row's gradient exactly 0."""
+    q, k, v, do, flags = _bwd_inputs(device, "blind_rows", dtype)
+    grads = []
+    for fn in (fa.flash_attention, attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = (fa.launches, fa.backward_launches)
+        fn(*leaves, **flags).backward(do)
+        torch.cuda.synchronize()
+        launched = (fa.launches - before[0], fa.backward_launches - before[1])
+        assert launched == ((1, 1) if fn is fa.flash_attention else (0, 0))
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert bool(torch.isfinite(g).all())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * float(w.float().abs().max()) + 1e-6
+    assert bool((grads[0][0][:, :, :70] == 0).all())
+    with torch.no_grad():  # no gradient: the serving call, no backward state
+        before = fa.launches
+        fa.flash_attention(*[t.clone().requires_grad_(True) for t in (q, k, v)], **flags)
+        assert fa.launches == before + 1
+
+
+def test_kernel_wrappers_refuse_grad(device):
+    """The wrappers with no backward kernel raise under grad on the card
+    rather than drop the gradient; flash raises for widths its backward
+    does not take; under no_grad all of them run."""
+    g = lambda *shape: torch.rand(*shape, device=device).requires_grad_(True)  # noqa: E731
+    a, b, h0 = g(1, 4, 8), g(1, 4, 8), torch.zeros(1, 8, device=device)
+    with pytest.raises(RuntimeError, match="lru_scan: the CUDA kernel has no backward"):
+        ls.lru_scan(a, b, h0)
+    x, w = g(16, 32), g(2, 32, 8)
+    tiles = torch.tensor([0, 1], dtype=torch.int32, device=device)
+    with pytest.raises(RuntimeError, match="grouped_matmul: the CUDA kernel has no backward"):
+        gm.grouped_matmul(x, w, tiles, block_m=8)
+    dt, xs = g(1, 5, 16), g(1, 5, 16)
+    bm, cm = g(1, 5, 4), g(1, 5, 4)
+    am, hs = -g(16, 4).detach(), torch.zeros(1, 16, 4, device=device)
+    with pytest.raises(RuntimeError, match="selective_scan: the CUDA kernel has no backward"):
+        ss.selective_scan(dt, xs, bm, cm, am, hs)
+    z, bias, d = g(1, 5, 16), torch.zeros(16, device=device), torch.ones(16, device=device)
+    with pytest.raises(RuntimeError, match="mamba_scan: the CUDA kernel has no backward"):
+        ss.mamba_scan(dt, bias, xs, z, bm, cm, am.neg().log(), d, hs)
+    wide = g(1, 2, 8, 256)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        fa.flash_attention(wide, wide, wide)
+    with torch.no_grad():
+        ls.lru_scan(a, b, h0)
+        gm.grouped_matmul(x, w, tiles, block_m=8)
+        ss.selective_scan(dt, xs, bm, cm, am, hs)
+        fa.flash_attention(wide, wide, wide)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["minicpm-2b", "gemma2-27b", "h2o-danube-3-4b",
+                                  "musicgen-large"])
+def test_train_gradients_on_the_card_match_the_cpu(device, name):
+    """A reduced float32 config's loss and every weight's gradient through
+    flash and its backward on the card against the same weights' on the
+    CPU (the plain attention, differentiated by autograd): 1e-5 relative
+    on the loss, 1e-4 of each leaf's largest entry (summation order); the
+    card's remat gives the bits of no remat (every kernel deterministic)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params, loss_and_grads
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.tree import tree_leaves_with_names
+
+    cfg = ARCHS[name].reduced()
+    cpu = init_params(cfg, 0, device="cpu", tp_size=1).requires_grad_(True)
+    card = params_from_numpy(params_to_numpy(cpu), cfg, device=device).requires_grad_(True)
+    rng = np.random.RandomState(7)
+    if cfg.frontend:
+        from repro_torch.models import FRONTEND_DIMS
+        inputs = torch.from_numpy(rng.randn(2, 24, FRONTEND_DIMS[cfg.frontend]).astype(np.float32))
+    else:
+        inputs = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 24)).astype(np.int32))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 24)).astype(np.int32))
+    want_loss, want = loss_and_grads(cpu, cfg, inputs, labels)
+    fa.reset_launches()
+    loss, got = loss_and_grads(card, cfg, inputs.to(device), labels.to(device))
+    torch.cuda.synchronize()
+    assert fa.launches > 0 and fa.backward_launches > 0
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+    mine, theirs = tree_leaves_with_names(got), tree_leaves_with_names(want)
+    assert [n for n, _ in mine] == [n for n, _ in theirs]
+    for (leaf, g), (_, w) in zip(mine, theirs):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-7, (leaf, err)
+    loss_b, no_remat = loss_and_grads(card, cfg, inputs.to(device), labels.to(device),
+                                      remat=False)
+    assert torch.equal(loss, loss_b)
+    for (_, a), (_, b) in zip(mine, tree_leaves_with_names(no_remat)):
+        assert torch.equal(a, b)

@@ -1,10 +1,13 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
-neither JAX nor the reference package, no source line imports them, and an
-entry point called without ``device=`` on a host without a card raises
-instead of moving to the CPU. Its public surface matches the reference's:
-``repro_torch.core`` exports every name of ``repro.core``, and each name
-the two ``kernels`` packages share is a function in both or a module in
-both."""
+neither JAX, nor ``ml_dtypes``, nor the reference package, no source line
+(the package's, ``chip_smoke.py``'s and the port's examples') imports
+them, and an entry point called without ``device=`` on a host without a
+card raises instead of moving to the CPU. Its public surface matches the
+reference's: ``repro_torch.core``, ``models``, ``runtime``, ``data`` and
+``checkpoint`` export every name of their reference packages (``loss_fn``,
+``Trainer`` and ``TrainerConfig`` among them), ``optim`` and ``parallel``
+every name but the TPU mesh's sharding specs, and each name the two
+``kernels`` packages share is a function in both or a module in both."""
 
 import os
 import pkgutil
@@ -29,7 +32,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     __import__(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+             if m in ("jax", "repro", "ml_dtypes")
+             or m.startswith(("jax.", "jaxlib", "repro.", "ml_dtypes.")))
 assert not bad, bad
 print(len(names))
 """
@@ -44,12 +48,14 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert int(proc.stdout.strip()) == n_modules > 10
 
 
-_FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro[. ])", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro[. ]"
+                        r"|import ml_dtypes|from ml_dtypes)", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
                                         for p in [*PKG_DIR.rglob("*.py"),
-                                                  ROOT / "chip_smoke.py"]))
+                                                  ROOT / "chip_smoke.py",
+                                                  *ROOT.glob("examples/torch_*.py")]))
 def test_no_source_imports_jax_or_the_reference(path):
     assert not _FORBIDDEN.findall((ROOT / path).read_text())
 
@@ -63,7 +69,7 @@ def _entry_points():
     from repro_torch.dyn import WORKLOADS, params_from_numpy
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_cache, init_params
-    from repro_torch.runtime import ContinuousBatchingServer, SessionServer
+    from repro_torch.runtime import ContinuousBatchingServer, SessionServer, Trainer, TrainerConfig
     from repro_torch.sim import ENVIRONMENTS, PhysicsEngine
 
     cfg = ARCHS["recurrentgemma-2b"].reduced()
@@ -110,6 +116,7 @@ def _entry_points():
         **{f"dyn.init[{name}]": lambda init=init: init(0)
            for name, (init, _, _) in WORKLOADS.items()},
         "dyn.params_from_numpy": lambda: params_from_numpy("squeezenet", {}),
+        "Trainer": lambda: Trainer(cfg, TrainerConfig(), ROOT / ".never_written"),
     }
 
 
@@ -147,3 +154,24 @@ def test_public_surface_matches_the_reference():
             inspect.ismodule(getattr(R_kernels, name)), name
     for name in ("ready_queue", "selective_scan", "ops", "ref"):
         assert inspect.ismodule(getattr(T_kernels, name)), name
+
+
+# The reference's names the port leaves out: ZeRO-1 and PartitionSpec trees
+# for TPU meshes, which wait for a multi-GPU slice (ROADMAP).
+_MESH_ONLY = {"opt_specs", "param_specs", "batch_specs", "cache_specs", "policy_for"}
+
+
+@pytest.mark.parametrize("package", ["models", "runtime", "optim", "data", "checkpoint",
+                                     "parallel"])
+def test_training_surface_matches_the_reference(package):
+    import importlib
+
+    theirs = importlib.import_module(f"repro.{package}")
+    ours = importlib.import_module(f"repro_torch.{package}")
+    assert set(theirs.__all__) - _MESH_ONLY <= set(ours.__all__)
+    for name in set(theirs.__all__) - _MESH_ONLY:
+        assert callable(getattr(ours, name)) == callable(getattr(theirs, name)), name
+    if package == "models":
+        assert {"loss_fn", "forward", "init_params"} <= set(ours.__all__)
+    if package == "runtime":
+        assert {"Trainer", "TrainerConfig"} <= set(ours.__all__)
