@@ -7,11 +7,11 @@ Phases, each fatal on failure (an exception, exit code != 0):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
 2. Build: the seven CUDA kernel libraries (ready queue, wave megakernel,
-   flash attention, flash attention's backward, RG-LRU scan, grouped
-   GEMM, selective scan) from the sources in this checkout, one ``nvcc``
-   each, all started together; each one's build seconds and, from
-   ``ptxas -v``, each kernel's registers, static shared memory and
-   spills.
+   flash attention, flash attention's backward, RG-LRU scan and its
+   reverse scan, grouped GEMM and its dx and dw entries, selective scan)
+   from the sources in this checkout, one ``nvcc`` each, all started
+   together; each one's build seconds and, from ``ptxas -v``, each
+   kernel's registers, static shared memory and spills.
 3. Kernel vs plain, on the card:
    a. ready queue: the kernel's slab and completion flags bit-equal to
       ``ready_queue_ref``, and its ring a start order (a permutation of
@@ -34,7 +34,10 @@ Phases, each fatal on failure (an exception, exit code != 0):
    c. ``lru_scan``: bit-equal to ``lru_scan_ref`` for B in {1, 4, 8},
       S in {1, 37, 63, 64, 65, 512, 2048}, D in {2560, 1000, 7}, float32
       and bfloat16 (both channel tiles, the 64-step time tile's edges,
-      element copies); the selective scan (SCAN_SWEEP, FUSED_SWEEP):
+      element copies); its reverse scan (``lru_scan_bwd``: da, db, dh0)
+      bit-equal to ``lru_scan_bwd_ref`` for B in {1, 4}, S in {1, 37, 63,
+      64, 65, 512}, D in {2560, 1000, 7}, float32 and bfloat16, the same
+      bits on a second launch; the selective scan (SCAN_SWEEP, FUSED_SWEEP):
       ``selective_scan``'s ys and hT within 1e-5 (abs and rel) of
       ``selective_scan_ref`` at falcon-mamba-7b's prefills ([1, 512, 8192]
       and [1, 128, 8192], N 16) and decode (B 1 and 4), S on both sides of
@@ -63,9 +66,14 @@ Phases, each fatal on failure (an exception, exit code != 0):
       bf16 2e-2 of the largest entry) on the forward kernel's o and row
       log-sum-exp, at minicpm-2b's training shape [4, 36, 512, 64] causal
       and over GQA, window, prefix, softcap, a ragged Sk, rows that see no
-      key, no causal mask, D 24, 120 and 128; lse within 1e-4 of
-      ``attention_lse_ref``; the forward's bits the same with and without
-      lse; the same bits on a second launch; D 256 raises under grad;
+      key, no causal mask, D 24, 120 and 128; at D 256 (two column slices
+      a pass): recurrentgemma-2b's training shape [4, 10, 512, 256] over
+      one kv head with window 2048, a window that binds (S 600, window
+      100), paligemma-3b's [1, 8, 320, 256] over one kv head with
+      ``prefix_len`` 256, softcap, blind rows, D 200 and 136; lse within
+      1e-4 of ``attention_lse_ref``; the forward's bits the same with and
+      without lse; the same bits on a second launch; Dv != D (MLA) raises
+      under grad;
    e. ``grouped_matmul``: within tolerance of ``grouped_matmul_ref``
       (float32 1e-4, float16 and bfloat16 8e-3: one bfloat16 ulp) over the
       reference's ragged cases (N off the tile, groups with no tile),
@@ -74,6 +82,14 @@ Phases, each fatal on failure (an exception, exit code != 0):
       ring's tile widths, and granite-moe's decode and prefill expert
       products, in float32, float16 and bfloat16; the same bits on a
       second launch; a bad group id raises;
+   e'. the grouped GEMM's backward (``grouped_matmul_bwd``: dx, dw;
+      GMM_BWD_SWEEP) within GMM_BWD_TOL of ``grouped_matmul_bwd_ref`` at
+      granite-moe-3b-a800m's training shapes (40 experts, C 512: w [40,
+      1536, 512] and [40, 512, 1536]), a two-dispatch-group capacity
+      layout, ragged cases with repeated groups and groups no tile names
+      (dw exactly 0), block_m 1, 8, 64, 70 and 512, K and N off the tile
+      edges, in float32, float16 and bfloat16; the same bits on a second
+      launch;
    f. the expert-wave stream of ``benchmarks/bench_moe_waves.py`` (8
       experts, top-2, D 64, d_expert 32, 64 tokens routed from seed 0,
       tiles of 8) through ``run_serial``, ``WaveScheduler`` and the wave
@@ -191,7 +207,12 @@ Phases, each fatal on failure (an exception, exit code != 0):
    in float32 at S 512, with its grid, warps an SM and SASS instructions
    a state and step), flash, the
    grouped GEMM, the scans and the ready queue also 20 launches back to
-   back, flash's and the scans' device times, each kernel's bound, and
+   back, flash's and the scans' device times, each kernel's bound, the
+   backward kernels at their training shapes (flash's at minicpm-2b's and
+   at recurrentgemma-2b's D 256 beside SDPA's backward through autograd,
+   its backend named; the grouped GEMM's dx and dw at granite's gate/up
+   and down products beside ``torch.bmm`` on the capacity layout; the
+   RG-LRU reverse scan at [4, 512, 2560] f32, no library call), and
    the wall time of each phase-4/5/6 policy and server. The ready queue also: its device time from
    ``torch.profiler`` (the mean over the kernels the trace holds), that
    of ONE 32-deep chain (over 32: the hop that bounds it) and of one
@@ -205,20 +226,27 @@ Phases, each fatal on failure (an exception, exit code != 0):
    (58k and 130k kernels), a trace in the same process loses the first
    device events of a pass (the loop pass's ready-queue kernel among
    them): one more loop pass is profiled at the end to show it.
-9. Training, after phase 7 and before phase 6 (each model freed after):
-   minicpm-2b whole (40 layers, d_model 2304, bf16, 2.72 B parameters from
-   seed 0, AdamW's float32 master, m and v on the card), batches of
-   TokenPipeline(vocab, 512, 4, seed=0): step 0's loss and gradients
-   through flash and its backward against the same step with the plain
-   attention (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COSINE), then 5
-   ``StepBundle.train_step``s (remat, lr 3e-4, clip 1.0): losses and
-   gradient norms finite, flash launched 80 times a step (the forward and
-   remat's recompute of 40 layers) and its backward 40; step ms, tokens/s,
-   MFU (6 N D over the bf16 peak) and peak device memory logged, and one
-   more step under ``torch.profiler`` (device time by kernel group). Phase 7
-   also times the backward at that shape beside the plain version and
-   SDPA's backward through autograd, and the forward with and without its
-   lse output.
+9. Training, after phase 7 and before phase 6, for each of TRAIN_ARCHS
+   whole (each model freed before the next is built): minicpm-2b (40
+   layers, 2.72 B parameters), granite-moe-3b-a800m (32 layers, 40
+   experts, 3.30 B) and recurrentgemma-2b (26 layers, 18 RG-LRU, D 256,
+   2.90 B), bf16 from seed 0, tp_size 1, AdamW's float32 master, m and v
+   on the card, batches of TokenPipeline(vocab, 512, 4, seed=0): step 0's
+   loss and gradients through the kernels against the same step with
+   ``ops.attention``, ``ops.grouped_matmul`` and ``ops.lru_scan`` swapped
+   for their plain versions (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL,
+   TRAIN_MIN_COSINE; a MoE's plain pass replays the kernel pass's routing
+   choices, and a plain pass routing for itself is logged beside it), then
+   5 ``StepBundle.train_step``s (remat, lr 3e-4, clip 1.0): losses and
+   gradient norms finite, each kernel launched exactly so many times a
+   step (``expected_train_launches``: minicpm flash 80 / 40; granite flash
+   64 / 32, grouped GEMM 192, dx 96, dw 96; recurrentgemma flash 16 / 8,
+   RG-LRU 34 (its two prefix layers are not recomputed), reverse 18);
+   step ms, tokens/s, MFU (6 N D, a MoE's N its
+   active parameters, over the bf16 peak) and peak device memory logged,
+   and one more step under ``torch.profiler`` (device time by kernel
+   group). Phase 7 also times flash's forward with and without its lse
+   output.
 9b. The ``Trainer`` at a reduced minicpm (TRAINER_CUT, bf16): 20 steps
    uninterrupted; a run checkpointed every 10 steps crashed at 15 and
    resumed by a fresh ``Trainer``, whose steps 10-19 give the
@@ -300,26 +328,59 @@ FRONTEND_ARCHS = {"musicgen-large": 256, "paligemma-3b": 256 + 64}
 FRONTEND_STEPS = 16
 FRONTEND_TOL = {"float32": (1e-3, 1e-3, 0.0), "bfloat16": (0.0, 0.0, 0.06)}
 
-# The training phase (9): minicpm-2b whole (40 layers, d_model 2304, 36
-# heads of 64, vocab 122,753 padded to 122,880, bf16, weights from seed 0)
-# on TokenPipeline(vocab, 512, 4, seed=0) batches, TRAIN_STEPS steps of
-# StepBundle.train_step at lr 3e-4 and clip 1.0 (each stage recomputed in
-# the backward, the reference's remat).
+# The training phase (9), for each of TRAIN_ARCHS whole at its published
+# widths (minicpm-2b: 40 layers, d_model 2304, 36 heads of 64;
+# granite-moe-3b-a800m: 32 layers, d_model 1536, GQA 24/8 of 64, 40
+# experts of 512, top-8; recurrentgemma-2b: 26 layers, 18 RG-LRU and 8
+# local-attention, d_model 2560, 10 heads of 256 over 1, window 2048), bf16,
+# weights from seed 0, tp_size 1, on TokenPipeline(vocab, 512, 4, seed=0)
+# batches: TRAIN_STEPS steps of StepBundle.train_step at lr 3e-4 and clip
+# 1.0 (each stage recomputed in the backward, the reference's remat). Each
+# model is freed before the next is built. TRAIN_ARCH is the one the
+# Trainer's crash-and-resume phase (9b) cuts down.
+TRAIN_ARCHS = ("minicpm-2b", "granite-moe-3b-a800m", "recurrentgemma-2b")
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR, TRAIN_CLIP = (
     "minicpm-2b", 512, 4, 5, 3e-4, 1.0)
-# Step 0's loss and gradients through flash (forward and the hand-written
-# backward) held to the same step with ops.attention swapped for the plain
-# attention_ref, both in bf16 on the card. The two attentions differ by
-# bf16 roundings only: flash rounds P to bf16 before its PV product and P
-# and dS before its backward products, the plain version computes in
-# float32 and rounds its output; each attention output or gradient is a
-# few bf16 ulps (2^-8 relative) apart, and 40 layers of bf16 GEMMs carry
-# that into the weights' gradients as noise of about that relative size.
-# The loss at initialisation is about ln(122,753) = 11.7; a wrong mask,
-# scale or row moves it by far more than 1e-2 and turns a gradient's
+# Step 0's loss and gradients through the kernels (flash forward and its
+# backward, the grouped GEMM and its dx and dw, the RG-LRU scan and its
+# reverse) held to the same step with ops.attention, ops.grouped_matmul and
+# ops.lru_scan swapped for their plain versions (autograd through them),
+# both in bf16 on the card. The two paths differ by bf16 roundings only:
+# flash rounds P to bf16 before its PV product and P and dS before its
+# backward products where the plain attention computes in float32 and
+# rounds its output; the grouped GEMM's products round to bf16 once either
+# way, in other summation orders (the plain dw sums a group's tiles in
+# float32 and rounds once, as the kernel does); the RG-LRU scan runs in
+# float32, bit-equal both ways. Each output or gradient is a few bf16 ulps
+# (2^-8 relative) apart, and 26-40 layers of bf16 GEMMs carry that into
+# the weights' gradients as noise of about that relative size. The loss
+# at initialisation is about ln(vocab) (10.8-12.5); a wrong mask, scale,
+# row, tile or step moves it by far more than 1e-2 and turns a gradient's
 # direction: loss within 1e-2 absolute, the global gradient norm within
 # 2 %, and each weight's gradient at cosine >= 0.99 with its plain twin.
+# MoE: a bf16 difference upstream flips near-tied top-8 choices and moves
+# tokens between experts, and at initialisation the router's 40 scores a
+# token are close: on an H100 80GB HBM3, 2,534 of the 2,560 (layer,
+# expert) token sets of granite's step 0 differ between a kernel pass and
+# a plain pass that route for themselves, and their gradients are then
+# another function's (median leaf cosine 0.435). So the plain pass replays
+# the kernel pass's routing choices (its probabilities computed from its
+# own input, as the router does) and carries the gates; a second plain
+# pass that routes for itself is logged beside it.
 TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COSINE = 1e-2, 0.02, 0.99
+# The float32 truth: the same weights cast to float32 through the plain
+# versions, with the same routing. Even with the routing pinned, granite's
+# bf16 step-0 gradient is noisy: on the same card the plain bf16 path's
+# leaves stand at median cosine 0.970 (lowest 0.943) from the float32
+# ones, the kernel path's at 0.971 (0.950), so no bf16 path meets 0.99
+# against another (kernels against plain: median 0.976). The 0.99 bound
+# therefore holds where the plain bf16 path's every leaf is within it of
+# the float32 gradient (minicpm-2b, recurrentgemma-2b), and for every
+# arch each leaf's distance 1 - cosine from the float32 gradient through
+# the kernels is at most TRAIN_TRUTH_RATIO times the plain bf16 path's
+# plus TRAIN_TRUTH_FLOOR: a wrong tile, row or mask sends a leaf to a
+# cosine far below the plain path's.
+TRAIN_TRUTH_RATIO, TRAIN_TRUTH_FLOOR = 2.0, 1e-3
 # The Trainer's crash and resume on the card (phase 9b), at a reduced
 # minicpm: a full-width checkpoint would be ~38 GB of files. 20 steps, a
 # checkpoint at step 10, a crash at step 15, a fresh Trainer resuming;
@@ -915,6 +976,48 @@ def phase_lru_vs_plain(device):
                           f"lru_scan kernel != plain (B {b}, S {s}, D {d}, {dtype})")
     log(f"lru_scan kernel == plain, bit for bit: B {set(sweep_b)} x S {set(sweep_s)} x D "
         f"{set(sweep_d)}, float32 and bfloat16")
+    phase_lru_bwd_vs_plain(device)
+
+
+def phase_lru_bwd_vs_plain(device):
+    """The reverse scan (``lru_scan_bwd``) bit-equal to ``lru_scan_bwd_ref``
+    on da, db and dh0 over the forward's sweep (B 1 and 4) in float32 and
+    bf16, h the forward kernel's output; with dh0 not asked for it is not
+    written; a bf16 h0 gives a bf16 dh0; a second launch gives the same
+    bits."""
+    import torch
+    from repro_torch.kernels.ref import lru_scan_bwd_ref
+
+    ls = importlib.import_module("repro_torch.kernels.lru_scan")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    sweep_b, sweep_s, sweep_d = (1, 4), (1, 37, 63, 64, 65, 512), (2560, 1000, 7)
+    for d in sweep_d:
+        for b in sweep_b:
+            for s in sweep_s:
+                for dtype in (torch.float32, torch.bfloat16):
+                    a = torch.rand(b, s, d, generator=gen, device=device).to(dtype)
+                    x = torch.randn(b, s, d, generator=gen, device=device).to(dtype)
+                    h0 = torch.randn(b, d, generator=gen, device=device)
+                    if dtype == torch.bfloat16 and s == 37:
+                        h0 = h0.to(dtype)
+                    h = ls.lru_scan(a, x, h0)
+                    dh = torch.randn(b, s, d, generator=gen, device=device).to(dtype)
+                    got = ls.lru_scan_bwd(a, h, h0, dh)
+                    want = lru_scan_bwd_ref(a, h, h0, dh)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(("da", "db", "dh0"), got, want):
+                        check(g.dtype == w.dtype and torch.equal(_int_bits(g), _int_bits(w)),
+                              f"lru_scan reverse {name} != plain (B {b}, S {s}, D {d}, {dtype})")
+                    if s == 65:
+                        again = ls.lru_scan_bwd(a, h, h0, dh, need_dh0=False)
+                        check(again[2] is None and torch.equal(again[0], got[0])
+                              and torch.equal(again[1], got[1]),
+                              f"lru_scan reverse: a second launch (no dh0) gave other bits "
+                              f"(B {b}, D {d}, {dtype})")
+    log(f"lru_scan reverse scan == plain, bit for bit (da, db, dh0): B {set(sweep_b)} x S "
+        f"{set(sweep_s)} x D {set(sweep_d)}, float32 and bfloat16 (bf16 h0 at S 37); a second "
+        f"launch without dh0 gives the same bits")
 
 
 # (b, h, hkv, sq, sk, d), attention flags: the serving shapes, then the
@@ -1023,6 +1126,17 @@ FLASH_BWD_SWEEP = [
     ((2, 4, 2, 70, 70, 24), {}),
     ((1, 4, 4, 129, 129, 120), {"window": 40, "prefix_len": 9}),
     ((1, 32, 8, 512, 512, 128), {"window": 4096}),
+    # D 256 (two column slices a pass): recurrentgemma-2b's training shape
+    # (10 heads over 1, window 2048), a window that binds, paligemma-3b's
+    # 256-key prefix (8 heads over 1), softcap, blind rows, a ragged chunk
+    # and D 200 / 136 off the padding (the second slice part empty).
+    ((4, 10, 1, 512, 512, 256), {"window": 2048}),
+    ((1, 10, 1, 600, 600, 256), {"window": 100}),
+    ((1, 8, 1, 320, 320, 256), {"prefix_len": 256}),
+    ((1, 4, 2, 97, 97, 256), {"softcap": 2.0}),
+    ((1, 2, 1, 100, 100, 256), {"q_offset": -70}),
+    ((1, 4, 2, 65, 130, 200), {"q_offset": 65}),
+    ((2, 4, 4, 70, 70, 136), {"causal": False, "window": 20}),
 ]
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -1032,8 +1146,8 @@ def phase_flash_bwd_vs_plain(device):
     kernel's o and lse over FLASH_BWD_SWEEP, float32 and bf16; lse against
     ``attention_lse_ref`` (1e-4; -inf on a row that sees no key); the
     forward's output bits the same with and without lse; the backward's
-    bits the same on a second launch (no atomics); widths the backward
-    does not take raise under grad."""
+    bits the same on a second launch (no atomics); Dv != D (MLA), which
+    the backward does not take, raises under grad."""
     import torch
     from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref
 
@@ -1069,13 +1183,14 @@ def phase_flash_bwd_vs_plain(device):
             log(f"flash backward ~ plain: {(b, h, hkv, sq, sk, d)} {flags} "
                 f"{str(dtype).replace('torch.', '')} max err / largest entry "
                 f"dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g}")
-    wide = torch.zeros(1, 2, 8, 256, device=device, dtype=torch.bfloat16, requires_grad=True)
+    qk = torch.zeros(1, 2, 8, 192, device=device, dtype=torch.bfloat16, requires_grad=True)
+    v = torch.zeros(1, 2, 8, 128, device=device, dtype=torch.bfloat16, requires_grad=True)
     try:
-        fa.flash_attention(wide, wide, wide)
+        fa.flash_attention(qk, qk, v)
     except ValueError as exc:
-        log(f"flash_attention under grad at D 256 raises ({exc})")
+        log(f"flash_attention under grad at D 192, Dv 128 raises ({exc})")
     else:
-        check(False, "flash_attention under grad at D 256 did not raise")
+        check(False, "flash_attention under grad at D 192, Dv 128 did not raise")
 
 
 def scan_inputs(gen, b, s, e, n, device):
@@ -1317,6 +1432,68 @@ def phase_gmm_vs_plain(device):
             log(f"grouped_matmul: group id {bad} raises ({exc})")
         else:
             check(False, f"grouped_matmul: group id {bad} of {g} groups did not raise")
+
+
+# The grouped GEMM's backward (dx, dw) against grouped_matmul_bwd_ref,
+# (G, K, N, block_m, tile group ids): granite-moe-3b-a800m's training shape
+# (40 experts, capacity C 512, one tile an expert: w_gate/w_up [40, 1536,
+# 512] and w_down [40, 512, 1536]), the capacity layout of two dispatch
+# groups (every expert twice, as models/ffn.py _expert_tiles repeats it),
+# ragged cases with repeated groups and groups no tile names (dw exactly 0),
+# block_m 1, 8 and 512, and K and N off the 8-element copies and off the
+# 128-wide tiles. Tolerances are of each gradient's largest entry: float32
+# 1e-5 (FMAs against the plain einsum's sums, in another order), float16
+# and bfloat16 8e-3 (both sum in float32 and round once to the type, 2^-8;
+# dw sums up to 1,024 rows).
+GMM_BWD_SWEEP = {
+    "granite_train_gate": (40, 1536, 512, 512, tuple(range(40))),
+    "granite_train_down": (40, 512, 1536, 512, tuple(range(40))),
+    "two_dispatch_groups": (8, 256, 96, 64, tuple(range(8)) * 2),
+    "ragged_repeats_unused": (6, 72, 40, 8, (0, 3, 3, 0, 5, 3)),
+    "bm1_k37_n131": (5, 37, 131, 1, (4, 0, 4, 2, 2, 4, 0)),
+    "bm8_k13_n11": (3, 13, 11, 8, (1, 1, 0)),
+    "bm512_k200_n136": (3, 200, 136, 512, (2, 2, 0)),
+    "bm70_k130_n264": (4, 130, 264, 70, (3, 1, 3)),
+}
+GMM_BWD_TOL = {"float32": 1e-5, "float16": 8e-3, "bfloat16": 8e-3}
+
+
+def phase_gmm_bwd_vs_plain(device):
+    """dx and dw (``grouped_matmul_bwd``) against ``grouped_matmul_bwd_ref``
+    over GMM_BWD_SWEEP in float32, float16 and bfloat16, within
+    GMM_BWD_TOL of each gradient's largest entry; dw of a group no tile
+    names exactly 0; the same bits on a second launch."""
+    import torch
+    from repro_torch.kernels.ref import grouped_matmul_bwd_ref
+
+    gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    for name, (g, k, n, bm, tiles) in GMM_BWD_SWEEP.items():
+        unused = sorted(set(range(g)) - set(tiles))
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            x, w, tg = gmm_inputs(device, gen, g, k, n, bm, tiles, dtype)
+            dy = torch.randn(x.shape[0], n, generator=gen, device=device).to(dtype)
+            got = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm)
+            want = grouped_matmul_bwd_ref(x, w, tg, dy, block_m=bm)
+            torch.cuda.synchronize()
+            tol = GMM_BWD_TOL[str(dtype).replace("torch.", "")]
+            rel = []
+            for label, gt, wt in zip(("dx", "dw"), got, want):
+                err, scale = float((gt.float() - wt.float()).abs().max()), float(
+                    wt.float().abs().max())
+                check(gt.dtype == dtype and gt.shape == wt.shape and err <= tol * scale,
+                      f"grouped_matmul {label} != plain at {name} {dtype}: max abs err {err}, "
+                      f"largest entry {scale}")
+                rel.append(err / scale if scale else err)
+            check(all(bool((got[1][u] == 0).all()) for u in unused),
+                  f"grouped_matmul dw: a group no tile names is not exactly 0 at {name}")
+            again = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm)
+            check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+                  f"grouped_matmul backward: a second launch gave other bits at {name} {dtype}")
+            log(f"grouped_matmul backward ~ plain: {name} G {g} K {k} N {n} block_m {bm} M "
+                f"{len(tiles) * bm} {str(dtype).replace('torch.', '')} max err / largest entry "
+                f"dx {rel[0]:.3g} dw {rel[1]:.3g}; unused groups {unused} exactly 0")
 
 
 def phase_expert_stream(device):
@@ -2267,57 +2444,124 @@ def grad_stats(grads):
     return float(norm), leaves
 
 
-def phase_train(device, card):
-    """minicpm-2b whole, trained on the card (see TRAIN_ARCH): step 0's loss
-    and gradients through flash and its backward held to the plain
-    attention's (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL, TRAIN_MIN_COSINE), then
-    TRAIN_STEPS ``StepBundle.train_step``s: every loss and gradient norm
-    finite, flash launched exactly twice per layer and step (the forward
-    and remat's recompute) and its backward once. Logs step ms (median of
-    steps 1 on), tokens/s, MFU against the bf16 peak from
-    ``model_flops_per_device`` and the peak device memory. Returns the
-    forward's and the backward's launches and the walls."""
-    import torch
-    from repro_torch.configs import ARCHS
-    from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import attention_ref
-    from repro_torch.launch.roofline_run import model_flops_per_device
-    from repro_torch.launch.steps import StepBundle
-    from repro_torch.models import init_params, loss_and_grads
-    from repro_torch.optim import adamw_init
-
+def train_counters():
+    """The launch counters of the training path's kernels, by name."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    cfg = ARCHS[TRAIN_ARCH]
-    n_attn = sum(kind.startswith("attn") for kind in cfg.pattern)
-    t0 = time.perf_counter()
-    model = init_params(cfg, 0, device=device, tp_size=1).requires_grad_(True)
-    opt = adamw_init(model.param_tree())
-    n_params = sum(p.numel() for p in model.parameters())
-    pipeline = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-    batches = [tuple(torch.from_numpy(a).to(device) for a in pipeline.next_batch())
-               for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.n_heads} heads "
-        f"of {cfg.head_dim} vocab {cfg.vocab} {cfg.dtype}, {n_params} parameters from seed 0, "
-        f"AdamW state {3 * 4 * n_params / 1e9:.1f} GB, built in "
-        f"{time.perf_counter() - t0:.1f} s; batches [{TRAIN_BATCH}, {TRAIN_SEQ}] [{card}]")
+    gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    ls = importlib.import_module("repro_torch.kernels.lru_scan")
+    return {"flash": fa.launches, "flash_bwd": fa.backward_launches, "gmm": gm.launches,
+            "gmm_dx": gm.dx_launches, "gmm_dw": gm.dw_launches, "lru": ls.launches,
+            "lru_bwd": ls.backward_launches}
 
-    fa.reset_launches()
-    loss_k, grads_k = loss_and_grads(model, cfg, *batches[0])
-    torch.cuda.synchronize()
-    check((fa.launches, fa.backward_launches) == (2 * n_attn, n_attn),
-          f"train: step 0 launched flash {fa.launches} and its backward "
-          f"{fa.backward_launches} times, expected {2 * n_attn} and {n_attn}")
-    kernel = ops.attention
+
+def reset_train_counters():
+    for name in ("flash_attention", "grouped_matmul", "lru_scan"):
+        importlib.import_module(f"repro_torch.kernels.{name}").reset_launches()
+
+
+def expected_train_launches(cfg):
+    """Each training-path kernel's launches in one step: remat runs each
+    stage's forward twice (the forward and the backward's recompute), the
+    prefix layers before the stages (``models.split_pattern``: the pattern
+    remainder, e.g. recurrentgemma-2b's first two RG-LRU layers) once, as
+    the reference rematerialises per stage; the backward launches each
+    backward entry once a layer (three expert products a MoE layer)."""
+    from repro_torch.models import split_pattern
+
+    prefix, _ = split_pattern(cfg)
+    runs = [1] * len(prefix) + [2] * (cfg.n_layers - len(prefix))
+    first_moe = cfg.moe.first_dense if cfg.moe is not None else cfg.n_layers
+
+    def count(pick):
+        return (sum(r for r, kind in zip(runs, cfg.pattern) if pick(kind)),
+                sum(1 for kind in cfg.pattern if pick(kind)))
+    flash, flash_bwd = count(lambda kind: kind.startswith("attn"))
+    lru, lru_bwd = count(lambda kind: kind == "rglru")
+    moe_layers = range(first_moe, cfg.n_layers)
+    return {"flash": flash, "flash_bwd": flash_bwd,
+            "gmm": 3 * sum(runs[i] for i in moe_layers), "gmm_dx": 3 * len(moe_layers),
+            "gmm_dw": 3 * len(moe_layers), "lru": lru, "lru_bwd": lru_bwd}
+
+
+def plain_gmm(x, w, tile_groups, *, block_m, err=None):
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    return grouped_matmul_ref(x, w, tile_groups, block_m=block_m)
+
+
+def recording_routes(calls):
+    """A stand-in for ``models.ffn.route_moe`` that appends each call's
+    discrete choices (top_e, token_idx, valid) to ``calls``."""
+    from repro_torch.models import ffn
+
+    route = ffn.route_moe
+
+    def wrapped(p, x, cfg):
+        r = route(p, x, cfg)
+        calls.append((r.top_e.detach(), r.token_idx.detach(), r.valid.detach()))
+        return r
+    return wrapped
+
+
+def pinned_routes(choices):
+    """A stand-in for ``models.ffn.route_moe`` that replays another pass's
+    discrete choices (``recording_routes``), call by call, and computes the
+    router's probabilities and scores from this pass's own input as
+    ``route_moe`` does: the same function, with no near-tied top-8 choice
+    flipped by a bf16 difference upstream."""
+    import torch
+    from repro_torch.models import ffn
+
+    replay = iter(choices)
+
+    def pinned(p, x, cfg):
+        top_e, token_idx, _ = next(replay)
+        g, tg, _ = ffn._groups(x, cfg)
+        xg = x.reshape(g, tg, x.shape[-1])
+        probs = torch.softmax(torch.einsum("gtd,de->gte", xg.float(), p.router), dim=-1)
+        top_p = probs.gather(-1, top_e)
+        top_p = top_p / (top_p.sum(dim=-1, keepdim=True) + 1e-9)
+        assign = torch.zeros((g, tg, p.w_gate.shape[0]), dtype=torch.float32, device=x.device)
+        assign.scatter_(2, top_e, top_p)
+        top_scores = assign.transpose(1, 2).gather(2, token_idx)
+        return ffn.MoeRouting(top_p, top_e, token_idx, top_scores, top_scores > 0.0)
+    return pinned
+
+
+def differing_token_sets(calls_k, calls_p):
+    """{(call, expert)} whose kept token sets differ between two passes'
+    routing calls (the same calls in the same order)."""
+    out = set()
+    for i, ((_, tk, vk), (_, tp, vp)) in enumerate(zip(calls_k, calls_p)):
+        tk, vk, tp, vp = tk.cpu(), vk.cpu(), tp.cpu(), vp.cpu()
+        for e in range(tk.shape[1]):
+            if set(tk[:, e][vk[:, e]].tolist()) != set(tp[:, e][vp[:, e]].tolist()):
+                out.add((i, e))
+    return out
+
+
+def plain_pass(cfg, model, batch, route, attention_only=False):
+    """Step 0's loss and gradients with ops.attention, ops.grouped_matmul
+    and ops.lru_scan (only ops.attention with ``attention_only``) swapped
+    for their plain versions and ``models.ffn.route_moe`` for ``route``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref, lru_scan_ref
+    from repro_torch.models import ffn, loss_and_grads
+
+    kernels = (ops.attention, ops.grouped_matmul, ops.lru_scan, ffn.route_moe)
     ops.attention = attention_ref
+    if not attention_only:
+        ops.grouped_matmul, ops.lru_scan = plain_gmm, lru_scan_ref
+    ffn.route_moe = route
     try:
-        loss_p, grads_p = loss_and_grads(model, cfg, *batches[0])
+        return loss_and_grads(model, cfg, *batch)
     finally:
-        ops.attention = kernel
-    torch.cuda.synchronize()
-    check((fa.launches, fa.backward_launches) == (2 * n_attn, n_attn),
-          "train: the plain pass launched flash")
+        ops.attention, ops.grouped_matmul, ops.lru_scan, ffn.route_moe = kernels
+
+
+def step0_distance(loss_k, grads_k, loss_p, grads_p):
+    """(|loss difference|, both global gradient norms, each leaf's cosine,
+    the lowest leaf's name)."""
     norm_k, leaves_k = grad_stats(grads_k)
     norm_p, leaves_p = grad_stats(grads_p)
     cosines = {}
@@ -2326,26 +2570,144 @@ def phase_train(device, card):
         a = a.float()
         denom = float(a.norm() * b.norm())
         cosines[name] = float((a * b).sum()) / denom if denom else 1.0
-    worst = min(cosines, key=cosines.get)
-    loss_err = abs(float(loss_k) - float(loss_p))
-    log(f"train: step 0 through flash against the plain attention: loss {float(loss_k):.6f} "
-        f"vs {float(loss_p):.6f} (|diff| {loss_err:.3g}, bound {TRAIN_LOSS_ATOL}), gradient "
-        f"norm {norm_k:.6g} vs {norm_p:.6g} (rel diff {abs(norm_k - norm_p) / norm_p:.3g}, "
-        f"bound {TRAIN_GNORM_RTOL}), lowest leaf cosine {cosines[worst]:.6f} ({worst}; bound "
-        f"{TRAIN_MIN_COSINE}), median leaf cosine {statistics.median(cosines.values()):.6f} "
-        f"[{card}]")
-    check(loss_err <= TRAIN_LOSS_ATOL, f"train: step 0's loss through flash {float(loss_k)} "
-                                       f"off the plain attention's {float(loss_p)}")
+    return (abs(float(loss_k) - float(loss_p)), norm_k, norm_p, cosines,
+            min(cosines, key=cosines.get))
+
+
+def train_step0(cfg, model, batch, card):
+    """Step 0's loss and gradients through the kernels against the plain
+    versions and both against the float32 gradient (see TRAIN_LOSS_ATOL
+    and TRAIN_TRUTH_RATIO): checks the gates and the kernels' launches,
+    then frees the gradients. A MoE's plain passes replay the kernel
+    pass's routing choices (``pinned_routes``); one more plain pass that
+    routes for itself is logged: how far the near-tied choices alone move
+    the gradients."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.models import ffn, loss_and_grads
+
+    want = expected_train_launches(cfg)
+    choices_k, choices_free = [], []
+    route = ffn.route_moe
+    reset_train_counters()
+    ffn.route_moe = recording_routes(choices_k)
+    try:
+        loss_k, grads_k = loss_and_grads(model, cfg, *batch)
+    finally:
+        ffn.route_moe = route
+    torch.cuda.synchronize()
+    got = train_counters()
+    check(got == want, f"train {cfg.name}: step 0 launched {got}, expected {want}")
+    same_routes = (lambda: pinned_routes(choices_k)) if choices_k else (lambda: route)
+    loss_p, grads_p = plain_pass(cfg, model, batch, same_routes())
+    torch.cuda.synchronize()
+    check(train_counters() == want, f"train {cfg.name}: the plain pass launched a kernel")
+    loss_err, norm_k, norm_p, cosines, worst = step0_distance(loss_k, grads_k, loss_p, grads_p)
+    if choices_k:  # the grouped GEMM's kernels alone: both passes attend plainly
+        loss_a, grads_a = plain_pass(cfg, model, batch, same_routes(), attention_only=True)
+        _, _, _, cos_a, worst_a = step0_distance(loss_a, grads_a, loss_p, grads_p)
+        del grads_a
+        log(f"train {cfg.name}: step 0 with only the attention plain (the grouped GEMM and its "
+            f"backward through the kernels) against the plain versions: lowest leaf cosine "
+            f"{cos_a[worst_a]:.6f} ({worst_a}), median {statistics.median(cos_a.values()):.6f} "
+            f"[{card}]")
+    wide = copy.deepcopy(model).float()
+    loss_t, grads_t = plain_pass(dataclasses.replace(cfg, dtype="float32"), wide, batch,
+                                 same_routes())
+    del wide
+    cos_kt, cos_pt = (step0_distance(loss, grads, loss_t, grads_t)[3]
+                      for loss, grads in ((loss_k, grads_k), (loss_p, grads_p)))
+    del grads_p, grads_t
+    torch.cuda.empty_cache()
+    floor = min(cos_pt.values())
+    excess = {n: (1 - cos_kt[n]) - (TRAIN_TRUTH_RATIO * (1 - cos_pt[n]) + TRAIN_TRUTH_FLOOR)
+              for n in cos_kt}
+    over = max(excess, key=excess.get)
+    ratio = max((1 - cos_kt[n]) / max(1 - cos_pt[n], 1e-12) for n in cos_kt)
+    log(f"train {cfg.name}: step 0 against the float32 gradient (the same weights in float32, "
+        f"plain versions, the same routing; loss {float(loss_t):.6f}): leaf cosines through the "
+        f"kernels median {statistics.median(cos_kt.values()):.6f}, lowest "
+        f"{min(cos_kt.values()):.6f}; the plain bf16 path's median "
+        f"{statistics.median(cos_pt.values()):.6f}, lowest {floor:.6f}; the kernels' distance "
+        f"1 - cosine over {TRAIN_TRUTH_RATIO} x the plain path's + {TRAIN_TRUTH_FLOOR}: at most "
+        f"{excess[over]:.3g} ({over}; bound 0); the largest ratio of the two distances "
+        f"{ratio:.3f} [{card}]")
+    log(f"train {cfg.name}: step 0 through the kernels against the plain versions"
+        + (" (the plain pass replaying the kernel pass's routing choices)" if choices_k else "")
+        + f": loss {float(loss_k):.6f} vs {float(loss_p):.6f} (|diff| {loss_err:.3g}, bound "
+        f"{TRAIN_LOSS_ATOL}), gradient norm {norm_k:.6g} vs {norm_p:.6g} (rel diff "
+        f"{abs(norm_k - norm_p) / norm_p:.3g}, bound {TRAIN_GNORM_RTOL}), lowest leaf cosine "
+        f"{cosines[worst]:.6f} ({worst}; bound {TRAIN_MIN_COSINE}), median leaf cosine "
+        f"{statistics.median(cosines.values()):.6f}; launches {got} [{card}]")
+    if choices_k:
+        loss_f, grads_f = plain_pass(cfg, model, batch, recording_routes(choices_free))
+        f_err, _, norm_f, f_cos, f_worst = step0_distance(loss_k, grads_k, loss_f, grads_f)
+        moved = differing_token_sets(choices_k, choices_free)
+        layers = sorted({tuple(int(x) for x in n.split("/")[1:3])
+                         for n in f_cos if n.startswith("stages/")})
+        low = min((n for n in f_cos if "/ffn/w_" in n), key=f_cos.get)
+        layer = layers.index(tuple(int(x) for x in low.split("/")[1:3]))
+        log(f"train {cfg.name}: the plain pass routing for itself: {len(moved)} of "
+            f"{sum(t.shape[1] for _, t, _ in choices_k)} (call, expert) token sets differ from "
+            f"the kernel pass's (calls 0-{cfg.n_layers - 1}: the first forward, in layer order); "
+            f"loss {float(loss_f):.6f} (|diff| {f_err:.3g}), gradient norm {norm_f:.6g}, lowest "
+            f"leaf cosine {f_cos[f_worst]:.6f} ({f_worst}), median "
+            f"{statistics.median(f_cos.values()):.6f}; lowest expert weight {low} at "
+            f"{f_cos[low]:.6f} (layer {layer}: {sum(c == layer for c, _ in moved)} of its "
+            f"experts' token sets differ) [{card}]")
+        del grads_f
+    check(loss_err <= TRAIN_LOSS_ATOL, f"train {cfg.name}: step 0's loss through the kernels "
+                                       f"{float(loss_k)} off the plain versions' {float(loss_p)}")
     check(abs(norm_k - norm_p) <= TRAIN_GNORM_RTOL * norm_p,
-          f"train: gradient norm through flash {norm_k} off the plain attention's {norm_p}")
-    check(cosines[worst] >= TRAIN_MIN_COSINE,
-          f"train: {worst}'s gradient through flash at cosine {cosines[worst]} with the plain "
-          f"attention's")
-    del grads_k, grads_p, leaves_k, leaves_p
+          f"train {cfg.name}: gradient norm through the kernels {norm_k} off the plain "
+          f"versions' {norm_p}")
+    check(floor < TRAIN_MIN_COSINE or cosines[worst] >= TRAIN_MIN_COSINE,
+          f"train {cfg.name}: {worst}'s gradient through the kernels at cosine {cosines[worst]} "
+          f"with the plain versions'")
+    check(excess[over] <= 0.0,
+          f"train {cfg.name}: {over}'s gradient through the kernels at cosine {cos_kt[over]} "
+          f"with the float32 gradient, the plain bf16 path's at {cos_pt[over]}")
+    del grads_k
     torch.cuda.empty_cache()
 
+
+def phase_train(device, card, arch):
+    """One of TRAIN_ARCHS whole, trained on the card: step 0 held to the
+    plain versions (``train_step0``), then TRAIN_STEPS
+    ``StepBundle.train_step``s: every loss and gradient norm finite, each
+    kernel of the path launched exactly as ``expected_train_launches``
+    says a step. Logs step ms (median of steps 1 on), tokens/s, MFU against
+    the bf16 peak from ``model_flops_per_device`` (6 N D, N the active
+    parameters of a MoE) and the peak device memory, and one more step
+    under ``torch.profiler`` by kernel group. Returns the steps' launch
+    counts and the walls."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.roofline_run import model_flops_per_device
+    from repro_torch.launch.steps import StepBundle
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cfg = ARCHS[arch]
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device=device, tp_size=1).requires_grad_(True)
+    n_params = sum(p.numel() for p in model.parameters())
+    pipeline = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(device) for a in pipeline.next_batch())
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.n_heads} heads "
+        f"of {cfg.head_dim} over {cfg.n_kv_heads} vocab {cfg.vocab} {cfg.dtype}, {n_params} "
+        f"parameters from seed 0, AdamW state {3 * 4 * n_params / 1e9:.1f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s; batches [{TRAIN_BATCH}, {TRAIN_SEQ}] [{card}]")
+    train_step0(cfg, model, batches[0], card)
+
+    opt = adamw_init(model.param_tree())
     bundle = StepBundle(cfg, lr=TRAIN_LR, clip=TRAIN_CLIP)
-    fa.reset_launches()
+    reset_train_counters()
     torch.cuda.reset_peak_memory_stats()
     walls, losses, gnorms = [], [], []
     for inputs, labels in batches:
@@ -2357,29 +2719,29 @@ def phase_train(device, card):
         walls.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
-          f"train: non-finite loss or gradient norm: {losses} {gnorms}")
-    want = (2 * n_attn * TRAIN_STEPS, n_attn * TRAIN_STEPS)
-    check((fa.launches, fa.backward_launches) == want,
-          f"train: {TRAIN_STEPS} steps launched flash {fa.launches} and its backward "
-          f"{fa.backward_launches} times, expected {want}")
+          f"train {cfg.name}: non-finite loss or gradient norm: {losses} {gnorms}")
+    counts = train_counters()
+    want = {k: v * TRAIN_STEPS for k, v in expected_train_launches(cfg).items()}
+    check(counts == want, f"train {cfg.name}: {TRAIN_STEPS} steps launched {counts}, "
+                          f"expected {want}")
     step_ms = statistics.median(walls[1:]) * 1e3
     flops = model_flops_per_device(cfg, "train", 1,
                                    shapes={"train": (TRAIN_SEQ, TRAIN_BATCH, "train")})
     tokens = TRAIN_SEQ * TRAIN_BATCH
-    log(f"train: {TRAIN_STEPS} steps of {tokens} tokens: losses {losses}, gradient norms "
-        f"{gnorms}; step ms {[round(w * 1e3, 3) for w in walls]} (host clock), median of "
+    log(f"train {cfg.name}: {TRAIN_STEPS} steps of {tokens} tokens: losses {losses}, gradient "
+        f"norms {gnorms}; step ms {[round(w * 1e3, 3) for w in walls]} (host clock), median of "
         f"steps 1-{TRAIN_STEPS - 1} {step_ms:.3f} ms, {tokens / step_ms * 1e3:.1f} tokens/s, "
         f"model FLOPs {flops:.4g} a step (6 N D) = MFU {flops / (step_ms / 1e3) / BF16_FLOP_PER_S:.4f} "
-        f"of {BF16_FLOP_PER_S:.3g} FLOP/s, peak device memory {peak / 2**30:.2f} GiB; flash "
-        f"{fa.launches} forward and {fa.backward_launches} backward launches [{card}]")
-    launches = (fa.launches, fa.backward_launches)
+        f"of {BF16_FLOP_PER_S:.3g} FLOP/s, peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {counts} [{card}]")
     # One more step under torch.profiler: where the step's device time goes.
     from torch.autograd import DeviceType
 
     prof, wall_ms = profiled(lambda: bundle.train_step(model, opt, *batches[-1]))
-    groups = dict.fromkeys(("flash forward", "flash backward", "GEMM", "elementwise",
-                            "reduction", "other"), 0.0)
-    counts = dict.fromkeys(groups, 0)
+    groups = dict.fromkeys(("flash forward", "flash backward", "grouped GEMM forward and dx",
+                            "grouped GEMM dw", "LRU scan", "LRU reverse scan", "GEMM",
+                            "elementwise", "reduction", "other"), 0.0)
+    counts_by = dict.fromkeys(groups, 0)
     others = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -2387,25 +2749,29 @@ def phase_train(device, card):
         name = e.name.lower()
         group = ("flash backward" if "flash_bwd" in name else
                  "flash forward" if "flash_tc_kernel" in name else
+                 "grouped GEMM dw" if "gmm_dw" in name or "gmm_tile_table" in name else
+                 "grouped GEMM forward and dx" if "gmm_tc_kernel" in name else
+                 "LRU reverse scan" if "lru_scan_bwd" in name else
+                 "LRU scan" if "lru_scan_kernel" in name else
                  "GEMM" if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")) else
                  "elementwise" if "elementwise" in name else
                  "reduction" if "reduce" in name else "other")
         groups[group] += e.time_range.elapsed_us() / 1e3
-        counts[group] += 1
+        counts_by[group] += 1
         if group == "other":
             others[e.name[:60]] = others.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(((a.self_device_time_total / 1e3, a.count, a.key[:70])
                   for a in prof.key_averages() if a.self_device_time_total > 0), reverse=True)[:6]
-    log(f"train: one more step under torch.profiler: wall {wall_ms:.3f} ms; device time by "
-        f"kernel group (ms, kernels): "
-        + ", ".join(f"{k} {v:.3f} ({counts[k]})" for k, v in groups.items())
+    log(f"train {cfg.name}: one more step under torch.profiler: wall {wall_ms:.3f} ms; device "
+        f"time by kernel group (ms, kernels): "
+        + ", ".join(f"{k} {v:.3f} ({counts_by[k]})" for k, v in groups.items())
         + f", sum {sum(groups.values()):.3f}; other's largest: "
         + "; ".join(f"{k} {v:.3f}" for k, v in sorted(others.items(), key=lambda kv: -kv[1])[:4])
         + "; most device time: "
         + "; ".join(f"{key} {ms:.3f} ms x{n}" for ms, n, key in top) + f" [{card}]")
     del model, opt, batches, prof
     torch.cuda.empty_cache()
-    return launches, {f"train {TRAIN_ARCH} step (median)": step_ms / 1e3}
+    return counts, {f"train {cfg.name} step (median)": step_ms / 1e3}
 
 
 def phase_trainer(device, card):
@@ -2912,37 +3278,42 @@ def numbers_flash(device):
     return out
 
 
-def numbers_flash_bwd(device):
-    """Flash's backward at minicpm-2b's training shape ([4, 36, 512, 64]
-    bf16, causal): the error against the plain version, its bound (the
-    bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once; the
-    operations: the five products S, dP, dV, dQ, dK over the visible pairs),
-    single launches, 20 back to back, device time per call and per kernel
-    (profiler), the plain version's time, and, as the library call, the
-    backward of ``F.scaled_dot_product_attention`` (causal) on the same
-    inputs through autograd. Also the forward with and without the lse
-    output (the serving call must not be slower)."""
+def flash_bwd_case(device, gen, shape, flags):
+    """Flash's backward at one training shape ``(b, h, hkv, s, d)`` bf16,
+    causal: the error against the plain version, its bound (the bytes: q,
+    k, v, o, dO and lse read once, dq, dk, dv written once; the
+    operations: the five products S, dP, dV, dQ, dK over the visible
+    pairs), single launches, 20 back to back, device time per call and per
+    kernel (profiler), the plain version's time, and, as the library call,
+    the backward of ``F.scaled_dot_product_attention`` (causal, with
+    ``enable_gqa``) on the same inputs through autograd, with the backend
+    it took and the one its dispatcher picks."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ref import attention_bwd_ref
     from torch.nn.attention import SDPBackend
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    b, h, s, d = TRAIN_BATCH, 36, TRAIN_SEQ, 64
-    gen = torch.Generator(device=device)
-    gen.manual_seed(5)
-    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=device).to(torch.bfloat16)
-                   for _ in range(4))
-    out, lse = fa.flash_attention_lse(q, k, v)
-    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
-    want = attention_bwd_ref(q, k, v, out, lse, do)
+    b, h, hkv, s, d = shape
+    q, do = (torch.randn(b, h, s, d, generator=gen, device=device).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fa.flash_attention_lse(q, k, v, **flags)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+    want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
     torch.cuda.synchronize()
     errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
     scales = [float(w.abs().max()) for w in want]
-    seen = s * (s + 1) // 2  # (row, key) pairs a causal head sees
-    n_bytes = 2 * 5 * q.numel() + 4 * lse.numel() + 2 * 3 * q.numel()
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(s, device=device)[None, :]
+    mask = cols <= rows
+    if flags.get("window") is not None:
+        mask &= cols > rows - flags["window"]
+    seen = int(mask.sum())  # (row, key) pairs a head sees
+    n_bytes = 2 * 4 * q.numel() + 2 * 4 * k.numel() + 4 * lse.numel()
     ms_bound, by = bound(n_bytes, 2 * 5 * d * b * h * seen, BF16_FLOP_PER_S)
-    call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do)  # noqa: E731
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)  # noqa: E731
     # Device time: the three kernels' means over the launches the trace
     # holds (a trace can lose some, see phase_busy), summed.
     prof, _ = profiled(lambda: [call() for _ in range(TIMED_RUNS)])
@@ -2950,27 +3321,17 @@ def numbers_flash_bwd(device):
                   for a in prof.key_averages() if "flash_bwd" in a.key}
     device_ms = sum(ms for ms, _ in per_kernel.values()) if len(per_kernel) == 3 else None
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_kw = {"is_causal": True, "enable_gqa": hkv != h}
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
     sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do, retain_graph=True)  # noqa: E731
     backend, sdpa_kernel = sdpa_backend(sdpa_bwd)
     # The backend SDPA's dispatcher picks for these inputs, without a trace.
-    choice = SDPBackend(torch._fused_sdp_choice(qs, ks, vs, is_causal=True)).name
-    fwd_ms = median_ms(lambda: fa.flash_attention(q, k, v))
-    fwd_lse_ms = median_ms(lambda: fa.flash_attention_lse(q, k, v))
-    check(fwd_ms <= 1.25 * fwd_lse_ms, f"flash forward without lse {fwd_ms} ms, slower than "
-                                       f"with it ({fwd_lse_ms} ms)")
-    out_dict = {
-        "name": "flash_attention_bwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:37",
-        "replaces_note": "the Pallas kernel has no backward: the reference trains through "
-                         "XLA's derivative of ref.attention_ref",
-        "launches": None,
+    choice = SDPBackend(torch._fused_sdp_choice(qs, ks, vs, **sdpa_kw)).name
+    return {
         "matches_plain": all(e <= FLASH_BWD_TOL["bfloat16"] * sc for e, sc in zip(errs, scales)),
         "max_abs_err": max(errs),
         "ms": median_ms(call),
-        "plain_ms": median_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do)),
+        "plain_ms": median_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, **flags)),
         "bound_ms": ms_bound,
         "bound_by": by,
         "library_ms": median_ms(sdpa_bwd),
@@ -2982,12 +3343,196 @@ def numbers_flash_bwd(device):
         "library_backend": backend,
         "library_kernel": sdpa_kernel,
         "library_choice": choice,
+    }
+
+
+def numbers_flash_bwd(device):
+    """Flash's backward at minicpm-2b's training shape ([4, 36, 512, 64]
+    bf16, causal) and, as its ``d256_`` keys, at recurrentgemma-2b's
+    ([4, 10, 512, 256] over one kv head, window 2048: causal at 512), each
+    through ``flash_bwd_case``; also the forward at minicpm's shape with and
+    without its lse output (the serving call must not be slower)."""
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    case = flash_bwd_case(device, gen, (TRAIN_BATCH, 36, 36, TRAIN_SEQ, 64), {})
+    wide = flash_bwd_case(device, gen, (TRAIN_BATCH, 10, 1, TRAIN_SEQ, 256), {"window": 2048})
+    q = torch.randn(TRAIN_BATCH, 36, TRAIN_SEQ, 64, generator=gen,
+                    device=device).to(torch.bfloat16)
+    fwd_ms = median_ms(lambda: fa.flash_attention(q, q, q))
+    fwd_lse_ms = median_ms(lambda: fa.flash_attention_lse(q, q, q))
+    check(fwd_ms <= 1.25 * fwd_lse_ms, f"flash forward without lse {fwd_ms} ms, slower than "
+                                       f"with it ({fwd_lse_ms} ms)")
+    out_dict = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:37",
+        "replaces_note": "the Pallas kernel has no backward: the reference trains through "
+                         "XLA's derivative of ref.attention_ref",
+        "launches": None,
+        **case,
+        "matches_plain": case["matches_plain"] and wide["matches_plain"],
         "forward_ms": fwd_ms,
         "forward_with_lse_ms": fwd_lse_ms,
         "shape": "q, k, v, o, dO [4, 36, 512, 64] bf16, causal (minicpm-2b's training step)",
+        **{f"d256_{key}": val for key, val in wide.items()},
+        "d256_shape": "q, o, dO [4, 10, 512, 256], k, v [4, 1, 512, 256] bf16, causal, window "
+                      "2048 (recurrentgemma-2b's training step; two column slices a pass)",
     }
     log(f"flash backward: {out_dict} [{torch.cuda.get_device_name(0)}]")
     return out_dict
+
+
+def call_device_ms(fn, names, runs=TIMED_RUNS):
+    """Device time per call of ``fn``, which launches one kernel of each
+    of ``names`` a call: the sum over ``names`` of each kernel's mean over
+    the launches the profiler recorded in ``runs`` calls (a trace can lose
+    some, see ``phase_busy``). Returns (ms, or None when a name has no
+    recorded launch; the launches recorded)."""
+    prof, _ = profiled(lambda: [fn() for _ in range(runs)])
+    total_ms, recorded = 0.0, 0
+    for name in names:
+        hits = [a for a in prof.key_averages() if name in a.key]
+        count = sum(a.count for a in hits)
+        if not count:
+            return None, recorded
+        total_ms += sum(a.self_device_time_total for a in hits) / 1e3 / count
+        recorded += count
+    return total_ms, recorded
+
+
+# Granite-moe-3b-a800m's training step (tp_size 1): 40 experts, capacity
+# C 512 rows an expert (4 x 512 tokens, top-8), x [20480, 1536]; the gate
+# and up products' w [40, 1536, 512], the down product's [40, 512, 1536].
+GMM_TRAIN = {"": (40, 1536, 512, 512), "down_": (40, 512, 1536, 512)}
+
+
+def numbers_gmm_bwd(device):
+    """The grouped GEMM's dx and dw entries at granite's training shapes
+    (GMM_TRAIN), bf16: errors against ``grouped_matmul_bwd_ref``, single
+    launches, 20 back to back, device time (profiler; dw's includes its
+    tile-table kernel), the plain version's time, the bound (dy and w read,
+    dx written; x and dy read, dw written; 2 M K N operations each) and
+    ``torch.bmm`` on the capacity layout as the library call (``dy @ w^T``
+    and ``x^T @ dy``, the transposes as strided views). Returns the dx and
+    the dw rows."""
+    import torch
+    from repro_torch.kernels.ref import grouped_matmul_bwd_ref
+
+    gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    rows = {"dx": {}, "dw": {}}
+    for prefix, (g, k, n, cap) in GMM_TRAIN.items():
+        tiles = torch.arange(g, dtype=torch.int32, device=device)
+        x = torch.randn(g * cap, k, generator=gen, device=device).to(torch.bfloat16)
+        w = torch.randn(g, k, n, generator=gen, device=device).to(torch.bfloat16)
+        dy = torch.randn(g * cap, n, generator=gen, device=device).to(torch.bfloat16)
+        got = gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=cap)
+        want = grouped_matmul_bwd_ref(x, w, tiles, dy, block_m=cap)
+        torch.cuda.synchronize()
+        x3, dy3 = x.view(g, cap, k), dy.view(g, cap, n)
+        calls = {
+            "dx": (lambda: gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=cap, need_dw=False),
+                   lambda: torch.bmm(dy3, w.transpose(1, 2)), ("gmm_tc_kernel",),
+                   2 * (dy.numel() + w.numel() + x.numel())),
+            "dw": (lambda: gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=cap, need_dx=False),
+                   lambda: torch.bmm(x3.transpose(1, 2), dy3),
+                   ("gmm_dw_tc_kernel", "gmm_tile_table_kernel"),
+                   2 * (x.numel() + dy.numel() + w.numel())),
+        }
+        plain_ms = median_ms(lambda: grouped_matmul_bwd_ref(x, w, tiles, dy, block_m=cap))
+        for i, (which, (call, library, names, n_bytes)) in enumerate(calls.items()):
+            err = float((got[i].float() - want[i].float()).abs().max())
+            scale = float(want[i].float().abs().max())
+            ms_bound, by = bound(n_bytes, 2 * g * cap * k * n, BF16_FLOP_PER_S)
+            case = {
+                "matches_plain": err <= GMM_BWD_TOL["bfloat16"] * scale,
+                "max_abs_err": err,
+                "ms": median_ms(call),
+                "back_to_back_ms": back_to_back_ms(call),
+                "device_ms": call_device_ms(call, names)[0],
+                "plain_ms": plain_ms,  # the plain version computes dx and dw together
+                "bound_ms": ms_bound,
+                "bound_by": by,
+                "library_ms": median_ms(library),
+                "library_back_to_back_ms": back_to_back_ms(library),
+            }
+            rows[which].update({prefix + key: val for key, val in case.items()})
+            log(f"grouped_matmul {which} {prefix or 'gate/up '}w [{g}, {k}, {n}] block_m {cap}: "
+                f"{case} [{torch.cuda.get_device_name(0)}]")
+    shape = ("x [20480, 1536], dy [20480, 512], w [40, 1536, 512] bf16 (gate/up; down_: "
+             "x [20480, 512], dy [20480, 1536], w [40, 512, 1536]), block_m 512, tile ids "
+             "arange(40): granite-moe-3b-a800m's training step")
+    out = []
+    for which, label in (("dx", "dy @ w[g]^T, w read transposed in place"),
+                         ("dw", "sum over a group's tiles of x^T @ dy, in tile order")):
+        row = rows[which]
+        out.append({
+            "name": f"grouped_matmul_{which}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:29",
+            "replaces_note": "the Pallas kernel has no backward: the reference trains through "
+                             "XLA's derivative of ref.grouped_matmul_ref",
+            "computes": label,
+            "launches": None,  # main() adds granite's training steps'
+            **row,
+            "matches_plain": row["matches_plain"] and row["down_matches_plain"],
+            "shape": shape,
+        })
+    return out
+
+
+def numbers_lru_bwd(device):
+    """The reverse scan at recurrentgemma-2b's training shape ([4, 512,
+    2560] f32, h0 zeros with no gradient, as the train step calls it):
+    bit-equal to ``lru_scan_bwd_ref``, single launches, 20 back to back,
+    device time, the plain version's time and the bound (a, h, dh read, da
+    and db written; three float operations an element). No single PyTorch
+    call computes a reverse linear recurrence."""
+    import torch
+    from repro_torch.kernels.ref import lru_scan_bwd_ref
+
+    ls = importlib.import_module("repro_torch.kernels.lru_scan")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 2560)
+    a = torch.rand(*shape, generator=gen, device=device)
+    x, dh = (torch.randn(*shape, generator=gen, device=device) for _ in range(2))
+    h0 = torch.zeros(shape[0], shape[2], device=device)
+    h = ls.lru_scan(a, x, h0)
+    got = ls.lru_scan_bwd(a, h, h0, dh, need_dh0=False)
+    want = lru_scan_bwd_ref(a, h, h0, dh)
+    torch.cuda.synchronize()
+    call = lambda: ls.lru_scan_bwd(a, h, h0, dh, need_dh0=False)  # noqa: E731
+    ms_bound, by = bound(5 * a.numel() * 4 + h0.numel() * 4, 3 * a.numel(), FP32_FLOP_PER_S)
+    out = {
+        "name": "lru_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:27",
+        "replaces_note": "the Pallas kernel has no backward: the reference trains through "
+                         "XLA's derivative of ref.lru_scan_ref",
+        "launches": None,  # main() adds recurrentgemma's training steps'
+        "matches_plain": all(torch.equal(_int_bits(g), _int_bits(w))
+                             for g, w in zip(got[:2], want[:2])),
+        "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2])),
+        "ms": median_ms(call),
+        "plain_ms": median_ms(lambda: lru_scan_bwd_ref(a, h, h0, dh)),
+        "bound_ms": ms_bound,
+        "bound_by": by,
+        "library_ms": None,
+        "back_to_back_ms": back_to_back_ms(call),
+        "device_ms": call_device_ms(call, ("lru_scan_bwd_kernel",))[0],
+        "shape": "a, h, dh [4, 512, 2560] f32, h0 [4, 2560] zeros (no dh0): recurrentgemma-2b's "
+                 "training step",
+    }
+    log(f"lru_scan reverse: {out} [{torch.cuda.get_device_name(0)}]")
+    return out
 
 
 def numbers_gmm(device):
@@ -3374,6 +3919,7 @@ def main() -> int:
     timed(phase_flash_vs_plain, device)
     timed(phase_flash_bwd_vs_plain, device)
     timed(phase_gmm_vs_plain, device)
+    timed(phase_gmm_bwd_vs_plain, device)
     timed(phase_expert_stream, device)
     launches, hw_walls = timed(phase_acs_hw, device)
     wave_launches, widest, wave_walls = timed(phase_acs_hw_waves, device)
@@ -3395,9 +3941,15 @@ def main() -> int:
                timed(numbers_gmm, device),
                timed(numbers_scan, device),
                timed(numbers_flash_bwd, device)]
+    gmm_dx, gmm_dw = timed(numbers_gmm_bwd, device)
+    lru_bwd = timed(numbers_lru_bwd, device)
+    kernels += [gmm_dx, gmm_dw, lru_bwd]
     torch.cuda.empty_cache()
     # Training before the profiled serving passes, each model freed after.
-    (train_fwd, train_bwd), train_walls = timed(phase_train, device, card)
+    train_launches, train_walls = {}, {}
+    for arch in TRAIN_ARCHS:
+        train_launches[arch], walls = timed(phase_train, device, card, arch)
+        train_walls.update(walls)
     timed(phase_trainer, device, card)
     for arch in SERVE_ARCHS:
         arch_launches, walls, served = timed(phase_serve, device, card, arch)
@@ -3410,15 +3962,22 @@ def main() -> int:
     frontend_launches = {arch: timed(phase_frontend, device, card, arch)
                          for arch in FRONTEND_ARCHS}
     rg, granite, mamba, deepseek = (serve_launches[a] for a in SERVE_ARCHS)
-    queue, wave, flash, lru, gmm, scan, flash_bwd = kernels
+    queue, wave, flash, lru, gmm, scan, flash_bwd = kernels[:7]
     # The mesh phase's shards launched both device-window kernels too.
     queue.update(launches=queue["launches"] + mesh_rq, mesh_launches=mesh_rq)
     wave.update(launches=wave["launches"] + mesh_we, mesh_launches=mesh_we)
     flash.update(launches=rg["flash_attention"], granite_launches=granite["flash_attention"],
                  mla_launches=deepseek["flash_attention"],
                  paligemma_launches=frontend_launches["paligemma-3b"],
-                 train_launches=train_fwd)
-    flash_bwd["launches"] = train_bwd
+                 train_launches=train_launches["minicpm-2b"]["flash"],
+                 granite_train_launches=train_launches["granite-moe-3b-a800m"]["flash"],
+                 d256_train_launches=train_launches["recurrentgemma-2b"]["flash"])
+    flash_bwd.update(launches=train_launches["minicpm-2b"]["flash_bwd"],
+                     granite_launches=train_launches["granite-moe-3b-a800m"]["flash_bwd"],
+                     d256_launches=train_launches["recurrentgemma-2b"]["flash_bwd"])
+    gmm_dx["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dx"]
+    gmm_dw["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dw"]
+    lru_bwd["launches"] = train_launches["recurrentgemma-2b"]["lru_bwd"]
     lru["launches"] = rg["lru_scan"]
     gmm.update(launches=granite["grouped_matmul"], deepseek_launches=deepseek["grouped_matmul"])
     scan["launches"] = mamba["selective_scan"]

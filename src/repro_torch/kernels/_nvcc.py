@@ -127,10 +127,12 @@ def raw_stream(device) -> int:
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raise where autograd would record a call of the CUDA kernel ``name``,
-    which has no backward yet: its output, a fresh tensor written through
-    a raw pointer, would carry no ``grad_fn``, and the inputs would get no
-    gradient without a word. A wrapper calls this on its CUDA path only;
-    on the CPU the plain version stays differentiable."""
+    which has no backward yet (the selective scan's two entries,
+    ``selective_scan`` and ``mamba_scan``): its output, a fresh tensor
+    written through a raw pointer, would carry no ``grad_fn``, and the
+    inputs would get no gradient without a word. A wrapper calls this on
+    its CUDA path only; on the CPU the plain version stays
+    differentiable."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

@@ -17,8 +17,8 @@
 // dK and dV summed over the query heads of a kv group (GQA). The masks are
 // the forward's: causal at q_offset, a sliding window, prefix_len keys
 // visible to every row, a ragged Sk. A row that sees no key (lse -inf)
-// contributes nothing. Dv == D, any D from 1 to 128 (padded in shared
-// memory to 64 or 128, as the forward pads it).
+// contributes nothing. Dv == D, any D from 1 to 256 (padded in shared
+// memory to 64, 128 or 256, as the forward pads it).
 //
 // Bound on this card: the bytes (q, k, v, o, dO read once, lse once, dQ,
 // dK, dV written once, over 3.35 TB/s) or the operations (the five
@@ -49,6 +49,17 @@
 //   accumulators (ldmatrix and cp.async from sm90_tiles.cuh). Query tiles
 //   of the key-tile pass are 64 rows at D <= 64 and 32 at D <= 128, which
 //   keeps the four accumulator sets in registers.
+// * D 256 (recurrentgemma-2b, paligemma-3b): a warp's dK and dV
+//   accumulators over all 256 columns would be 256 float32 registers a
+//   lane. Each pass instead splits its OUTPUT columns in two: a block
+//   writes columns 0-127 or 128-255 of dQ (or of dK and dV), so it holds
+//   the D-128 accumulator sets, and recomputes S and dP over the whole D
+//   from shared memory (two blocks per tile do that work twice). The k and
+//   v tiles are [64][264] and the streamed q and dO tiles [32][264] in two
+//   stages: 133 KB in the key-tile pass, 198 KB in the query-tile pass
+//   (dynamic shared memory, opted in).
+//   recurrentgemma-2b's training shape [4, 10, 512, 256] causal over one
+//   kv head moves ~46 MB (0.0138 ms) against 13.4 GFLOP (0.0136 ms).
 // * float32 (the tolerance tests) on scalar FMAs, the forward's scalar
 //   design with the roles of rows and keys swapped in the key-tile pass.
 
@@ -67,7 +78,7 @@ using namespace sm90;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxD = ACS_FLASH_BWD_MAX_D;  // Dv == D up to this width
-static_assert(kMaxD == 128, "the instantiations pad D to 64 or 128");
+static_assert(kMaxD == 256, "the instantiations pad D to 64, 128 or 256");
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -153,11 +164,13 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows, int d
   stage<T, R, DP, LD, kTcThreads>(dst, src, static_cast<size_t>(dim), rows, dim, vec);
 }
 
-// Store a float32 accumulator set [16 rows x DP] of one warp, times mul, as
-// T: rows local < rows_here, columns < dim.
+// Store a float32 accumulator set [16 rows x 8 DB] of one warp, times mul,
+// as T into columns c0 .. c0 + 8 DB - 1: rows local < rows_here, columns
+// < dim.
 template <typename T, int DB>
 __device__ __forceinline__ void store_acc(T* dst, const float (&acc)[DB][4], float mul,
-                                          int warp_row0, int g, int t, int rows_here, int dim) {
+                                          int warp_row0, int g, int t, int rows_here, int dim,
+                                          int c0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int local = warp_row0 + g + 8 * r;
@@ -165,7 +178,7 @@ __device__ __forceinline__ void store_acc(T* dst, const float (&acc)[DB][4], flo
     T* row = dst + static_cast<size_t>(local) * dim;
 #pragma unroll
     for (int db = 0; db < DB; ++db) {
-      const int col = db * 8 + 2 * t;
+      const int col = c0 + db * 8 + 2 * t;
       if (col >= dim) continue;
       const float x0 = acc[db][2 * r] * mul;
       const float x1 = acc[db][2 * r + 1] * mul;
@@ -211,21 +224,22 @@ __device__ __forceinline__ void rows_times_rows(float (&c)[NB][4], const T* a_s,
   }
 }
 
-// acc[DB] += X (registers, [16 x 8 NB]) times the [8 NB x DP] tile b_s: the
-// P V pattern (B through ldmatrix.trans), over the columns below dim.
+// acc[DB] += X (registers, [16 x 8 NB]) times columns c0 .. c0 + 8 DB - 1
+// of the [8 NB x DP] tile b_s: the P V pattern (B through ldmatrix.trans),
+// over the columns below dim.
 template <typename T, int DP, int LD, int NB, int DB>
 __device__ __forceinline__ void regs_times_tile(float (&acc)[DB][4], const float (&x)[NB][4],
-                                                const T* b_s, int dim, int lane) {
+                                                const T* b_s, int dim, int c0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < NB / 2; ++kk) {
     uint32_t a[4];
     acc_to_a<T, NB>(a, x, kk);
 #pragma unroll
     for (int db = 0; db < DB; db += 2) {
-      if (db * 8 < dim) {
+      if (c0 + db * 8 < dim) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, b_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                 db * 8 + (lane >> 4) * 8);
+                                 c0 + db * 8 + (lane >> 4) * 8);
         Mma<T>::run(acc[db], a, b[0], b[1]);
         Mma<T>::run(acc[db + 1], a, b[2], b[3]);
       }
@@ -237,24 +251,29 @@ template <int DP> struct TcTile {
   static constexpr int LD = DP + 8;  // shared row stride, elements: no bank read twice
 };
 
-// dQ: a block owns kTcRows query rows of one (batch, head).
-template <typename T, int DP>
+// dQ: a block owns kTcRows query rows of one (batch, head) and OC of dQ's
+// columns (DP / OC blocks a tile).
+template <typename T, int DP, int OC>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel(const Params p) {
   constexpr int BN = kTcKeys;
   constexpr int LD = TcTile<DP>::LD;
   constexpr int NB = BN / 8;
-  constexpr int DB = DP / 8;
+  constexpr int DB = OC / 8;
+  constexpr int kSplit = DP / OC;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);  // [kTcRows][LD]
   T* do_s = q_s + kTcRows * LD;             // [kTcRows][LD]
   T* k_s = do_s + kTcRows * LD;             // [2][BN][LD]
   T* v_s = k_s + 2 * BN * LD;               // [2][BN][LD]
 
-  // Block -> (query tile, batch, head): the last query tiles first.
+  // Block -> (query tile, batch, head, column slice): the last query tiles
+  // first.
+  const int c0 = (static_cast<int>(blockIdx.x) % kSplit) * OC;
+  const int blk = static_cast<int>(blockIdx.x) / kSplit;
   const int n_qt = (p.sq + kTcRows - 1) / kTcRows;
   const int bh = p.n_batch * p.n_heads;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh;
-  const int rem = static_cast<int>(blockIdx.x) - (n_qt - 1 - qt) * bh;
+  const int qt = n_qt - 1 - blk / bh;
+  const int rem = blk - (n_qt - 1 - qt) * bh;
   const int bi = rem / p.n_heads;
   const int h = rem - bi * p.n_heads;
   const int hk = h / (p.n_heads / p.n_kv_heads);
@@ -354,21 +373,23 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_kernel(const Params p
         s[nb][e] = pe * (dp[nb][e] - di[r]) * fac;
       }
     }
-    regs_times_tile<T, DP, LD, NB, DB>(acc, s, ks, dim, lane);  // dQ += dS K
+    regs_times_tile<T, DP, LD, NB, DB>(acc, s, ks, dim, c0, lane);  // dQ += dS K
     kt = nxt;
   }
   store_acc<T, DB>(static_cast<T*>(p.dq) + row_base * dim, acc, p.scale, warp * 16, g, t,
-                   rows_here, dim);
+                   rows_here, dim, c0);
 }
 
-// dK and dV: a block owns kTcRows keys of one (batch, kv head); query tiles
-// of BM rows stream through.
-template <typename T, int DP, int BM>
+// dK and dV: a block owns kTcRows keys of one (batch, kv head) and OC of
+// their columns (DP / OC blocks a tile); query tiles of BM rows stream
+// through.
+template <typename T, int DP, int BM, int OC>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel(const Params p) {
   constexpr int BN = kTcRows;  // keys a block: 16 a warp
   constexpr int LD = TcTile<DP>::LD;
   constexpr int NB = BM / 8;   // 8-query column blocks of S^T
-  constexpr int DB = DP / 8;
+  constexpr int DB = OC / 8;
+  constexpr int kSplit = DP / OC;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);         // [BN][LD]
   T* v_s = k_s + BN * LD;                          // [BN][LD]
@@ -377,11 +398,13 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel(const Params
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * BM * LD);  // [2][BM], log2 domain
   float* di_s = lse_s + 2 * BM;                    // [2][BM]
 
-  // Block -> (key tile, batch, kv head): under a causal mask the first key
-  // tiles see the most rows, and they launch first.
+  // Block -> (key tile, batch, kv head, column slice): under a causal mask
+  // the first key tiles see the most rows, and they launch first.
+  const int c0 = (static_cast<int>(blockIdx.x) % kSplit) * OC;
+  const int blk = static_cast<int>(blockIdx.x) / kSplit;
   const int bh = p.n_batch * p.n_kv_heads;
-  const int kt = static_cast<int>(blockIdx.x) / bh;
-  const int rem = static_cast<int>(blockIdx.x) - kt * bh;
+  const int kt = blk / bh;
+  const int rem = blk - kt * bh;
   const int bi = rem / p.n_kv_heads;
   const int hk = rem - bi * p.n_kv_heads;
   const int group = p.n_heads / p.n_kv_heads;
@@ -475,51 +498,44 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkdv_kernel(const Params
         dpt[nb][e] = pe * (dpt[nb][e] - ds[qi]) * fac;      // dS^T
       }
     }
-    regs_times_tile<T, DP, LD, NB, DB>(dv, s, dos, dim, lane);   // dV += P^T dO
-    regs_times_tile<T, DP, LD, NB, DB>(dk, dpt, qs, dim, lane);  // dK += dS^T Q
+    regs_times_tile<T, DP, LD, NB, DB>(dv, s, dos, dim, c0, lane);   // dV += P^T dO
+    regs_times_tile<T, DP, LD, NB, DB>(dk, dpt, qs, dim, c0, lane);  // dK += dS^T Q
   }
   store_acc<T, DB>(static_cast<T*>(p.dk) + kv_base, dk, p.scale, warp * 16, g, t, keys_here,
-                   dim);
-  store_acc<T, DB>(static_cast<T*>(p.dv) + kv_base, dv, 1.0f, warp * 16, g, t, keys_here, dim);
+                   dim, c0);
+  store_acc<T, DB>(static_cast<T*>(p.dv) + kv_base, dv, 1.0f, warp * 16, g, t, keys_here, dim,
+                   c0);
 }
 
-template <typename K>
-int opt_in(K kernel, size_t smem, bool& done) {
-  if (smem > 48 * 1024 && !done) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    done = true;
-  }
-  return 0;
-}
-
-template <typename T, int DP, int BM>
+template <typename T, int DP, int BM, int OC>
 int launch_tc(const Params& p, cudaStream_t stream) {
   constexpr int LD = TcTile<DP>::LD;
+  constexpr int kSplit = DP / OC;
   const size_t smem_kv = sizeof(T) * (2 * kTcRows + 4 * BM) * LD + sizeof(float) * 4 * BM;
   static bool kv_opted = false;
-  int err = opt_in(flash_bwd_dkdv_kernel<T, DP, BM>, smem_kv, kv_opted);
+  int err = opt_in(flash_bwd_dkdv_kernel<T, DP, BM, OC>, smem_kv, kv_opted);
   if (err) return err;
   const int n_kt = (p.sk + kTcRows - 1) / kTcRows;
-  flash_bwd_dkdv_kernel<T, DP, BM>
-      <<<n_kt * p.n_batch * p.n_kv_heads, kTcThreads, smem_kv, stream>>>(p);
+  flash_bwd_dkdv_kernel<T, DP, BM, OC>
+      <<<n_kt * p.n_batch * p.n_kv_heads * kSplit, kTcThreads, smem_kv, stream>>>(p);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   const size_t smem_q = sizeof(T) * (2 * kTcRows + 4 * kTcKeys) * LD;
   static bool q_opted = false;
-  err = opt_in(flash_bwd_dq_kernel<T, DP>, smem_q, q_opted);
+  err = opt_in(flash_bwd_dq_kernel<T, DP, OC>, smem_q, q_opted);
   if (err) return err;
   const int n_qt = (p.sq + kTcRows - 1) / kTcRows;
-  flash_bwd_dq_kernel<T, DP><<<n_qt * p.n_batch * p.n_heads, kTcThreads, smem_q, stream>>>(p);
+  flash_bwd_dq_kernel<T, DP, OC>
+      <<<n_qt * p.n_batch * p.n_heads * kSplit, kTcThreads, smem_q, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_tc_dim(const Params& p, cudaStream_t stream) {
-  if (p.dim <= 64) return launch_tc<T, 64, 64>(p, stream);
-  return launch_tc<T, 128, 32>(p, stream);
+  if (p.dim <= 64) return launch_tc<T, 64, 64, 64>(p, stream);
+  if (p.dim <= 128) return launch_tc<T, 128, 32, 128>(p, stream);
+  return launch_tc<T, 256, 32, 128>(p, stream);  // two column slices a tile
 }
 
 // ---------------------------------------------------------------------------

@@ -62,10 +62,11 @@
 //   66 and 132 blocks time alike, 264 ~6 % slower; the backoff is within
 //   noise. 32 registers.
 //
-// Rounding: each opcode is written with __fmul_rn / __fadd_rn / __fsub_rn
-// and the file is built with -fmad=false, so every step rounds exactly as
-// PyTorch's eager op-by-op kernels do and the slab is bit-equal to the
-// serial baseline.
+// Rounding: each opcode is written with __fmaf_rn / __fadd_rn and the file
+// is built with -fmad=false: the multiply-add rounds once, as the
+// reference's XLA-compiled kernels contract it, and the rest as written, so
+// every step rounds as kernels/ops.py's branches do and the slab is
+// bit-equal to the serial baseline.
 
 #include <cuda_runtime.h>
 
@@ -147,8 +148,7 @@ __device__ __forceinline__ int claim(int* s, const int* slots, const int* ring0,
 }
 
 __device__ __forceinline__ float apply(int op, float a, float b) {
-  return op == OP_AXPY ? __fadd_rn(__fadd_rn(__fmul_rn(1.5f, a), b), 1.0f)
-                       : __fsub_rn(__fmul_rn(a, b), 0.5f);
+  return op == OP_AXPY ? __fadd_rn(__fmaf_rn(1.5f, a, b), 1.0f) : __fmaf_rn(a, b, -0.5f);
 }
 
 __device__ __forceinline__ float4 apply4(int op, float4 a, float4 b) {

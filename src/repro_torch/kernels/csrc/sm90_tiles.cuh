@@ -14,7 +14,8 @@
 // * stage: a [R, C] tile from global into shared memory, 16-byte cp.async
 //   copies where rows allow them, element loads where they do not (also
 //   lru_scan.cu's time tiles); from_f / to_f convert float32 and the
-//   storage types.
+//   storage types;
+// * opt_in: the dynamic shared-memory attribute above 48 KB.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -148,5 +149,19 @@ __device__ __forceinline__ void stage(T* dst, const T* src, size_t ld_src, int r
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// Above 48 KB of dynamic shared memory a kernel must opt in: once per
+// kernel (done), and the first launch that needs it. Returns the CUDA
+// error (0 on success).
+template <typename K>
+int opt_in(K kernel, size_t smem, bool& done) {
+  if (smem > 48 * 1024 && !done) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done = true;
+  }
+  return 0;
+}
 
 }  // namespace sm90

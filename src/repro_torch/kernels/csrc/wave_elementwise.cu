@@ -64,9 +64,10 @@
 //   arrival) cost ~0.5 us more a barrier, in another call, and made ptxas
 //   spill. 48 registers, no spills.
 //
-// Rounding: each opcode is written with __fmul_rn / __fadd_rn / __fsub_rn
-// and the file is built with -fmad=false, as csrc/ready_queue.cu is, so each
-// row rounds exactly as PyTorch's eager op-by-op kernels do.
+// Rounding: each opcode is written with __fmaf_rn / __fadd_rn and the file
+// is built with -fmad=false, as csrc/ready_queue.cu is: the multiply-add
+// rounds once, as the reference's XLA-compiled kernel contracts it, and the
+// rest as written, so each row is bit-equal to kernels/ops.py's branches.
 //
 // A descriptor whose branch id is outside the branch table, whose opcode is
 // unknown, or whose in0, in1 or out row lies outside [0, rows) makes its slot
@@ -127,11 +128,11 @@ wave_kernel(const float* __restrict__ slab, int rows, int d,
   const int hi = min(d, lo + kChunk);
   if (s.op == OP_AXPY) {
     for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
-      r[e] = __fadd_rn(__fadd_rn(__fmul_rn(1.5f, x[e]), y[e]), 1.0f);
+      r[e] = __fadd_rn(__fmaf_rn(1.5f, x[e], y[e]), 1.0f);
     }
   } else {  // OP_MUL
     for (int e = lo + threadIdx.x; e < hi; e += kThreads) {
-      r[e] = __fsub_rn(__fmul_rn(x[e], y[e]), 0.5f);
+      r[e] = __fmaf_rn(x[e], y[e], -0.5f);
     }
   }
 }
@@ -171,11 +172,11 @@ __global__ void __launch_bounds__(kThreads) wave_epoch_kernel(const EpochParams 
       float* r = (direct ? p.slab + (size_t)s.out * p.d : p.scratch + (size_t)si * p.d);
       if (s.op == OP_AXPY) {
         for (int e = e0 + threadIdx.x; e < e1; e += kThreads) {
-          __stcg(r + e, __fadd_rn(__fadd_rn(__fmul_rn(1.5f, __ldcg(x + e)), __ldcg(y + e)), 1.0f));
+          __stcg(r + e, __fadd_rn(__fmaf_rn(1.5f, __ldcg(x + e), __ldcg(y + e)), 1.0f));
         }
       } else {  // OP_MUL
         for (int e = e0 + threadIdx.x; e < e1; e += kThreads) {
-          __stcg(r + e, __fsub_rn(__fmul_rn(__ldcg(x + e), __ldcg(y + e)), 0.5f));
+          __stcg(r + e, __fmaf_rn(__ldcg(x + e), __ldcg(y + e), -0.5f));
         }
       }
     }

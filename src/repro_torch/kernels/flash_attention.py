@@ -22,7 +22,8 @@ Training: on CUDA tensors that need a gradient the call is a
 ``torch.autograd.Function`` whose forward is the same kernel, also writing
 each row's log-sum-exp, and whose backward is the hand-written
 ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV in two deterministic passes;
-Dv == D up to ``MAX_BACKWARD_HEAD_DIM``, other widths raise under grad).
+Dv == D up to ``MAX_BACKWARD_HEAD_DIM`` = 256, at D 256 each pass split
+into two column slices; Dv != D, MLA's widths, raises under grad).
 Without a gradient the call is the serving call, bit for bit. On the CPU
 autograd differentiates the plain version.
 
@@ -55,7 +56,7 @@ BACKWARD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 MAX_HEAD_DIM = 256
 MAX_QK_DIM_SPLIT, MAX_V_DIM_SPLIT = 192, 128
 # The backward (csrc/flash_attention_bwd.cu, kMaxD there): Dv == D up to this.
-MAX_BACKWARD_HEAD_DIM = 128
+MAX_BACKWARD_HEAD_DIM = 256
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The attention kernel is held to its plain version within a tolerance, not

@@ -28,6 +28,16 @@ and calls :func:`raise_on_error` where it synchronizes anyway. On the CPU
 the ids are checked before the plain version runs, so both devices refuse
 the same inputs.
 
+Training: where ``x`` or ``w`` needs a gradient the call is a
+``torch.autograd.Function`` whose forward is the same kernel and whose
+backward launches ``dx`` (``dy @ w[g]^T``, w read transposed in place) and
+``dw`` (each group's tiles summed in tile order, deterministic, 0 for a
+group no tile names), the hand-written entries of the same
+``csrc/grouped_matmul.cu``, counted on ``dx_launches`` and
+``dw_launches``; ``tile_groups`` and ``err`` get no gradient. On the CPU
+the same Function runs the plain forward and the plain backward
+:func:`~.ref.grouped_matmul_bwd_ref`.
+
 A CPU tensor goes to the plain version :func:`~.ref.grouped_matmul_ref`; a
 CUDA tensor launches the kernel or raises. The kernel builds at first use
 (``_nvcc.py``).
@@ -41,24 +51,27 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream, refuse_grad
-from .ref import grouped_matmul_ref
+from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
+from .ref import grouped_matmul_bwd_ref, grouped_matmul_ref
 
-__all__ = ["grouped_matmul", "raise_on_error", "build", "launches", "reset_launches",
-           "SOURCE"]
+__all__ = ["grouped_matmul", "grouped_matmul_bwd", "raise_on_error", "build", "launches",
+           "dx_launches", "dw_launches", "reset_launches", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Kernel launches since the last reset_launches(): incremented once per
-# launch of the CUDA kernel, never by the plain version.
+# launch of the CUDA kernel (the forward), of the dx entry and of the dw
+# entry (its table and its product), never by the plain versions.
 launches = 0
+dx_launches = 0
+dw_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, dx_launches, dw_launches
+    launches = dx_launches = dw_launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -70,6 +83,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         ptr,                      # stream
     ]
     lib.acs_grouped_matmul.restype = i32
+    lib.acs_grouped_matmul_dx.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # dy, w, tile_groups, dx, err
+        i32, i32, i32, i32, i32,  # M, K, N, G, block_m
+        i32,                      # dtype
+        ptr,                      # stream
+    ]
+    lib.acs_grouped_matmul_dx.restype = i32
+    lib.acs_grouped_matmul_dw.argtypes = [
+        ptr, ptr, ptr,            # x, dy, tile_groups
+        ptr, ptr, ptr,            # order, offs (scratch), dw
+        i32, i32, i32, i32, i32,  # M, K, N, G, block_m
+        i32,                      # dtype
+        ptr,                      # stream
+    ]
+    lib.acs_grouped_matmul_dw.restype = i32
 
 
 # Held to its plain version within a tolerance, not bit for bit: it may
@@ -120,21 +148,9 @@ def _check_devices(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor) 
                          f"{tile_groups.device}, x on {x.device}")
 
 
-def grouped_matmul(
-    x: torch.Tensor,            # [M, K] rows grouped, padded per group to block_m
-    w: torch.Tensor,            # [G, K, N]
-    tile_groups: torch.Tensor,  # [M // block_m] int32 group id per m-tile
-    *,
-    block_m: int,
-    err: Optional[torch.Tensor] = None,  # [1] int32 error flag the caller checks
-) -> torch.Tensor:
-    """``[M, N]`` in ``x``'s dtype, float32 inside. Launches on the current
-    CUDA stream; without ``err`` it then syncs once to check the group
-    ids."""
-    key = (x.shape, w.shape, tile_groups.shape, x.dtype, w.dtype, tile_groups.dtype, block_m)
-    if key not in _CHECKED:
-        _check(x, w, tile_groups, block_m)
-        _CHECKED.add(key)
+def _forward(x, w, tile_groups, block_m, err):
+    """The forward on x's device: the plain version on the CPU (after the
+    id check), the kernel on a CUDA tensor."""
     if x.device.type == "cpu":
         _check_devices(x, w, tile_groups)
         if tile_groups.numel() and not bool(((tile_groups >= 0)
@@ -143,7 +159,6 @@ def grouped_matmul(
         return grouped_matmul_ref(x, w, tile_groups, block_m=block_m)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
-    refuse_grad("grouped_matmul", x, w)
     _check_devices(x, w, tile_groups)
     if not (x.is_contiguous() and w.is_contiguous() and tile_groups.is_contiguous()):
         raise ValueError("grouped_matmul: x, w and tile_groups must be contiguous")
@@ -166,3 +181,89 @@ def grouped_matmul(
     if own:
         raise_on_error(err)
     return out
+
+
+def grouped_matmul_bwd(x, w, tile_groups, dy, *, block_m, need_dx=True, need_dw=True):
+    """The backward: ``(dx [M, K], dw [G, K, N])`` in x's and w's dtypes
+    from the forward's inputs and the output's gradient ``dy [M, N]``
+    (None for one not needed). On the CPU the plain version; on CUDA
+    tensors the dx and dw entries, on the current stream, no sync."""
+    if x.device.type == "cpu":
+        dx, dw = grouped_matmul_bwd_ref(x, w, tile_groups, dy, block_m=block_m)
+        return dx if need_dx else None, dw if need_dw else None
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_matmul_bwd: unsupported device {x.device}")
+    key = (x.shape, w.shape, tile_groups.shape, x.dtype, w.dtype, tile_groups.dtype, block_m)
+    if key not in _CHECKED:
+        _check(x, w, tile_groups, block_m)
+        _CHECKED.add(key)
+    _check_devices(x, w, tile_groups)
+    dy = dy.to(x.dtype).contiguous()
+    if dy.shape != (x.shape[0], w.shape[2]) or dy.device != x.device:
+        raise ValueError(f"grouped_matmul_bwd: dy {tuple(dy.shape)} on {dy.device} does not "
+                         f"match the output [{x.shape[0]}, {w.shape[2]}] on {x.device}")
+    x, w, tile_groups = x.contiguous(), w.contiguous(), tile_groups.contiguous()
+    m, k = x.shape
+    g, _, n = w.shape
+    lib = _LIB.get()
+    stream = raw_stream(x.device)
+    global dx_launches, dw_launches
+    dx = dw = None
+    if need_dx:  # no error flag: the forward flagged the same ids
+        dx = torch.empty_like(x)
+        rc = lib.acs_grouped_matmul_dx(dy.data_ptr(), w.data_ptr(), tile_groups.data_ptr(),
+                                       dx.data_ptr(), None, m, k, n, g, block_m,
+                                       _DTYPES[x.dtype], stream)
+        if rc != 0:
+            raise RuntimeError(f"grouped_matmul dx launch failed: CUDA error {rc}")
+        dx_launches += 1
+    if need_dw:
+        dw = torch.empty_like(w)
+        order = torch.empty(m // block_m, dtype=torch.int32, device=x.device)
+        offs = torch.empty(g + 1, dtype=torch.int32, device=x.device)
+        rc = lib.acs_grouped_matmul_dw(x.data_ptr(), dy.data_ptr(), tile_groups.data_ptr(),
+                                       order.data_ptr(), offs.data_ptr(), dw.data_ptr(), m, k,
+                                       n, g, block_m, _DTYPES[x.dtype], stream)
+        if rc != 0:
+            raise RuntimeError(f"grouped_matmul dw launch failed: CUDA error {rc}")
+        dw_launches += 1
+    return dx, dw
+
+
+class _GroupedMatmulFunction(torch.autograd.Function):
+    """The forward with its inputs saved; the dx and dw entries (or the
+    plain backward on the CPU) for the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile_groups, block_m, err):
+        ctx.save_for_backward(x, w, tile_groups)
+        ctx.block_m = block_m
+        return _forward(x, w, tile_groups, block_m, err)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, tile_groups = ctx.saved_tensors
+        dx, dw = grouped_matmul_bwd(x, w, tile_groups, dy, block_m=ctx.block_m,
+                                    need_dx=ctx.needs_input_grad[0],
+                                    need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None, None, None
+
+
+def grouped_matmul(
+    x: torch.Tensor,            # [M, K] rows grouped, padded per group to block_m
+    w: torch.Tensor,            # [G, K, N]
+    tile_groups: torch.Tensor,  # [M // block_m] int32 group id per m-tile
+    *,
+    block_m: int,
+    err: Optional[torch.Tensor] = None,  # [1] int32 error flag the caller checks
+) -> torch.Tensor:
+    """``[M, N]`` in ``x``'s dtype, float32 inside. Launches on the current
+    CUDA stream; without ``err`` it then syncs once to check the group
+    ids. Differentiable in ``x`` and ``w`` on both devices."""
+    key = (x.shape, w.shape, tile_groups.shape, x.dtype, w.dtype, tile_groups.dtype, block_m)
+    if key not in _CHECKED:
+        _check(x, w, tile_groups, block_m)
+        _CHECKED.add(key)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMatmulFunction.apply(x, w, tile_groups, block_m, err)
+    return _forward(x, w, tile_groups, block_m, err)

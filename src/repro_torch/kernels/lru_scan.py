@@ -18,6 +18,14 @@ decode step: the C entry point is looked up once, the shape, dtype, device
 and contiguity checks run once per distinct key of those (cached), and
 the stream handle comes from PyTorch's raw accessor.
 
+Training: where an input needs a gradient the call is a
+``torch.autograd.Function`` that saves ``a``, its output ``h`` and ``h0``,
+and whose backward is the reverse scan ``acs_lru_scan_bwd`` of the same
+``csrc/lru_scan.cu`` (``db``, ``da``, and ``dh0`` only where ``h0`` needs
+one; bit-equal to :func:`~.ref.lru_scan_bwd_ref` on the card, counted on
+``backward_launches``). On the CPU the same Function runs the plain
+forward and the plain backward.
+
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. The kernel builds at first use (``_nvcc.py``).
 """
@@ -30,23 +38,26 @@ from typing import Tuple
 
 import torch
 
-from ._nvcc import CudaLibrary, raw_stream, refuse_grad
-from .ref import lru_scan_ref
+from ._nvcc import CudaLibrary, raw_stream
+from .ref import lru_scan_bwd_ref, lru_scan_ref
 
-__all__ = ["lru_scan", "build", "launches", "reset_launches", "SOURCE"]
+__all__ = ["lru_scan", "lru_scan_bwd", "build", "launches", "backward_launches",
+           "reset_launches", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lru_scan.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the last reset_launches(): incremented once per
-# launch of the CUDA kernel, never by the plain version.
+# launch of the CUDA kernel (the forward) and of the reverse scan, never by
+# the plain versions.
 launches = 0
+backward_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, backward_launches
+    launches = backward_launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -56,6 +67,12 @@ def _bind(lib: ctypes.CDLL) -> None:
                                  i32, i32,            # dtype, h0 dtype
                                  ptr]                 # stream
     lib.acs_lru_scan.restype = i32
+    lib.acs_lru_scan_bwd.argtypes = [ptr, ptr, ptr, ptr,  # a, h, h0, dh
+                                     ptr, ptr, ptr,       # da, db, dh0 or null
+                                     i32, i32, i32,       # B, S, D
+                                     i32, i32,            # dtype, h0 dtype
+                                     ptr]                 # stream
+    lib.acs_lru_scan_bwd.restype = i32
 
 
 _LIB = CudaLibrary(SOURCE, _bind)
@@ -91,18 +108,13 @@ def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:
             raise ValueError(f"lru_scan: {name} must be contiguous")
 
 
-def lru_scan(
-    a: torch.Tensor,   # [B, S, D] decay
-    b: torch.Tensor,   # [B, S, D] input
-    h0: torch.Tensor,  # [B, D] initial state
-) -> torch.Tensor:
-    """``h [B, S, D]`` in ``b``'s dtype, the carry in float32. Launches on
-    the current CUDA stream without synchronizing."""
+def _forward(a, b, h0):
+    """The scan on a's device: the plain version on the CPU, the kernel on
+    a CUDA tensor."""
     if not a.is_cuda:
         if a.device.type == "cpu":
             return lru_scan_ref(a, b, h0)
         raise ValueError(f"lru_scan: unsupported device {a.device}")
-    refuse_grad("lru_scan", a, b, h0)
     key = (a.shape, b.shape, h0.shape, a.dtype, b.dtype, h0.dtype, a.get_device(),
            b.get_device(), h0.get_device(), a.is_contiguous(), b.is_contiguous(),
            h0.is_contiguous())
@@ -120,3 +132,62 @@ def lru_scan(
         raise RuntimeError(f"lru_scan kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def lru_scan_bwd(a, h, h0, dh, *, need_dh0=True):
+    """The reverse scan: ``(da, db, dh0)`` in the dtypes of ``a``, ``h``
+    and ``h0`` from the forward's ``a``, output ``h`` and ``h0`` and the
+    output's gradient ``dh`` (``dh0`` None unless ``need_dh0``). The plain
+    version on the CPU; on CUDA tensors the kernel, on the current stream,
+    no sync."""
+    if a.device.type == "cpu":
+        da, db, dh0 = lru_scan_bwd_ref(a, h, h0, dh)
+        return da, db, dh0 if need_dh0 else None
+    if a.device.type != "cuda":
+        raise ValueError(f"lru_scan_bwd: unsupported device {a.device}")
+    _check(a, h, h0)
+    dh = dh.to(h.dtype).contiguous()
+    if dh.shape != h.shape or dh.device != a.device:
+        raise ValueError(f"lru_scan_bwd: dh {tuple(dh.shape)} on {dh.device} does not match "
+                         f"h {tuple(h.shape)} on {a.device}")
+    n_batch, seq, dim = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(h)
+    dh0 = torch.empty_like(h0) if need_dh0 else None
+    global backward_launches
+    err = _LIB.get().acs_lru_scan_bwd(
+        a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), n_batch, seq, dim, _DTYPES[a.dtype],
+        _DTYPES[h0.dtype], raw_stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"lru_scan backward launch failed: CUDA error {err}")
+    backward_launches += 1
+    return da, db, dh0
+
+
+class _LruScanFunction(torch.autograd.Function):
+    """The scan with ``a``, its output and ``h0`` saved; the reverse scan
+    (or its plain version on the CPU) for the gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _forward(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        return lru_scan_bwd(a, h, h0, dh, need_dh0=ctx.needs_input_grad[2])
+
+
+def lru_scan(
+    a: torch.Tensor,   # [B, S, D] decay
+    b: torch.Tensor,   # [B, S, D] input
+    h0: torch.Tensor,  # [B, D] initial state
+) -> torch.Tensor:
+    """``h [B, S, D]`` in ``b``'s dtype, the carry in float32. Launches on
+    the current CUDA stream without synchronizing. Differentiable on both
+    devices."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or h0.requires_grad):
+        return _LruScanFunction.apply(a, b, h0)
+    return _forward(a, b, h0)

@@ -17,7 +17,8 @@ API; the device window runs a whole plan through
 device ready queue and the wave kernel may dispatch. They ARE the fns the test and smoke
 streams launch: fast-path eligibility checks fn identity against this
 table, so the kernel can never silently diverge from what the host path
-would have executed.
+would have executed. Each rounds its multiply-add once, as the reference's
+XLA-compiled kernels and the CUDA kernels do (``_fma``).
 """
 
 from __future__ import annotations
@@ -45,12 +46,35 @@ def register_device_ops(registry) -> dict:
             for name in ("attention", "grouped_matmul", "lru_scan")}
 
 
+def _fma(a, b: torch.Tensor, c) -> torch.Tensor:
+    """``a * b + c`` rounded once, in ``b``'s dtype: the reference's XLA
+    contracts ``1.5 * x + y`` and ``x * y - 0.5`` into fused multiply-adds
+    (the jnp oracle and the Pallas kernels alike), and the CUDA kernels run
+    ``__fmaf_rn``. PyTorch has no fused multiply-add, so: the product of
+    two float32s is exact in float64, the float64 sum is rounded to odd
+    (its error, from Knuth's two-sum, decides the sticky last bit), and a
+    sum rounded to odd with 29 spare bits rounds to float32 as the exact
+    sum does; an infinite or NaN sum is left as it is. Float64 operands
+    take the unfused expression."""
+    if b.dtype == torch.float64:
+        return a * b + c
+    p = a * b.double()
+    cd = c.double() if isinstance(c, torch.Tensor) else c
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    even = (err != 0) & s.isfinite() & ((bits & 1) == 0)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(even, bits + toward, bits).view(torch.float64).to(b.dtype)
+
+
 def _axpy_row(x, y):
-    return 1.5 * x + y + 1.0
+    return _fma(1.5, x, y) + 1.0
 
 
 def _mul_row(x, y):
-    return x * y - 0.5
+    return _fma(x, y, -0.5)
 
 
 LOOP_BRANCHES = {"axpy": _axpy_row, "mul": _mul_row}

@@ -23,6 +23,11 @@ oracle of the same name (the rows scattered into the slab).
 
 ``grouped_matmul_ref`` follows the reference's ragged grouped-GEMM oracle:
 each ``block_m``-row tile times its group's weights, in float32.
+``grouped_matmul_bwd_ref`` is the plain version of its backward
+(``dx``, ``dw``), and ``lru_scan_bwd_ref`` that of the recurrence's reverse
+scan; the reference has no kernel for either (XLA differentiates its
+oracles), so these are the test oracles and the plain versions of
+``csrc/grouped_matmul.cu``'s and ``csrc/lru_scan.cu``'s backward entries.
 
 ``selective_scan_ref`` is the plain version of ``kernels/selective_scan.py``,
 the Mamba recurrence: the reference has no kernel for it, and runs the
@@ -42,7 +47,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref", "grouped_matmul_ref", "lru_scan_ref", "ready_queue_ref",
+__all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref", "grouped_matmul_ref",
+           "grouped_matmul_bwd_ref", "lru_scan_ref", "lru_scan_bwd_ref", "ready_queue_ref",
            "ready_queue_tables_error", "selective_scan_ref", "mamba_scan_ref",
            "wave_rows_ref", "wave_elementwise_ref"]
 
@@ -169,6 +175,35 @@ def grouped_matmul_ref(
     return out.reshape(m, n).to(x.dtype)
 
 
+def grouped_matmul_bwd_ref(
+    x: torch.Tensor,            # [M, K] the forward's input
+    w: torch.Tensor,            # [G, K, N]
+    tile_groups: torch.Tensor,  # [M // block_m] int32
+    dy: torch.Tensor,           # [M, N] the output's gradient
+    *,
+    block_m: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`grouped_matmul_ref`: ``dx[t] = dy[t] @
+    w[g_t]^T`` and ``dw[g] = sum of x[t]^T @ dy[t]`` over the tiles ``t``
+    of group ``g`` in tile order (0 for a group no tile names; a tile whose
+    id lies outside ``[0, G)`` adds nothing to ``dw`` and gets ``dx`` 0).
+    Accumulated in float32, returned in ``x``'s and ``w``'s dtypes."""
+    m, k = x.shape
+    g, _, n = w.shape
+    tiles = m // block_m
+    dyt = dy.reshape(tiles, block_m, n).float()
+    ids = tile_groups.long()
+    valid = ((ids >= 0) & (ids < g))[:, None, None]
+    dx = torch.where(valid, torch.einsum("tmn,tkn->tmk", dyt, w[ids.clamp(0, g - 1)].float()),
+                     0.0)
+    per_tile = torch.einsum("tmk,tmn->tkn", x.reshape(tiles, block_m, k).float(), dyt)
+    dw = torch.zeros((g, k, n), dtype=torch.float32, device=x.device)
+    for t, gid in enumerate(tile_groups.tolist()):
+        if 0 <= gid < g:
+            dw[gid] += per_tile[t]
+    return dx.reshape(m, k).to(x.dtype), dw.to(w.dtype)
+
+
 def lru_scan_ref(
     a: torch.Tensor,   # [B, S, D] decay
     b: torch.Tensor,   # [B, S, D] input
@@ -185,6 +220,32 @@ def lru_scan_ref(
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out.to(b.dtype)
+
+
+def lru_scan_bwd_ref(
+    a: torch.Tensor,   # [B, S, D] decay
+    h: torch.Tensor,   # [B, S, D] the forward's output
+    h0: torch.Tensor,  # [B, D]
+    dh: torch.Tensor,  # [B, S, D] the output's gradient
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`lru_scan_ref` by the reverse scan, in float32:
+    the carry ``g_{S-1} = dh_{S-1}``, ``g_t = dh_t + a_{t+1} * g_{t+1}``,
+    then ``db_t = g_t``, ``da_t = g_t * h_{t-1}`` (``h_{-1} = h0``) and
+    ``dh0 = a_0 * g_0``. Each step is one multiply and one add, each
+    rounded to float32, as in the forward; ``h`` is the saved output (in
+    ``b``'s dtype). Returns ``(da, db, dh0)`` in the dtypes of ``a``, ``h``
+    and ``h0``."""
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    db = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    seq = a.shape[1]
+    g = dhf[:, seq - 1]
+    for t in range(seq - 1, -1, -1):
+        if t < seq - 1:
+            g = dhf[:, t] + af[:, t + 1] * g
+        db[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else h0.float())
+    return da.to(a.dtype), db.to(h.dtype), (af[:, 0] * g).to(h0.dtype)
 
 
 def selective_scan_ref(

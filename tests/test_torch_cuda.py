@@ -66,7 +66,16 @@
   every ACS-SW and ACS-HW policy and ``DagRunner``, launching none of the
   six kernels; the frontier keeping more than one group in flight on
   InstaNAS; ``GroupExecutor``'s event poll and its ``sync`` counting
-  blocking syncs; the frontier server's exact kernel launches and tokens.
+  blocking syncs; the frontier server's exact kernel launches and tokens;
+* training: flash's backward within tolerance of ``attention_bwd_ref``
+  (D up to 256: recurrentgemma's and paligemma's D-256 shapes split each
+  pass into two column slices), the grouped GEMM's ``dx`` and ``dw``
+  within tolerance of ``grouped_matmul_bwd_ref`` (a group no tile names
+  exactly 0, the same bits twice), the RG-LRU reverse scan bit-equal to
+  ``lru_scan_bwd_ref``, each autograd Function launching its kernels, the
+  wrappers still without a backward (the selective scan, flash at
+  Dv != D) refusing grad, and reduced configs' gradients on the card
+  against the CPU's.
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use), so they carry the ``cuda`` marker and skip without a card.
@@ -94,9 +103,9 @@ from repro_torch.core.task import default_segments
 from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches, wave_step
-from repro_torch.kernels.ref import (attention_ref, grouped_matmul_ref, lru_scan_ref,
-                                     mamba_scan_ref, ready_queue_ref, selective_scan_ref,
-                                     wave_rows_ref)
+from repro_torch.kernels.ref import (attention_ref, grouped_matmul_bwd_ref, grouped_matmul_ref,
+                                     lru_scan_bwd_ref, lru_scan_ref, mamba_scan_ref,
+                                     ready_queue_ref, selective_scan_ref, wave_rows_ref)
 
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
@@ -1213,6 +1222,16 @@ FLASH_BWD = {
     "d24": ((2, 4, 2, 70, 70, 24), {}),
     "d120_window_prefix": ((1, 4, 4, 129, 129, 120), {"window": 40, "prefix_len": 9}),
     "d8": ((1, 2, 1, 65, 65, 8), {"causal": False}),
+    # D 256: recurrentgemma-2b's training shape cut to one batch row, a
+    # window that binds, paligemma-3b's prefix, softcap, blind rows, and
+    # D 200 / 136 (the second column slice part empty).
+    "recurrentgemma_d256": ((1, 10, 1, 512, 512, 256), {"window": 2048}),
+    "window_d256": ((1, 4, 1, 300, 300, 256), {"window": 100}),
+    "paligemma_prefix_d256": ((1, 8, 1, 320, 320, 256), {"prefix_len": 256}),
+    "softcap_d256": ((1, 4, 2, 97, 97, 256), {"softcap": 2.0}),
+    "blind_rows_d256": ((1, 2, 1, 100, 100, 256), {"q_offset": -70}),
+    "ragged_d200": ((1, 4, 2, 65, 130, 200), {"q_offset": 65}),
+    "noncausal_d136": ((2, 4, 4, 70, 70, 136), {"causal": False, "window": 20}),
 }
 # float32: summation order only, 1e-4 of the largest gradient entry.
 # bfloat16 / float16: P and dS are rounded to the input type (2^-9) before
@@ -1300,17 +1319,10 @@ def test_flash_autograd_goes_through_both_kernels(device, dtype):
 
 
 def test_kernel_wrappers_refuse_grad(device):
-    """The wrappers with no backward kernel raise under grad on the card
-    rather than drop the gradient; flash raises for widths its backward
-    does not take; under no_grad all of them run."""
+    """The wrappers with no backward kernel (the selective scan's two
+    entries, flash at Dv != D) raise under grad on the card rather than
+    drop the gradient; under no_grad all of them run."""
     g = lambda *shape: torch.rand(*shape, device=device).requires_grad_(True)  # noqa: E731
-    a, b, h0 = g(1, 4, 8), g(1, 4, 8), torch.zeros(1, 8, device=device)
-    with pytest.raises(RuntimeError, match="lru_scan: the CUDA kernel has no backward"):
-        ls.lru_scan(a, b, h0)
-    x, w = g(16, 32), g(2, 32, 8)
-    tiles = torch.tensor([0, 1], dtype=torch.int32, device=device)
-    with pytest.raises(RuntimeError, match="grouped_matmul: the CUDA kernel has no backward"):
-        gm.grouped_matmul(x, w, tiles, block_m=8)
     dt, xs = g(1, 5, 16), g(1, 5, 16)
     bm, cm = g(1, 5, 4), g(1, 5, 4)
     am, hs = -g(16, 4).detach(), torch.zeros(1, 16, 4, device=device)
@@ -1319,23 +1331,133 @@ def test_kernel_wrappers_refuse_grad(device):
     z, bias, d = g(1, 5, 16), torch.zeros(16, device=device), torch.ones(16, device=device)
     with pytest.raises(RuntimeError, match="mamba_scan: the CUDA kernel has no backward"):
         ss.mamba_scan(dt, bias, xs, z, bm, cm, am.neg().log(), d, hs)
-    wide = g(1, 2, 8, 256)
+    qk, v = g(1, 2, 8, 192), g(1, 2, 8, 128)
     with pytest.raises(ValueError, match="no backward kernel"):
-        fa.flash_attention(wide, wide, wide)
+        fa.flash_attention(qk, qk, v)
     with torch.no_grad():
-        ls.lru_scan(a, b, h0)
-        gm.grouped_matmul(x, w, tiles, block_m=8)
         ss.selective_scan(dt, xs, bm, cm, am, hs)
-        fa.flash_attention(wide, wide, wide)
+        ss.mamba_scan(dt, bias, xs, z, bm, cm, am.neg().log(), d, hs)
+        fa.flash_attention(qk, qk, v)
     torch.cuda.synchronize()
 
 
+# (G, K, N, block_m, tile group ids) for the grouped GEMM's backward:
+# granite's training shape cut to 8 experts, repeated groups and groups no
+# tile names, block_m 1, 8 and 512, K and N off the 8-element copies and
+# the 128-wide tiles. Tolerances of the largest entry: float32 1e-5
+# (summation order), float16 / bfloat16 8e-3 (rounded once to the type).
+GMM_BWD = {
+    "granite_cut": (8, 1536, 512, 512, tuple(range(8))),
+    "repeats_unused": (6, 72, 40, 8, (0, 3, 3, 0, 5, 3)),
+    "bm1_off_edges": (5, 37, 131, 1, (4, 0, 4, 2, 2, 4, 0)),
+    "bm512_off_tiles": (3, 200, 136, 512, (2, 2, 0)),
+    "two_dispatch_groups": (8, 256, 96, 64, tuple(range(8)) * 2),
+}
+GMM_BWD_TOL = {torch.float32: 1e-5, torch.float16: 8e-3, torch.bfloat16: 8e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(GMM_BWD))
+def test_grouped_matmul_backward_matches_plain(device, name, dtype):
+    g, k, n, bm, tiles = GMM_BWD[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    x, w, dy = make(len(tiles) * bm, k), make(g, k, n), make(len(tiles) * bm, n)
+    tg = torch.tensor(tiles, dtype=torch.int32, device=device)
+    before = (gm.dx_launches, gm.dw_launches)
+    got = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm)
+    torch.cuda.synchronize()
+    assert (gm.dx_launches, gm.dw_launches) == (before[0] + 1, before[1] + 1)
+    want = grouped_matmul_bwd_ref(x, w, tg, dy, block_m=bm)
+    for label, a, b in zip(("dx", "dw"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, label
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= GMM_BWD_TOL[dtype] * float(b.float().abs().max()), (label, err)
+    for unused in set(range(g)) - set(tiles):
+        assert bool((got[1][unused] == 0).all())
+    again = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_autograd_goes_through_its_kernels(device, dtype):
+    """Under grad: one forward, one dx and one dw launch; gradients within
+    tolerance of autograd through ``grouped_matmul_ref``; only the inputs
+    that need one get a gradient."""
+    x0, w0, tiles, bm = _gmm_inputs(device, "ragged", dtype)
+    dy = torch.randn(x0.shape[0], w0.shape[2], device=device).to(dtype)
+    grads = []
+    for fn in (gm.grouped_matmul, grouped_matmul_ref):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        before = (gm.launches, gm.dx_launches, gm.dw_launches)
+        fn(x, w, tiles, block_m=bm).backward(dy)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip((gm.launches, gm.dx_launches, gm.dw_launches),
+                                                before))
+        assert launched == ((1, 1, 1) if fn is gm.grouped_matmul else (0, 0, 0))
+        grads.append((x.grad, w.grad))
+    for a, b in zip(*grads):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= GMM_BWD_TOL[dtype] * float(b.float().abs().max()) + 1e-6
+    w = w0.clone().requires_grad_(True)
+    before = (gm.dx_launches, gm.dw_launches)
+    gm.grouped_matmul(x0, w, tiles, block_m=bm).backward(dy)
+    torch.cuda.synchronize()
+    assert (gm.dx_launches, gm.dw_launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2560, 1000, 7])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 512])
+@pytest.mark.parametrize("b", [1, 4])
+def test_lru_scan_reverse_bit_equal_to_plain(device, b, s, d, dtype):
+    rng = np.random.RandomState(b * 11 + s + d)
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, s, d)).astype(np.float32)).to(device, dtype)
+    h0 = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(device)
+    h = ls.lru_scan(a, make(b, s, d), h0)
+    dh = make(b, s, d)
+    before = ls.backward_launches
+    got = ls.lru_scan_bwd(a, h, h0, dh)
+    torch.cuda.synchronize()
+    assert ls.backward_launches == before + 1
+    for name, x, y in zip(("da", "db", "dh0"), got, lru_scan_bwd_ref(a, h, h0, dh)):
+        assert x.dtype == y.dtype and torch.equal(_int_bits(x), _int_bits(y)), name
+
+
+def test_lru_scan_autograd_goes_through_its_kernels(device):
+    """Under grad: one forward and one reverse launch, the gradients
+    bit-equal to autograd through ``lru_scan_ref`` (float32), dh0 only for
+    an h0 that needs one."""
+    rng = np.random.RandomState(5)
+    a0 = torch.from_numpy(rng.uniform(0.5, 0.99, (2, 70, 40)).astype(np.float32)).to(device)
+    b0, dh = (torch.from_numpy(rng.randn(2, 70, 40).astype(np.float32)).to(device)
+              for _ in range(2))
+    h00 = torch.from_numpy(rng.randn(2, 40).astype(np.float32)).to(device)
+    for need_h0 in (False, True):
+        grads = []
+        for fn in (ls.lru_scan, lru_scan_ref):
+            a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+            h0 = h00.clone().requires_grad_(need_h0)
+            before = (ls.launches, ls.backward_launches)
+            fn(a, b, h0).backward(dh)
+            torch.cuda.synchronize()
+            launched = (ls.launches - before[0], ls.backward_launches - before[1])
+            assert launched == ((1, 1) if fn is ls.lru_scan else (0, 0))
+            grads.append((a.grad, b.grad, h0.grad))
+        assert (grads[0][2] is not None) == need_h0
+        for x, y in zip(*grads):
+            assert (x is None and y is None) or torch.equal(x, y)
+
+
 @pytest.mark.parametrize("name", ["minicpm-2b", "gemma2-27b", "h2o-danube-3-4b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "granite-moe-3b-a800m",
+                                  "recurrentgemma-2b", "paligemma-3b"])
 def test_train_gradients_on_the_card_match_the_cpu(device, name):
     """A reduced float32 config's loss and every weight's gradient through
-    flash and its backward on the card against the same weights' on the
-    CPU (the plain attention, differentiated by autograd): 1e-5 relative
+    flash, the grouped GEMM and the RG-LRU scan and their backward kernels
+    on the card against the same weights' on the CPU (the plain versions
+    and their plain backward): 1e-5 relative
     on the loss, 1e-4 of each leaf's largest entry (summation order); the
     card's remat gives the bits of no remat (every kernel deterministic)."""
     from repro_torch.configs import ARCHS
@@ -1354,10 +1476,13 @@ def test_train_gradients_on_the_card_match_the_cpu(device, name):
         inputs = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 24)).astype(np.int32))
     labels = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 24)).astype(np.int32))
     want_loss, want = loss_and_grads(cpu, cfg, inputs, labels)
-    fa.reset_launches()
+    for mod in (fa, gm, ls):
+        mod.reset_launches()
     loss, got = loss_and_grads(card, cfg, inputs.to(device), labels.to(device))
     torch.cuda.synchronize()
     assert fa.launches > 0 and fa.backward_launches > 0
+    assert (gm.dx_launches > 0 and gm.dw_launches > 0) == (cfg.moe is not None)
+    assert (ls.backward_launches > 0) == ("rglru" in cfg.pattern)
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
     mine, theirs = tree_leaves_with_names(got), tree_leaves_with_names(want)
     assert [n for n, _ in mine] == [n for n, _ in theirs]

@@ -13,6 +13,7 @@ kernel itself runs only on the card (``chip_smoke.py``).
 import functools
 import importlib.util
 import re
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -25,8 +26,9 @@ from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels.ops import LOOP_BRANCHES, LOOP_OPCODES
 from repro_torch.kernels.ref import ready_queue_ref, ready_queue_tables_error
 
-# XLA may contract a*b+c into one FMA on the CPU where eager PyTorch
-# rounds twice, so the reference side agrees to a few ulps, not bitwise.
+# The branches round their multiply-add once, as XLA contracts it in the
+# reference's kernels; the reference's eager serial path rounds twice, so
+# the reference side agrees to a few ulps, not bitwise.
 RTOL = ATOL = 1e-6
 
 ELIGIBLE = ("mixed_tag", "chain")
@@ -228,6 +230,33 @@ def test_branches_match_reference_formulas(name):
     got = LOOP_BRANCHES[name](torch.from_numpy(x), torch.from_numpy(y)).numpy()
     want = np.asarray(S.R_BRANCHES[name](S.jnp.asarray(x), S.jnp.asarray(y)))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _fma_f32(a, b, c):
+    """``a * b + c`` for float32 scalars, exact, rounded once to float32
+    (to nearest, ties to even)."""
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(v))
+    near = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    return min(near, key=lambda q: (abs(Fraction(float(q)) - v), int(q.view(np.int32)) & 1))
+
+
+@pytest.mark.parametrize("name", sorted(LOOP_BRANCHES))
+def test_branches_round_their_multiply_add_once(name):
+    """Each branch rounds ``1.5 * x + y`` or ``x * y - 0.5`` once, as the
+    reference's XLA-compiled kernels contract it and the CUDA kernels'
+    ``__fmaf_rn`` does: bit-equal to an exact oracle on sums that cancel,
+    where rounding the product first is off by an ulp of the product."""
+    rng = np.random.RandomState(5)
+    x = (rng.randn(512) * 100).astype(np.float32)
+    if name == "axpy":
+        y = (-1.5 * x.astype(np.float64) + rng.randn(512)).astype(np.float32)
+        want = [_fma_f32(1.5, a, b) + np.float32(1.0) for a, b in zip(x, y)]
+    else:
+        y = (0.5 / x.astype(np.float64) + rng.randn(512) * 1e-6).astype(np.float32)
+        want = [_fma_f32(a, b, -0.5) for a, b in zip(x, y)]
+    got = LOOP_BRANCHES[name](torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), np.asarray(want, np.float32).view(np.int32))
 
 
 def test_wrapper_rejects_non_cpu_non_cuda_device():

@@ -21,8 +21,10 @@
   (0) on a row that sees no key, and its forward bits are the former
   ``nan_to_num`` version's; ``attention_bwd_ref`` and
   ``attention_lse_ref`` against autograd and ``logsumexp``; each CUDA
-  wrapper without a backward kernel refuses to run under grad (the guard,
-  called as its CUDA path calls it), and its plain version stays
+  wrapper without a backward kernel (the selective scan's two entries)
+  refuses to run under grad (the guard, called as its CUDA path calls it),
+  the grouped GEMM and the RG-LRU scan go through their autograd Functions
+  and no longer call the guard, and every plain version stays
   differentiable on the CPU.
 """
 
@@ -313,13 +315,11 @@ def test_flash_wrapper_is_differentiable_on_the_cpu():
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
     fa.flash_attention(q, q.detach(), q.detach(), q_offset=-3).sum().backward()
     assert bool(torch.isfinite(q.grad).all()) and fa.backward_takes(64, 64)
-    assert fa.backward_takes(128, 128) and not fa.backward_takes(256, 256)
-    assert not fa.backward_takes(192, 128)
+    assert fa.backward_takes(128, 128) and fa.backward_takes(256, 256)
+    assert not fa.backward_takes(264, 264) and not fa.backward_takes(192, 128)
 
 
-WRAPPERS = {"lru_scan": "repro_torch.kernels.lru_scan",
-            "grouped_matmul": "repro_torch.kernels.grouped_matmul",
-            "selective_scan": "repro_torch.kernels.selective_scan",
+WRAPPERS = {"selective_scan": "repro_torch.kernels.selective_scan",
             "mamba_scan": "repro_torch.kernels.selective_scan"}
 
 
@@ -338,6 +338,27 @@ def test_wrappers_without_a_backward_refuse_grad(name):
     src = inspect.getsource(fn)
     assert f'refuse_grad("{name}"' in src
     assert src.index("refuse_grad(") > src.index('device.type == "cpu"')  # CUDA path only
+
+
+@pytest.mark.parametrize("name,function", [("grouped_matmul", "_GroupedMatmulFunction"),
+                                           ("lru_scan", "_LruScanFunction")])
+def test_backward_kernels_replace_refuse_grad(name, function):
+    """The grouped GEMM and the RG-LRU scan have backward kernels: their
+    module no longer calls the guard, and under grad both devices go
+    through the autograd Function, whose backward is the module's
+    ``<name>_bwd``: on a CUDA tensor its hand-written entries, with no
+    ``try`` that could fall back to the plain version."""
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    assert "refuse_grad" not in inspect.getsource(mod)
+    src = inspect.getsource(getattr(mod, name))
+    assert f"{function}.apply" in src
+    assert src.index("torch.is_grad_enabled()") < src.index(f"{function}.apply")
+    assert f"{name}_bwd(" in inspect.getsource(getattr(mod, function).backward)
+    bwd = inspect.getsource(getattr(mod, f"{name}_bwd"))
+    entries = (("acs_grouped_matmul_dx", "acs_grouped_matmul_dw") if name == "grouped_matmul"
+               else ("acs_lru_scan_bwd",))
+    assert all(entry in bwd for entry in entries)
+    assert "try:" not in bwd and "except" not in bwd
 
 
 def test_plain_versions_stay_differentiable_on_the_cpu():
@@ -365,24 +386,38 @@ def test_backward_width_comes_from_the_wrapper():
     assert "#error" in src and "defined(ACS_FLASH_BWD_MAX_D)" in src
 
 
-@pytest.mark.parametrize("entry", ["acs_flash_attention", "acs_flash_attention_bwd"])
+# C entry point -> (its wrapper module, its source's attribute there, the
+# binder's name there): flash's two libraries, and the grouped GEMM's and
+# the RG-LRU scan's forward and backward entries, which share a library.
+ENTRIES = {"acs_flash_attention": ("flash_attention", "SOURCE", "_bind"),
+           "acs_flash_attention_bwd": ("flash_attention", "BACKWARD_SOURCE", "_bind_backward"),
+           "acs_grouped_matmul": ("grouped_matmul", "SOURCE", "_bind"),
+           "acs_grouped_matmul_dx": ("grouped_matmul", "SOURCE", "_bind"),
+           "acs_grouped_matmul_dw": ("grouped_matmul", "SOURCE", "_bind"),
+           "acs_lru_scan": ("lru_scan", "SOURCE", "_bind"),
+           "acs_lru_scan_bwd": ("lru_scan", "SOURCE", "_bind")}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_flash_entry_points_bind_every_argument(entry):
     """Each C entry point's parameters, counted in its source, match the
     ``argtypes`` the wrapper binds (a missing pointer would shift every
-    later argument)."""
+    later argument): flash's, and the training path's other entries."""
     import ctypes
     import re
 
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    source = fa.BACKWARD_SOURCE if entry.endswith("_bwd") else fa.SOURCE
-    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', source.read_text()).group(1)
+    module, source_attr, binder = ENTRIES[entry]
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    text = getattr(mod, source_attr).read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text).group(1)
 
     class Lib:
         pass
 
     lib = Lib()
-    setattr(lib, entry, type("Fn", (), {})())
-    (fa._bind_backward if entry.endswith("_bwd") else fa._bind)(lib)
+    for name in re.findall(r'extern "C" int (\w+)\(', text):
+        setattr(lib, name, type("Fn", (), {})())
+    getattr(mod, binder)(lib)
     argtypes = getattr(lib, entry).argtypes
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float if p.split()[0] == "float"
              else ctypes.c_int for p in (part.strip() for part in params.split(","))]

@@ -25,8 +25,9 @@ we = importlib.import_module("repro_torch.kernels.wave_elementwise")
 from repro_torch.kernels.ops import LOOP_BRANCHES, LOOP_OPCODES, wave_step
 from repro_torch.kernels.ref import wave_elementwise_ref, wave_rows_ref
 
-# XLA may contract a*b+c into one FMA on the CPU where eager PyTorch rounds
-# twice, so the two packages agree to a few ulps, not bitwise.
+# The branches round their multiply-add once, as XLA contracts it; where the
+# reference runs eagerly it rounds twice, so the packages agree to a few
+# ulps, not bitwise.
 RTOL = ATOL = 1e-6
 
 NAMES = ("axpy", "mul")
