@@ -6,9 +6,10 @@
 Phases, each fatal on failure (an exception, exit code != 0):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: the seven CUDA kernel libraries (ready queue, wave megakernel,
-   flash attention, flash attention's backward, RG-LRU scan and its
-   reverse scan, grouped GEMM and its dx and dw entries, selective scan)
+2. Build: the eight CUDA kernel libraries (ready queue, wave megakernel,
+   flash attention, flash attention's backward on wgmma and its float32
+   path, RG-LRU scan and its reverse scan, grouped GEMM and
+   its dx and dw entries, selective scan)
    from the sources in this checkout, one ``nvcc`` each, all started
    together; each one's build seconds and, from ``ptxas -v``, each
    kernel's registers, static shared memory and spills.
@@ -66,14 +67,17 @@ Phases, each fatal on failure (an exception, exit code != 0):
       bf16 2e-2 of the largest entry) on the forward kernel's o and row
       log-sum-exp, at minicpm-2b's training shape [4, 36, 512, 64] causal
       and over GQA, window, prefix, softcap, a ragged Sk, rows that see no
-      key, no causal mask, D 24, 120 and 128; at D 256 (two column slices
-      a pass): recurrentgemma-2b's training shape [4, 10, 512, 256] over
+      key, no causal mask, D 24, 120 and 128; at D 256:
+      recurrentgemma-2b's training shape [4, 10, 512, 256] over
       one kv head with window 2048, a window that binds (S 600, window
       100), paligemma-3b's [1, 8, 320, 256] over one kv head with
       ``prefix_len`` 256, softcap, blind rows, D 200 and 136; lse within
       1e-4 of ``attention_lse_ref``; the forward's bits the same with and
-      without lse; the same bits on a second launch; Dv != D (MLA) raises
-      under grad;
+      without lse; the same bits on a second launch; each case's path
+      (wgmma with TMA on all of them); the same kernels on padded copies
+      for q and dO off 16-byte alignment at D 64, 128 and 256, bf16 and
+      f16, within the bf16 tolerance, the same bits twice; Dv != D (MLA)
+      raises under grad;
    e. ``grouped_matmul``: within tolerance of ``grouped_matmul_ref``
       (float32 1e-4, float16 and bfloat16 8e-3: one bfloat16 ulp) over the
       reference's ragged cases (N off the tile, groups with no tile),
@@ -210,9 +214,13 @@ Phases, each fatal on failure (an exception, exit code != 0):
    back, flash's and the scans' device times, each kernel's bound, the
    backward kernels at their training shapes (flash's at minicpm-2b's and
    at recurrentgemma-2b's D 256 beside SDPA's backward through autograd,
-   its backend named; the grouped GEMM's dx and dw at granite's gate/up
-   and down products beside ``torch.bmm`` on the capacity layout; the
-   RG-LRU reverse scan at [4, 512, 2560] f32, no library call), and
+   its backend named, with its path, its plan's blocks, split key tiles
+   and workspace slots, each pass's device time (prologue, dK/dV,
+   reduction, dQ) and its kernels' ``ptxas -v``; the grouped GEMM's dx and
+   dw at granite's gate/up and down products beside ``torch.bmm`` on the
+   capacity layout, dw with its path, grid, ``ptxas -v`` and the float32
+   path's tile-table kernel timed alone; the RG-LRU reverse scan at [4,
+   512, 2560] f32, no library call), and
    the wall time of each phase-4/5/6 policy and server. The ready queue also: its device time from
    ``torch.profiler`` (the mean over the kernels the trace holds), that
    of ONE 32-deep chain (over 32: the hop that bounds it) and of one
@@ -743,7 +751,8 @@ def kernel_builds():
     module, and flash attention's backward."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     return [(m.SOURCE, m.build) for m in kernel_modules()] + [
-        (fa.BACKWARD_SOURCE, fa.build_backward)]
+        (fa.BACKWARD_SOURCE, fa.build_backward),
+        (fa.BACKWARD_WGMMA_SOURCE, fa.build_backward_wgmma)]
 
 
 def phase_build():
@@ -1126,10 +1135,10 @@ FLASH_BWD_SWEEP = [
     ((2, 4, 2, 70, 70, 24), {}),
     ((1, 4, 4, 129, 129, 120), {"window": 40, "prefix_len": 9}),
     ((1, 32, 8, 512, 512, 128), {"window": 4096}),
-    # D 256 (two column slices a pass): recurrentgemma-2b's training shape
+    # D 256: recurrentgemma-2b's training shape
     # (10 heads over 1, window 2048), a window that binds, paligemma-3b's
     # 256-key prefix (8 heads over 1), softcap, blind rows, a ragged chunk
-    # and D 200 / 136 off the padding (the second slice part empty).
+    # and D 200 / 136 off the padding.
     ((4, 10, 1, 512, 512, 256), {"window": 2048}),
     ((1, 10, 1, 600, 600, 256), {"window": 100}),
     ((1, 8, 1, 320, 320, 256), {"prefix_len": 256}),
@@ -1139,6 +1148,10 @@ FLASH_BWD_SWEEP = [
     ((2, 4, 4, 70, 70, 136), {"causal": False, "window": 20}),
 ]
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The sweep's rows that phase 3d' also runs with q and dO off 16-byte
+# alignment (the wgmma kernels on padded copies), one for each tile width:
+# GQA at D 64, h2o-danube-3-4b's D 128 and recurrentgemma-2b's D 256.
+FLASH_BWD_PADDED = (1, 10, 11)
 
 
 def phase_flash_bwd_vs_plain(device):
@@ -1182,6 +1195,38 @@ def phase_flash_bwd_vs_plain(device):
                   "flash backward: a second launch gave other bits")
             log(f"flash backward ~ plain: {(b, h, hkv, sq, sk, d)} {flags} "
                 f"{str(dtype).replace('torch.', '')} max err / largest entry "
+                f"dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g}; path "
+                f"{fa.backward_path(q, k, v, out, do)}")
+    # Rows TMA cannot address (q and dO views one element into their
+    # buffers, so not 16-byte aligned): the wgmma kernels on aligned copies,
+    # at each tile width, in bf16 and f16 (held to the bf16 tolerance).
+    for case in FLASH_BWD_PADDED:
+        (b, h, hkv, sq, sk, d), flags = FLASH_BWD_SWEEP[case]
+        for dtype in (torch.bfloat16, torch.float16):
+            q, do = (torch.randn(b * h * sq * d + 1, generator=gen, device=device).to(dtype)
+                     [1:].view(b, h, sq, d) for _ in range(2))
+            k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+            out, lse = fa.flash_attention_lse(q, k, v, **flags)
+            before = dict(fa.backward_paths)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+            want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
+            torch.cuda.synchronize()
+            check(fa.backward_paths["wgmma_padded"] == before["wgmma_padded"] + 1,
+                  f"flash backward: an unaligned q at D {d} did not take the padded path")
+            rel = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err, scale = float((g.float() - w).abs().max()), float(w.abs().max())
+                check(g.dtype == dtype and err <= FLASH_BWD_TOL["bfloat16"] * scale,
+                      f"flash backward (padded path) {name} != plain at "
+                      f"{(b, h, hkv, sq, sk, d)} {flags} {dtype}: {err} of {scale}")
+                rel.append(err / scale if scale else err)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+            check(all(torch.equal(x, y) for x, y in zip(again, got)),
+                  "flash backward (padded path): a second launch gave other bits")
+            log(f"flash backward ~ plain on the padded path (q and dO 2 bytes off 16-byte "
+                f"alignment) at {(b, h, hkv, sq, sk, d)} {flags} "
+                f"{str(dtype).replace('torch.', '')}: max err / largest entry "
                 f"dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g}")
     qk = torch.zeros(1, 2, 8, 192, device=device, dtype=torch.bfloat16, requires_grad=True)
     v = torch.zeros(1, 2, 8, 128, device=device, dtype=torch.bfloat16, requires_grad=True)
@@ -1454,6 +1499,7 @@ GMM_BWD_SWEEP = {
     "bm8_k13_n11": (3, 13, 11, 8, (1, 1, 0)),
     "bm512_k200_n136": (3, 200, 136, 512, (2, 2, 0)),
     "bm70_k130_n264": (4, 130, 264, 70, (3, 1, 3)),
+    "groups_past_one_launch": (4100, 16, 24, 4, (4099, 0, 4096, 4095, 4099, 7)),
 }
 GMM_BWD_TOL = {"float32": 1e-5, "float16": 8e-3, "bfloat16": 8e-3}
 
@@ -1493,7 +1539,9 @@ def phase_gmm_bwd_vs_plain(device):
                   f"grouped_matmul backward: a second launch gave other bits at {name} {dtype}")
             log(f"grouped_matmul backward ~ plain: {name} G {g} K {k} N {n} block_m {bm} M "
                 f"{len(tiles) * bm} {str(dtype).replace('torch.', '')} max err / largest entry "
-                f"dx {rel[0]:.3g} dw {rel[1]:.3g}; unused groups {unused} exactly 0")
+                f"dx {rel[0]:.3g} dw {rel[1]:.3g}; unused groups "
+                f"{unused if len(unused) <= 8 else f'({len(unused)} of them)'} exactly 0; dw path "
+                f"{gm.dw_path(x, dy, got[1])}")
 
 
 def phase_expert_stream(device):
@@ -3290,6 +3338,7 @@ def flash_bwd_case(device, gen, shape, flags):
     it took and the one its dispatcher picks."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels._nvcc import resources
     from repro_torch.kernels.ref import attention_bwd_ref
     from torch.nn.attention import SDPBackend
 
@@ -3314,12 +3363,27 @@ def flash_bwd_case(device, gen, shape, flags):
     n_bytes = 2 * 4 * q.numel() + 2 * 4 * k.numel() + 4 * lse.numel()
     ms_bound, by = bound(n_bytes, 2 * 5 * d * b * h * seen, BF16_FLOP_PER_S)
     call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)  # noqa: E731
-    # Device time: the three kernels' means over the launches the trace
-    # holds (a trace can lose some, see phase_busy), summed.
+    path = fa.backward_path(q, k, v, out, do)
+    plan = fa.backward_plan(b, h, hkv, s, s, d, causal=True, window=flags.get("window"),
+                            n_sm=torch.cuda.get_device_properties(device).multi_processor_count)
+    # Device time: each pass's kernel's mean over the launches the trace
+    # holds (a trace can lose some, see phase_busy), summed over the passes
+    # the path launches (the reduction only where the plan splits a key tile).
     prof, _ = profiled(lambda: [call() for _ in range(TIMED_RUNS)])
     per_kernel = {a.key[:60]: (a.self_device_time_total / 1e3 / a.count, a.count)
                   for a in prof.key_averages() if "flash_bwd" in a.key}
-    device_ms = sum(ms for ms, _ in per_kernel.values()) if len(per_kernel) == 3 else None
+    passes = {}
+    for label, part in (("prologue", "flash_bwd_dot"), ("dkdv", "flash_bwd_dkdv"),
+                        ("reduce", "flash_bwd_reduce"), ("dq", "flash_bwd_dq")):
+        hits = [(ms, n) for key, (ms, n) in per_kernel.items() if part in key]
+        passes[label] = (sum(ms * n for ms, n in hits) / sum(n for _, n in hits)) if hits else None
+    expected = ["prologue", "dkdv", "dq"] + (["reduce"] if path == "wgmma" and plan.red else [])
+    device_ms = (sum(passes[p] for p in expected) if all(passes[p] is not None for p in expected)
+                 else None)
+    lib_path, _ = fa.build_backward_wgmma()
+    width = 64 if d <= 64 else 128 if d <= 128 else 256
+    ptxas = [line for line in resources(lib_path)
+             if f"__nv_bfloat16, (int){width}" in line or "dot16_kernel<__nv_bfloat16>" in line]
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     sdpa_kw = {"is_causal": True, "enable_gqa": hkv != h}
     o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
@@ -3337,8 +3401,18 @@ def flash_bwd_case(device, gen, shape, flags):
         "library_ms": median_ms(sdpa_bwd),
         "back_to_back_ms": back_to_back_ms(call),
         "device_ms": device_ms,
+        "device_ms_prologue": passes["prologue"],
+        "device_ms_dkdv": passes["dkdv"],
+        "device_ms_reduce": passes["reduce"],
+        "device_ms_dq": passes["dq"],
         "device_ms_by_kernel": {key: ms for key, (ms, _) in per_kernel.items()},
         "device_kernels_recorded": sum(n for _, n in per_kernel.values()),
+        "path": path,
+        "dkdv_blocks": len(plan.blocks) if path == "wgmma" else None,
+        "split_key_tiles": len(plan.red) if path == "wgmma" else None,
+        "workspace_slots": plan.n_slots if path == "wgmma" else None,
+        "dq_blocks": plan.dq_blocks if path == "wgmma" else None,
+        "ptxas": ptxas,
         "library_back_to_back_ms": back_to_back_ms(sdpa_bwd),
         "library_backend": backend,
         "library_kernel": sdpa_kernel,
@@ -3368,7 +3442,8 @@ def numbers_flash_bwd(device):
     out_dict = {
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        "fma_f32_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:37",
         "replaces_note": "the Pallas kernel has no backward: the reference trains through "
                          "XLA's derivative of ref.attention_ref",
@@ -3380,7 +3455,7 @@ def numbers_flash_bwd(device):
         "shape": "q, k, v, o, dO [4, 36, 512, 64] bf16, causal (minicpm-2b's training step)",
         **{f"d256_{key}": val for key, val in wide.items()},
         "d256_shape": "q, o, dO [4, 10, 512, 256], k, v [4, 1, 512, 256] bf16, causal, window "
-                      "2048 (recurrentgemma-2b's training step; two column slices a pass)",
+                      "2048 (recurrentgemma-2b's training step)",
     }
     log(f"flash backward: {out_dict} [{torch.cuda.get_device_name(0)}]")
     return out_dict
@@ -3413,13 +3488,14 @@ GMM_TRAIN = {"": (40, 1536, 512, 512), "down_": (40, 512, 1536, 512)}
 def numbers_gmm_bwd(device):
     """The grouped GEMM's dx and dw entries at granite's training shapes
     (GMM_TRAIN), bf16: errors against ``grouped_matmul_bwd_ref``, single
-    launches, 20 back to back, device time (profiler; dw's includes its
-    tile-table kernel), the plain version's time, the bound (dy and w read,
-    dx written; x and dy read, dw written; 2 M K N operations each) and
-    ``torch.bmm`` on the capacity layout as the library call (``dy @ w^T``
-    and ``x^T @ dy``, the transposes as strided views). Returns the dx and
-    the dw rows."""
+    launches, 20 back to back, device time (profiler; the float32 path's
+    tile-table kernel timed alone beside dw's), the plain version's time,
+    the bound (dy and w read, dx written; x and dy read, dw written; 2 M K
+    N operations each) and ``torch.bmm`` on the capacity layout as the
+    library call (``dy @ w^T`` and ``x^T @ dy``, the transposes as strided
+    views). Returns the dx and the dw rows."""
     import torch
+    from repro_torch.kernels._nvcc import resources
     from repro_torch.kernels.ref import grouped_matmul_bwd_ref
 
     gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
@@ -3441,7 +3517,7 @@ def numbers_gmm_bwd(device):
                    2 * (dy.numel() + w.numel() + x.numel())),
             "dw": (lambda: gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=cap, need_dx=False),
                    lambda: torch.bmm(x3.transpose(1, 2), dy3),
-                   ("gmm_dw_tc_kernel", "gmm_tile_table_kernel"),
+                   ("gmm_dw_wgmma_kernel",),  # finds the groups' tiles itself
                    2 * (x.numel() + dy.numel() + w.numel())),
         }
         plain_ms = median_ms(lambda: grouped_matmul_bwd_ref(x, w, tiles, dy, block_m=cap))
@@ -3461,12 +3537,27 @@ def numbers_gmm_bwd(device):
                 "library_ms": median_ms(library),
                 "library_back_to_back_ms": back_to_back_ms(library),
             }
+            if which == "dw":
+                case["path"] = gm.dw_path(x, dy, got[1])
+                check(case["path"] == "wgmma", f"dw at granite's shape took {case['path']}")
+                case["grid"] = gm.dw_grid(g, k, n, torch.cuda.get_device_properties(
+                    device).multi_processor_count)
+                # The float32 path's tile-table launch alone, on the same
+                # values in float32 (the 16-bit kernel needs no table).
+                x32, w32, dy32 = x.float(), w.float(), dy.float()
+                case["table_device_ms"] = call_device_ms(
+                    lambda: gm.grouped_matmul_bwd(x32, w32, tiles, dy32, block_m=cap,
+                                                  need_dx=False), ("gmm_tile_table_kernel",))[0]
             rows[which].update({prefix + key: val for key, val in case.items()})
             log(f"grouped_matmul {which} {prefix or 'gate/up '}w [{g}, {k}, {n}] block_m {cap}: "
                 f"{case} [{torch.cuda.get_device_name(0)}]")
     shape = ("x [20480, 1536], dy [20480, 512], w [40, 1536, 512] bf16 (gate/up; down_: "
              "x [20480, 512], dy [20480, 1536], w [40, 512, 1536]), block_m 512, tile ids "
              "arange(40): granite-moe-3b-a800m's training step")
+    lib_path, _ = gm.build()
+    rows["dw"]["ptxas"] = [line for line in resources(lib_path)
+                           if "gmm_dw_wgmma_kernel<__nv_bfloat16>" in line
+                           or "gmm_tile_table_kernel" in line]
     out = []
     for which, label in (("dx", "dy @ w[g]^T, w read transposed in place"),
                          ("dw", "sum over a group's tiles of x^T @ dy, in tile order")):

@@ -1,0 +1,793 @@
+// Flash attention's backward on Hopper (sm_90a) on wgmma, fed by TMA: dQ,
+// dK and dV from q, k, v, the forward's output o, its row log-sum-exp lse
+// and the output's gradient dO, in bfloat16 and float16. TMA must be able
+// to address the rows (D % 8 == 0, every pointer 16-byte aligned): where
+// the tensors themselves are not so, the wrapper (flash_attention.py
+// backward_path, "wgmma_padded") passes aligned copies zero-padded to a
+// multiple of 8 columns. flash_attention_bwd.cu holds the float32 path and
+// says what this computes:
+// the plain version's semantics (kernels/ref.py attention_bwd_ref), which
+// the reference reaches through XLA's derivative of its oracle (no Pallas
+// kernel of the reference has a backward).
+//
+// Bound on this card: the bytes (q, k, v, o, dO read once, lse once, dQ,
+// dK, dV written once, over 3.35 TB/s) or the operations (the five
+// products S = Q K^T, dP, dV, dQ and dK over the visible (row, key) pairs,
+// 2 * 5 * D each, over 989 TFLOP/s for bf16), whichever is larger. At
+// minicpm-2b's training shape [4, 36, 512, 64] causal that is 75.8 MB
+// (0.0226 ms) against 12.1 GFLOP (0.0122 ms): the bytes. At
+// recurrentgemma-2b's [4, 10, 512, 256] causal over one kv head, ~46 MB
+// (0.0138 ms) against 13.4 GFLOP (0.0136 ms).
+//
+// Design, FlashAttention-2/3's backward in two passes, deterministic: no
+// atomics, and every sum in one fixed order, so the same inputs give the
+// same bits run after run.
+// * Each pass is warp-specialised: two consumer warpgroups run the
+//   products on wgmma with float32 accumulators in registers, and a
+//   producer warp feeds them by TMA (3-D
+//   tensor maps [planes][rows][D], 128-byte swizzle, rows past the tensor
+//   and columns past D landing as 0) through an mbarrier ring (2 stages at
+//   D 256, 4 below); setmaxnreg gives the producer warpgroup's registers
+//   to the consumers (232 each), so the 128-register accumulators do not
+//   spill. Building blocks: sm90_wgmma.cuh.
+//   - Prologue: Di = rowsum(dO * O), 8 lanes a row, 16-byte loads, and
+//     lse in the log2 domain beside it (one pass over o and dO).
+//   - Key-tile pass (dK, dV): the wrapper's plan (backward_plan) gives
+//     each block a key tile of one (batch, kv head) and a run of its items
+//     (query head, 64-row query tile), so that the grid fills the SMs:
+//     recurrentgemma-2b's 10 heads over one kv head give 252 blocks where
+//     one block a key tile gave 64. S^T = K Q^T and dP^T = V dO^T are
+//     computed once per (key tile, query tile). At D <= 128 each consumer
+//     warpgroup owns 64 of the block's 128 keys and keeps P^T and dS^T in
+//     registers as the A operands of dV += P^T dO and dK += dS^T Q; at D
+//     256 the two share 64 keys, each computes S^T and dP^T for half the
+//     queries and writes P^T and dS^T (rounded to bf16 / f16) to shared
+//     memory, and warpgroup 0 accumulates dV, warpgroup 1 dK, all 256
+//     columns each. A key tile split over several blocks leaves float32
+//     partial sums in a workspace, which a reduction adds in slot order;
+//     a key tile's only block writes dK and dV itself.
+//   - Query-tile pass (dQ): a block owns 128 query rows of one (batch,
+//     head), 64 a consumer warpgroup, and streams the key tiles they see
+//     (64 keys; 32 at D 256): S = Q K^T and dP = dO V^T on wgmma, dS in
+//     registers, dQ += dS K with dS as the register A operand.
+//   - The elementwise step skips the per-pair mask where a whole tile is
+//     visible, and is specialised on the softcap: one compact loop runs a
+//     step (one loop that branched on both per pair spread its code over
+//     tens of kilobytes, more than the instruction cache holds;
+//     kernels/bwd_trace.py times a block's steps on the card).
+// Dv == D; tiles are templated on the padded D (64, 128, 256).
+
+#include "flash_attention_bwd.cuh"
+#include "sm90_tiles.cuh"
+#include "sm90_wgmma.cuh"
+
+#include <cmath>
+#include <cstddef>
+#include <type_traits>
+
+namespace {
+
+using namespace flash_bwd;
+using namespace sm90;
+
+#if !defined(ACS_FLASH_BWD_MAX_D)
+#error "build through flash_attention.py, which defines the head widths"
+#endif
+
+constexpr int kMaxD = ACS_FLASH_BWD_MAX_D;  // Dv == D up to this width
+static_assert(kMaxD == 256, "the instantiations pad D to 64, 128 or 256");
+
+// ---------------------------------------------------------------------------
+// bfloat16 / float16 on wgmma, fed by TMA (the wgmma path)
+// ---------------------------------------------------------------------------
+
+// Every wgmma kernel runs two consumer warpgroups and a producer
+// warpgroup whose warp 8 issues the copies (warps 9-11 only give their
+// registers back): 384 threads compile to 168 registers each, which
+// would spill the dK / dV / dQ accumulators, so setmaxnreg drops the
+// producer to 40 and lifts the consumers to 232. One block an SM.
+constexpr int kWgThreads = 3 * 128;
+constexpr int kProducerRegs = 40;   // (168 - 40) x 128 registers given back
+constexpr int kConsumerRegs = 232;  // (232 - 168) x 256 taken
+constexpr int kWgRows = 64;         // query rows an item; a warpgroup's rows in the dQ pass
+constexpr int kBox = 64 * 64 * 2;   // one [64][64] box of 16-bit elements
+
+// The tiles at a padded width DP.
+template <int DP> struct WgShape {
+  // Key-tile pass: at DP <= 128 each consumer warpgroup owns 64 keys and
+  // every column of their dK and dV (P^T and dS^T stay in registers as the
+  // A operands); at DP 256 (128 accumulator registers for one of dK or dV)
+  // the two share 64 keys, one accumulating dV, the other dK.
+  static constexpr bool kRowSplit = DP <= 128;
+  static constexpr int kKeys = kRowSplit ? 128 : 64;       // keys a block of the key-tile pass
+  static constexpr int kStages = DP == 256 ? 2 : 4;        // both passes' rings
+  static constexpr int kDqKeys = DP == 256 ? 32 : 64;      // keys a streamed tile of the dQ pass
+  static constexpr int kTile = (DP / 64) * kBox;           // bytes of a [64][DP] tile
+};
+
+// Di = rowsum(dO * O) at the bytes' pace: 8 lanes a row, 16-byte loads, a
+// fixed-order butterfly inside each 8-lane group (D % 8 == 0, aligned).
+template <typename T>
+__global__ void __launch_bounds__(kDotThreads) flash_bwd_dot16_kernel(const Params p) {
+  const size_t row = (static_cast<size_t>(blockIdx.x) * kDotThreads + threadIdx.x) >> 3;
+  const int sub = threadIdx.x & 7;
+  const bool live = row < static_cast<size_t>(p.n_batch) * p.n_heads * p.sq;
+  float acc = 0.0f;
+  if (live) {
+    const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + row * p.dim);
+    const uint4* d = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + row * p.dim);
+    for (int c = sub; c < p.dim / 8; c += 8) {
+      const uint4 a = o[c];
+      const uint4 b = d[c];
+      const T* ae = reinterpret_cast<const T*>(&a);
+      const T* be = reinterpret_cast<const T*>(&b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += to_f<T>(ae[e]) * to_f<T>(be[e]);
+    }
+  }
+  acc += __shfl_xor_sync(kFull, acc, 4);
+  acc += __shfl_xor_sync(kFull, acc, 2);
+  acc += __shfl_xor_sync(kFull, acc, 1);
+  if (live && sub == 0) {
+    p.di[row] = acc;
+    p.lse2[row] = lse2_of(p.lse[row]);
+  }
+}
+
+// Whether every (row, key) pair of rows r_lo .. r_hi and keys c_lo ..
+// c_hi is visible (then the elementwise step skips the per-pair mask).
+__device__ __forceinline__ bool all_visible(const Params& p, int r_lo, int r_hi, int c_lo,
+                                            int c_hi) {
+  if (c_hi >= p.sk) return false;
+  if (c_hi < p.prefix_len) return true;
+  if (p.causal && c_hi > r_lo) return false;
+  return !(p.has_window && c_lo <= r_hi - p.window);
+}
+
+// The elementwise step's constants: the score's scale in the log2 domain;
+// with a softcap, the tanh argument's scale and the cap in the log2 domain.
+struct PairConsts {
+  float scale2, cap_in, cap2;
+  __device__ explicit PairConsts(const Params& p)
+      : scale2(p.scale * kLog2e),
+        cap_in(p.has_softcap ? p.scale / p.softcap : 0.0f),
+        cap2(p.softcap * kLog2e) {}
+};
+
+// P and dS of one pair: s the raw score, lse2 the row's lse in the log2
+// domain, dp the pair's dP, di the row's Di; a pair not visible gets 0.
+template <bool kSoftcap>
+__device__ __forceinline__ void pair_grad(const PairConsts& c, float s, float lse2, float dp,
+                                          float di, bool vis, float& pe, float& ds) {
+  if constexpr (kSoftcap) {
+    const float th = tanhf(s * c.cap_in);
+    pe = vis ? exp2f(fmaf(c.cap2, th, -lse2)) : 0.0f;
+    ds = pe * (dp - di) * (1.0f - th * th);
+  } else {
+    pe = vis ? exp2f(fmaf(s, c.scale2, -lse2)) : 0.0f;
+    ds = pe * (dp - di);
+  }
+}
+
+// Run the elementwise body once, specialised on whether every pair is
+// visible and on the softcap: four straight-line loops, one of which runs
+// a step (a loop that branched on both per pair spread its code over tens
+// of kilobytes and ran from an instruction cache that could not hold it).
+template <typename F>
+__device__ __forceinline__ void with_pair_kind(bool all, bool softcap, F&& body) {
+  using Y = std::true_type;
+  using N = std::false_type;
+  if (softcap) {
+    if (all) body(Y{}, Y{}); else body(N{}, Y{});
+  } else {
+    if (all) body(Y{}, N{}); else body(N{}, N{});
+  }
+}
+
+// The key-tile pass's shared memory and barriers.
+template <int DP>
+struct DkdvSmem {
+  using S = WgShape<DP>;
+  unsigned char* k_s;  // [kKeys / 64] tiles
+  unsigned char* v_s;
+  unsigned char* q_s;  // [stage] tiles
+  unsigned char* do_s;
+  unsigned char* pt_s;   // DP 256: P^T [64 keys][64 queries], swizzled
+  unsigned char* dst_s;  // DP 256: dS^T
+  float* lse_s;          // [stage][64], log2 domain (0 past Sq)
+  float* di_s;           // [stage][64]
+  uint64_t* kv_full;
+  uint64_t* full;   // [stage]: the producer warp's 32 lanes and its bytes (33 arrivals)
+  uint64_t* empty;  // [stage]: one thread of each consumer warpgroup
+
+  static constexpr int kKvTiles = S::kKeys / 64;
+  static constexpr size_t bytes() {
+    return 1024 + (2 * kKvTiles + 2 * S::kStages) * static_cast<size_t>(S::kTile) +
+           (S::kRowSplit ? 0 : 2 * kBox) + 2 * S::kStages * kWgRows * sizeof(float) +
+           (1 + 2 * S::kStages) * 8;
+  }
+  __device__ explicit DkdvSmem(unsigned char* raw) {
+    k_s = align1024(raw);
+    v_s = k_s + kKvTiles * S::kTile;
+    q_s = v_s + kKvTiles * S::kTile;
+    do_s = q_s + S::kStages * S::kTile;
+    pt_s = do_s + S::kStages * S::kTile;
+    dst_s = pt_s + kBox;
+    lse_s = reinterpret_cast<float*>(S::kRowSplit ? pt_s : dst_s + kBox);
+    di_s = lse_s + S::kStages * kWgRows;
+    kv_full = reinterpret_cast<uint64_t*>(di_s + S::kStages * kWgRows);
+    full = kv_full + 1;
+    empty = full + S::kStages;
+  }
+};
+
+// The key-tile pass's producer warp: the block's k and v tiles once, then
+// each item's q and dO tiles (TMA) and its rows' lse (log2 domain) and Di
+// (4-byte cp.async copies by the 32 lanes, each lane arriving when its
+// copies land), nothing of it waiting on a load.
+template <int DP>
+__device__ __forceinline__ void dkdv_produce(const Params& p, const DkdvSmem<DP>& sm,
+                                             const CUtensorMap* map_q, const CUtensorMap* map_k,
+                                             const CUtensorMap* map_v, const CUtensorMap* map_do,
+                                             int k0, int bhk, int bh0, int qt_begin, int n_q,
+                                             int it_lo, int n_items, int lane) {
+  using S = WgShape<DP>;
+  constexpr int NB = DP / 64;
+  if (lane == 0 && n_items > 0) {
+    mbar_arrive_expect_tx(sm.kv_full, 2 * DkdvSmem<DP>::kKvTiles * S::kTile);
+#pragma unroll
+    for (int w = 0; w < DkdvSmem<DP>::kKvTiles; ++w)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(sm.k_s + w * S::kTile + b * kBox, map_k, sm.kv_full, 64 * b, k0 + 64 * w, bhk);
+        tma_load_3d(sm.v_s + w * S::kTile + b * kBox, map_v, sm.kv_full, 64 * b, k0 + 64 * w, bhk);
+      }
+  }
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % S::kStages;
+    mbar_wait(&sm.empty[s], ((i / S::kStages) & 1) ^ 1);
+    const int it = it_lo + i;
+    const int bh = bh0 + it / n_q;
+    const int q0 = (qt_begin + it % n_q) * kWgRows;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.full[s], 2 * S::kTile);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(sm.q_s + s * S::kTile + b * kBox, map_q, &sm.full[s], 64 * b, q0, bh);
+        tma_load_3d(sm.do_s + s * S::kTile + b * kBox, map_do, &sm.full[s], 64 * b, q0, bh);
+      }
+    }
+    // Rows past Sq land as 0: their q and dO rows are 0 too, so P = 1
+    // there multiplies zeros and dS = 0.
+    const size_t rows = static_cast<size_t>(bh) * p.sq + q0;
+#pragma unroll
+    for (int r = lane; r < kWgRows; r += 32) {
+      const bool ok = q0 + r < p.sq;
+      cp_async4(&sm.lse_s[s * kWgRows + r], p.lse2 + (ok ? rows + r : 0), ok);
+      cp_async4(&sm.di_s[s * kWgRows + r], p.di + (ok ? rows + r : 0), ok);
+    }
+    cp_async_mbar_arrive(&sm.full[s]);
+  }
+}
+
+// A consumer warpgroup's dK (which 0, times scale) or dV (which 1)
+// accumulators for rows row0 .. row0 + 63 of the block's keys: into the
+// workspace at slot (a split key tile), or rounded to T into dk / dv.
+template <typename T, int DP>
+__device__ __forceinline__ void dkdv_store(const Params& p, const float (&acc)[DP / 2], int which,
+                                           int slot, int bhk, int k0, int row0, int tid) {
+  constexpr int KEYS = WgShape<DP>::kKeys;
+  const int wq = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
+  if (slot >= 0) {
+    float* ws = p.ws + (static_cast<size_t>(which) * p.n_slots + slot) * KEYS * DP;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(ws + (row0 + 16 * wq + gq + 8 * r) * DP + 8 * j + 2 * tq) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    return;
+  }
+  T* out = static_cast<T*>(which ? p.dv : p.dk) + (static_cast<size_t>(bhk) * p.sk + k0) * p.dim;
+  const float mul = which ? 1.0f : p.scale;
+  const int keys_here = min(KEYS, p.sk - k0);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * wq + gq + 8 * r;
+      const int col = 8 * j + 2 * tq;
+      if (row < keys_here && col < p.dim)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * p.dim + col) =
+            Mma<T>::pack(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+    }
+}
+
+// dK and dV: block b runs row b of the wrapper's plan, items it_lo ..
+// it_hi - 1 of key tile kt (kKeys keys) of (batch, kv head) bhk, an item
+// being (query head, query tile) with heads outermost. Its k and v tiles
+// land once; the producer streams the items' q and dO tiles and lse and Di
+// through a kStages ring.
+// * DP <= 128: warpgroup wg owns keys 64 wg .. 64 wg + 63. Per item it
+//   computes S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries, once
+//   each), P^T and dS^T in registers, and adds P^T dO to dV and dS^T Q to
+//   dK with P^T and dS^T rounded to T as the register A operands (dO and Q
+//   read MN-major).
+// * DP 256: the warpgroups share 64 keys. wg computes S^T and dP^T for
+//   queries 32 wg .. 32 wg + 31 over the whole D (each pair once) and
+//   writes P^T and dS^T rounded to T into the shared swizzled tiles; then
+//   warpgroup 0 adds P^T dO to dV and warpgroup 1 dS^T Q to dK, both
+//   operands in shared memory.
+// A split key tile's blocks store float32 partial sums into ws at their
+// slot; a key tile's only block stores dK (times scale) and dV in T.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do, const Params p) {
+  using S = WgShape<DP>;
+  constexpr int TILE = S::kTile;
+  extern __shared__ unsigned char smem_raw[];
+  const DkdvSmem<DP> sm(smem_raw);
+
+  const int* plan = p.plan + 8 * blockIdx.x;
+  const int kt = plan[0], bhk = plan[1], qt_begin = plan[2], n_q = plan[3];
+  const int it_lo = plan[4], n_items = plan[5] - plan[4], slot = plan[6];
+  const int group = p.n_heads / p.n_kv_heads;
+  const int bi = bhk / p.n_kv_heads;
+  const int bh0 = bi * p.n_heads + (bhk - bi * p.n_kv_heads) * group;  // the group's first head
+  const int k0 = kt * S::kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.kv_full, 1);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&sm.full[s], 33);
+      mbar_init(&sm.empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+
+  if (warp >= 8) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8)
+      dkdv_produce<DP>(p, sm, &map_q, &map_k, &map_v, &map_do, k0, bhk, bh0, qt_begin, n_q,
+                       it_lo, n_items, threadIdx.x & 31);
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  const int wq = tid >> 5;
+  const int gq = (tid & 31) >> 2;
+  const int tq = tid & 3;
+  const PairConsts pc(p);
+  if (n_items > 0) mbar_wait(sm.kv_full, 0);
+
+  if constexpr (S::kRowSplit) {
+    const unsigned char* ks = sm.k_s + wg * TILE;
+    const unsigned char* vs = sm.v_s + wg * TILE;
+    const int key0 = k0 + 64 * wg + 16 * wq + gq;  // this thread's keys: key0, key0 + 8
+    float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.0f;
+    for (int i = 0; i < n_items; ++i) {
+      const int s = i % S::kStages;
+      mbar_wait(&sm.full[s], (i / S::kStages) & 1);
+      const int row0 = p.q_offset + (qt_begin + (it_lo + i) % n_q) * kWgRows;  // query 0's position
+      const unsigned char* qs = sm.q_s + s * TILE;
+      const unsigned char* dos = sm.do_s + s * TILE;
+      float st[32], dpt[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {  // S^T = K Q^T
+        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+        Wgmma<T, 64>::template ss<0, 0>(st, desc_kmajor(ks + off), desc_kmajor(qs + off), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {  // dP^T = V dO^T
+        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+        Wgmma<T, 64>::template ss<0, 0>(dpt, desc_kmajor(vs + off), desc_kmajor(dos + off), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      const float* ls = sm.lse_s + s * kWgRows;
+      const float* ds = sm.di_s + s * kWgRows;
+      const int c_lo = k0 + 64 * wg;
+      with_pair_kind(all_visible(p, row0, row0 + kWgRows - 1, c_lo, c_lo + 63), p.has_softcap,
+                     [&](auto all, auto cap) {  // P^T and dS^T in place
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qi = 8 * (e >> 2) + 2 * tq + (e & 1);
+          const bool vis = decltype(all)::value || visible(p, row0 + qi, key0 + 8 * ((e >> 1) & 1));
+          pair_grad<decltype(cap)::value>(pc, st[e], ls[qi], dpt[e], ds[qi], vis, st[e], dpt[e]);
+        }
+      });
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgRows / 16; ++kk) {  // dV += P^T dO
+        uint32_t a[4];
+        acc_to_a16<T>(a, st, kk);
+        Wgmma<T, DP>::template rs<1>(dv, a, desc_mnmajor(dos + kk * 2048, kBox), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kWgRows / 16; ++kk) {  // dK += dS^T Q
+        uint32_t a[4];
+        acc_to_a16<T>(a, dpt, kk);
+        Wgmma<T, DP>::template rs<1>(dk, a, desc_mnmajor(qs + kk * 2048, kBox), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      if (tid == 0) mbar_arrive(&sm.empty[s]);
+    }
+    dkdv_store<T, DP>(p, dk, 0, slot, bhk, k0, 64 * wg, tid);
+    dkdv_store<T, DP>(p, dv, 1, slot, bhk, k0, 64 * wg, tid);
+  } else {
+    const unsigned char* a_s = wg == 0 ? sm.pt_s : sm.dst_s;  // dV += P^T dO; dK += dS^T Q
+    const unsigned char* b_s = wg == 0 ? sm.do_s : sm.q_s;
+    const int key0 = k0 + 16 * wq + gq;
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < n_items; ++i) {
+      const int s = i % S::kStages;
+      mbar_wait(&sm.full[s], (i / S::kStages) & 1);
+      const int row0 = p.q_offset + (qt_begin + (it_lo + i) % n_q) * kWgRows;
+      const unsigned char* qs = sm.q_s + s * TILE + wg * 32 * 128;  // this warpgroup's 32 queries
+      const unsigned char* dos = sm.do_s + s * TILE + wg * 32 * 128;
+      float st[16], dpt[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) st[e] = dpt[e] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {  // S^T = K Q^T
+        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+        Wgmma<T, 32>::template ss<0, 0>(st, desc_kmajor(sm.k_s + off), desc_kmajor(qs + off), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {  // dP^T = V dO^T
+        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+        Wgmma<T, 32>::template ss<0, 0>(dpt, desc_kmajor(sm.v_s + off), desc_kmajor(dos + off), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      const float* ls = sm.lse_s + s * kWgRows;
+      const float* ds = sm.di_s + s * kWgRows;
+      with_pair_kind(all_visible(p, row0 + 32 * wg, row0 + 32 * wg + 31, k0, k0 + 63),
+                     p.has_softcap, [&](auto all, auto cap) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int qi = 32 * wg + 8 * (e >> 2) + 2 * tq + (e & 1);
+          const bool vis = decltype(all)::value || visible(p, row0 + qi, key0 + 8 * ((e >> 1) & 1));
+          pair_grad<decltype(cap)::value>(pc, st[e], ls[qi], dpt[e], ds[qi], vis, st[e], dpt[e]);
+        }
+      });
+      named_sync(1, 256);  // both warpgroups are past the last item's reads of pt_s, dst_s
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t off = sw128(16 * wq + gq + 8 * r, (32 * wg + 8 * j + 2 * tq) * 2);
+          *reinterpret_cast<uint32_t*>(sm.pt_s + off) =
+              Mma<T>::pack(st[4 * j + 2 * r], st[4 * j + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(sm.dst_s + off) =
+              Mma<T>::pack(dpt[4 * j + 2 * r], dpt[4 * j + 2 * r + 1]);
+        }
+      fence_async_smem();
+      named_sync(1, 256);
+      const unsigned char* bs = b_s + s * TILE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgRows / 16; ++kk)
+        Wgmma<T, DP>::template ss<0, 1>(acc, desc_kmajor(a_s + kk * 32),
+                                        desc_mnmajor(bs + kk * 2048, kBox), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(&sm.empty[s]);
+    }
+    dkdv_store<T, DP>(p, acc, wg == 0 ? 1 : 0, slot, bhk, k0, 0, tid);
+  }
+}
+
+// A split key tile's dK (times scale) and dV: the sum of its blocks'
+// partial sums in slot order. Row r of the wrapper's red table is spread
+// over kChunks blocks of 256 threads, a float4 of a row a thread; a row
+// with no slots (a key tile no query sees) writes zeros.
+template <typename T, int DP>
+__global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const Params p) {
+  constexpr int KEYS = WgShape<DP>::kKeys;
+  constexpr int C4 = DP / 4;
+  constexpr int kChunks = KEYS * C4 / 256;
+  const int* red = p.red + 4 * (blockIdx.x / kChunks);
+  const int k0 = red[0] * KEYS;
+  const int bhk = red[1], lo = red[2], hi = red[3];
+  const int e = (blockIdx.x % kChunks) * 256 + threadIdx.x;
+  const int r = e / C4;
+  const int c = (e - r * C4) * 4;
+  if (r >= min(KEYS, p.sk - k0) || c >= p.dim) return;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
+  for (int sl = lo; sl < hi; ++sl) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(p.ws + (static_cast<size_t>(sl) * KEYS + r) * DP + c);
+    const float4 y = *reinterpret_cast<const float4*>(
+        p.ws + (static_cast<size_t>(p.n_slots + sl) * KEYS + r) * DP + c);
+    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+    b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
+  }
+  const size_t o = (static_cast<size_t>(bhk) * p.sk + k0 + r) * p.dim + c;
+  *reinterpret_cast<uint2*>(static_cast<T*>(p.dk) + o) =
+      make_uint2(Mma<T>::pack(a.x * p.scale, a.y * p.scale),
+                 Mma<T>::pack(a.z * p.scale, a.w * p.scale));
+  *reinterpret_cast<uint2*>(static_cast<T*>(p.dv) + o) =
+      make_uint2(Mma<T>::pack(b.x, b.y), Mma<T>::pack(b.z, b.w));
+}
+
+// dQ: a block owns 128 query rows of one (batch, head), 64 a consumer
+// warpgroup (the last query tiles first), its q and dO tiles landing once;
+// the producer warp streams the key tiles its rows see (kDqKeys keys, k
+// and v) through a kStages ring. Per key tile a warpgroup computes S =
+// Q K^T and dP = dO V^T over the whole D, dS in registers, and adds dS K
+// to dQ with dS as the register A operand and K read MN-major.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do, const Params p) {
+  using S = WgShape<DP>;
+  constexpr int NB = DP / 64;
+  constexpr int TILE = S::kTile;
+  constexpr int BN = S::kDqKeys;
+  constexpr int KBOX = BN * 128;   // a [BN][64] box
+  constexpr int KT = NB * KBOX;    // a [BN][DP] tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);  // [warpgroup] tiles
+  unsigned char* do_s = q_s + 2 * TILE;
+  unsigned char* k_s = do_s + 2 * TILE;      // [stage] tiles
+  unsigned char* v_s = k_s + S::kStages * KT;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(v_s + S::kStages * KT);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + S::kStages;
+
+  const int n_bh = p.n_batch * p.n_heads;
+  const int n_qt = (p.sq + 2 * kWgRows - 1) / (2 * kWgRows);
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / n_bh;
+  const int bh = static_cast<int>(blockIdx.x) % n_bh;
+  const int bi = bh / p.n_heads;
+  const int bhk = bi * p.n_kv_heads + (bh - bi * p.n_heads) / (p.n_heads / p.n_kv_heads);
+  const int q0 = qt * 2 * kWgRows;
+
+  // The key tiles the block's rows see (the wrapper's dq_span).
+  const int prefix_tiles = p.dq_span[3 * qt];
+  const int window_tile = p.dq_span[3 * qt + 1];
+  const int kt_end = p.dq_span[3 * qt + 2];
+  auto next_visible = [&](int kt) {
+    return (kt >= prefix_tiles && kt < window_tile) ? window_tile : kt;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+
+  if (warp >= 8) {  // producer: one thread
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 8 * 32) return;
+    mbar_arrive_expect_tx(qd_full, 4 * TILE);
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(q_s + w * TILE + b * kBox, &map_q, qd_full, 64 * b, q0 + w * kWgRows, bh);
+        tma_load_3d(do_s + w * TILE + b * kBox, &map_do, qd_full, 64 * b, q0 + w * kWgRows, bh);
+      }
+    int i = 0;
+    for (int kt = next_visible(0); kt < kt_end; kt = next_visible(kt + 1), ++i) {
+      const int s = i % S::kStages;
+      mbar_wait(&empty[s], ((i / S::kStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[s], 2 * KT);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(k_s + s * KT + b * KBOX, &map_k, &full[s], 64 * b, kt * BN, bhk);
+        tma_load_3d(v_s + s * KT + b * KBOX, &map_v, &full[s], 64 * b, kt * BN, bhk);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  const int gq = (tid & 31) >> 2;
+  const int tq = tid & 3;
+  const PairConsts pc(p);
+  const int local0 = q0 + wg * kWgRows + 16 * (tid >> 5) + gq;  // this thread's rows: +0, +8
+  const size_t row_base = static_cast<size_t>(bh) * p.sq;
+  float lse2[2], di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int local = local0 + 8 * r;
+    lse2[r] = local < p.sq ? p.lse2[row_base + local] : INFINITY;
+    di[r] = local < p.sq ? p.di[row_base + local] : 0.0f;
+  }
+  const int row_wg = p.q_offset + q0 + wg * kWgRows;  // the warpgroup's first row's position
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  const unsigned char* qs = q_s + wg * TILE;
+  const unsigned char* dos = do_s + wg * TILE;
+  mbar_wait(qd_full, 0);  // also when no key tile follows: the copies land before exit
+
+  int i = 0;
+  for (int kt = next_visible(0); kt < kt_end; kt = next_visible(kt + 1), ++i) {
+    const int s = i % S::kStages;
+    mbar_wait(&full[s], (i / S::kStages) & 1);
+    const unsigned char* ks = k_s + s * KT;
+    const unsigned char* vs = v_s + s * KT;
+    float sa[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) sa[e] = dp[e] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)  // S = Q K^T
+      Wgmma<T, BN>::template ss<0, 0>(sa, desc_kmajor(qs + (kk >> 2) * kBox + (kk & 3) * 32),
+                                      desc_kmajor(ks + (kk >> 2) * KBOX + (kk & 3) * 32), 1);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)  // dP = dO V^T
+      Wgmma<T, BN>::template ss<0, 0>(dp, desc_kmajor(dos + (kk >> 2) * kBox + (kk & 3) * 32),
+                                      desc_kmajor(vs + (kk >> 2) * KBOX + (kk & 3) * 32), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(dp);
+    with_pair_kind(all_visible(p, row_wg, row_wg + kWgRows - 1, kt * BN, kt * BN + BN - 1),
+                   p.has_softcap, [&](auto all, auto cap) {  // dS in place of S
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int r = (e >> 1) & 1;
+        const bool vis = decltype(all)::value ||
+                         visible(p, p.q_offset + local0 + 8 * r, kt * BN + 8 * (e >> 2) + 2 * tq + (e & 1));
+        float pe;
+        pair_grad<decltype(cap)::value>(pc, sa[e], lse2[r], dp[e], di[r], vis, pe, sa[e]);
+      }
+    });
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {  // dQ += dS K
+      uint32_t a[4];
+      acc_to_a16<T>(a, sa, kk);
+      Wgmma<T, DP>::template rs<1>(acc, a, desc_mnmajor(ks + kk * 2048, KBOX), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (tid == 0) mbar_arrive(&empty[s]);
+  }
+
+  T* dq = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int local = local0 + 8 * r;
+      const int col = 8 * j + 2 * tq;
+      if (local < p.sq && col < p.dim)
+        *reinterpret_cast<uint32_t*>(dq + (row_base + local) * p.dim + col) =
+            Mma<T>::pack(acc[4 * j + 2 * r] * p.scale, acc[4 * j + 2 * r + 1] * p.scale);
+    }
+}
+
+template <int DP>
+constexpr size_t dq_wgmma_smem() {
+  using S = WgShape<DP>;
+  return 1024 + 4 * static_cast<size_t>(S::kTile) +
+         2 * S::kStages * (DP / 64) * S::kDqKeys * 128 + (1 + 2 * S::kStages) * 8;
+}
+
+// The prologue, the key-tile pass over the wrapper's n_plan blocks, the
+// reduction of its n_red split key tiles, and the query-tile pass.
+template <typename T, int DP>
+int launch_wgmma(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
+  using S = WgShape<DP>;
+  const uint64_t d = p.dim;
+  const uint64_t q_planes = static_cast<uint64_t>(p.n_batch) * p.n_heads;
+  const uint64_t kv_planes = static_cast<uint64_t>(p.n_batch) * p.n_kv_heads;
+  CUtensorMap map_q, map_do, map_k, map_v, map_k2, map_v2;
+  int err = tensor_map_3d<T>(&map_q, p.q, d, p.sq, q_planes, 2 * d, 2 * d * p.sq, kWgRows);
+  if (!err)
+    err = tensor_map_3d<T>(&map_do, p.dout, d, p.sq, q_planes, 2 * d, 2 * d * p.sq, kWgRows);
+  if (!err) err = tensor_map_3d<T>(&map_k, p.k, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, 64);
+  if (!err) err = tensor_map_3d<T>(&map_v, p.v, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, 64);
+  if (!err)
+    err = tensor_map_3d<T>(&map_k2, p.k, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, S::kDqKeys);
+  if (!err)
+    err = tensor_map_3d<T>(&map_v2, p.v, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, S::kDqKeys);
+  if (err) return err;
+
+  const size_t rows = static_cast<size_t>(p.n_batch) * p.n_heads * p.sq;
+  const size_t per_block = kDotThreads / 8;
+  flash_bwd_dot16_kernel<T><<<(rows + per_block - 1) / per_block, kDotThreads, 0, stream>>>(p);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  if (n_plan > 0) {
+    constexpr size_t smem = DkdvSmem<DP>::bytes();
+    static bool opted = false;
+    err = opt_in(flash_bwd_dkdv_wgmma_kernel<T, DP>, smem, opted);
+    if (err) return err;
+    flash_bwd_dkdv_wgmma_kernel<T, DP>
+        <<<n_plan, kWgThreads, smem, stream>>>(map_q, map_k, map_v, map_do, p);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
+  if (n_red > 0) {
+    constexpr int kChunks = S::kKeys * (DP / 4) / 256;
+    flash_bwd_reduce_kernel<T, DP><<<n_red * kChunks, 256, 0, stream>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
+  constexpr size_t smem_q = dq_wgmma_smem<DP>();
+  static bool q_opted = false;
+  err = opt_in(flash_bwd_dq_wgmma_kernel<T, DP>, smem_q, q_opted);
+  if (err) return err;
+  const int n_qt = (p.sq + 2 * kWgRows - 1) / (2 * kWgRows);
+  flash_bwd_dq_wgmma_kernel<T, DP><<<n_qt * p.n_batch * p.n_heads, kWgThreads, smem_q, stream>>>(
+      map_q, map_k2, map_v2, map_do, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_wgmma_dim(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
+  if (p.dim <= 64) return launch_wgmma<T, 64>(p, n_plan, n_red, stream);
+  if (p.dim <= 128) return launch_wgmma<T, 128>(p, n_plan, n_red, stream);
+  return launch_wgmma<T, 256>(p, n_plan, n_red, stream);
+}
+
+}  // namespace
+
+// The wgmma backward: q, k, v, o, dout, dq, dk and dv share the dtype (1 =
+// bfloat16, 2 = float16) and the head width dim (Dv == D, dim % 8 == 0,
+// every pointer 16-byte aligned); lse is the forward's float32 [B, H, Sq]
+// output and scratch a float32 [2, B, H, Sq] buffer (Di, then lse in the
+// log2 domain). The wrapper's plan: n_plan rows of the key-tile pass's
+// blocks, n_red rows of its split key tiles, a float32 workspace ws of
+// 2 * n_slots [kKeys][DP] tiles (DP = dim padded to 64, 128 or 256), and
+// dq_span, the query-tile pass's key tiles for each of its query tiles.
+// Launches the prologue, the key-tile pass, the reduction and the
+// query-tile pass on stream, in that order. Returns cudaGetLastError()
+// after the first launch that fails (0 on success), 1000 + libcuda's
+// error when a tensor map cannot be encoded, or -1 for a dtype or width it
+// has no instantiation for.
+extern "C" int acs_flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const float* lse, float* scratch, void* dq, void* dk, void* dv, int n_batch, int n_heads,
+    int n_kv_heads, int sq, int sk, int dim, int dtype, float scale, int causal, int has_window,
+    int window, int has_softcap, float softcap, int q_offset, int prefix_len, const int* plan,
+    int n_plan, const int* red, int n_red, float* ws, int n_slots, const int* dq_span,
+    void* stream) {
+  if (dim < 8 || dim > kMaxD || dim % 8 != 0 || (dtype != 1 && dtype != 2)) return -1;
+  Params p{q, k, v, o, dout, lse, scratch, dq, dk, dv, n_batch, n_heads, n_kv_heads, sq, sk,
+           dim, 0, scale, causal, has_window, window, has_softcap, softcap, q_offset,
+           prefix_len, plan, red, ws, n_slots,
+           scratch + static_cast<size_t>(n_batch) * n_heads * sq, dq_span};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_wgmma_dim<__nv_bfloat16>(p, n_plan, n_red, s)
+                    : launch_wgmma_dim<__half>(p, n_plan, n_red, s);
+}

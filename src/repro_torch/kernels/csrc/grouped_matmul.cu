@@ -61,24 +61,42 @@
 //   mma.sync through ldmatrix without .trans, as flash feeds K in Q K^T.
 //   No [G, N, K] copy of the experts' weights is made. A tile with a bad
 //   group id writes zeros.
-// * dw[g] = sum over g's tiles t, in tile order, of x[t]^T @ dy[t]: a
-//   block owns (group, 128 rows of K, 128 columns of N) and walks that
-//   group's tiles in index order, block_m rows at a time in chunks of 32,
-//   through the same 4-stage cp.async ring (x's chunk [32 m][128 k] read
-//   as the A operand through ldmatrix.trans, dy's as the forward's w). No
+// * dw[g] = sum over g's tiles t, in tile order, of x[t]^T @ dy[t]; no
 //   atomics and no split of a sum: the same inputs give the same bits, and
-//   a group no tile names gets exactly 0. The group -> tiles list comes
-//   from tile_groups itself: a one-block kernel (gmm_tile_table_kernel)
-//   writes each group's tiles in index order (a stable counting sort, one
-//   warp a group, ballots) before the dw launch, on the same stream.
+//   a group no tile names gets exactly 0. bfloat16 / float16 on wgmma
+//   (path 1). TMA must be able to address x, dy and dw (K and N multiples
+//   of 8, aligned pointers) and the groups' tile counts must fit in shared
+//   memory (G <= kDwMaxGroups); where they do not, the wrapper
+//   (grouped_matmul.py dw_path, "wgmma_padded") passes aligned copies of x
+//   and dy zero-padded to multiples of 8 columns and launches once for
+//   each run of kDwMaxGroups groups. A persistent grid (the wrapper's dw_grid: one block an
+//     SM) walks the (group, 128 rows of K, 256 columns of N) tiles group
+//     by group, so the blocks running side by side read one group's rows
+//     of x and dy while they are in L2. A producer warp streams each
+//     tile's 64-row chunks of the group's m-tiles, in tile order, by TMA
+//     through a 3-stage mbarrier ring, reading x as [tile][block_m][K] and
+//     dy as [tile][block_m][N] in place (rows past block_m land as 0); two
+//     consumer warpgroups multiply x^T by dy on wgmma with both operands
+//     MN-major in shared memory (the transpose bits: no transposed copy),
+//     64 x 256 float32 accumulators each, one step's products in flight
+//     while the next step's issue. The epilogue rounds into swizzled
+//     shared memory and TMA-stores the tile, clipped to K and N, while the
+//     producer already loads the next tile. The consumers count every
+//     group's tiles once into shared memory and the producer finds them
+//     with warp ballots over tile_groups: no table launch (it cost 0.0038
+//     ms of the call).
 // * Bound: bytes. At granite-moe-3b-a800m's training shape (40 experts x
 //   C 512 rows, w [40, 1536, 512] bf16) each of dx and dw moves ~147 MB
 //   (dx of w_gate: dy 21.0 MB + w 62.9 MB + dx 62.9 MB) for 32.2 GFLOP:
 //   0.044 ms at 3.35 TB/s against 0.033 ms at 989 TFLOP/s.
 // * float32 (the tolerance tests) on FMAs: dx is the float32 tile with w
-//   read transposed; dw a 256-thread 64 x 64 tile over 16-row chunks.
+//   read transposed; dw (path 0) a 256-thread 64 x 64 tile over 16-row
+//   chunks, after a one-block kernel (gmm_tile_table_kernel) writes each
+//   group's tiles in index order (a stable counting sort, one warp a
+//   group, ballots) on the same stream.
 
 #include "sm90_tiles.cuh"
+#include "sm90_wgmma.cuh"
 
 #include <cstddef>
 #include <cstdint>
@@ -401,7 +419,8 @@ int launch_dtype(const Params& p, int dtype, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// dw: the group -> tiles table, then one block per (group, K tile, N tile)
+// float32 dw: the group -> tiles table, then one block per (group, K tile,
+// N tile)
 // ---------------------------------------------------------------------------
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -445,11 +464,11 @@ gmm_tile_table_kernel(const int* __restrict__ tile_groups, int tiles, int g,
 struct DwParams {
   const void* x;     // [M, K]
   const void* dy;    // [M, N]
-  const int* order;  // [T] tiles by group, in index order within a group
-  const int* offs;   // [G + 1]
+  const int* tile_groups;  // [T]: the wgmma kernel finds a group's tiles itself
+  const int* order;  // [T] tiles by group, in index order within a group (float32)
+  const int* offs;   // [G + 1] (float32)
   void* dw;          // [G, K, N]
   int m, k, n, g, block_m;
-  int vec_x, vec_dy, vec_out;  // 16-byte copies: K % 8 / N % 8 / N % 8 and alignment
 };
 
 // The block's (group, first K row, first N column); the group is the
@@ -464,142 +483,6 @@ __device__ __forceinline__ void dw_block(const DwParams& p, int* grp, int* k0, i
   id /= n_tiles;
   *k0 = (id % k_tiles) * BM;
   *grp = id / k_tiles;
-}
-
-template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES>
-struct DwShape {
-  static constexpr int kThreads = WM * WN * 32;
-  static constexpr int LDA = BM + 8;  // x's chunk [BK m][BM k]
-  static constexpr int LDB = BN + 8;  // dy's chunk [BK m][BN n]
-  static constexpr int LDC = BN + 8;
-  static constexpr int A_ELEMS = BK * LDA;
-  static constexpr int STAGE_ELEMS = A_ELEMS + BK * LDB;
-  static constexpr int SMEM_ELEMS =
-      STAGES * STAGE_ELEMS > BM * LDC ? STAGES * STAGE_ELEMS : BM * LDC;
-};
-
-// dw[g][k0 .. +BM][n0 .. +BN] on the tensor cores: the contraction runs over
-// the group's tiles in index order, each in chunks of BK rows (rows past
-// the tile's end staged as 0).
-template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES>
-__global__ void __launch_bounds__(WM * WN * 32)
-gmm_dw_tc_kernel(const DwParams p) {
-  using S = DwShape<T, BM, BN, BK, WM, WN, STAGES>;
-  constexpr int kThreads = S::kThreads;
-  constexpr int WTM = BM / WM;
-  constexpr int WTN = BN / WN;
-  constexpr int FM = WTM / 16;
-  constexpr int FN = WTN / 8;
-  static_assert(FM * 16 == WTM && FN * 8 == WTN && FN % 2 == 0, "warp tiling");
-  static_assert(BK % 16 == 0 && BM % 8 == 0 && BN % 8 == 0, "tile shape");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-
-  int grp, k0, n0;
-  dw_block<BM, BN>(p, &grp, &k0, &n0);
-  const int first = p.offs[grp];
-  const int chunks = (p.block_m + BK - 1) / BK;  // per tile
-  const int steps = (p.offs[grp + 1] - first) * chunks;
-  const T* x = static_cast<const T*>(p.x) + k0;
-  const T* dy = static_cast<const T*>(p.dy) + n0;
-  const int k_lim = p.k - k0;
-  const int n_lim = p.n - n0;
-
-  auto load = [&](int step, int slot) {
-    T* as = smem + slot * S::STAGE_ELEMS;
-    T* bs = as + S::A_ELEMS;
-    const int tile = p.order[first + step / chunks];
-    const int c = (step % chunks) * BK;
-    const size_t m0 = static_cast<size_t>(tile) * p.block_m + c;
-    const int rows = min(BK, p.block_m - c);
-    stage<T, BK, BM, S::LDA, kThreads>(as, x + m0 * p.k, p.k, rows, k_lim, p.vec_x);
-    stage<T, BK, BN, S::LDB, kThreads>(bs, dy + m0 * p.n, p.n, rows, n_lim, p.vec_dy);
-  };
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / WN;
-  const int wn = warp - wm * WN;
-  float acc[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load(s, s);
-    cp_async_commit();
-  }
-  for (int st = 0; st < steps; ++st) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = st + STAGES - 1;
-    if (nxt < steps) load(nxt, nxt % STAGES);
-    cp_async_commit();
-
-    const T* as = smem + (st % STAGES) * S::STAGE_ELEMS;
-    const T* bs = as + S::A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[FM][4];
-      uint32_t b[FN / 2][4];
-      // A = x^T: rows k, columns m; stored [m][k], so each 8 x 8 tile is
-      // read transposed (tiles: k 0-7 / 8-15 across lanes 8-15, m 0-7 /
-      // 8-15 across lanes 16-31).
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        ldmatrix_x4_trans(a[i], as + (kk + (lane & 7) + ((lane >> 4) & 1) * 8) * S::LDA +
-                                    wm * WTM + i * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int j = 0; j < FN / 2; ++j)
-        ldmatrix_x4_trans(b[j], bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::LDB +
-                                    wn * WTN + j * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN / 2; ++j) {
-          Mma<T>::run(acc[i][2 * j], a[i], b[j][0], b[j][1]);
-          Mma<T>::run(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
-        }
-    }
-  }
-
-  cp_async_wait<0>();
-  __syncthreads();
-  T* cs = smem;  // [BM][LDC]
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      const int r = wm * WTM + i * 16 + gq;
-      const int c = wn * WTN + j * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(cs + r * S::LDC + c) = Mma<T>::pack(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<uint32_t*>(cs + (r + 8) * S::LDC + c) =
-          Mma<T>::pack(acc[i][j][2], acc[i][j][3]);
-    }
-  __syncthreads();
-  T* out = static_cast<T*>(p.dw) + (static_cast<size_t>(grp) * p.k + k0) * p.n + n0;
-  const int rows = min(BM, k_lim);
-  const int cols = min(BN, n_lim);
-  if (p.vec_out) {
-    constexpr int CH = BN / 8;
-    for (int i = threadIdx.x; i < rows * CH; i += kThreads) {
-      const int r = i / CH;
-      const int c = (i - r * CH) * 8;
-      if (c < cols)
-        *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * p.n + c) =
-            *reinterpret_cast<const uint4*>(cs + r * S::LDC + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * BN; i += kThreads) {
-      const int r = i / BN;
-      const int c = i - r * BN;
-      if (c < cols) out[static_cast<size_t>(r) * p.n + c] = cs[r * S::LDC + c];
-    }
-  }
 }
 
 // float32 dw with FMAs: 256 threads over a 64 x 64 tile, thread (ty, tx)
@@ -672,18 +555,190 @@ __global__ void __launch_bounds__(256) gmm_dw_f32_kernel(const DwParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// dw on wgmma: a persistent grid over (group, K tile, N tile), TMA-fed
+// ---------------------------------------------------------------------------
+
+constexpr int kDwBM = 128;                 // rows of K a tile: one warpgroup each 64
+constexpr int kDwBN = 256;                 // columns of N a tile
+constexpr int kDwBK = 64;                  // rows of a group's tiles a stage
+constexpr int kDwStages = 3;
+constexpr int kDwThreads = 2 * 128 + 32;   // two consumer warpgroups, one producer warp
+constexpr int kDwBox = 64 * 64 * 2;        // one [64][64] box of 16-bit elements
+constexpr int kDwXBoxes = kDwBM / 64;
+constexpr int kDwYBoxes = kDwBN / 64;
+constexpr int kDwStageBytes = (kDwXBoxes + kDwYBoxes) * kDwBox;
+constexpr int kDwEpiBytes = 2 * kDwYBoxes * kDwBox;  // each warpgroup's [64][BN] result
+constexpr size_t kDwSmem = kDwStages * kDwStageBytes + kDwEpiBytes + 2 * kDwStages * 8 + 1024;
+// Groups the wgmma kernel takes: it counts each group's tiles in shared
+// memory beside its ring (int32 a group).
+constexpr int kDwMaxGroups = 4096;
+
+// Tile `tile` of the walk -> (group, first K row, first N column): the
+// group slowest, so the blocks running side by side read one group's rows
+// of x and dy while they are in L2.
+__device__ __forceinline__ void dw_tile(const DwParams& p, int tile, int k_tiles, int n_tiles,
+                                        int* grp, int* k0, int* n0) {
+  *grp = tile / (k_tiles * n_tiles);
+  const int rem = tile - *grp * k_tiles * n_tiles;
+  *k0 = (rem / n_tiles) * kDwBM;
+  *n0 = (rem - (rem / n_tiles) * n_tiles) * kDwBN;
+}
+
+// Block b takes tiles b, b + gridDim.x, ... (the grid is the wrapper's).
+// A group's tiles are the m-tiles whose id names it, in index order: the
+// producer warp finds them with ballots over tile_groups as it goes, and
+// the consumers count every group's tiles once, at the start, into shared
+// memory (no table launch). The producer warp streams each tile's
+// steps (a group tile's 64-row chunks, in tile order) through a kDwStages
+// ring of x and dy boxes, read
+// in place as [tile][block_m][K] and [tile][block_m][N] (rows past
+// block_m land as 0); each consumer warpgroup multiplies x^T (MN-major A)
+// by dy (MN-major B) into 64 x 256 float32 accumulators, rounds them into
+// its swizzled out tile and TMA-stores it, clipped to K and N, while the
+// producer already loads the next tile.
 template <typename T>
-int launch_dw_tc(const DwParams& p, cudaStream_t stream) {
-  constexpr int BM = 128, BN = 128, BK = 32, WM = 2, WN = 4, STAGES = 4;
-  using S = DwShape<T, BM, BN, BK, WM, WN, STAGES>;
-  constexpr size_t smem = sizeof(T) * S::SMEM_ELEMS;
-  static bool opted_in = false;
-  const int err = opt_in(gmm_dw_tc_kernel<T, BM, BN, BK, WM, WN, STAGES>, smem, opted_in);
+__global__ void __launch_bounds__(kDwThreads, 1)
+gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap tdw, const DwParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* epi = ring + kDwStages * kDwStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + kDwEpiBytes);
+  uint64_t* empty = full + kDwStages;
+  int* named = reinterpret_cast<int*>(empty + kDwStages);  // [G]: tiles a group has
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int k_tiles = (p.k + kDwBM - 1) / kDwBM;
+  const int n_tiles = (p.n + kDwBN - 1) / kDwBN;
+  const int total = p.g * k_tiles * n_tiles;
+  const int chunks = (p.block_m + kDwBK - 1) / kDwBK;
+  const int warp = threadIdx.x >> 5;
+
+  const int lane = threadIdx.x & 31;
+  const int m_tiles = p.m / p.block_m;
+  if (warp == 8) {  // producer: lane 0 issues every copy
+    int q = 0;  // steps so far over this block's tiles
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      int grp, k0, n0;
+      dw_tile(p, tile, k_tiles, n_tiles, &grp, &k0, &n0);
+      for (int base = 0; base < m_tiles; base += 32) {
+        unsigned hits = __ballot_sync(
+            kFull, base + lane < m_tiles && p.tile_groups[base + lane] == grp);
+        for (; hits; hits &= hits - 1) {
+          const int t = base + __ffs(hits) - 1;
+          for (int c = 0; c < p.block_m; c += kDwBK, ++q) {
+            if (lane != 0) continue;
+            const int s = q % kDwStages;
+            mbar_wait(&empty[s], ((q / kDwStages) & 1) ^ 1);
+            unsigned char* xs = ring + s * kDwStageBytes;
+            unsigned char* ys = xs + kDwXBoxes * kDwBox;
+            mbar_arrive_expect_tx(&full[s], kDwStageBytes);
+#pragma unroll
+            for (int b = 0; b < kDwXBoxes; ++b)
+              tma_load_3d(xs + b * kDwBox, &tx, &full[s], k0 + 64 * b, c, t);
+#pragma unroll
+            for (int b = 0; b < kDwYBoxes; ++b)
+              tma_load_3d(ys + b * kDwBox, &tdy, &full[s], n0 + 64 * b, c, t);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Each group's tile count: integer adds, so their order does not matter.
+  for (int i = threadIdx.x; i < p.g; i += 256) named[i] = 0;
+  named_sync(1, 256);
+  for (int t = threadIdx.x; t < m_tiles; t += 256) {
+    const int id = p.tile_groups[t];
+    if (id >= 0 && id < p.g) atomicAdd(&named[id], 1);
+  }
+  named_sync(1, 256);
+
+  const int wg = warp >> 2;  // this warpgroup's rows: 64 wg .. 64 wg + 63 of the K tile
+  const int tid = threadIdx.x & 127;
+  const int wq = tid >> 5;
+  const int gq = (tid & 31) >> 2;
+  const int tq = tid & 3;
+  unsigned char* cs = epi + wg * kDwYBoxes * kDwBox;
+  int q = 0;
+  bool stored = false;
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    int grp, k0, n0;
+    dw_tile(p, tile, k_tiles, n_tiles, &grp, &k0, &n0);
+    const int steps = named[grp] * chunks;
+    float acc[kDwBN / 2];
+#pragma unroll
+    for (int i = 0; i < kDwBN / 2; ++i) acc[i] = 0.0f;
+    // One step's products stay in flight while the next step's issue; a
+    // stage is released once the products that read it are done.
+    int held = -1;
+    for (int st = 0; st < steps; ++st, ++q) {
+      const int s = q % kDwStages;
+      mbar_wait(&full[s], (q / kDwStages) & 1);
+      const unsigned char* xs = ring + s * kDwStageBytes + wg * kDwBox;
+      const unsigned char* ys = ring + s * kDwStageBytes + kDwXBoxes * kDwBox;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDwBK / 16; ++kk)
+        Wgmma<T, kDwBN>::template ss<1, 1>(acc, desc_mnmajor(xs + kk * 2048, kDwBox),
+                                           desc_mnmajor(ys + kk * 2048, kDwBox), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+      held = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+    // Epilogue: the previous tile's store has read cs; round into the
+    // swizzled boxes; then one thread stores them.
+    if (stored && tid == 0) tma_store_wait_read();
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < kDwBN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * wq + gq + 8 * r;
+        const int col = 8 * j + 2 * tq;
+        *reinterpret_cast<uint32_t*>(cs + (col / 64) * kDwBox + sw128(row, (col % 64) * 2)) =
+            Mma<T>::pack(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    fence_async_smem();
+    named_sync(1 + wg, 128);
+    if (tid == 0 && k0 + 64 * wg < p.k) {
+#pragma unroll
+      for (int b = 0; b < kDwYBoxes; ++b)
+        if (n0 + 64 * b < p.n) tma_store_3d(&tdw, cs + b * kDwBox, n0 + 64 * b, k0 + 64 * wg, grp);
+      tma_store_commit();
+    }
+    stored = true;
+  }
+  if (tid == 0) tma_store_wait_all();
+}
+
+template <typename T>
+int launch_dw_wgmma(const DwParams& p, int grid, cudaStream_t stream) {
+  const uint64_t tiles = static_cast<uint64_t>(p.m / p.block_m);
+  const uint64_t bm = static_cast<uint64_t>(p.block_m);
+  CUtensorMap tx, tdy, tdw;
+  int err = tensor_map_3d<T>(&tx, p.x, p.k, bm, tiles, 2ull * p.k, 2ull * bm * p.k, 64);
   if (err) return err;
-  const long long blocks = static_cast<long long>(p.g) * ((p.k + BM - 1) / BM) *
-                           ((p.n + BN - 1) / BN);
-  gmm_dw_tc_kernel<T, BM, BN, BK, WM, WN, STAGES>
-      <<<static_cast<unsigned>(blocks), S::kThreads, smem, stream>>>(p);
+  err = tensor_map_3d<T>(&tdy, p.dy, p.n, bm, tiles, 2ull * p.n, 2ull * bm * p.n, 64);
+  if (err) return err;
+  err = tensor_map_3d<T>(&tdw, p.dw, p.n, p.k, p.g, 2ull * p.n, 2ull * p.k * p.n, 64);
+  if (err) return err;
+  static bool opted_in = false;  // once, for the most any G needs
+  err = opt_in(gmm_dw_wgmma_kernel<T>, kDwSmem + 4 * kDwMaxGroups, opted_in);
+  if (err) return err;
+  gmm_dw_wgmma_kernel<T><<<grid, kDwThreads, kDwSmem + 4 * p.g, stream>>>(tx, tdy, tdw, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -747,22 +802,35 @@ extern "C" int acs_grouped_matmul_dx(const void* dy, const void* w, const int* t
 }
 
 // dw [G, K, N]: for each group, the sum over its tiles (in index order) of
-// x's tile transposed times dy's tile; 0 for a group no tile names. order
-// ([M / block_m] int32) and offs ([G + 1] int32) are scratch for the group
-// -> tiles table, written by the first of the two launches. Returns as
-// acs_grouped_matmul.
+// x's tile transposed times dy's tile; 0 for a group no tile names.
+// float32 runs the FMA kernel, one block a (group, K tile, N tile), after
+// a one-block launch that writes the group -> tiles table into the scratch
+// order ([M / block_m] int32) and offs ([G + 1] int32); bfloat16 and
+// float16 run the wgmma kernel alone on a persistent grid of `grid` blocks
+// (K and N multiples of 8, x, dy and dw 16-byte aligned, G <= 4096: the
+// wrapper's copies see to it), which finds each group's tiles itself
+// (order and offs may be null), or zero dw when M is 0. Returns as
+// acs_grouped_matmul, or 1000 + libcuda's error when a tensor map cannot
+// be encoded.
 extern "C" int acs_grouped_matmul_dw(const void* x, const void* dy, const int* tile_groups,
                                      int* order, int* offs, void* dw, int m, int k, int n,
-                                     int g, int block_m, int dtype, void* stream) {
-  if (dtype < 0 || dtype > 2) return -1;
+                                     int g, int block_m, int dtype, int grid, void* stream) {
+  if (dtype < 0 || dtype > 2 ||
+      (dtype != 0 && (grid < 1 || g > kDwMaxGroups || k % 8 != 0 || n % 8 != 0)))
+    return -1;
   if (k == 0 || n == 0 || g == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gmm_tile_table_kernel<<<1, kTableThreads, 0, s>>>(tile_groups, m / block_m, g, order, offs);
-  const int e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
+  if (dtype != 0 && m == 0)
+    return static_cast<int>(cudaMemsetAsync(dw, 0, static_cast<size_t>(g) * k * n * 2, s));
+  if (dtype == 0) {
+    gmm_tile_table_kernel<<<1, kTableThreads, 0, s>>>(tile_groups, m / block_m, g, order, offs);
+    const int e = static_cast<int>(cudaGetLastError());
+    if (e) return e;
+  }
   DwParams p{};
   p.x = x;
   p.dy = dy;
+  p.tile_groups = tile_groups;
   p.order = order;
   p.offs = offs;
   p.dw = dw;
@@ -771,10 +839,7 @@ extern "C" int acs_grouped_matmul_dw(const void* x, const void* dy, const int* t
   p.n = n;
   p.g = g;
   p.block_m = block_m;
-  p.vec_x = (k % 8 == 0) && aligned16(x);
-  p.vec_dy = (n % 8 == 0) && aligned16(dy);
-  p.vec_out = (n % 8 == 0) && aligned16(dw);
   if (dtype == 0) return launch_dw_f32(p, s);
-  if (dtype == 1) return launch_dw_tc<__nv_bfloat16>(p, s);
-  return launch_dw_tc<__half>(p, s);
+  return dtype == 1 ? launch_dw_wgmma<__nv_bfloat16>(p, grid, s)
+                    : launch_dw_wgmma<__half>(p, grid, s);
 }

@@ -1,0 +1,477 @@
+// Hopper's asynchronous copy and tensor-core building blocks (sm_90a),
+// shared by the port's warp-specialised kernels (flash_attention_bwd.cu's
+// key-tile and query-tile passes, grouped_matmul.cu's dw):
+//
+// * mbarrier: init, arrive, arrive with an expected transaction count,
+//   arrive once a thread's cp.async copies land, and a parity wait. A
+//   phase completes when every expected arrival has come and every byte
+//   the TMA copies announced has landed.
+// * TMA (cp.async.bulk.tensor): one thread copies a whole box of a 3-D
+//   tensor (a [box1][64] tile of 16-bit elements, the 128-byte swizzle)
+//   into shared memory and the hardware reports its bytes to an mbarrier;
+//   elements outside the tensor land as 0. The store copies such a box
+//   back, clipped to the tensor. tensor_map_3d encodes the descriptor on
+//   the host through libcuda's cuTensorMapEncodeTiled, looked up with
+//   cudaGetDriverEntryPoint, so no library links -lcuda; a kernel takes it
+//   as a __grid_constant__ const CUtensorMap parameter.
+// * wgmma: Wgmma<T, N>::ss (both operands in shared memory) and ::rs (A in
+//   registers) issue wgmma.mma_async.m64nNk16 for bfloat16 or float16 with
+//   a float32 accumulator d[N / 2] in registers, N in {32, 64, 128, 256};
+//   TA / TB are the transpose bits (0: K-major, 1: MN-major). fence,
+//   commit and wait order them; fence_regs keeps the compiler from reading
+//   an accumulator before the wait.
+// * setmaxnreg: a warp-specialised kernel's producer gives registers back
+//   and its consumer warpgroups take them.
+//
+// Shared-memory layout of every operand: the 128-byte swizzle TMA writes.
+// A tile is a run of boxes of R rows by 64 16-bit elements (128 bytes a
+// row, 1024-byte aligned); element (r, c) of a box sits at byte
+// r * 128 + ((2 c) ^ ((r % 8) * 16)), which sw128 computes for tiles the
+// threads write themselves. Descriptors:
+// * K-major (the contraction along the 128-byte rows): desc_kmajor, stride
+//   between 8-row groups 1024 bytes; a 16-element step of the contraction
+//   adds 32 bytes inside a box, the next box starts the next 64.
+// * MN-major (the contraction down the rows): desc_mnmajor, 8-row groups
+//   1024 bytes apart, 64-element blocks of M or N one box apart (the
+//   argument); a 16-row step of the contraction adds 2048 bytes.
+//
+// Accumulator layout of m64nNk16 (warp w of the warpgroup, g = lane / 4,
+// t = lane % 4): d[i] is row 16 w + g + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 t + i % 2. The A fragment of rs for a 16-column step kk of
+// such a tile is four registers of two elements each, rows g / g + 8 and
+// columns 2t, 2t + 8 (mma.sync's A layout), which acc_to_a16 packs.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; nothing is linked from libcuda
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "sm90_tiles.cuh"
+
+namespace sm90 {
+
+// ---------------------------------------------------------------------------
+// mbarrier
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// After the inits, before any thread uses the barriers.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One arrival that also announces bytes the TMA copies will deliver.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Until the phase of the given parity has completed (acquire).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// A 4-byte cp.async copy (zeros when !ok), and an arrival on bar once all
+// of this thread's earlier cp.async copies have landed (counted in the
+// barrier's init, not added to it).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// bar.sync on a named barrier among `threads` threads (whole warps).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma operands, TMA stores) once the threads synchronise.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The committed stores have read their shared memory (it may be reused).
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The committed stores are complete.
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// The 128-byte-swizzle descriptor of a K-major tile at p (8-row groups
+// 1024 bytes apart; the leading offset is unused).
+__device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// The same for an MN-major tile whose 64-element blocks of M or N lie
+// `block_bytes` apart.
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* p, uint32_t block_bytes) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>((block_bytes >> 4) & 0x3FFF) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// Byte offset of row r, byte column cb (a multiple of 4) in a swizzled box.
+__device__ __forceinline__ uint32_t sw128(uint32_t r, uint32_t cb) {
+  return r * 128u + (cb ^ ((r & 7u) << 4));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers a thread of this warpgroup may hold from here on (a multiple
+// of 8): the producer gives some back, the consumers take them.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The A fragment of a 16-column step kk of an accumulator tile, rounded
+// to T (Mma<T>::pack: nearest even).
+template <typename T, int R>
+__device__ __forceinline__ void acc_to_a16(uint32_t (&a)[4], const float (&d)[R], int kk) {
+  a[0] = Mma<T>::pack(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = Mma<T>::pack(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = Mma<T>::pack(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = Mma<T>::pack(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+template <typename T, int N> struct Wgmma;
+
+// Generated: the asm of each (N, operand source); TS is the PTX type.
+#define ACS_WGMMA_OPS(T, TS) \
+  template <> struct Wgmma<T, 32> { \
+    template <int TA, int TB> \
+    __device__ __forceinline__ static void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+          "}, %16, %17, p, 1, 1, %19, %20;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]) \
+          : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB)); \
+    } \
+    template <int TB> \
+    __device__ __forceinline__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+          "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]) \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)); \
+    } \
+  }; \
+  template <> struct Wgmma<T, 64> { \
+    template <int TA, int TB> \
+    __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+          "}, %32, %33, p, 1, 1, %35, %36;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+            "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+          : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB)); \
+    } \
+    template <int TB> \
+    __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+          "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+            "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)); \
+    } \
+  }; \
+  template <> struct Wgmma<T, 128> { \
+    template <int TA, int TB> \
+    __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da, uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+          "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+          "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+          "}, %64, %65, p, 1, 1, %67, %68;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+            "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+            "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+            "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+            "+f"(d[62]), "+f"(d[63]) \
+          : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB)); \
+    } \
+    template <int TB> \
+    __device__ __forceinline__ static void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+          "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+          "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+          "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+            "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+            "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+            "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+            "+f"(d[62]), "+f"(d[63]) \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)); \
+    } \
+  }; \
+  template <> struct Wgmma<T, 256> { \
+    template <int TA, int TB> \
+    __device__ __forceinline__ static void ss(float (&d)[128], uint64_t da, uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n256k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+          "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+          "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+          "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+          "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+          "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+          "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+          "}, %128, %129, p, 1, 1, %131, %132;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+            "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+            "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+            "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+            "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+            "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), \
+            "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+            "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), \
+            "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+            "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), \
+            "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+            "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+            "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+            "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
+            "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+          : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB)); \
+    } \
+    template <int TB> \
+    __device__ __forceinline__ static void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int acc) { \
+      asm volatile( \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+          "wgmma.mma_async.sync.aligned.m64n256k16.f32." TS "." TS " {" \
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+          "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+          "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+          "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+          "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+          "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+          "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+          "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n" \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+            "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+            "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+            "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+            "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+            "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+            "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), \
+            "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+            "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), \
+            "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+            "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), \
+            "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+            "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+            "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+            "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
+            "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)); \
+    } \
+  };
+
+
+ACS_WGMMA_OPS(__nv_bfloat16, "bf16")
+ACS_WGMMA_OPS(__half, "f16")
+#undef ACS_WGMMA_OPS
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Returned by tensor_map_3d: no encoder, or 1000 + libcuda's CUresult.
+constexpr int kNoTensorMapEncoder = 999;
+
+// The descriptor of a [d2][d1][d0] tensor of 16-bit elements at base
+// (row stride s1, plane stride s2, in bytes; both multiples of 16) read or
+// written in boxes of [box1][64] elements, 128-byte swizzle. Returns 0 on
+// success.
+template <typename T>
+int tensor_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                  uint64_t s1, uint64_t s2, uint32_t box1) {
+  static_assert(sizeof(T) == 2, "16-bit elements");
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoTensorMapEncoder;
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {64, box1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+}
+
+// The shared-memory window's first 1024-byte-aligned byte at or after p
+// (the swizzle repeats every 1024 bytes, and TMA and wgmma expect a box
+// to start on that period).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+}  // namespace sm90

@@ -21,11 +21,20 @@ included (they give 0, where the Pallas kernel gives the row's mean of
 Training: on CUDA tensors that need a gradient the call is a
 ``torch.autograd.Function`` whose forward is the same kernel, also writing
 each row's log-sum-exp, and whose backward is the hand-written
-``csrc/flash_attention_bwd.cu`` (dQ, dK, dV in two deterministic passes;
-Dv == D up to ``MAX_BACKWARD_HEAD_DIM`` = 256, at D 256 each pass split
-into two column slices; Dv != D, MLA's widths, raises under grad).
-Without a gradient the call is the serving call, bit for bit. On the CPU
-autograd differentiates the plain version.
+``csrc/flash_attention_bwd_wgmma.cu`` (dQ, dK, dV in two deterministic
+passes on ``wgmma`` with TMA-fed tiles; Dv == D up to
+``MAX_BACKWARD_HEAD_DIM`` = 256; Dv != D, MLA's widths, raises under
+grad) in bfloat16 and float16: on the tensors themselves where TMA can
+address them (``"wgmma"``), else on aligned copies zero-padded to a
+multiple of 8 columns (``"wgmma_padded"``); in float32
+``csrc/flash_attention_bwd.cu`` (scalar kernels, ``"fma_f32"``), by the
+shape rule :func:`backward_path`.
+The wrapper plans the wgmma path's key-tile pass (:func:`backward_plan`:
+which block takes which (query head, query tile) items of which key tile,
+and the float32 workspace in which split key tiles' partial sums wait for
+their fixed-order reduction) and counts the path of each call in
+``backward_paths``. Without a gradient the call is the serving call, bit
+for bit. On the CPU autograd differentiates the plain version.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. The kernels build at first use (``_nvcc.py``).
@@ -34,8 +43,9 @@ or raises. The kernels build at first use (``_nvcc.py``).
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,19 +53,23 @@ from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd", "build",
-           "build_backward", "launches", "backward_launches", "reset_launches", "SOURCE",
-           "BACKWARD_SOURCE", "MAX_HEAD_DIM", "MAX_BACKWARD_HEAD_DIM", "kernel_takes",
-           "backward_takes"]
+           "build_backward", "build_backward_wgmma", "launches", "backward_launches",
+           "reset_launches", "SOURCE", "BACKWARD_SOURCE", "BACKWARD_WGMMA_SOURCE",
+           "MAX_HEAD_DIM", "MAX_BACKWARD_HEAD_DIM", "kernel_takes", "backward_takes",
+           "backward_path", "backward_paths", "backward_plan", "BackwardPlan",
+           "key_tile_queries", "dq_blocks", "dq_key_span", "dq_keys", "bwd_keys", "BWD_ROWS",
+           "BWD_DQ_ROWS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BACKWARD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
+BACKWARD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")  # the float32 path
+BACKWARD_WGMMA_SOURCE = SOURCE.with_name("flash_attention_bwd_wgmma.cu")
 # The head widths the kernel is instantiated for, written only here: the
 # build passes them to csrc/flash_attention.cu as -D defines (kMaxD, kMlaD,
 # kMlaDv there). Dv == D up to MAX_HEAD_DIM; for Dv != D, D up to
 # MAX_QK_DIM_SPLIT with Dv up to MAX_V_DIM_SPLIT (MLA's 192 and 128).
 MAX_HEAD_DIM = 256
 MAX_QK_DIM_SPLIT, MAX_V_DIM_SPLIT = 192, 128
-# The backward (csrc/flash_attention_bwd.cu, kMaxD there): Dv == D up to this.
+# The backward (kMaxD in both of its sources): Dv == D up to this.
 MAX_BACKWARD_HEAD_DIM = 256
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -67,16 +81,31 @@ _FLAGS = (*(f for f in NVCC_FLAGS if f != "-fmad=false"),
 _BACKWARD_FLAGS = (*(f for f in NVCC_FLAGS if f != "-fmad=false"),
                    f"-DACS_FLASH_BWD_MAX_D={MAX_BACKWARD_HEAD_DIM}")
 
+# The wgmma path's tiles (csrc/flash_attention_bwd_wgmma.cu WgShape, kWgRows):
+# the key-tile pass's blocks own bwd_keys(D) keys and take query tiles of
+# BWD_ROWS rows; the query-tile pass's blocks own BWD_DQ_ROWS rows and
+# stream key tiles of dq_keys(D) keys.
+BWD_ROWS, BWD_DQ_ROWS = 64, 128
+# The key-tile pass aims at this many blocks an SM: a key tile whose items
+# (query head, query tile) exceed the total over that many blocks is split
+# over several blocks, whose float32 partial sums a reduction adds in slot
+# order.
+BWD_BLOCKS_PER_SM = 2
+
 # Kernel launches since the last reset_launches(): incremented once per
 # launch of the forward kernel, and once per call of the backward's entry
-# (its prologue and two passes), never by the plain version.
+# (its prologue, passes and reduction), never by the plain version;
+# backward_paths counts each call's path.
 launches = 0
 backward_launches = 0
+backward_paths = {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
 
 
 def reset_launches() -> None:
     global launches, backward_launches
     launches = backward_launches = 0
+    for key in backward_paths:
+        backward_paths[key] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -109,10 +138,30 @@ def _bind_backward(lib: ctypes.CDLL) -> None:
     lib.acs_flash_attention_bwd.restype = i32
 
 
+def _bind_backward_wgmma(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.acs_flash_attention_bwd_wgmma.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,       # q, k, v, o, dout
+        ptr, ptr,                      # lse, scratch (Di, lse in the log2 domain)
+        ptr, ptr, ptr,                 # dq, dk, dv
+        i32, i32, i32, i32, i32, i32,  # B, H, Hkv, Sq, Sk, D
+        i32, f32, i32,                 # dtype, scale, causal
+        i32, i32, i32, f32,            # has_window, window, has_softcap, softcap
+        i32, i32,                      # q_offset, prefix_len
+        ptr, i32, ptr, i32,            # plan, n_plan, red, n_red
+        ptr, i32,                      # ws, n_slots
+        ptr,                           # dq_span
+        ptr,                           # stream
+    ]
+    lib.acs_flash_attention_bwd_wgmma.restype = i32
+
+
 _LIB = CudaLibrary(SOURCE, _bind, _FLAGS)
 _BACKWARD_LIB = CudaLibrary(BACKWARD_SOURCE, _bind_backward, _BACKWARD_FLAGS)
+_BACKWARD_WGMMA_LIB = CudaLibrary(BACKWARD_WGMMA_SOURCE, _bind_backward_wgmma, _BACKWARD_FLAGS)
 _ENTRY = None  # the bound C entry points, looked up at the first launch
 _BACKWARD_ENTRY = None
+_BACKWARD_WGMMA_ENTRY = None
 
 
 def build() -> Tuple[Path, float]:
@@ -122,8 +171,14 @@ def build() -> Tuple[Path, float]:
 
 
 def build_backward() -> Tuple[Path, float]:
-    """Compile ``csrc/flash_attention_bwd.cu``, as :func:`build`."""
+    """Compile ``csrc/flash_attention_bwd.cu`` (the float32 path), as
+    :func:`build`."""
     return _BACKWARD_LIB.build()
+
+
+def build_backward_wgmma() -> Tuple[Path, float]:
+    """Compile ``csrc/flash_attention_bwd_wgmma.cu``, as :func:`build`."""
+    return _BACKWARD_WGMMA_LIB.build()
 
 
 def kernel_takes(dim: int, dv: int) -> bool:
@@ -137,6 +192,168 @@ def kernel_takes(dim: int, dv: int) -> bool:
 def backward_takes(dim: int, dv: int) -> bool:
     """Whether the backward has an instantiation for these widths."""
     return dv == dim and 1 <= dim <= MAX_BACKWARD_HEAD_DIM
+
+
+def backward_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  dout: torch.Tensor) -> str:
+    """The backward's path for these tensors (all contiguous, Dv == D):
+    ``"wgmma"`` for bfloat16 and float16 when TMA can address every tensor
+    (D a multiple of 8, so that each row is whole 16-byte units, and every
+    pointer 16-byte aligned), ``"wgmma_padded"`` for the other 16-bit cases
+    (the same kernels on aligned copies, zero-padded to a multiple of 8
+    columns) and ``"fma_f32"`` for float32."""
+    if q.dtype == torch.float32:
+        return "fma_f32"
+    if q.shape[3] % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout)):
+        return "wgmma"
+    return "wgmma_padded"
+
+
+def bwd_keys(dim: int) -> int:
+    """Keys a block of the wgmma key-tile pass (csrc WgShape::kKeys): 64 to
+    a consumer warpgroup at D <= 128, 64 shared by both at D 256."""
+    return 128 if dim <= 128 else 64
+
+
+def key_tile_queries(kt: int, keys: int, sq: int, sk: int, *, causal: bool,
+                     window: Optional[int], q_offset: int, prefix_len: int) -> Tuple[int, int]:
+    """``(first, count)``: the query tiles of ``BWD_ROWS`` rows that may see
+    a key of key tile ``kt`` (``keys`` keys), the causal mask bounding the
+    first and the window the last, unless the tile holds a prefix key
+    (every row sees those). A superset: the kernel masks each pair."""
+    k0 = kt * keys
+    keys_here = min(keys, sk - k0)
+    n_qt = -(-sq // BWD_ROWS)
+    first, end = 0, n_qt
+    if k0 >= prefix_len:
+        if causal:
+            lo = k0 - q_offset  # the first local row that can see key k0
+            first = min(n_qt, lo // BWD_ROWS) if lo > 0 else 0
+        if window is not None:  # the last local row that can see the tile's last key
+            hi = k0 + keys_here - 1 + window - 1 - q_offset
+            end = 0 if hi < 0 else min(n_qt, hi // BWD_ROWS + 1)
+    return first, max(0, end - first)
+
+
+class BackwardPlan(NamedTuple):
+    """The wgmma path's key-tile pass. ``blocks``: one row a block, in
+    launch order, ``(kt, b * Hkv + hk, first query tile, query tiles,
+    item_lo, item_hi, slot, 0)``: items ``item_lo .. item_hi - 1`` of key
+    tile ``kt``, item ``i`` being query head ``hk * group + i // count`` and
+    query tile ``first + i % count``; slot -1 for a key tile's only block
+    (it writes dK and dV), else its partial sums' slot in the workspace.
+    ``red``: ``(kt, b * Hkv + hk, slot_lo, slot_hi)`` for each key tile the
+    reduction writes (split over slots ``slot_lo .. slot_hi - 1``, added in
+    that order; none for a key tile no query sees, which gets zeros).
+    ``dq_blocks``: the query-tile pass's grid; ``dq_span``: for each of
+    its query tiles, the key tiles it streams (:func:`dq_key_span`)."""
+    blocks: List[Tuple[int, ...]]
+    red: List[Tuple[int, int, int, int]]
+    n_slots: int
+    dq_blocks: int
+    dq_span: List[Tuple[int, int, int]]
+
+
+def backward_plan(n_batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int, dim: int, *,
+                  causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+                  prefix_len: int = 0, n_sm: int = 132) -> BackwardPlan:
+    """Split the key-tile pass (key tiles of ``bwd_keys(dim)`` keys) over
+    blocks so that ``n_sm`` SMs are full: every block takes at most
+    ``ceil(items / (BWD_BLOCKS_PER_SM n_sm))`` items, a key tile's items
+    split into contiguous runs in item order, and the blocks with the most
+    items launch first."""
+    group = n_heads // n_kv_heads
+    n_kv = n_batch * n_kv_heads
+    keys = bwd_keys(dim)
+    spans = [key_tile_queries(kt, keys, sq, sk, causal=causal, window=window,
+                              q_offset=q_offset, prefix_len=prefix_len)
+             for kt in range(-(-sk // keys))]
+    total = n_kv * group * sum(count for _, count in spans)
+    per_block = max(1, -(-total // (BWD_BLOCKS_PER_SM * n_sm)))
+    blocks, red, n_slots = [], [], 0
+    for kt, (first, count) in enumerate(spans):
+        n_items = group * count
+        n_split = -(-n_items // per_block)
+        for bhk in range(n_kv):
+            if n_split == 1:
+                blocks.append((kt, bhk, first, count, 0, n_items, -1, 0))
+                continue
+            red.append((kt, bhk, n_slots, n_slots + n_split))
+            for part in range(n_split):
+                blocks.append((kt, bhk, first, count, part * n_items // n_split,
+                               (part + 1) * n_items // n_split, n_slots, 0))
+                n_slots += 1
+    blocks.sort(key=lambda row: row[4] - row[5])  # most items first; stable otherwise
+    dq_span = [dq_key_span(qt, sq, sk, dim, causal=causal, window=window, q_offset=q_offset,
+                           prefix_len=prefix_len)
+               for qt in range(-(-sq // BWD_DQ_ROWS))]
+    return BackwardPlan(blocks, red, n_slots, dq_blocks(n_batch, n_heads, sq), dq_span)
+
+
+def dq_keys(dim: int) -> int:
+    """Keys a streamed tile of the wgmma query-tile pass (csrc dq_keys)."""
+    return 32 if dim > 128 else 64
+
+
+def dq_blocks(n_batch: int, n_heads: int, sq: int) -> int:
+    """The wgmma query-tile pass's grid: ``BWD_DQ_ROWS`` rows of one
+    (batch, head) a block; block ``i`` takes query tile
+    ``n_qt - 1 - i // (B H)`` (the last, which see the most keys, first) of
+    ``(batch, head)`` ``i % (B H)``."""
+    return -(-sq // BWD_DQ_ROWS) * n_batch * n_heads
+
+
+def dq_key_span(qt: int, sq: int, sk: int, dim: int, *, causal: bool, window: Optional[int],
+                q_offset: int, prefix_len: int) -> Tuple[int, int, int]:
+    """``(prefix_tiles, window_tile, end)``: query tile ``qt`` of the
+    query-tile pass (``BWD_DQ_ROWS`` rows) streams key tiles of
+    ``dq_keys(dim)`` keys ``0 .. prefix_tiles - 1``, then
+    ``max(prefix_tiles, window_tile) .. end - 1``, in order (each below
+    ``end``): the prefix's tiles always, none past the causal bound and none
+    wholly before the window. A superset: the kernel masks each pair."""
+    keys = dq_keys(dim)
+    q0 = qt * BWD_DQ_ROWS
+    row_lo = q_offset + q0
+    row_hi = row_lo + min(BWD_DQ_ROWS, sq - q0) - 1
+    n_kt = -(-sk // keys)
+    end = n_kt
+    if causal:
+        last = max(row_hi, prefix_len - 1)
+        end = 0 if last < 0 else min(n_kt, last // keys + 1)
+    window_tile = 0
+    if window is not None:
+        lo = row_lo - window + 1
+        window_tile = lo // keys if lo > 0 else 0
+    return -(-prefix_len // keys), window_tile, end
+
+
+# Device copies of plans, by shape, masks, SM count and device (a training
+# run repeats a handful of shapes).
+_PLANS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PLAN_CACHE = 64
+
+
+def _device_plan(q, n_kv, sk, masks):
+    n_batch, n_heads, sq, dim = q.shape
+    causal, has_window, window, _, _, q_offset, prefix_len = masks
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    key = (n_batch, n_heads, n_kv, sq, sk, bwd_keys(dim), causal, has_window, window, q_offset,
+           prefix_len, n_sm, q.device)
+    hit = _PLANS.get(key)
+    if hit is None:
+        plan = backward_plan(n_batch, n_heads, n_kv, sq, sk, dim, causal=bool(causal),
+                             window=window if has_window else None, q_offset=q_offset,
+                             prefix_len=prefix_len, n_sm=n_sm)
+        blocks = torch.tensor(plan.blocks or [[0] * 8], dtype=torch.int32).to(q.device)
+        red = torch.tensor(plan.red or [[0] * 4], dtype=torch.int32).to(q.device)
+        span = torch.tensor(plan.dq_span, dtype=torch.int32).to(q.device)
+        hit = (blocks, len(plan.blocks), red, len(plan.red), plan.n_slots, span)
+        _PLANS[key] = hit
+        if len(_PLANS) > _PLAN_CACHE:
+            _PLANS.popitem(last=False)
+    else:
+        _PLANS.move_to_end(key)
+    return hit
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -201,24 +418,54 @@ def _forward(q, k, v, masks, scale, want_lse: bool):
 
 
 def _backward(q, k, v, out, lse, dout, masks, scale):
-    """Launch the backward's prologue and two passes: ``(dq, dk, dv)``."""
-    n_batch, n_heads, sq, dim = q.shape
-    _, n_kv, sk, _ = k.shape
+    """Launch the backward's prologue and passes on the path
+    :func:`backward_path` picks: ``(dq, dk, dv)``."""
     dout = dout.contiguous()
+    path = backward_path(q, k, v, out, dout)
+    dim = q.shape[3]
+    if path == "wgmma_padded":  # aligned copies, zero columns up to a multiple of 8
+        width = -(-dim // 8) * 8
+        q, k, v, out, dout = (_padded(t, width) for t in (q, k, v, out, dout))
+    n_batch, n_heads, sq, width = q.shape
+    _, n_kv, sk, _ = k.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    di = torch.empty((n_batch, n_heads, sq), dtype=torch.float32, device=q.device)
-    global _BACKWARD_ENTRY, backward_launches
-    if _BACKWARD_ENTRY is None:
-        _BACKWARD_ENTRY = _BACKWARD_LIB.get().acs_flash_attention_bwd
-    err = _BACKWARD_ENTRY(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        n_batch, n_heads, n_kv, sq, sk, dim, _DTYPES[q.dtype], scale, *masks,
-        raw_stream(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr())
+    shape = (n_batch, n_heads, n_kv, sq, sk, width, _DTYPES[q.dtype], scale, *masks)
+    global _BACKWARD_ENTRY, _BACKWARD_WGMMA_ENTRY, backward_launches
+    if path != "fma_f32":
+        plan, n_plan, red, n_red, n_slots, span = _device_plan(q, n_kv, sk, masks)
+        tile = 64 if width <= 64 else 128 if width <= 128 else 256
+        ws = torch.empty((2, max(n_slots, 1), bwd_keys(width), tile), dtype=torch.float32,
+                         device=q.device)
+        scratch = torch.empty((2, n_batch, n_heads, sq), dtype=torch.float32, device=q.device)
+        if _BACKWARD_WGMMA_ENTRY is None:
+            _BACKWARD_WGMMA_ENTRY = _BACKWARD_WGMMA_LIB.get().acs_flash_attention_bwd_wgmma
+        err = _BACKWARD_WGMMA_ENTRY(
+            *args, scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape,
+            plan.data_ptr(), n_plan, red.data_ptr(), n_red, ws.data_ptr(), n_slots,
+            span.data_ptr(), raw_stream(q.device))
+    else:
+        di = torch.empty((n_batch, n_heads, sq), dtype=torch.float32, device=q.device)
+        if _BACKWARD_ENTRY is None:
+            _BACKWARD_ENTRY = _BACKWARD_LIB.get().acs_flash_attention_bwd
+        err = _BACKWARD_ENTRY(*args, di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(), *shape, raw_stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention backward launch failed ({path} path): "
+                           f"CUDA error {err}")
     backward_launches += 1
+    backward_paths[path] += 1
+    if width != dim:
+        dq, dk, dv = (t[..., :dim].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
+
+
+def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    """An aligned copy of ``t`` [..., D] with zero columns up to ``width``."""
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., :t.shape[-1]] = t
+    return out
 
 
 class _FlashFunction(torch.autograd.Function):

@@ -34,7 +34,13 @@ backward launches ``dx`` (``dy @ w[g]^T``, w read transposed in place) and
 ``dw`` (each group's tiles summed in tile order, deterministic, 0 for a
 group no tile names), the hand-written entries of the same
 ``csrc/grouped_matmul.cu``, counted on ``dx_launches`` and
-``dw_launches``; ``tile_groups`` and ``err`` get no gradient. On the CPU
+``dw_launches``; ``tile_groups`` and ``err`` get no gradient. ``dw`` in
+bfloat16 and float16 runs on ``wgmma`` with TMA-fed tiles over a
+persistent grid (:func:`dw_grid` sizes it): on x and dy themselves where
+TMA can address them (``"wgmma"``), else on aligned copies zero-padded to
+whole 16-byte rows, a launch for each run of ``DW_MAX_GROUPS`` groups
+(``"wgmma_padded"``), by the shape rule :func:`dw_path`; float32 on FMAs
+(``"fma_f32"``); ``dw_paths`` counts each call's path. On the CPU
 the same Function runs the plain forward and the plain backward
 :func:`~.ref.grouped_matmul_bwd_ref`.
 
@@ -55,23 +61,57 @@ from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
 from .ref import grouped_matmul_bwd_ref, grouped_matmul_ref
 
 __all__ = ["grouped_matmul", "grouped_matmul_bwd", "raise_on_error", "build", "launches",
-           "dx_launches", "dw_launches", "reset_launches", "SOURCE"]
+           "dx_launches", "dw_launches", "dw_paths", "reset_launches", "SOURCE", "dw_path",
+           "dw_grid", "DW_TILE_K", "DW_TILE_N", "DW_STEP_ROWS", "DW_MAX_GROUPS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+# The wgmma dw kernel's tile (csrc/grouped_matmul.cu kDwBM, kDwBN, kDwBK):
+# DW_TILE_K rows of K by DW_TILE_N columns of N, contracted DW_STEP_ROWS
+# rows of a group's tiles at a time.
+DW_TILE_K, DW_TILE_N, DW_STEP_ROWS = 128, 256, 64
+DW_MAX_GROUPS = 4096  # kDwMaxGroups
+
 # Kernel launches since the last reset_launches(): incremented once per
 # launch of the CUDA kernel (the forward), of the dx entry and of the dw
-# entry (its table and its product), never by the plain versions.
+# entry (its table and its product), never by the plain versions; dw_paths
+# counts each dw call's path.
 launches = 0
 dx_launches = 0
 dw_launches = 0
+dw_paths = {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
 
 
 def reset_launches() -> None:
     global launches, dx_launches, dw_launches
     launches = dx_launches = dw_launches = 0
+    for key in dw_paths:
+        dw_paths[key] = 0
+
+
+def dw_path(x: torch.Tensor, dy: torch.Tensor, dw: torch.Tensor) -> str:
+    """dw's path for these contiguous tensors: ``"wgmma"`` for bfloat16 and
+    float16 when TMA can address x ``[M / block_m, block_m, K]``, dy and
+    dw (K and N multiples of 8, so rows are whole 16-byte units; every
+    pointer 16-byte aligned) and there are at most ``DW_MAX_GROUPS`` groups
+    (the kernel counts their tiles in shared memory), ``"wgmma_padded"``
+    for the other 16-bit cases (the same kernel on aligned, padded copies,
+    over runs of groups) and ``"fma_f32"`` for float32."""
+    if x.dtype == torch.float32:
+        return "fma_f32"
+    if (x.shape[1] % 8 == 0 and dy.shape[1] % 8 == 0 and dw.shape[0] <= DW_MAX_GROUPS
+            and all(t.data_ptr() % 16 == 0 for t in (x, dy, dw))):
+        return "wgmma"
+    return "wgmma_padded"
+
+
+def dw_grid(g: int, k: int, n: int, n_sm: int) -> int:
+    """The wgmma dw kernel's persistent grid: one block an SM (its shared
+    memory allows one), no more than there are (group, K tile, N tile)
+    tiles."""
+    return max(1, min(n_sm, g * -(-k // DW_TILE_K) * -(-n // DW_TILE_N)))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -92,9 +132,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.acs_grouped_matmul_dx.restype = i32
     lib.acs_grouped_matmul_dw.argtypes = [
         ptr, ptr, ptr,            # x, dy, tile_groups
-        ptr, ptr, ptr,            # order, offs (scratch), dw
+        ptr, ptr, ptr,            # order, offs (float32's scratch), dw
         i32, i32, i32, i32, i32,  # M, K, N, G, block_m
         i32,                      # dtype
+        i32,                      # grid (16-bit)
         ptr,                      # stream
     ]
     lib.acs_grouped_matmul_dw.restype = i32
@@ -219,15 +260,56 @@ def grouped_matmul_bwd(x, w, tile_groups, dy, *, block_m, need_dx=True, need_dw=
         dx_launches += 1
     if need_dw:
         dw = torch.empty_like(w)
-        order = torch.empty(m // block_m, dtype=torch.int32, device=x.device)
-        offs = torch.empty(g + 1, dtype=torch.int32, device=x.device)
-        rc = lib.acs_grouped_matmul_dw(x.data_ptr(), dy.data_ptr(), tile_groups.data_ptr(),
-                                       order.data_ptr(), offs.data_ptr(), dw.data_ptr(), m, k,
-                                       n, g, block_m, _DTYPES[x.dtype], stream)
+        path = dw_path(x, dy, dw)
+        if path == "fma_f32":
+            order = torch.empty(m // block_m, dtype=torch.int32, device=x.device)
+            offs = torch.empty(g + 1, dtype=torch.int32, device=x.device)
+            rc = lib.acs_grouped_matmul_dw(x.data_ptr(), dy.data_ptr(), tile_groups.data_ptr(),
+                                           order.data_ptr(), offs.data_ptr(), dw.data_ptr(), m,
+                                           k, n, g, block_m, 0, 0, stream)
+        else:
+            rc = _dw_wgmma(lib, x, dy, tile_groups, dw, block_m, path, stream)
         if rc != 0:
-            raise RuntimeError(f"grouped_matmul dw launch failed: CUDA error {rc}")
+            raise RuntimeError(f"grouped_matmul dw launch failed ({path} path): CUDA error {rc}")
         dw_launches += 1
+        dw_paths[path] += 1
     return dx, dw
+
+
+def _padded(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """An aligned copy of ``t`` [rows, c] zero-padded to ``cols`` columns."""
+    out = t.new_zeros((t.shape[0], cols))
+    out[:, :t.shape[1]] = t
+    return out
+
+
+def _dw_wgmma(lib, x, dy, tile_groups, dw, block_m, path, stream) -> int:
+    """dw on the wgmma kernel: on x and dy themselves, or (``"wgmma_padded"``)
+    on aligned copies padded to multiples of 8 columns, into a padded dw,
+    a launch for each run of ``DW_MAX_GROUPS`` groups (tile ids shifted so
+    that each run's groups start at 0; the others name no group of the
+    run). Returns the first nonzero code of the C entry, else 0."""
+    m, k = x.shape
+    g, _, n = dw.shape
+    out = dw
+    if path == "wgmma_padded":
+        k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+        x, dy = _padded(x, k8), _padded(dy, n8)
+        if (k8, n8) != (k, n):
+            out = dw.new_empty((g, k8, n8))
+        k, n = k8, n8
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for g0 in range(0, g, DW_MAX_GROUPS):
+        run = min(DW_MAX_GROUPS, g - g0)
+        ids = tile_groups if g0 == 0 else tile_groups - g0
+        rc = lib.acs_grouped_matmul_dw(x.data_ptr(), dy.data_ptr(), ids.data_ptr(), None, None,
+                                       out[g0:g0 + run].data_ptr(), m, k, n, run, block_m,
+                                       _DTYPES[x.dtype], dw_grid(run, k, n, n_sm), stream)
+        if rc != 0:
+            return rc
+    if out is not dw:
+        dw.copy_(out[:, :dw.shape[1], :dw.shape[2]])
+    return 0
 
 
 class _GroupedMatmulFunction(torch.autograd.Function):

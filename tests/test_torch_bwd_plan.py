@@ -1,0 +1,303 @@
+"""The host-side split of the wgmma backward kernels, on the CPU.
+
+Which block does which work is decided in the Python wrappers and passed
+to the kernels: flash attention's key-tile pass runs the rows of
+``flash_attention.backward_plan`` (a key tile's (query head, query tile)
+items split over blocks, split key tiles' partial sums added in slot
+order), its query-tile pass a grid of ``dq_blocks`` whose query tiles
+stream the key tiles of the plan's ``dq_span``; the grouped GEMM's ``dw``
+a persistent grid of ``dw_grid`` blocks. These tests hold each to a
+brute-force enumeration over the shapes of ``chip_smoke.py``'s
+``FLASH_BWD_SWEEP`` and ``GMM_BWD_SWEEP`` and a property sweep: every
+visible (query head, query tile, key tile) is covered exactly once, partial
+sums are added in one fixed order, and the dw grid is no larger than its
+tiles. How each dw block walks its tiles is the kernel's alone, held on
+the card. They also check the shape rules that send each call to the
+wgmma path or, for tensors TMA cannot address, to the same kernels on
+aligned, padded copies.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from _prophelper import given, settings, st
+
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+
+def tile_table(tile_groups, g):
+    """``(order, offs)``, the float32 dw path's table
+    (``gmm_tile_table_kernel``): group ``i``'s tiles are
+    ``order[offs[i]:offs[i + 1]]`` in index order; ids outside ``[0, G)``
+    are in no list."""
+    order = [t for gid in range(g) for t, tg in enumerate(tile_groups) if tg == gid]
+    offs = [0]
+    for gid in range(g):
+        offs.append(offs[-1] + sum(1 for tg in tile_groups if tg == gid))
+    return order, offs
+
+
+def _visible(sq, sk, causal=True, window=None, q_offset=0, prefix_len=0):
+    """[sq, sk] bool: whether local query row i sees key j (the kernels'
+    mask, written out)."""
+    rows = q_offset + np.arange(sq)[:, None]
+    cols = np.arange(sk)[None, :]
+    vis = np.ones((sq, sk), bool)
+    if causal:
+        vis &= cols <= rows
+    if window is not None:
+        vis &= cols > rows - window
+    return vis | (cols < prefix_len)
+
+
+def _tile_pairs(vis, rows, keys):
+    """Set of (query tile, key tile) with at least one visible pair."""
+    sq, sk = vis.shape
+    out = set()
+    for qt in range(-(-sq // rows)):
+        for kt in range(-(-sk // keys)):
+            if vis[qt * rows:(qt + 1) * rows, kt * keys:(kt + 1) * keys].any():
+                out.add((qt, kt))
+    return out
+
+
+def _flags(flags):
+    return dict(causal=flags.get("causal", True), window=flags.get("window"),
+                q_offset=flags.get("q_offset", 0), prefix_len=flags.get("prefix_len", 0))
+
+
+def check_key_tile_plan(b, h, hkv, sq, sk, d, flags, n_sm):
+    """The key-tile pass's plan covers every visible (batch, head, query
+    tile, key tile) exactly once and nothing twice; each key tile's dK and
+    dV are written exactly once (by its only block, or by the reduction of
+    its slots, in slot order, whose item runs follow one another); a key
+    tile no query sees is zeroed by the reduction."""
+    kw = _flags(flags)
+    plan = fa.backward_plan(b, h, hkv, sq, sk, d, n_sm=n_sm, **kw)
+    keys, group = fa.bwd_keys(d), h // hkv
+    n_kt = -(-sk // keys)
+    want = _tile_pairs(_visible(sq, sk, **kw), fa.BWD_ROWS, keys)
+    seen = {}
+    by_tile = {}
+    for row in plan.blocks:
+        kt, bhk, first, count, lo, hi, slot, pad = row
+        assert pad == 0 and 0 <= kt < n_kt and 0 <= bhk < b * hkv and lo < hi
+        assert (first, count) == fa.key_tile_queries(kt, keys, sq, sk, **kw)
+        by_tile.setdefault((kt, bhk), []).append(row)
+        bi, hk = divmod(bhk, hkv)
+        for it in range(lo, hi):
+            key = (bi, hk * group + it // count, first + it % count, kt)
+            assert key not in seen, f"item {key} twice"
+            seen[key] = slot
+    for bi in range(b):
+        for head in range(h):
+            for qt, kt in want:
+                assert (bi, head, qt, kt) in seen, f"visible item {(bi, head, qt, kt)} missed"
+    red = {(kt, bhk): (lo, hi) for kt, bhk, lo, hi in plan.red}
+    assert len(red) == len(plan.red)
+    for kt in range(n_kt):
+        first, count = fa.key_tile_queries(kt, keys, sq, sk, **kw)
+        for bhk in range(b * hkv):
+            rows = by_tile.get((kt, bhk), [])
+            if (kt, bhk) in red:  # split (or seen by no query): the reduction writes it
+                lo, hi = red[(kt, bhk)]
+                assert sorted(r[6] for r in rows) == list(range(lo, hi))
+                runs = sorted((r[6], r[4], r[5]) for r in rows)
+                assert [r[1] for r in runs] == [0] + [r[2] for r in runs[:-1]] or not runs
+                assert (runs[-1][2] if runs else 0) == group * count
+            else:  # its only block writes dK and dV
+                assert len(rows) == 1 and rows[0][6] == -1
+                assert (rows[0][4], rows[0][5]) == (0, group * count)
+    slots = sorted(r[6] for r in plan.blocks if r[6] >= 0)
+    assert slots == list(range(plan.n_slots))
+    sizes = [r[5] - r[4] for r in plan.blocks]
+    assert sizes == sorted(sizes, reverse=True), "the blocks with the most items launch first"
+    total = b * h * sum(fa.key_tile_queries(kt, keys, sq, sk, **kw)[1] for kt in range(n_kt))
+    per_block = max(1, -(-total // (fa.BWD_BLOCKS_PER_SM * n_sm)))
+    assert max(sizes, default=0) <= max(per_block, 1)
+    return plan
+
+
+def dq_tiles(span):
+    """The key tiles a query tile streams, in order, from its
+    ``(prefix_tiles, window_tile, end)``: the kernel's loop."""
+    prefix_tiles, window_tile, end = span
+    return [kt for kt in range(end) if kt < prefix_tiles or kt >= window_tile]
+
+
+def check_dq_plan(b, h, sq, sk, d, flags):
+    """The query-tile pass: block i takes query tile ``n_qt - 1 - i // (B
+    H)`` of (batch, head) ``i % (B H)``, each once, the last first; each
+    streams, in order and once, every key tile its rows see."""
+    kw = _flags(flags)
+    n_qt = -(-sq // fa.BWD_DQ_ROWS)
+    plan = fa.backward_plan(b, h, 1, sq, sk, d, **kw)
+    grid = fa.dq_blocks(b, h, sq)
+    assert grid == plan.dq_blocks == n_qt * b * h and len(plan.dq_span) == n_qt
+    blocks = [(n_qt - 1 - i // (b * h), i % (b * h)) for i in range(grid)]
+    assert sorted(blocks) == sorted((qt, bh) for qt in range(n_qt) for bh in range(b * h))
+    assert [qt for qt, _ in blocks] == sorted((qt for qt, _ in blocks), reverse=True)
+    bn = fa.dq_keys(d)
+    pairs = _tile_pairs(_visible(sq, sk, **kw), fa.BWD_DQ_ROWS, bn)
+    for qt in range(n_qt):
+        tiles = dq_tiles(plan.dq_span[qt])
+        assert tiles == sorted(set(tiles)) and all(0 <= t < -(-sk // bn) for t in tiles)
+        assert {kt for q, kt in pairs if q == qt} <= set(tiles)
+
+
+@pytest.mark.parametrize("case", range(len(smoke.FLASH_BWD_SWEEP)))
+@pytest.mark.parametrize("n_sm", [132, 7])
+def test_flash_key_tile_plan_covers_the_sweep(case, n_sm):
+    (b, h, hkv, sq, sk, d), flags = smoke.FLASH_BWD_SWEEP[case]
+    check_key_tile_plan(b, h, hkv, sq, sk, d, flags, n_sm)
+
+
+@pytest.mark.parametrize("case", range(len(smoke.FLASH_BWD_SWEEP)))
+def test_flash_dq_plan_covers_the_sweep(case):
+    (b, h, hkv, sq, sk, d), flags = smoke.FLASH_BWD_SWEEP[case]
+    check_dq_plan(b, h, sq, sk, d, flags)
+
+
+def test_recurrentgemma_key_tile_pass_fills_the_card():
+    """recurrentgemma-2b's training shape (10 query heads over one kv head,
+    D 256): one block a key tile gave 64 blocks for 132 SMs; the plan
+    gives more than 132, and splits every key tile's items."""
+    plan = check_key_tile_plan(4, 10, 1, 512, 512, 256, {"window": 2048}, 132)
+    assert len(plan.blocks) > 132
+    assert len(plan.red) == 4 * 8 and plan.n_slots == len(plan.blocks)
+
+
+def test_minicpm_plan_needs_no_workspace():
+    """minicpm-2b's (36 heads over 36, D 64): no key tile has more items
+    than a block takes, so every block writes dK and dV itself."""
+    plan = check_key_tile_plan(4, 36, 36, 512, 512, 64, {}, 132)
+    assert plan.red == [] and plan.n_slots == 0 and len(plan.blocks) == 4 * 36 * 4
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 3), st.integers(1, 4), st.integers(1, 3), st.integers(1, 300),
+       st.integers(1, 300), st.sampled_from([8, 64, 72, 128, 136, 256]),
+       st.sampled_from([None, 1, 17, 64, 200]), st.integers(-80, 80), st.integers(0, 90),
+       st.booleans(), st.sampled_from([1, 5, 132]))
+def test_flash_plans_cover_every_visible_item(b, hkv, group, sq, sk, d, window, q_offset,
+                                              prefix_len, causal, n_sm):
+    flags = {"causal": causal, "window": window, "q_offset": q_offset,
+             "prefix_len": prefix_len}
+    check_key_tile_plan(b, hkv * group, hkv, sq, sk, d, flags, n_sm)
+    check_dq_plan(b, hkv * group, sq, sk, d, flags)
+
+
+def check_dw_plan(g, k, n, n_sm):
+    """The persistent grid: one block an SM, none without a (group, K
+    tile, N tile) tile to take."""
+    grid = gm.dw_grid(g, k, n, n_sm)
+    k_tiles, n_tiles = -(-k // gm.DW_TILE_K), -(-n // gm.DW_TILE_N)
+    assert grid == min(n_sm, g * k_tiles * n_tiles) >= 1
+
+
+@pytest.mark.parametrize("name", sorted(smoke.GMM_BWD_SWEEP))
+@pytest.mark.parametrize("n_sm", [132, 3])
+def test_dw_grid_fits_the_sweep(name, n_sm):
+    g, k, n, _, tiles = smoke.GMM_BWD_SWEEP[name]
+    check_dw_plan(g, k, n, n_sm)
+
+
+@pytest.mark.parametrize("name", sorted(smoke.GMM_BWD_SWEEP))
+def test_dw_sums_each_group_in_tile_order(name):
+    """Both dw kernels add a group's tiles in index order (the float32
+    path's table lists them so; the wgmma kernel walks ``tile_groups`` in
+    order),
+    and summing per-tile products in that order is
+    ``grouped_matmul_bwd_ref``'s dw bit for bit."""
+    from repro_torch.kernels.ref import grouped_matmul_bwd_ref
+
+    g, k, n, bm, tiles = smoke.GMM_BWD_SWEEP[name]
+    order, offs = tile_table(list(tiles), g)
+    assert offs[0] == 0 and offs[-1] == len(order) == sum(0 <= t < g for t in tiles)
+    for grp in range(g):
+        assert order[offs[grp]:offs[grp + 1]] == [i for i, t in enumerate(tiles) if t == grp]
+    rng = np.random.RandomState(len(name))
+    x = torch.from_numpy(rng.randn(len(tiles) * bm, k).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(len(tiles) * bm, n).astype(np.float32))
+    w = torch.zeros(g, k, n)
+    _, dw = grouped_matmul_bwd_ref(x, w, torch.tensor(tiles, dtype=torch.int32), dy, block_m=bm)
+    per_tile = torch.einsum("tmk,tmn->tkn", x.reshape(len(tiles), bm, k),
+                            dy.reshape(len(tiles), bm, n))
+    for grp in range(g):
+        acc = torch.zeros(k, n)
+        for t in order[offs[grp]:offs[grp + 1]]:
+            acc += per_tile[t]
+        assert torch.equal(dw[grp], acc)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 50), st.integers(1, 700), st.integers(1, 900), st.integers(1, 140))
+def test_dw_grid_fits_every_shape(g, k, n, n_sm):
+    check_dw_plan(g, k, n, n_sm)
+
+
+def _bf16(*shape, offset=0):
+    """A contiguous bf16 tensor ``offset`` elements into its buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(*shape)
+
+
+def test_flash_backward_path_rule():
+    """wgmma where TMA can address every tensor; wgmma on padded copies for
+    rows that are not whole 16-byte units or pointers off 16-byte
+    alignment; the scalar path for float32."""
+    q, k, v, o, do = (_bf16(1, 2, 9, 64) for _ in range(5))
+    assert fa.backward_path(q, k, v, o, do) == "wgmma"
+    assert fa.backward_path(*(_bf16(1, 2, 9, 24) for _ in range(5))) == "wgmma"
+    assert fa.backward_path(*(_bf16(1, 2, 9, 36) for _ in range(5))) == "wgmma_padded"
+    assert fa.backward_path(_bf16(1, 2, 9, 64, offset=1), k, v, o, do) == "wgmma_padded"
+    assert fa.backward_path(q, k, v, o, _bf16(1, 2, 9, 64, offset=4)) == "wgmma_padded"
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    assert fa.backward_path(*f32) == "fma_f32"
+
+
+def test_dw_path_rule():
+    x, dy, dw = _bf16(64, 128), _bf16(64, 256), _bf16(2, 128, 256)
+    assert gm.dw_path(x, dy, dw) == "wgmma"
+    assert gm.dw_path(_bf16(64, 37), _bf16(64, 256), _bf16(2, 37, 256)) == "wgmma_padded"
+    assert gm.dw_path(x, _bf16(64, 131), _bf16(2, 128, 131)) == "wgmma_padded"
+    assert gm.dw_path(_bf16(64, 128, offset=1), dy, dw) == "wgmma_padded"
+    assert gm.dw_path(_bf16(0, 128), _bf16(0, 256), dw) == "wgmma"
+    assert gm.dw_path(x, dy, _bf16(gm.DW_MAX_GROUPS + 1, 8, 8)) == "wgmma_padded"
+    assert gm.dw_path(x.float(), dy.float(), dw.float()) == "fma_f32"
+
+
+def test_wrappers_count_paths_per_call():
+    """The path counters start at zero after reset_launches and name every
+    path; the launch counters stay one per call (checked on the card)."""
+    fa.reset_launches()
+    gm.reset_launches()
+    assert fa.backward_paths == {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
+    assert gm.dw_paths == {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
+
+
+def test_bwd_trace_finds_every_anchor():
+    """``bwd_trace`` stamps a copy of the wgmma backward's source at fixed
+    lines of text: each is still in the source and gets its stamp."""
+    from repro_torch.kernels import bwd_trace
+
+    text = bwd_trace.stamped_text()
+    for anchor, pass_, mark in bwd_trace._ANCHORS:
+        indent = anchor[:len(anchor) - len(anchor.lstrip())]
+        assert anchor + bwd_trace._stamp(pass_, mark, indent) in text
+    for anchor, pass_, mark in bwd_trace._BEFORE:
+        indent = anchor[:len(anchor) - len(anchor.lstrip())]
+        assert bwd_trace._stamp(pass_, mark, indent) + anchor in text
+    assert 'extern "C" int acs_trace_read(' in text

@@ -68,10 +68,13 @@
   InstaNAS; ``GroupExecutor``'s event poll and its ``sync`` counting
   blocking syncs; the frontier server's exact kernel launches and tokens;
 * training: flash's backward within tolerance of ``attention_bwd_ref``
-  (D up to 256: recurrentgemma's and paligemma's D-256 shapes split each
-  pass into two column slices), the grouped GEMM's ``dx`` and ``dw``
-  within tolerance of ``grouped_matmul_bwd_ref`` (a group no tile names
-  exactly 0, the same bits twice), the RG-LRU reverse scan bit-equal to
+  (D up to 256, recurrentgemma's and paligemma's D-256 shapes among
+  them), each 16-bit case on the path its shape rule names (wgmma with
+  TMA, on the tensors or, for D 36 and pointers off 16-byte alignment, on
+  padded copies), the grouped GEMM's ``dx`` and ``dw`` within tolerance
+  of ``grouped_matmul_bwd_ref`` (``dw`` on both wgmma paths, more groups
+  than one launch takes among them; a group no tile names exactly 0, the
+  same bits twice), the RG-LRU reverse scan bit-equal to
   ``lru_scan_bwd_ref``, each autograd Function launching its kernels, the
   wrappers still without a backward (the selective scan, flash at
   Dv != D) refusing grad, and reduced configs' gradients on the card
@@ -1232,6 +1235,8 @@ FLASH_BWD = {
     "blind_rows_d256": ((1, 2, 1, 100, 100, 256), {"q_offset": -70}),
     "ragged_d200": ((1, 4, 2, 65, 130, 200), {"q_offset": 65}),
     "noncausal_d136": ((2, 4, 4, 70, 70, 136), {"causal": False, "window": 20}),
+    # Rows TMA cannot address (D 36: 72-byte rows): padded copies.
+    "d36": ((1, 4, 2, 70, 70, 36), {}),
 }
 # float32: summation order only, 1e-4 of the largest gradient entry.
 # bfloat16 / float16: P and dS are rounded to the input type (2^-9) before
@@ -1265,6 +1270,59 @@ def test_flash_backward_matches_plain(device, name, dtype):
     want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
     for name_, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, name_
+        err = float((g.float() - w).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * float(w.abs().max()), (name_, err)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def _offset_copy(t, offset):
+    """``t`` copied into a buffer ``offset`` elements in (contiguous, and
+    for an odd offset of a 16-bit type not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (case, elements q and dO sit into their buffers, the path it must take):
+# the wgmma path at recurrentgemma's 10 heads over one kv head (the plan
+# splits each key tile), minicpm's 36 over 36 (no split) and a ragged last
+# key tile; aligned, padded copies on the wgmma path for pointers off
+# 16-byte alignment at each tile width (64, 128, 256) and for D 36.
+FLASH_BWD_PATHS = [
+    ("recurrentgemma_d256", 0, "wgmma"),
+    ("minicpm", 0, "wgmma"),
+    ("gqa", 0, "wgmma"),
+    ("gqa", 1, "wgmma_padded"),
+    ("softcap_gqa_d128", 1, "wgmma_padded"),
+    ("prefix_d128", 3, "wgmma_padded"),
+    ("softcap_d256", 1, "wgmma_padded"),
+    ("d36", 0, "wgmma_padded"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name,offset,path", FLASH_BWD_PATHS)
+def test_flash_backward_takes_its_path(device, name, offset, path, dtype):
+    """Each 16-bit call goes by the shape rule to the wgmma kernels on its
+    tensors or on padded copies (counted once, launch counter once), within
+    tolerance of the plain version, the same bits on a second launch."""
+    from repro_torch.kernels.ref import attention_bwd_ref
+
+    q, k, v, do, flags = _bwd_inputs(device, name, dtype)
+    if offset:
+        q, do = _offset_copy(q, offset), _offset_copy(do, offset)
+    out, lse = fa.flash_attention_lse(q, k, v, **flags)
+    assert fa.backward_path(q, k, v, out, do) == path
+    before, paths = fa.backward_launches, dict(fa.backward_paths)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+    torch.cuda.synchronize()
+    assert fa.backward_launches == before + 1
+    assert {p: fa.backward_paths[p] - paths[p] for p in paths} == {
+        p: int(p == path) for p in paths}
+    want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
+    for name_, g, w in zip(("dq", "dk", "dv"), got, want):
         err = float((g.float() - w).abs().max())
         assert err <= FLASH_BWD_TOL[dtype] * float(w.abs().max()), (name_, err)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
@@ -1344,16 +1402,60 @@ def test_kernel_wrappers_refuse_grad(device):
 # (G, K, N, block_m, tile group ids) for the grouped GEMM's backward:
 # granite's training shape cut to 8 experts, repeated groups and groups no
 # tile names, block_m 1, 8 and 512, K and N off the 8-element copies and
-# the 128-wide tiles. Tolerances of the largest entry: float32 1e-5
-# (summation order), float16 / bfloat16 8e-3 (rounded once to the type).
+# the 128-wide tiles, and more groups than the wgmma dw kernel takes in one
+# launch. Tolerances of the largest entry: float32 1e-5 (summation order),
+# float16 / bfloat16 8e-3 (rounded once to the type).
 GMM_BWD = {
     "granite_cut": (8, 1536, 512, 512, tuple(range(8))),
+    "groups_past_one_launch": (4100, 16, 24, 4, (4099, 0, 4096, 4095, 4099, 7)),
     "repeats_unused": (6, 72, 40, 8, (0, 3, 3, 0, 5, 3)),
     "bm1_off_edges": (5, 37, 131, 1, (4, 0, 4, 2, 2, 4, 0)),
     "bm512_off_tiles": (3, 200, 136, 512, (2, 2, 0)),
     "two_dispatch_groups": (8, 256, 96, 64, tuple(range(8)) * 2),
 }
 GMM_BWD_TOL = {torch.float32: 1e-5, torch.float16: 8e-3, torch.bfloat16: 8e-3}
+
+# (case, elements x sits into its buffer, dw's path): the wgmma path on the
+# aligned cases (repeated groups and groups no tile names among them);
+# aligned, padded copies for K or N off the 8-element rows, for x off
+# 16-byte alignment and over runs of groups for G past DW_MAX_GROUPS.
+GMM_DW_PATHS = [
+    ("granite_cut", 0, "wgmma"),
+    ("repeats_unused", 0, "wgmma"),
+    ("two_dispatch_groups", 0, "wgmma"),
+    ("bm512_off_tiles", 0, "wgmma"),
+    ("bm1_off_edges", 0, "wgmma_padded"),
+    ("granite_cut", 1, "wgmma_padded"),
+    ("repeats_unused", 3, "wgmma_padded"),
+    ("groups_past_one_launch", 0, "wgmma_padded"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name,offset,path", GMM_DW_PATHS)
+def test_grouped_matmul_dw_takes_its_path(device, name, offset, path, dtype):
+    """dw by the shape rule on the wgmma kernel (the persistent grid), on x
+    and dy or on padded copies: counted once, within tolerance of the
+    plain version, a group no tile names exactly 0, the same bits twice."""
+    g, k, n, bm, tiles = GMM_BWD[name]
+    rng = np.random.RandomState(sum(map(ord, name)) + offset)
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    x, w, dy = make(len(tiles) * bm, k), make(g, k, n), make(len(tiles) * bm, n)
+    if offset:
+        x = _offset_copy(x, offset)
+    tg = torch.tensor(tiles, dtype=torch.int32, device=device)
+    before, paths = gm.dw_launches, dict(gm.dw_paths)
+    _, dw = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm, need_dx=False)
+    torch.cuda.synchronize()
+    assert gm.dw_launches == before + 1
+    assert {p: gm.dw_paths[p] - paths[p] for p in paths} == {p: int(p == path) for p in paths}
+    want = grouped_matmul_bwd_ref(x, w, tg, dy, block_m=bm)[1]
+    err = float((dw.float() - want.float()).abs().max())
+    assert err <= GMM_BWD_TOL[dtype] * float(want.float().abs().max()), err
+    for unused in set(range(g)) - set(tiles):
+        assert bool((dw[unused] == 0).all())
+    again = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm, need_dx=False)[1]
+    assert torch.equal(again, dw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])

@@ -387,10 +387,12 @@ def test_backward_width_comes_from_the_wrapper():
 
 
 # C entry point -> (its wrapper module, its source's attribute there, the
-# binder's name there): flash's two libraries, and the grouped GEMM's and
+# binder's name there): flash's three libraries, and the grouped GEMM's and
 # the RG-LRU scan's forward and backward entries, which share a library.
 ENTRIES = {"acs_flash_attention": ("flash_attention", "SOURCE", "_bind"),
            "acs_flash_attention_bwd": ("flash_attention", "BACKWARD_SOURCE", "_bind_backward"),
+           "acs_flash_attention_bwd_wgmma": ("flash_attention", "BACKWARD_WGMMA_SOURCE",
+                                             "_bind_backward_wgmma"),
            "acs_grouped_matmul": ("grouped_matmul", "SOURCE", "_bind"),
            "acs_grouped_matmul_dx": ("grouped_matmul", "SOURCE", "_bind"),
            "acs_grouped_matmul_dw": ("grouped_matmul", "SOURCE", "_bind"),
