@@ -93,7 +93,8 @@ Phases, each fatal on failure (an exception, exit code != 0):
       layout, ragged cases with repeated groups and groups no tile names
       (dw exactly 0), block_m 1, 8, 64, 70 and 512, K and N off the tile
       edges, in float32, float16 and bfloat16; the same bits on a second
-      launch;
+      launch; dx counted once on the path ``dx_path`` names (16-bit on
+      ``wgmma`` or ``wgmma_padded``, never ``fma_f32``);
    f. the expert-wave stream of ``benchmarks/bench_moe_waves.py`` (8
       experts, top-2, D 64, d_expert 32, 64 tokens routed from seed 0,
       tiles of 8) through ``run_serial``, ``WaveScheduler`` and the wave
@@ -218,8 +219,11 @@ Phases, each fatal on failure (an exception, exit code != 0):
    and workspace slots, each pass's device time (prologue, dK/dV,
    reduction, dQ) and its kernels' ``ptxas -v``; the grouped GEMM's dx and
    dw at granite's gate/up and down products beside ``torch.bmm`` on the
-   capacity layout, dw with its path, grid, ``ptxas -v`` and the float32
-   path's tile-table kernel timed alone; the RG-LRU reverse scan at [4,
+   capacity layout, dx on ``"wgmma"`` at both with its plan (grid, tile
+   width), each width's times, the bytes TMA loads and ``ptxas -v``, dw
+   with its path, grid, ``ptxas -v`` and the float32 path's tile-table
+   kernel timed alone, and the forward at the same shapes beside
+   ``torch.bmm(x, w)``; the RG-LRU reverse scan at [4,
    512, 2560] f32, no library call), and
    the wall time of each phase-4/5/6 policy and server. The ready queue also: its device time from
    ``torch.profiler`` (the mean over the kernels the trace holds), that
@@ -248,7 +252,8 @@ Phases, each fatal on failure (an exception, exit code != 0):
    5 ``StepBundle.train_step``s (remat, lr 3e-4, clip 1.0): losses and
    gradient norms finite, each kernel launched exactly so many times a
    step (``expected_train_launches``: minicpm flash 80 / 40; granite flash
-   64 / 32, grouped GEMM 192, dx 96, dw 96; recurrentgemma flash 16 / 8,
+   64 / 32, grouped GEMM 192, dx 96 (all on its wgmma path), dw 96;
+   recurrentgemma flash 16 / 8,
    RG-LRU 34 (its two prefix layers are not recomputed), reverse 18);
    step ms, tokens/s, MFU (6 N D, a MoE's N its
    active parameters, over the bf16 peak) and peak device memory logged,
@@ -1508,7 +1513,8 @@ def phase_gmm_bwd_vs_plain(device):
     """dx and dw (``grouped_matmul_bwd``) against ``grouped_matmul_bwd_ref``
     over GMM_BWD_SWEEP in float32, float16 and bfloat16, within
     GMM_BWD_TOL of each gradient's largest entry; dw of a group no tile
-    names exactly 0; the same bits on a second launch."""
+    names exactly 0; the same bits on a second launch; dx counted once on
+    its path (``dx_path``: a 16-bit call never on ``fma_f32``)."""
     import torch
     from repro_torch.kernels.ref import grouped_matmul_bwd_ref
 
@@ -1520,9 +1526,16 @@ def phase_gmm_bwd_vs_plain(device):
         for dtype in (torch.float32, torch.float16, torch.bfloat16):
             x, w, tg = gmm_inputs(device, gen, g, k, n, bm, tiles, dtype)
             dy = torch.randn(x.shape[0], n, generator=gen, device=device).to(dtype)
+            before = dict(gm.dx_paths)
             got = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm)
             want = grouped_matmul_bwd_ref(x, w, tg, dy, block_m=bm)
             torch.cuda.synchronize()
+            dx_path = gm.dx_path(dy, w, got[0])
+            check({key: gm.dx_paths[key] - before[key] for key in before}
+                  == {key: int(key == dx_path) for key in before}
+                  and (dx_path == "fma_f32") == (dtype == torch.float32),
+                  f"grouped_matmul dx at {name} {dtype}: path {dx_path}, counted "
+                  f"{gm.dx_paths} after {before}")
             tol = GMM_BWD_TOL[str(dtype).replace("torch.", "")]
             rel = []
             for label, gt, wt in zip(("dx", "dw"), got, want):
@@ -1540,8 +1553,8 @@ def phase_gmm_bwd_vs_plain(device):
             log(f"grouped_matmul backward ~ plain: {name} G {g} K {k} N {n} block_m {bm} M "
                 f"{len(tiles) * bm} {str(dtype).replace('torch.', '')} max err / largest entry "
                 f"dx {rel[0]:.3g} dw {rel[1]:.3g}; unused groups "
-                f"{unused if len(unused) <= 8 else f'({len(unused)} of them)'} exactly 0; dw path "
-                f"{gm.dw_path(x, dy, got[1])}")
+                f"{unused if len(unused) <= 8 else f'({len(unused)} of them)'} exactly 0; dx path "
+                f"{dx_path}, dw path {gm.dw_path(x, dy, got[1])}")
 
 
 def phase_expert_stream(device):
@@ -2498,8 +2511,8 @@ def train_counters():
     gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
     ls = importlib.import_module("repro_torch.kernels.lru_scan")
     return {"flash": fa.launches, "flash_bwd": fa.backward_launches, "gmm": gm.launches,
-            "gmm_dx": gm.dx_launches, "gmm_dw": gm.dw_launches, "lru": ls.launches,
-            "lru_bwd": ls.backward_launches}
+            "gmm_dx": gm.dx_launches, "gmm_dx_wgmma": gm.dx_paths["wgmma"],
+            "gmm_dw": gm.dw_launches, "lru": ls.launches, "lru_bwd": ls.backward_launches}
 
 
 def reset_train_counters():
@@ -2513,7 +2526,8 @@ def expected_train_launches(cfg):
     prefix layers before the stages (``models.split_pattern``: the pattern
     remainder, e.g. recurrentgemma-2b's first two RG-LRU layers) once, as
     the reference rematerialises per stage; the backward launches each
-    backward entry once a layer (three expert products a MoE layer)."""
+    backward entry once a layer (three expert products a MoE layer), dx of
+    a 16-bit model on its ``"wgmma"`` path."""
     from repro_torch.models import split_pattern
 
     prefix, _ = split_pattern(cfg)
@@ -2528,6 +2542,7 @@ def expected_train_launches(cfg):
     moe_layers = range(first_moe, cfg.n_layers)
     return {"flash": flash, "flash_bwd": flash_bwd,
             "gmm": 3 * sum(runs[i] for i in moe_layers), "gmm_dx": 3 * len(moe_layers),
+            "gmm_dx_wgmma": 3 * len(moe_layers) if cfg.dtype in ("bfloat16", "float16") else 0,
             "gmm_dw": 3 * len(moe_layers), "lru": lru, "lru_bwd": lru_bwd}
 
 
@@ -2786,9 +2801,9 @@ def phase_train(device, card, arch):
     from torch.autograd import DeviceType
 
     prof, wall_ms = profiled(lambda: bundle.train_step(model, opt, *batches[-1]))
-    groups = dict.fromkeys(("flash forward", "flash backward", "grouped GEMM forward and dx",
-                            "grouped GEMM dw", "LRU scan", "LRU reverse scan", "GEMM",
-                            "elementwise", "reduction", "other"), 0.0)
+    groups = dict.fromkeys(("flash forward", "flash backward", "grouped GEMM forward",
+                            "grouped GEMM dx", "grouped GEMM dw", "LRU scan", "LRU reverse scan",
+                            "GEMM", "elementwise", "reduction", "other"), 0.0)
     counts_by = dict.fromkeys(groups, 0)
     others = {}
     for e in prof.events():
@@ -2798,7 +2813,8 @@ def phase_train(device, card, arch):
         group = ("flash backward" if "flash_bwd" in name else
                  "flash forward" if "flash_tc_kernel" in name else
                  "grouped GEMM dw" if "gmm_dw" in name or "gmm_tile_table" in name else
-                 "grouped GEMM forward and dx" if "gmm_tc_kernel" in name else
+                 "grouped GEMM dx" if "gmm_dx" in name else
+                 "grouped GEMM forward" if "gmm_tc_kernel" in name else
                  "LRU reverse scan" if "lru_scan_bwd" in name else
                  "LRU scan" if "lru_scan_kernel" in name else
                  "GEMM" if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")) else
@@ -3485,6 +3501,27 @@ def call_device_ms(fn, names, runs=TIMED_RUNS):
 GMM_TRAIN = {"": (40, 1536, 512, 512), "down_": (40, 512, 1536, 512)}
 
 
+def dx_call(gm, dy, w, tiles, cap, width):
+    """A launch of the dx entry on the wgmma path at one tile width (the
+    plan's rule over that width alone), writing into a buffer of its own.
+    Returns (the call, its output, the plan)."""
+    import torch
+
+    m, n = dy.shape
+    g, k, _ = w.shape
+    plan = gm.dx_plan(m, k, cap, torch.cuda.get_device_properties(
+        dy.device).multi_processor_count, widths=(width,))
+    out = torch.empty(m, k, dtype=dy.dtype, device=dy.device)
+    entry = gm._LIB.get().acs_grouped_matmul_dx
+
+    def call():
+        rc = entry(dy.data_ptr(), w.data_ptr(), tiles.data_ptr(), out.data_ptr(), None, m, k, n,
+                   g, cap, 1 if dy.dtype == torch.bfloat16 else 2, plan.grid, plan.width,
+                   torch.cuda.current_stream(dy.device).cuda_stream)
+        check(rc == 0, f"grouped_matmul dx at width {width}: CUDA error {rc}")
+    return call, out, plan
+
+
 def numbers_gmm_bwd(device):
     """The grouped GEMM's dx and dw entries at granite's training shapes
     (GMM_TRAIN), bf16: errors against ``grouped_matmul_bwd_ref``, single
@@ -3493,27 +3530,39 @@ def numbers_gmm_bwd(device):
     the bound (dy and w read, dx written; x and dy read, dw written; 2 M K
     N operations each) and ``torch.bmm`` on the capacity layout as the
     library call (``dy @ w^T`` and ``x^T @ dy``, the transposes as strided
-    views). Returns the dx and the dw rows."""
+    views). dx must take its ``"wgmma"`` path; its plan (grid, tile width)
+    is logged, and each tile width's device time and back-to-back time
+    beside it. The forward at the same shapes (``x @ w``, the 192
+    launches of a granite step) is timed too: device time, single, back to
+    back, ``torch.bmm(x, w)`` and the bound. Returns the dx and the dw
+    rows and the forward's training-shape numbers."""
     import torch
     from repro_torch.kernels._nvcc import resources
-    from repro_torch.kernels.ref import grouped_matmul_bwd_ref
+    from repro_torch.kernels.ref import grouped_matmul_bwd_ref, grouped_matmul_ref
 
     gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
     gen = torch.Generator(device=device)
     gen.manual_seed(6)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    err_flag = torch.zeros(1, dtype=torch.int32, device=device)
     rows = {"dx": {}, "dw": {}}
+    forward = {}
     for prefix, (g, k, n, cap) in GMM_TRAIN.items():
         tiles = torch.arange(g, dtype=torch.int32, device=device)
         x = torch.randn(g * cap, k, generator=gen, device=device).to(torch.bfloat16)
         w = torch.randn(g, k, n, generator=gen, device=device).to(torch.bfloat16)
         dy = torch.randn(g * cap, n, generator=gen, device=device).to(torch.bfloat16)
+        before = dict(gm.dx_paths)
         got = gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=cap)
         want = grouped_matmul_bwd_ref(x, w, tiles, dy, block_m=cap)
         torch.cuda.synchronize()
+        dx_paths = {key: gm.dx_paths[key] - before[key] for key in before}
+        check(dx_paths == {"wgmma": 1, "wgmma_padded": 0, "fma_f32": 0},
+              f"dx at granite's {prefix or 'gate/up '}shape took {dx_paths}")
         x3, dy3 = x.view(g, cap, k), dy.view(g, cap, n)
         calls = {
             "dx": (lambda: gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=cap, need_dw=False),
-                   lambda: torch.bmm(dy3, w.transpose(1, 2)), ("gmm_tc_kernel",),
+                   lambda: torch.bmm(dy3, w.transpose(1, 2)), ("gmm_dx_wgmma_kernel",),
                    2 * (dy.numel() + w.numel() + x.numel())),
             "dw": (lambda: gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=cap, need_dx=False),
                    lambda: torch.bmm(x3.transpose(1, 2), dy3),
@@ -3537,11 +3586,31 @@ def numbers_gmm_bwd(device):
                 "library_ms": median_ms(library),
                 "library_back_to_back_ms": back_to_back_ms(library),
             }
+            if which == "dx":
+                plan = gm.dx_plan(g * cap, k, cap, n_sm)
+                # What TMA copies into shared memory: each tile's steps of
+                # N, two 64-row dy boxes (C 512: every chunk is whole) and
+                # the width's rows of w a step. All of it comes from L2.
+                smem_bytes = plan.tiles * -(-n // gm.DX_STEP_N) * 2 * (2 * 64 + plan.width) * 64
+                case.update(path=gm.dx_path(dy, w, got[0]), grid=plan.grid, width=plan.width,
+                            tiles=plan.tiles, tma_load_bytes=smem_bytes,
+                            tma_load_tb_per_s=(smem_bytes / case["device_ms"] / 1e9
+                                               if case["device_ms"] else None))
+                for width in gm.DX_TILE_WIDTHS:  # each width the plan could pick
+                    fixed, out, fixed_plan = dx_call(gm, dy, w, tiles, cap, width)
+                    fixed()
+                    torch.cuda.synchronize()
+                    width_err = float((out.float() - want[0].float()).abs().max())
+                    check(width_err <= GMM_BWD_TOL["bfloat16"] * scale,
+                          f"dx at width {width}, {prefix or 'gate/up'}: max abs err {width_err}")
+                    case[f"width_{width}"] = {
+                        "tiles": fixed_plan.tiles, "grid": fixed_plan.grid,
+                        "device_ms": call_device_ms(fixed, names)[0],
+                        "back_to_back_ms": back_to_back_ms(fixed), "max_abs_err": width_err}
             if which == "dw":
                 case["path"] = gm.dw_path(x, dy, got[1])
                 check(case["path"] == "wgmma", f"dw at granite's shape took {case['path']}")
-                case["grid"] = gm.dw_grid(g, k, n, torch.cuda.get_device_properties(
-                    device).multi_processor_count)
+                case["grid"] = gm.dw_grid(g, k, n, n_sm)
                 # The float32 path's tile-table launch alone, on the same
                 # values in float32 (the 16-bit kernel needs no table).
                 x32, w32, dy32 = x.float(), w.float(), dy.float()
@@ -3551,15 +3620,41 @@ def numbers_gmm_bwd(device):
             rows[which].update({prefix + key: val for key, val in case.items()})
             log(f"grouped_matmul {which} {prefix or 'gate/up '}w [{g}, {k}, {n}] block_m {cap}: "
                 f"{case} [{torch.cuda.get_device_name(0)}]")
+        # The forward x @ w at the same shape, as the train step calls it.
+        fwd = lambda: gm.grouped_matmul(x, w, tiles, block_m=cap, err=err_flag)  # noqa: E731
+        out = fwd()
+        ref = grouped_matmul_ref(x, w, tiles, block_m=cap)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        ms_bound, by = bound(2 * (x.numel() + w.numel() + out.numel()), 2 * g * cap * k * n,
+                             BF16_FLOP_PER_S)
+        case = {
+            "matches_plain": bool((diff <= GMM_TOL["bfloat16"] * (1 + ref.float().abs())).all())
+                             and int(err_flag[0]) == 0,
+            "max_abs_err": float(diff.max()),
+            "ms": median_ms(fwd),
+            "back_to_back_ms": back_to_back_ms(fwd),
+            "device_ms": call_device_ms(fwd, ("gmm_tc_kernel",))[0],
+            "bound_ms": ms_bound,
+            "bound_by": by,
+            "library_ms": median_ms(lambda: torch.bmm(x3, w)),
+            "library_back_to_back_ms": back_to_back_ms(lambda: torch.bmm(x3, w)),
+        }
+        forward.update({f"train_{prefix}{key}": val for key, val in case.items()})
+        log(f"grouped_matmul forward {prefix or 'gate/up '}w [{g}, {k}, {n}] block_m {cap}: "
+            f"{case} [{torch.cuda.get_device_name(0)}]")
     shape = ("x [20480, 1536], dy [20480, 512], w [40, 1536, 512] bf16 (gate/up; down_: "
              "x [20480, 512], dy [20480, 1536], w [40, 512, 1536]), block_m 512, tile ids "
              "arange(40): granite-moe-3b-a800m's training step")
+    forward["train_shape"] = shape
     lib_path, _ = gm.build()
-    rows["dw"]["ptxas"] = [line for line in resources(lib_path)
+    ptxas = resources(lib_path)
+    rows["dx"]["ptxas"] = [line for line in ptxas if "gmm_dx_wgmma_kernel<__nv_bfloat16" in line]
+    rows["dw"]["ptxas"] = [line for line in ptxas
                            if "gmm_dw_wgmma_kernel<__nv_bfloat16>" in line
                            or "gmm_tile_table_kernel" in line]
     out = []
-    for which, label in (("dx", "dy @ w[g]^T, w read transposed in place"),
+    for which, label in (("dx", "dy @ w[g]^T on wgmma, dy and w[g] both K-major in place"),
                          ("dw", "sum over a group's tiles of x^T @ dy, in tile order")):
         row = rows[which]
         out.append({
@@ -3575,7 +3670,9 @@ def numbers_gmm_bwd(device):
             "matches_plain": row["matches_plain"] and row["down_matches_plain"],
             "shape": shape,
         })
-    return out
+    check(forward["train_matches_plain"] and forward["train_down_matches_plain"],
+          "grouped_matmul forward != plain at granite's training shapes")
+    return (*out, forward)
 
 
 def numbers_lru_bwd(device):
@@ -4032,7 +4129,7 @@ def main() -> int:
                timed(numbers_gmm, device),
                timed(numbers_scan, device),
                timed(numbers_flash_bwd, device)]
-    gmm_dx, gmm_dw = timed(numbers_gmm_bwd, device)
+    gmm_dx, gmm_dw, gmm_train = timed(numbers_gmm_bwd, device)
     lru_bwd = timed(numbers_lru_bwd, device)
     kernels += [gmm_dx, gmm_dw, lru_bwd]
     torch.cuda.empty_cache()
@@ -4070,7 +4167,8 @@ def main() -> int:
     gmm_dw["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dw"]
     lru_bwd["launches"] = train_launches["recurrentgemma-2b"]["lru_bwd"]
     lru["launches"] = rg["lru_scan"]
-    gmm.update(launches=granite["grouped_matmul"], deepseek_launches=deepseek["grouped_matmul"])
+    gmm.update(launches=granite["grouped_matmul"], deepseek_launches=deepseek["grouped_matmul"],
+               train_launches=train_launches["granite-moe-3b-a800m"]["gmm"], **gmm_train)
     scan["launches"] = mamba["selective_scan"]
     for kernel in kernels:
         check(kernel["matches_plain"], f"{kernel['name']}: kernel != plain at the main "

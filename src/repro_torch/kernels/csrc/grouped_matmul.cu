@@ -54,13 +54,31 @@
 // Pallas kernel: the reference trains through XLA's derivative of its
 // oracle (src/repro/kernels/ref.py grouped_matmul_ref). Its plain version
 // is kernels/ref.py grouped_matmul_bwd_ref.
-// * dx[t] = dy[t] @ w[g_t]^T is the forward's tiled kernel with the roles
-//   of K and N swapped and w read transposed in place (template flag BT):
-//   the w tile is staged as [BN output columns][BK contraction] straight
-//   from w's rows, where the contraction (N) is contiguous, and fed to
-//   mma.sync through ldmatrix without .trans, as flash feeds K in Q K^T.
-//   No [G, N, K] copy of the experts' weights is made. A tile with a bad
-//   group id writes zeros.
+// * dx[t] = dy[t] @ w[g_t]^T: bfloat16 / float16 on wgmma (gmm_dx_wgmma_kernel),
+//   with both operands K-major as they lie in memory (dy's rows and w[g]'s
+//   rows both run along the contraction N), so no transpose bit and no
+//   [G, N, K] copy of the experts' weights. TMA must be able to address dy,
+//   w and dx (K and N multiples of 8, aligned pointers); where it cannot,
+//   the wrapper (grouped_matmul.py dx_path, "wgmma_padded") passes aligned
+//   copies zero-padded to multiples of 8 columns. A persistent grid (the
+//   wrapper's dx_plan: one block an SM) walks the output tiles by a linear
+//   index, (m-tile, 128-row chunk of it, column tile of K) from slowest to
+//   fastest, so a tile's rows never leave one m-tile (one group) and the
+//   blocks running side by side read a few experts' w while it is in L2.
+//   The plan also picks the tile's width, 256 or 128 columns of K, by when
+//   the busiest block finishes (granite-moe: 256 for gate / up, 128 for
+//   down, where 256 leaves a last round on 56 of 132 SMs). A producer
+//   thread streams each tile's 64-column steps of N by TMA through a
+//   3-stage mbarrier ring (4 at width 128): dy as [tile][block_m][N], two
+//   64-row boxes; w[g] as [G][K][N], one box of the tile's K rows; rows
+//   past block_m land as 0, and the box of a consumer warpgroup with no
+//   row left in the m-tile is not loaded. Two consumer
+//   warpgroups of 64 rows multiply on wgmma, one step's products in flight
+//   while the next step's issue. The epilogue rounds into swizzled shared
+//   memory and TMA-stores into dx as [tile][block_m][K], clipped to block_m
+//   and K, while the producer already loads the next tile. A tile whose
+//   group id is bad takes no step, loads nothing from w, writes zeros and
+//   sets *err.
 // * dw[g] = sum over g's tiles t, in tile order, of x[t]^T @ dy[t]; no
 //   atomics and no split of a sum: the same inputs give the same bits, and
 //   a group no tile names gets exactly 0. bfloat16 / float16 on wgmma
@@ -90,10 +108,10 @@
 //   (dx of w_gate: dy 21.0 MB + w 62.9 MB + dx 62.9 MB) for 32.2 GFLOP:
 //   0.044 ms at 3.35 TB/s against 0.033 ms at 989 TFLOP/s.
 // * float32 (the tolerance tests) on FMAs: dx is the float32 tile with w
-//   read transposed; dw (path 0) a 256-thread 64 x 64 tile over 16-row
-//   chunks, after a one-block kernel (gmm_tile_table_kernel) writes each
-//   group's tiles in index order (a stable counting sort, one warp a
-//   group, ballots) on the same stream.
+//   read transposed (template flag BT); dw (path 0) a 256-thread 64 x 64
+//   tile over 16-row chunks, after a one-block kernel (gmm_tile_table_kernel)
+//   writes each group's tiles in index order (a stable counting sort, one
+//   warp a group, ballots) on the same stream.
 
 #include "sm90_tiles.cuh"
 #include "sm90_wgmma.cuh"
@@ -141,40 +159,25 @@ __device__ __forceinline__ bool block_tile(const Params& p, Tile* t) {
   return true;
 }
 
-// BT: w is read transposed (dx), its tile staged as [BN][BK].
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BT = false>
+template <int BM, int BN, int BK, int WM, int WN, int STAGES>
 struct TcShape {
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int LDA = BK + 8;  // shared row strides: 16-byte multiples, and
-  static constexpr int LDB = BT ? BK + 8 : BN + 8;  // 8 rows of an ldmatrix hit 8
-  static constexpr int LDC = BN + 8;                // distinct bank groups
+  static constexpr int LDB = BN + 8;  // 8 rows of an ldmatrix hit 8
+  static constexpr int LDC = BN + 8;  // distinct bank groups
   static constexpr int A_ELEMS = BM * LDA;
-  static constexpr int STAGE_ELEMS = A_ELEMS + (BT ? BN : BK) * LDB;
+  static constexpr int STAGE_ELEMS = A_ELEMS + BK * LDB;
   static constexpr int SMEM_ELEMS =
       STAGES * STAGE_ELEMS > BM * LDC ? STAGES * STAGE_ELEMS : BM * LDC;
 };
 
-// Zeros over a block's live rows and columns of out (a dx tile whose group
-// id is bad).
-template <typename T, int BN>
-__device__ __forceinline__ void zero_tile(const Params& p, const Tile& t, int threads) {
-  T* out = static_cast<T*>(p.out) + static_cast<size_t>(t.row0) * p.n + t.n0;
-  const int cols = min(BN, p.n - t.n0);
-  for (int i = threadIdx.x; i < t.rows * BN; i += threads) {
-    const int r = i / BN;
-    const int c = i - r * BN;
-    if (c < cols) out[static_cast<size_t>(r) * p.n + c] = from_f<T>(0.0f);
-  }
-}
-
-// float16 / bfloat16 on the tensor cores. WM x WN warps, each owning a
-// (BM / WM) x (BN / WN) block of outputs: FM x FN mma tiles of 16 x 8.
-// BT (dx): w is [G, N_out, K_contraction] as read, i.e. the forward's w
-// transposed in place.
-template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES, bool BT>
+// float16 / bfloat16 on the tensor cores (the forward). WM x WN warps, each
+// owning a (BM / WM) x (BN / WN) block of outputs: FM x FN mma tiles of
+// 16 x 8.
+template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES>
 __global__ void __launch_bounds__(WM * WN * 32)
 gmm_tc_kernel(const Params p) {
-  using S = TcShape<BM, BN, BK, WM, WN, STAGES, BT>;
+  using S = TcShape<BM, BN, BK, WM, WN, STAGES>;
   constexpr int kThreads = S::kThreads;
   constexpr int WTM = BM / WM;
   constexpr int WTN = BN / WN;
@@ -186,13 +189,9 @@ gmm_tc_kernel(const Params p) {
   T* smem = reinterpret_cast<T*>(smem_raw);
 
   Tile t;
-  if (!block_tile<BM, BN>(p, &t)) {
-    if (BT) zero_tile<T, BN>(p, t, kThreads);
-    return;
-  }
+  if (!block_tile<BM, BN>(p, &t)) return;
   const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(t.row0) * p.k;
-  const T* w = static_cast<const T*>(p.w) + static_cast<size_t>(t.gid) * p.k * p.n +
-               (BT ? static_cast<size_t>(t.n0) * p.k : static_cast<size_t>(t.n0));
+  const T* w = static_cast<const T*>(p.w) + static_cast<size_t>(t.gid) * p.k * p.n + t.n0;
   const int cols = min(BN, p.n - t.n0);
   const int nk = (p.k + BK - 1) / BK;
 
@@ -201,11 +200,8 @@ gmm_tc_kernel(const Params p) {
     T* bs = as + S::A_ELEMS;
     const int k0 = kt * BK;
     stage<T, BM, BK, S::LDA, kThreads>(as, x + k0, p.k, t.rows, p.k - k0, p.vec_x);
-    if (BT)
-      stage<T, BN, BK, S::LDB, kThreads>(bs, w + k0, p.k, cols, p.k - k0, p.vec_w);
-    else
-      stage<T, BK, BN, S::LDB, kThreads>(bs, w + static_cast<size_t>(k0) * p.n, p.n, p.k - k0,
-                                         cols, p.vec_w);
+    stage<T, BK, BN, S::LDB, kThreads>(bs, w + static_cast<size_t>(k0) * p.n, p.n, p.k - k0,
+                                       cols, p.vec_w);
   };
 
   const int warp = threadIdx.x >> 5;
@@ -243,14 +239,9 @@ gmm_tc_kernel(const Params p) {
       for (int i = 0; i < FM; ++i)
         ldmatrix_x4(a[i], as + (wm * WTM + i * 16 + (lane & 15)) * S::LDA + kk + (lane >> 4) * 8);
 #pragma unroll
-      for (int j = 0; j < FN / 2; ++j) {
-        if (BT)  // rows: output columns j*16 .. +15; columns: the contraction
-          ldmatrix_x4(b[j], bs + (wn * WTN + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * S::LDB +
-                                kk + ((lane >> 3) & 1) * 8);
-        else
-          ldmatrix_x4_trans(b[j], bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::LDB +
-                                      wn * WTN + j * 16 + (lane >> 4) * 8);
-      }
+      for (int j = 0; j < FN / 2; ++j)
+        ldmatrix_x4_trans(b[j], bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::LDB +
+                                    wn * WTN + j * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -300,7 +291,9 @@ gmm_tc_kernel(const Params p) {
 }
 
 // float32 with FMAs: 256 threads, thread (ty, tx) owns rows ty*TM .. +TM
-// and columns tx + 16*j, j < 4. BT as in gmm_tc_kernel.
+// and columns tx + 16*j, j < 4. BT (dx): w is [G, N_out, K_contraction] as
+// read, i.e. the forward's w transposed in place; a tile whose group id is
+// bad writes zeros.
 constexpr int kF32BN = 64;
 
 template <int BM, bool BT>
@@ -314,7 +307,14 @@ gmm_f32_kernel(const Params p) {
 
   Tile t;
   if (!block_tile<BM, kF32BN>(p, &t)) {
-    if (BT) zero_tile<float, kF32BN>(p, t, kThreads);
+    if (!BT) return;
+    float* out = static_cast<float*>(p.out) + static_cast<size_t>(t.row0) * p.n + t.n0;
+    const int cols = min(kF32BN, p.n - t.n0);
+    for (int i = threadIdx.x; i < t.rows * kF32BN; i += kThreads) {
+      const int r = i / kF32BN;
+      const int c = i - r * kF32BN;
+      if (c < cols) out[static_cast<size_t>(r) * p.n + c] = 0.0f;
+    }
     return;
   }
   const float* x = static_cast<const float*>(p.x) + static_cast<size_t>(t.row0) * p.k;
@@ -385,23 +385,23 @@ dim3 grid_for(Params* p, int bm, int bn) {
   return dim3(static_cast<unsigned>(blocks));
 }
 
-template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES, bool BT>
+template <typename T, int BM, int BN, int BK, int WM, int WN, int STAGES>
 int launch_tc(Params p, cudaStream_t stream) {
-  using S = TcShape<BM, BN, BK, WM, WN, STAGES, BT>;
+  using S = TcShape<BM, BN, BK, WM, WN, STAGES>;
   constexpr size_t smem = sizeof(T) * S::SMEM_ELEMS;
   static bool opted_in = false;
-  const int err = opt_in(gmm_tc_kernel<T, BM, BN, BK, WM, WN, STAGES, BT>, smem, opted_in);
+  const int err = opt_in(gmm_tc_kernel<T, BM, BN, BK, WM, WN, STAGES>, smem, opted_in);
   if (err) return err;
   const dim3 grid = grid_for(&p, BM, BN);
-  gmm_tc_kernel<T, BM, BN, BK, WM, WN, STAGES, BT><<<grid, S::kThreads, smem, stream>>>(p);
+  gmm_tc_kernel<T, BM, BN, BK, WM, WN, STAGES><<<grid, S::kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool BT>
+template <typename T>
 int launch_tc_shape(Params p, cudaStream_t stream) {
-  if (p.block_m <= 16) return launch_tc<T, 16, 64, 64, 1, 4, 4, BT>(p, stream);  // decode
-  if (p.block_m <= 64) return launch_tc<T, 64, 128, 32, 2, 4, 4, BT>(p, stream);
-  return launch_tc<T, 128, 128, 32, 2, 4, 4, BT>(p, stream);
+  if (p.block_m <= 16) return launch_tc<T, 16, 64, 64, 1, 4, 4>(p, stream);  // decode
+  if (p.block_m <= 64) return launch_tc<T, 64, 128, 32, 2, 4, 4>(p, stream);
+  return launch_tc<T, 128, 128, 32, 2, 4, 4>(p, stream);
 }
 
 template <int BM, bool BT>
@@ -412,10 +412,8 @@ int launch_f32(Params p, cudaStream_t stream) {
 }
 
 template <bool BT>
-int launch_dtype(const Params& p, int dtype, cudaStream_t s) {
-  if (dtype == 0) return p.block_m >= 64 ? launch_f32<64, BT>(p, s) : launch_f32<16, BT>(p, s);
-  if (dtype == 1) return launch_tc_shape<__nv_bfloat16, BT>(p, s);
-  return launch_tc_shape<__half, BT>(p, s);
+int launch_f32_shape(const Params& p, cudaStream_t s) {
+  return p.block_m >= 64 ? launch_f32<64, BT>(p, s) : launch_f32<16, BT>(p, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -564,11 +562,11 @@ constexpr int kDwBN = 256;                 // columns of N a tile
 constexpr int kDwBK = 64;                  // rows of a group's tiles a stage
 constexpr int kDwStages = 3;
 constexpr int kDwThreads = 2 * 128 + 32;   // two consumer warpgroups, one producer warp
-constexpr int kDwBox = 64 * 64 * 2;        // one [64][64] box of 16-bit elements
+constexpr int kBox = 64 * 64 * 2;          // one [64][64] box of 16-bit elements
 constexpr int kDwXBoxes = kDwBM / 64;
 constexpr int kDwYBoxes = kDwBN / 64;
-constexpr int kDwStageBytes = (kDwXBoxes + kDwYBoxes) * kDwBox;
-constexpr int kDwEpiBytes = 2 * kDwYBoxes * kDwBox;  // each warpgroup's [64][BN] result
+constexpr int kDwStageBytes = (kDwXBoxes + kDwYBoxes) * kBox;
+constexpr int kDwEpiBytes = 2 * kDwYBoxes * kBox;  // each warpgroup's [64][BN] result
 constexpr size_t kDwSmem = kDwStages * kDwStageBytes + kDwEpiBytes + 2 * kDwStages * 8 + 1024;
 // Groups the wgmma kernel takes: it counts each group's tiles in shared
 // memory beside its ring (int32 a group).
@@ -638,14 +636,14 @@ gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
             const int s = q % kDwStages;
             mbar_wait(&empty[s], ((q / kDwStages) & 1) ^ 1);
             unsigned char* xs = ring + s * kDwStageBytes;
-            unsigned char* ys = xs + kDwXBoxes * kDwBox;
+            unsigned char* ys = xs + kDwXBoxes * kBox;
             mbar_arrive_expect_tx(&full[s], kDwStageBytes);
 #pragma unroll
             for (int b = 0; b < kDwXBoxes; ++b)
-              tma_load_3d(xs + b * kDwBox, &tx, &full[s], k0 + 64 * b, c, t);
+              tma_load_3d(xs + b * kBox, &tx, &full[s], k0 + 64 * b, c, t);
 #pragma unroll
             for (int b = 0; b < kDwYBoxes; ++b)
-              tma_load_3d(ys + b * kDwBox, &tdy, &full[s], n0 + 64 * b, c, t);
+              tma_load_3d(ys + b * kBox, &tdy, &full[s], n0 + 64 * b, c, t);
           }
         }
       }
@@ -667,7 +665,7 @@ gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
   const int wq = tid >> 5;
   const int gq = (tid & 31) >> 2;
   const int tq = tid & 3;
-  unsigned char* cs = epi + wg * kDwYBoxes * kDwBox;
+  unsigned char* cs = epi + wg * kDwYBoxes * kBox;
   int q = 0;
   bool stored = false;
   for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
@@ -683,13 +681,13 @@ gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
     for (int st = 0; st < steps; ++st, ++q) {
       const int s = q % kDwStages;
       mbar_wait(&full[s], (q / kDwStages) & 1);
-      const unsigned char* xs = ring + s * kDwStageBytes + wg * kDwBox;
-      const unsigned char* ys = ring + s * kDwStageBytes + kDwXBoxes * kDwBox;
+      const unsigned char* xs = ring + s * kDwStageBytes + wg * kBox;
+      const unsigned char* ys = ring + s * kDwStageBytes + kDwXBoxes * kBox;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDwBK / 16; ++kk)
-        Wgmma<T, kDwBN>::template ss<1, 1>(acc, desc_mnmajor(xs + kk * 2048, kDwBox),
-                                           desc_mnmajor(ys + kk * 2048, kDwBox), 1);
+        Wgmma<T, kDwBN>::template ss<1, 1>(acc, desc_mnmajor(xs + kk * 2048, kBox),
+                                           desc_mnmajor(ys + kk * 2048, kBox), 1);
       wgmma_commit();
       wgmma_wait<1>();
       if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
@@ -708,7 +706,7 @@ gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
       for (int r = 0; r < 2; ++r) {
         const int row = 16 * wq + gq + 8 * r;
         const int col = 8 * j + 2 * tq;
-        *reinterpret_cast<uint32_t*>(cs + (col / 64) * kDwBox + sw128(row, (col % 64) * 2)) =
+        *reinterpret_cast<uint32_t*>(cs + (col / 64) * kBox + sw128(row, (col % 64) * 2)) =
             Mma<T>::pack(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
     fence_async_smem();
@@ -716,7 +714,7 @@ gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
     if (tid == 0 && k0 + 64 * wg < p.k) {
 #pragma unroll
       for (int b = 0; b < kDwYBoxes; ++b)
-        if (n0 + 64 * b < p.n) tma_store_3d(&tdw, cs + b * kDwBox, n0 + 64 * b, k0 + 64 * wg, grp);
+        if (n0 + 64 * b < p.n) tma_store_3d(&tdw, cs + b * kBox, n0 + 64 * b, k0 + 64 * wg, grp);
       tma_store_commit();
     }
     stored = true;
@@ -740,6 +738,198 @@ int launch_dw_wgmma(const DwParams& p, int grid, cudaStream_t stream) {
   if (err) return err;
   gmm_dw_wgmma_kernel<T><<<grid, kDwThreads, kDwSmem + 4 * p.g, stream>>>(tx, tdy, tdw, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// dx on wgmma: a persistent grid over (m-tile, 128-row chunk, K column tile)
+// ---------------------------------------------------------------------------
+
+constexpr int kDxBM = 128;                // rows a tile: one consumer warpgroup each 64
+constexpr int kDxBK = 64;                 // columns of the contraction (N) a step
+constexpr int kDxThreads = 2 * 128 + 32;  // two consumer warpgroups, one producer warp
+
+// A tile of kDxBM rows by BN columns of K (BN 256 or 128, the plan's).
+template <int BN>
+struct DxShape {
+  static constexpr int kStages = BN == 256 ? 3 : 4;
+  static constexpr int kWBytes = BN * 128;                // w[g]'s [BN][64] box
+  static constexpr int kStageBytes = 2 * kBox + kWBytes;  // dy's two [64][64] boxes, then w's
+  static constexpr int kEpiBytes = 2 * (BN / 64) * kBox;  // each warpgroup's [64][BN] result
+  static constexpr size_t kSmem =
+      kStages * kStageBytes + kEpiBytes + 2 * kStages * sizeof(uint64_t) + 1024;
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
+
+struct DxParams {
+  const int* tile_groups;  // [M / block_m]
+  int* err;                // [1], set to 1 for a bad group id (or null)
+  int m, k, n, g, block_m;
+  int chunks;     // kDxBM-row chunks an m-tile (the wrapper's plan)
+  int col_tiles;  // BN-column tiles of K (the plan's)
+};
+
+// Tile `tile` of the walk -> (m-tile, first row in it, first column of K):
+// the m-tile slowest, then its chunks, then the column tiles.
+struct DxTile {
+  int mt, row0, k0;
+};
+
+template <int BN>
+__device__ __forceinline__ DxTile dx_tile(const DxParams& p, int tile) {
+  const int per_mtile = p.chunks * p.col_tiles;
+  const int mt = tile / per_mtile;
+  const int rem = tile - mt * per_mtile;
+  const int chunk = rem / p.col_tiles;
+  return {mt, chunk * kDxBM, (rem - chunk * p.col_tiles) * BN};
+}
+
+// Block b takes tiles b, b + gridDim.x, ... (the grid is the wrapper's).
+// Producer and consumers derive each tile's step count alike: ceil(N / 64),
+// or 0 for a bad group id, so the ring's phases stay in step. The producer
+// thread streams a step's dy boxes (the warpgroups' 64 rows each, read as
+// [tile][block_m][N]; a warpgroup with no row left in the m-tile gets none)
+// and w[g]'s [BN][64] box ([G][K][N]) through a kStages ring; each consumer
+// warpgroup multiplies its dy box (K-major A) by the w box (K-major B, the
+// transpose in place) into 64 x BN float32 accumulators, rounds them into
+// its swizzled out tile and TMA-stores it into dx ([tile][block_m][K]),
+// clipped to block_m and K, while the producer already loads the next tile.
+template <typename T, int BN>
+__global__ void __launch_bounds__(kDxThreads, 1)
+gmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUtensorMap tw,
+                    const __grid_constant__ CUtensorMap tdx, const DxParams p) {
+  using S = DxShape<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* epi = ring + S::kStages * S::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + S::kEpiBytes);
+  uint64_t* empty = full + S::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int total = (p.m / p.block_m) * p.chunks * p.col_tiles;
+  const int steps_all = (p.n + kDxBK - 1) / kDxBK;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp == 8) {  // producer: one thread issues every copy
+    if (threadIdx.x != 8 * 32) return;
+    int q = 0;  // steps so far over this block's tiles
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const DxTile t = dx_tile<BN>(p, tile);
+      const int gid = p.tile_groups[t.mt];
+      if (gid < 0 || gid >= p.g) continue;  // no step: no load leaves w
+      const bool both = t.row0 + 64 < p.block_m;
+      for (int st = 0; st < steps_all; ++st, ++q) {
+        const int s = q % S::kStages;
+        mbar_wait(&empty[s], ((q / S::kStages) & 1) ^ 1);
+        unsigned char* ys = ring + s * S::kStageBytes;
+        mbar_arrive_expect_tx(&full[s], (both ? 2 : 1) * kBox + S::kWBytes);
+        tma_load_3d(ys, &tdy, &full[s], st * kDxBK, t.row0, t.mt);
+        if (both) tma_load_3d(ys + kBox, &tdy, &full[s], st * kDxBK, t.row0 + 64, t.mt);
+        tma_load_3d(ys + 2 * kBox, &tw, &full[s], st * kDxBK, t.k0, gid);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2;  // this warpgroup's rows: 64 wg .. 64 wg + 63 of the tile
+  const int tid = threadIdx.x & 127;
+  const int wq = tid >> 5;
+  const int gq = (tid & 31) >> 2;
+  const int tq = tid & 3;
+  unsigned char* cs = epi + wg * (BN / 64) * kBox;
+  int q = 0;
+  bool stored = false;
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const DxTile t = dx_tile<BN>(p, tile);
+    const int gid = p.tile_groups[t.mt];
+    const bool ok = gid >= 0 && gid < p.g;
+    if (!ok && wg == 0 && tid == 0 && p.err != nullptr) *p.err = 1;  // every writer stores 1
+    const int steps = ok ? steps_all : 0;
+    const int row = t.row0 + 64 * wg;  // this warpgroup's first row in the m-tile
+    const bool live = row < p.block_m;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    // One step's products stay in flight while the next step's issue; a
+    // stage is released once the products that read it are done.
+    int held = -1;
+    for (int st = 0; st < steps; ++st, ++q) {
+      const int s = q % S::kStages;
+      mbar_wait(&full[s], (q / S::kStages) & 1);
+      if (live) {
+        const unsigned char* ys = ring + s * S::kStageBytes + wg * kBox;
+        const unsigned char* ws = ring + s * S::kStageBytes + 2 * kBox;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDxBK / 16; ++kk)
+          Wgmma<T, BN>::template ss<0, 0>(acc, desc_kmajor(ys + kk * 32),
+                                          desc_kmajor(ws + kk * 32), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<1>();
+      if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+      held = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+    if (!live) continue;
+    // Epilogue: the previous tile's store has read cs; round into the
+    // swizzled boxes; then one thread stores them.
+    if (stored && tid == 0) tma_store_wait_read();
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = 16 * wq + gq + 8 * r;
+        const int col = 8 * j + 2 * tq;
+        *reinterpret_cast<uint32_t*>(cs + (col / 64) * kBox + sw128(rr, (col % 64) * 2)) =
+            Mma<T>::pack(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    fence_async_smem();
+    named_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int b = 0; b < BN / 64; ++b)
+        if (t.k0 + 64 * b < p.k) tma_store_3d(&tdx, cs + b * kBox, t.k0 + 64 * b, row, t.mt);
+      tma_store_commit();
+    }
+    stored = true;
+  }
+  if (tid == 0) tma_store_wait_all();
+}
+
+template <typename T, int BN>
+int launch_dx_wgmma(const DxParams& p, const void* dy, const void* w, void* dx, int grid,
+                    cudaStream_t stream) {
+  using S = DxShape<BN>;
+  const uint64_t tiles = static_cast<uint64_t>(p.m / p.block_m);
+  const uint64_t bm = static_cast<uint64_t>(p.block_m);
+  CUtensorMap tdy, tw, tdx;
+  int err = tensor_map_3d<T>(&tdy, dy, p.n, bm, tiles, 2ull * p.n, 2ull * bm * p.n, 64);
+  if (err) return err;
+  err = tensor_map_3d<T>(&tw, w, p.n, p.k, p.g, 2ull * p.n, 2ull * p.k * p.n, BN);
+  if (err) return err;
+  err = tensor_map_3d<T>(&tdx, dx, p.k, bm, tiles, 2ull * p.k, 2ull * bm * p.k, 64);
+  if (err) return err;
+  static bool opted_in = false;
+  err = opt_in(gmm_dx_wgmma_kernel<T, BN>, S::kSmem, opted_in);
+  if (err) return err;
+  gmm_dx_wgmma_kernel<T, BN><<<grid, kDxThreads, S::kSmem, stream>>>(tdy, tw, tdx, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dx_width(const DxParams& p, const void* dy, const void* w, void* dx, int grid,
+                    int tile_k, cudaStream_t stream) {
+  return tile_k == 256 ? launch_dx_wgmma<T, 256>(p, dy, w, dx, grid, stream)
+                       : launch_dx_wgmma<T, 128>(p, dy, w, dx, grid, stream);
 }
 
 int launch_dw_f32(const DwParams& p, cudaStream_t stream) {
@@ -772,18 +962,46 @@ extern "C" int acs_grouped_matmul(const void* x, const void* w, const int* tile_
   p.vec_x = (k % 8 == 0) && aligned16(x);
   p.vec_w = (n % 8 == 0) && aligned16(w) && aligned16(out);
   p.vec_out = p.vec_w;
-  return launch_dtype<false>(p, dtype, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_f32_shape<false>(p, s);
+  return dtype == 1 ? launch_tc_shape<__nv_bfloat16>(p, s) : launch_tc_shape<__half>(p, s);
 }
 
 // dx [M, K] = each tile of dy [M, N] times its group's w [G, K, N]
 // transposed (read in place); a tile whose group id lies outside [0, G)
 // gets zeros and sets *err (err may be null: the forward has flagged the
-// same ids). Returns as acs_grouped_matmul.
+// same ids). float32 runs the FMA kernel, one block a (BM rows, 64
+// columns); bfloat16 and float16 the wgmma kernel on a persistent grid of
+// `grid` blocks over tiles tile_k (256 or 128) columns wide, both from the
+// wrapper's plan (K and N multiples of 8, dy, w and dx 16-byte aligned:
+// the wrapper's copies see to it), or zero dx when N is 0. Returns as
+// acs_grouped_matmul, or 1000 + libcuda's error when a tensor map cannot
+// be encoded.
 extern "C" int acs_grouped_matmul_dx(const void* dy, const void* w, const int* tile_groups,
                                      void* dx, int* err, int m, int k, int n, int g,
-                                     int block_m, int dtype, void* stream) {
-  if (dtype < 0 || dtype > 2) return -1;
+                                     int block_m, int dtype, int grid, int tile_k,
+                                     void* stream) {
+  if (dtype < 0 || dtype > 2 ||
+      (dtype != 0 && (grid < 1 || (tile_k != 256 && tile_k != 128) || k % 8 != 0 ||
+                      n % 8 != 0)))
+    return -1;
   if (m == 0 || k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0) {
+    if (n == 0) return static_cast<int>(cudaMemsetAsync(dx, 0, static_cast<size_t>(m) * k * 2, s));
+    DxParams p{};
+    p.tile_groups = tile_groups;
+    p.err = err;
+    p.m = m;
+    p.k = k;
+    p.n = n;
+    p.g = g;
+    p.block_m = block_m;
+    p.chunks = (block_m + kDxBM - 1) / kDxBM;
+    p.col_tiles = (k + tile_k - 1) / tile_k;
+    return dtype == 1 ? launch_dx_width<__nv_bfloat16>(p, dy, w, dx, grid, tile_k, s)
+                      : launch_dx_width<__half>(p, dy, w, dx, grid, tile_k, s);
+  }
   Params p{};
   p.x = dy;
   p.w = w;
@@ -795,10 +1013,7 @@ extern "C" int acs_grouped_matmul_dx(const void* dy, const void* w, const int* t
   p.n = k;  // the output's columns
   p.g = g;
   p.block_m = block_m;
-  p.vec_x = (n % 8 == 0) && aligned16(dy);
-  p.vec_w = (n % 8 == 0) && aligned16(w);
-  p.vec_out = (k % 8 == 0) && aligned16(dx);
-  return launch_dtype<true>(p, dtype, static_cast<cudaStream_t>(stream));
+  return launch_f32_shape<true>(p, s);
 }
 
 // dw [G, K, N]: for each group, the sum over its tiles (in index order) of

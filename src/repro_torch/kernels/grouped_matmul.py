@@ -30,18 +30,21 @@ the same inputs.
 
 Training: where ``x`` or ``w`` needs a gradient the call is a
 ``torch.autograd.Function`` whose forward is the same kernel and whose
-backward launches ``dx`` (``dy @ w[g]^T``, w read transposed in place) and
-``dw`` (each group's tiles summed in tile order, deterministic, 0 for a
-group no tile names), the hand-written entries of the same
-``csrc/grouped_matmul.cu``, counted on ``dx_launches`` and
-``dw_launches``; ``tile_groups`` and ``err`` get no gradient. ``dw`` in
-bfloat16 and float16 runs on ``wgmma`` with TMA-fed tiles over a
-persistent grid (:func:`dw_grid` sizes it): on x and dy themselves where
-TMA can address them (``"wgmma"``), else on aligned copies zero-padded to
-whole 16-byte rows, a launch for each run of ``DW_MAX_GROUPS`` groups
-(``"wgmma_padded"``), by the shape rule :func:`dw_path`; float32 on FMAs
-(``"fma_f32"``); ``dw_paths`` counts each call's path. On the CPU
-the same Function runs the plain forward and the plain backward
+backward launches ``dx`` (``dy @ w[g]^T``) and ``dw`` (each group's tiles
+summed in tile order, deterministic, 0 for a group no tile names), the
+hand-written entries of the same ``csrc/grouped_matmul.cu``, counted on
+``dx_launches`` and ``dw_launches``; ``tile_groups`` and ``err`` get no
+gradient. In bfloat16 and float16 both run on ``wgmma`` with TMA-fed tiles
+over a persistent grid, one block an SM. ``dx`` reads dy and w[g] both
+K-major in place (no transposed copy of w) over the output tiles of
+:func:`dx_plan`, which also picks the tiles' width; ``dw`` reads x and dy
+MN-major over the grid of :func:`dw_grid`. Each takes its operands
+themselves where TMA can address them (``"wgmma"``), else aligned copies
+zero-padded to whole 16-byte rows (``"wgmma_padded"``; ``dw`` a launch for
+each run of ``DW_MAX_GROUPS`` groups), by the shape rules :func:`dx_path`
+and :func:`dw_path`; float32 runs on FMAs (``"fma_f32"``). ``dx_paths``
+and ``dw_paths`` count each call's path. On the CPU the same Function runs
+the plain forward and the plain backward
 :func:`~.ref.grouped_matmul_bwd_ref`.
 
 A CPU tensor goes to the plain version :func:`~.ref.grouped_matmul_ref`; a
@@ -53,7 +56,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,8 +64,10 @@ from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
 from .ref import grouped_matmul_bwd_ref, grouped_matmul_ref
 
 __all__ = ["grouped_matmul", "grouped_matmul_bwd", "raise_on_error", "build", "launches",
-           "dx_launches", "dw_launches", "dw_paths", "reset_launches", "SOURCE", "dw_path",
-           "dw_grid", "DW_TILE_K", "DW_TILE_N", "DW_STEP_ROWS", "DW_MAX_GROUPS"]
+           "dx_launches", "dw_launches", "dx_paths", "dw_paths", "reset_launches", "SOURCE",
+           "dx_path", "dx_plan", "DxPlan", "DX_TILE_M", "DX_STEP_N", "DX_TILE_WIDTHS",
+           "DX_TILE_FIXED", "dw_path", "dw_grid", "DW_TILE_K", "DW_TILE_N", "DW_STEP_ROWS",
+           "DW_MAX_GROUPS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu"
 
@@ -73,22 +78,92 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # rows of a group's tiles at a time.
 DW_TILE_K, DW_TILE_N, DW_STEP_ROWS = 128, 256, 64
 DW_MAX_GROUPS = 4096  # kDwMaxGroups
+# The wgmma dx kernel's tile (kDxBM, kDxBK): DX_TILE_M rows of one m-tile
+# by one of DX_TILE_WIDTHS columns of K (the plan picks), contracted
+# DX_STEP_N columns of N at a time.
+DX_TILE_M, DX_STEP_N = 128, 64
+DX_TILE_WIDTHS = (256, 128)
+# A dx tile's time in columns of K: its width plus this much fixed work
+# (the epilogue, the ring's fill). On an H100 a 128-wide tile took 0.57 of
+# a 256-wide one at both of granite-moe's training shapes (chip_smoke.py
+# numbers_gmm_bwd); (128 + 32) / (256 + 32) = 0.56.
+DX_TILE_FIXED = 32
 
 # Kernel launches since the last reset_launches(): incremented once per
 # launch of the CUDA kernel (the forward), of the dx entry and of the dw
-# entry (its table and its product), never by the plain versions; dw_paths
-# counts each dw call's path.
+# entry (its table and its product), never by the plain versions;
+# dx_paths and dw_paths count each backward call's path.
 launches = 0
 dx_launches = 0
 dw_launches = 0
+dx_paths = {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
 dw_paths = {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
 
 
 def reset_launches() -> None:
     global launches, dx_launches, dw_launches
     launches = dx_launches = dw_launches = 0
-    for key in dw_paths:
-        dw_paths[key] = 0
+    for paths in (dx_paths, dw_paths):
+        for key in paths:
+            paths[key] = 0
+
+
+def dx_path(dy: torch.Tensor, w: torch.Tensor, dx: torch.Tensor) -> str:
+    """dx's path for these contiguous tensors: ``"wgmma"`` for bfloat16 and
+    float16 when TMA can address dy ``[M / block_m, block_m, N]``, w
+    ``[G, K, N]`` and dx ``[M / block_m, block_m, K]`` (K and N multiples
+    of 8, so rows are whole 16-byte units; every pointer 16-byte aligned),
+    for any number of groups; ``"wgmma_padded"`` for the other 16-bit
+    cases (the same kernel on aligned, padded copies) and ``"fma_f32"``
+    for float32."""
+    if dy.dtype == torch.float32:
+        return "fma_f32"
+    if (w.shape[1] % 8 == 0 and w.shape[2] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (dy, w, dx))):
+        return "wgmma"
+    return "wgmma_padded"
+
+
+class DxPlan(NamedTuple):
+    """The wgmma dx kernel's work: ``tiles`` output tiles of DX_TILE_M rows
+    by ``width`` columns of K, ``chunks`` of them down each m-tile and
+    ``col_tiles`` across K, walked by a linear index on ``grid`` persistent
+    blocks (block b takes b, b + grid, ...)."""
+    grid: int
+    width: int
+    chunks: int
+    col_tiles: int
+    tiles: int
+
+    def tile(self, i: int) -> Tuple[int, int, int]:
+        """Linear index -> (m-tile, chunk, column tile), the kernel's
+        ``dx_tile``: the m-tile slowest, the column tile fastest."""
+        per_mtile = self.chunks * self.col_tiles
+        return i // per_mtile, (i % per_mtile) // self.col_tiles, i % self.col_tiles
+
+
+def dx_plan(m: int, k: int, block_m: int, n_sm: int,
+            widths: Tuple[int, ...] = DX_TILE_WIDTHS) -> DxPlan:
+    """The wgmma dx kernel's persistent grid (one block an SM, no more than
+    there are tiles) and tile width. A tile's rows stay inside one m-tile
+    (``chunks`` = ceil(block_m / DX_TILE_M) a tile), so each tile has one
+    group. The width is the one of ``widths`` (the kernel's
+    DX_TILE_WIDTHS) whose busiest block finishes first: ceil(tiles / grid)
+    tiles, each taking width + DX_TILE_FIXED; the wider tile wins ties. At
+    granite-moe's gate / up product (K 1536) that is 256 (960 tiles, 7.27
+    a block), at its down product (K 512) 128 (640 tiles, 4.85 a block,
+    where 256 would leave 2.42 and a last round on 56 of 132 SMs)."""
+    m_tiles = m // block_m
+    chunks = -(-block_m // DX_TILE_M)
+    best = None
+    for width in widths:
+        col_tiles = -(-k // width)
+        tiles = m_tiles * chunks * col_tiles
+        grid = max(1, min(n_sm, tiles))
+        cost = -(-tiles // grid) * (width + DX_TILE_FIXED)
+        if best is None or cost < best[0]:
+            best = (cost, DxPlan(grid, width, chunks, col_tiles, tiles))
+    return best[1]
 
 
 def dw_path(x: torch.Tensor, dy: torch.Tensor, dw: torch.Tensor) -> str:
@@ -127,6 +202,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr, ptr,  # dy, w, tile_groups, dx, err
         i32, i32, i32, i32, i32,  # M, K, N, G, block_m
         i32,                      # dtype
+        i32, i32,                 # grid, tile width (16-bit: the plan's)
         ptr,                      # stream
     ]
     lib.acs_grouped_matmul_dx.restype = i32
@@ -252,12 +328,17 @@ def grouped_matmul_bwd(x, w, tile_groups, dy, *, block_m, need_dx=True, need_dw=
     dx = dw = None
     if need_dx:  # no error flag: the forward flagged the same ids
         dx = torch.empty_like(x)
-        rc = lib.acs_grouped_matmul_dx(dy.data_ptr(), w.data_ptr(), tile_groups.data_ptr(),
-                                       dx.data_ptr(), None, m, k, n, g, block_m,
-                                       _DTYPES[x.dtype], stream)
+        path = dx_path(dy, w, dx)
+        if path == "fma_f32":
+            rc = lib.acs_grouped_matmul_dx(dy.data_ptr(), w.data_ptr(), tile_groups.data_ptr(),
+                                           dx.data_ptr(), None, m, k, n, g, block_m, 0, 0, 0,
+                                           stream)
+        else:
+            rc = _dx_wgmma(lib, dy, w, tile_groups, dx, block_m, path, stream)
         if rc != 0:
-            raise RuntimeError(f"grouped_matmul dx launch failed: CUDA error {rc}")
+            raise RuntimeError(f"grouped_matmul dx launch failed ({path} path): CUDA error {rc}")
         dx_launches += 1
+        dx_paths[path] += 1
     if need_dw:
         dw = torch.empty_like(w)
         path = dw_path(x, dy, dw)
@@ -276,11 +357,39 @@ def grouped_matmul_bwd(x, w, tile_groups, dy, *, block_m, need_dx=True, need_dw=
     return dx, dw
 
 
-def _padded(t: torch.Tensor, cols: int) -> torch.Tensor:
-    """An aligned copy of ``t`` [rows, c] zero-padded to ``cols`` columns."""
-    out = t.new_zeros((t.shape[0], cols))
-    out[:, :t.shape[1]] = t
+def _padded(t: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """An aligned copy of ``t`` zero-padded to ``shape``."""
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, d) for d in t.shape)] = t
     return out
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _dx_wgmma(lib, dy, w, tile_groups, dx, block_m, path, stream) -> int:
+    """dx on the wgmma kernel over :func:`dx_plan`'s tiles: on dy and w
+    themselves, or (``"wgmma_padded"``) on aligned copies, dy zero-padded
+    to a multiple of 8 columns and w to multiples of 8 rows and columns,
+    into a dx padded likewise (copied out) where K is not a multiple of 8.
+    Returns the C entry's code."""
+    m, n = dy.shape
+    g, k, _ = w.shape
+    out = dx
+    if path == "wgmma_padded":
+        k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+        dy, w = _padded(dy, (m, n8)), _padded(w, (g, k8, n8))
+        if k8 != k:
+            out = dx.new_empty((m, k8))
+        k, n = k8, n8
+    plan = dx_plan(m, k, block_m, _sm_count(dy.device))
+    rc = lib.acs_grouped_matmul_dx(dy.data_ptr(), w.data_ptr(), tile_groups.data_ptr(),
+                                   out.data_ptr(), None, m, k, n, g, block_m,
+                                   _DTYPES[dy.dtype], plan.grid, plan.width, stream)
+    if rc == 0 and out is not dx:
+        dx.copy_(out[:, :dx.shape[1]])
+    return rc
 
 
 def _dw_wgmma(lib, x, dy, tile_groups, dw, block_m, path, stream) -> int:
@@ -294,11 +403,11 @@ def _dw_wgmma(lib, x, dy, tile_groups, dw, block_m, path, stream) -> int:
     out = dw
     if path == "wgmma_padded":
         k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
-        x, dy = _padded(x, k8), _padded(dy, n8)
+        x, dy = _padded(x, (m, k8)), _padded(dy, (m, n8))
         if (k8, n8) != (k, n):
             out = dw.new_empty((g, k8, n8))
         k, n = k8, n8
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_sm = _sm_count(x.device)
     for g0 in range(0, g, DW_MAX_GROUPS):
         run = min(DW_MAX_GROUPS, g - g0)
         ids = tile_groups if g0 == 0 else tile_groups - g0

@@ -6,15 +6,17 @@ to the kernels: flash attention's key-tile pass runs the rows of
 items split over blocks, split key tiles' partial sums added in slot
 order), its query-tile pass a grid of ``dq_blocks`` whose query tiles
 stream the key tiles of the plan's ``dq_span``; the grouped GEMM's ``dw``
-a persistent grid of ``dw_grid`` blocks. These tests hold each to a
-brute-force enumeration over the shapes of ``chip_smoke.py``'s
-``FLASH_BWD_SWEEP`` and ``GMM_BWD_SWEEP`` and a property sweep: every
-visible (query head, query tile, key tile) is covered exactly once, partial
-sums are added in one fixed order, and the dw grid is no larger than its
-tiles. How each dw block walks its tiles is the kernel's alone, held on
-the card. They also check the shape rules that send each call to the
-wgmma path or, for tensors TMA cannot address, to the same kernels on
-aligned, padded copies.
+a persistent grid of ``dw_grid`` blocks, its ``dx`` the persistent grid
+and tile width of ``dx_plan``. These tests hold each to a brute-force
+enumeration over the shapes of ``chip_smoke.py``'s ``FLASH_BWD_SWEEP``
+and ``GMM_BWD_SWEEP`` and a property sweep: every visible (query head,
+query tile, key tile) is covered exactly once, partial sums are added in
+one fixed order, the dw grid is no larger than its tiles, and dx's linear
+tile index covers every (m-tile, chunk, column tile) once with no tile
+leaving its m-tile. How each dw block walks its tiles is the kernel's
+alone, held on the card. They also check the shape rules that send each
+call to the wgmma path or, for tensors TMA cannot address, to the same
+kernels on aligned, padded copies.
 """
 
 from __future__ import annotations
@@ -248,6 +250,61 @@ def test_dw_grid_fits_every_shape(g, k, n, n_sm):
     check_dw_plan(g, k, n, n_sm)
 
 
+def check_dx_plan(m, k, block_m, n_sm):
+    """The persistent grid: one block an SM, none without a tile; the
+    linear index covers every (m-tile, chunk, column tile) exactly once,
+    m-tile slowest; each tile's rows lie inside one m-tile; the width is
+    one of the kernel's."""
+    plan = gm.dx_plan(m, k, block_m, n_sm)
+    m_tiles = m // block_m
+    assert plan.width in gm.DX_TILE_WIDTHS
+    assert plan.chunks == -(-block_m // gm.DX_TILE_M)
+    assert plan.col_tiles == -(-k // plan.width)
+    assert plan.tiles == m_tiles * plan.chunks * plan.col_tiles
+    assert 1 <= plan.grid <= n_sm and plan.grid <= max(1, plan.tiles)
+    seen = [plan.tile(i) for i in range(plan.tiles)]
+    assert sorted(seen) == seen  # consecutive indices walk one m-tile's tiles together
+    assert set(seen) == {(t, c, j) for t in range(m_tiles) for c in range(plan.chunks)
+                         for j in range(plan.col_tiles)}
+    assert len(set(seen)) == len(seen)
+    for t, c, j in seen:
+        first = t * block_m + c * gm.DX_TILE_M
+        last = min(first + gm.DX_TILE_M, (t + 1) * block_m) - 1
+        assert t * block_m <= first <= last < (t + 1) * block_m  # never across an m-tile
+        assert j * plan.width < k
+    return plan
+
+
+@pytest.mark.parametrize("name", sorted(smoke.GMM_BWD_SWEEP))
+@pytest.mark.parametrize("n_sm", [132, 3])
+def test_dx_plan_fits_the_sweep(name, n_sm):
+    _, k, _, bm, tiles = smoke.GMM_BWD_SWEEP[name]
+    check_dx_plan(len(tiles) * bm, k, bm, n_sm)
+
+
+@pytest.mark.parametrize("block_m", [1, 8, 70, 512])
+@pytest.mark.parametrize("k", [8, 200, 512, 1536])
+def test_dx_tiles_stay_in_their_m_tile(block_m, k):
+    check_dx_plan(5 * block_m, k, block_m, 132)
+
+
+def test_dx_plan_at_granites_training_shapes():
+    """Both of granite's products on the whole card: 960 tiles of 128 x
+    256 for gate / up (K 1536); for down (K 512) 640 tiles of 128 x 128,
+    whose last round fills the card better than 320 of 128 x 256 (2.42
+    rounds), as the card measured."""
+    want = {"": (256, 960), "down_": (128, 640)}
+    for prefix, (g, k, _, cap) in smoke.GMM_TRAIN.items():
+        plan = check_dx_plan(g * cap, k, cap, 132)
+        assert (plan.grid, plan.width, plan.tiles) == (132, *want[prefix]), prefix
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 12), st.integers(1, 300), st.integers(1, 700), st.integers(1, 140))
+def test_dx_plan_fits_every_shape(m_tiles, block_m, k, n_sm):
+    check_dx_plan(m_tiles * block_m, k, block_m, n_sm)
+
+
 def _bf16(*shape, offset=0):
     """A contiguous bf16 tensor ``offset`` elements into its buffer."""
     n = int(np.prod(shape))
@@ -279,13 +336,46 @@ def test_dw_path_rule():
     assert gm.dw_path(x.float(), dy.float(), dw.float()) == "fma_f32"
 
 
+def test_dx_path_rule():
+    """wgmma where TMA can address dy, w and dx, for any number of groups;
+    the padded copies for K or N off the 8-element rows or a pointer off
+    16-byte alignment; FMAs for float32."""
+    dy, w, dx = _bf16(64, 256), _bf16(2, 128, 256), _bf16(64, 128)
+    assert gm.dx_path(dy, w, dx) == "wgmma"
+    assert gm.dx_path(dy.half(), w.half(), dx.half()) == "wgmma"
+    assert gm.dx_path(_bf16(64, 256), _bf16(2, 37, 256), _bf16(64, 37)) == "wgmma_padded"
+    assert gm.dx_path(_bf16(64, 131), _bf16(2, 128, 131), dx) == "wgmma_padded"
+    assert gm.dx_path(_bf16(64, 256, offset=1), w, dx) == "wgmma_padded"
+    assert gm.dx_path(dy, _bf16(2, 128, 256, offset=4), dx) == "wgmma_padded"
+    assert gm.dx_path(dy, w, _bf16(64, 128, offset=2)) == "wgmma_padded"
+    assert gm.dx_path(_bf16(0, 256), w, _bf16(0, 128)) == "wgmma"
+    assert gm.dx_path(_bf16(4, 24), _bf16(gm.DW_MAX_GROUPS + 4, 16, 24), _bf16(4, 16)) == "wgmma"
+    assert gm.dx_path(dy.float(), w.float(), dx.float()) == "fma_f32"
+
+
 def test_wrappers_count_paths_per_call():
     """The path counters start at zero after reset_launches and name every
     path; the launch counters stay one per call (checked on the card)."""
+    gm.dx_paths["wgmma"] = gm.dw_paths["wgmma_padded"] = 3
     fa.reset_launches()
     gm.reset_launches()
     assert fa.backward_paths == {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
+    assert gm.dx_paths == {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
     assert gm.dw_paths == {"wgmma": 0, "wgmma_padded": 0, "fma_f32": 0}
+    assert (gm.launches, gm.dx_launches, gm.dw_launches) == (0, 0, 0)
+
+
+def test_backward_counts_nothing_on_the_cpu():
+    """On the CPU the backward is the plain version: no launch and no path
+    is counted, under autograd as well."""
+    gm.reset_launches()
+    x = torch.randn(16, 8, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(2, 8, 16, dtype=torch.bfloat16, requires_grad=True)
+    tg = torch.tensor([1, 0], dtype=torch.int32)
+    gm.grouped_matmul(x, w, tg, block_m=8).float().sum().backward()
+    assert x.grad is not None and w.grad is not None
+    assert (gm.launches, gm.dx_launches, gm.dw_launches) == (0, 0, 0)
+    assert sum(gm.dx_paths.values()) == sum(gm.dw_paths.values()) == 0
 
 
 def test_bwd_trace_finds_every_anchor():
@@ -301,3 +391,18 @@ def test_bwd_trace_finds_every_anchor():
         indent = anchor[:len(anchor) - len(anchor.lstrip())]
         assert bwd_trace._stamp(pass_, mark, indent) + anchor in text
     assert 'extern "C" int acs_trace_read(' in text
+
+
+@pytest.mark.parametrize("kernel", ["grouped_matmul", "flash_attention"])
+def test_tile_sweep_variants_find_their_lines(kernel):
+    """``tile_sweep`` builds each variant from a copy of the source with a
+    line of text replaced: every line it replaces is still in the source
+    (the forward's launch shapes, once the dx kernel left its template)."""
+    from repro_torch.kernels import tile_sweep
+
+    mod, variants = ((tile_sweep.gm, tile_sweep.GMM_VARIANTS) if kernel == "grouped_matmul"
+                     else (tile_sweep.fa, tile_sweep.FLASH_VARIANTS))
+    text = mod.SOURCE.read_text()
+    for name, subs in variants.items():
+        for old in subs:
+            assert text.count(old) == 1, (name, old)

@@ -72,9 +72,11 @@
   them), each 16-bit case on the path its shape rule names (wgmma with
   TMA, on the tensors or, for D 36 and pointers off 16-byte alignment, on
   padded copies), the grouped GEMM's ``dx`` and ``dw`` within tolerance
-  of ``grouped_matmul_bwd_ref`` (``dw`` on both wgmma paths, more groups
-  than one launch takes among them; a group no tile names exactly 0, the
-  same bits twice), the RG-LRU reverse scan bit-equal to
+  of ``grouped_matmul_bwd_ref`` (both on both wgmma paths, ``dx`` at
+  ``block_m`` 1 to 512 and 4,100 groups, ``dw`` over more groups than one
+  launch takes; a group no tile names exactly 0, a ``dx`` tile with a bad
+  group id zeros and flagged, the same bits twice), the RG-LRU reverse
+  scan bit-equal to
   ``lru_scan_bwd_ref``, each autograd Function launching its kernels, the
   wrappers still without a backward (the selective scan, flash at
   Dv != D) refusing grad, and reduced configs' gradients on the card
@@ -1401,15 +1403,20 @@ def test_kernel_wrappers_refuse_grad(device):
 
 # (G, K, N, block_m, tile group ids) for the grouped GEMM's backward:
 # granite's training shape cut to 8 experts, repeated groups and groups no
-# tile names, block_m 1, 8 and 512, K and N off the 8-element copies and
-# the 128-wide tiles, and more groups than the wgmma dw kernel takes in one
-# launch. Tolerances of the largest entry: float32 1e-5 (summation order),
-# float16 / bfloat16 8e-3 (rounded once to the type).
+# tile names, block_m 1, 8, 24 (deepseek-v2's capacity), 70 and 512, K and
+# N off the 8-element copies and the 128- and 256-wide tiles, and more
+# groups than the wgmma dw kernel takes in one launch. Tolerances of the
+# largest entry: float32 1e-5 (summation order), float16 / bfloat16 8e-3
+# (rounded once to the type).
 GMM_BWD = {
     "granite_cut": (8, 1536, 512, 512, tuple(range(8))),
     "groups_past_one_launch": (4100, 16, 24, 4, (4099, 0, 4096, 4095, 4099, 7)),
     "repeats_unused": (6, 72, 40, 8, (0, 3, 3, 0, 5, 3)),
     "bm1_off_edges": (5, 37, 131, 1, (4, 0, 4, 2, 2, 4, 0)),
+    "bm1_aligned": (5, 64, 40, 1, (4, 0, 4, 2, 2, 4, 0)),
+    "bm24_deepseek_c": (4, 136, 64, 24, (3, 0, 1, 3)),
+    "bm70": (3, 328, 72, 70, (2, 0, 2)),
+    "bm70_off_edges": (4, 130, 264, 70, (3, 1, 3)),
     "bm512_off_tiles": (3, 200, 136, 512, (2, 2, 0)),
     "two_dispatch_groups": (8, 256, 96, 64, tuple(range(8)) * 2),
 }
@@ -1456,6 +1463,83 @@ def test_grouped_matmul_dw_takes_its_path(device, name, offset, path, dtype):
         assert bool((dw[unused] == 0).all())
     again = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm, need_dx=False)[1]
     assert torch.equal(again, dw)
+
+
+# (case, elements dy sits into its buffer, dx's path): the wgmma path on
+# the aligned cases (block_m 1, 8, 24, 70 and 512; 4,100 groups: dx has no
+# group limit); aligned, padded copies for K or N off the 8-element rows
+# and for dy off 16-byte alignment.
+GMM_DX_PATHS = [
+    ("granite_cut", 0, "wgmma"),
+    ("repeats_unused", 0, "wgmma"),
+    ("bm1_aligned", 0, "wgmma"),
+    ("bm24_deepseek_c", 0, "wgmma"),
+    ("bm70", 0, "wgmma"),
+    ("bm512_off_tiles", 0, "wgmma"),
+    ("two_dispatch_groups", 0, "wgmma"),
+    ("groups_past_one_launch", 0, "wgmma"),
+    ("bm1_off_edges", 0, "wgmma_padded"),
+    ("bm70_off_edges", 0, "wgmma_padded"),
+    ("granite_cut", 1, "wgmma_padded"),
+    ("bm24_deepseek_c", 3, "wgmma_padded"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name,offset,path", GMM_DX_PATHS)
+def test_grouped_matmul_dx_takes_its_path(device, name, offset, path, dtype):
+    """dx by the shape rule on the wgmma kernel (the persistent grid of
+    ``dx_plan``), on dy and w or on padded copies: counted once on its
+    path, within tolerance of the plain version, the same bits twice."""
+    g, k, n, bm, tiles = GMM_BWD[name]
+    rng = np.random.RandomState(sum(map(ord, name)) + offset + 1)
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    x, w, dy = make(len(tiles) * bm, k), make(g, k, n), make(len(tiles) * bm, n)
+    if offset:
+        dy = _offset_copy(dy, offset)
+    tg = torch.tensor(tiles, dtype=torch.int32, device=device)
+    before, paths = gm.dx_launches, dict(gm.dx_paths)
+    dx, _ = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm, need_dw=False)
+    torch.cuda.synchronize()
+    assert gm.dx_launches == before + 1
+    assert {p: gm.dx_paths[p] - paths[p] for p in paths} == {p: int(p == path) for p in paths}
+    want = grouped_matmul_bwd_ref(x, w, tg, dy, block_m=bm)[0]
+    assert dx.dtype == dtype and dx.shape == want.shape
+    err = float((dx.float() - want.float()).abs().max())
+    assert err <= GMM_BWD_TOL[dtype] * float(want.float().abs().max()), err
+    again = gm.grouped_matmul_bwd(x, w, tg, dy, block_m=bm, need_dw=False)[0]
+    assert torch.equal(again, dx)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("width", [256, 128])
+def test_grouped_matmul_dx_bad_group_ids_write_zeros(device, width, dtype):
+    """The C entry on the wgmma path, at either tile width: a tile whose
+    group id lies outside [0, G) (-1, G) is all zeros and sets err; the
+    others are the plain version's."""
+    g, k, n, bm = 4, 264, 136, 16
+    tiles = (0, -1, 3, 4, 1)
+    rng = np.random.RandomState(width)
+    make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
+    w, dy = make(g, k, n), make(len(tiles) * bm, n)
+    dx = torch.full((len(tiles) * bm, k), 7.0, dtype=dtype, device=device)
+    tg = torch.tensor(tiles, dtype=torch.int32, device=device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    plan = gm.dx_plan(dx.shape[0], k, bm, 132, widths=(width,))
+    rc = gm._LIB.get().acs_grouped_matmul_dx(
+        dy.data_ptr(), w.data_ptr(), tg.data_ptr(), dx.data_ptr(), err.data_ptr(), dx.shape[0],
+        k, n, g, bm, 1 if dtype == torch.bfloat16 else 2, plan.grid, plan.width,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and int(err[0]) == 1
+    for t, gid in enumerate(tiles):
+        rows = dx[t * bm:(t + 1) * bm]
+        if 0 <= gid < g:
+            want = (dy[t * bm:(t + 1) * bm].float() @ w[gid].float().t())
+            tol = GMM_BWD_TOL[dtype] * float(want.abs().max())
+            assert float((rows.float() - want).abs().max()) <= tol
+        else:
+            assert bool((rows == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
