@@ -9,7 +9,7 @@ Phases, each fatal on failure (an exception, exit code != 0):
 2. Build: the eight CUDA kernel libraries (ready queue, wave megakernel,
    flash attention, flash attention's backward on wgmma and its float32
    path, RG-LRU scan and its reverse scan, grouped GEMM and
-   its dx and dw entries, selective scan)
+   its dx and dw entries, selective scan and its backward)
    from the sources in this checkout, one ``nvcc`` each, all started
    together; each one's build seconds and, from ``ptxas -v``, each
    kernel's registers, static shared memory and spills.
@@ -76,8 +76,23 @@ Phases, each fatal on failure (an exception, exit code != 0):
       without lse; the same bits on a second launch; each case's path
       (wgmma with TMA on all of them); the same kernels on padded copies
       for q and dO off 16-byte alignment at D 64, 128 and 256, bf16 and
-      f16, within the bf16 tolerance, the same bits twice; Dv != D (MLA)
-      raises under grad;
+      f16, within the bf16 tolerance, the same bits twice; Dv != D on its
+      own (192, 128) instantiation: deepseek-v2's MLA training shape
+      [4, 128, 512, 192], v [.., 128], a ragged Sk, Sq off the tiles, GQA
+      with a window (also padded), the reduced MLA's 16 / 8; under grad at
+      D 192, Dv 128 the Function launches the forward and the wgmma
+      backward once each, within tolerance of autograd through the plain
+      version;
+   d''. the selective scan's backward (``acs_mamba_scan_bwd``,
+      SCAN_BWD_SWEEP): the fused entry's nine gradients against
+      ``mamba_scan_bwd_ref`` in float32 and bf16 (z, b, c strided; hT's
+      gradient given) and the scan alone's six against
+      ``selective_scan_bwd_ref``, within SCAN_BWD_TOL of each one's largest
+      entry, at falcon-mamba-7b's training shape [4, 512, 8192], N 16, and
+      S 1, S off the 64-step chunk, E off the 32-channel tile, N 5 and 1;
+      the forward that saves the chunk states keeps the serving call's
+      bits; the same bits on a second launch; under grad ``mamba_scan``
+      launches its forward and backward once each;
    e. ``grouped_matmul``: within tolerance of ``grouped_matmul_ref``
       (float32 1e-4, float16 and bfloat16 8e-3: one bfloat16 ulp) over the
       reference's ragged cases (N off the tile, groups with no tile),
@@ -89,7 +104,9 @@ Phases, each fatal on failure (an exception, exit code != 0):
    e'. the grouped GEMM's backward (``grouped_matmul_bwd``: dx, dw;
       GMM_BWD_SWEEP) within GMM_BWD_TOL of ``grouped_matmul_bwd_ref`` at
       granite-moe-3b-a800m's training shapes (40 experts, C 512: w [40,
-      1536, 512] and [40, 512, 1536]), a two-dispatch-group capacity
+      1536, 512] and [40, 512, 1536]), deepseek-v2's expert shapes (160
+      experts, C 96: w [160, 5120, 1536] and [160, 1536, 5120]; the
+      one-layer train cut runs no MoE layer), a two-dispatch-group capacity
       layout, ragged cases with repeated groups and groups no tile names
       (dw exactly 0), block_m 1, 8, 64, 70 and 512, K and N off the tile
       edges, in float32, float16 and bfloat16; the same bits on a second
@@ -213,18 +230,21 @@ Phases, each fatal on failure (an exception, exit code != 0):
    a state and step), flash, the
    grouped GEMM, the scans and the ready queue also 20 launches back to
    back, flash's and the scans' device times, each kernel's bound, the
-   backward kernels at their training shapes (flash's at minicpm-2b's and
-   at recurrentgemma-2b's D 256 beside SDPA's backward through autograd,
+   backward kernels at their training shapes (flash's at minicpm-2b's, at
+   recurrentgemma-2b's D 256 and at deepseek-v2's MLA (D 192, Dv 128)
+   beside SDPA's backward through autograd,
    its backend named, with its path, its plan's blocks, split key tiles
    and workspace slots, each pass's device time (prologue, dK/dV,
    reduction, dQ) and its kernels' ``ptxas -v``; the grouped GEMM's dx and
-   dw at granite's gate/up and down products beside ``torch.bmm`` on the
-   capacity layout, dx on ``"wgmma"`` at both with its plan (grid, tile
+   dw at granite's and deepseek-v2's gate/up and down products beside
+   ``torch.bmm`` on the capacity layout, dx on ``"wgmma"`` at each with its plan (grid, tile
    width), each width's times, the bytes TMA loads and ``ptxas -v``, dw
    with its path, grid, ``ptxas -v`` and the float32 path's tile-table
    kernel timed alone, and the forward at the same shapes beside
    ``torch.bmm(x, w)``; the RG-LRU reverse scan at [4,
-   512, 2560] f32, no library call), and
+   512, 2560] f32, no library call; the selective scan's backward at
+   falcon-mamba-7b's [4, 512, 8192], N 16, bf16, its kernel and reduction
+   timed, no library call), and
    the wall time of each phase-4/5/6 policy and server. The ready queue also: its device time from
    ``torch.profiler`` (the mean over the kernels the trace holds), that
    of ONE 32-deep chain (over 32: the hop that bounds it) and of one
@@ -242,11 +262,14 @@ Phases, each fatal on failure (an exception, exit code != 0):
    whole (each model freed before the next is built): minicpm-2b (40
    layers, 2.72 B parameters), granite-moe-3b-a800m (32 layers, 40
    experts, 3.30 B) and recurrentgemma-2b (26 layers, 18 RG-LRU, D 256,
-   2.90 B), bf16 from seed 0, tp_size 1, AdamW's float32 master, m and v
-   on the card, batches of TokenPipeline(vocab, 512, 4, seed=0): step 0's
-   loss and gradients through the kernels against the same step with
-   ``ops.attention``, ``ops.grouped_matmul`` and ``ops.lru_scan`` swapped
-   for their plain versions (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL,
+   2.90 B), and cut in depth (TRAIN_CUTS) deepseek-v2-236b (its first,
+   dense layer: MLA at D 192 / Dv 128, 1.39 B) and falcon-mamba-7b (32 of
+   its 64 layers, 3.50 B), bf16 from seed 0, tp_size 1, AdamW's float32
+   master, m and v on the card, batches of TokenPipeline(vocab, 512, 4,
+   seed=0): step 0's loss and gradients through the kernels against the
+   same step with ``ops.attention``, ``ops.grouped_matmul``,
+   ``ops.lru_scan`` and ``ops.mamba_scan`` swapped for their plain
+   versions (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL,
    TRAIN_MIN_COSINE; a MoE's plain pass replays the kernel pass's routing
    choices, and a plain pass routing for itself is logged beside it), then
    5 ``StepBundle.train_step``s (remat, lr 3e-4, clip 1.0): losses and
@@ -254,7 +277,9 @@ Phases, each fatal on failure (an exception, exit code != 0):
    step (``expected_train_launches``: minicpm flash 80 / 40; granite flash
    64 / 32, grouped GEMM 192, dx 96 (all on its wgmma path), dw 96;
    recurrentgemma flash 16 / 8,
-   RG-LRU 34 (its two prefix layers are not recomputed), reverse 18);
+   RG-LRU 34 (its two prefix layers are not recomputed), reverse 18;
+   deepseek flash 1 / 1 (a prefix layer); falcon-mamba scan 64, its
+   backward 32);
    step ms, tokens/s, MFU (6 N D, a MoE's N its
    active parameters, over the bf16 peak) and peak device memory logged,
    and one more step under ``torch.profiler`` (device time by kernel
@@ -351,13 +376,20 @@ FRONTEND_TOL = {"float32": (1e-3, 1e-3, 0.0), "bfloat16": (0.0, 0.0, 0.06)}
 # 1.0 (each stage recomputed in the backward, the reference's remat). Each
 # model is freed before the next is built. TRAIN_ARCH is the one the
 # Trainer's crash-and-resume phase (9b) cuts down.
-TRAIN_ARCHS = ("minicpm-2b", "granite-moe-3b-a800m", "recurrentgemma-2b")
+# deepseek-v2-236b and falcon-mamba-7b do not fit whole beside AdamW's
+# state (16 bytes a parameter): deepseek's one MoE layer alone is 3.77 B
+# parameters (its first, dense layer and the embeddings 1.39 B, 22.2 GB),
+# falcon-mamba's 64 layers 6.73 B (107.7 GB; 32 layers 3.50 B, 56.0 GB).
+TRAIN_ARCHS = ("minicpm-2b", "granite-moe-3b-a800m", "recurrentgemma-2b", "deepseek-v2-236b",
+               "falcon-mamba-7b")
+TRAIN_CUTS = {"deepseek-v2-236b": {"n_layers": 1}, "falcon-mamba-7b": {"n_layers": 32}}
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR, TRAIN_CLIP = (
     "minicpm-2b", 512, 4, 5, 3e-4, 1.0)
 # Step 0's loss and gradients through the kernels (flash forward and its
 # backward, the grouped GEMM and its dx and dw, the RG-LRU scan and its
-# reverse) held to the same step with ops.attention, ops.grouped_matmul and
-# ops.lru_scan swapped for their plain versions (autograd through them),
+# reverse, the selective scan and its backward) held to the same step with
+# ops.attention, ops.grouped_matmul, ops.lru_scan and ops.mamba_scan
+# swapped for their plain versions (autograd through them),
 # both in bf16 on the card. The two paths differ by bf16 roundings only:
 # flash rounds P to bf16 before its PV product and P and dS before its
 # backward products where the plain attention computes in float32 and
@@ -1151,33 +1183,50 @@ FLASH_BWD_SWEEP = [
     ((1, 2, 1, 100, 100, 256), {"q_offset": -70}),
     ((1, 4, 2, 65, 130, 200), {"q_offset": 65}),
     ((2, 4, 4, 70, 70, 136), {"causal": False, "window": 20}),
+    # Dv != D (a seventh entry, v's width): deepseek-v2's MLA training
+    # shape (128 heads, D 192, Dv 128), a ragged Sk, Sq off the 64-row
+    # tiles, GQA with a window, and the reduced MLA's 16 / 8 with a prefix.
+    ((4, 128, 128, 512, 512, 192, 128), {}),
+    ((1, 4, 2, 97, 150, 192, 128), {"q_offset": 53}),
+    ((2, 8, 8, 100, 100, 192, 128), {}),
+    ((1, 8, 2, 130, 130, 192, 128), {"window": 40}),
+    ((2, 4, 4, 70, 70, 16, 8), {"prefix_len": 9}),
 ]
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The sweep's rows that phase 3d' also runs with q and dO off 16-byte
 # alignment (the wgmma kernels on padded copies), one for each tile width:
-# GQA at D 64, h2o-danube-3-4b's D 128 and recurrentgemma-2b's D 256.
-FLASH_BWD_PADDED = (1, 10, 11)
+# GQA at D 64, h2o-danube-3-4b's D 128, recurrentgemma-2b's D 256 and MLA's
+# 192 / 128 over GQA.
+FLASH_BWD_PADDED = (1, 10, 11, 21)
+
+
+def _bwd_shape(shape):
+    """``(b, h, hkv, sq, sk, d, dv)`` of a FLASH_BWD_SWEEP row (dv = d
+    where the row has no seventh entry)."""
+    return (*shape[:6], shape[6] if len(shape) > 6 else shape[5])
 
 
 def phase_flash_bwd_vs_plain(device):
     """The backward kernel against ``attention_bwd_ref`` on the forward
-    kernel's o and lse over FLASH_BWD_SWEEP, float32 and bf16; lse against
-    ``attention_lse_ref`` (1e-4; -inf on a row that sees no key); the
-    forward's output bits the same with and without lse; the backward's
-    bits the same on a second launch (no atomics); Dv != D (MLA), which
-    the backward does not take, raises under grad."""
+    kernel's o and lse over FLASH_BWD_SWEEP (Dv == D, and MLA's Dv != D),
+    float32 and bf16; lse against ``attention_lse_ref`` (1e-4; -inf on a
+    row that sees no key); the forward's output bits the same with and
+    without lse; the backward's bits the same on a second launch (no
+    atomics); under grad at D 192, Dv 128 the Function runs the wgmma
+    backward."""
     import torch
-    from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     gen = torch.Generator(device=device)
     gen.manual_seed(4)
-    for (b, h, hkv, sq, sk, d), flags in FLASH_BWD_SWEEP:
+    for shape, flags in FLASH_BWD_SWEEP:
+        b, h, hkv, sq, sk, d, dv = _bwd_shape(shape)
         for dtype in (torch.float32, torch.bfloat16):
-            q, do = (torch.randn(b, h, sq, d, generator=gen, device=device).to(dtype)
-                     for _ in range(2))
-            k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
-                    for _ in range(2))
+            q = torch.randn(b, h, sq, d, generator=gen, device=device).to(dtype)
+            do = torch.randn(b, h, sq, dv, generator=gen, device=device).to(dtype)
+            k = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+            v = torch.randn(b, hkv, sk, dv, generator=gen, device=device).to(dtype)
             out, lse = fa.flash_attention_lse(q, k, v, **flags)
             check(torch.equal(out, fa.flash_attention(q, k, v, **flags)),
                   f"flash_attention: the lse output changed the forward's bits at {flags}")
@@ -1192,13 +1241,13 @@ def phase_flash_bwd_vs_plain(device):
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
                 err, scale = float((g.float() - w).abs().max()), float(w.abs().max())
                 check(g.dtype == dtype and g.shape == w.shape and err <= tol * scale,
-                      f"flash backward {name} != plain at {(b, h, hkv, sq, sk, d)} {flags} "
+                      f"flash backward {name} != plain at {(b, h, hkv, sq, sk, d, dv)} {flags} "
                       f"{dtype}: max abs err {err}, largest entry {scale}")
                 rel.append(err / scale if scale else err)
             again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
             check(all(torch.equal(x, y) for x, y in zip(again, got)),
                   "flash backward: a second launch gave other bits")
-            log(f"flash backward ~ plain: {(b, h, hkv, sq, sk, d)} {flags} "
+            log(f"flash backward ~ plain: {(b, h, hkv, sq, sk, d, dv)} {flags} "
                 f"{str(dtype).replace('torch.', '')} max err / largest entry "
                 f"dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g}; path "
                 f"{fa.backward_path(q, k, v, out, do)}")
@@ -1206,12 +1255,13 @@ def phase_flash_bwd_vs_plain(device):
     # buffers, so not 16-byte aligned): the wgmma kernels on aligned copies,
     # at each tile width, in bf16 and f16 (held to the bf16 tolerance).
     for case in FLASH_BWD_PADDED:
-        (b, h, hkv, sq, sk, d), flags = FLASH_BWD_SWEEP[case]
+        shape, flags = FLASH_BWD_SWEEP[case]
+        b, h, hkv, sq, sk, d, dv = _bwd_shape(shape)
         for dtype in (torch.bfloat16, torch.float16):
-            q, do = (torch.randn(b * h * sq * d + 1, generator=gen, device=device).to(dtype)
-                     [1:].view(b, h, sq, d) for _ in range(2))
-            k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
-                    for _ in range(2))
+            q, do = (torch.randn(b * h * sq * w + 1, generator=gen, device=device).to(dtype)
+                     [1:].view(b, h, sq, w) for w in (d, dv))
+            k = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+            v = torch.randn(b, hkv, sk, dv, generator=gen, device=device).to(dtype)
             out, lse = fa.flash_attention_lse(q, k, v, **flags)
             before = dict(fa.backward_paths)
             got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
@@ -1224,23 +1274,36 @@ def phase_flash_bwd_vs_plain(device):
                 err, scale = float((g.float() - w).abs().max()), float(w.abs().max())
                 check(g.dtype == dtype and err <= FLASH_BWD_TOL["bfloat16"] * scale,
                       f"flash backward (padded path) {name} != plain at "
-                      f"{(b, h, hkv, sq, sk, d)} {flags} {dtype}: {err} of {scale}")
+                      f"{(b, h, hkv, sq, sk, d, dv)} {flags} {dtype}: {err} of {scale}")
                 rel.append(err / scale if scale else err)
             again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
             check(all(torch.equal(x, y) for x, y in zip(again, got)),
                   "flash backward (padded path): a second launch gave other bits")
             log(f"flash backward ~ plain on the padded path (q and dO 2 bytes off 16-byte "
-                f"alignment) at {(b, h, hkv, sq, sk, d)} {flags} "
+                f"alignment) at {(b, h, hkv, sq, sk, d, dv)} {flags} "
                 f"{str(dtype).replace('torch.', '')}: max err / largest entry "
                 f"dq {rel[0]:.3g} dk {rel[1]:.3g} dv {rel[2]:.3g}")
-    qk = torch.zeros(1, 2, 8, 192, device=device, dtype=torch.bfloat16, requires_grad=True)
-    v = torch.zeros(1, 2, 8, 128, device=device, dtype=torch.bfloat16, requires_grad=True)
-    try:
-        fa.flash_attention(qk, qk, v)
-    except ValueError as exc:
-        log(f"flash_attention under grad at D 192, Dv 128 raises ({exc})")
-    else:
-        check(False, "flash_attention under grad at D 192, Dv 128 did not raise")
+    # Under grad at MLA's widths: the Function, its forward writing lse and
+    # its backward the wgmma kernels, against autograd through the plain
+    # version on the same inputs.
+    q, k = (torch.randn(1, 4, 96, 192, generator=gen, device=device).to(torch.bfloat16)
+            .requires_grad_(True) for _ in range(2))
+    v = torch.randn(1, 4, 96, 128, generator=gen, device=device).to(torch.bfloat16)
+    v.requires_grad_(True)
+    do = torch.randn(1, 4, 96, 128, generator=gen, device=device).to(torch.bfloat16)
+    before = (fa.launches, fa.backward_launches, fa.backward_paths["wgmma"])
+    got = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), do)
+    want = torch.autograd.grad(attention_ref(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = (fa.launches - before[0], fa.backward_launches - before[1],
+              fa.backward_paths["wgmma"] - before[2])
+    errs = [float((g.float() - w.float()).abs().max()) / float(w.float().abs().max())
+            for g, w in zip(got, want)]
+    check(counts == (1, 1, 1) and max(errs) <= FLASH_BWD_TOL["bfloat16"],
+          f"flash_attention under grad at D 192, Dv 128: launches {counts}, errors {errs}")
+    log(f"flash_attention under grad at D 192, Dv 128: one forward and one wgmma backward "
+        f"launch; gradients within {max(errs):.3g} of autograd through the plain version's "
+        f"largest entries")
 
 
 def scan_inputs(gen, b, s, e, n, device):
@@ -1413,6 +1476,121 @@ def phase_scan_vs_plain(device):
             check(False, f"{fn.__name__}: {what} did not raise")
 
 
+# (B, S, E, N) of the scan backward's sweep: falcon-mamba-7b's training
+# shape, then the edges: one step, S off the 64-step chunk with B > 1, E off
+# the 32-channel tile with N < 16, S past 8 chunks, one whole chunk, N 1.
+SCAN_BWD_SWEEP = [(TRAIN_BATCH, TRAIN_SEQ, 8192, 16), (1, 1, 8192, 16), (3, 129, 1000, 5),
+                  (2, 513, 40, 16), (4, 64, 96, 16), (1, 200, 37, 1)]
+# Each gradient within SCAN_BWD_TOL of its largest entry. float32 1e-5: the
+# kernel joins each lane's steps by shuffle scans, sums db and dc over
+# channels, warps and channel tiles and da, dD and d dt_bias over lanes,
+# chunks and batch rows in other orders than the plain version's reverse
+# loop and einsums, and its decay is ex2.approx (2 ulp). bf16 2^-7: both
+# round each gradient to bf16 once from float32, so a difference in the
+# last float32 bits can move that rounding by one bf16 ulp (2^-8 of the
+# entry); the float32 parameters' gradients are held to 1e-5 in both.
+SCAN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+def scan_bwd_errors(got, want, tol_of):
+    """(ok, {name: max err / largest entry}) of gradients against their
+    plain versions, each within ``tol_of(g)`` of its largest entry, in its
+    input's dtype and shape."""
+    ok, rel = True, []
+    for g, w in zip(got, want):
+        err, scale = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+        ok = ok and g.dtype == w.dtype and g.shape == w.shape and err <= tol_of(g) * scale
+        rel.append(err / scale if scale else err)
+    return ok, rel
+
+
+def phase_scan_bwd_vs_plain(device):
+    """The selective scan's backward kernel (``acs_mamba_scan_bwd``)
+    against its plain versions over SCAN_BWD_SWEEP: the fused entry's
+    (``mamba_scan_bwd`` against ``mamba_scan_bwd_ref``, float32 and bf16, z,
+    b and c strided views, hT's gradient given) and the scan alone's
+    (``selective_scan_bwd`` against ``selective_scan_bwd_ref``, float32, no
+    hT gradient), each gradient within SCAN_BWD_TOL of its largest entry;
+    the forward that saves the chunk states gives the serving call's bits;
+    a second launch gives the same bits. Under grad, ``mamba_scan`` runs
+    its Function: one forward and one backward launch, its gradients
+    within SCAN_BWD_TOL of autograd through ``mamba_scan_ref``."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.ref import (mamba_scan_bwd_ref, mamba_scan_ref,
+                                         selective_scan_bwd_ref)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    names = ("dt_raw", "dt_bias", "x", "z", "b", "c", "A_log", "D", "h0")
+    tol_of = lambda g: SCAN_BWD_TOL[str(g.dtype).replace("torch.", "")]  # noqa: E731
+    for b, s, e, n in SCAN_BWD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = fused_inputs(gen, b, s, e, n, dtype, device)
+            y, ht, states = ss.mamba_scan_fwd(*args)
+            serve = ss.mamba_scan(*args)
+            dy = torch.randn(b, s, e, generator=gen, device=device).to(dtype)
+            dht = torch.randn(b, e, n, generator=gen, device=device)
+            got = ss.mamba_scan_bwd(*args, states, dy, dht)
+            want = mamba_scan_bwd_ref(*args, dy, dht)
+            torch.cuda.synchronize()
+            check(torch.equal(y, serve[0]) and torch.equal(ht, serve[1]),
+                  f"mamba_scan: saving the chunk states changed the forward's bits at "
+                  f"{(b, s, e, n)} {dtype}")
+            ok, rel = scan_bwd_errors(got, want, tol_of)
+            check(ok, f"mamba_scan backward != plain at B {b}, S {s}, E {e}, N {n}, {dtype}: "
+                      f"max err / largest entry {dict(zip(names, rel))}")
+            again = ss.mamba_scan_bwd(*args, states, dy, dht)
+            check(all(torch.equal(u, w) for u, w in zip(again, got)),
+                  f"mamba_scan backward: a second launch gave other bits at {(b, s, e, n)}")
+            log(f"mamba_scan backward ~ plain: B {b}, S {s}, E {e}, N {n} "
+                f"{str(dtype).replace('torch.', '')} (z, b, c strided; dhT given) max err / "
+                f"largest entry " + " ".join(f"{k} {r:.3g}" for k, r in zip(names, rel))
+                + "; a second launch gives the same bits")
+        dt, x, bm, cm, a, h0 = scan_inputs(gen, b, s, e, n, device)
+        ys, ht, states = ss.selective_scan_fwd(dt, x, bm, cm, a, h0)
+        dys = torch.randn(b, s, e, generator=gen, device=device)
+        got = ss.selective_scan_bwd(dt, x, bm, cm, a, h0, states, dys, None)
+        want = selective_scan_bwd_ref(dt, x, bm, cm, a, h0, dys, None)
+        torch.cuda.synchronize()
+        ok, rel = scan_bwd_errors(got, want, tol_of)
+        again = ss.selective_scan_bwd(dt, x, bm, cm, a, h0, states, dys, None)
+        check(ok and all(torch.equal(u, w) for u, w in zip(again, got)),
+              f"selective_scan backward != plain or not repeatable at {(b, s, e, n)}: {rel}")
+        log(f"selective_scan backward ~ plain: B {b}, S {s}, E {e}, N {n} float32 max err / "
+            f"largest entry " + " ".join(f"{k} {r:.3g}" for k, r in
+                                         zip(("dt", "x", "b", "c", "a", "h0"), rel)))
+    # Under grad: the Function on z, b and c sliced from wider projections.
+    b, s, e, n = 2, 130, 96, 16
+    leaves = [torch.randn(b, s, e, generator=gen, device=device).to(torch.bfloat16),
+              0.5 * torch.randn(e, generator=gen, device=device),
+              torch.randn(b, s, e, generator=gen, device=device).to(torch.bfloat16),
+              torch.randn(b, s, 2 * e, generator=gen, device=device).to(torch.bfloat16),
+              torch.randn(b, s, 8 + 2 * n, generator=gen, device=device).to(torch.bfloat16),
+              torch.log(torch.arange(1, n + 1, device=device, dtype=torch.float32))[None]
+              + 0.1 * torch.randn(e, n, generator=gen, device=device),
+              torch.randn(e, generator=gen, device=device),
+              torch.randn(b, e, n, generator=gen, device=device)]
+    dy = torch.randn(b, s, e, generator=gen, device=device).to(torch.bfloat16)
+    grads = []
+    for fn in (ss.mamba_scan, mamba_scan_ref):
+        ps = [t.detach().clone().requires_grad_(True) for t in leaves]
+        dt_raw, bias, x, xz, proj, a_log, d, h0 = ps
+        before = (ss.launches, ss.backward_launches)
+        y, _ = fn(dt_raw, bias, x, xz[..., e:], proj[..., 8: 8 + n], proj[..., 8 + n:], a_log, d,
+                  h0)
+        grads.append(torch.autograd.grad(y, ps, dy))
+        torch.cuda.synchronize()
+        counts = (ss.launches - before[0], ss.backward_launches - before[1])
+        check(counts == ((1, 1) if fn is ss.mamba_scan else (0, 0)),
+              f"{fn.__name__} under grad launched {counts}")
+    ok, rel = scan_bwd_errors(*grads, tol_of)
+    check(ok, f"mamba_scan under grad: gradients off autograd through the plain version: {rel}")
+    log(f"mamba_scan under grad (z, b, c slices of wider projections): one forward and one "
+        f"backward launch; each leaf's gradient within {max(rel):.3g} of autograd through "
+        f"mamba_scan_ref's largest entry")
+
+
 # (G, K, N, block_m, tile group ids): the reference's ragged cases
 # (tests/test_kernels.py: N off the tile, groups 1, 3, 5, 6 with no tile),
 # block_m at both tile shapes' edges (16-row tiles up to 16, 64 up to 64,
@@ -1498,6 +1676,9 @@ def phase_gmm_vs_plain(device):
 GMM_BWD_SWEEP = {
     "granite_train_gate": (40, 1536, 512, 512, tuple(range(40))),
     "granite_train_down": (40, 512, 1536, 512, tuple(range(40))),
+    # deepseek-v2's experts (160 of [5120, 1536], top-6 of 2,048 tokens: C 96)
+    "deepseek_train_gate": (160, 5120, 1536, 96, tuple(range(160))),
+    "deepseek_train_down": (160, 1536, 5120, 96, tuple(range(160))),
     "two_dispatch_groups": (8, 256, 96, 64, tuple(range(8)) * 2),
     "ragged_repeats_unused": (6, 72, 40, 8, (0, 3, 3, 0, 5, 3)),
     "bm1_k37_n131": (5, 37, 131, 1, (4, 0, 4, 2, 2, 4, 0)),
@@ -2510,13 +2691,15 @@ def train_counters():
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
     ls = importlib.import_module("repro_torch.kernels.lru_scan")
+    ss = importlib.import_module("repro_torch.kernels.selective_scan")
     return {"flash": fa.launches, "flash_bwd": fa.backward_launches, "gmm": gm.launches,
             "gmm_dx": gm.dx_launches, "gmm_dx_wgmma": gm.dx_paths["wgmma"],
-            "gmm_dw": gm.dw_launches, "lru": ls.launches, "lru_bwd": ls.backward_launches}
+            "gmm_dw": gm.dw_launches, "lru": ls.launches, "lru_bwd": ls.backward_launches,
+            "mamba": ss.launches, "mamba_bwd": ss.backward_launches}
 
 
 def reset_train_counters():
-    for name in ("flash_attention", "grouped_matmul", "lru_scan"):
+    for name in ("flash_attention", "grouped_matmul", "lru_scan", "selective_scan"):
         importlib.import_module(f"repro_torch.kernels.{name}").reset_launches()
 
 
@@ -2527,7 +2710,8 @@ def expected_train_launches(cfg):
     remainder, e.g. recurrentgemma-2b's first two RG-LRU layers) once, as
     the reference rematerialises per stage; the backward launches each
     backward entry once a layer (three expert products a MoE layer), dx of
-    a 16-bit model on its ``"wgmma"`` path."""
+    a 16-bit model on its ``"wgmma"`` path. Flash runs in attention and MLA
+    layers, the selective scan in Mamba layers."""
     from repro_torch.models import split_pattern
 
     prefix, _ = split_pattern(cfg)
@@ -2537,13 +2721,15 @@ def expected_train_launches(cfg):
     def count(pick):
         return (sum(r for r, kind in zip(runs, cfg.pattern) if pick(kind)),
                 sum(1 for kind in cfg.pattern if pick(kind)))
-    flash, flash_bwd = count(lambda kind: kind.startswith("attn"))
+    flash, flash_bwd = count(lambda kind: kind.startswith("attn") or kind == "mla")
     lru, lru_bwd = count(lambda kind: kind == "rglru")
+    mamba, mamba_bwd = count(lambda kind: kind == "mamba")
     moe_layers = range(first_moe, cfg.n_layers)
     return {"flash": flash, "flash_bwd": flash_bwd,
             "gmm": 3 * sum(runs[i] for i in moe_layers), "gmm_dx": 3 * len(moe_layers),
             "gmm_dx_wgmma": 3 * len(moe_layers) if cfg.dtype in ("bfloat16", "float16") else 0,
-            "gmm_dw": 3 * len(moe_layers), "lru": lru, "lru_bwd": lru_bwd}
+            "gmm_dw": 3 * len(moe_layers), "lru": lru, "lru_bwd": lru_bwd, "mamba": mamba,
+            "mamba_bwd": mamba_bwd}
 
 
 def plain_gmm(x, w, tile_groups, *, block_m, err=None):
@@ -2604,22 +2790,23 @@ def differing_token_sets(calls_k, calls_p):
 
 
 def plain_pass(cfg, model, batch, route, attention_only=False):
-    """Step 0's loss and gradients with ops.attention, ops.grouped_matmul
-    and ops.lru_scan (only ops.attention with ``attention_only``) swapped
-    for their plain versions and ``models.ffn.route_moe`` for ``route``."""
+    """Step 0's loss and gradients with ops.attention, ops.grouped_matmul,
+    ops.lru_scan and ops.mamba_scan (only ops.attention with
+    ``attention_only``) swapped for their plain versions and
+    ``models.ffn.route_moe`` for ``route``."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import attention_ref, lru_scan_ref
+    from repro_torch.kernels.ref import attention_ref, lru_scan_ref, mamba_scan_ref
     from repro_torch.models import ffn, loss_and_grads
 
-    kernels = (ops.attention, ops.grouped_matmul, ops.lru_scan, ffn.route_moe)
+    kernels = (ops.attention, ops.grouped_matmul, ops.lru_scan, ops.mamba_scan, ffn.route_moe)
     ops.attention = attention_ref
     if not attention_only:
-        ops.grouped_matmul, ops.lru_scan = plain_gmm, lru_scan_ref
+        ops.grouped_matmul, ops.lru_scan, ops.mamba_scan = plain_gmm, lru_scan_ref, mamba_scan_ref
     ffn.route_moe = route
     try:
         return loss_and_grads(model, cfg, *batch)
     finally:
-        ops.attention, ops.grouped_matmul, ops.lru_scan, ffn.route_moe = kernels
+        ops.attention, ops.grouped_matmul, ops.lru_scan, ops.mamba_scan, ffn.route_moe = kernels
 
 
 def step0_distance(loss_k, grads_k, loss_p, grads_p):
@@ -2737,7 +2924,8 @@ def train_step0(cfg, model, batch, card):
 
 
 def phase_train(device, card, arch):
-    """One of TRAIN_ARCHS whole, trained on the card: step 0 held to the
+    """One of TRAIN_ARCHS, whole or cut in depth as TRAIN_CUTS says,
+    trained on the card: step 0 held to the
     plain versions (``train_step0``), then TRAIN_STEPS
     ``StepBundle.train_step``s: every loss and gradient norm finite, each
     kernel of the path launched exactly as ``expected_train_launches``
@@ -2746,6 +2934,8 @@ def phase_train(device, card, arch):
     parameters of a MoE) and the peak device memory, and one more step
     under ``torch.profiler`` by kernel group. Returns the steps' launch
     counts and the walls."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenPipeline
@@ -2754,7 +2944,7 @@ def phase_train(device, card, arch):
     from repro_torch.models import init_params
     from repro_torch.optim import adamw_init
 
-    cfg = ARCHS[arch]
+    cfg = dataclasses.replace(ARCHS[arch], **TRAIN_CUTS.get(arch, {}))
     t0 = time.perf_counter()
     model = init_params(cfg, 0, device=device, tp_size=1).requires_grad_(True)
     n_params = sum(p.numel() for p in model.parameters())
@@ -2762,7 +2952,8 @@ def phase_train(device, card, arch):
     batches = [tuple(torch.from_numpy(a).to(device) for a in pipeline.next_batch())
                for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.n_heads} heads "
+    cut = f" (cut: {TRAIN_CUTS[arch]})" if arch in TRAIN_CUTS else ""
+    log(f"train: {cfg.name} {cfg.n_layers} layers{cut} d_model {cfg.d_model} {cfg.n_heads} heads "
         f"of {cfg.head_dim} over {cfg.n_kv_heads} vocab {cfg.vocab} {cfg.dtype}, {n_params} "
         f"parameters from seed 0, AdamW state {3 * 4 * n_params / 1e9:.1f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s; batches [{TRAIN_BATCH}, {TRAIN_SEQ}] [{card}]")
@@ -2803,7 +2994,8 @@ def phase_train(device, card, arch):
     prof, wall_ms = profiled(lambda: bundle.train_step(model, opt, *batches[-1]))
     groups = dict.fromkeys(("flash forward", "flash backward", "grouped GEMM forward",
                             "grouped GEMM dx", "grouped GEMM dw", "LRU scan", "LRU reverse scan",
-                            "GEMM", "elementwise", "reduction", "other"), 0.0)
+                            "Mamba scan", "Mamba scan backward", "GEMM", "elementwise",
+                            "reduction", "other"), 0.0)
     counts_by = dict.fromkeys(groups, 0)
     others = {}
     for e in prof.events():
@@ -2817,6 +3009,8 @@ def phase_train(device, card, arch):
                  "grouped GEMM forward" if "gmm_tc_kernel" in name else
                  "LRU reverse scan" if "lru_scan_bwd" in name else
                  "LRU scan" if "lru_scan_kernel" in name else
+                 "Mamba scan backward" if "mamba_scan_bwd" in name else
+                 "Mamba scan" if "mamba_scan_kernel" in name else
                  "GEMM" if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")) else
                  "elementwise" if "elementwise" in name else
                  "reduction" if "reduce" in name else "other")
@@ -3343,11 +3537,12 @@ def numbers_flash(device):
 
 
 def flash_bwd_case(device, gen, shape, flags):
-    """Flash's backward at one training shape ``(b, h, hkv, s, d)`` bf16,
-    causal: the error against the plain version, its bound (the bytes: q,
-    k, v, o, dO and lse read once, dq, dk, dv written once; the
-    operations: the five products S, dP, dV, dQ, dK over the visible
-    pairs), single launches, 20 back to back, device time per call and per
+    """Flash's backward at one training shape ``(b, h, hkv, s, d[, dv])``
+    bf16, causal: the error against the plain version, its bound (the
+    bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once; the
+    operations: the five products over the visible pairs, S, dQ and dK
+    over D, dP and dV over Dv), single launches, 20 back to back, device
+    time per call and per
     kernel (profiler), the plain version's time, and, as the library call,
     the backward of ``F.scaled_dot_product_attention`` (causal, with
     ``enable_gqa``) on the same inputs through autograd, with the backend
@@ -3359,11 +3554,12 @@ def flash_bwd_case(device, gen, shape, flags):
     from torch.nn.attention import SDPBackend
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    b, h, hkv, s, d = shape
-    q, do = (torch.randn(b, h, s, d, generator=gen, device=device).to(torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=device).to(torch.bfloat16)
-            for _ in range(2))
+    b, h, hkv, s, d = shape[:5]
+    dv = shape[5] if len(shape) > 5 else d
+    q = torch.randn(b, h, s, d, generator=gen, device=device).to(torch.bfloat16)
+    do = torch.randn(b, h, s, dv, generator=gen, device=device).to(torch.bfloat16)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn(b, hkv, s, dv, generator=gen, device=device).to(torch.bfloat16)
     out, lse = fa.flash_attention_lse(q, k, v, **flags)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
     want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
@@ -3376,12 +3572,14 @@ def flash_bwd_case(device, gen, shape, flags):
     if flags.get("window") is not None:
         mask &= cols > rows - flags["window"]
     seen = int(mask.sum())  # (row, key) pairs a head sees
-    n_bytes = 2 * 4 * q.numel() + 2 * 4 * k.numel() + 4 * lse.numel()
-    ms_bound, by = bound(n_bytes, 2 * 5 * d * b * h * seen, BF16_FLOP_PER_S)
+    # q, dq, k, dk at D; v, dv, o, dO at Dv; lse in float32
+    n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * lse.numel()
+    ms_bound, by = bound(n_bytes, 2 * (3 * d + 2 * dv) * b * h * seen, BF16_FLOP_PER_S)
     call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)  # noqa: E731
     path = fa.backward_path(q, k, v, out, do)
     plan = fa.backward_plan(b, h, hkv, s, s, d, causal=True, window=flags.get("window"),
-                            n_sm=torch.cuda.get_device_properties(device).multi_processor_count)
+                            n_sm=torch.cuda.get_device_properties(device).multi_processor_count,
+                            dv=dv)
     # Device time: each pass's kernel's mean over the launches the trace
     # holds (a trace can lose some, see phase_busy), summed over the passes
     # the path launches (the reduction only where the plan splits a key tile).
@@ -3397,9 +3595,10 @@ def flash_bwd_case(device, gen, shape, flags):
     device_ms = (sum(passes[p] for p in expected) if all(passes[p] is not None for p in expected)
                  else None)
     lib_path, _ = fa.build_backward_wgmma()
-    width = 64 if d <= 64 else 128 if d <= 128 else 256
+    width, width_v = fa._wgmma_widths(d, dv)
     ptxas = [line for line in resources(lib_path)
-             if f"__nv_bfloat16, (int){width}" in line or "dot16_kernel<__nv_bfloat16>" in line]
+             if f"__nv_bfloat16, (int){width}, (int){width_v}>" in line
+             or "dot16_kernel<__nv_bfloat16>" in line]
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     sdpa_kw = {"is_causal": True, "enable_gqa": hkv != h}
     o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
@@ -3438,10 +3637,12 @@ def flash_bwd_case(device, gen, shape, flags):
 
 def numbers_flash_bwd(device):
     """Flash's backward at minicpm-2b's training shape ([4, 36, 512, 64]
-    bf16, causal) and, as its ``d256_`` keys, at recurrentgemma-2b's
-    ([4, 10, 512, 256] over one kv head, window 2048: causal at 512), each
-    through ``flash_bwd_case``; also the forward at minicpm's shape with and
-    without its lse output (the serving call must not be slower)."""
+    bf16, causal), as its ``d256_`` keys at recurrentgemma-2b's ([4, 10,
+    512, 256] over one kv head, window 2048: causal at 512) and as its
+    ``mla_`` keys at deepseek-v2's MLA ([4, 128, 512, 192], v [4, 128, 512,
+    128], causal), each through ``flash_bwd_case``; also the forward at
+    minicpm's shape with and without its lse output (the serving call must
+    not be slower)."""
     import torch
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -3449,6 +3650,7 @@ def numbers_flash_bwd(device):
     gen.manual_seed(5)
     case = flash_bwd_case(device, gen, (TRAIN_BATCH, 36, 36, TRAIN_SEQ, 64), {})
     wide = flash_bwd_case(device, gen, (TRAIN_BATCH, 10, 1, TRAIN_SEQ, 256), {"window": 2048})
+    mla = flash_bwd_case(device, gen, (TRAIN_BATCH, 128, 128, TRAIN_SEQ, 192, 128), {})
     q = torch.randn(TRAIN_BATCH, 36, TRAIN_SEQ, 64, generator=gen,
                     device=device).to(torch.bfloat16)
     fwd_ms = median_ms(lambda: fa.flash_attention(q, q, q))
@@ -3465,13 +3667,16 @@ def numbers_flash_bwd(device):
                          "XLA's derivative of ref.attention_ref",
         "launches": None,
         **case,
-        "matches_plain": case["matches_plain"] and wide["matches_plain"],
+        "matches_plain": case["matches_plain"] and wide["matches_plain"] and mla["matches_plain"],
         "forward_ms": fwd_ms,
         "forward_with_lse_ms": fwd_lse_ms,
         "shape": "q, k, v, o, dO [4, 36, 512, 64] bf16, causal (minicpm-2b's training step)",
         **{f"d256_{key}": val for key, val in wide.items()},
         "d256_shape": "q, o, dO [4, 10, 512, 256], k, v [4, 1, 512, 256] bf16, causal, window "
                       "2048 (recurrentgemma-2b's training step)",
+        **{f"mla_{key}": val for key, val in mla.items()},
+        "mla_shape": "q, k [4, 128, 512, 192], v, o, dO [4, 128, 512, 128] bf16, causal "
+                     "(deepseek-v2's MLA training step)",
     }
     log(f"flash backward: {out_dict} [{torch.cuda.get_device_name(0)}]")
     return out_dict
@@ -3481,9 +3686,14 @@ def call_device_ms(fn, names, runs=TIMED_RUNS):
     """Device time per call of ``fn``, which launches one kernel of each
     of ``names`` a call: the sum over ``names`` of each kernel's mean over
     the launches the profiler recorded in ``runs`` calls (a trace can lose
-    some, see ``phase_busy``). Returns (ms, or None when a name has no
-    recorded launch; the launches recorded)."""
-    prof, _ = profiled(lambda: [fn() for _ in range(runs)])
+    some, see ``phase_busy``; each call's output is freed before the next
+    call). Returns (ms, or None when a name has no recorded launch; the
+    launches recorded)."""
+
+    def calls():
+        for _ in range(runs):
+            fn()
+    prof, _ = profiled(calls)
     total_ms, recorded = 0.0, 0
     for name in names:
         hits = [a for a in prof.key_averages() if name in a.key]
@@ -3498,7 +3708,9 @@ def call_device_ms(fn, names, runs=TIMED_RUNS):
 # Granite-moe-3b-a800m's training step (tp_size 1): 40 experts, capacity
 # C 512 rows an expert (4 x 512 tokens, top-8), x [20480, 1536]; the gate
 # and up products' w [40, 1536, 512], the down product's [40, 512, 1536].
-GMM_TRAIN = {"": (40, 1536, 512, 512), "down_": (40, 512, 1536, 512)}
+GMM_TRAIN = {"": (40, 1536, 512, 512), "down_": (40, 512, 1536, 512),
+             # deepseek-v2's experts: 160 of [5120, 1536], top-6 of 2,048 tokens, C 96
+             "deepseek_": (160, 5120, 1536, 96), "deepseek_down_": (160, 1536, 5120, 96)}
 
 
 def dx_call(gm, dy, w, tiles, cap, width):
@@ -3645,7 +3857,9 @@ def numbers_gmm_bwd(device):
             f"{case} [{torch.cuda.get_device_name(0)}]")
     shape = ("x [20480, 1536], dy [20480, 512], w [40, 1536, 512] bf16 (gate/up; down_: "
              "x [20480, 512], dy [20480, 1536], w [40, 512, 1536]), block_m 512, tile ids "
-             "arange(40): granite-moe-3b-a800m's training step")
+             "arange(40): granite-moe-3b-a800m's training step; deepseek_: x [15360, 5120], "
+             "w [160, 5120, 1536] (deepseek_down_: [160, 1536, 5120]), block_m 96: "
+             "deepseek-v2's experts at 2,048 tokens")
     forward["train_shape"] = shape
     lib_path, _ = gm.build()
     ptxas = resources(lib_path)
@@ -3667,11 +3881,11 @@ def numbers_gmm_bwd(device):
             "computes": label,
             "launches": None,  # main() adds granite's training steps'
             **row,
-            "matches_plain": row["matches_plain"] and row["down_matches_plain"],
+            "matches_plain": all(row[f"{p}matches_plain"] for p in GMM_TRAIN),
             "shape": shape,
         })
-    check(forward["train_matches_plain"] and forward["train_down_matches_plain"],
-          "grouped_matmul forward != plain at granite's training shapes")
+    check(all(forward[f"train_{p}matches_plain"] for p in GMM_TRAIN),
+          "grouped_matmul forward != plain at the training shapes")
     return (*out, forward)
 
 
@@ -3720,6 +3934,75 @@ def numbers_lru_bwd(device):
                  "training step",
     }
     log(f"lru_scan reverse: {out} [{torch.cuda.get_device_name(0)}]")
+    return out
+
+
+def numbers_scan_bwd(device):
+    """The selective scan's backward at falcon-mamba-7b's training shape
+    ([4, 512, 8192], N 16, bf16, through the fused entry as the train step
+    calls it: z, b and c strided, h0 zeros, no hT gradient) against
+    ``mamba_scan_bwd_ref`` (SCAN_BWD_TOL): single launches, 20 back to
+    back, device time (the kernel and its reduction), the plain version's
+    time and the bound: the bytes (dt_raw, x, z and dy read and d dt_raw,
+    dx and dz written, b and c read and db and dc written, all bf16; the
+    chunk states and h0 read and dh0 written in float32; the float32
+    parameters and their gradients) against the exponentials (one a state
+    and step in the chunk's recompute: 268 M on the SFUs). No PyTorch call
+    computes it."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels._nvcc import resources
+    from repro_torch.kernels.ref import mamba_scan_bwd_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    b, s, e, n = TRAIN_BATCH, TRAIN_SEQ, 8192, 16
+    args = list(fused_inputs(gen, b, s, e, n, torch.bfloat16, device))
+    args[8] = torch.zeros(b, e, n, device=device)
+    _, _, states = ss.mamba_scan_fwd(*args)
+    dy = torch.randn(b, s, e, generator=gen, device=device).to(torch.bfloat16)
+    got = ss.mamba_scan_bwd(*args, states, dy, None)
+    want = mamba_scan_bwd_ref(*args, dy, None)
+    torch.cuda.synchronize()
+    ok, rel = scan_bwd_errors(got, want,
+                              lambda g: SCAN_BWD_TOL[str(g.dtype).replace("torch.", "")])
+    call = lambda: ss.mamba_scan_bwd(*args, states, dy, None)  # noqa: E731
+    n_bytes = (2 * (7 * b * s * e + 4 * b * s * n) + 4 * (states.numel() + 2 * b * e * n)
+               + 4 * 2 * (2 * e + e * n))
+    n_exp = b * s * e * n
+    ms_bound, by = bound(n_bytes, n_exp, SFU_EXP_PER_S)
+    lib = ss.build()[0]
+    out = {
+        "name": "mamba_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/recurrent.py:151 (lax.scan; no pallas_call)",
+        "replaces_note": "the reference trains through XLA's derivative of its lax.scan",
+        "launches": None,  # main() adds falcon-mamba-7b's training steps'
+        "matches_plain": ok,
+        "max_abs_err": max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
+        "max_err_over_largest": dict(zip(("dt_raw", "dt_bias", "x", "z", "b", "c", "A_log", "D",
+                                          "h0"), rel)),
+        "ms": median_ms(call),
+        "plain_ms": median_ms(lambda: mamba_scan_bwd_ref(*args, dy, None), runs=3, warmup=1),
+        "bound_ms": ms_bound,
+        "bound_by": by,
+        "bytes_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        "exp_bound_ms": n_exp / SFU_EXP_PER_S * 1e3,
+        "library_ms": None,  # no PyTorch call computes a selective scan's backward
+        "back_to_back_ms": back_to_back_ms(call),
+        "device_ms": call_device_ms(call, ("mamba_scan_bwd_kernel",
+                                           "mamba_scan_bwd_reduce_kernel"))[0],
+        "device_ms_reduce": call_device_ms(call, ("mamba_scan_bwd_reduce_kernel",))[0],
+        "forward_with_states_ms": median_ms(lambda: ss.mamba_scan_fwd(*args)),
+        "forward_ms": median_ms(lambda: ss.mamba_scan(*args)),
+        "states_mb": states.numel() * 4 / 1e6,
+        "ptxas": [line for line in resources(lib) if "mamba_scan_bwd" in line],
+        "shape": "dt_raw, x, z, dy [4, 512, 8192] bf16, b, c [4, 512, 16] (strided), N 16, h0 "
+                 "zeros: falcon-mamba-7b's training step",
+    }
+    check(ok, f"mamba_scan backward != plain at falcon-mamba-7b's training shape: {rel}")
+    log(f"mamba_scan backward: {out} [{torch.cuda.get_device_name(0)}]")
     return out
 
 
@@ -4106,6 +4389,7 @@ def main() -> int:
     timed(phase_scan_vs_plain, device)
     timed(phase_flash_vs_plain, device)
     timed(phase_flash_bwd_vs_plain, device)
+    timed(phase_scan_bwd_vs_plain, device)
     timed(phase_gmm_vs_plain, device)
     timed(phase_gmm_bwd_vs_plain, device)
     timed(phase_expert_stream, device)
@@ -4131,7 +4415,8 @@ def main() -> int:
                timed(numbers_flash_bwd, device)]
     gmm_dx, gmm_dw, gmm_train = timed(numbers_gmm_bwd, device)
     lru_bwd = timed(numbers_lru_bwd, device)
-    kernels += [gmm_dx, gmm_dw, lru_bwd]
+    scan_bwd = timed(numbers_scan_bwd, device)
+    kernels += [gmm_dx, gmm_dw, lru_bwd, scan_bwd]
     torch.cuda.empty_cache()
     # Training before the profiled serving passes, each model freed after.
     train_launches, train_walls = {}, {}
@@ -4159,17 +4444,21 @@ def main() -> int:
                  paligemma_launches=frontend_launches["paligemma-3b"],
                  train_launches=train_launches["minicpm-2b"]["flash"],
                  granite_train_launches=train_launches["granite-moe-3b-a800m"]["flash"],
-                 d256_train_launches=train_launches["recurrentgemma-2b"]["flash"])
+                 d256_train_launches=train_launches["recurrentgemma-2b"]["flash"],
+                 mla_train_launches=train_launches["deepseek-v2-236b"]["flash"])
     flash_bwd.update(launches=train_launches["minicpm-2b"]["flash_bwd"],
                      granite_launches=train_launches["granite-moe-3b-a800m"]["flash_bwd"],
-                     d256_launches=train_launches["recurrentgemma-2b"]["flash_bwd"])
+                     d256_launches=train_launches["recurrentgemma-2b"]["flash_bwd"],
+                     mla_launches=train_launches["deepseek-v2-236b"]["flash_bwd"])
+    scan_bwd["launches"] = train_launches["falcon-mamba-7b"]["mamba_bwd"]
     gmm_dx["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dx"]
     gmm_dw["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dw"]
     lru_bwd["launches"] = train_launches["recurrentgemma-2b"]["lru_bwd"]
     lru["launches"] = rg["lru_scan"]
     gmm.update(launches=granite["grouped_matmul"], deepseek_launches=deepseek["grouped_matmul"],
                train_launches=train_launches["granite-moe-3b-a800m"]["gmm"], **gmm_train)
-    scan["launches"] = mamba["selective_scan"]
+    scan.update(launches=mamba["selective_scan"],
+                train_launches=train_launches["falcon-mamba-7b"]["mamba"])
     for kernel in kernels:
         check(kernel["matches_plain"], f"{kernel['name']}: kernel != plain at the main "
                                        "path's shape")

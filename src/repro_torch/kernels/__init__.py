@@ -7,8 +7,9 @@ grouped_matmul   — the ragged grouped GEMM of the MoE experts (CUDA,
                    ``csrc/grouped_matmul.cu``)
 lru_scan         — the RG-LRU diagonal recurrence (CUDA, ``csrc/lru_scan.cu``)
 selective_scan   — Mamba's selective scan, alone or fused with its layer's softplus,
-                   skip and gate (``mamba_scan``) (CUDA, ``csrc/selective_scan.cu``);
-                   the reference runs it as ``lax.scan``, with no Pallas kernel
+                   skip and gate (``mamba_scan``), and its backward (``mamba_scan_bwd``,
+                   ``selective_scan_bwd``) (CUDA, ``csrc/selective_scan.cu``); the
+                   reference runs it as ``lax.scan``, with no Pallas kernel
 wave_elementwise — the ACS-HW wave megakernel, one wave or a whole epoch in one
                    persistent launch (CUDA, ``csrc/wave_elementwise.cu``)
 

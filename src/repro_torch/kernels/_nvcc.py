@@ -24,8 +24,7 @@ import time
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "resources", "CudaLibrary", "raw_stream",
-           "refuse_grad"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "resources", "CudaLibrary", "raw_stream"]
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # Every kernel: Hopper's arch-specific target, a shared library with a C
@@ -123,22 +122,6 @@ def raw_stream(device) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise where autograd would record a call of the CUDA kernel ``name``,
-    which has no backward yet (the selective scan's two entries,
-    ``selective_scan`` and ``mamba_scan``): its output, a fresh tensor
-    written through a raw pointer, would carry no ``grad_fn``, and the
-    inputs would get no gradient without a word. A wrapper calls this on
-    its CUDA path only; on the CPU the plain version stays
-    differentiable."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet (still to port, "
-                           f"ROADMAP queue 2); call it under torch.no_grad() or on inputs "
-                           f"that need no gradient")
 
 
 class CudaLibrary:

@@ -37,7 +37,10 @@ _MARKS = 4   # stamps a step
 # anchor. Pass 0 is the key-tile pass (both designs), 1 the query-tile pass.
 _ANCHORS = [
     ("      mbar_wait(&sm.full[s], (i / S::kStages) & 1);\n", 0, 0),
+    ("    mbar_wait(&sm.full[s], (i / S::kStages) & 1);\n"
+     "    const int row0 = p.q_offset + (qt_begin + (it_lo + i) % n_q) * kWgRows;\n", 0, 0),
     ("      fence_regs(st);\n      fence_regs(dpt);\n", 0, 1),
+    ("    fence_regs(st);\n    fence_regs(dpt);\n", 0, 1),
     ("    mbar_wait(&full[s], (i / S::kStages) & 1);\n", 1, 0),
     ("    fence_regs(sa);\n    fence_regs(dp);\n", 1, 1),
 ]
@@ -45,8 +48,9 @@ _ANCHORS = [
 _BEFORE = [
     ("      wgmma_fence();\n#pragma unroll\n"
      "      for (int kk = 0; kk < kWgRows / 16; ++kk) {  // dV", 0, 2),
-    ("      named_sync(1, 256);  // both warpgroups are past", 0, 2),
+    ("    named_sync(1, 256);  // both warpgroups are past", 0, 2),
     ("      if (tid == 0) mbar_arrive(&sm.empty[s]);\n", 0, 3),
+    ("    fence_regs(acc);\n    if (tid == 0) mbar_arrive(&sm.empty[s]);\n", 0, 3),
     ("    wgmma_fence();\n#pragma unroll\n    for (int kk = 0; kk < BN / 16; ++kk) {  // dQ", 1, 2),
     ("    if (tid == 0) mbar_arrive(&empty[s]);\n", 1, 3),
 ]

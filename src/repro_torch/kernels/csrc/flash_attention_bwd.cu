@@ -17,7 +17,8 @@
 // dK and dV summed over the query heads of a kv group (GQA). The masks are
 // the forward's: causal at q_offset, a sliding window, prefix_len keys
 // visible to every row, a ragged Sk. A row that sees no key (lse -inf)
-// contributes nothing. Dv == D, any D from 1 to 256.
+// contributes nothing. q and k of width D, v of width Dv (MLA: 192 and
+// 128): Dv == D up to 256, or Dv != D with both up to 256.
 //
 // This file is the float32 path (flash_attention.py backward_path:
 // "fma_f32"), the tolerance tests' path. bfloat16 and float16 take
@@ -48,7 +49,7 @@ using namespace sm90;
 #error "build through flash_attention.py, which defines the head widths"
 #endif
 
-constexpr int kMaxD = ACS_FLASH_BWD_MAX_D;  // Dv == D up to this width
+constexpr int kMaxD = ACS_FLASH_BWD_MAX_D;  // D and Dv up to this width
 static_assert(kMaxD % 32 == 0, "a lane holds kMaxD / 32 gradient columns");
 
 // ---------------------------------------------------------------------------
@@ -59,10 +60,10 @@ __global__ void __launch_bounds__(kDotThreads) flash_bwd_dot_kernel(const Params
   const size_t row = (static_cast<size_t>(blockIdx.x) * kDotThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= static_cast<size_t>(p.n_batch) * p.n_heads * p.sq) return;  // warp-uniform
-  const float* o = static_cast<const float*>(p.o) + row * p.dim;
-  const float* d = static_cast<const float*>(p.dout) + row * p.dim;
+  const float* o = static_cast<const float*>(p.o) + row * p.dim_v;
+  const float* d = static_cast<const float*>(p.dout) + row * p.dim_v;
   float acc = 0.0f;
-  for (int c = lane; c < p.dim; c += 32) acc += o[c] * d[c];
+  for (int c = lane; c < p.dim_v; c += 32) acc += o[c] * d[c];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
   if (lane == 0) p.di[row] = acc;
@@ -89,11 +90,11 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b, int dim
 // each warp takes key j of a 32-key tile.
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dim = p.dim;
+  const int dim = p.dim, dim_v = p.dim_v;
   float* q_s = reinterpret_cast<float*>(smem);  // [kBlockRows][dim]
-  float* do_s = q_s + kBlockRows * dim;         // [kBlockRows][dim]
-  float* k_s = do_s + kBlockRows * dim;         // [kTile][stride]
-  float* v_s = k_s + kTile * p.stride;          // [kTile][stride]
+  float* do_s = q_s + kBlockRows * dim;         // [kBlockRows][dim_v]
+  float* k_s = do_s + kBlockRows * dim_v;       // [kTile][stride]
+  float* v_s = k_s + kTile * p.stride;          // [kTile][stride_v]
 
   const int n_qt = (p.sq + kBlockRows - 1) / kBlockRows;
   int blk = blockIdx.x;
@@ -105,14 +106,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(const Params
   const int q0 = qt * kBlockRows;
   const int rows_here = min(kBlockRows, p.sq - q0);
   const size_t row_base = (static_cast<size_t>(bi) * p.n_heads + h) * p.sq + q0;
-  const size_t kv_base = (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk * dim;
-  const float* kg = static_cast<const float*>(p.k) + kv_base;
-  const float* vg = static_cast<const float*>(p.v) + kv_base;
+  const size_t kv_row = (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk;
+  const float* kg = static_cast<const float*>(p.k) + kv_row * dim;
+  const float* vg = static_cast<const float*>(p.v) + kv_row * dim_v;
 
   for (int i = threadIdx.x; i < kBlockRows * dim; i += kThreads) {
     const bool ok = i < rows_here * dim;
     q_s[i] = ok ? static_cast<const float*>(p.q)[row_base * dim + i] : 0.0f;
-    do_s[i] = ok ? static_cast<const float*>(p.dout)[row_base * dim + i] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < kBlockRows * dim_v; i += kThreads) {
+    const bool ok = i < rows_here * dim_v;
+    do_s[i] = ok ? static_cast<const float*>(p.dout)[row_base * dim_v + i] : 0.0f;
   }
 
   const int warp = threadIdx.x / 32;
@@ -139,7 +143,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(const Params
     for (int i = threadIdx.x; i < nk * dim; i += kThreads) {
       const int j = i / dim;
       k_s[j * p.stride + i - j * dim] = kg[static_cast<size_t>(k0) * dim + i];
-      v_s[j * p.stride + i - j * dim] = vg[static_cast<size_t>(k0) * dim + i];
+    }
+    for (int i = threadIdx.x; i < nk * dim_v; i += kThreads) {
+      const int j = i / dim_v;
+      v_s[j * p.stride_v + i - j * dim_v] = vg[static_cast<size_t>(k0) * dim_v + i];
     }
     __syncthreads();
     const int col = k0 + lane;
@@ -151,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(const Params
       float ds = 0.0f;
       if (key_ok && lse[r] != -INFINITY && visible(p, row_lo + local, col)) {
         const float s = dot_row(q_s + local * dim, k_s + lane * p.stride, dim);
-        const float dpv = dot_row(do_s + local * dim, v_s + lane * p.stride, dim);
+        const float dpv = dot_row(do_s + local * dim_v, v_s + lane * p.stride_v, dim_v);
         float sc = s * p.scale, fac = 1.0f;
         if (p.has_softcap) {
           const float th = tanhf(sc / p.softcap);
@@ -188,12 +195,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(const Params
 // of each warp takes query j of a 32-row tile of each head of the group.
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dim = p.dim;
+  const int dim = p.dim, dim_v = p.dim_v;
   float* k_s = reinterpret_cast<float*>(smem);  // [kBlockRows][dim]
-  float* v_s = k_s + kBlockRows * dim;          // [kBlockRows][dim]
-  float* q_s = v_s + kBlockRows * dim;          // [kTile][stride]
-  float* do_s = q_s + kTile * p.stride;         // [kTile][stride]
-  float* lse_s = do_s + kTile * p.stride;       // [kTile]
+  float* v_s = k_s + kBlockRows * dim;          // [kBlockRows][dim_v]
+  float* q_s = v_s + kBlockRows * dim_v;        // [kTile][stride]
+  float* do_s = q_s + kTile * p.stride;         // [kTile][stride_v]
+  float* lse_s = do_s + kTile * p.stride_v;     // [kTile]
   float* di_s = lse_s + kTile;                  // [kTile]
 
   const int n_kt = (p.sk + kBlockRows - 1) / kBlockRows;
@@ -205,12 +212,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(const Para
   const int group = p.n_heads / p.n_kv_heads;
   const int k0 = kt * kBlockRows;
   const int keys_here = min(kBlockRows, p.sk - k0);
-  const size_t kv_base = ((static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk + k0) * dim;
+  const size_t kv_row = (static_cast<size_t>(bi) * p.n_kv_heads + hk) * p.sk + k0;
+  const size_t kv_base = kv_row * dim, v_base = kv_row * dim_v;
 
   for (int i = threadIdx.x; i < kBlockRows * dim; i += kThreads) {
     const bool ok = i < keys_here * dim;
     k_s[i] = ok ? static_cast<const float*>(p.k)[kv_base + i] : 0.0f;
-    v_s[i] = ok ? static_cast<const float*>(p.v)[kv_base + i] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < kBlockRows * dim_v; i += kThreads) {
+    const bool ok = i < keys_here * dim_v;
+    v_s[i] = ok ? static_cast<const float*>(p.v)[v_base + i] : 0.0f;
   }
 
   const int warp = threadIdx.x / 32;
@@ -235,11 +246,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(const Para
       }
       __syncthreads();  // the previous tile's readers are done
       const float* qg = static_cast<const float*>(p.q) + (head_base + q0) * dim;
-      const float* dog = static_cast<const float*>(p.dout) + (head_base + q0) * dim;
+      const float* dog = static_cast<const float*>(p.dout) + (head_base + q0) * dim_v;
       for (int i = threadIdx.x; i < nq * dim; i += kThreads) {
         const int j = i / dim;
         q_s[j * p.stride + i - j * dim] = qg[i];
-        do_s[j * p.stride + i - j * dim] = dog[i];
+      }
+      for (int i = threadIdx.x; i < nq * dim_v; i += kThreads) {
+        const int j = i / dim_v;
+        do_s[j * p.stride_v + i - j * dim_v] = dog[i];
       }
       for (int i = threadIdx.x; i < nq; i += kThreads) {
         lse_s[i] = p.lse[head_base + q0 + i];
@@ -254,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(const Para
         float pj = 0.0f, ds = 0.0f;
         if (q_ok && lse_s[lane] != -INFINITY && visible(p, row_lo + lane, k0 + local)) {
           const float s = dot_row(q_s + lane * p.stride, k_s + local * dim, dim);
-          const float dpv = dot_row(do_s + lane * p.stride, v_s + local * dim, dim);
+          const float dpv = dot_row(do_s + lane * p.stride_v, v_s + local * dim_v, dim_v);
           float sc = s * p.scale, fac = 1.0f;
           if (p.has_softcap) {
             const float th = tanhf(sc / p.softcap);
@@ -268,14 +282,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(const Para
           const float pv = __shfl_sync(kFull, pj, jj);
           const float dsv = __shfl_sync(kFull, ds, jj);
           const float* qrow = q_s + jj * p.stride;
-          const float* dorow = do_s + jj * p.stride;
+          const float* dorow = do_s + jj * p.stride_v;
 #pragma unroll
           for (int c = 0; c < kColsPerLane; ++c) {
             const int d = lane + 32 * c;
-            if (d < dim) {
-              dv[r][c] += pv * dorow[d];
-              dk[r][c] += dsv * qrow[d];
-            }
+            if (d < dim_v) dv[r][c] += pv * dorow[d];
+            if (d < dim) dk[r][c] += dsv * qrow[d];
           }
         }
       }
@@ -288,20 +300,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(const Para
 #pragma unroll
     for (int c = 0; c < kColsPerLane; ++c) {
       const int d = lane + 32 * c;
-      if (d < dim) {
+      if (d < dim)
         static_cast<float*>(p.dk)[kv_base + static_cast<size_t>(local) * dim + d] =
             dk[r][c] * p.scale;
-        static_cast<float*>(p.dv)[kv_base + static_cast<size_t>(local) * dim + d] = dv[r][c];
-      }
+      if (d < dim_v)
+        static_cast<float*>(p.dv)[v_base + static_cast<size_t>(local) * dim_v + d] = dv[r][c];
     }
   }
 }
 
 int launch_f32(Params p, cudaStream_t stream) {
   p.stride = p.dim | 1;  // odd word strides: lane j's read of row j in its own bank
-  const size_t smem_kv =
-      sizeof(float) * (2 * kBlockRows * p.dim + 2 * kTile * p.stride + 2 * kTile);
-  const size_t smem_q = sizeof(float) * (2 * kBlockRows * p.dim + 2 * kTile * p.stride);
+  p.stride_v = p.dim_v | 1;
+  const size_t smem_kv = sizeof(float) * (kBlockRows * (p.dim + p.dim_v) +
+                                          kTile * (p.stride + p.stride_v) + 2 * kTile);
+  const size_t smem_q = sizeof(float) * (kBlockRows * (p.dim + p.dim_v) +
+                                         kTile * (p.stride + p.stride_v));
   bool kv_opted = false, q_opted = false;  // the sizes follow D: opt in at every launch
   int err = opt_in(flash_bwd_dkdv_f32_kernel, smem_kv, kv_opted);
   if (err) return err;
@@ -326,8 +340,9 @@ int launch_dot(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32 (the only one: bfloat16 and float16 take
-// flash_attention_bwd_wgmma.cu); q, k, v, o, dout, dq, dk and dv share it
-// and the head width dim (Dv == D); lse is the forward's float32 [B, H, Sq]
+// flash_attention_bwd_wgmma.cu); q, k, v, o, dout, dq, dk and dv share it;
+// q, k, dq and dk are dim wide, v, o, dout and dv dim_v wide (each 1 to
+// 256); lse is the forward's float32 [B, H, Sq]
 // output and di a float32 [B, H, Sq] scratch buffer. Launches the
 // prologue, the key-tile pass and the query-tile pass on stream, in that
 // order. Returns cudaGetLastError() after the first launch that fails (0
@@ -337,12 +352,14 @@ extern "C" int acs_flash_attention_bwd(const void* q, const void* k, const void*
                                        const void* o, const void* dout, const float* lse,
                                        float* di, void* dq, void* dk, void* dv, int n_batch,
                                        int n_heads, int n_kv_heads, int sq, int sk, int dim,
-                                       int dtype, float scale, int causal, int has_window,
+                                       int dim_v, int dtype, float scale, int causal,
+                                       int has_window,
                                        int window, int has_softcap, float softcap,
                                        int q_offset, int prefix_len, void* stream) {
-  if (dim < 1 || dim > kMaxD || dtype != 0) return -1;
+  if (dim < 1 || dim > kMaxD || dim_v < 1 || dim_v > kMaxD || dtype != 0) return -1;
   Params p{q, k, v, o, dout, lse, di, dq, dk, dv, n_batch, n_heads, n_kv_heads, sq, sk, dim,
-           0, scale, causal, has_window, window, has_softcap, softcap, q_offset, prefix_len};
+           dim_v, 0, 0, scale, causal, has_window, window, has_softcap, softcap, q_offset,
+           prefix_len};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = launch_dot(p, s);
   return err ? err : launch_f32(p, s);

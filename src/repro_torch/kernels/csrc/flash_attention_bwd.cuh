@@ -17,16 +17,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Params {
   const void* q;     // [B, H, Sq, D]
   const void* k;     // [B, Hkv, Sk, D]
-  const void* v;     // [B, Hkv, Sk, D]
-  const void* o;     // [B, H, Sq, D]
-  const void* dout;  // [B, H, Sq, D]
+  const void* v;     // [B, Hkv, Sk, Dv]
+  const void* o;     // [B, H, Sq, Dv]
+  const void* dout;  // [B, H, Sq, Dv]
   const float* lse;  // [B, H, Sq]
   float* di;         // [B, H, Sq] scratch: rowsum(dO * O)
   void* dq;          // [B, H, Sq, D]
   void* dk;          // [B, Hkv, Sk, D]
-  void* dv;          // [B, Hkv, Sk, D]
-  int n_batch, n_heads, n_kv_heads, sq, sk, dim;
-  int stride;  // f32 kernels: shared-memory row stride of the streamed tiles
+  void* dv;          // [B, Hkv, Sk, Dv]
+  int n_batch, n_heads, n_kv_heads, sq, sk, dim, dim_v;  // dim: q's and k's width; dim_v: v's
+  int stride;    // f32 kernels: shared-memory row stride of the streamed q / k tiles
+  int stride_v;  // f32 kernels: the same for the streamed dO / v tiles
   float scale;
   int causal;
   int has_window, window;

@@ -55,7 +55,14 @@
 //     step (one loop that branched on both per pair spread its code over
 //     tens of kilobytes, more than the instruction cache holds;
 //     kernels/bwd_trace.py times a block's steps on the card).
-// Dv == D; tiles are templated on the padded D (64, 128, 256).
+// Tiles are templated on two padded widths, DK for q, k, dQ and dK and DV
+// for v, o, dO and dV: (64, 64), (128, 128), (256, 256), and MLA's (192,
+// 128), whose products run over their own widths (S and dQ, dK over 192;
+// dP and dV over 128: 192 is a legal wgmma N, three 64-column boxes). At
+// deepseek-v2's training shape [4, 128, 512, 192], v [.., 128], causal:
+// q, k, dQ, dK 100.7 MB each, v, o, dO, dV 67.1 MB each, ~671 MB (0.200
+// ms at 3.35 TB/s) against 16.8 M visible pairs x 2 x (3 x 192 + 2 x 128)
+// = 27.9 GFLOP (0.028 ms): the bytes.
 
 #include "flash_attention_bwd.cuh"
 #include "sm90_tiles.cuh"
@@ -74,8 +81,17 @@ using namespace sm90;
 #error "build through flash_attention.py, which defines the head widths"
 #endif
 
+#if !defined(ACS_FLASH_SPLIT_D) || !defined(ACS_FLASH_SPLIT_DV)
+#error "build through flash_attention.py, which defines the head widths"
+#endif
+
 constexpr int kMaxD = ACS_FLASH_BWD_MAX_D;  // Dv == D up to this width
 static_assert(kMaxD == 256, "the instantiations pad D to 64, 128 or 256");
+// Dv != D: D up to kSplitD with Dv up to kSplitDv (MLA's 192 and 128), on
+// one instantiation at those widths.
+constexpr int kSplitD = ACS_FLASH_SPLIT_D, kSplitDv = ACS_FLASH_SPLIT_DV;
+static_assert(kSplitD % 64 == 0 && kSplitDv % 64 == 0 && kSplitD <= 256 && kSplitDv <= kSplitD,
+              "the split widths are whole 64-column boxes");
 
 // ---------------------------------------------------------------------------
 // bfloat16 / float16 on wgmma, fed by TMA (the wgmma path)
@@ -92,21 +108,24 @@ constexpr int kConsumerRegs = 232;  // (232 - 168) x 256 taken
 constexpr int kWgRows = 64;         // query rows an item; a warpgroup's rows in the dQ pass
 constexpr int kBox = 64 * 64 * 2;   // one [64][64] box of 16-bit elements
 
-// The tiles at a padded width DP.
-template <int DP> struct WgShape {
-  // Key-tile pass: at DP <= 128 each consumer warpgroup owns 64 keys and
-  // every column of their dK and dV (P^T and dS^T stay in registers as the
-  // A operands); at DP 256 (128 accumulator registers for one of dK or dV)
-  // the two share 64 keys, one accumulating dV, the other dK.
-  static constexpr bool kRowSplit = DP <= 128;
+// The tiles at padded widths DK (q, k, dQ, dK) and DV (v, o, dO, dV).
+template <int DK, int DV> struct WgShape {
+  // Key-tile pass: at DK, DV <= 128 each consumer warpgroup owns 64 keys
+  // and every column of their dK and dV (P^T and dS^T stay in registers as
+  // the A operands); wider (DK 256: 128 accumulator registers for one of dK
+  // or dV; MLA's DK 192, DV 128) the two share 64 keys, one accumulating dV,
+  // the other dK.
+  static constexpr bool kRowSplit = DK <= 128 && DV <= 128;
   static constexpr int kKeys = kRowSplit ? 128 : 64;       // keys a block of the key-tile pass
-  static constexpr int kStages = DP == 256 ? 2 : 4;        // both passes' rings
-  static constexpr int kDqKeys = DP == 256 ? 32 : 64;      // keys a streamed tile of the dQ pass
-  static constexpr int kTile = (DP / 64) * kBox;           // bytes of a [64][DP] tile
+  static constexpr int kStages = DK > 128 ? 2 : 4;         // both passes' rings
+  static constexpr int kDqKeys = DK > 128 ? 32 : 64;       // keys a streamed tile of the dQ pass
+  static constexpr int kTileK = (DK / 64) * kBox;          // bytes of a [64][DK] tile
+  static constexpr int kTileV = (DV / 64) * kBox;          // bytes of a [64][DV] tile
+  static constexpr int kWs = DK > DV ? DK : DV;            // a workspace row's floats
 };
 
 // Di = rowsum(dO * O) at the bytes' pace: 8 lanes a row, 16-byte loads, a
-// fixed-order butterfly inside each 8-lane group (D % 8 == 0, aligned).
+// fixed-order butterfly inside each 8-lane group (Dv % 8 == 0, aligned).
 template <typename T>
 __global__ void __launch_bounds__(kDotThreads) flash_bwd_dot16_kernel(const Params p) {
   const size_t row = (static_cast<size_t>(blockIdx.x) * kDotThreads + threadIdx.x) >> 3;
@@ -114,9 +133,10 @@ __global__ void __launch_bounds__(kDotThreads) flash_bwd_dot16_kernel(const Para
   const bool live = row < static_cast<size_t>(p.n_batch) * p.n_heads * p.sq;
   float acc = 0.0f;
   if (live) {
-    const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + row * p.dim);
-    const uint4* d = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + row * p.dim);
-    for (int c = sub; c < p.dim / 8; c += 8) {
+    const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + row * p.dim_v);
+    const uint4* d =
+        reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + row * p.dim_v);
+    for (int c = sub; c < p.dim_v / 8; c += 8) {
       const uint4 a = o[c];
       const uint4 b = d[c];
       const T* ae = reinterpret_cast<const T*>(&a);
@@ -185,15 +205,15 @@ __device__ __forceinline__ void with_pair_kind(bool all, bool softcap, F&& body)
 }
 
 // The key-tile pass's shared memory and barriers.
-template <int DP>
+template <int DK, int DV>
 struct DkdvSmem {
-  using S = WgShape<DP>;
+  using S = WgShape<DK, DV>;
   unsigned char* k_s;  // [kKeys / 64] tiles
   unsigned char* v_s;
   unsigned char* q_s;  // [stage] tiles
   unsigned char* do_s;
-  unsigned char* pt_s;   // DP 256: P^T [64 keys][64 queries], swizzled
-  unsigned char* dst_s;  // DP 256: dS^T
+  unsigned char* pt_s;   // wide: P^T [64 keys][64 queries], swizzled
+  unsigned char* dst_s;  // wide: dS^T
   float* lse_s;          // [stage][64], log2 domain (0 past Sq)
   float* di_s;           // [stage][64]
   uint64_t* kv_full;
@@ -202,16 +222,16 @@ struct DkdvSmem {
 
   static constexpr int kKvTiles = S::kKeys / 64;
   static constexpr size_t bytes() {
-    return 1024 + (2 * kKvTiles + 2 * S::kStages) * static_cast<size_t>(S::kTile) +
+    return 1024 + (kKvTiles + S::kStages) * static_cast<size_t>(S::kTileK + S::kTileV) +
            (S::kRowSplit ? 0 : 2 * kBox) + 2 * S::kStages * kWgRows * sizeof(float) +
            (1 + 2 * S::kStages) * 8;
   }
   __device__ explicit DkdvSmem(unsigned char* raw) {
     k_s = align1024(raw);
-    v_s = k_s + kKvTiles * S::kTile;
-    q_s = v_s + kKvTiles * S::kTile;
-    do_s = q_s + S::kStages * S::kTile;
-    pt_s = do_s + S::kStages * S::kTile;
+    v_s = k_s + kKvTiles * S::kTileK;
+    q_s = v_s + kKvTiles * S::kTileV;
+    do_s = q_s + S::kStages * S::kTileK;
+    pt_s = do_s + S::kStages * S::kTileV;
     dst_s = pt_s + kBox;
     lse_s = reinterpret_cast<float*>(S::kRowSplit ? pt_s : dst_s + kBox);
     di_s = lse_s + S::kStages * kWgRows;
@@ -225,23 +245,27 @@ struct DkdvSmem {
 // each item's q and dO tiles (TMA) and its rows' lse (log2 domain) and Di
 // (4-byte cp.async copies by the 32 lanes, each lane arriving when its
 // copies land), nothing of it waiting on a load.
-template <int DP>
-__device__ __forceinline__ void dkdv_produce(const Params& p, const DkdvSmem<DP>& sm,
+template <int DK, int DV>
+__device__ __forceinline__ void dkdv_produce(const Params& p, const DkdvSmem<DK, DV>& sm,
                                              const CUtensorMap* map_q, const CUtensorMap* map_k,
                                              const CUtensorMap* map_v, const CUtensorMap* map_do,
                                              int k0, int bhk, int bh0, int qt_begin, int n_q,
                                              int it_lo, int n_items, int lane) {
-  using S = WgShape<DP>;
-  constexpr int NB = DP / 64;
+  using S = WgShape<DK, DV>;
+  constexpr int NBK = DK / 64, NBV = DV / 64;
   if (lane == 0 && n_items > 0) {
-    mbar_arrive_expect_tx(sm.kv_full, 2 * DkdvSmem<DP>::kKvTiles * S::kTile);
+    mbar_arrive_expect_tx(sm.kv_full, DkdvSmem<DK, DV>::kKvTiles * (S::kTileK + S::kTileV));
 #pragma unroll
-    for (int w = 0; w < DkdvSmem<DP>::kKvTiles; ++w)
+    for (int w = 0; w < DkdvSmem<DK, DV>::kKvTiles; ++w) {
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        tma_load_3d(sm.k_s + w * S::kTile + b * kBox, map_k, sm.kv_full, 64 * b, k0 + 64 * w, bhk);
-        tma_load_3d(sm.v_s + w * S::kTile + b * kBox, map_v, sm.kv_full, 64 * b, k0 + 64 * w, bhk);
-      }
+      for (int b = 0; b < NBK; ++b)
+        tma_load_3d(sm.k_s + w * S::kTileK + b * kBox, map_k, sm.kv_full, 64 * b, k0 + 64 * w,
+                    bhk);
+#pragma unroll
+      for (int b = 0; b < NBV; ++b)
+        tma_load_3d(sm.v_s + w * S::kTileV + b * kBox, map_v, sm.kv_full, 64 * b, k0 + 64 * w,
+                    bhk);
+    }
   }
   for (int i = 0; i < n_items; ++i) {
     const int s = i % S::kStages;
@@ -250,12 +274,13 @@ __device__ __forceinline__ void dkdv_produce(const Params& p, const DkdvSmem<DP>
     const int bh = bh0 + it / n_q;
     const int q0 = (qt_begin + it % n_q) * kWgRows;
     if (lane == 0) {
-      mbar_arrive_expect_tx(&sm.full[s], 2 * S::kTile);
+      mbar_arrive_expect_tx(&sm.full[s], S::kTileK + S::kTileV);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        tma_load_3d(sm.q_s + s * S::kTile + b * kBox, map_q, &sm.full[s], 64 * b, q0, bh);
-        tma_load_3d(sm.do_s + s * S::kTile + b * kBox, map_do, &sm.full[s], 64 * b, q0, bh);
-      }
+      for (int b = 0; b < NBK; ++b)
+        tma_load_3d(sm.q_s + s * S::kTileK + b * kBox, map_q, &sm.full[s], 64 * b, q0, bh);
+#pragma unroll
+      for (int b = 0; b < NBV; ++b)
+        tma_load_3d(sm.do_s + s * S::kTileV + b * kBox, map_do, &sm.full[s], 64 * b, q0, bh);
     }
     // Rows past Sq land as 0: their q and dO rows are 0 too, so P = 1
     // there multiplies zeros and dS = 0.
@@ -270,37 +295,119 @@ __device__ __forceinline__ void dkdv_produce(const Params& p, const DkdvSmem<DP>
   }
 }
 
-// A consumer warpgroup's dK (which 0, times scale) or dV (which 1)
-// accumulators for rows row0 .. row0 + 63 of the block's keys: into the
-// workspace at slot (a split key tile), or rounded to T into dk / dv.
-template <typename T, int DP>
-__device__ __forceinline__ void dkdv_store(const Params& p, const float (&acc)[DP / 2], int which,
+// A consumer warpgroup's dK (which 0, W = DK, times scale) or dV (which 1,
+// W = DV) accumulators for rows row0 .. row0 + 63 of the block's keys: into
+// the workspace at slot (a split key tile; rows of kWs floats), or rounded
+// to T into dk / dv.
+template <typename T, int W, int DK, int DV>
+__device__ __forceinline__ void dkdv_store(const Params& p, const float (&acc)[W / 2], int which,
                                            int slot, int bhk, int k0, int row0, int tid) {
-  constexpr int KEYS = WgShape<DP>::kKeys;
+  using S = WgShape<DK, DV>;
+  constexpr int KEYS = S::kKeys;
   const int wq = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
   if (slot >= 0) {
-    float* ws = p.ws + (static_cast<size_t>(which) * p.n_slots + slot) * KEYS * DP;
+    float* ws = p.ws + (static_cast<size_t>(which) * p.n_slots + slot) * KEYS * S::kWs;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
+    for (int j = 0; j < W / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(ws + (row0 + 16 * wq + gq + 8 * r) * DP + 8 * j + 2 * tq) =
+        *reinterpret_cast<float2*>(ws + (row0 + 16 * wq + gq + 8 * r) * S::kWs + 8 * j + 2 * tq) =
             make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     return;
   }
-  T* out = static_cast<T*>(which ? p.dv : p.dk) + (static_cast<size_t>(bhk) * p.sk + k0) * p.dim;
+  const int width = which ? p.dim_v : p.dim;
+  T* out = static_cast<T*>(which ? p.dv : p.dk) + (static_cast<size_t>(bhk) * p.sk + k0) * width;
   const float mul = which ? 1.0f : p.scale;
   const int keys_here = min(KEYS, p.sk - k0);
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
+  for (int j = 0; j < W / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 16 * wq + gq + 8 * r;
       const int col = 8 * j + 2 * tq;
-      if (row < keys_here && col < p.dim)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * p.dim + col) =
+      if (row < keys_here && col < width)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * width + col) =
             Mma<T>::pack(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
+}
+
+// The wide key-tile pass of one consumer warpgroup (the two share the
+// block's 64 keys): for each item, S^T = K Q^T over DK and dP^T = V dO^T
+// over DV for its 32 queries, P^T and dS^T rounded to T into the shared
+// swizzled tiles, then warpgroup 0 adds P^T dO to dV (W = DV) and
+// warpgroup 1 dS^T Q to dK (W = DK), both operands in shared memory.
+template <typename T, int W, int DK, int DV>
+__device__ __forceinline__ void dkdv_wide(const Params& p, const DkdvSmem<DK, DV>& sm,
+                                          const PairConsts& pc, int wg, int tid, int k0,
+                                          int qt_begin, int it_lo, int n_q, int n_items,
+                                          int slot, int bhk) {
+  using S = WgShape<DK, DV>;
+  const int wq = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
+  const unsigned char* a_s = wg == 0 ? sm.pt_s : sm.dst_s;  // dV += P^T dO; dK += dS^T Q
+  const int key0 = k0 + 16 * wq + gq;
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % S::kStages;
+    mbar_wait(&sm.full[s], (i / S::kStages) & 1);
+    const int row0 = p.q_offset + (qt_begin + (it_lo + i) % n_q) * kWgRows;
+    const unsigned char* qs = sm.q_s + s * S::kTileK + wg * 32 * 128;  // this warpgroup's 32 queries
+    const unsigned char* dos = sm.do_s + s * S::kTileV + wg * 32 * 128;
+    float st[16], dpt[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) st[e] = dpt[e] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {  // S^T = K Q^T
+      const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+      Wgmma<T, 32>::template ss<0, 0>(st, desc_kmajor(sm.k_s + off), desc_kmajor(qs + off), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk) {  // dP^T = V dO^T
+      const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+      Wgmma<T, 32>::template ss<0, 0>(dpt, desc_kmajor(sm.v_s + off), desc_kmajor(dos + off), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    const float* ls = sm.lse_s + s * kWgRows;
+    const float* ds = sm.di_s + s * kWgRows;
+    with_pair_kind(all_visible(p, row0 + 32 * wg, row0 + 32 * wg + 31, k0, k0 + 63),
+                   p.has_softcap, [&](auto all, auto cap) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int qi = 32 * wg + 8 * (e >> 2) + 2 * tq + (e & 1);
+        const bool vis = decltype(all)::value || visible(p, row0 + qi, key0 + 8 * ((e >> 1) & 1));
+        pair_grad<decltype(cap)::value>(pc, st[e], ls[qi], dpt[e], ds[qi], vis, st[e], dpt[e]);
+      }
+    });
+    named_sync(1, 256);  // both warpgroups are past the last item's reads of pt_s, dst_s
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t off = sw128(16 * wq + gq + 8 * r, (32 * wg + 8 * j + 2 * tq) * 2);
+        *reinterpret_cast<uint32_t*>(sm.pt_s + off) =
+            Mma<T>::pack(st[4 * j + 2 * r], st[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(sm.dst_s + off) =
+            Mma<T>::pack(dpt[4 * j + 2 * r], dpt[4 * j + 2 * r + 1]);
+      }
+    fence_async_smem();
+    named_sync(1, 256);
+    const unsigned char* bs = wg == 0 ? sm.do_s + s * S::kTileV : sm.q_s + s * S::kTileK;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk)
+      Wgmma<T, W>::template ss<0, 1>(acc, desc_kmajor(a_s + kk * 32),
+                                     desc_mnmajor(bs + kk * 2048, kBox), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (tid == 0) mbar_arrive(&sm.empty[s]);
+  }
+  dkdv_store<T, W, DK, DV>(p, acc, wg == 0 ? 1 : 0, slot, bhk, k0, 0, tid);
 }
 
 // dK and dV: block b runs row b of the wrapper's plan, items it_lo ..
@@ -308,28 +415,23 @@ __device__ __forceinline__ void dkdv_store(const Params& p, const float (&acc)[D
 // being (query head, query tile) with heads outermost. Its k and v tiles
 // land once; the producer streams the items' q and dO tiles and lse and Di
 // through a kStages ring.
-// * DP <= 128: warpgroup wg owns keys 64 wg .. 64 wg + 63. Per item it
+// * DK, DV <= 128: warpgroup wg owns keys 64 wg .. 64 wg + 63. Per item it
 //   computes S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries, once
 //   each), P^T and dS^T in registers, and adds P^T dO to dV and dS^T Q to
 //   dK with P^T and dS^T rounded to T as the register A operands (dO and Q
 //   read MN-major).
-// * DP 256: the warpgroups share 64 keys. wg computes S^T and dP^T for
-//   queries 32 wg .. 32 wg + 31 over the whole D (each pair once) and
-//   writes P^T and dS^T rounded to T into the shared swizzled tiles; then
-//   warpgroup 0 adds P^T dO to dV and warpgroup 1 dS^T Q to dK, both
-//   operands in shared memory.
+// * Wider: dkdv_wide.
 // A split key tile's blocks store float32 partial sums into ws at their
 // slot; a key tile's only block stores dK (times scale) and dV in T.
-template <typename T, int DP>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v,
                             const __grid_constant__ CUtensorMap map_do, const Params p) {
-  using S = WgShape<DP>;
-  constexpr int TILE = S::kTile;
+  using S = WgShape<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
-  const DkdvSmem<DP> sm(smem_raw);
+  const DkdvSmem<DK, DV> sm(smem_raw);
 
   const int* plan = p.plan + 8 * blockIdx.x;
   const int kt = plan[0], bhk = plan[1], qt_begin = plan[2], n_q = plan[3];
@@ -353,8 +455,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (warp >= 8) {
     setmaxnreg_dec<kProducerRegs>();
     if (warp == 8)
-      dkdv_produce<DP>(p, sm, &map_q, &map_k, &map_v, &map_do, k0, bhk, bh0, qt_begin, n_q,
-                       it_lo, n_items, threadIdx.x & 31);
+      dkdv_produce<DK, DV>(p, sm, &map_q, &map_k, &map_v, &map_do, k0, bhk, bh0, qt_begin, n_q,
+                           it_lo, n_items, threadIdx.x & 31);
     return;
   }
 
@@ -368,29 +470,31 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (n_items > 0) mbar_wait(sm.kv_full, 0);
 
   if constexpr (S::kRowSplit) {
-    const unsigned char* ks = sm.k_s + wg * TILE;
-    const unsigned char* vs = sm.v_s + wg * TILE;
+    const unsigned char* ks = sm.k_s + wg * S::kTileK;
+    const unsigned char* vs = sm.v_s + wg * S::kTileV;
     const int key0 = k0 + 64 * wg + 16 * wq + gq;  // this thread's keys: key0, key0 + 8
-    float dk[DP / 2], dv[DP / 2];
+    float dk[DK / 2], dv[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.0f;
+    for (int i = 0; i < DK / 2; ++i) dk[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.0f;
     for (int i = 0; i < n_items; ++i) {
       const int s = i % S::kStages;
       mbar_wait(&sm.full[s], (i / S::kStages) & 1);
       const int row0 = p.q_offset + (qt_begin + (it_lo + i) % n_q) * kWgRows;  // query 0's position
-      const unsigned char* qs = sm.q_s + s * TILE;
-      const unsigned char* dos = sm.do_s + s * TILE;
+      const unsigned char* qs = sm.q_s + s * S::kTileK;
+      const unsigned char* dos = sm.do_s + s * S::kTileV;
       float st[32], dpt[32];
 #pragma unroll
       for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.0f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {  // S^T = K Q^T
+      for (int kk = 0; kk < DK / 16; ++kk) {  // S^T = K Q^T
         const int off = (kk >> 2) * kBox + (kk & 3) * 32;
         Wgmma<T, 64>::template ss<0, 0>(st, desc_kmajor(ks + off), desc_kmajor(qs + off), 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {  // dP^T = V dO^T
+      for (int kk = 0; kk < DV / 16; ++kk) {  // dP^T = V dO^T
         const int off = (kk >> 2) * kBox + (kk & 3) * 32;
         Wgmma<T, 64>::template ss<0, 0>(dpt, desc_kmajor(vs + off), desc_kmajor(dos + off), 1);
       }
@@ -415,13 +519,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int kk = 0; kk < kWgRows / 16; ++kk) {  // dV += P^T dO
         uint32_t a[4];
         acc_to_a16<T>(a, st, kk);
-        Wgmma<T, DP>::template rs<1>(dv, a, desc_mnmajor(dos + kk * 2048, kBox), 1);
+        Wgmma<T, DV>::template rs<1>(dv, a, desc_mnmajor(dos + kk * 2048, kBox), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < kWgRows / 16; ++kk) {  // dK += dS^T Q
         uint32_t a[4];
         acc_to_a16<T>(a, dpt, kk);
-        Wgmma<T, DP>::template rs<1>(dk, a, desc_mnmajor(qs + kk * 2048, kBox), 1);
+        Wgmma<T, DK>::template rs<1>(dk, a, desc_mnmajor(qs + kk * 2048, kBox), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -429,86 +533,24 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dk);
       if (tid == 0) mbar_arrive(&sm.empty[s]);
     }
-    dkdv_store<T, DP>(p, dk, 0, slot, bhk, k0, 64 * wg, tid);
-    dkdv_store<T, DP>(p, dv, 1, slot, bhk, k0, 64 * wg, tid);
+    dkdv_store<T, DK, DK, DV>(p, dk, 0, slot, bhk, k0, 64 * wg, tid);
+    dkdv_store<T, DV, DK, DV>(p, dv, 1, slot, bhk, k0, 64 * wg, tid);
+  } else if (wg == 0) {
+    dkdv_wide<T, DV, DK, DV>(p, sm, pc, wg, tid, k0, qt_begin, it_lo, n_q, n_items, slot, bhk);
   } else {
-    const unsigned char* a_s = wg == 0 ? sm.pt_s : sm.dst_s;  // dV += P^T dO; dK += dS^T Q
-    const unsigned char* b_s = wg == 0 ? sm.do_s : sm.q_s;
-    const int key0 = k0 + 16 * wq + gq;
-    float acc[DP / 2];
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
-    for (int i = 0; i < n_items; ++i) {
-      const int s = i % S::kStages;
-      mbar_wait(&sm.full[s], (i / S::kStages) & 1);
-      const int row0 = p.q_offset + (qt_begin + (it_lo + i) % n_q) * kWgRows;
-      const unsigned char* qs = sm.q_s + s * TILE + wg * 32 * 128;  // this warpgroup's 32 queries
-      const unsigned char* dos = sm.do_s + s * TILE + wg * 32 * 128;
-      float st[16], dpt[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) st[e] = dpt[e] = 0.0f;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {  // S^T = K Q^T
-        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
-        Wgmma<T, 32>::template ss<0, 0>(st, desc_kmajor(sm.k_s + off), desc_kmajor(qs + off), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {  // dP^T = V dO^T
-        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
-        Wgmma<T, 32>::template ss<0, 0>(dpt, desc_kmajor(sm.v_s + off), desc_kmajor(dos + off), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-      const float* ls = sm.lse_s + s * kWgRows;
-      const float* ds = sm.di_s + s * kWgRows;
-      with_pair_kind(all_visible(p, row0 + 32 * wg, row0 + 32 * wg + 31, k0, k0 + 63),
-                     p.has_softcap, [&](auto all, auto cap) {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int qi = 32 * wg + 8 * (e >> 2) + 2 * tq + (e & 1);
-          const bool vis = decltype(all)::value || visible(p, row0 + qi, key0 + 8 * ((e >> 1) & 1));
-          pair_grad<decltype(cap)::value>(pc, st[e], ls[qi], dpt[e], ds[qi], vis, st[e], dpt[e]);
-        }
-      });
-      named_sync(1, 256);  // both warpgroups are past the last item's reads of pt_s, dst_s
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const uint32_t off = sw128(16 * wq + gq + 8 * r, (32 * wg + 8 * j + 2 * tq) * 2);
-          *reinterpret_cast<uint32_t*>(sm.pt_s + off) =
-              Mma<T>::pack(st[4 * j + 2 * r], st[4 * j + 2 * r + 1]);
-          *reinterpret_cast<uint32_t*>(sm.dst_s + off) =
-              Mma<T>::pack(dpt[4 * j + 2 * r], dpt[4 * j + 2 * r + 1]);
-        }
-      fence_async_smem();
-      named_sync(1, 256);
-      const unsigned char* bs = b_s + s * TILE;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgRows / 16; ++kk)
-        Wgmma<T, DP>::template ss<0, 1>(acc, desc_kmajor(a_s + kk * 32),
-                                        desc_mnmajor(bs + kk * 2048, kBox), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      if (tid == 0) mbar_arrive(&sm.empty[s]);
-    }
-    dkdv_store<T, DP>(p, acc, wg == 0 ? 1 : 0, slot, bhk, k0, 0, tid);
+    dkdv_wide<T, DK, DK, DV>(p, sm, pc, wg, tid, k0, qt_begin, it_lo, n_q, n_items, slot, bhk);
   }
 }
 
 // A split key tile's dK (times scale) and dV: the sum of its blocks'
 // partial sums in slot order. Row r of the wrapper's red table is spread
-// over kChunks blocks of 256 threads, a float4 of a row a thread; a row
-// with no slots (a key tile no query sees) writes zeros.
-template <typename T, int DP>
+// over kChunks blocks of 256 threads, a float4 of a workspace row a
+// thread; a row with no slots (a key tile no query sees) writes zeros.
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const Params p) {
-  constexpr int KEYS = WgShape<DP>::kKeys;
-  constexpr int C4 = DP / 4;
+  using S = WgShape<DK, DV>;
+  constexpr int KEYS = S::kKeys;
+  constexpr int C4 = S::kWs / 4;
   constexpr int kChunks = KEYS * C4 / 256;
   const int* red = p.red + 4 * (blockIdx.x / kChunks);
   const int k0 = red[0] * KEYS;
@@ -516,48 +558,50 @@ __global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(const Params p) {
   const int e = (blockIdx.x % kChunks) * 256 + threadIdx.x;
   const int r = e / C4;
   const int c = (e - r * C4) * 4;
-  if (r >= min(KEYS, p.sk - k0) || c >= p.dim) return;
+  if (r >= min(KEYS, p.sk - k0) || (c >= p.dim && c >= p.dim_v)) return;
   float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
   for (int sl = lo; sl < hi; ++sl) {
-    const float4 x =
-        *reinterpret_cast<const float4*>(p.ws + (static_cast<size_t>(sl) * KEYS + r) * DP + c);
+    const float4 x = *reinterpret_cast<const float4*>(
+        p.ws + (static_cast<size_t>(sl) * KEYS + r) * S::kWs + c);
     const float4 y = *reinterpret_cast<const float4*>(
-        p.ws + (static_cast<size_t>(p.n_slots + sl) * KEYS + r) * DP + c);
+        p.ws + (static_cast<size_t>(p.n_slots + sl) * KEYS + r) * S::kWs + c);
     a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
     b.x += y.x; b.y += y.y; b.z += y.z; b.w += y.w;
   }
-  const size_t o = (static_cast<size_t>(bhk) * p.sk + k0 + r) * p.dim + c;
-  *reinterpret_cast<uint2*>(static_cast<T*>(p.dk) + o) =
-      make_uint2(Mma<T>::pack(a.x * p.scale, a.y * p.scale),
-                 Mma<T>::pack(a.z * p.scale, a.w * p.scale));
-  *reinterpret_cast<uint2*>(static_cast<T*>(p.dv) + o) =
-      make_uint2(Mma<T>::pack(b.x, b.y), Mma<T>::pack(b.z, b.w));
+  const size_t row = static_cast<size_t>(bhk) * p.sk + k0 + r;
+  if (c < p.dim)
+    *reinterpret_cast<uint2*>(static_cast<T*>(p.dk) + row * p.dim + c) =
+        make_uint2(Mma<T>::pack(a.x * p.scale, a.y * p.scale),
+                   Mma<T>::pack(a.z * p.scale, a.w * p.scale));
+  if (c < p.dim_v)
+    *reinterpret_cast<uint2*>(static_cast<T*>(p.dv) + row * p.dim_v + c) =
+        make_uint2(Mma<T>::pack(b.x, b.y), Mma<T>::pack(b.z, b.w));
 }
 
 // dQ: a block owns 128 query rows of one (batch, head), 64 a consumer
 // warpgroup (the last query tiles first), its q and dO tiles landing once;
 // the producer warp streams the key tiles its rows see (kDqKeys keys, k
 // and v) through a kStages ring. Per key tile a warpgroup computes S =
-// Q K^T and dP = dO V^T over the whole D, dS in registers, and adds dS K
+// Q K^T over DK and dP = dO V^T over DV, dS in registers, and adds dS K
 // to dQ with dS as the register A operand and K read MN-major.
-template <typename T, int DP>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do, const Params p) {
-  using S = WgShape<DP>;
-  constexpr int NB = DP / 64;
-  constexpr int TILE = S::kTile;
+  using S = WgShape<DK, DV>;
+  constexpr int NBK = DK / 64, NBV = DV / 64;
   constexpr int BN = S::kDqKeys;
   constexpr int KBOX = BN * 128;   // a [BN][64] box
-  constexpr int KT = NB * KBOX;    // a [BN][DP] tile
+  constexpr int KTK = NBK * KBOX;  // a [BN][DK] tile
+  constexpr int KTV = NBV * KBOX;  // a [BN][DV] tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = align1024(smem_raw);  // [warpgroup] tiles
-  unsigned char* do_s = q_s + 2 * TILE;
-  unsigned char* k_s = do_s + 2 * TILE;      // [stage] tiles
-  unsigned char* v_s = k_s + S::kStages * KT;
-  uint64_t* qd_full = reinterpret_cast<uint64_t*>(v_s + S::kStages * KT);
+  unsigned char* do_s = q_s + 2 * S::kTileK;
+  unsigned char* k_s = do_s + 2 * S::kTileV;  // [stage] tiles
+  unsigned char* v_s = k_s + S::kStages * KTK;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(v_s + S::kStages * KTV);
   uint64_t* full = qd_full + 1;
   uint64_t* empty = full + S::kStages;
 
@@ -591,24 +635,28 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   if (warp >= 8) {  // producer: one thread
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x != 8 * 32) return;
-    mbar_arrive_expect_tx(qd_full, 4 * TILE);
+    mbar_arrive_expect_tx(qd_full, 2 * (S::kTileK + S::kTileV));
 #pragma unroll
-    for (int w = 0; w < 2; ++w)
+    for (int w = 0; w < 2; ++w) {
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        tma_load_3d(q_s + w * TILE + b * kBox, &map_q, qd_full, 64 * b, q0 + w * kWgRows, bh);
-        tma_load_3d(do_s + w * TILE + b * kBox, &map_do, qd_full, 64 * b, q0 + w * kWgRows, bh);
-      }
+      for (int b = 0; b < NBK; ++b)
+        tma_load_3d(q_s + w * S::kTileK + b * kBox, &map_q, qd_full, 64 * b, q0 + w * kWgRows, bh);
+#pragma unroll
+      for (int b = 0; b < NBV; ++b)
+        tma_load_3d(do_s + w * S::kTileV + b * kBox, &map_do, qd_full, 64 * b, q0 + w * kWgRows,
+                    bh);
+    }
     int i = 0;
     for (int kt = next_visible(0); kt < kt_end; kt = next_visible(kt + 1), ++i) {
       const int s = i % S::kStages;
       mbar_wait(&empty[s], ((i / S::kStages) & 1) ^ 1);
-      mbar_arrive_expect_tx(&full[s], 2 * KT);
+      mbar_arrive_expect_tx(&full[s], KTK + KTV);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        tma_load_3d(k_s + s * KT + b * KBOX, &map_k, &full[s], 64 * b, kt * BN, bhk);
-        tma_load_3d(v_s + s * KT + b * KBOX, &map_v, &full[s], 64 * b, kt * BN, bhk);
-      }
+      for (int b = 0; b < NBK; ++b)
+        tma_load_3d(k_s + s * KTK + b * KBOX, &map_k, &full[s], 64 * b, kt * BN, bhk);
+#pragma unroll
+      for (int b = 0; b < NBV; ++b)
+        tma_load_3d(v_s + s * KTV + b * KBOX, &map_v, &full[s], 64 * b, kt * BN, bhk);
     }
     return;
   }
@@ -629,29 +677,29 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     di[r] = local < p.sq ? p.di[row_base + local] : 0.0f;
   }
   const int row_wg = p.q_offset + q0 + wg * kWgRows;  // the warpgroup's first row's position
-  float acc[DP / 2];
+  float acc[DK / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
-  const unsigned char* qs = q_s + wg * TILE;
-  const unsigned char* dos = do_s + wg * TILE;
+  for (int i = 0; i < DK / 2; ++i) acc[i] = 0.0f;
+  const unsigned char* qs = q_s + wg * S::kTileK;
+  const unsigned char* dos = do_s + wg * S::kTileV;
   mbar_wait(qd_full, 0);  // also when no key tile follows: the copies land before exit
 
   int i = 0;
   for (int kt = next_visible(0); kt < kt_end; kt = next_visible(kt + 1), ++i) {
     const int s = i % S::kStages;
     mbar_wait(&full[s], (i / S::kStages) & 1);
-    const unsigned char* ks = k_s + s * KT;
-    const unsigned char* vs = v_s + s * KT;
+    const unsigned char* ks = k_s + s * KTK;
+    const unsigned char* vs = v_s + s * KTV;
     float sa[BN / 2], dp[BN / 2];
 #pragma unroll
     for (int e = 0; e < BN / 2; ++e) sa[e] = dp[e] = 0.0f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)  // S = Q K^T
+    for (int kk = 0; kk < DK / 16; ++kk)  // S = Q K^T
       Wgmma<T, BN>::template ss<0, 0>(sa, desc_kmajor(qs + (kk >> 2) * kBox + (kk & 3) * 32),
                                       desc_kmajor(ks + (kk >> 2) * KBOX + (kk & 3) * 32), 1);
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)  // dP = dO V^T
+    for (int kk = 0; kk < DV / 16; ++kk)  // dP = dO V^T
       Wgmma<T, BN>::template ss<0, 0>(dp, desc_kmajor(dos + (kk >> 2) * kBox + (kk & 3) * 32),
                                       desc_kmajor(vs + (kk >> 2) * KBOX + (kk & 3) * 32), 1);
     wgmma_commit();
@@ -674,7 +722,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int kk = 0; kk < BN / 16; ++kk) {  // dQ += dS K
       uint32_t a[4];
       acc_to_a16<T>(a, sa, kk);
-      Wgmma<T, DP>::template rs<1>(acc, a, desc_mnmajor(ks + kk * 2048, KBOX), 1);
+      Wgmma<T, DK>::template rs<1>(acc, a, desc_mnmajor(ks + kk * 2048, KBOX), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -684,7 +732,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   T* dq = static_cast<T*>(p.dq);
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
+  for (int j = 0; j < DK / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int local = local0 + 8 * r;
@@ -695,31 +743,31 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 }
 
-template <int DP>
+template <int DK, int DV>
 constexpr size_t dq_wgmma_smem() {
-  using S = WgShape<DP>;
-  return 1024 + 4 * static_cast<size_t>(S::kTile) +
-         2 * S::kStages * (DP / 64) * S::kDqKeys * 128 + (1 + 2 * S::kStages) * 8;
+  using S = WgShape<DK, DV>;
+  return 1024 + 2 * static_cast<size_t>(S::kTileK + S::kTileV) +
+         S::kStages * ((DK + DV) / 64) * S::kDqKeys * 128 + (1 + 2 * S::kStages) * 8;
 }
 
 // The prologue, the key-tile pass over the wrapper's n_plan blocks, the
 // reduction of its n_red split key tiles, and the query-tile pass.
-template <typename T, int DP>
+template <typename T, int DK, int DV>
 int launch_wgmma(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
-  using S = WgShape<DP>;
-  const uint64_t d = p.dim;
+  using S = WgShape<DK, DV>;
+  const uint64_t d = p.dim, dv = p.dim_v;
   const uint64_t q_planes = static_cast<uint64_t>(p.n_batch) * p.n_heads;
   const uint64_t kv_planes = static_cast<uint64_t>(p.n_batch) * p.n_kv_heads;
   CUtensorMap map_q, map_do, map_k, map_v, map_k2, map_v2;
   int err = tensor_map_3d<T>(&map_q, p.q, d, p.sq, q_planes, 2 * d, 2 * d * p.sq, kWgRows);
   if (!err)
-    err = tensor_map_3d<T>(&map_do, p.dout, d, p.sq, q_planes, 2 * d, 2 * d * p.sq, kWgRows);
+    err = tensor_map_3d<T>(&map_do, p.dout, dv, p.sq, q_planes, 2 * dv, 2 * dv * p.sq, kWgRows);
   if (!err) err = tensor_map_3d<T>(&map_k, p.k, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, 64);
-  if (!err) err = tensor_map_3d<T>(&map_v, p.v, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, 64);
+  if (!err) err = tensor_map_3d<T>(&map_v, p.v, dv, p.sk, kv_planes, 2 * dv, 2 * dv * p.sk, 64);
   if (!err)
     err = tensor_map_3d<T>(&map_k2, p.k, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, S::kDqKeys);
   if (!err)
-    err = tensor_map_3d<T>(&map_v2, p.v, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, S::kDqKeys);
+    err = tensor_map_3d<T>(&map_v2, p.v, dv, p.sk, kv_planes, 2 * dv, 2 * dv * p.sk, S::kDqKeys);
   if (err) return err;
 
   const size_t rows = static_cast<size_t>(p.n_batch) * p.n_heads * p.sq;
@@ -728,47 +776,53 @@ int launch_wgmma(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   if (n_plan > 0) {
-    constexpr size_t smem = DkdvSmem<DP>::bytes();
+    constexpr size_t smem = DkdvSmem<DK, DV>::bytes();
     static bool opted = false;
-    err = opt_in(flash_bwd_dkdv_wgmma_kernel<T, DP>, smem, opted);
+    err = opt_in(flash_bwd_dkdv_wgmma_kernel<T, DK, DV>, smem, opted);
     if (err) return err;
-    flash_bwd_dkdv_wgmma_kernel<T, DP>
+    flash_bwd_dkdv_wgmma_kernel<T, DK, DV>
         <<<n_plan, kWgThreads, smem, stream>>>(map_q, map_k, map_v, map_do, p);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
   if (n_red > 0) {
-    constexpr int kChunks = S::kKeys * (DP / 4) / 256;
-    flash_bwd_reduce_kernel<T, DP><<<n_red * kChunks, 256, 0, stream>>>(p);
+    constexpr int kChunks = S::kKeys * (S::kWs / 4) / 256;
+    flash_bwd_reduce_kernel<T, DK, DV><<<n_red * kChunks, 256, 0, stream>>>(p);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
-  constexpr size_t smem_q = dq_wgmma_smem<DP>();
+  constexpr size_t smem_q = dq_wgmma_smem<DK, DV>();
   static bool q_opted = false;
-  err = opt_in(flash_bwd_dq_wgmma_kernel<T, DP>, smem_q, q_opted);
+  err = opt_in(flash_bwd_dq_wgmma_kernel<T, DK, DV>, smem_q, q_opted);
   if (err) return err;
   const int n_qt = (p.sq + 2 * kWgRows - 1) / (2 * kWgRows);
-  flash_bwd_dq_wgmma_kernel<T, DP><<<n_qt * p.n_batch * p.n_heads, kWgThreads, smem_q, stream>>>(
-      map_q, map_k2, map_v2, map_do, p);
+  flash_bwd_dq_wgmma_kernel<T, DK, DV>
+      <<<n_qt * p.n_batch * p.n_heads, kWgThreads, smem_q, stream>>>(map_q, map_k2, map_v2,
+                                                                     map_do, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiations: Dv == D padded to 64, 128 or 256; Dv != D on MLA's
+// (192, 128), which any D <= 192 with Dv <= 128 takes padded by TMA's zeros.
 template <typename T>
 int launch_wgmma_dim(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
-  if (p.dim <= 64) return launch_wgmma<T, 64>(p, n_plan, n_red, stream);
-  if (p.dim <= 128) return launch_wgmma<T, 128>(p, n_plan, n_red, stream);
-  return launch_wgmma<T, 256>(p, n_plan, n_red, stream);
+  if (p.dim != p.dim_v) return launch_wgmma<T, kSplitD, kSplitDv>(p, n_plan, n_red, stream);
+  if (p.dim <= 64) return launch_wgmma<T, 64, 64>(p, n_plan, n_red, stream);
+  if (p.dim <= 128) return launch_wgmma<T, 128, 128>(p, n_plan, n_red, stream);
+  return launch_wgmma<T, 256, 256>(p, n_plan, n_red, stream);
 }
 
 }  // namespace
 
 // The wgmma backward: q, k, v, o, dout, dq, dk and dv share the dtype (1 =
-// bfloat16, 2 = float16) and the head width dim (Dv == D, dim % 8 == 0,
-// every pointer 16-byte aligned); lse is the forward's float32 [B, H, Sq]
+// bfloat16, 2 = float16); q, k, dq and dk are dim wide, v, o, dout and dv
+// dim_v wide (each a multiple of 8, every pointer 16-byte aligned; Dv == D
+// up to 256, or D up to 192 with Dv up to 128); lse is the forward's float32 [B, H, Sq]
 // output and scratch a float32 [2, B, H, Sq] buffer (Di, then lse in the
 // log2 domain). The wrapper's plan: n_plan rows of the key-tile pass's
 // blocks, n_red rows of its split key tiles, a float32 workspace ws of
-// 2 * n_slots [kKeys][DP] tiles (DP = dim padded to 64, 128 or 256), and
+// 2 * n_slots [kKeys][kWs] tiles (kWs = the instantiation's DK: dim padded
+// to 64, 128 or 256, or 192 for Dv != D), and
 // dq_span, the query-tile pass's key tiles for each of its query tiles.
 // Launches the prologue, the key-tile pass, the reduction and the
 // query-tile pass on stream, in that order. Returns cudaGetLastError()
@@ -778,13 +832,17 @@ int launch_wgmma_dim(const Params& p, int n_plan, int n_red, cudaStream_t stream
 extern "C" int acs_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* scratch, void* dq, void* dk, void* dv, int n_batch, int n_heads,
-    int n_kv_heads, int sq, int sk, int dim, int dtype, float scale, int causal, int has_window,
+    int n_kv_heads, int sq, int sk, int dim, int dim_v, int dtype, float scale, int causal,
+    int has_window,
     int window, int has_softcap, float softcap, int q_offset, int prefix_len, const int* plan,
     int n_plan, const int* red, int n_red, float* ws, int n_slots, const int* dq_span,
     void* stream) {
-  if (dim < 8 || dim > kMaxD || dim % 8 != 0 || (dtype != 1 && dtype != 2)) return -1;
+  const bool widths = dim == dim_v ? dim <= kMaxD : dim <= kSplitD && dim_v <= kSplitDv;
+  if (dim < 8 || dim_v < 8 || dim % 8 != 0 || dim_v % 8 != 0 || !widths ||
+      (dtype != 1 && dtype != 2))
+    return -1;
   Params p{q, k, v, o, dout, lse, scratch, dq, dk, dv, n_batch, n_heads, n_kv_heads, sq, sk,
-           dim, 0, scale, causal, has_window, window, has_softcap, softcap, q_offset,
+           dim, dim_v, 0, 0, scale, causal, has_window, window, has_softcap, softcap, q_offset,
            prefix_len, plan, red, ws, n_slots,
            scratch + static_cast<size_t>(n_batch) * n_heads * sq, dq_span};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

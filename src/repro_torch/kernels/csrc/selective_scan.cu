@@ -94,6 +94,22 @@
 // first design 0.162), the fused bf16 entry 0.093-0.097, S = 128 0.025; a
 // decode launch 0.005 (0.05-0.07 ms single with the host path).
 
+// The backward (acs_mamba_scan_bwd, the training path's; the reference
+// trains through XLA's derivative of its lax.scan) is mamba_scan_bwd_kernel
+// below, with its reduction: the adjoint of the recurrence is a linear
+// recurrence in reverse time, so it runs the forward's layout backwards,
+// chunk by chunk from the last, recomputing each chunk's states from the
+// carry-in the forward saved under grad. Bound on this card at
+// falcon-mamba-7b's training shape [4, 512, 8192], N 16, bf16: the bytes
+// (dt_raw, x, z, dy read and d dt_raw, dx, dz written, 33.5 MB each; b, c,
+// db, dc; the saved states 14.7 MB) ~255 MB, 0.076 ms, against the
+// recompute's 268 M exponentials, 0.064 ms: the bytes, just above. It
+// issues far more than that (a forward replay, a reverse scan and the
+// per-step products of eight gradients a state and step, and a cross-warp
+// sum of db and dc through shared memory a state pair) on one 16-warp
+// block an SM (125 registers): on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py) 1.29 ms of device time, 17x its bound.
+
 #include "sm90_tiles.cuh"
 
 #include <cstddef>
@@ -111,6 +127,11 @@ constexpr int kMaxN = 16;
 constexpr int kSeg = 4;           // steps a lane owns in a chunk (S > 1)
 constexpr int kMaxLanesLog2 = 4;  // up to 16 lanes a channel: chunks of 64 steps
 constexpr int kMaxDevices = 64;
+// The backward's chunk: 16 lanes a channel of 4 steps each, the forward's
+// chunk at S > 32, whose carry-in states the forward saves under grad.
+constexpr int kBwdLanes = 16;
+constexpr int kBwdSteps = kBwdLanes * kSeg;
+constexpr int kBwdChans = kThreads / kBwdLanes;  // 32 channels a block
 
 struct Params {
   const void* dt;        // [B, S, E]: dt (plain, float32) or dt_raw (fused, T)
@@ -128,6 +149,10 @@ struct Params {
   long long sb_dt, ss_dt, sb_x, ss_x, sb_z, ss_z, sb_b, ss_b, sb_c, ss_c;
   int seq, ch, n;
   int vec_dt, vec_x;   // 16-byte copies allowed for the dt and x tiles
+  // Under grad (null otherwise): each 64-step chunk's carry-in state h for
+  // chunks 1 .. nt - 1, [B, nt - 1, E, N], what the backward recomputes a
+  // chunk from (chunk 0 starts from h0).
+  float* states;
 };
 
 // The row stride of transposed b and c ([n][step]) for a chunk of
@@ -404,6 +429,11 @@ __global__ void __launch_bounds__(L == 1 ? kDecodeThreads : kThreads, L > 1 ? 2 
         }
         hc[q] = h_row[nn + q];  // the carry into the chunk
         if (j == 0) B[q] = __fadd_rn(__fmul_rn(A[q], hc[q]), B[q]);
+        if constexpr (steps == kBwdSteps) {
+          if (p.states != nullptr && k > 0 && j == 0 && live)
+            p.states[((static_cast<size_t>(bi) * (nt - 1) + k - 1) * p.ch + c0 + cl) * n + nn +
+                     q] = hc[q];
+        }
       }
       // Inclusive scan over the channel's lanes: B becomes the true state at
       // the end of this lane's segment.
@@ -554,12 +584,465 @@ int select_variant(int variant, Params& p, int n_batch, cudaStream_t stream, int
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward (acs_mamba_scan_bwd)
+// ---------------------------------------------------------------------------
+
+struct BwdParams {
+  Params f;             // the forward's inputs (y and hT unused)
+  const void* dy;       // [B, S, E] contiguous: the output's gradient, T (fused) or float32
+  const float* dht;     // [B, E, N] hT's gradient, or null
+  void* ddt;            // [B, S, E] contiguous: d dt_raw in T (fused) or d dt float32
+  void* dx;             // [B, S, E] contiguous
+  void* dz;             // [B, S, E] contiguous, T (fused)
+  float* dh0;           // [B, E, N]
+  float* part_b;        // [B, tiles, S, N]: each block's sum of db over its channels
+  float* part_c;        // [B, tiles, S, N]: the same for dc
+  float* part_a;        // [B, E, N]: each batch row's da (fused: dA_log)
+  float* part_d;        // [B, E]: each batch row's dD (fused)
+  float* part_bias;     // [B, E]: each batch row's d dt_bias (fused)
+  void* db;             // [B, S, N] contiguous, T
+  void* dc;             // [B, S, N] contiguous, T
+  float* da;            // [E, N]: da (plain) or dA_log (fused)
+  float* dd;            // [E] (fused)
+  float* dbias;         // [E] (fused)
+  int vec_z, vec_dy;    // 16-byte copies allowed for the z and dy tiles
+};
+
+// The backward block's shared memory, in floats from the base: four [64,
+// 32] tiles (dt, x, z, dy; float-sized), b and c transposed ([n][ldb]),
+// the chunk's start states, the carry G from the next chunk, the decay
+// rates (log2-scaled and true) and da's running sums ([32][n] each), the
+// double-buffered cross-warp sums of db and dc ([2][16 warps][4][64]) and
+// the chunk's db and dc ([2][16][64]).
+struct BwdLayout {
+  int tile, ldb, off_b, off_c, off_hs, off_g, off_a2, off_at, off_da, off_red, off_acc, floats;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int n) {
+  BwdLayout o;
+  o.tile = kBwdSteps * kBwdChans;
+  o.ldb = bc_stride(kBwdSteps);
+  o.off_b = 4 * o.tile;
+  o.off_c = o.off_b + n * o.ldb;
+  o.off_hs = o.off_c + n * o.ldb;
+  o.off_g = o.off_hs + kBwdChans * n;
+  o.off_a2 = o.off_g + kBwdChans * n;
+  o.off_at = o.off_a2 + kBwdChans * n;
+  o.off_da = o.off_at + kBwdChans * n;
+  o.off_red = o.off_da + kBwdChans * n;
+  o.off_acc = o.off_red + 2 * (kThreads / 32) * 4 * kBwdSteps;
+  o.floats = o.off_acc + 2 * kMaxN * kBwdSteps;
+  return o;
+}
+
+// The gradient of the scan (plain, variant 0) or of the fused layer span
+// (variants 1-3), one block per (batch row, 32 channels), its chunks of 64
+// steps from the last to the first. For each state the adjoint
+//   g_t = c_t * gy_t + G_t,  G_{t-1} = exp(dt_t a) * g_t  (G_{S-1} = dhT)
+// is a linear recurrence in reverse time, so the forward's design runs it
+// backwards: each lane's 4 steps give a pair (A, R) with G_out = A * G_in
+// + R, a shuffle scan in reverse lane order joins the 16 lanes, the last
+// lane folding in the next chunk's carry, and each lane replays its steps
+// from its true G. h_{t-1} comes from a forward replay of the chunk from
+// its saved start state (the forward's carry, kernels/selective_scan.py
+// saves it under grad). Per step, with q = g_t exp(dt_t a) h_{t-1}:
+//   dc_t += gy_t h_t, db_t += g_t dt_t x_t  (sums over channels)
+//   dx_t = dt_t * sum_n g_t b_t,  ddt_t = x_t * sum_n g_t b_t + sum_n q a
+//   da += q dt_t,  dh0 = G_{-1}.
+// Fused: gy = dy * silu(z), dx gains D * gy, dz = dy * (ys + D x) *
+// silu'(z), d dt_raw = ddt * softplus'(dt_raw + dt_bias) (torch's
+// threshold of 20), dD = sum gy x, d dt_bias = sum d dt_raw, dA_log = da * a.
+// No atomics: db and dc are summed over a warp's two channels by a
+// shuffle, over the block's 16 warps in warp order through shared memory
+// and over the channel tiles by the reduction kernel in tile order; da,
+// dD and d dt_bias over a channel's lanes by a butterfly, over chunks in
+// order and over batch rows by the reduction kernel.
+template <typename T, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+    mamba_scan_bwd_kernel(const __grid_constant__ BwdParams bp) {
+  constexpr int kLanesLog2 = 4;
+  constexpr int kLanes = kBwdLanes;
+  constexpr int steps = kBwdSteps;
+  constexpr int chans = kBwdChans;
+  constexpr int kSegLog2 = 2;
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Params& p = bp.f;
+  const int n = p.n;
+  const BwdLayout lay = bwd_layout(n);
+  const int ldb = lay.ldb;
+  float* sm = reinterpret_cast<float*>(smem);
+  T* t_dt = reinterpret_cast<T*>(sm);
+  T* t_x = reinterpret_cast<T*>(sm + lay.tile);
+  T* t_z = reinterpret_cast<T*>(sm + 2 * lay.tile);
+  T* t_dy = reinterpret_cast<T*>(sm + 3 * lay.tile);
+  float* s_b = sm + lay.off_b;
+  float* s_c = sm + lay.off_c;
+  float* s_hs = sm + lay.off_hs;
+  float* s_g = sm + lay.off_g;
+  float* s_a2 = sm + lay.off_a2;
+  float* s_at = sm + lay.off_at;
+  float* s_da = sm + lay.off_da;
+  float* s_red = sm + lay.off_red;
+  float* s_acc = sm + lay.off_acc;
+
+  const int tiles_c = (p.ch + chans - 1) / chans;
+  const int bi = blockIdx.x / tiles_c;
+  const int tile = blockIdx.x - bi * tiles_c;
+  const int c0 = tile * chans;
+  const int c_lim = min(chans, p.ch - c0);
+  const int nt = (p.seq + steps - 1) / steps;
+
+  const T* dt_src = static_cast<const T*>(p.dt) + bi * p.sb_dt + c0;
+  const T* x_src = static_cast<const T*>(p.x) + bi * p.sb_x + c0;
+  const T* z_src = kFused ? static_cast<const T*>(p.z) + bi * p.sb_z + c0 : nullptr;
+  const T* dy_src = static_cast<const T*>(bp.dy) + static_cast<size_t>(bi) * p.seq * p.ch + c0;
+  const T* b_src = static_cast<const T*>(p.b) + bi * p.sb_b;
+  const T* c_src = static_cast<const T*>(p.c) + bi * p.sb_c;
+  const size_t row_en = (static_cast<size_t>(bi) * p.ch + c0) * n;  // this block's [E, N] rows
+
+  for (int i = threadIdx.x; i < chans * n; i += kThreads) {
+    const bool ok = i < c_lim * n;
+    const float av = ok ? p.a[static_cast<size_t>(c0) * n + i] : 0.0f;
+    const float at = (kFused && ok) ? -expf(av) : av;
+    s_at[i] = at;
+    s_a2[i] = __fmul_rn(at, kLog2e);
+    s_da[i] = 0.0f;
+    s_g[i] = (ok && bp.dht != nullptr) ? bp.dht[row_en + i] : 0.0f;
+  }
+
+  const int j = threadIdx.x & (kLanes - 1);
+  const int cl = threadIdx.x >> kLanesLog2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool live = cl < c_lim;
+  const float bias = (kFused && live) ? p.dt_bias[c0 + cl] : 0.0f;
+  const float dval = (kFused && live) ? p.d[c0 + cl] : 0.0f;
+  const int t_seg = j * kSeg;
+  float acc_d = 0.0f, acc_bias = 0.0f;  // this thread's steps' dD and d dt_bias
+
+  for (int k = nt - 1; k >= 0; --k) {
+    const int rows = min(steps, p.seq - k * steps);
+    const long long t0 = static_cast<long long>(k) * steps;
+    __syncthreads();  // every thread is done with the previous chunk's tiles and sums
+    stage_tile<T, kThreads>(t_dt, dt_src + t0 * p.ss_dt, p.ss_dt, steps, rows, chans, c_lim,
+                            kSegLog2, p.vec_dt);
+    stage_tile<T, kThreads>(t_x, x_src + t0 * p.ss_x, p.ss_x, steps, rows, chans, c_lim,
+                            kSegLog2, p.vec_x);
+    if constexpr (kFused)
+      stage_tile<T, kThreads>(t_z, z_src + t0 * p.ss_z, p.ss_z, steps, rows, chans, c_lim,
+                              kSegLog2, bp.vec_z);
+    stage_tile<T, kThreads>(t_dy, dy_src + t0 * p.ch, p.ch, steps, rows, chans, c_lim, kSegLog2,
+                            bp.vec_dy);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < steps * n; i += kThreads) {
+      const int r = i / n;
+      const int nn = i - r * n;
+      const bool ok = r < rows;
+      s_b[nn * ldb + r] = ok ? to_f(b_src[(t0 + r) * p.ss_b + nn]) : 0.0f;
+      s_c[nn * ldb + r] = ok ? to_f(c_src[(t0 + r) * p.ss_c + nn]) : 0.0f;
+    }
+    for (int i = threadIdx.x; i < chans * n; i += kThreads) {
+      float v = 0.0f;
+      if (i < c_lim * n)
+        v = k == 0 ? p.h0[row_en + i]
+                   : bp.f.states[((static_cast<size_t>(bi) * (nt - 1) + k - 1) * p.ch + c0) * n + i];
+      s_hs[i] = v;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float dtv[kSeg], xv[kSeg], dxin[kSeg], gy[kSeg], ys[kSeg], sb[kSeg], sa[kSeg];
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i) {
+      const int t = t_seg + i;
+      const bool in = live && t < rows;
+      const int pos = tile_pos<T>(t, cl, chans, kSegLog2);
+      float v = to_f(t_dt[pos]);
+      if constexpr (kFused) v = in ? softplus(__fadd_rn(v, bias)) : 0.0f;
+      dtv[i] = in ? v : 0.0f;
+      xv[i] = to_f(t_x[pos]);
+      dxin[i] = __fmul_rn(dtv[i], xv[i]);
+      float g = in ? to_f(t_dy[pos]) : 0.0f;
+      if constexpr (kFused) {
+        const float zv = to_f(t_z[pos]);
+        g = __fmul_rn(g, __fdiv_rn(zv, __fadd_rn(1.0f, expf(-zv))));
+      }
+      gy[i] = g;
+      ys[i] = sb[i] = sa[i] = 0.0f;
+    }
+
+    int pair = 0;
+    auto states = [&](auto ks, int nn) {
+      constexpr int kS = decltype(ks)::value;
+      float da[kS][kSeg], bx[kS][kSeg], hh[kS][kSeg + 1], bv[kS][kSeg], cv[kS][kSeg];
+      float A[kS], B[kS], hc[kS], gc[kS], at[kS];
+      const int row = cl * n + nn;
+#pragma unroll
+      for (int q = 0; q < kS; ++q) {
+        const float an = s_a2[row + q];
+        at[q] = s_at[row + q];
+        load_seg<kSeg>(bv[q], s_b + (nn + q) * ldb + t_seg);
+        load_seg<kSeg>(cv[q], s_c + (nn + q) * ldb + t_seg);
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) {
+          da[q][i] = exp2_approx(__fmul_rn(dtv[i], an));
+          bx[q][i] = __fmul_rn(dxin[i], bv[q][i]);
+          if (i == 0) {
+            A[q] = da[q][0];
+            B[q] = bx[q][0];
+          } else {
+            B[q] = __fadd_rn(__fmul_rn(da[q][i], B[q]), bx[q][i]);
+            A[q] = __fmul_rn(A[q], da[q][i]);
+          }
+        }
+        hc[q] = s_hs[row + q];
+        gc[q] = s_g[row + q];
+        if (j == 0) B[q] = __fadd_rn(__fmul_rn(A[q], hc[q]), B[q]);
+      }
+      // The forward: each lane's true start state, then its steps' h.
+#pragma unroll
+      for (int d = 1; d < kLanes; d <<= 1) {
+#pragma unroll
+        for (int q = 0; q < kS; ++q) {
+          const float a_up = __shfl_up_sync(kFull, A[q], d, kLanes);
+          const float b_up = __shfl_up_sync(kFull, B[q], d, kLanes);
+          if (j >= d) {
+            B[q] = __fadd_rn(__fmul_rn(A[q], b_up), B[q]);
+            A[q] = __fmul_rn(a_up, A[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kS; ++q) {
+        float h = __shfl_up_sync(kFull, B[q], 1, kLanes);
+        if (j == 0) h = hc[q];
+        hh[q][0] = h;
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) {
+          h = __fadd_rn(__fmul_rn(da[q][i], h), bx[q][i]);
+          hh[q][i + 1] = h;
+          ys[i] = __fadd_rn(ys[i], __fmul_rn(h, cv[q][i]));
+        }
+      }
+      // The adjoint: each lane's pair from a zero carry, in reverse.
+#pragma unroll
+      for (int q = 0; q < kS; ++q) {
+        float r = 0.0f;
+#pragma unroll
+        for (int i = kSeg - 1; i >= 0; --i)
+          r = __fmul_rn(da[q][i], __fadd_rn(__fmul_rn(gy[i], cv[q][i]), r));
+        A[q] = __fmul_rn(__fmul_rn(__fmul_rn(da[q][0], da[q][1]), da[q][2]), da[q][3]);
+        B[q] = j == kLanes - 1 ? __fadd_rn(__fmul_rn(A[q], gc[q]), r) : r;
+      }
+#pragma unroll
+      for (int d = 1; d < kLanes; d <<= 1) {
+#pragma unroll
+        for (int q = 0; q < kS; ++q) {
+          const float a_dn = __shfl_down_sync(kFull, A[q], d, kLanes);
+          const float b_dn = __shfl_down_sync(kFull, B[q], d, kLanes);
+          if (j + d < kLanes) {
+            B[q] = __fadd_rn(__fmul_rn(A[q], b_dn), B[q]);
+            A[q] = __fmul_rn(A[q], a_dn);
+          }
+        }
+      }
+      float cb[kS][kSeg], cc[kS][kSeg];
+#pragma unroll
+      for (int q = 0; q < kS; ++q) {
+        float g_in = __shfl_down_sync(kFull, B[q], 1, kLanes);
+        if (j == kLanes - 1) g_in = gc[q];
+        float dap = 0.0f;
+#pragma unroll
+        for (int i = kSeg - 1; i >= 0; --i) {
+          const float g = __fadd_rn(__fmul_rn(gy[i], cv[q][i]), g_in);
+          cb[q][i] = __fmul_rn(g, dxin[i]);
+          cc[q][i] = __fmul_rn(gy[i], hh[q][i + 1]);
+          sb[i] = __fadd_rn(sb[i], __fmul_rn(g, bv[q][i]));
+          const float qv = __fmul_rn(__fmul_rn(g, da[q][i]), hh[q][i]);
+          sa[i] = __fadd_rn(sa[i], __fmul_rn(qv, at[q]));
+          dap = __fadd_rn(dap, __fmul_rn(qv, dtv[i]));
+          g_in = __fmul_rn(da[q][i], g);
+        }
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off >>= 1)
+          dap = __fadd_rn(dap, __shfl_xor_sync(kFull, dap, off, kLanes));
+        __syncwarp();
+        if (j == 0) {
+          s_g[row + q] = g_in;  // the previous chunk's carry; after chunk 0, dh0
+          s_da[row + q] = __fadd_rn(s_da[row + q], dap);
+        }
+      }
+      // db and dc over the block's channels: the warp's two by a shuffle,
+      // then the 16 warps in order.
+      float* red = s_red + (pair & 1) * kWarps * 4 * steps;
+#pragma unroll
+      for (int q = 0; q < kS; ++q)
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) {
+          const float vb = __fadd_rn(cb[q][i], __shfl_xor_sync(kFull, cb[q][i], 16));
+          const float vc = __fadd_rn(cc[q][i], __shfl_xor_sync(kFull, cc[q][i], 16));
+          if (lane < 16) {
+            red[(warp * 4 + q) * steps + t_seg + i] = vb;
+            red[(warp * 4 + 2 + q) * steps + t_seg + i] = vc;
+          }
+        }
+      __syncthreads();
+      if (threadIdx.x < 4 * steps) {
+        const int slot = threadIdx.x / steps;  // db of state q, then dc of state q
+        const int t = threadIdx.x - slot * steps;
+        const int q = slot & 1;
+        if (q < kS) {
+          float s = 0.0f;
+          for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[(w * 4 + slot) * steps + t]);
+          s_acc[((slot >> 1) * kMaxN + nn + q) * steps + t] = s;
+        }
+      }
+      ++pair;
+    };
+    int nn = 0;
+    for (; nn + 1 < n; nn += 2) states(std::integral_constant<int, 2>{}, nn);
+    if (nn < n) states(std::integral_constant<int, 1>{}, nn);
+    __syncthreads();  // the chunk's db and dc sums are whole
+
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i) {
+      const int t = t_seg + i;
+      if (!live || t >= rows) continue;
+      const int pos = tile_pos<T>(t, cl, chans, kSegLog2);
+      const size_t o = (static_cast<size_t>(bi) * p.seq + t0 + t) * p.ch + c0 + cl;
+      const float ddt = __fadd_rn(__fmul_rn(xv[i], sb[i]), sa[i]);
+      float dxo = __fmul_rn(dtv[i], sb[i]);
+      if constexpr (kFused) {
+        dxo = __fadd_rn(dxo, __fmul_rn(dval, gy[i]));
+        const float v = __fadd_rn(to_f(t_dt[pos]), bias);
+        const float ev = expf(v);
+        const float draw = v > 20.0f ? ddt : __fmul_rn(ddt, __fdiv_rn(ev, __fadd_rn(ev, 1.0f)));
+        acc_bias = __fadd_rn(acc_bias, draw);
+        acc_d = __fadd_rn(acc_d, __fmul_rn(gy[i], xv[i]));
+        const float zv = to_f(t_z[pos]);
+        const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-zv)));
+        const float dsilu = __fmul_rn(sig, __fadd_rn(1.0f, __fmul_rn(zv, __fsub_rn(1.0f, sig))));
+        const float yd = __fadd_rn(ys[i], __fmul_rn(dval, xv[i]));
+        const float dz = __fmul_rn(__fmul_rn(to_f(t_dy[pos]), yd), dsilu);
+        static_cast<T*>(bp.ddt)[o] = from_f<T>(draw);
+        static_cast<T*>(bp.dz)[o] = from_f<T>(dz);
+      } else {
+        static_cast<float*>(bp.ddt)[o] = ddt;
+      }
+      static_cast<T*>(bp.dx)[o] = from_f<T>(dxo);
+    }
+    const size_t part = ((static_cast<size_t>(bi) * tiles_c + tile) * p.seq + t0) * n;
+    for (int i = threadIdx.x; i < rows * n; i += kThreads) {
+      const int r = i / n;
+      const int nn = i - r * n;
+      bp.part_b[part + i] = s_acc[nn * steps + r];
+      bp.part_c[part + i] = s_acc[(kMaxN + nn) * steps + r];
+    }
+  }
+
+  __syncthreads();  // s_g holds dh0 and s_da the block's da
+  for (int i = threadIdx.x; i < c_lim * n; i += kThreads) {
+    bp.dh0[row_en + i] = s_g[i];
+    bp.part_a[row_en + i] = kFused ? __fmul_rn(s_da[i], s_at[i]) : s_da[i];
+  }
+  if constexpr (kFused) {
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      acc_d = __fadd_rn(acc_d, __shfl_xor_sync(kFull, acc_d, off, kLanes));
+      acc_bias = __fadd_rn(acc_bias, __shfl_xor_sync(kFull, acc_bias, off, kLanes));
+    }
+    if (j == 0 && live) {
+      bp.part_d[static_cast<size_t>(bi) * p.ch + c0 + cl] = acc_d;
+      bp.part_bias[static_cast<size_t>(bi) * p.ch + c0 + cl] = acc_bias;
+    }
+  }
+}
+
+// The sums across blocks, each in a fixed order: db and dc over the
+// channel tiles in tile order ([B, S, N], rounded to T), da (or dA_log)
+// over the batch rows, and (fused) dD and d dt_bias likewise.
+template <typename T, bool kFused>
+__global__ void __launch_bounds__(256)
+    mamba_scan_bwd_reduce_kernel(const __grid_constant__ BwdParams bp, int n_batch) {
+  const Params& p = bp.f;
+  const int tiles_c = (p.ch + kBwdChans - 1) / kBwdChans;
+  const size_t sn = static_cast<size_t>(p.seq) * p.n;
+  const size_t n_bc = n_batch * sn;
+  const size_t n_a = static_cast<size_t>(p.ch) * p.n;
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i < n_bc) {
+    const size_t bi = i / sn;
+    const size_t rest = i - bi * sn;
+    float sb = 0.0f, sc = 0.0f;
+    for (int t = 0; t < tiles_c; ++t) {
+      const size_t src = (bi * tiles_c + t) * sn + rest;
+      sb = __fadd_rn(sb, bp.part_b[src]);
+      sc = __fadd_rn(sc, bp.part_c[src]);
+    }
+    static_cast<T*>(bp.db)[i] = from_f<T>(sb);
+    static_cast<T*>(bp.dc)[i] = from_f<T>(sc);
+  } else if (i < n_bc + n_a) {
+    const size_t e = i - n_bc;
+    float s = 0.0f;
+    for (int b = 0; b < n_batch; ++b) s = __fadd_rn(s, bp.part_a[b * n_a + e]);
+    bp.da[e] = s;
+  } else if (kFused && i < n_bc + n_a + p.ch) {
+    const size_t e = i - n_bc - n_a;
+    float sd = 0.0f, sbias = 0.0f;
+    for (int b = 0; b < n_batch; ++b) {
+      sd = __fadd_rn(sd, bp.part_d[b * static_cast<size_t>(p.ch) + e]);
+      sbias = __fadd_rn(sbias, bp.part_bias[b * static_cast<size_t>(p.ch) + e]);
+    }
+    bp.dd[e] = sd;
+    bp.dbias[e] = sbias;
+  }
+}
+
+template <typename T, bool kFused>
+int run_bwd(BwdParams& bp, int n_batch, cudaStream_t stream) {
+  Params& p = bp.f;
+  constexpr int kq = 16 / static_cast<int>(sizeof(T));
+  auto vec = [&](const void* ptr, long long sb, long long ss) {
+    return p.ch % kq == 0 && aligned16(ptr) && (n_batch == 1 || sb % kq == 0) &&
+           (p.seq == 1 || ss % kq == 0);
+  };
+  p.vec_dt = vec(p.dt, p.sb_dt, p.ss_dt);
+  p.vec_x = vec(p.x, p.sb_x, p.ss_x);
+  bp.vec_z = kFused ? vec(p.z, p.sb_z, p.ss_z) : 0;
+  bp.vec_dy = vec(bp.dy, static_cast<long long>(p.seq) * p.ch, p.ch);
+  auto kernel = mamba_scan_bwd_kernel<T, kFused>;
+  const size_t bytes = static_cast<size_t>(bwd_layout(p.n).floats) * sizeof(float);
+  static size_t allowed[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -3;
+  if (bytes > allowed[dev]) {
+    const size_t most = static_cast<size_t>(bwd_layout(kMaxN).floats) * sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev] = most;
+  }
+  const int blocks = n_batch * ((p.ch + kBwdChans - 1) / kBwdChans);
+  kernel<<<blocks, kThreads, bytes, stream>>>(bp);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const size_t total = static_cast<size_t>(n_batch) * p.seq * p.n +
+                       static_cast<size_t>(p.ch) * p.n + (kFused ? p.ch : 0);
+  mamba_scan_bwd_reduce_kernel<T, kFused>
+      <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(bp, n_batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch with the pointers of one call and the sizes of its key, both as
 // arrays of 64-bit integers (a short host path: the sizes are packed once
 // per key, the pointers written into one array per call):
-//   call[0..11]: dt, x, z, b, c, a, dt_bias, d, h0, y, hT, the stream;
+//   call[0..12]: dt, x, z, b, c, a, dt_bias, d, h0, y, hT, the stream, and
+//   the chunk states to save under grad (0: none; S > 64 only);
 //   sizes[0..14]: variant, B, S, E, N, then the batch and row strides of
 //   dt, x, z, b and c, in elements.
 // variant: 0 = the plain scan (float32; a is the decay, z, dt_bias and d
@@ -576,7 +1059,7 @@ extern "C" int acs_mamba_scan(const long long* call, const long long* sizes) {
            sizes[5], sizes[6], sizes[7], sizes[8], sizes[9],
            sizes[10], sizes[11], sizes[12], sizes[13], sizes[14],
            static_cast<int>(sizes[2]), static_cast<int>(sizes[3]), static_cast<int>(sizes[4]),
-           0, 0};
+           0, 0, static_cast<float*>(ptr(12))};
   return select_variant(static_cast<int>(sizes[0]), p, static_cast<int>(sizes[1]),
                         static_cast<cudaStream_t>(ptr(11)), nullptr, true);
 }
@@ -587,7 +1070,72 @@ extern "C" int acs_mamba_scan_config(const long long* sizes, int* out) {
   Params p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
            nullptr, nullptr, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
            static_cast<int>(sizes[2]), static_cast<int>(sizes[3]), static_cast<int>(sizes[4]),
-           0, 0};
+           0, 0, nullptr};
   return select_variant(static_cast<int>(sizes[0]), p, static_cast<int>(sizes[1]), nullptr, out,
                         false);
+}
+
+// The backward of acs_mamba_scan (the same variants, sizes and strides):
+//   call[0..11]: dt, x, z, b, c, a, dt_bias, d, h0, the forward's chunk
+//   states ([B, ceil(S / 64) - 1, E, N], saved under grad; unused at
+//   S <= 64), dy ([B, S, E] contiguous, the output's dtype), dhT ([B, E,
+//   N] float32, or 0);
+//   call[12..22]: ddt, dx, dz ([B, S, E] contiguous: d dt_raw, dx and dz in
+//   the model dtype, fused; d dt and dx float32, plain), dh0 [B, E, N], the
+//   float32 workspace (acs_mamba_scan_bwd_workspace floats), db, dc ([B, S,
+//   N] contiguous, the model dtype), da [E, N] (dA_log, fused), dD [E],
+//   d dt_bias [E] (fused), the stream.
+// Launches the backward kernel, then the reduction across its blocks.
+// Returns cudaGetLastError() after the first launch that fails (0 on
+// success), -1 / -2 as acs_mamba_scan.
+extern "C" int acs_mamba_scan_bwd(const long long* call, const long long* sizes) {
+  auto ptr = [&](int i) { return reinterpret_cast<void*>(call[i]); };
+  const int n_batch = static_cast<int>(sizes[1]);
+  const int seq = static_cast<int>(sizes[2]), ch = static_cast<int>(sizes[3]);
+  const int n = static_cast<int>(sizes[4]);
+  if (n < 1 || n > kMaxN || n_batch < 1 || seq < 1 || ch < 1) return -1;
+  const int tiles = (ch + kBwdChans - 1) / kBwdChans;
+  float* ws = static_cast<float*>(ptr(16));
+  const size_t part_bc = static_cast<size_t>(n_batch) * tiles * seq * n;
+  BwdParams bp{};
+  bp.f = Params{ptr(0), ptr(1), ptr(2), ptr(3), ptr(4),
+                static_cast<const float*>(ptr(5)), static_cast<const float*>(ptr(6)),
+                static_cast<const float*>(ptr(7)), static_cast<const float*>(ptr(8)), nullptr,
+                nullptr,
+                sizes[5], sizes[6], sizes[7], sizes[8], sizes[9],
+                sizes[10], sizes[11], sizes[12], sizes[13], sizes[14],
+                seq, ch, n, 0, 0, static_cast<float*>(ptr(9))};
+  bp.dy = ptr(10);
+  bp.dht = static_cast<const float*>(ptr(11));
+  bp.ddt = ptr(12);
+  bp.dx = ptr(13);
+  bp.dz = ptr(14);
+  bp.dh0 = static_cast<float*>(ptr(15));
+  bp.part_b = ws;
+  bp.part_c = ws + part_bc;
+  bp.part_a = ws + 2 * part_bc;
+  bp.part_d = bp.part_a + static_cast<size_t>(n_batch) * ch * n;
+  bp.part_bias = bp.part_d + static_cast<size_t>(n_batch) * ch;
+  bp.db = ptr(17);
+  bp.dc = ptr(18);
+  bp.da = static_cast<float*>(ptr(19));
+  bp.dd = static_cast<float*>(ptr(20));
+  bp.dbias = static_cast<float*>(ptr(21));
+  cudaStream_t stream = static_cast<cudaStream_t>(ptr(22));
+  switch (static_cast<int>(sizes[0])) {
+    case 0: return run_bwd<float, false>(bp, n_batch, stream);
+    case 1: return run_bwd<float, true>(bp, n_batch, stream);
+    case 2: return run_bwd<__nv_bfloat16, true>(bp, n_batch, stream);
+    case 3: return run_bwd<__half, true>(bp, n_batch, stream);
+    default: return -2;
+  }
+}
+
+// The backward's float32 workspace for these sizes, in floats: each
+// block's db and dc sums ([B, ceil(E / 32), S, N] each), each batch row's
+// da ([B, E, N]), dD and d dt_bias ([B, E] each).
+extern "C" long long acs_mamba_scan_bwd_workspace(const long long* sizes) {
+  const long long n_batch = sizes[1], seq = sizes[2], ch = sizes[3], n = sizes[4];
+  const long long tiles = (ch + kBwdChans - 1) / kBwdChans;
+  return 2 * n_batch * tiles * seq * n + n_batch * ch * n + 2 * n_batch * ch;
 }

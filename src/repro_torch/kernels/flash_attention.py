@@ -22,10 +22,11 @@ Training: on CUDA tensors that need a gradient the call is a
 ``torch.autograd.Function`` whose forward is the same kernel, also writing
 each row's log-sum-exp, and whose backward is the hand-written
 ``csrc/flash_attention_bwd_wgmma.cu`` (dQ, dK, dV in two deterministic
-passes on ``wgmma`` with TMA-fed tiles; Dv == D up to
-``MAX_BACKWARD_HEAD_DIM`` = 256; Dv != D, MLA's widths, raises under
-grad) in bfloat16 and float16: on the tensors themselves where TMA can
-address them (``"wgmma"``), else on aligned copies zero-padded to a
+passes on ``wgmma`` with TMA-fed tiles; every width pair the forward
+takes: Dv == D up to ``MAX_BACKWARD_HEAD_DIM`` = 256, and MLA's D 192 with
+Dv 128 on an instantiation whose products run over each width) in
+bfloat16 and float16: on the tensors themselves where TMA can address
+them (``"wgmma"``), else on aligned copies, D and Dv each zero-padded to a
 multiple of 8 columns (``"wgmma_padded"``); in float32
 ``csrc/flash_attention_bwd.cu`` (scalar kernels, ``"fma_f32"``), by the
 shape rule :func:`backward_path`.
@@ -55,7 +56,7 @@ from .ref import attention_ref
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd", "build",
            "build_backward", "build_backward_wgmma", "launches", "backward_launches",
            "reset_launches", "SOURCE", "BACKWARD_SOURCE", "BACKWARD_WGMMA_SOURCE",
-           "MAX_HEAD_DIM", "MAX_BACKWARD_HEAD_DIM", "kernel_takes", "backward_takes",
+           "MAX_HEAD_DIM", "MAX_BACKWARD_HEAD_DIM", "kernel_takes",
            "backward_path", "backward_paths", "backward_plan", "BackwardPlan",
            "key_tile_queries", "dq_blocks", "dq_key_span", "dq_keys", "bwd_keys", "BWD_ROWS",
            "BWD_DQ_ROWS"]
@@ -69,7 +70,9 @@ BACKWARD_WGMMA_SOURCE = SOURCE.with_name("flash_attention_bwd_wgmma.cu")
 # MAX_QK_DIM_SPLIT with Dv up to MAX_V_DIM_SPLIT (MLA's 192 and 128).
 MAX_HEAD_DIM = 256
 MAX_QK_DIM_SPLIT, MAX_V_DIM_SPLIT = 192, 128
-# The backward (kMaxD in both of its sources): Dv == D up to this.
+# The backward (kMaxD in both of its sources): Dv == D up to this; Dv != D
+# on the forward's split widths (kSplitD, kSplitDv: the wgmma path's
+# (192, 128) instantiation).
 MAX_BACKWARD_HEAD_DIM = 256
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -79,7 +82,8 @@ _FLAGS = (*(f for f in NVCC_FLAGS if f != "-fmad=false"),
           f"-DACS_FLASH_MAX_D={MAX_HEAD_DIM}", f"-DACS_FLASH_SPLIT_D={MAX_QK_DIM_SPLIT}",
           f"-DACS_FLASH_SPLIT_DV={MAX_V_DIM_SPLIT}")
 _BACKWARD_FLAGS = (*(f for f in NVCC_FLAGS if f != "-fmad=false"),
-                   f"-DACS_FLASH_BWD_MAX_D={MAX_BACKWARD_HEAD_DIM}")
+                   f"-DACS_FLASH_BWD_MAX_D={MAX_BACKWARD_HEAD_DIM}",
+                   f"-DACS_FLASH_SPLIT_D={MAX_QK_DIM_SPLIT}", f"-DACS_FLASH_SPLIT_DV={MAX_V_DIM_SPLIT}")
 
 # The wgmma path's tiles (csrc/flash_attention_bwd_wgmma.cu WgShape, kWgRows):
 # the key-tile pass's blocks own bwd_keys(D) keys and take query tiles of
@@ -130,6 +134,7 @@ def _bind_backward(lib: ctypes.CDLL) -> None:
         ptr, ptr,                      # lse, di scratch
         ptr, ptr, ptr,                 # dq, dk, dv
         i32, i32, i32, i32, i32, i32,  # B, H, Hkv, Sq, Sk, D
+        i32,                           # Dv
         i32, f32, i32,                 # dtype, scale, causal
         i32, i32, i32, f32,            # has_window, window, has_softcap, softcap
         i32, i32,                      # q_offset, prefix_len
@@ -145,6 +150,7 @@ def _bind_backward_wgmma(lib: ctypes.CDLL) -> None:
         ptr, ptr,                      # lse, scratch (Di, lse in the log2 domain)
         ptr, ptr, ptr,                 # dq, dk, dv
         i32, i32, i32, i32, i32, i32,  # B, H, Hkv, Sq, Sk, D
+        i32,                           # Dv
         i32, f32, i32,                 # dtype, scale, causal
         i32, i32, i32, f32,            # has_window, window, has_softcap, softcap
         i32, i32,                      # q_offset, prefix_len
@@ -182,37 +188,44 @@ def build_backward_wgmma() -> Tuple[Path, float]:
 
 
 def kernel_takes(dim: int, dv: int) -> bool:
-    """Whether the kernel has an instantiation for q and k of width
-    ``dim`` and v of width ``dv``."""
+    """Whether the kernel, forward and backward, has an instantiation for q
+    and k of width ``dim`` and v of width ``dv``."""
     if dv == dim:
         return 1 <= dim <= MAX_HEAD_DIM
     return 1 <= dim <= MAX_QK_DIM_SPLIT and 1 <= dv <= MAX_V_DIM_SPLIT
 
 
-def backward_takes(dim: int, dv: int) -> bool:
-    """Whether the backward has an instantiation for these widths."""
-    return dv == dim and 1 <= dim <= MAX_BACKWARD_HEAD_DIM
-
-
 def backward_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                   dout: torch.Tensor) -> str:
-    """The backward's path for these tensors (all contiguous, Dv == D):
+    """The backward's path for these tensors (all contiguous):
     ``"wgmma"`` for bfloat16 and float16 when TMA can address every tensor
-    (D a multiple of 8, so that each row is whole 16-byte units, and every
-    pointer 16-byte aligned), ``"wgmma_padded"`` for the other 16-bit cases
-    (the same kernels on aligned copies, zero-padded to a multiple of 8
-    columns) and ``"fma_f32"`` for float32."""
+    (D and Dv multiples of 8, so that each row is whole 16-byte units, and
+    every pointer 16-byte aligned), ``"wgmma_padded"`` for the other 16-bit
+    cases (the same kernels on aligned copies, D and Dv each zero-padded to
+    a multiple of 8 columns) and ``"fma_f32"`` for float32."""
     if q.dtype == torch.float32:
         return "fma_f32"
-    if q.shape[3] % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout)):
+    if (q.shape[3] % 8 == 0 and v.shape[3] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout))):
         return "wgmma"
     return "wgmma_padded"
 
 
-def bwd_keys(dim: int) -> int:
+def _wgmma_widths(dim: int, dv: int) -> Tuple[int, int]:
+    """The wgmma instantiation's padded widths (csrc WgShape<DK, DV>): Dv ==
+    D to 64, 128 or 256; Dv != D on the split widths."""
+    if dv != dim:
+        return MAX_QK_DIM_SPLIT, MAX_V_DIM_SPLIT
+    width = 64 if dim <= 64 else 128 if dim <= 128 else 256
+    return width, width
+
+
+def bwd_keys(dim: int, dv: Optional[int] = None) -> int:
     """Keys a block of the wgmma key-tile pass (csrc WgShape::kKeys): 64 to
-    a consumer warpgroup at D <= 128, 64 shared by both at D 256."""
-    return 128 if dim <= 128 else 64
+    a consumer warpgroup at D, Dv <= 128, 64 shared by both wider (D 256;
+    MLA's 192 / 128)."""
+    dk_pad, dv_pad = _wgmma_widths(dim, dim if dv is None else dv)
+    return 128 if dk_pad <= 128 and dv_pad <= 128 else 64
 
 
 def key_tile_queries(kt: int, keys: int, sq: int, sk: int, *, causal: bool,
@@ -256,15 +269,16 @@ class BackwardPlan(NamedTuple):
 
 def backward_plan(n_batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int, dim: int, *,
                   causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
-                  prefix_len: int = 0, n_sm: int = 132) -> BackwardPlan:
-    """Split the key-tile pass (key tiles of ``bwd_keys(dim)`` keys) over
+                  prefix_len: int = 0, n_sm: int = 132, dv: Optional[int] = None
+                  ) -> BackwardPlan:
+    """Split the key-tile pass (key tiles of ``bwd_keys(dim, dv)`` keys) over
     blocks so that ``n_sm`` SMs are full: every block takes at most
     ``ceil(items / (BWD_BLOCKS_PER_SM n_sm))`` items, a key tile's items
     split into contiguous runs in item order, and the blocks with the most
     items launch first."""
     group = n_heads // n_kv_heads
     n_kv = n_batch * n_kv_heads
-    keys = bwd_keys(dim)
+    keys = bwd_keys(dim, dv)
     spans = [key_tile_queries(kt, keys, sq, sk, causal=causal, window=window,
                               q_offset=q_offset, prefix_len=prefix_len)
              for kt in range(-(-sk // keys))]
@@ -285,14 +299,15 @@ def backward_plan(n_batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int,
                 n_slots += 1
     blocks.sort(key=lambda row: row[4] - row[5])  # most items first; stable otherwise
     dq_span = [dq_key_span(qt, sq, sk, dim, causal=causal, window=window, q_offset=q_offset,
-                           prefix_len=prefix_len)
+                           prefix_len=prefix_len, dv=dv)
                for qt in range(-(-sq // BWD_DQ_ROWS))]
     return BackwardPlan(blocks, red, n_slots, dq_blocks(n_batch, n_heads, sq), dq_span)
 
 
-def dq_keys(dim: int) -> int:
-    """Keys a streamed tile of the wgmma query-tile pass (csrc dq_keys)."""
-    return 32 if dim > 128 else 64
+def dq_keys(dim: int, dv: Optional[int] = None) -> int:
+    """Keys a streamed tile of the wgmma query-tile pass (csrc
+    WgShape::kDqKeys): 32 past a padded D of 128, else 64."""
+    return 32 if _wgmma_widths(dim, dim if dv is None else dv)[0] > 128 else 64
 
 
 def dq_blocks(n_batch: int, n_heads: int, sq: int) -> int:
@@ -304,14 +319,15 @@ def dq_blocks(n_batch: int, n_heads: int, sq: int) -> int:
 
 
 def dq_key_span(qt: int, sq: int, sk: int, dim: int, *, causal: bool, window: Optional[int],
-                q_offset: int, prefix_len: int) -> Tuple[int, int, int]:
+                q_offset: int, prefix_len: int, dv: Optional[int] = None
+                ) -> Tuple[int, int, int]:
     """``(prefix_tiles, window_tile, end)``: query tile ``qt`` of the
     query-tile pass (``BWD_DQ_ROWS`` rows) streams key tiles of
-    ``dq_keys(dim)`` keys ``0 .. prefix_tiles - 1``, then
+    ``dq_keys(dim, dv)`` keys ``0 .. prefix_tiles - 1``, then
     ``max(prefix_tiles, window_tile) .. end - 1``, in order (each below
     ``end``): the prefix's tiles always, none past the causal bound and none
     wholly before the window. A superset: the kernel masks each pair."""
-    keys = dq_keys(dim)
+    keys = dq_keys(dim, dv)
     q0 = qt * BWD_DQ_ROWS
     row_lo = q_offset + q0
     row_hi = row_lo + min(BWD_DQ_ROWS, sq - q0) - 1
@@ -333,17 +349,17 @@ _PLANS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _PLAN_CACHE = 64
 
 
-def _device_plan(q, n_kv, sk, masks):
+def _device_plan(q, n_kv, sk, dv, masks):
     n_batch, n_heads, sq, dim = q.shape
     causal, has_window, window, _, _, q_offset, prefix_len = masks
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    key = (n_batch, n_heads, n_kv, sq, sk, bwd_keys(dim), causal, has_window, window, q_offset,
-           prefix_len, n_sm, q.device)
+    key = (n_batch, n_heads, n_kv, sq, sk, _wgmma_widths(dim, dv), causal, has_window, window,
+           q_offset, prefix_len, n_sm, q.device)
     hit = _PLANS.get(key)
     if hit is None:
         plan = backward_plan(n_batch, n_heads, n_kv, sq, sk, dim, causal=bool(causal),
                              window=window if has_window else None, q_offset=q_offset,
-                             prefix_len=prefix_len, n_sm=n_sm)
+                             prefix_len=prefix_len, n_sm=n_sm, dv=dv)
         blocks = torch.tensor(plan.blocks or [[0] * 8], dtype=torch.int32).to(q.device)
         red = torch.tensor(plan.red or [[0] * 4], dtype=torch.int32).to(q.device)
         span = torch.tensor(plan.dq_span, dtype=torch.int32).to(q.device)
@@ -422,22 +438,22 @@ def _backward(q, k, v, out, lse, dout, masks, scale):
     :func:`backward_path` picks: ``(dq, dk, dv)``."""
     dout = dout.contiguous()
     path = backward_path(q, k, v, out, dout)
-    dim = q.shape[3]
+    dim, dim_v = q.shape[3], v.shape[3]
     if path == "wgmma_padded":  # aligned copies, zero columns up to a multiple of 8
-        width = -(-dim // 8) * 8
-        q, k, v, out, dout = (_padded(t, width) for t in (q, k, v, out, dout))
+        q, k = (_padded(t, -(-dim // 8) * 8) for t in (q, k))
+        v, out, dout = (_padded(t, -(-dim_v // 8) * 8) for t in (v, out, dout))
     n_batch, n_heads, sq, width = q.shape
-    _, n_kv, sk, _ = k.shape
+    _, n_kv, sk, width_v = v.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr())
-    shape = (n_batch, n_heads, n_kv, sq, sk, width, _DTYPES[q.dtype], scale, *masks)
+    shape = (n_batch, n_heads, n_kv, sq, sk, width, width_v, _DTYPES[q.dtype], scale, *masks)
     global _BACKWARD_ENTRY, _BACKWARD_WGMMA_ENTRY, backward_launches
     if path != "fma_f32":
-        plan, n_plan, red, n_red, n_slots, span = _device_plan(q, n_kv, sk, masks)
-        tile = 64 if width <= 64 else 128 if width <= 128 else 256
-        ws = torch.empty((2, max(n_slots, 1), bwd_keys(width), tile), dtype=torch.float32,
-                         device=q.device)
+        plan, n_plan, red, n_red, n_slots, span = _device_plan(q, n_kv, sk, width_v, masks)
+        dk_pad, dv_pad = _wgmma_widths(width, width_v)
+        ws = torch.empty((2, max(n_slots, 1), bwd_keys(width, width_v), max(dk_pad, dv_pad)),
+                         dtype=torch.float32, device=q.device)
         scratch = torch.empty((2, n_batch, n_heads, sq), dtype=torch.float32, device=q.device)
         if _BACKWARD_WGMMA_ENTRY is None:
             _BACKWARD_WGMMA_ENTRY = _BACKWARD_WGMMA_LIB.get().acs_flash_attention_bwd_wgmma
@@ -457,7 +473,9 @@ def _backward(q, k, v, out, lse, dout, masks, scale):
     backward_launches += 1
     backward_paths[path] += 1
     if width != dim:
-        dq, dk, dv = (t[..., :dim].contiguous() for t in (dq, dk, dv))
+        dq, dk = (t[..., :dim].contiguous() for t in (dq, dk))
+    if width_v != dim_v:
+        dv = dv[..., :dim_v].contiguous()
     return dq, dk, dv
 
 
@@ -515,10 +533,6 @@ def flash_attention(
     masks = _masks(causal, window, softcap, q_offset, prefix_len)
     scale = _scale(scale, q.shape[3])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if not backward_takes(q.shape[3], v.shape[3]):
-            raise ValueError(f"flash_attention: no backward kernel for head dims D "
-                             f"{q.shape[3]}, Dv {v.shape[3]}: it takes Dv == D in "
-                             f"1..{MAX_BACKWARD_HEAD_DIM} (still to port: ROADMAP)")
         return _FlashFunction.apply(q, k, v, masks, scale)
     return _forward(q, k, v, masks, scale, False)[0]
 
@@ -541,7 +555,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=None, so
     tensors only (the plain version is ``ref.attention_bwd_ref``)."""
     _check_cuda("flash_attention_bwd", q)
     _check(q, k, v)
-    if not backward_takes(q.shape[3], v.shape[3]):
+    if not kernel_takes(q.shape[3], v.shape[3]):
         raise ValueError(f"flash_attention_bwd: no instantiation for D {q.shape[3]}, "
                          f"Dv {v.shape[3]}")
     return _backward(q, k, v, out.contiguous(), lse.contiguous(), dout,

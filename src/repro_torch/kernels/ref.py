@@ -37,6 +37,11 @@ the Mamba recurrence: the reference has no kernel for it, and runs the
 the span of a Mamba layer around that scan as eager ops, each its own
 kernel (softplus of the biased dt projection, ``-exp(A_log)``, the scan,
 the ``D`` skip and the ``silu(z)`` gate, the cast to the model dtype).
+``selective_scan_bwd_ref`` and ``mamba_scan_bwd_ref`` are their backwards
+from the formulas, in float32 (a reverse loop over S): the reference has
+no kernel for either (XLA differentiates its ``lax.scan``), so these are
+the test oracles and the plain versions of ``csrc/selective_scan.cu``'s
+backward entry.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ import torch.nn.functional as F
 
 __all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref", "grouped_matmul_ref",
            "grouped_matmul_bwd_ref", "lru_scan_ref", "lru_scan_bwd_ref", "ready_queue_ref",
-           "ready_queue_tables_error", "selective_scan_ref", "mamba_scan_ref",
+           "ready_queue_tables_error", "selective_scan_ref", "selective_scan_bwd_ref",
+           "mamba_scan_ref", "mamba_scan_bwd_ref",
            "wave_rows_ref", "wave_elementwise_ref"]
 
 
@@ -124,16 +130,18 @@ def attention_lse_ref(q, k, *, causal=True, window=None, softcap=None, scale=Non
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None, softcap=None,
                       scale=None, q_offset=0, prefix_len=0):
-    """The gradient of :func:`attention_ref` (Dv == D) from the formulas, in
-    float32: with the visible keys' ``P = exp(s' - lse)`` (s' the scaled,
+    """The gradient of :func:`attention_ref` from the formulas, in float32
+    (q and k of width D, v of width Dv): with the visible keys' ``P = exp(s' - lse)`` (s' the scaled,
     softcapped score; 0 for a masked key or a row whose lse is -inf),
     ``Di = rowsum(dO * O)``, ``dS = P * (dO V^T - Di)`` times
     ``1 - tanh^2`` under a softcap, ``dq = scale * dS K``,
     ``dk = scale * dS^T Q`` and ``dv = P^T dO`` (dk and dv summed over each
-    kv group's query heads). ``o`` and ``lse`` are the forward's. Returns
-    ``(dq, dk, dv)`` in float32."""
+    kv group's query heads). ``o`` and ``lse`` are the forward's; ``do``,
+    ``o`` and dv are Dv wide, Di sums over Dv. Returns ``(dq, dk, dv)`` in
+    float32."""
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
+    dv_dim = v.shape[-1]
     group = h // hkv
     scale = (1.0 / float(np.sqrt(d))) if scale is None else scale
     qg = q.reshape(b, hkv, group, sq, d).float()
@@ -148,8 +156,8 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None, softcap=
     lse_g = lse.float().reshape(b, hkv, group, sq, 1)
     live = mask & (lse_g > float("-inf"))
     p = torch.where(live, torch.exp(s - torch.where(live, lse_g, 0.0)), 0.0)
-    dog = do.reshape(b, hkv, group, sq, d).float()
-    di = (dog * o.reshape(b, hkv, group, sq, d).float()).sum(-1, keepdim=True)
+    dog = do.reshape(b, hkv, group, sq, dv_dim).float()
+    di = (dog * o.reshape(b, hkv, group, sq, dv_dim).float()).sum(-1, keepdim=True)
     dp = torch.einsum("bkgqd,bkld->bkgql", dog, v.float())
     ds = p * (dp - di) * fac
     dq = torch.einsum("bkgql,bkld->bkgqd", ds, k.float()) * scale
@@ -300,6 +308,91 @@ def mamba_scan_ref(
     y = ys + d[None, None] * xf
     y = (y * F.silu(z.float())).to(out_dtype or x.dtype)
     return y, h_t
+
+
+def selective_scan_bwd_ref(
+    dt: torch.Tensor,    # [B, S, E]
+    x: torch.Tensor,     # [B, S, E]
+    bmat: torch.Tensor,  # [B, S, N]
+    cmat: torch.Tensor,  # [B, S, N]
+    a: torch.Tensor,     # [E, N]
+    h0: torch.Tensor,    # [B, E, N]
+    dys: torch.Tensor,   # [B, S, E] the gradient of ys
+    dht: Optional[torch.Tensor] = None,  # [B, E, N] the gradient of hT
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`selective_scan_ref` from the formulas, in
+    float32, by a reverse loop over S. With ``decay_t = exp(dt_t a)``, the
+    states ``h_t`` of the forward (kept for every step), the carry
+    ``G_{S-1} = dht`` (0 when None) and, for t from S - 1 down to 0,
+    ``g_t = dys_t c_t + G_t`` and ``G_{t-1} = decay_t g_t``:
+    ``dc_t = sum_e dys_t h_t``, ``db_t = sum_e g_t dt_t x_t``,
+    ``dx_t = dt_t sum_n g_t b_t``, ``ddt_t = x_t sum_n g_t b_t + sum_n q_t a``
+    and ``da = sum_{b, t} q_t dt_t`` with ``q_t = g_t decay_t h_{t-1}``;
+    ``dh0 = G_{-1}``. Returns ``(ddt, dx, db, dc, da, dh0)`` in float32."""
+    dt, x, bmat, cmat, a = dt.float(), x.float(), bmat.float(), cmat.float(), a.float()
+    dys = dys.float()
+    h = h0.float()
+    prev = []  # h_{t-1} for each step
+    for t in range(dt.shape[1]):
+        prev.append(h)
+        h = (torch.exp(dt[:, t, :, None] * a[None]) * h
+             + (dt[:, t] * x[:, t])[..., None] * bmat[:, t, None, :])
+    g_carry = torch.zeros_like(h) if dht is None else dht.float()
+    ddt, dx = torch.empty_like(dt), torch.empty_like(dt)
+    db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
+    da = torch.zeros_like(a)
+    for t in range(dt.shape[1] - 1, -1, -1):
+        decay = torch.exp(dt[:, t, :, None] * a[None])
+        dtx = dt[:, t] * x[:, t]
+        h_t = decay * prev[t] + dtx[..., None] * bmat[:, t, None, :]
+        g = dys[:, t, :, None] * cmat[:, t, None, :] + g_carry
+        dc[:, t] = torch.einsum("ben,be->bn", h_t, dys[:, t])
+        db[:, t] = torch.einsum("ben,be->bn", g, dtx)
+        gb = torch.einsum("ben,bn->be", g, bmat[:, t])
+        q = g * decay * prev[t]
+        dx[:, t] = dt[:, t] * gb
+        ddt[:, t] = x[:, t] * gb + torch.einsum("ben,en->be", q, a)
+        da += torch.einsum("ben,be->en", q, dt[:, t])
+        g_carry = decay * g
+    return ddt, dx, db, dc, da, g_carry
+
+
+def mamba_scan_bwd_ref(
+    dt_raw: torch.Tensor,   # [B, S, E] model dtype
+    dt_bias: torch.Tensor,  # [E] float32
+    x: torch.Tensor,        # [B, S, E]
+    z: torch.Tensor,        # [B, S, E]
+    bmat: torch.Tensor,     # [B, S, N]
+    cmat: torch.Tensor,     # [B, S, N]
+    a_log: torch.Tensor,    # [E, N] float32
+    d: torch.Tensor,        # [E] float32
+    h0: torch.Tensor,       # [B, E, N] float32
+    dy: torch.Tensor,       # [B, S, E] the gradient of y
+    dht: Optional[torch.Tensor] = None,  # [B, E, N] the gradient of hT
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`mamba_scan_ref` from the formulas, in float32:
+    with ``v = dt_raw + dt_bias``, ``dt = softplus(v)``, ``a = -exp(A_log)``,
+    the scan's ``ys`` and ``gy = dy silu(z)``: :func:`selective_scan_bwd_ref`
+    with ``dys = gy``, then ``dx += D gy``, ``dz = dy (ys + D x) silu'(z)``,
+    ``dD = sum gy x``, ``d dt_raw = ddt softplus'(v)`` (torch's threshold of
+    20: 1 above it, else ``sigmoid(v)``), ``d dt_bias = sum d dt_raw`` and
+    ``dA_log = da a``. Returns the gradients of ``(dt_raw, dt_bias, x, z, b,
+    c, A_log, D, h0)``, each in its input's dtype."""
+    v = dt_raw + dt_bias[None, None]
+    dt = F.softplus(v).float()
+    a = -torch.exp(a_log)
+    xf, zf = x.float(), z.float()
+    ys, _ = selective_scan_ref(dt, xf, bmat.float(), cmat.float(), a, h0)
+    sig = torch.sigmoid(zf)
+    dyf = dy.float()
+    gy = dyf * F.silu(zf)
+    ddt, dxs, db, dc, da, dh0 = selective_scan_bwd_ref(dt, xf, bmat, cmat, a, h0, gy, dht)
+    dz = dyf * (ys + d[None, None] * xf) * (sig * (1 + zf * (1 - sig)))
+    ev = torch.exp(v.float())
+    ddt_raw = torch.where(v > 20, ddt, ddt * (ev / (ev + 1)))
+    return (ddt_raw.to(dt_raw.dtype), ddt_raw.sum((0, 1)), (dxs + d[None, None] * gy).to(x.dtype),
+            dz.to(z.dtype), db.to(bmat.dtype), dc.to(cmat.dtype), da * a,
+            (gy * xf).sum((0, 1)), dh0.to(h0.dtype))
 
 
 def ready_queue_tables_error(

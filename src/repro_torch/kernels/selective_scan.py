@@ -44,6 +44,23 @@ combine, the state loop's decay is ``ex2.approx`` (within 2 ulp of exp),
 and y sums its N terms in another order than the plain version's einsum.
 On the CPU each wrapper IS its plain version.
 
+Training: where an input needs a gradient, each entry is a
+``torch.autograd.Function`` (``_MambaScanFunction``,
+``_SelectiveScanFunction``) on both devices. On the card its forward is
+the same launch, also writing the carry-in state of each 64-step chunk
+after the first (``[B, ceil(S / 64) - 1, E, N]`` float32: 14.7 MB a layer
+at falcon-mamba-7b's training shape), and its backward is the entry
+``acs_mamba_scan_bwd`` of the same source (``mamba_scan_bwd``,
+``selective_scan_bwd``: the kernel, which recomputes each chunk from its
+saved state and runs the adjoint recurrence in reverse, and a reduction
+across its blocks; counted on ``backward_launches``), held to
+``ref.mamba_scan_bwd_ref`` / ``ref.selective_scan_bwd_ref`` within 1e-5 of
+each gradient's largest entry in float32. The Function returns dense
+gradients for z, b and c; autograd's slicing places them in their wider
+projections. On the CPU the same Functions run the plain forward and the
+plain backward. Without a gradient the call writes no states: the
+serving call, bit for bit.
+
 The wrapper is on the falcon-mamba decode step's path 64 times a step, so
 its host path is short: the C entry point is looked up once, the checks
 run once per distinct key of shapes, strides, dtypes and devices, and the
@@ -66,18 +83,25 @@ from typing import Dict, Tuple
 
 import torch
 
-from ._nvcc import CudaLibrary, _find_nvcc, raw_stream, refuse_grad
-from .ref import mamba_scan_ref, selective_scan_ref
+from ._nvcc import CudaLibrary, _find_nvcc, raw_stream
+from .ref import mamba_scan_bwd_ref, mamba_scan_ref, selective_scan_bwd_ref, selective_scan_ref
 
-__all__ = ["selective_scan", "mamba_scan", "build", "launches", "reset_launches",
-           "launch_config", "sass_per_step", "SOURCE", "MAX_STATE"]
+__all__ = ["selective_scan", "mamba_scan", "selective_scan_fwd", "mamba_scan_fwd",
+           "selective_scan_bwd", "mamba_scan_bwd", "build",
+           "launches", "backward_launches", "reset_launches", "launch_config", "sass_per_step",
+           "SOURCE", "MAX_STATE", "BWD_CHUNK"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 MAX_STATE = 16
+# The backward's chunk (csrc kBwdSteps): the forward under grad saves the
+# carry-in state of each chunk of this many steps after the first.
+BWD_CHUNK = 64
 
 # Kernel launches since the last reset_launches(): incremented once per
-# launch of the CUDA kernel (either entry), never by the plain versions.
+# launch of the CUDA kernel (either entry), and once per call of the
+# backward's entry (its kernel and reduction), never by the plain versions.
 launches = 0
+backward_launches = 0
 
 # acs_mamba_scan's variant codes: the plain float32 scan, and the fused
 # layer span by model dtype.
@@ -86,18 +110,26 @@ FUSED = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, backward_launches
+    launches = backward_launches = 0
 
 
-_CALL = ctypes.c_longlong * 12   # a call's pointers: dt, x, z, b, c, a, dt_bias, d, h0, y, hT, stream
+# A call's pointers: dt, x, z, b, c, a, dt_bias, d, h0, y, hT, stream, states.
+_CALL = ctypes.c_longlong * 13
 _SIZES = ctypes.c_longlong * 15  # a key's sizes: variant, B, S, E, N, 10 batch and row strides
+# The backward's pointers: dt, x, z, b, c, a, dt_bias, d, h0, states, dy, dhT, ddt, dx, dz,
+# dh0, workspace, db, dc, da, dD, d dt_bias, stream.
+_BWD_CALL = ctypes.c_longlong * 23
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     i64p = ctypes.POINTER(ctypes.c_longlong)
     lib.acs_mamba_scan.argtypes = [i64p, i64p]  # call, sizes
     lib.acs_mamba_scan.restype = ctypes.c_int
+    lib.acs_mamba_scan_bwd.argtypes = [i64p, i64p]  # call, sizes
+    lib.acs_mamba_scan_bwd.restype = ctypes.c_int
+    lib.acs_mamba_scan_bwd_workspace.argtypes = [i64p]  # sizes
+    lib.acs_mamba_scan_bwd_workspace.restype = ctypes.c_longlong
     lib.acs_mamba_scan_config.argtypes = [i64p, ctypes.POINTER(ctypes.c_int)]
     lib.acs_mamba_scan_config.restype = ctypes.c_int
 
@@ -233,18 +265,53 @@ def selective_scan(
     if ready is None:
         _check_plain(*args)
         ready = _READY[key] = (_sizes(PLAIN, a.shape[1], dt, x, None, bmat, cmat), dt.device)
-    if not dt.is_cuda:
-        if dt.device.type == "cpu":
-            return selective_scan_ref(*args)
+    if dt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"selective_scan: unsupported device {dt.device}")
-    refuse_grad("selective_scan", *args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScanFunction.apply(ready, *args)
+    return _selective_forward(ready, *args)[:2]
+
+
+def _states(h0: torch.Tensor, seq: int) -> torch.Tensor:
+    """The carry-in states the forward saves under grad: ``[B, chunks - 1,
+    E, N]`` float32 for the backward's chunks of ``BWD_CHUNK`` steps."""
+    n_batch, ch, n = h0.shape
+    return torch.empty((n_batch, max(0, -(-seq // BWD_CHUNK) - 1), ch, n), dtype=torch.float32,
+                       device=h0.device)
+
+
+def selective_scan_fwd(dt, x, bmat, cmat, a, h0):
+    """The scan as the backward needs it, no autograd: ``(ys, hT,
+    states)``, ``states`` the chunk states ``selective_scan_bwd`` takes
+    (None on the CPU)."""
+    _check_plain(dt, x, bmat, cmat, a, h0)
+    ready = (_sizes(PLAIN, a.shape[1], dt, x, None, bmat, cmat), dt.device)
+    return _selective_forward(ready, dt, x, bmat, cmat, a, h0, save=True)
+
+
+def mamba_scan_fwd(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0):
+    """The fused entry as the backward needs it, no autograd: ``(y, hT,
+    states)``, ``states`` the chunk states ``mamba_scan_bwd`` takes (None
+    on the CPU)."""
+    _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    ready = (_sizes(FUSED[dt_raw.dtype], a_log.shape[1], dt_raw, x, z, bmat, cmat), dt_raw.device)
+    return _mamba_forward(ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save=True)
+
+
+def _selective_forward(ready, dt, x, bmat, cmat, a, h0, save=False):
+    """``(ys, hT, states or None)``: the plain version on the CPU, else the
+    kernel, writing the chunk states when ``save``."""
+    if not dt.is_cuda:
+        return (*selective_scan_ref(dt, x, bmat, cmat, a, h0), None)
     ys = torch.empty_like(dt)
     ht = torch.empty_like(h0)
+    states = _states(h0, dt.shape[1]) if save else None
     call = _call()
     call[:11] = (dt.data_ptr(), x.data_ptr(), 0, bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
                  0, 0, h0.data_ptr(), ys.data_ptr(), ht.data_ptr())
+    call[12] = states.data_ptr() if states is not None and states.numel() else 0
     _launch(ready, call)
-    return ys, ht
+    return ys, ht, states
 
 
 def mamba_scan(
@@ -279,19 +346,141 @@ def mamba_scan(
         _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
         ready = _READY[key] = (_sizes(FUSED[dt_raw.dtype], a_log.shape[1], dt_raw, x, z, bmat,
                                       cmat), dt_raw.device)
-    if not dt_raw.is_cuda:
-        if dt_raw.device.type == "cpu":
-            return mamba_scan_ref(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    if dt_raw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mamba_scan: unsupported device {dt_raw.device}")
-    refuse_grad("mamba_scan", dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    args = (dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _MambaScanFunction.apply(ready, *args)
+    return _mamba_forward(ready, *args)[:2]
+
+
+def _mamba_forward(ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save=False):
+    """``(y, hT, states or None)``: the plain version on the CPU, else the
+    kernel, writing the chunk states when ``save``."""
+    if not dt_raw.is_cuda:
+        return (*mamba_scan_ref(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0), None)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     ht = torch.empty_like(h0)
+    states = _states(h0, dt_raw.shape[1]) if save else None
     call = _call()
     call[:11] = (dt_raw.data_ptr(), x.data_ptr(), z.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
                  a_log.data_ptr(), dt_bias.data_ptr(), d.data_ptr(), h0.data_ptr(), y.data_ptr(),
                  ht.data_ptr())
+    call[12] = states.data_ptr() if states is not None and states.numel() else 0
     _launch(ready, call)
-    return y, ht
+    return y, ht, states
+
+
+def _backward(ready, fwd, states, dy, dht, out_dtype):
+    """Launch the backward entry for the forward's tensors ``fwd`` (dt, x,
+    z, b, c, a, dt_bias, d, h0; None where the variant has none):
+    ``(ddt, dx, dz, db, dc, da, dD, d dt_bias, dh0)``, None where the variant
+    has none."""
+    sizes, device = ready
+    dt, x, z, bmat, cmat, a, dt_bias, d, h0 = fwd
+    fused = sizes[0] != PLAIN
+    n_batch, seq, ch = dt.shape
+    n = a.shape[1]
+    want = tuple(_states(h0, seq).shape)
+    if want[1] and (states is None or tuple(states.shape) != want
+                    or states.dtype != torch.float32 or not states.is_contiguous()
+                    or states.device != device):
+        raise ValueError(f"selective_scan backward: the forward's chunk states must be a "
+                         f"contiguous float32 {list(want)} on {device}, got "
+                         f"{None if states is None else (list(states.shape), states.dtype)}")
+    for name, g, shape in (("dy", dy, (n_batch, seq, ch)), ("dhT", dht, (n_batch, ch, n))):
+        if g is not None and (tuple(g.shape) != shape or g.device != device):
+            raise ValueError(f"selective_scan backward: {name} must be {list(shape)} on "
+                             f"{device}, got {list(g.shape)} on {g.device}")
+    dy = torch.zeros((n_batch, seq, ch), dtype=out_dtype, device=device) if dy is None \
+        else dy.to(out_dtype).contiguous()
+    dht = None if dht is None else dht.float().contiguous()
+    ddt, dx = (torch.empty((n_batch, seq, ch), dtype=dt.dtype, device=device) for _ in range(2))
+    dz = torch.empty_like(ddt) if fused else None
+    db, dc = (torch.empty((n_batch, seq, n), dtype=bmat.dtype, device=device) for _ in range(2))
+    da = torch.empty((ch, n), dtype=torch.float32, device=device)
+    dd, dbias = ((torch.empty(ch, dtype=torch.float32, device=device) for _ in range(2))
+                 if fused else (None, None))
+    dh0 = torch.empty_like(h0)
+    lib = _LIB.get()
+    ws = torch.empty(lib.acs_mamba_scan_bwd_workspace(sizes), dtype=torch.float32, device=device)
+    ptr = lambda t: 0 if t is None or t.numel() == 0 else t.data_ptr()  # noqa: E731
+    call = _BWD_CALL(*(ptr(t) for t in (dt, x, z, bmat, cmat, a, dt_bias, d, h0, states, dy, dht,
+                                         ddt, dx, dz, dh0, ws, db, dc, da, dd, dbias)),
+                     raw_stream(device))
+    err = lib.acs_mamba_scan_bwd(call, sizes)
+    if err != 0:
+        raise RuntimeError(f"selective_scan backward launch failed: CUDA error {err}")
+    global backward_launches
+    backward_launches += 1
+    return ddt, dx, dz, db, dc, da, dd, dbias, dh0
+
+
+def selective_scan_bwd(dt, x, bmat, cmat, a, h0, states, dys, dht=None):
+    """The scan's backward: ``(ddt, dx, db, dc, da, dh0)`` float32 from the
+    forward's inputs, its saved chunk ``states`` (``_states``; None at
+    S <= ``BWD_CHUNK``) and the gradients of ys and hT (either may be None).
+    The plain version on the CPU; on CUDA tensors the kernel, on the current
+    stream, no sync."""
+    if not dt.is_cuda:
+        zero = torch.zeros_like(dt) if dys is None else dys
+        return selective_scan_bwd_ref(dt, x, bmat, cmat, a, h0, zero, dht)
+    _check_plain(dt, x, bmat, cmat, a, h0)
+    ready = (_sizes(PLAIN, a.shape[1], dt, x, None, bmat, cmat), dt.device)
+    ddt, dx, _, db, dc, da, _, _, dh0 = _backward(
+        ready, (dt, x, None, bmat, cmat, a, None, None, h0), states, dys, dht, torch.float32)
+    return ddt, dx, db, dc, da, dh0
+
+
+def mamba_scan_bwd(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, states, dy, dht=None):
+    """The fused entry's backward: the gradients of ``(dt_raw, dt_bias, x,
+    z, b, c, A_log, D, h0)``, each in its input's dtype (b's and c's dense),
+    from the forward's inputs, its saved chunk ``states`` and the gradients
+    of y and hT (either may be None). The plain version on the CPU; on CUDA
+    tensors the kernel, on the current stream, no sync."""
+    if not dt_raw.is_cuda:
+        zero = torch.zeros_like(x) if dy is None else dy
+        return mamba_scan_bwd_ref(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, zero, dht)
+    _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    ready = (_sizes(FUSED[dt_raw.dtype], a_log.shape[1], dt_raw, x, z, bmat, cmat), dt_raw.device)
+    ddt, dx, dz, db, dc, da, dd, dbias, dh0 = _backward(
+        ready, (dt_raw, x, z, bmat, cmat, a_log, dt_bias, d, h0), states, dy, dht, x.dtype)
+    return ddt, dbias, dx, dz, db, dc, da, dd, dh0
+
+
+class _SelectiveScanFunction(torch.autograd.Function):
+    """The scan with its inputs and (on the card) its chunk states saved;
+    the backward kernel (the plain backward on the CPU) for the gradient."""
+
+    @staticmethod
+    def forward(ctx, ready, dt, x, bmat, cmat, a, h0):
+        ys, ht, states = _selective_forward(ready, dt, x, bmat, cmat, a, h0, save=True)
+        ctx.save_for_backward(dt, x, bmat, cmat, a, h0, states)
+        ctx.set_materialize_grads(False)
+        return ys, ht
+
+    @staticmethod
+    def backward(ctx, dys, dht):
+        dt, x, bmat, cmat, a, h0, states = ctx.saved_tensors
+        return (None, *selective_scan_bwd(dt, x, bmat, cmat, a, h0, states, dys, dht))
+
+
+class _MambaScanFunction(torch.autograd.Function):
+    """The fused entry with its inputs and (on the card) its chunk states
+    saved; the backward kernel (the plain backward on the CPU) for the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0):
+        y, ht, states = _mamba_forward(ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0,
+                                       save=True)
+        ctx.save_for_backward(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, states)
+        ctx.set_materialize_grads(False)
+        return y, ht
+
+    @staticmethod
+    def backward(ctx, dy, dht):
+        return (None, *mamba_scan_bwd(*ctx.saved_tensors, dy, dht))
 
 
 def launch_config(dtype, n_batch: int, seq: int, ch: int, n: int) -> dict:

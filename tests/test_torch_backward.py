@@ -10,14 +10,24 @@ held to the reference on the same seeded numpy inputs.
   float32, and bfloat16 at D 40.
 * ``attention_bwd_ref`` at D 256 against ``jax.vjp`` of the reference's
   ``attention_ref``: MQA, a window shorter than S, ``prefix_len``,
-  softcap.
+  softcap; and at Dv != D (the reduced MLA's 16 / 8 and 48 / 32): causal,
+  a window, ``prefix_len``, a ragged Sk, softcap without the causal mask.
+* ``selective_scan_bwd_ref`` and ``mamba_scan_bwd_ref`` (the selective
+  scan's plain backwards, from the formulas) against ``torch.autograd``
+  through ``selective_scan_ref`` / ``mamba_scan_ref``: B {1, 3} x S {1, 37,
+  70} x E {8, 24} x N {1, 4, 16}, float32 and bfloat16, with hT's gradient
+  too; z, b and c strided views of wider projections for the fused entry.
+* The port's ``apply_mamba`` under grad (its scan through
+  ``_MambaScanFunction``, whose backward is ``mamba_scan_bwd_ref`` on the
+  CPU): every weight's gradient and the input's (and the initial state's)
+  against ``jax.vjp`` of the reference's ``apply_mamba``.
 * Each Function (``grouped_matmul``, ``lru_scan`` under grad) on the CPU
   against ``torch.autograd`` through its plain forward, and which inputs
   get a gradient.
-* Reduced granite-moe-3b-a800m and recurrentgemma-2b through
-  ``loss_and_grads`` against ``jax.value_and_grad``, with the backward
-  going through the Functions' plain backward once per expert product and
-  RG-LRU layer.
+* Reduced granite-moe-3b-a800m, recurrentgemma-2b, falcon-mamba-7b and
+  deepseek-v2-236b through ``loss_and_grads`` against
+  ``jax.value_and_grad``, with the backward going through the Functions'
+  plain backward once per expert product, RG-LRU layer and Mamba layer.
 
 Tolerances, each relative to the largest entry of the reference's
 gradient (``_close``):
@@ -28,6 +38,15 @@ gradient (``_close``):
   tile's dw to bfloat16 and adds the tiles of a group in bfloat16, where
   the port adds them in float32 and rounds once: a bfloat16 ulp (2^-8)
   a tile sum apart, two at most over these cases.
+* The selective scan's plain backwards against autograd: float32 1e-5
+  (the same formulas, summed in other orders: einsum against autograd's
+  reductions); bfloat16 2^-7: both compute in float32 from the same
+  bfloat16 inputs and round each gradient to bfloat16 once, so a float32
+  difference in the last bits can move a rounding by one bfloat16 ulp
+  (2^-8 of the entry).
+* ``apply_mamba`` against the reference, float32 1e-5: XLA's transpose of
+  its ``lax.scan`` and the plain backward's reverse loop sum in other
+  orders.
 * RG-LRU bfloat16 2e-2 (the forward's own test tolerance): the
   reference's derivative multiplies by the float32 carry h_{t-1}, the port
   by the saved output h, rounded to bfloat16 (2^-9 relative each step).
@@ -59,6 +78,7 @@ from repro_torch.tree import tree_leaves_with_names
 
 gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
 ls = importlib.import_module("repro_torch.kernels.lru_scan")
+ss = importlib.import_module("repro_torch.kernels.selective_scan")
 
 T_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 J_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -256,6 +276,155 @@ def test_attention_bwd_ref_at_d256_matches_jax_vjp(case):
         _close(_np(g), w, 1e-5, name)
 
 
+# Dv != D: (b, h, hkv, sq, sk, d, dv), flags. The reduced MLA's 16 / 8 and a
+# wider 48 / 32: causal, a window, a prefix, Sk past Sq (a query offset),
+# softcap without the causal mask over GQA.
+ATTN_DV = [((1, 4, 4, 20, 20, 16, 8), {}),
+           ((2, 4, 2, 24, 24, 16, 8), {"window": 7}),
+           ((1, 4, 1, 30, 30, 48, 32), {"prefix_len": 6}),
+           ((1, 2, 2, 17, 29, 48, 32), {"q_offset": 12}),
+           ((1, 4, 2, 20, 20, 16, 8), {"causal": False, "window": 5, "softcap": 3.0})]
+
+
+@pytest.mark.parametrize("case", range(len(ATTN_DV)))
+def test_attention_bwd_ref_at_dv_ne_d_matches_jax_vjp(case):
+    (b, h, hkv, sq, sk, d, dv), flags = ATTN_DV[case]
+    rng = np.random.RandomState(60 + case)
+    q = rng.randn(b, h, sq, d).astype(np.float32)
+    do = rng.randn(b, h, sq, dv).astype(np.float32)
+    k = rng.randn(b, hkv, sk, d).astype(np.float32)
+    v = rng.randn(b, hkv, sk, dv).astype(np.float32)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    out = T.attention_ref(qt, kt, vt, **flags)
+    lse = T.attention_lse_ref(qt, kt, **flags)
+    got = T.attention_bwd_ref(qt, kt, vt, out, lse, dot, **flags)
+    assert [tuple(g.shape) for g in got] == [q.shape, k.shape, v.shape]
+    rout, vjp = jax.vjp(lambda a, b_, c: R.attention_ref(a, b_, c, **flags),
+                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _close(_np(out), rout, 1e-5, "out")
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(do))):
+        _close(_np(g), w, 1e-5, name)
+
+
+# ---------------------------------------------------------------------------
+# The selective scan
+# ---------------------------------------------------------------------------
+
+SCAN_GRID = [(b, s, e, n) for b in (1, 3) for s in (1, 37, 70) for e in (8, 24)
+             for n in (1, 4, 16)]
+SCAN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+def _scan_arrays(b, s, e, n, seed, rank=5):
+    """Seeded numpy inputs as a Mamba layer makes them: dt_raw, x, the
+    in projection [B, S, 2E] (z its second half) and the x projection
+    [B, S, rank + 2N] (b and c past the dt rank), dt_bias, A_log = log(1..N)
+    plus noise, D, h0, and the gradients of y and hT."""
+    rng = np.random.RandomState(seed)
+    f = lambda *shape: rng.randn(*shape).astype(np.float32)  # noqa: E731
+    return {"dt_raw": f(b, s, e), "x": f(b, s, e), "xz": f(b, s, 2 * e),
+            "proj": f(b, s, rank + 2 * n), "dt_bias": 0.5 * f(e),
+            "a_log": (np.log(np.arange(1, n + 1, dtype=np.float32))[None]
+                      + 0.1 * f(e, n)).astype(np.float32),
+            "d": f(e), "h0": f(b, e, n), "dy": f(b, s, e), "dht": f(b, e, n)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,e,n", SCAN_GRID, ids=[f"b{b}-s{s}-e{e}-n{n}" for b, s, e, n in SCAN_GRID])
+def test_mamba_scan_bwd_ref_matches_autograd(b, s, e, n, dtype):
+    arr = _scan_arrays(b, s, e, n, seed=b * 1000 + s * 10 + e + n)
+    md = T_DTYPES[dtype]
+    dt_raw, x, xz, proj = (torch.from_numpy(arr[k]).to(md).requires_grad_(True)
+                           for k in ("dt_raw", "x", "xz", "proj"))
+    dt_bias, a_log, d, h0 = (torch.from_numpy(arr[k]).requires_grad_(True)
+                             for k in ("dt_bias", "a_log", "d", "h0"))
+    z, bm, cm = xz[..., e:], proj[..., 5: 5 + n], proj[..., 5 + n:]
+    args = (dt_raw, dt_bias, x, z, bm, cm, a_log, d, h0)
+    y, ht = T.mamba_scan_ref(*args)
+    dy, dht = torch.from_numpy(arr["dy"]).to(md), torch.from_numpy(arr["dht"])
+    want = torch.autograd.grad((y.float() * dy.float()).sum() + (ht * dht).sum(), args)
+    got = T.mamba_scan_bwd_ref(*(t.detach() for t in args), dy, dht)
+    names = ("dt_raw", "dt_bias", "x", "z", "b", "c", "A_log", "D", "h0")
+    for name, g, w, t in zip(names, got, want, args):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        _close(_np(g), _np(w), SCAN_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,e,n", SCAN_GRID, ids=[f"b{b}-s{s}-e{e}-n{n}" for b, s, e, n in SCAN_GRID])
+def test_selective_scan_bwd_ref_matches_autograd(b, s, e, n, dtype):
+    arr = _scan_arrays(b, s, e, n, seed=7 + b * 1000 + s * 10 + e + n)
+    md = T_DTYPES[dtype]
+    dt = torch.nn.functional.softplus(torch.from_numpy(arr["dt_raw"])).to(md).requires_grad_(True)
+    x = torch.from_numpy(arr["x"]).to(md).requires_grad_(True)
+    bm = torch.from_numpy(arr["proj"][..., :n].copy()).to(md).requires_grad_(True)
+    cm = torch.from_numpy(arr["proj"][..., n: 2 * n].copy()).to(md).requires_grad_(True)
+    a = (-torch.exp(torch.from_numpy(arr["a_log"]))).to(md).requires_grad_(True)
+    h0 = torch.from_numpy(arr["h0"]).requires_grad_(True)
+    args = (dt, x, bm, cm, a, h0)
+    ys, ht = T.selective_scan_ref(*args)
+    dys, dht = torch.from_numpy(arr["dy"]), torch.from_numpy(arr["dht"])
+    want = torch.autograd.grad((ys * dys).sum() + (ht * dht).sum(), args)
+    got = T.selective_scan_bwd_ref(*(t.detach() for t in args), dys, dht)
+    for name, g, w in zip(("dt", "x", "b", "c", "a", "h0"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        _close(_np(g), _np(w), SCAN_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [1, 12, 70])
+def test_apply_mamba_function_matches_jax_vjp(with_state, s, monkeypatch):
+    """The port's reduced falcon-mamba layer under grad on the CPU, its
+    scan through ``_MambaScanFunction`` (whose backward is the plain
+    backward, counted once), against ``jax.vjp`` of the reference's
+    ``apply_mamba`` on the same weights and inputs."""
+    from repro.models import recurrent as RR
+    from repro_torch.models import recurrent as TR
+
+    calls = _counting(monkeypatch, ss, "mamba_scan_bwd_ref")
+    cfg, rcfg = ARCHS["falcon-mamba-7b"].reduced(), R_ARCHS["falcon-mamba-7b"].reduced()
+    rparams = RM.init_params(rcfg, jax.random.PRNGKey(5), tp_size=1)
+    rp = jax.tree.map(lambda a: np.asarray(a[0]), rparams["stages"][0]["mixer"])
+    rng = np.random.RandomState(70 + s)
+    # non-zero dt_bias and D, so every term counts
+    rp["dt_bias"] = (0.5 * rng.randn(*rp["dt_bias"].shape)).astype(np.float32)
+    rp["D"] = rng.randn(*rp["D"].shape).astype(np.float32)
+    model = params_from_numpy(jax.tree.map(np.asarray, rparams), cfg, device="cpu")
+    mixer = model.stages[0][0].mixer
+    for name, val in rp.items():
+        getattr(mixer, name).data.copy_(torch.from_numpy(np.array(val)))
+    mixer.requires_grad_(True)
+    di, n = cfg.expand * cfg.d_model, cfg.ssm_state
+    x = rng.randn(2, s, cfg.d_model).astype(np.float32)
+    h0 = rng.randn(2, di, n).astype(np.float32)
+    conv = rng.randn(2, cfg.d_conv - 1, di).astype(np.float32)
+    dout = rng.randn(2, s, cfg.d_model).astype(np.float32)
+    dh = rng.randn(2, di, n).astype(np.float32)
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    h0t = torch.from_numpy(h0).requires_grad_(True)
+    state = (h0t, torch.from_numpy(conv)) if with_state else None
+    out, new = TR.apply_mamba(mixer, xt, cfg, state=state)
+    loss = (out * torch.from_numpy(dout)).sum()
+    if with_state:
+        loss = loss + (new[0] * torch.from_numpy(dh)).sum()
+    names = sorted(rp)
+    inputs = [xt] + [getattr(mixer, k) for k in names] + ([h0t] if with_state else [])
+    got = torch.autograd.grad(loss, inputs)
+    assert len(calls) == 1
+
+    def ref(xj, pj, h0j):
+        st = (h0j, jnp.asarray(conv)) if with_state else None
+        y, new_j = RR.apply_mamba(dict(zip(names, pj)), xj, rcfg, state=st)
+        return (y, new_j[0]) if with_state else (y,)
+    _, vjp = jax.vjp(ref, jnp.asarray(x), [jnp.asarray(rp[k]) for k in names], jnp.asarray(h0))
+    cot = (jnp.asarray(dout), jnp.asarray(dh)) if with_state else (jnp.asarray(dout),)
+    wx, wp, wh0 = vjp(cot)
+    want = [wx] + list(wp) + ([wh0] if with_state else [])
+    for name, g, w in zip(["x"] + names + ["h0"], got, want):
+        _close(_np(g), np.asarray(w), 1e-5, name)
+
+
 # ---------------------------------------------------------------------------
 # Reduced models through the Functions
 # ---------------------------------------------------------------------------
@@ -271,13 +440,16 @@ def _counting(monkeypatch, module, name):
     return calls
 
 
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "recurrentgemma-2b",
+                                  "falcon-mamba-7b", "deepseek-v2-236b"])
 def test_reduced_model_trains_through_the_functions(name, monkeypatch):
     """loss_and_grads on the reduced config against the reference's
-    jax.value_and_grad, with every expert product's and RG-LRU layer's
-    backward through the Function's plain backward (counted)."""
+    jax.value_and_grad, with every expert product's, RG-LRU layer's and
+    Mamba layer's backward through the Function's plain backward
+    (counted)."""
     gmm_calls = _counting(monkeypatch, gm, "grouped_matmul_bwd_ref")
     lru_calls = _counting(monkeypatch, ls, "lru_scan_bwd_ref")
+    mamba_calls = _counting(monkeypatch, ss, "mamba_scan_bwd_ref")
     cfg, rcfg = ARCHS[name].reduced(), R_ARCHS[name].reduced()
     rparams = RM.init_params(rcfg, jax.random.PRNGKey(3), tp_size=1)
     rng = np.random.RandomState(11)
@@ -290,8 +462,9 @@ def test_reduced_model_trains_through_the_functions(name, monkeypatch):
     loss, grads = loss_and_grads(model, cfg, torch.from_numpy(inputs), torch.from_numpy(labels))
     n_moe = cfg.n_layers - cfg.moe.first_dense if cfg.moe is not None else 0
     n_lru = sum(kind == "rglru" for kind in cfg.pattern)
-    assert (len(gmm_calls), len(lru_calls)) == (3 * n_moe, n_lru)
-    assert len(gmm_calls) + len(lru_calls) > 0
+    n_mamba = sum(kind == "mamba" for kind in cfg.pattern)
+    assert (len(gmm_calls), len(lru_calls), len(mamba_calls)) == (3 * n_moe, n_lru, n_mamba)
+    assert len(gmm_calls) + len(lru_calls) + len(mamba_calls) > 0
     assert float(loss) == pytest.approx(float(rloss), rel=1e-5)
     mine = tree_leaves_with_names(tree_to_numpy(grads))
     theirs = tree_leaves_with_names(jax.tree.map(np.asarray, rgrads))

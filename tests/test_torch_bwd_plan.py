@@ -80,15 +80,15 @@ def _flags(flags):
                 q_offset=flags.get("q_offset", 0), prefix_len=flags.get("prefix_len", 0))
 
 
-def check_key_tile_plan(b, h, hkv, sq, sk, d, flags, n_sm):
+def check_key_tile_plan(b, h, hkv, sq, sk, d, flags, n_sm, dv=None):
     """The key-tile pass's plan covers every visible (batch, head, query
     tile, key tile) exactly once and nothing twice; each key tile's dK and
     dV are written exactly once (by its only block, or by the reduction of
     its slots, in slot order, whose item runs follow one another); a key
     tile no query sees is zeroed by the reduction."""
     kw = _flags(flags)
-    plan = fa.backward_plan(b, h, hkv, sq, sk, d, n_sm=n_sm, **kw)
-    keys, group = fa.bwd_keys(d), h // hkv
+    plan = fa.backward_plan(b, h, hkv, sq, sk, d, n_sm=n_sm, dv=dv, **kw)
+    keys, group = fa.bwd_keys(d, dv), h // hkv
     n_kt = -(-sk // keys)
     want = _tile_pairs(_visible(sq, sk, **kw), fa.BWD_ROWS, keys)
     seen = {}
@@ -139,19 +139,19 @@ def dq_tiles(span):
     return [kt for kt in range(end) if kt < prefix_tiles or kt >= window_tile]
 
 
-def check_dq_plan(b, h, sq, sk, d, flags):
+def check_dq_plan(b, h, sq, sk, d, flags, dv=None):
     """The query-tile pass: block i takes query tile ``n_qt - 1 - i // (B
     H)`` of (batch, head) ``i % (B H)``, each once, the last first; each
     streams, in order and once, every key tile its rows see."""
     kw = _flags(flags)
     n_qt = -(-sq // fa.BWD_DQ_ROWS)
-    plan = fa.backward_plan(b, h, 1, sq, sk, d, **kw)
+    plan = fa.backward_plan(b, h, 1, sq, sk, d, dv=dv, **kw)
     grid = fa.dq_blocks(b, h, sq)
     assert grid == plan.dq_blocks == n_qt * b * h and len(plan.dq_span) == n_qt
     blocks = [(n_qt - 1 - i // (b * h), i % (b * h)) for i in range(grid)]
     assert sorted(blocks) == sorted((qt, bh) for qt in range(n_qt) for bh in range(b * h))
     assert [qt for qt, _ in blocks] == sorted((qt for qt, _ in blocks), reverse=True)
-    bn = fa.dq_keys(d)
+    bn = fa.dq_keys(d, dv)
     pairs = _tile_pairs(_visible(sq, sk, **kw), fa.BWD_DQ_ROWS, bn)
     for qt in range(n_qt):
         tiles = dq_tiles(plan.dq_span[qt])
@@ -162,14 +162,16 @@ def check_dq_plan(b, h, sq, sk, d, flags):
 @pytest.mark.parametrize("case", range(len(smoke.FLASH_BWD_SWEEP)))
 @pytest.mark.parametrize("n_sm", [132, 7])
 def test_flash_key_tile_plan_covers_the_sweep(case, n_sm):
-    (b, h, hkv, sq, sk, d), flags = smoke.FLASH_BWD_SWEEP[case]
-    check_key_tile_plan(b, h, hkv, sq, sk, d, flags, n_sm)
+    (b, h, hkv, sq, sk, d, dv), flags = smoke._bwd_shape(smoke.FLASH_BWD_SWEEP[case][0]), \
+        smoke.FLASH_BWD_SWEEP[case][1]
+    check_key_tile_plan(b, h, hkv, sq, sk, d, flags, n_sm, dv=dv)
 
 
 @pytest.mark.parametrize("case", range(len(smoke.FLASH_BWD_SWEEP)))
 def test_flash_dq_plan_covers_the_sweep(case):
-    (b, h, hkv, sq, sk, d), flags = smoke.FLASH_BWD_SWEEP[case]
-    check_dq_plan(b, h, sq, sk, d, flags)
+    (b, h, hkv, sq, sk, d, dv), flags = smoke._bwd_shape(smoke.FLASH_BWD_SWEEP[case][0]), \
+        smoke.FLASH_BWD_SWEEP[case][1]
+    check_dq_plan(b, h, sq, sk, d, flags, dv=dv)
 
 
 def test_recurrentgemma_key_tile_pass_fills_the_card():
@@ -181,6 +183,18 @@ def test_recurrentgemma_key_tile_pass_fills_the_card():
     assert len(plan.red) == 4 * 8 and plan.n_slots == len(plan.blocks)
 
 
+def test_mla_widths_take_the_wide_tiles():
+    """MLA's D 192 / Dv 128 run on the (192, 128) instantiation: 64 keys a
+    key-tile block shared by both warpgroups, 32-key tiles in the dQ pass;
+    any other Dv != D pair takes the same instantiation. deepseek-v2's 128
+    heads over 128 at its training shape need no workspace."""
+    assert fa._wgmma_widths(192, 128) == fa._wgmma_widths(16, 8) == (192, 128)
+    assert fa.bwd_keys(192, 128) == fa.bwd_keys(16, 8) == 64 and fa.bwd_keys(128) == 128
+    assert fa.dq_keys(192, 128) == fa.dq_keys(16, 8) == 32 and fa.dq_keys(128) == 64
+    plan = check_key_tile_plan(4, 128, 128, 512, 512, 192, {}, 132, dv=128)
+    assert plan.red == [] and plan.n_slots == 0 and len(plan.blocks) == 4 * 128 * 8
+
+
 def test_minicpm_plan_needs_no_workspace():
     """minicpm-2b's (36 heads over 36, D 64): no key tile has more items
     than a block takes, so every block writes dK and dV itself."""
@@ -190,15 +204,17 @@ def test_minicpm_plan_needs_no_workspace():
 
 @settings(max_examples=60, deadline=None)
 @given(st.integers(1, 3), st.integers(1, 4), st.integers(1, 3), st.integers(1, 300),
-       st.integers(1, 300), st.sampled_from([8, 64, 72, 128, 136, 256]),
+       st.integers(1, 300), st.sampled_from([(8, 8), (64, 64), (72, 72), (128, 128),
+                                             (136, 136), (256, 256), (192, 128), (16, 8)]),
        st.sampled_from([None, 1, 17, 64, 200]), st.integers(-80, 80), st.integers(0, 90),
        st.booleans(), st.sampled_from([1, 5, 132]))
-def test_flash_plans_cover_every_visible_item(b, hkv, group, sq, sk, d, window, q_offset,
+def test_flash_plans_cover_every_visible_item(b, hkv, group, sq, sk, widths, window, q_offset,
                                               prefix_len, causal, n_sm):
+    d, dv = widths
     flags = {"causal": causal, "window": window, "q_offset": q_offset,
              "prefix_len": prefix_len}
-    check_key_tile_plan(b, hkv * group, hkv, sq, sk, d, flags, n_sm)
-    check_dq_plan(b, hkv * group, sq, sk, d, flags)
+    check_key_tile_plan(b, hkv * group, hkv, sq, sk, d, flags, n_sm, dv=dv)
+    check_dq_plan(b, hkv * group, sq, sk, d, flags, dv=dv)
 
 
 def check_dw_plan(g, k, n, n_sm):
@@ -292,8 +308,11 @@ def test_dx_plan_at_granites_training_shapes():
     """Both of granite's products on the whole card: 960 tiles of 128 x
     256 for gate / up (K 1536); for down (K 512) 640 tiles of 128 x 128,
     whose last round fills the card better than 320 of 128 x 256 (2.42
-    rounds), as the card measured."""
-    want = {"": (256, 960), "down_": (128, 640)}
+    rounds), as the card measured. deepseek-v2's experts (C 96: one
+    128-row chunk an m-tile): 3,200 tiles of 128 x 256 at gate / up (K
+    5120), 960 at down (K 1536)."""
+    want = {"": (256, 960), "down_": (128, 640), "deepseek_": (256, 3200),
+            "deepseek_down_": (256, 960)}
     for prefix, (g, k, _, cap) in smoke.GMM_TRAIN.items():
         plan = check_dx_plan(g * cap, k, cap, 132)
         assert (plan.grid, plan.width, plan.tiles) == (132, *want[prefix]), prefix

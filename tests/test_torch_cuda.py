@@ -77,10 +77,12 @@
   launch takes; a group no tile names exactly 0, a ``dx`` tile with a bad
   group id zeros and flagged, the same bits twice), the RG-LRU reverse
   scan bit-equal to
-  ``lru_scan_bwd_ref``, each autograd Function launching its kernels, the
-  wrappers still without a backward (the selective scan, flash at
-  Dv != D) refusing grad, and reduced configs' gradients on the card
-  against the CPU's.
+  ``lru_scan_bwd_ref``, flash's backward at MLA's Dv != D (192 / 128, the
+  reduced 16 / 8, Dv 36 on padded copies), the selective scan's backward
+  (both entries) within tolerance of ``mamba_scan_bwd_ref`` and
+  ``selective_scan_bwd_ref``, each autograd Function launching its
+  kernels, and reduced configs' gradients on the card (deepseek-v2's MLA
+  and falcon-mamba's scan among them) against the CPU's.
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use), so they carry the ``cuda`` marker and skip without a card.
@@ -1239,6 +1241,14 @@ FLASH_BWD = {
     "noncausal_d136": ((2, 4, 4, 70, 70, 136), {"causal": False, "window": 20}),
     # Rows TMA cannot address (D 36: 72-byte rows): padded copies.
     "d36": ((1, 4, 2, 70, 70, 36), {}),
+    # Dv != D (a seventh entry, v's width): deepseek-v2's MLA cut to one
+    # batch row and 16 heads, a ragged Sk, GQA with a window, the reduced
+    # MLA's 16 / 8, and Dv 36 off the 16-byte rows (padded copies).
+    "mla": ((1, 16, 16, 512, 512, 192, 128), {}),
+    "mla_ragged": ((1, 4, 2, 97, 150, 192, 128), {"q_offset": 53}),
+    "mla_gqa_window": ((1, 8, 2, 130, 130, 192, 128), {"window": 40}),
+    "mla_reduced": ((2, 4, 4, 70, 70, 16, 8), {"prefix_len": 9}),
+    "mla_dv36": ((1, 4, 2, 70, 70, 64, 36), {}),
 }
 # float32: summation order only, 1e-4 of the largest gradient entry.
 # bfloat16 / float16: P and dS are rounded to the input type (2^-9) before
@@ -1248,10 +1258,12 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 def _bwd_inputs(device, name, dtype):
-    (b, h, hkv, sq, sk, d), flags = FLASH_BWD[name]
+    shape, flags = FLASH_BWD[name]
+    b, h, hkv, sq, sk, d = shape[:6]
+    dv = shape[6] if len(shape) > 6 else d
     rng = np.random.RandomState(sum(map(ord, name)))
     make = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)  # noqa: E731
-    return make(b, h, sq, d), make(b, hkv, sk, d), make(b, hkv, sk, d), make(b, h, sq, d), flags
+    return make(b, h, sq, d), make(b, hkv, sk, d), make(b, hkv, sk, dv), make(b, h, sq, dv), flags
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1301,6 +1313,9 @@ FLASH_BWD_PATHS = [
     ("prefix_d128", 3, "wgmma_padded"),
     ("softcap_d256", 1, "wgmma_padded"),
     ("d36", 0, "wgmma_padded"),
+    ("mla", 0, "wgmma"),
+    ("mla_gqa_window", 1, "wgmma_padded"),
+    ("mla_dv36", 0, "wgmma_padded"),
 ]
 
 
@@ -1352,12 +1367,14 @@ def test_flash_lse_leaves_the_forward_bits(device, dtype):
     assert bool(torch.isneginf(lse[:, :, :70]).all()) and bool(torch.isfinite(lse[:, :, 70:]).all())
 
 
+@pytest.mark.parametrize("name", ["blind_rows", "mla_ragged"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_autograd_goes_through_both_kernels(device, dtype):
-    """``flash_attention`` on inputs that need a gradient: one forward and
-    one backward launch, gradients within tolerance of autograd through
-    ``attention_ref``, a blind row's gradient exactly 0."""
-    q, k, v, do, flags = _bwd_inputs(device, "blind_rows", dtype)
+def test_flash_autograd_goes_through_both_kernels(device, dtype, name):
+    """``flash_attention`` on inputs that need a gradient (MLA's D 192 /
+    Dv 128 too): one forward and one backward launch, gradients within
+    tolerance of autograd through ``attention_ref``, a blind row's
+    gradient exactly 0."""
+    q, k, v, do, flags = _bwd_inputs(device, name, dtype)
     grads = []
     for fn in (fa.flash_attention, attention_ref):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1371,34 +1388,122 @@ def test_flash_autograd_goes_through_both_kernels(device, dtype):
         assert bool(torch.isfinite(g).all())
         err = float((g.float() - w.float()).abs().max())
         assert err <= FLASH_BWD_TOL[dtype] * float(w.float().abs().max()) + 1e-6
-    assert bool((grads[0][0][:, :, :70] == 0).all())
+    if name == "blind_rows":
+        assert bool((grads[0][0][:, :, :70] == 0).all())
     with torch.no_grad():  # no gradient: the serving call, no backward state
         before = fa.launches
         fa.flash_attention(*[t.clone().requires_grad_(True) for t in (q, k, v)], **flags)
         assert fa.launches == before + 1
 
 
-def test_kernel_wrappers_refuse_grad(device):
-    """The wrappers with no backward kernel (the selective scan's two
-    entries, flash at Dv != D) raise under grad on the card rather than
-    drop the gradient; under no_grad all of them run."""
-    g = lambda *shape: torch.rand(*shape, device=device).requires_grad_(True)  # noqa: E731
-    dt, xs = g(1, 5, 16), g(1, 5, 16)
-    bm, cm = g(1, 5, 4), g(1, 5, 4)
-    am, hs = -g(16, 4).detach(), torch.zeros(1, 16, 4, device=device)
-    with pytest.raises(RuntimeError, match="selective_scan: the CUDA kernel has no backward"):
-        ss.selective_scan(dt, xs, bm, cm, am, hs)
-    z, bias, d = g(1, 5, 16), torch.zeros(16, device=device), torch.ones(16, device=device)
-    with pytest.raises(RuntimeError, match="mamba_scan: the CUDA kernel has no backward"):
-        ss.mamba_scan(dt, bias, xs, z, bm, cm, am.neg().log(), d, hs)
-    qk, v = g(1, 2, 8, 192), g(1, 2, 8, 128)
-    with pytest.raises(ValueError, match="no backward kernel"):
-        fa.flash_attention(qk, qk, v)
-    with torch.no_grad():
-        ss.selective_scan(dt, xs, bm, cm, am, hs)
-        ss.mamba_scan(dt, bias, xs, z, bm, cm, am.neg().log(), d, hs)
-        fa.flash_attention(qk, qk, v)
+# The selective scan's backward, (B, S, E, N): falcon-mamba-7b's training
+# shape cut to one batch row, S 1, S off the 64-step chunk with B > 1, E
+# off the 32-channel tile with N < 16, one whole chunk, N 1.
+SCAN_BWD = [(1, 512, 8192, 16), (1, 1, 64, 16), (3, 129, 1000, 5), (2, 513, 40, 16),
+            (4, 64, 96, 16), (1, 200, 37, 1)]
+# Each gradient within this share of its largest entry: float32 1e-5 (the
+# kernel's shuffle scans and its sums over channels, lanes, chunks and
+# batch rows run in other orders than the plain reverse loop, and its decay
+# is ex2.approx); bf16 2^-7 (both round each gradient to bf16 once from
+# float32: one bf16 ulp, 2^-8 of the entry).
+SCAN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _scan_bwd_inputs(device, b, s, e, n, dtype, rank=8):
+    """The fused entry's arguments as a Mamba layer passes them (z, b and c
+    slices of wider projections), and the gradients of y and hT."""
+    rng = np.random.RandomState(1000 * b + s + e + n)
+    f = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device)  # noqa: E731
+    xz, proj = f(b, s, 2 * e).to(dtype), f(b, s, rank + 2 * n).to(dtype)
+    a_log = (torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device))[None]
+             + 0.1 * f(e, n))
+    args = (f(b, s, e).to(dtype), 0.5 * f(e), torch.nn.functional.silu(f(b, s, e)).to(dtype),
+            xz[..., e:], proj[..., rank: rank + n], proj[..., rank + n:], a_log.contiguous(),
+            f(e), f(b, e, n))
+    return args, f(b, s, e).to(dtype), f(b, e, n)
+
+
+def _within(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol(g) * float(w.float().abs().max()) + 1e-30, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,e,n", SCAN_BWD)
+def test_mamba_scan_backward_matches_plain(device, b, s, e, n, dtype):
+    """``mamba_scan_bwd`` (the fused entry's nine gradients) against
+    ``mamba_scan_bwd_ref``, hT's gradient given; the forward that saves the
+    chunk states keeps the serving call's bits; the same bits on a second
+    launch; counted once."""
+    from repro_torch.kernels.ref import mamba_scan_bwd_ref
+
+    args, dy, dht = _scan_bwd_inputs(device, b, s, e, n, dtype)
+    y, ht, states = ss.mamba_scan_fwd(*args)
+    serve = ss.mamba_scan(*args)
+    assert torch.equal(y, serve[0]) and torch.equal(ht, serve[1])
+    before = ss.backward_launches
+    got = ss.mamba_scan_bwd(*args, states, dy, dht)
     torch.cuda.synchronize()
+    assert ss.backward_launches == before + 1
+    want = mamba_scan_bwd_ref(*args, dy, dht)
+    _within(got, want, lambda g: SCAN_BWD_TOL[g.dtype])
+    again = ss.mamba_scan_bwd(*args, states, dy, dht)
+    assert all(torch.equal(u, w) for u, w in zip(again, got))
+
+
+@pytest.mark.parametrize("b,s,e,n", SCAN_BWD)
+def test_selective_scan_backward_matches_plain(device, b, s, e, n):
+    """``selective_scan_bwd`` (the scan alone, float32) against
+    ``selective_scan_bwd_ref``, with and without hT's gradient."""
+    from repro_torch.kernels.ref import selective_scan_bwd_ref
+
+    args, _, dht = _scan_bwd_inputs(device, b, s, e, n, torch.float32)
+    dt = torch.nn.functional.softplus(args[0])
+    a = -torch.exp(args[6])
+    bm, cm = args[4].contiguous(), args[5].contiguous()
+    x, h0 = args[2], args[8]
+    ys, ht, states = ss.selective_scan_fwd(dt, x, bm, cm, a, h0)
+    dys = torch.randn_like(ys)
+    for g_ht in (None, dht):
+        got = ss.selective_scan_bwd(dt, x, bm, cm, a, h0, states, dys, g_ht)
+        want = selective_scan_bwd_ref(dt, x, bm, cm, a, h0, dys, g_ht)
+        _within(got, want, lambda g: SCAN_BWD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_autograd_goes_through_its_kernels(device, dtype):
+    """``mamba_scan`` and ``selective_scan`` on inputs that need a gradient:
+    one forward and one backward launch each, every leaf's gradient within
+    tolerance of autograd through the plain version (z, b and c slices of
+    wider projections get theirs through autograd's slicing)."""
+    from repro_torch.kernels.ref import mamba_scan_ref, selective_scan_ref
+
+    b, s, e, n = 2, 130, 96, 16
+    args, dy, _ = _scan_bwd_inputs(device, b, s, e, n, dtype)
+    xz, proj = args[3]._base, args[4]._base
+    leaves = (args[0], args[1], args[2], xz, proj, args[6], args[7], args[8])
+    grads = []
+    for fn in (ss.mamba_scan, mamba_scan_ref):
+        ps = [t.detach().clone().requires_grad_(True) for t in leaves]
+        before = (ss.launches, ss.backward_launches)
+        y, _ = fn(ps[0], ps[1], ps[2], ps[3][..., e:], ps[4][..., 8: 8 + n], ps[4][..., 8 + n:],
+                  ps[5], ps[6], ps[7])
+        grads.append(torch.autograd.grad(y, ps, dy))
+        torch.cuda.synchronize()
+        launched = (ss.launches - before[0], ss.backward_launches - before[1])
+        assert launched == ((1, 1) if fn is ss.mamba_scan else (0, 0))
+    _within(*grads, lambda g: SCAN_BWD_TOL[g.dtype])
+    scan = [torch.nn.functional.softplus(args[0].float()), args[2].float(),
+            args[4].float().contiguous(), args[5].float().contiguous(), -torch.exp(args[6]),
+            args[8]]
+    grads = []
+    for fn in (ss.selective_scan, selective_scan_ref):
+        ps = [t.detach().clone().requires_grad_(True) for t in scan]
+        ys, ht = fn(*ps)
+        grads.append(torch.autograd.grad((ys * ys).sum() + ht.sum(), ps))
+    _within(*grads, lambda g: SCAN_BWD_TOL[torch.float32])
 
 
 # (G, K, N, block_m, tile group ids) for the grouped GEMM's backward:
@@ -1638,10 +1743,12 @@ def test_lru_scan_autograd_goes_through_its_kernels(device):
 
 @pytest.mark.parametrize("name", ["minicpm-2b", "gemma2-27b", "h2o-danube-3-4b",
                                   "musicgen-large", "granite-moe-3b-a800m",
-                                  "recurrentgemma-2b", "paligemma-3b"])
+                                  "recurrentgemma-2b", "paligemma-3b", "deepseek-v2-236b",
+                                  "falcon-mamba-7b"])
 def test_train_gradients_on_the_card_match_the_cpu(device, name):
     """A reduced float32 config's loss and every weight's gradient through
-    flash, the grouped GEMM and the RG-LRU scan and their backward kernels
+    flash (MLA's Dv != D too), the grouped GEMM, the RG-LRU scan and the
+    selective scan and their backward kernels
     on the card against the same weights' on the CPU (the plain versions
     and their plain backward): 1e-5 relative
     on the loss, 1e-4 of each leaf's largest entry (summation order); the
@@ -1662,13 +1769,15 @@ def test_train_gradients_on_the_card_match_the_cpu(device, name):
         inputs = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 24)).astype(np.int32))
     labels = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 24)).astype(np.int32))
     want_loss, want = loss_and_grads(cpu, cfg, inputs, labels)
-    for mod in (fa, gm, ls):
+    for mod in (fa, gm, ls, ss):
         mod.reset_launches()
     loss, got = loss_and_grads(card, cfg, inputs.to(device), labels.to(device))
     torch.cuda.synchronize()
-    assert fa.launches > 0 and fa.backward_launches > 0
+    attends = any(kind.startswith("attn") or kind == "mla" for kind in cfg.pattern)
+    assert (fa.launches > 0 and fa.backward_launches > 0) == attends
     assert (gm.dx_launches > 0 and gm.dw_launches > 0) == (cfg.moe is not None)
     assert (ls.backward_launches > 0) == ("rglru" in cfg.pattern)
+    assert (ss.launches > 0 and ss.backward_launches > 0) == ("mamba" in cfg.pattern)
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
     mine, theirs = tree_leaves_with_names(got), tree_leaves_with_names(want)
     assert [n for n, _ in mine] == [n for n, _ in theirs]

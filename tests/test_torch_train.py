@@ -20,12 +20,11 @@
 * The kernels around training: ``attention_ref``'s gradient is finite
   (0) on a row that sees no key, and its forward bits are the former
   ``nan_to_num`` version's; ``attention_bwd_ref`` and
-  ``attention_lse_ref`` against autograd and ``logsumexp``; each CUDA
-  wrapper without a backward kernel (the selective scan's two entries)
-  refuses to run under grad (the guard, called as its CUDA path calls it),
-  the grouped GEMM and the RG-LRU scan go through their autograd Functions
-  and no longer call the guard, and every plain version stays
-  differentiable on the CPU.
+  ``attention_lse_ref`` against autograd and ``logsumexp``; flash takes
+  every width pair of its forward under grad (MLA's 192 / 128 too); the
+  grouped GEMM, the RG-LRU scan and the selective scan's two entries go
+  through their autograd Functions, whose backward names its C entry,
+  with no fallback; every plain version stays differentiable on the CPU.
 """
 
 import dataclasses
@@ -46,7 +45,6 @@ from repro.configs import ARCHS as R_ARCHS
 from repro.models.transformer import FRONTEND_DIMS
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import ref as TK
-from repro_torch.kernels._nvcc import refuse_grad
 from repro_torch.launch import roofline
 from repro_torch.launch.roofline_run import model_flops_per_device
 from repro_torch.launch.steps import StepBundle
@@ -314,51 +312,50 @@ def test_flash_wrapper_is_differentiable_on_the_cpu():
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
     fa.flash_attention(q, q.detach(), q.detach(), q_offset=-3).sum().backward()
-    assert bool(torch.isfinite(q.grad).all()) and fa.backward_takes(64, 64)
-    assert fa.backward_takes(128, 128) and fa.backward_takes(256, 256)
-    assert not fa.backward_takes(264, 264) and not fa.backward_takes(192, 128)
+    assert bool(torch.isfinite(q.grad).all()) and fa.kernel_takes(64, 64)
+    assert fa.kernel_takes(128, 128) and fa.kernel_takes(256, 256)
+    assert not fa.kernel_takes(264, 264) and fa.kernel_takes(192, 128)
+    assert not fa.kernel_takes(200, 128) and not fa.kernel_takes(192, 136)
+    assert not hasattr(fa, "backward_takes")  # one rule for both directions
+    src = inspect.getsource(fa.flash_attention)
+    assert "_FlashFunction.apply" in src and "raise" not in src.split("_FlashFunction")[0].split(
+        "is_grad_enabled")[1]
 
 
-WRAPPERS = {"selective_scan": "repro_torch.kernels.selective_scan",
-            "mamba_scan": "repro_torch.kernels.selective_scan"}
+# name -> (module, Function, the function its backward calls, the C entries
+# that function reaches, where they are named).
+BACKWARDS = {
+    "grouped_matmul": ("grouped_matmul", "_GroupedMatmulFunction", "grouped_matmul_bwd",
+                       ("acs_grouped_matmul_dx", "acs_grouped_matmul_dw"), "grouped_matmul_bwd"),
+    "lru_scan": ("lru_scan", "_LruScanFunction", "lru_scan_bwd", ("acs_lru_scan_bwd",),
+                 "lru_scan_bwd"),
+    "selective_scan": ("selective_scan", "_SelectiveScanFunction", "selective_scan_bwd",
+                       ("acs_mamba_scan_bwd",), "_backward"),
+    "mamba_scan": ("selective_scan", "_MambaScanFunction", "mamba_scan_bwd",
+                   ("acs_mamba_scan_bwd",), "_backward"),
+}
 
 
-@pytest.mark.parametrize("name", sorted(WRAPPERS))
-def test_wrappers_without_a_backward_refuse_grad(name):
-    """The guard each CUDA path calls: it raises, naming the kernel, when
-    autograd would record the call, and lets a call that needs no gradient
-    through. The wrapper's CUDA path calls it with the kernel's name."""
-    x = torch.ones(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward yet"):
-        refuse_grad(name, torch.ones(2), x)
-    refuse_grad(name, torch.ones(2), x.detach())
-    with torch.no_grad():
-        refuse_grad(name, x)
-    fn = getattr(importlib.import_module(WRAPPERS[name]), name)
-    src = inspect.getsource(fn)
-    assert f'refuse_grad("{name}"' in src
-    assert src.index("refuse_grad(") > src.index('device.type == "cpu"')  # CUDA path only
-
-
-@pytest.mark.parametrize("name,function", [("grouped_matmul", "_GroupedMatmulFunction"),
-                                           ("lru_scan", "_LruScanFunction")])
-def test_backward_kernels_replace_refuse_grad(name, function):
-    """The grouped GEMM and the RG-LRU scan have backward kernels: their
-    module no longer calls the guard, and under grad both devices go
-    through the autograd Function, whose backward is the module's
-    ``<name>_bwd``: on a CUDA tensor its hand-written entries, with no
-    ``try`` that could fall back to the plain version."""
-    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+@pytest.mark.parametrize("name", sorted(BACKWARDS))
+def test_backward_kernels_replace_refuse_grad(name):
+    """Every wrapper has a backward kernel: no module calls a guard that
+    refuses grad (``_nvcc.refuse_grad`` is gone), and under grad both
+    devices go through the autograd Function, whose backward is the
+    module's ``<name>_bwd``: on a CUDA tensor its hand-written entries, with
+    no ``try`` that could fall back to the plain version."""
+    module, function, bwd_fn, entries, holder = BACKWARDS[name]
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
     assert "refuse_grad" not in inspect.getsource(mod)
+    assert not hasattr(importlib.import_module("repro_torch.kernels._nvcc"), "refuse_grad")
     src = inspect.getsource(getattr(mod, name))
     assert f"{function}.apply" in src
     assert src.index("torch.is_grad_enabled()") < src.index(f"{function}.apply")
-    assert f"{name}_bwd(" in inspect.getsource(getattr(mod, function).backward)
-    bwd = inspect.getsource(getattr(mod, f"{name}_bwd"))
-    entries = (("acs_grouped_matmul_dx", "acs_grouped_matmul_dw") if name == "grouped_matmul"
-               else ("acs_lru_scan_bwd",))
-    assert all(entry in bwd for entry in entries)
-    assert "try:" not in bwd and "except" not in bwd
+    assert f"{bwd_fn}(" in inspect.getsource(getattr(mod, function).backward)
+    bwd = inspect.getsource(getattr(mod, bwd_fn))
+    assert holder == bwd_fn or f"{holder}(" in bwd
+    launch = inspect.getsource(getattr(mod, holder))
+    assert all(entry in launch for entry in entries)
+    assert all("try:" not in text and "except" not in text for text in (bwd, launch))
 
 
 def test_plain_versions_stay_differentiable_on_the_cpu():
