@@ -3623,10 +3623,15 @@ def flash_bwd_case(device, gen, shape, flags):
         "device_ms_by_kernel": {key: ms for key, (ms, _) in per_kernel.items()},
         "device_kernels_recorded": sum(n for _, n in per_kernel.values()),
         "path": path,
+        # the key-tile pass's units (a block each, or walked by a persistent
+        # grid of dkdv_grid blocks at MLA's widths) and the dQ pass's
+        "persistent": fa.backward_persistent(d, dv),
         "dkdv_blocks": len(plan.blocks) if path == "wgmma" else None,
+        "dkdv_grid": plan.grid if path == "wgmma" else None,
         "split_key_tiles": len(plan.red) if path == "wgmma" else None,
         "workspace_slots": plan.n_slots if path == "wgmma" else None,
         "dq_blocks": plan.dq_blocks if path == "wgmma" else None,
+        "dq_grid": plan.dq_grid if path == "wgmma" else None,
         "ptxas": ptxas,
         "library_back_to_back_ms": back_to_back_ms(sdpa_bwd),
         "library_backend": backend,
@@ -3948,7 +3953,10 @@ def numbers_scan_bwd(device):
     chunk states and h0 read and dh0 written in float32; the float32
     parameters and their gradients) against the exponentials (one a state
     and step in the chunk's recompute: 268 M on the SFUs). No PyTorch call
-    computes it."""
+    computes it. What binds it is instruction issue: the state loop's SASS
+    instructions a state and step (``sass_per_step``) over the card's
+    issue rate (4 warp instructions a clock on each of its SMs, at 1.98
+    GHz) give ``issue_bound_ms``, a floor under the state loop alone."""
     import torch
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels._nvcc import resources
@@ -3972,6 +3980,11 @@ def numbers_scan_bwd(device):
     n_exp = b * s * e * n
     ms_bound, by = bound(n_bytes, n_exp, SFU_EXP_PER_S)
     lib = ss.build()[0]
+    sass = ss.sass_per_step(lib, "mamba_scan_bwd_kernelI13__nv_bfloat16Lb1E")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    issue_ms = (sass["instructions_a_state_and_step"] * n_exp / 32 / (4 * n_sm * 1.98e9)
+                * 1e3)
+    device_ms = call_device_ms(call, ("mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce_kernel"))[0]
     out = {
         "name": "mamba_scan_bwd",
         "route": "cuda",
@@ -3991,9 +4004,11 @@ def numbers_scan_bwd(device):
         "exp_bound_ms": n_exp / SFU_EXP_PER_S * 1e3,
         "library_ms": None,  # no PyTorch call computes a selective scan's backward
         "back_to_back_ms": back_to_back_ms(call),
-        "device_ms": call_device_ms(call, ("mamba_scan_bwd_kernel",
-                                           "mamba_scan_bwd_reduce_kernel"))[0],
+        "device_ms": device_ms,
         "device_ms_reduce": call_device_ms(call, ("mamba_scan_bwd_reduce_kernel",))[0],
+        "sass_a_state_and_step": sass["instructions_a_state_and_step"],
+        "issue_bound_ms": issue_ms,
+        "issue_share": issue_ms / device_ms if device_ms else None,
         "forward_with_states_ms": median_ms(lambda: ss.mamba_scan_fwd(*args)),
         "forward_ms": median_ms(lambda: ss.mamba_scan(*args)),
         "states_mb": states.numel() * 4 / 1e6,

@@ -44,6 +44,14 @@ struct Params {
   // The query-tile pass's key tiles for each query tile: 0 .. prefix_tiles
   // - 1, then max(prefix_tiles, window_tile) .. end - 1.
   const int* dq_span;  // [n_qt][3]: prefix_tiles, window_tile, end
+  // The persistent passes (MLA's widths): block b of the key-tile pass runs
+  // plan rows starts[b] .. starts[b + 1] - 1; block b of the query-tile
+  // pass runs the units dq_units[dq_starts[b] .. dq_starts[b + 1] - 1], each
+  // the index of a block of the one-block-a-unit grid (dq_blocks). Null
+  // for the other widths, whose passes launch one block a unit.
+  const int* starts;     // [grid + 1]
+  const int* dq_units;   // [dq_blocks]
+  const int* dq_starts;  // [dq_grid + 1]
 };
 
 // Whether the query at global position row sees key col.

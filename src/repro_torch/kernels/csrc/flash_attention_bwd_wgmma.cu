@@ -50,6 +50,22 @@
 //     head), 64 a consumer warpgroup, and streams the key tiles they see
 //     (64 keys; 32 at D 256): S = Q K^T and dP = dO V^T on wgmma, dS in
 //     registers, dQ += dS K with dS as the register A operand.
+//   - MLA's widths, persistent: with 128 heads over 128, a key tile's
+//     items are its query tiles only (1-8), so a block a unit ran 4,096
+//     short blocks whose set-up, k / v landing and epilogue nothing hid.
+//     Both passes run one block an SM instead, each walking a list of units
+//     (plan rows; dQ units of 128 rows) that the wrapper splits by
+//     longest-processing-time first (lpt_split, deterministic). In the
+//     key-tile pass a second producer warp lands the next row's k and v in
+//     a second buffer while this row's items run, an item's dV / dK
+//     product stays in flight under the next item's S^T and dP^T, and the
+//     results leave by TMA stores out of the row's own k / v buffer; the dQ
+//     pass streams 64-key tiles through a 3-stage ring, each consumer
+//     warpgroup frees its dO buffer after its unit's last S and dP (the
+//     next unit's dO lands while dQ finishes), and dQ leaves by a TMA store
+//     out of the warpgroup's q tile. mbarrier phases run on across units.
+//     A split key tile still leaves float32 partials for the slot-ordered
+//     reduction: no atomics anywhere.
 //   - The elementwise step skips the per-pair mask where a whole tile is
 //     visible, and is specialised on the softcap: one compact loop runs a
 //     step (one loop that branched on both per pair spread its code over
@@ -61,8 +77,10 @@
 // dP and dV over 128: 192 is a legal wgmma N, three 64-column boxes). At
 // deepseek-v2's training shape [4, 128, 512, 192], v [.., 128], causal:
 // q, k, dQ, dK 100.7 MB each, v, o, dO, dV 67.1 MB each, ~671 MB (0.200
-// ms at 3.35 TB/s) against 16.8 M visible pairs x 2 x (3 x 192 + 2 x 128)
-// = 27.9 GFLOP (0.028 ms): the bytes.
+// ms at 3.35 TB/s) against 67.2 M visible pairs x 2 x (3 x 192 + 2 x 128)
+// = 111.9 GFLOP (0.113 ms): the bytes. On an H100 80GB HBM3 at 700 W
+// (kernels/bwd_times.py) the persistent passes take 0.67 ms of device
+// time there, a block a unit took 0.84.
 
 #include "flash_attention_bwd.cuh"
 #include "sm90_tiles.cuh"
@@ -117,8 +135,13 @@ template <int DK, int DV> struct WgShape {
   // the other dK.
   static constexpr bool kRowSplit = DK <= 128 && DV <= 128;
   static constexpr int kKeys = kRowSplit ? 128 : 64;       // keys a block of the key-tile pass
-  static constexpr int kStages = DK > 128 ? 2 : 4;         // both passes' rings
-  static constexpr int kDqKeys = DK > 128 ? 32 : 64;       // keys a streamed tile of the dQ pass
+  static constexpr int kStages = DK > 128 ? 2 : 4;         // both passes' rings (one block a unit)
+  // MLA's (192, 128) runs both passes persistent (see the kernels below),
+  // with rings of kPersistStages and 64-key tiles in the dQ pass; D 256
+  // streams 32-key tiles there (its dQ accumulator takes 128 registers).
+  static constexpr bool kPersistent = DK != DV;
+  static constexpr int kPersistStages = 3;
+  static constexpr int kDqKeys = DK == 256 ? 32 : 64;      // keys a streamed tile of the dQ pass
   static constexpr int kTileK = (DK / 64) * kBox;          // bytes of a [64][DK] tile
   static constexpr int kTileV = (DV / 64) * kBox;          // bytes of a [64][DV] tile
   static constexpr int kWs = DK > DV ? DK : DV;            // a workspace row's floats
@@ -241,58 +264,95 @@ struct DkdvSmem {
   }
 };
 
+// The key-tile pass's q / dO ring: kStages stages of q and dO tiles and
+// their rows' lse (log2 domain) and Di, the stages' barriers, and (the
+// wide arrangement) the P^T and dS^T hand-off tiles.
+struct ItemRing {
+  unsigned char* q_s;
+  unsigned char* do_s;
+  unsigned char* pt_s;
+  unsigned char* dst_s;
+  float* lse_s;
+  float* di_s;
+  uint64_t* full;   // [stage]: the producer warp's 32 lanes and its bytes (33 arrivals)
+  uint64_t* empty;  // [stage]: one thread of each consumer warpgroup
+};
+
+// One plan row's items into the ring (the producer warp's 32 lanes): the
+// q and dO tiles by TMA and the rows' lse and Di by 4-byte cp.async copies,
+// each lane arriving when its copies land, nothing of it waiting on a
+// load. Ring positions i0 .. i0 + n_items - 1.
+template <int DK, int DV, int kStages>
+__device__ __forceinline__ void produce_items(const Params& p, const ItemRing& r,
+                                              const CUtensorMap* map_q, const CUtensorMap* map_do,
+                                              int bh0, int qt_begin, int n_q, int it_lo,
+                                              int n_items, int i0, int lane) {
+  using S = WgShape<DK, DV>;
+  constexpr int NBK = DK / 64, NBV = DV / 64;
+  for (int i = i0; i < i0 + n_items; ++i) {
+    const int s = i % kStages;
+    mbar_wait(&r.empty[s], ((i / kStages) & 1) ^ 1);
+    const int it = it_lo + i - i0;
+    const int bh = bh0 + it / n_q;
+    const int q0 = (qt_begin + it % n_q) * kWgRows;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&r.full[s], S::kTileK + S::kTileV);
+#pragma unroll
+      for (int b = 0; b < NBK; ++b)
+        tma_load_3d(r.q_s + s * S::kTileK + b * kBox, map_q, &r.full[s], 64 * b, q0, bh);
+#pragma unroll
+      for (int b = 0; b < NBV; ++b)
+        tma_load_3d(r.do_s + s * S::kTileV + b * kBox, map_do, &r.full[s], 64 * b, q0, bh);
+    }
+    // Rows past Sq land as 0: their q and dO rows are 0 too, so P = 1
+    // there multiplies zeros and dS = 0.
+    const size_t rows = static_cast<size_t>(bh) * p.sq + q0;
+#pragma unroll
+    for (int rr = lane; rr < kWgRows; rr += 32) {
+      const bool ok = q0 + rr < p.sq;
+      cp_async4(&r.lse_s[s * kWgRows + rr], p.lse2 + (ok ? rows + rr : 0), ok);
+      cp_async4(&r.di_s[s * kWgRows + rr], p.di + (ok ? rows + rr : 0), ok);
+    }
+    cp_async_mbar_arrive(&r.full[s]);
+  }
+}
+
+// The k and v tiles of keys k0 .. k0 + 64 * tiles - 1 into k_s and v_s
+// (one thread), announced on bar.
+template <int DK, int DV>
+__device__ __forceinline__ void load_kv(unsigned char* k_s, unsigned char* v_s, uint64_t* bar,
+                                        const CUtensorMap* map_k, const CUtensorMap* map_v,
+                                        int k0, int bhk, int tiles) {
+  using S = WgShape<DK, DV>;
+  mbar_arrive_expect_tx(bar, tiles * (S::kTileK + S::kTileV));
+  for (int w = 0; w < tiles; ++w) {
+#pragma unroll
+    for (int b = 0; b < DK / 64; ++b)
+      tma_load_3d(k_s + w * S::kTileK + b * kBox, map_k, bar, 64 * b, k0 + 64 * w, bhk);
+#pragma unroll
+    for (int b = 0; b < DV / 64; ++b)
+      tma_load_3d(v_s + w * S::kTileV + b * kBox, map_v, bar, 64 * b, k0 + 64 * w, bhk);
+  }
+}
+
+template <int DK, int DV>
+__device__ __forceinline__ ItemRing ring_of(const DkdvSmem<DK, DV>& sm) {
+  return {sm.q_s, sm.do_s, sm.pt_s, sm.dst_s, sm.lse_s, sm.di_s, sm.full, sm.empty};
+}
+
 // The key-tile pass's producer warp: the block's k and v tiles once, then
-// each item's q and dO tiles (TMA) and its rows' lse (log2 domain) and Di
-// (4-byte cp.async copies by the 32 lanes, each lane arriving when its
-// copies land), nothing of it waiting on a load.
+// each item's tiles through the ring.
 template <int DK, int DV>
 __device__ __forceinline__ void dkdv_produce(const Params& p, const DkdvSmem<DK, DV>& sm,
                                              const CUtensorMap* map_q, const CUtensorMap* map_k,
                                              const CUtensorMap* map_v, const CUtensorMap* map_do,
                                              int k0, int bhk, int bh0, int qt_begin, int n_q,
                                              int it_lo, int n_items, int lane) {
-  using S = WgShape<DK, DV>;
-  constexpr int NBK = DK / 64, NBV = DV / 64;
-  if (lane == 0 && n_items > 0) {
-    mbar_arrive_expect_tx(sm.kv_full, DkdvSmem<DK, DV>::kKvTiles * (S::kTileK + S::kTileV));
-#pragma unroll
-    for (int w = 0; w < DkdvSmem<DK, DV>::kKvTiles; ++w) {
-#pragma unroll
-      for (int b = 0; b < NBK; ++b)
-        tma_load_3d(sm.k_s + w * S::kTileK + b * kBox, map_k, sm.kv_full, 64 * b, k0 + 64 * w,
-                    bhk);
-#pragma unroll
-      for (int b = 0; b < NBV; ++b)
-        tma_load_3d(sm.v_s + w * S::kTileV + b * kBox, map_v, sm.kv_full, 64 * b, k0 + 64 * w,
-                    bhk);
-    }
-  }
-  for (int i = 0; i < n_items; ++i) {
-    const int s = i % S::kStages;
-    mbar_wait(&sm.empty[s], ((i / S::kStages) & 1) ^ 1);
-    const int it = it_lo + i;
-    const int bh = bh0 + it / n_q;
-    const int q0 = (qt_begin + it % n_q) * kWgRows;
-    if (lane == 0) {
-      mbar_arrive_expect_tx(&sm.full[s], S::kTileK + S::kTileV);
-#pragma unroll
-      for (int b = 0; b < NBK; ++b)
-        tma_load_3d(sm.q_s + s * S::kTileK + b * kBox, map_q, &sm.full[s], 64 * b, q0, bh);
-#pragma unroll
-      for (int b = 0; b < NBV; ++b)
-        tma_load_3d(sm.do_s + s * S::kTileV + b * kBox, map_do, &sm.full[s], 64 * b, q0, bh);
-    }
-    // Rows past Sq land as 0: their q and dO rows are 0 too, so P = 1
-    // there multiplies zeros and dS = 0.
-    const size_t rows = static_cast<size_t>(bh) * p.sq + q0;
-#pragma unroll
-    for (int r = lane; r < kWgRows; r += 32) {
-      const bool ok = q0 + r < p.sq;
-      cp_async4(&sm.lse_s[s * kWgRows + r], p.lse2 + (ok ? rows + r : 0), ok);
-      cp_async4(&sm.di_s[s * kWgRows + r], p.di + (ok ? rows + r : 0), ok);
-    }
-    cp_async_mbar_arrive(&sm.full[s]);
-  }
+  if (lane == 0 && n_items > 0)
+    load_kv<DK, DV>(sm.k_s, sm.v_s, sm.kv_full, map_k, map_v, k0, bhk,
+                    DkdvSmem<DK, DV>::kKvTiles);
+  produce_items<DK, DV, WgShape<DK, DV>::kStages>(p, ring_of(sm), map_q, map_do, bh0, qt_begin,
+                                                  n_q, it_lo, n_items, 0, lane);
 }
 
 // A consumer warpgroup's dK (which 0, W = DK, times scale) or dV (which 1,
@@ -329,6 +389,90 @@ __device__ __forceinline__ void dkdv_store(const Params& p, const float (&acc)[W
         *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * width + col) =
             Mma<T>::pack(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
+}
+
+// The persistent key-tile pass (MLA's widths) of one consumer warpgroup
+// over one plan row's items, ring positions i0 .. i0 + n_items - 1 (the two
+// warpgroups share the row's 64 keys, k_s and v_s): for each item, S^T = K
+// Q^T over DK and dP^T = V dO^T over DV for its 32 queries, P^T and dS^T
+// rounded to T into the shared swizzled tiles, then warpgroup 0 adds P^T
+// dO to dV (W = DV) and warpgroup 1 dS^T Q to dK (W = DK), both operands in
+// shared memory. An item's dV / dK product stays in flight while the next
+// item's S^T and dP^T are issued; every product is complete when this
+// returns.
+template <typename T, int W, int DK, int DV, int kStages>
+__device__ __forceinline__ void dkdv_wide_items(const Params& p, const ItemRing& ring,
+                                                const unsigned char* k_s,
+                                                const unsigned char* v_s, const PairConsts& pc,
+                                                int wg, int tid, int k0, int qt_begin, int it_lo,
+                                                int n_q, int n_items, int i0,
+                                                float (&acc)[W / 2]) {
+  using S = WgShape<DK, DV>;
+  const int wq = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
+  const unsigned char* a_s = wg == 0 ? ring.pt_s : ring.dst_s;  // dV += P^T dO; dK += dS^T Q
+  const int key0 = k0 + 16 * wq + gq;
+  int held = -1;  // the stage the product in flight reads
+  for (int i = i0; i < i0 + n_items; ++i) {
+    const int s = i % kStages;
+    mbar_wait(&ring.full[s], (i / kStages) & 1);
+    const int row0 = p.q_offset + (qt_begin + (it_lo + i - i0) % n_q) * kWgRows;
+    const unsigned char* qs = ring.q_s + s * S::kTileK + wg * 32 * 128;  // this warpgroup's 32 queries
+    const unsigned char* dos = ring.do_s + s * S::kTileV + wg * 32 * 128;
+    float st[16], dpt[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {  // S^T = K Q^T
+      const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+      Wgmma<T, 32>::template ss<0, 0>(st, desc_kmajor(k_s + off), desc_kmajor(qs + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk) {  // dP^T = V dO^T
+      const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+      Wgmma<T, 32>::template ss<0, 0>(dpt, desc_kmajor(v_s + off), desc_kmajor(dos + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the last item's product is done
+    fence_regs(acc);
+    if (held >= 0 && tid == 0) mbar_arrive(&ring.empty[held]);
+    wgmma_wait<0>();  // this item's S^T and dP^T
+    fence_regs(st);
+    fence_regs(dpt);
+    const float* ls = ring.lse_s + s * kWgRows;
+    const float* ds = ring.di_s + s * kWgRows;
+    with_pair_kind(all_visible(p, row0 + 32 * wg, row0 + 32 * wg + 31, k0, k0 + 63),
+                   p.has_softcap, [&](auto all, auto cap) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int qi = 32 * wg + 8 * (e >> 2) + 2 * tq + (e & 1);
+        const bool vis = decltype(all)::value || visible(p, row0 + qi, key0 + 8 * ((e >> 1) & 1));
+        pair_grad<decltype(cap)::value>(pc, st[e], ls[qi], dpt[e], ds[qi], vis, st[e], dpt[e]);
+      }
+    });
+    named_sync(1, 256);  // both warpgroups' last products are done: pt_s, dst_s are free
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t off = sw128(16 * wq + gq + 8 * r, (32 * wg + 8 * j + 2 * tq) * 2);
+        *reinterpret_cast<uint32_t*>(ring.pt_s + off) =
+            Mma<T>::pack(st[4 * j + 2 * r], st[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(ring.dst_s + off) =
+            Mma<T>::pack(dpt[4 * j + 2 * r], dpt[4 * j + 2 * r + 1]);
+      }
+    fence_async_smem();
+    named_sync(1, 256);
+    const unsigned char* bs = wg == 0 ? ring.do_s + s * S::kTileV : ring.q_s + s * S::kTileK;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk)
+      Wgmma<T, W>::template ss<0, 1>(acc, desc_kmajor(a_s + kk * 32),
+                                     desc_mnmajor(bs + kk * 2048, kBox), 1);
+    wgmma_commit();
+    held = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (held >= 0 && tid == 0) mbar_arrive(&ring.empty[held]);
 }
 
 // The wide key-tile pass of one consumer warpgroup (the two share the
@@ -542,6 +686,182 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// The persistent key-tile pass's shared memory (MLA's widths): two k / v
+// buffers (a plan row's and the next one's), a kPersistStages q / dO ring
+// with its rows' lse and Di, and the P^T / dS^T hand-off tiles. At (192,
+// 128): 2 x 40 KB + 3 x 40 KB + 16 KB, ~219 KB.
+template <int DK, int DV>
+struct PersistSmem {
+  using S = WgShape<DK, DV>;
+  static constexpr int kStages = S::kPersistStages;
+  unsigned char* kv_s;  // [2][k tile, v tile]
+  ItemRing ring;
+  uint64_t* kv_full;   // [2]: the producer's copies
+  uint64_t* kv_empty;  // [2]: one thread of each consumer warpgroup
+
+  static constexpr size_t bytes() {
+    return 1024 + (2 + kStages) * static_cast<size_t>(S::kTileK + S::kTileV) + 2 * kBox +
+           2 * kStages * kWgRows * sizeof(float) + (4 + 2 * kStages) * 8;
+  }
+  __device__ explicit PersistSmem(unsigned char* raw) {
+    kv_s = align1024(raw);
+    ring.q_s = kv_s + 2 * (S::kTileK + S::kTileV);
+    ring.do_s = ring.q_s + kStages * S::kTileK;
+    ring.pt_s = ring.do_s + kStages * S::kTileV;
+    ring.dst_s = ring.pt_s + kBox;
+    ring.lse_s = reinterpret_cast<float*>(ring.dst_s + kBox);
+    ring.di_s = ring.lse_s + kStages * kWgRows;
+    kv_full = reinterpret_cast<uint64_t*>(ring.di_s + kStages * kWgRows);
+    kv_empty = kv_full + 2;
+    ring.full = kv_empty + 2;
+    ring.empty = ring.full + kStages;
+  }
+  __device__ unsigned char* k_of(int buf) const { return kv_s + buf * (S::kTileK + S::kTileV); }
+  __device__ unsigned char* v_of(int buf) const { return k_of(buf) + S::kTileK; }
+};
+
+// A plan row as the kernels read it.
+struct PlanRow {
+  int kt, bhk, qt_begin, n_q, it_lo, n_items, slot, bh0;
+  __device__ PlanRow(const Params& p, int row) {
+    const int* r = p.plan + 8 * row;
+    kt = r[0];
+    bhk = r[1];
+    qt_begin = r[2];
+    n_q = r[3];
+    it_lo = r[4];
+    n_items = r[5] - r[4];
+    slot = r[6];
+    const int group = p.n_heads / p.n_kv_heads;
+    const int bi = bhk / p.n_kv_heads;
+    bh0 = bi * p.n_heads + (bhk - bi * p.n_kv_heads) * group;  // the group's first head
+  }
+};
+
+// One consumer warpgroup of the persistent key-tile pass: for each of its
+// block's plan rows, the items (dkdv_wide_items) on that row's k / v
+// buffer, then its dV (warpgroup 0, W = DV) or dK times scale (warpgroup
+// 1, W = DK) out. A key tile's only block rounds it into the buffer's own
+// k (dK) or v (dV) tile, which no product reads any more, and one thread
+// TMA-stores it (clipped to Sk and the width) and frees the buffer once
+// the store has read it, while the other warps start the next row; a split
+// key tile's blocks write their float32 partial sums to the workspace.
+template <typename T, int W, int DK, int DV>
+__device__ __forceinline__ void dkdv_persistent_rows(const Params& p, const PersistSmem<DK, DV>& sm,
+                                                     const CUtensorMap* map_out, int wg, int tid,
+                                                     int row_lo, int row_hi) {
+  const PairConsts pc(p);
+  const int wq = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
+  const float mul = wg == 0 ? 1.0f : p.scale;
+  int i0 = 0;
+  for (int row = row_lo, c = 0; row < row_hi; ++row, ++c) {
+    const PlanRow u(p, row);
+    const int buf = c & 1;
+    const int k0 = u.kt * 64;
+    mbar_wait(&sm.kv_full[buf], (c >> 1) & 1);
+    float acc[W / 2];
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+    dkdv_wide_items<T, W, DK, DV, PersistSmem<DK, DV>::kStages>(
+        p, sm.ring, sm.k_of(buf), sm.v_of(buf), pc, wg, tid, k0, u.qt_begin, u.it_lo, u.n_q,
+        u.n_items, i0, acc);
+    i0 += u.n_items;
+    if (u.slot >= 0) {
+      dkdv_store<T, W, DK, DV>(p, acc, wg == 0 ? 1 : 0, u.slot, u.bhk, k0, 0, tid);
+      if (tid == 0) mbar_arrive(&sm.kv_empty[buf]);
+    } else {
+      // Both warpgroups are past this row's last reads of k and v (the
+      // item's second named barrier), so its tiles take the results.
+      unsigned char* out_s = wg == 0 ? sm.v_of(buf) : sm.k_of(buf);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int col = 8 * j + 2 * tq;
+          *reinterpret_cast<uint32_t*>(out_s + (col / 64) * kBox +
+                                       sw128(16 * wq + gq + 8 * r, (col % 64) * 2)) =
+              Mma<T>::pack(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+        }
+      fence_async_smem();
+      named_sync(2 + wg, 128);
+      if (tid == 0) {
+        const int width = wg == 0 ? p.dim_v : p.dim;
+#pragma unroll
+        for (int b = 0; b < W / 64; ++b)
+          if (64 * b < width) tma_store_3d(map_out, out_s + b * kBox, 64 * b, k0, u.bhk);
+        tma_store_commit();
+        tma_store_wait_read();
+        mbar_arrive(&sm.kv_empty[buf]);
+      }
+    }
+  }
+  if (tid == 0) tma_store_wait_all();
+}
+
+// dK and dV at MLA's widths, persistent: block b runs plan rows starts[b]
+// .. starts[b + 1] - 1 (the wrapper's longest-processing-time split of the
+// rows over the grid, by items). Warp 8 streams every row's items through
+// the q / dO ring, warp 9 each row's k and v into the buffer the row
+// before last has freed (the next row's tiles land while this one's items
+// run), and the two consumer warpgroups run dkdv_persistent_rows. The
+// mbarrier phases run on across rows: ring position i counts the block's
+// items, buffer c & 1 its rows.
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_persistent_kernel(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const __grid_constant__ CUtensorMap map_do,
+                                 const __grid_constant__ CUtensorMap map_dk,
+                                 const __grid_constant__ CUtensorMap map_dv, const Params p) {
+  using M = PersistSmem<DK, DV>;
+  extern __shared__ unsigned char smem_raw[];
+  const M sm(smem_raw);
+  const int row_lo = p.starts[blockIdx.x], row_hi = p.starts[blockIdx.x + 1];
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.kv_full[b], 1);
+      mbar_init(&sm.kv_empty[b], 2);
+    }
+    for (int s = 0; s < M::kStages; ++s) {
+      mbar_init(&sm.ring.full[s], 33);
+      mbar_init(&sm.ring.empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (warp >= 8) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8) {
+      for (int row = row_lo, i0 = 0; row < row_hi; ++row) {
+        const PlanRow u(p, row);
+        produce_items<DK, DV, M::kStages>(p, sm.ring, &map_q, &map_do, u.bh0, u.qt_begin, u.n_q,
+                                          u.it_lo, u.n_items, i0, lane);
+        i0 += u.n_items;
+      }
+    } else if (warp == 9 && lane == 0) {
+      for (int row = row_lo, c = 0; row < row_hi; ++row, ++c) {
+        const PlanRow u(p, row);
+        mbar_wait(&sm.kv_empty[c & 1], ((c >> 1) & 1) ^ 1);
+        load_kv<DK, DV>(sm.k_of(c & 1), sm.v_of(c & 1), &sm.kv_full[c & 1], &map_k, &map_v,
+                        u.kt * 64, u.bhk, 1);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  if (wg == 0)
+    dkdv_persistent_rows<T, DV, DK, DV>(p, sm, &map_dv, wg, tid, row_lo, row_hi);
+  else
+    dkdv_persistent_rows<T, DK, DK, DV>(p, sm, &map_dk, wg, tid, row_lo, row_hi);
+}
+
 // A split key tile's dK (times scale) and dV: the sum of its blocks'
 // partial sums in slot order. Row r of the wrapper's red table is spread
 // over kChunks blocks of 256 threads, a float4 of a workspace row a
@@ -743,6 +1063,244 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 }
 
+// dQ at MLA's widths, persistent: block b runs the units dq_units[
+// dq_starts[b] .. dq_starts[b + 1] - 1] (the wrapper's longest-processing-
+// time split of the one-block-a-unit grid by key tiles), a unit being 128
+// query rows of one (batch, head), 64 a consumer warpgroup, as
+// flash_bwd_dq_wgmma_kernel's block. Warp 8 streams every unit's 64-key k
+// and v tiles through a kPersistStages ring; warp 9 loads each warpgroup's
+// dO and q tiles into its buffers once the warpgroup has freed them: dO as
+// soon as its unit's last S and dP products are done, so the next unit's
+// dO lands while it finishes, q once dQ has left through that q tile by a
+// TMA store (clipped to Sq and D). The phases run on across units.
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_persistent_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const __grid_constant__ CUtensorMap map_dq, const Params p) {
+  using S = WgShape<DK, DV>;
+  constexpr int NBK = DK / 64, NBV = DV / 64;
+  constexpr int BN = S::kDqKeys;
+  constexpr int kSt = S::kPersistStages;
+  constexpr int KBOX = BN * 128;   // a [BN][64] box
+  constexpr int KTK = NBK * KBOX;  // a [BN][DK] tile
+  constexpr int KTV = NBV * KBOX;  // a [BN][DV] tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);  // [warpgroup] tiles
+  unsigned char* do_s = q_s + 2 * S::kTileK;
+  unsigned char* k_s = do_s + 2 * S::kTileV;  // [stage] tiles
+  unsigned char* v_s = k_s + kSt * KTK;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kSt * KTV);  // [warpgroup]
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* d_full = q_empty + 2;  // dO
+  uint64_t* d_empty = d_full + 2;
+  uint64_t* full = d_empty + 2;
+  uint64_t* empty = full + kSt;
+
+  const int n_bh = p.n_batch * p.n_heads;
+  const int n_qt = (p.sq + 2 * kWgRows - 1) / (2 * kWgRows);
+  const int u_lo = p.dq_starts[blockIdx.x], u_hi = p.dq_starts[blockIdx.x + 1];
+  // Unit idx of the one-block-a-unit grid: query tile n_qt - 1 - idx / (B
+  // H) of (batch, head) idx % (B H), and the key tiles its rows see.
+  struct Unit {
+    int bh, bhk, q0, prefix_tiles, window_tile, kt_end;
+  };
+  auto unit = [&](int u) {
+    const int idx = p.dq_units[u];
+    const int qt = n_qt - 1 - idx / n_bh;
+    const int bh = idx % n_bh;
+    const int bi = bh / p.n_heads;
+    return Unit{bh, bi * p.n_kv_heads + (bh - bi * p.n_heads) / (p.n_heads / p.n_kv_heads),
+                qt * 2 * kWgRows, p.dq_span[3 * qt], p.dq_span[3 * qt + 1],
+                p.dq_span[3 * qt + 2]};
+  };
+  auto next_visible = [](const Unit& t, int kt) {
+    return (kt >= t.prefix_tiles && kt < t.window_tile) ? t.window_tile : kt;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&q_full[w], 1);
+      mbar_init(&q_empty[w], 1);
+      mbar_init(&d_full[w], 1);
+      mbar_init(&d_empty[w], 1);
+    }
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+
+  if (warp >= 8) {  // producers: one thread each
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 8 * 32) {  // k and v
+      int i = 0;
+      for (int u = u_lo; u < u_hi; ++u) {
+        const Unit t = unit(u);
+        for (int kt = next_visible(t, 0); kt < t.kt_end; kt = next_visible(t, kt + 1), ++i) {
+          const int s = i % kSt;
+          mbar_wait(&empty[s], ((i / kSt) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], KTK + KTV);
+#pragma unroll
+          for (int b = 0; b < NBK; ++b)
+            tma_load_3d(k_s + s * KTK + b * KBOX, &map_k, &full[s], 64 * b, kt * BN, t.bhk);
+#pragma unroll
+          for (int b = 0; b < NBV; ++b)
+            tma_load_3d(v_s + s * KTV + b * KBOX, &map_v, &full[s], 64 * b, kt * BN, t.bhk);
+        }
+      }
+    } else if (threadIdx.x == 9 * 32) {  // dO, then q
+      for (int u = u_lo, c = 0; u < u_hi; ++u, ++c) {
+        const Unit t = unit(u);
+        for (int w = 0; w < 2; ++w) {
+          mbar_wait(&d_empty[w], (c & 1) ^ 1);
+          mbar_arrive_expect_tx(&d_full[w], S::kTileV);
+#pragma unroll
+          for (int b = 0; b < NBV; ++b)
+            tma_load_3d(do_s + w * S::kTileV + b * kBox, &map_do, &d_full[w], 64 * b,
+                        t.q0 + w * kWgRows, t.bh);
+        }
+        for (int w = 0; w < 2; ++w) {
+          mbar_wait(&q_empty[w], (c & 1) ^ 1);
+          mbar_arrive_expect_tx(&q_full[w], S::kTileK);
+#pragma unroll
+          for (int b = 0; b < NBK; ++b)
+            tma_load_3d(q_s + w * S::kTileK + b * kBox, &map_q, &q_full[w], 64 * b,
+                        t.q0 + w * kWgRows, t.bh);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  const int gq = (tid & 31) >> 2;
+  const int tq = tid & 3;
+  const PairConsts pc(p);
+  const unsigned char* qs = q_s + wg * S::kTileK;
+  const unsigned char* dos = do_s + wg * S::kTileV;
+  // A unit's rows' lse (log2 domain) and Di, this thread's two rows.
+  auto row_stats = [&](const Unit& t, float (&lse2)[2], float (&di)[2]) {
+    const int local0 = t.q0 + wg * kWgRows + 16 * (tid >> 5) + gq;
+    const size_t row_base = static_cast<size_t>(t.bh) * p.sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int local = local0 + 8 * r;
+      lse2[r] = local < p.sq ? p.lse2[row_base + local] : INFINITY;
+      di[r] = local < p.sq ? p.di[row_base + local] : 0.0f;
+    }
+  };
+  int i = 0;
+  Unit t = unit(u_lo < u_hi ? u_lo : 0);
+  float lse2[2], di[2];
+  row_stats(t, lse2, di);
+  for (int u = u_lo, c = 0; u < u_hi; ++u, ++c) {
+    // The next unit and its rows' lse and Di, in flight through this one.
+    const Unit t_next = unit(u + 1 < u_hi ? u + 1 : u);
+    float lse2_next[2], di_next[2];
+    row_stats(t_next, lse2_next, di_next);
+    const int local0 = t.q0 + wg * kWgRows + 16 * (tid >> 5) + gq;  // this thread's rows: +0, +8
+    const int row_wg = p.q_offset + t.q0 + wg * kWgRows;  // the warpgroup's first row's position
+    float acc[DK / 2];
+#pragma unroll
+    for (int e = 0; e < DK / 2; ++e) acc[e] = 0.0f;
+    mbar_wait(&d_full[wg], c & 1);
+    mbar_wait(&q_full[wg], c & 1);
+    int kt = next_visible(t, 0);
+    if (kt >= t.kt_end && tid == 0) mbar_arrive(&d_empty[wg]);  // no key tile: free at once
+    for (; kt < t.kt_end; ++i) {
+      const int s = i % kSt;
+      const int kt_next = next_visible(t, kt + 1);
+      mbar_wait(&full[s], (i / kSt) & 1);
+      const unsigned char* ks = k_s + s * KTK;
+      const unsigned char* vs = v_s + s * KTV;
+      float sa[BN / 2], dp[BN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk)  // S = Q K^T
+        Wgmma<T, BN>::template ss<0, 0>(sa, desc_kmajor(qs + (kk >> 2) * kBox + (kk & 3) * 32),
+                                        desc_kmajor(ks + (kk >> 2) * KBOX + (kk & 3) * 32),
+                                        kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)  // dP = dO V^T
+        Wgmma<T, BN>::template ss<0, 0>(dp, desc_kmajor(dos + (kk >> 2) * kBox + (kk & 3) * 32),
+                                        desc_kmajor(vs + (kk >> 2) * KBOX + (kk & 3) * 32),
+                                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(dp);
+      if (kt_next >= t.kt_end && tid == 0) mbar_arrive(&d_empty[wg]);  // dO read for good
+      with_pair_kind(all_visible(p, row_wg, row_wg + kWgRows - 1, kt * BN, kt * BN + BN - 1),
+                     p.has_softcap, [&](auto all, auto cap) {  // dS in place of S
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) {
+          const int r = (e >> 1) & 1;
+          const bool vis = decltype(all)::value ||
+                           visible(p, p.q_offset + local0 + 8 * r, kt * BN + 8 * (e >> 2) + 2 * tq + (e & 1));
+          float pe;
+          pair_grad<decltype(cap)::value>(pc, sa[e], lse2[r], dp[e], di[r], vis, pe, sa[e]);
+        }
+      });
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {  // dQ += dS K
+        uint32_t a[4];
+        acc_to_a16<T>(a, sa, kk);
+        Wgmma<T, DK>::template rs<1>(acc, a, desc_mnmajor(ks + kk * 2048, KBOX), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(&empty[s]);  // the stage's k and v are read
+      kt = kt_next;
+    }
+    // dQ (times scale) out through this warpgroup's q tile, which no
+    // product reads any more; the tile is freed once the store has read it.
+    unsigned char* out_s = q_s + wg * S::kTileK;
+#pragma unroll
+    for (int j = 0; j < DK / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = 8 * j + 2 * tq;
+        *reinterpret_cast<uint32_t*>(out_s + (col / 64) * kBox +
+                                     sw128(16 * (tid >> 5) + gq + 8 * r, (col % 64) * 2)) =
+            Mma<T>::pack(acc[4 * j + 2 * r] * p.scale, acc[4 * j + 2 * r + 1] * p.scale);
+      }
+    fence_async_smem();
+    named_sync(2 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int b = 0; b < NBK; ++b)
+        if (64 * b < p.dim) tma_store_3d(&map_dq, out_s + b * kBox, 64 * b, t.q0 + wg * kWgRows, t.bh);
+      tma_store_commit();
+      tma_store_wait_read();
+      mbar_arrive(&q_empty[wg]);
+    }
+    t = t_next;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = lse2_next[r];
+      di[r] = di_next[r];
+    }
+  }
+  if (tid == 0) tma_store_wait_all();
+}
+
+template <int DK, int DV>
+constexpr size_t dq_persistent_smem() {
+  using S = WgShape<DK, DV>;
+  return 1024 + 2 * static_cast<size_t>(S::kTileK + S::kTileV) +
+         S::kPersistStages * ((DK + DV) / 64) * S::kDqKeys * 128 + (8 + 2 * S::kPersistStages) * 8;
+}
+
 template <int DK, int DV>
 constexpr size_t dq_wgmma_smem() {
   using S = WgShape<DK, DV>;
@@ -750,10 +1308,13 @@ constexpr size_t dq_wgmma_smem() {
          S::kStages * ((DK + DV) / 64) * S::kDqKeys * 128 + (1 + 2 * S::kStages) * 8;
 }
 
-// The prologue, the key-tile pass over the wrapper's n_plan blocks, the
-// reduction of its n_red split key tiles, and the query-tile pass.
+// The prologue, the key-tile pass (the wrapper's n_plan rows: a block
+// each, or over a persistent grid of `grid` blocks at MLA's widths), the
+// reduction of its n_red split key tiles, and the query-tile pass (one
+// block a unit, or a persistent grid of dq_grid blocks).
 template <typename T, int DK, int DV>
-int launch_wgmma(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
+int launch_wgmma(const Params& p, int n_plan, int n_red, int grid, int dq_grid,
+                 cudaStream_t stream) {
   using S = WgShape<DK, DV>;
   const uint64_t d = p.dim, dv = p.dim_v;
   const uint64_t q_planes = static_cast<uint64_t>(p.n_batch) * p.n_heads;
@@ -776,12 +1337,27 @@ int launch_wgmma(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   if (n_plan > 0) {
-    constexpr size_t smem = DkdvSmem<DK, DV>::bytes();
-    static bool opted = false;
-    err = opt_in(flash_bwd_dkdv_wgmma_kernel<T, DK, DV>, smem, opted);
-    if (err) return err;
-    flash_bwd_dkdv_wgmma_kernel<T, DK, DV>
-        <<<n_plan, kWgThreads, smem, stream>>>(map_q, map_k, map_v, map_do, p);
+    if constexpr (S::kPersistent) {
+      CUtensorMap map_dk, map_dv;  // the stores: [64][64] boxes, clipped to Sk and the width
+      err = tensor_map_3d<T>(&map_dk, p.dk, d, p.sk, kv_planes, 2 * d, 2 * d * p.sk, 64);
+      if (!err)
+        err = tensor_map_3d<T>(&map_dv, p.dv, dv, p.sk, kv_planes, 2 * dv, 2 * dv * p.sk, 64);
+      if (err) return err;
+      constexpr size_t smem = PersistSmem<DK, DV>::bytes();
+      static_assert(smem <= 232448, "a block's shared memory");
+      static bool opted = false;
+      err = opt_in(flash_bwd_dkdv_persistent_kernel<T, DK, DV>, smem, opted);
+      if (err) return err;
+      flash_bwd_dkdv_persistent_kernel<T, DK, DV><<<grid, kWgThreads, smem, stream>>>(
+          map_q, map_k, map_v, map_do, map_dk, map_dv, p);
+    } else {
+      constexpr size_t smem = DkdvSmem<DK, DV>::bytes();
+      static bool opted = false;
+      err = opt_in(flash_bwd_dkdv_wgmma_kernel<T, DK, DV>, smem, opted);
+      if (err) return err;
+      flash_bwd_dkdv_wgmma_kernel<T, DK, DV>
+          <<<n_plan, kWgThreads, smem, stream>>>(map_q, map_k, map_v, map_do, p);
+    }
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
@@ -791,25 +1367,39 @@ int launch_wgmma(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
-  constexpr size_t smem_q = dq_wgmma_smem<DK, DV>();
-  static bool q_opted = false;
-  err = opt_in(flash_bwd_dq_wgmma_kernel<T, DK, DV>, smem_q, q_opted);
-  if (err) return err;
-  const int n_qt = (p.sq + 2 * kWgRows - 1) / (2 * kWgRows);
-  flash_bwd_dq_wgmma_kernel<T, DK, DV>
-      <<<n_qt * p.n_batch * p.n_heads, kWgThreads, smem_q, stream>>>(map_q, map_k2, map_v2,
-                                                                     map_do, p);
+  if constexpr (S::kPersistent) {
+    CUtensorMap map_dq;  // the store: [64][64] boxes, clipped to Sq and D
+    err = tensor_map_3d<T>(&map_dq, p.dq, d, p.sq, q_planes, 2 * d, 2 * d * p.sq, kWgRows);
+    if (err) return err;
+    constexpr size_t smem_q = dq_persistent_smem<DK, DV>();
+    static bool q_opted = false;
+    err = opt_in(flash_bwd_dq_persistent_kernel<T, DK, DV>, smem_q, q_opted);
+    if (err) return err;
+    flash_bwd_dq_persistent_kernel<T, DK, DV>
+        <<<dq_grid, kWgThreads, smem_q, stream>>>(map_q, map_k2, map_v2, map_do, map_dq, p);
+  } else {
+    constexpr size_t smem_q = dq_wgmma_smem<DK, DV>();
+    static bool q_opted = false;
+    err = opt_in(flash_bwd_dq_wgmma_kernel<T, DK, DV>, smem_q, q_opted);
+    if (err) return err;
+    const int n_qt = (p.sq + 2 * kWgRows - 1) / (2 * kWgRows);
+    flash_bwd_dq_wgmma_kernel<T, DK, DV>
+        <<<n_qt * p.n_batch * p.n_heads, kWgThreads, smem_q, stream>>>(map_q, map_k2, map_v2,
+                                                                       map_do, p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiations: Dv == D padded to 64, 128 or 256; Dv != D on MLA's
 // (192, 128), which any D <= 192 with Dv <= 128 takes padded by TMA's zeros.
 template <typename T>
-int launch_wgmma_dim(const Params& p, int n_plan, int n_red, cudaStream_t stream) {
-  if (p.dim != p.dim_v) return launch_wgmma<T, kSplitD, kSplitDv>(p, n_plan, n_red, stream);
-  if (p.dim <= 64) return launch_wgmma<T, 64, 64>(p, n_plan, n_red, stream);
-  if (p.dim <= 128) return launch_wgmma<T, 128, 128>(p, n_plan, n_red, stream);
-  return launch_wgmma<T, 256, 256>(p, n_plan, n_red, stream);
+int launch_wgmma_dim(const Params& p, int n_plan, int n_red, int grid, int dq_grid,
+                     cudaStream_t stream) {
+  if (p.dim != p.dim_v)
+    return launch_wgmma<T, kSplitD, kSplitDv>(p, n_plan, n_red, grid, dq_grid, stream);
+  if (p.dim <= 64) return launch_wgmma<T, 64, 64>(p, n_plan, n_red, grid, dq_grid, stream);
+  if (p.dim <= 128) return launch_wgmma<T, 128, 128>(p, n_plan, n_red, grid, dq_grid, stream);
+  return launch_wgmma<T, 256, 256>(p, n_plan, n_red, grid, dq_grid, stream);
 }
 
 }  // namespace
@@ -820,10 +1410,14 @@ int launch_wgmma_dim(const Params& p, int n_plan, int n_red, cudaStream_t stream
 // up to 256, or D up to 192 with Dv up to 128); lse is the forward's float32 [B, H, Sq]
 // output and scratch a float32 [2, B, H, Sq] buffer (Di, then lse in the
 // log2 domain). The wrapper's plan: n_plan rows of the key-tile pass's
-// blocks, n_red rows of its split key tiles, a float32 workspace ws of
+// units, n_red rows of its split key tiles, a float32 workspace ws of
 // 2 * n_slots [kKeys][kWs] tiles (kWs = the instantiation's DK: dim padded
 // to 64, 128 or 256, or 192 for Dv != D), and
-// dq_span, the query-tile pass's key tiles for each of its query tiles.
+// dq_span, the query-tile pass's key tiles for each of its query tiles; at
+// Dv != D (the persistent passes) also starts, the key-tile pass's grid
+// blocks' row ranges (grid of them), and dq_units / dq_starts, the
+// query-tile pass's units in block order and its dq_grid blocks' ranges
+// (null and 0 at the other widths, whose passes launch a block a unit).
 // Launches the prologue, the key-tile pass, the reduction and the
 // query-tile pass on stream, in that order. Returns cudaGetLastError()
 // after the first launch that fails (0 on success), 1000 + libcuda's
@@ -836,16 +1430,21 @@ extern "C" int acs_flash_attention_bwd_wgmma(
     int has_window,
     int window, int has_softcap, float softcap, int q_offset, int prefix_len, const int* plan,
     int n_plan, const int* red, int n_red, float* ws, int n_slots, const int* dq_span,
+    const int* starts, int grid, const int* dq_units, const int* dq_starts, int dq_grid,
     void* stream) {
   const bool widths = dim == dim_v ? dim <= kMaxD : dim <= kSplitD && dim_v <= kSplitDv;
   if (dim < 8 || dim_v < 8 || dim % 8 != 0 || dim_v % 8 != 0 || !widths ||
       (dtype != 1 && dtype != 2))
     return -1;
+  if (dim != dim_v && (starts == nullptr || dq_units == nullptr || dq_starts == nullptr ||
+                       grid < 1 || dq_grid < 1))
+    return -1;
   Params p{q, k, v, o, dout, lse, scratch, dq, dk, dv, n_batch, n_heads, n_kv_heads, sq, sk,
            dim, dim_v, 0, 0, scale, causal, has_window, window, has_softcap, softcap, q_offset,
            prefix_len, plan, red, ws, n_slots,
-           scratch + static_cast<size_t>(n_batch) * n_heads * sq, dq_span};
+           scratch + static_cast<size_t>(n_batch) * n_heads * sq, dq_span, starts, dq_units,
+           dq_starts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_wgmma_dim<__nv_bfloat16>(p, n_plan, n_red, s)
-                    : launch_wgmma_dim<__half>(p, n_plan, n_red, s);
+  return dtype == 1 ? launch_wgmma_dim<__nv_bfloat16>(p, n_plan, n_red, grid, dq_grid, s)
+                    : launch_wgmma_dim<__half>(p, n_plan, n_red, grid, dq_grid, s);
 }

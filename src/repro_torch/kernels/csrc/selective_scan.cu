@@ -103,12 +103,15 @@
 // falcon-mamba-7b's training shape [4, 512, 8192], N 16, bf16: the bytes
 // (dt_raw, x, z, dy read and d dt_raw, dx, dz written, 33.5 MB each; b, c,
 // db, dc; the saved states 14.7 MB) ~255 MB, 0.076 ms, against the
-// recompute's 268 M exponentials, 0.064 ms: the bytes, just above. It
-// issues far more than that (a forward replay, a reverse scan and the
-// per-step products of eight gradients a state and step, and a cross-warp
-// sum of db and dc through shared memory a state pair) on one 16-warp
-// block an SM (125 registers): on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py) 1.29 ms of device time, 17x its bound.
+// recompute's 268 M exponentials, 0.064 ms: the bytes, just above. What
+// binds it is instruction issue: a forward replay, a reverse scan and the
+// per-step products of eight gradients, 55 SASS instructions a state and
+// step in its state loop (0.44 ms at full issue on 132 SMs), on one
+// 16-warp block an SM (128 registers). The first design also summed db and
+// dc across its warps behind a barrier a state pair (80 barriers a block,
+// 77 instructions a state and step) and waited on each chunk's loads; on
+// an H100 80GB HBM3 at 700 W (kernels/bwd_times.py) it took 1.29 ms of
+// device time, this one 0.94 (the reduction 0.047 of each).
 
 #include "sm90_tiles.cuh"
 
@@ -610,30 +613,36 @@ struct BwdParams {
   int vec_z, vec_dy;    // 16-byte copies allowed for the z and dy tiles
 };
 
-// The backward block's shared memory, in floats from the base: four [64,
-// 32] tiles (dt, x, z, dy; float-sized), b and c transposed ([n][ldb]),
-// the chunk's start states, the carry G from the next chunk, the decay
-// rates (log2-scaled and true) and da's running sums ([32][n] each), the
-// double-buffered cross-warp sums of db and dc ([2][16 warps][4][64]) and
-// the chunk's db and dc ([2][16][64]).
+// The backward block's shared memory, in bytes from the base: two buffers
+// (chunk k's, and chunk k - 1's landing while k runs) of the four [64, 32]
+// tiles in T (dt, x, z, dy), of b and c transposed ([n][ldb] floats) and
+// of the chunk's start states ([32][n]); then the carry G from the next
+// chunk, the decay rates (log2-scaled and true) and da's running sums
+// ([32][n] each); and the warps' db and dc for the whole chunk, [16 warps]
+// [b, c][n][64 steps] floats (128 KB at N 16), summed across the warps once
+// a chunk, whose room then stages the chunk's outputs (d dt, dx, dz: three
+// [64, 32] tiles in T) and its db and dc ([2][64][n + 1] floats) on their
+// way out as whole rows.
 struct BwdLayout {
-  int tile, ldb, off_b, off_c, off_hs, off_g, off_a2, off_at, off_da, off_red, off_acc, floats;
+  int ldb;
+  size_t tile, off_bc, off_hs, off_g, off_a2, off_at, off_da, off_red, bytes;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int n) {
+__host__ __device__ inline BwdLayout bwd_layout(int n, int elem) {
   BwdLayout o;
-  o.tile = kBwdSteps * kBwdChans;
   o.ldb = bc_stride(kBwdSteps);
-  o.off_b = 4 * o.tile;
-  o.off_c = o.off_b + n * o.ldb;
-  o.off_hs = o.off_c + n * o.ldb;
-  o.off_g = o.off_hs + kBwdChans * n;
-  o.off_a2 = o.off_g + kBwdChans * n;
-  o.off_at = o.off_a2 + kBwdChans * n;
-  o.off_da = o.off_at + kBwdChans * n;
-  o.off_red = o.off_da + kBwdChans * n;
-  o.off_acc = o.off_red + 2 * (kThreads / 32) * 4 * kBwdSteps;
-  o.floats = o.off_acc + 2 * kMaxN * kBwdSteps;
+  o.tile = static_cast<size_t>(kBwdSteps) * kBwdChans * elem;
+  const size_t en = static_cast<size_t>(kBwdChans) * n * 4;  // a [32][n] float array
+  o.off_bc = 8 * o.tile;
+  o.off_hs = o.off_bc + 2 * 2 * static_cast<size_t>(n) * o.ldb * 4;
+  o.off_g = o.off_hs + 2 * en;
+  o.off_a2 = o.off_g + en;
+  o.off_at = o.off_a2 + en;
+  o.off_da = o.off_at + en;
+  o.off_red = o.off_da + en;
+  const size_t red = static_cast<size_t>(kThreads / 32) * 2 * n * kBwdSteps * 4;
+  const size_t out = 3 * o.tile + 2 * static_cast<size_t>(kBwdSteps) * (n + 1) * 4;
+  o.bytes = o.off_red + (red > out ? red : out);
   return o;
 }
 
@@ -655,10 +664,19 @@ __host__ __device__ inline BwdLayout bwd_layout(int n) {
 // silu'(z), d dt_raw = ddt * softplus'(dt_raw + dt_bias) (torch's
 // threshold of 20), dD = sum gy x, d dt_bias = sum d dt_raw, dA_log = da * a.
 // No atomics: db and dc are summed over a warp's two channels by a
-// shuffle, over the block's 16 warps in warp order through shared memory
-// and over the channel tiles by the reduction kernel in tile order; da,
-// dD and d dt_bias over a channel's lanes by a butterfly, over chunks in
-// order and over batch rows by the reduction kernel.
+// shuffle (lanes 0-15 keep db, 16-31 dc), each warp writes its sums for
+// every state of the chunk, and after one barrier every thread adds the 16
+// warps in warp order for four steps of one state; the channel tiles are
+// added by the reduction kernel in tile order; da, dD and d dt_bias over a
+// channel's lanes by a butterfly, over chunks in order and over batch rows
+// by the reduction kernel. Four barriers a chunk: [A] when its tiles have
+// landed (chunk k - 1's copies then start into the other buffer, and land
+// while chunk k runs), [B] when the warps' db and dc are written, [C] when
+// they are summed (their room then stages the chunk's d dt, dx and dz) and
+// [D] when those tiles are whole, which leave as rows of four neighbouring
+// channels a thread (a lane's own steps are rows apart); b, c and the start
+// states of chunk k - 1 are loaded into registers after [B] and stored
+// transposed once chunk k's outputs have left.
 template <typename T, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
     mamba_scan_bwd_kernel(const __grid_constant__ BwdParams bp) {
@@ -668,25 +686,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int chans = kBwdChans;
   constexpr int kSegLog2 = 2;
   constexpr int kWarps = kThreads / 32;
+  constexpr int kBc = steps * kMaxN / kThreads;  // b and c elements a thread moves a chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const Params& p = bp.f;
   const int n = p.n;
-  const BwdLayout lay = bwd_layout(n);
+  const BwdLayout lay = bwd_layout(n, sizeof(T));
   const int ldb = lay.ldb;
-  float* sm = reinterpret_cast<float*>(smem);
-  T* t_dt = reinterpret_cast<T*>(sm);
-  T* t_x = reinterpret_cast<T*>(sm + lay.tile);
-  T* t_z = reinterpret_cast<T*>(sm + 2 * lay.tile);
-  T* t_dy = reinterpret_cast<T*>(sm + 3 * lay.tile);
-  float* s_b = sm + lay.off_b;
-  float* s_c = sm + lay.off_c;
-  float* s_hs = sm + lay.off_hs;
-  float* s_g = sm + lay.off_g;
-  float* s_a2 = sm + lay.off_a2;
-  float* s_at = sm + lay.off_at;
-  float* s_da = sm + lay.off_da;
-  float* s_red = sm + lay.off_red;
-  float* s_acc = sm + lay.off_acc;
+  auto tile_of = [&](int buf, int which) {  // which: dt, x, z, dy
+    return reinterpret_cast<T*>(smem + (4 * buf + which) * lay.tile);
+  };
+  auto b_of = [&](int buf) { return reinterpret_cast<float*>(smem + lay.off_bc) + 2 * buf * n * ldb; };
+  auto c_of = [&](int buf) { return b_of(buf) + n * ldb; };
+  auto hs_of = [&](int buf) { return reinterpret_cast<float*>(smem + lay.off_hs) + buf * chans * n; };
+  float* s_g = reinterpret_cast<float*>(smem + lay.off_g);
+  float* s_a2 = reinterpret_cast<float*>(smem + lay.off_a2);
+  float* s_at = reinterpret_cast<float*>(smem + lay.off_at);
+  float* s_da = reinterpret_cast<float*>(smem + lay.off_da);
+  float* s_red = reinterpret_cast<float*>(smem + lay.off_red);
 
   const int tiles_c = (p.ch + chans - 1) / chans;
   const int bi = blockIdx.x / tiles_c;
@@ -702,6 +718,58 @@ __global__ void __launch_bounds__(kThreads, 1)
   const T* b_src = static_cast<const T*>(p.b) + bi * p.sb_b;
   const T* c_src = static_cast<const T*>(p.c) + bi * p.sb_c;
   const size_t row_en = (static_cast<size_t>(bi) * p.ch + c0) * n;  // this block's [E, N] rows
+  const int rows_of_last = p.seq - (nt - 1) * steps;
+  auto rows_of = [&](int k) { return k == nt - 1 ? rows_of_last : steps; };
+
+  // Chunk k's four tiles into buffer k & 1 (cp.async, committed).
+  auto stage_tiles = [&](int k) {
+    const int buf = k & 1;
+    const int rows = rows_of(k);
+    const long long t0 = static_cast<long long>(k) * steps;
+    stage_tile<T, kThreads>(tile_of(buf, 0), dt_src + t0 * p.ss_dt, p.ss_dt, steps, rows, chans,
+                            c_lim, kSegLog2, p.vec_dt);
+    stage_tile<T, kThreads>(tile_of(buf, 1), x_src + t0 * p.ss_x, p.ss_x, steps, rows, chans,
+                            c_lim, kSegLog2, p.vec_x);
+    if constexpr (kFused)
+      stage_tile<T, kThreads>(tile_of(buf, 2), z_src + t0 * p.ss_z, p.ss_z, steps, rows, chans,
+                              c_lim, kSegLog2, bp.vec_z);
+    stage_tile<T, kThreads>(tile_of(buf, 3), dy_src + t0 * p.ch, p.ch, steps, rows, chans, c_lim,
+                            kSegLog2, bp.vec_dy);
+    cp_async_commit();
+  };
+  // Chunk k's b, c and start states into registers...
+  auto fetch_bc = [&](int k, float (&bv)[kBc], float (&cv)[kBc], float& hv) {
+    const int rows = rows_of(k);
+    const long long t0 = static_cast<long long>(k) * steps;
+#pragma unroll
+    for (int u = 0; u < kBc; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      const int r = i / n;
+      const bool ok = i < steps * n && r < rows;
+      bv[u] = ok ? to_f(b_src[(t0 + r) * p.ss_b + (i - r * n)]) : 0.0f;
+      cv[u] = ok ? to_f(c_src[(t0 + r) * p.ss_c + (i - r * n)]) : 0.0f;
+    }
+    const int i = threadIdx.x;  // chans * n <= kThreads
+    hv = 0.0f;
+    if (i < c_lim * n)
+      hv = k == 0 ? p.h0[row_en + i]
+                  : p.states[((static_cast<size_t>(bi) * (nt - 1) + k - 1) * p.ch + c0) * n + i];
+  };
+  // ... then into buffer k & 1, b and c transposed to [n][step].
+  auto store_bc = [&](int k, const float (&bv)[kBc], const float (&cv)[kBc], float hv) {
+    float* sb_ = b_of(k & 1);
+    float* sc_ = c_of(k & 1);
+#pragma unroll
+    for (int u = 0; u < kBc; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      const int r = i / n;
+      if (i < steps * n) {
+        sb_[(i - r * n) * ldb + r] = bv[u];
+        sc_[(i - r * n) * ldb + r] = cv[u];
+      }
+    }
+    if (threadIdx.x < chans * n) hs_of(k & 1)[threadIdx.x] = hv;
+  };
 
   for (int i = threadIdx.x; i < chans * n; i += kThreads) {
     const bool ok = i < c_lim * n;
@@ -711,6 +779,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     s_a2[i] = __fmul_rn(at, kLog2e);
     s_da[i] = 0.0f;
     s_g[i] = (ok && bp.dht != nullptr) ? bp.dht[row_en + i] : 0.0f;
+  }
+  stage_tiles(nt - 1);
+  {
+    float bv[kBc], cv[kBc], hv;
+    fetch_bc(nt - 1, bv, cv, hv);
+    store_bc(nt - 1, bv, cv, hv);
   }
 
   const int j = threadIdx.x & (kLanes - 1);
@@ -722,37 +796,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float dval = (kFused && live) ? p.d[c0 + cl] : 0.0f;
   const int t_seg = j * kSeg;
   float acc_d = 0.0f, acc_bias = 0.0f;  // this thread's steps' dD and d dt_bias
+  float* red_w = s_red + warp * 2 * n * steps;  // this warp's db, then dc, [n][steps]
 
   for (int k = nt - 1; k >= 0; --k) {
-    const int rows = min(steps, p.seq - k * steps);
+    const int buf = k & 1;
+    const int rows = rows_of(k);
     const long long t0 = static_cast<long long>(k) * steps;
-    __syncthreads();  // every thread is done with the previous chunk's tiles and sums
-    stage_tile<T, kThreads>(t_dt, dt_src + t0 * p.ss_dt, p.ss_dt, steps, rows, chans, c_lim,
-                            kSegLog2, p.vec_dt);
-    stage_tile<T, kThreads>(t_x, x_src + t0 * p.ss_x, p.ss_x, steps, rows, chans, c_lim,
-                            kSegLog2, p.vec_x);
-    if constexpr (kFused)
-      stage_tile<T, kThreads>(t_z, z_src + t0 * p.ss_z, p.ss_z, steps, rows, chans, c_lim,
-                              kSegLog2, bp.vec_z);
-    stage_tile<T, kThreads>(t_dy, dy_src + t0 * p.ch, p.ch, steps, rows, chans, c_lim, kSegLog2,
-                            bp.vec_dy);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < steps * n; i += kThreads) {
-      const int r = i / n;
-      const int nn = i - r * n;
-      const bool ok = r < rows;
-      s_b[nn * ldb + r] = ok ? to_f(b_src[(t0 + r) * p.ss_b + nn]) : 0.0f;
-      s_c[nn * ldb + r] = ok ? to_f(c_src[(t0 + r) * p.ss_c + nn]) : 0.0f;
-    }
-    for (int i = threadIdx.x; i < chans * n; i += kThreads) {
-      float v = 0.0f;
-      if (i < c_lim * n)
-        v = k == 0 ? p.h0[row_en + i]
-                   : bp.f.states[((static_cast<size_t>(bi) * (nt - 1) + k - 1) * p.ch + c0) * n + i];
-      s_hs[i] = v;
-    }
     cp_async_wait<0>();
-    __syncthreads();
+    __syncthreads();  // [A]: chunk k is in buffer k & 1, and chunk k + 1's buffer is free
+    if (k > 0) stage_tiles(k - 1);
+    const T* t_dt = tile_of(buf, 0);
+    const T* t_x = tile_of(buf, 1);
+    const T* t_z = tile_of(buf, 2);
+    const T* t_dy = tile_of(buf, 3);
+    const float* s_b = b_of(buf);
+    const float* s_c = c_of(buf);
+    const float* s_hs = hs_of(buf);
 
     float dtv[kSeg], xv[kSeg], dxin[kSeg], gy[kSeg], ys[kSeg], sb[kSeg], sa[kSeg];
 #pragma unroll
@@ -774,7 +833,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       ys[i] = sb[i] = sa[i] = 0.0f;
     }
 
-    int pair = 0;
     auto states = [&](auto ks, int nn) {
       constexpr int kS = decltype(ks)::value;
       float da[kS][kSeg], bx[kS][kSeg], hh[kS][kSeg + 1], bv[kS][kSeg], cv[kS][kSeg];
@@ -875,44 +933,54 @@ __global__ void __launch_bounds__(kThreads, 1)
           s_da[row + q] = __fadd_rn(s_da[row + q], dap);
         }
       }
-      // db and dc over the block's channels: the warp's two by a shuffle,
-      // then the 16 warps in order.
-      float* red = s_red + (pair & 1) * kWarps * 4 * steps;
+      // db and dc over the warp's two channels: lanes 0-15 add their
+      // partner's db to theirs, lanes 16-31 its dc, and each writes its
+      // four steps of the state into the warp's sums.
 #pragma unroll
-      for (int q = 0; q < kS; ++q)
+      for (int q = 0; q < kS; ++q) {
+        float v[kSeg];
 #pragma unroll
         for (int i = 0; i < kSeg; ++i) {
-          const float vb = __fadd_rn(cb[q][i], __shfl_xor_sync(kFull, cb[q][i], 16));
-          const float vc = __fadd_rn(cc[q][i], __shfl_xor_sync(kFull, cc[q][i], 16));
-          if (lane < 16) {
-            red[(warp * 4 + q) * steps + t_seg + i] = vb;
-            red[(warp * 4 + 2 + q) * steps + t_seg + i] = vc;
-          }
+          const float mine = lane < 16 ? cb[q][i] : cc[q][i];
+          const float theirs = __shfl_xor_sync(kFull, lane < 16 ? cc[q][i] : cb[q][i], 16);
+          v[i] = __fadd_rn(mine, theirs);
         }
-      __syncthreads();
-      if (threadIdx.x < 4 * steps) {
-        const int slot = threadIdx.x / steps;  // db of state q, then dc of state q
-        const int t = threadIdx.x - slot * steps;
-        const int q = slot & 1;
-        if (q < kS) {
-          float s = 0.0f;
-          for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[(w * 4 + slot) * steps + t]);
-          s_acc[((slot >> 1) * kMaxN + nn + q) * steps + t] = s;
-        }
+        *reinterpret_cast<float4*>(red_w + ((lane >> 4) * n + nn + q) * steps + t_seg) =
+            make_float4(v[0], v[1], v[2], v[3]);
       }
-      ++pair;
     };
     int nn = 0;
     for (; nn + 1 < n; nn += 2) states(std::integral_constant<int, 2>{}, nn);
     if (nn < n) states(std::integral_constant<int, 1>{}, nn);
-    __syncthreads();  // the chunk's db and dc sums are whole
+    __syncthreads();  // [B]: every warp's db and dc of the chunk are written
+
+    float bv_next[kBc], cv_next[kBc], hv_next = 0.0f;
+    if (k > 0) fetch_bc(k - 1, bv_next, cv_next, hv_next);  // in flight through the stores
+    // db and dc of the chunk over the block's channels: four steps of one
+    // state a thread, the 16 warps added in warp order, into this block's
+    // partial sums ([B, tiles, N, S] each).
+    // db and dc of the chunk over the block's channels: four steps of one
+    // state a thread, the 16 warps added in warp order.
+    const int sum_row = threadIdx.x / (steps / 4);  // b's state, then c's
+    const int sum_t4 = (threadIdx.x % (steps / 4)) * 4;
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (sum_row < 2 * n) {
+#pragma unroll 4
+      for (int w = 0; w < kWarps; ++w) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(s_red + (w * 2 * n + sum_row) * steps + sum_t4);
+        sum.x = __fadd_rn(sum.x, v.x);
+        sum.y = __fadd_rn(sum.y, v.y);
+        sum.z = __fadd_rn(sum.z, v.z);
+        sum.w = __fadd_rn(sum.w, v.w);
+      }
+    }
 
 #pragma unroll
     for (int i = 0; i < kSeg; ++i) {
       const int t = t_seg + i;
       if (!live || t >= rows) continue;
       const int pos = tile_pos<T>(t, cl, chans, kSegLog2);
-      const size_t o = (static_cast<size_t>(bi) * p.seq + t0 + t) * p.ch + c0 + cl;
       const float ddt = __fadd_rn(__fmul_rn(xv[i], sb[i]), sa[i]);
       float dxo = __fmul_rn(dtv[i], sb[i]);
       if constexpr (kFused) {
@@ -926,21 +994,64 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-zv)));
         const float dsilu = __fmul_rn(sig, __fadd_rn(1.0f, __fmul_rn(zv, __fsub_rn(1.0f, sig))));
         const float yd = __fadd_rn(ys[i], __fmul_rn(dval, xv[i]));
-        const float dz = __fmul_rn(__fmul_rn(to_f(t_dy[pos]), yd), dsilu);
-        static_cast<T*>(bp.ddt)[o] = from_f<T>(draw);
-        static_cast<T*>(bp.dz)[o] = from_f<T>(dz);
+        sa[i] = __fmul_rn(__fmul_rn(to_f(t_dy[pos]), yd), dsilu);  // dz
+        sb[i] = draw;
       } else {
-        static_cast<float*>(bp.ddt)[o] = ddt;
+        sb[i] = ddt;
       }
-      static_cast<T*>(bp.dx)[o] = from_f<T>(dxo);
+      dtv[i] = dxo;
     }
-    const size_t part = ((static_cast<size_t>(bi) * tiles_c + tile) * p.seq + t0) * n;
-    for (int i = threadIdx.x; i < rows * n; i += kThreads) {
-      const int r = i / n;
-      const int nn = i - r * n;
-      bp.part_b[part + i] = s_acc[nn * steps + r];
-      bp.part_c[part + i] = s_acc[(kMaxN + nn) * steps + r];
+    __syncthreads();  // [C]: the warps' sums are read; their room takes the outputs
+    T* o_dt = reinterpret_cast<T*>(s_red);
+    T* o_dx = o_dt + steps * chans;
+    T* o_dz = o_dx + steps * chans;
+    float* o_sum = reinterpret_cast<float*>(o_dz + steps * chans);  // [b, c][steps][n + 1]
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i) {
+      const int pos = tile_pos<T>(t_seg + i, cl, chans, kSegLog2);
+      o_dt[pos] = from_f<T>(sb[i]);
+      o_dx[pos] = from_f<T>(dtv[i]);
+      if constexpr (kFused) o_dz[pos] = from_f<T>(sa[i]);
     }
+    if (sum_row < 2 * n) {
+      const int bc = sum_row >= n;
+      float* o = o_sum + (bc * steps + sum_t4) * (n + 1) + sum_row - bc * n;
+      o[0] = sum.x;
+      o[n + 1] = sum.y;
+      o[2 * (n + 1)] = sum.z;
+      o[3 * (n + 1)] = sum.w;
+    }
+    __syncthreads();  // [D]: the chunk's output tiles and sums are whole
+    // The sums into this block's partials ([B, tiles, S, N] each), whole
+    // runs of the chunk's steps.
+    for (int e = threadIdx.x; e < 2 * rows * n; e += kThreads) {
+      const int bc = e >= rows * n;
+      const int rem = e - bc * rows * n;
+      const int r = rem / n;
+      (bc ? bp.part_c : bp.part_b)[((static_cast<size_t>(bi) * tiles_c + tile) * p.seq + t0) * n +
+                                   rem] = o_sum[(bc * steps + r) * (n + 1) + rem - r * n];
+    }
+    {  // ... and out as rows, four neighbouring channels a thread
+      using V = std::conditional_t<sizeof(T) == 2, uint2, uint4>;
+      const int e0 = threadIdx.x * 4;
+      const int r = e0 / chans;
+      const int cc = e0 - r * chans;
+      if (r < rows && cc < c_lim) {
+        const int pos = tile_pos<T>(r, cc, chans, kSegLog2);
+        const size_t o = (static_cast<size_t>(bi) * p.seq + t0 + r) * p.ch + c0 + cc;
+        T* outs[3] = {static_cast<T*>(bp.ddt), static_cast<T*>(bp.dx), static_cast<T*>(bp.dz)};
+        const T* tiles[3] = {o_dt, o_dx, o_dz};
+#pragma unroll
+        for (int w = 0; w < (kFused ? 3 : 2); ++w) {
+          if (cc + 4 <= c_lim && (p.ch & 3) == 0) {
+            *reinterpret_cast<V*>(outs[w] + o) = *reinterpret_cast<const V*>(tiles[w] + pos);
+          } else {
+            for (int u = 0; u < 4 && cc + u < c_lim; ++u) outs[w][o + u] = tiles[w][pos + u];
+          }
+        }
+      }
+    }
+    if (k > 0) store_bc(k - 1, bv_next, cv_next, hv_next);
   }
 
   __syncthreads();  // s_g holds dh0 and s_da the block's da
@@ -1014,12 +1125,12 @@ int run_bwd(BwdParams& bp, int n_batch, cudaStream_t stream) {
   bp.vec_z = kFused ? vec(p.z, p.sb_z, p.ss_z) : 0;
   bp.vec_dy = vec(bp.dy, static_cast<long long>(p.seq) * p.ch, p.ch);
   auto kernel = mamba_scan_bwd_kernel<T, kFused>;
-  const size_t bytes = static_cast<size_t>(bwd_layout(p.n).floats) * sizeof(float);
+  const size_t bytes = bwd_layout(p.n, sizeof(T)).bytes;
   static size_t allowed[kMaxDevices] = {0};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -3;
   if (bytes > allowed[dev]) {
-    const size_t most = static_cast<size_t>(bwd_layout(kMaxN).floats) * sizeof(float);
+    const size_t most = bwd_layout(kMaxN, sizeof(T)).bytes;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -31,10 +31,13 @@ multiple of 8 columns (``"wgmma_padded"``); in float32
 ``csrc/flash_attention_bwd.cu`` (scalar kernels, ``"fma_f32"``), by the
 shape rule :func:`backward_path`.
 The wrapper plans the wgmma path's key-tile pass (:func:`backward_plan`:
-which block takes which (query head, query tile) items of which key tile,
+which unit takes which (query head, query tile) items of which key tile,
 and the float32 workspace in which split key tiles' partial sums wait for
 their fixed-order reduction) and counts the path of each call in
-``backward_paths``. Without a gradient the call is the serving call, bit
+``backward_paths``. At MLA's widths both passes are persistent
+(:func:`backward_persistent`): one block an SM walks a list of units that
+:func:`lpt_split` balances, so a key tile's handful of items no longer
+pays a block's set-up and epilogue each. Without a gradient the call is the serving call, bit
 for bit. On the CPU autograd differentiates the plain version.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
@@ -44,6 +47,7 @@ or raises. The kernels build at first use (``_nvcc.py``).
 from __future__ import annotations
 
 import ctypes
+import heapq
 from collections import OrderedDict
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Tuple
@@ -59,7 +63,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd", "bui
            "MAX_HEAD_DIM", "MAX_BACKWARD_HEAD_DIM", "kernel_takes",
            "backward_path", "backward_paths", "backward_plan", "BackwardPlan",
            "key_tile_queries", "dq_blocks", "dq_key_span", "dq_keys", "bwd_keys", "BWD_ROWS",
-           "BWD_DQ_ROWS"]
+           "BWD_DQ_ROWS", "backward_persistent", "lpt_split"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BACKWARD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")  # the float32 path
@@ -95,6 +99,11 @@ BWD_ROWS, BWD_DQ_ROWS = 64, 128
 # over several blocks, whose float32 partial sums a reduction adds in slot
 # order.
 BWD_BLOCKS_PER_SM = 2
+# The persistent passes (MLA's widths, backward_persistent): one block an
+# SM, each walking a list of units that lpt_split balances by cost, a
+# unit's cost being its items (key-tile pass) or key tiles (dQ pass) plus
+# this, for its fixed work (k and v or q and dO landing, the results out).
+BWD_UNIT_FIXED = 1
 
 # Kernel launches since the last reset_launches(): incremented once per
 # launch of the forward kernel, and once per call of the backward's entry
@@ -157,6 +166,7 @@ def _bind_backward_wgmma(lib: ctypes.CDLL) -> None:
         ptr, i32, ptr, i32,            # plan, n_plan, red, n_red
         ptr, i32,                      # ws, n_slots
         ptr,                           # dq_span
+        ptr, i32, ptr, ptr, i32,       # starts, grid, dq_units, dq_starts, dq_grid
         ptr,                           # stream
     ]
     lib.acs_flash_attention_bwd_wgmma.restype = i32
@@ -220,6 +230,28 @@ def _wgmma_widths(dim: int, dv: int) -> Tuple[int, int]:
     return width, width
 
 
+def backward_persistent(dim: int, dv: Optional[int] = None) -> bool:
+    """Whether the wgmma path runs both passes persistent (csrc
+    WgShape::kPersistent): MLA's ``(192, 128)`` instantiation, which every
+    Dv != D takes; the Dv == D widths launch a block a unit."""
+    return dv is not None and dv != dim
+
+
+def lpt_split(costs: List[int], n_bins: int) -> List[List[int]]:
+    """Longest processing time first: the indices of ``costs``, largest
+    cost first (ties by index), each given to the bin with the least load
+    so far (ties to the lowest bin); each bin's indices in the order given.
+    Deterministic, and no bin's load exceeds ``ceil(sum / n_bins)`` by
+    more than the largest cost."""
+    heap = [(0, b) for b in range(n_bins)]
+    bins: List[List[int]] = [[] for _ in range(n_bins)]
+    for i in sorted(range(len(costs)), key=lambda i: (-costs[i], i)):
+        load, b = heapq.heappop(heap)
+        bins[b].append(i)
+        heapq.heappush(heap, (load + costs[i], b))
+    return bins
+
+
 def bwd_keys(dim: int, dv: Optional[int] = None) -> int:
     """Keys a block of the wgmma key-tile pass (csrc WgShape::kKeys): 64 to
     a consumer warpgroup at D, Dv <= 128, 64 shared by both wider (D 256;
@@ -258,24 +290,47 @@ class BackwardPlan(NamedTuple):
     ``red``: ``(kt, b * Hkv + hk, slot_lo, slot_hi)`` for each key tile the
     reduction writes (split over slots ``slot_lo .. slot_hi - 1``, added in
     that order; none for a key tile no query sees, which gets zeros).
-    ``dq_blocks``: the query-tile pass's grid; ``dq_span``: for each of
-    its query tiles, the key tiles it streams (:func:`dq_key_span`)."""
+    ``dq_blocks``: the query-tile pass's units (a block each, block ``i``
+    taking the unit :func:`dq_blocks` names); ``dq_span``: for each of its
+    query tiles, the key tiles it streams (:func:`dq_key_span`).
+    Persistent (:func:`backward_persistent`): ``blocks`` lists each grid
+    block's units in turn, block ``b`` running ``blocks[starts[b]:starts[b
+    + 1]]``; the query-tile pass's block ``b`` runs the units
+    ``dq_units[dq_starts[b]:dq_starts[b + 1]]``; both split by
+    :func:`lpt_split`. Else ``starts``, ``dq_units`` and ``dq_starts`` are
+    None and both passes launch a block a unit."""
     blocks: List[Tuple[int, ...]]
     red: List[Tuple[int, int, int, int]]
     n_slots: int
     dq_blocks: int
     dq_span: List[Tuple[int, int, int]]
+    starts: Optional[List[int]] = None
+    dq_units: Optional[List[int]] = None
+    dq_starts: Optional[List[int]] = None
+
+    @property
+    def grid(self) -> int:
+        """The key-tile pass's blocks launched."""
+        return len(self.blocks) if self.starts is None else len(self.starts) - 1
+
+    @property
+    def dq_grid(self) -> int:
+        """The query-tile pass's blocks launched."""
+        return self.dq_blocks if self.dq_starts is None else len(self.dq_starts) - 1
 
 
 def backward_plan(n_batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int, dim: int, *,
                   causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
                   prefix_len: int = 0, n_sm: int = 132, dv: Optional[int] = None
                   ) -> BackwardPlan:
-    """Split the key-tile pass (key tiles of ``bwd_keys(dim, dv)`` keys) over
-    blocks so that ``n_sm`` SMs are full: every block takes at most
+    """Split the key-tile pass (key tiles of ``bwd_keys(dim, dv)`` keys) into
+    units so that ``n_sm`` SMs are full: every unit takes at most
     ``ceil(items / (BWD_BLOCKS_PER_SM n_sm))`` items, a key tile's items
-    split into contiguous runs in item order, and the blocks with the most
-    items launch first."""
+    split into contiguous runs in item order, and the units with the most
+    items come first. Persistent (:func:`backward_persistent`), the units
+    of both passes are then split over ``min(n_sm, units)`` blocks by
+    :func:`lpt_split`, each unit costing its items or key tiles plus
+    ``BWD_UNIT_FIXED``."""
     group = n_heads // n_kv_heads
     n_kv = n_batch * n_kv_heads
     keys = bwd_keys(dim, dv)
@@ -301,13 +356,36 @@ def backward_plan(n_batch: int, n_heads: int, n_kv_heads: int, sq: int, sk: int,
     dq_span = [dq_key_span(qt, sq, sk, dim, causal=causal, window=window, q_offset=q_offset,
                            prefix_len=prefix_len, dv=dv)
                for qt in range(-(-sq // BWD_DQ_ROWS))]
-    return BackwardPlan(blocks, red, n_slots, dq_blocks(n_batch, n_heads, sq), dq_span)
+    n_dq = dq_blocks(n_batch, n_heads, sq)
+    if not backward_persistent(dim, dv):
+        return BackwardPlan(blocks, red, n_slots, n_dq, dq_span)
+    bins = lpt_split([row[5] - row[4] + BWD_UNIT_FIXED for row in blocks],
+                     max(1, min(n_sm, len(blocks))))
+    rows = [blocks[i] for b in bins for i in b]
+    starts = [0]
+    for b in bins:
+        starts.append(starts[-1] + len(b))
+    n_qt, n_bh = -(-sq // BWD_DQ_ROWS), n_batch * n_heads
+    tiles = [dq_tiles_streamed(dq_span[n_qt - 1 - i // n_bh]) for i in range(n_dq)]
+    dq_bins = lpt_split([t + BWD_UNIT_FIXED for t in tiles], max(1, min(n_sm, n_dq)))
+    dq_starts = [0]
+    for b in dq_bins:
+        dq_starts.append(dq_starts[-1] + len(b))
+    return BackwardPlan(rows, red, n_slots, n_dq, dq_span, starts,
+                        [i for b in dq_bins for i in b], dq_starts)
+
+
+def dq_tiles_streamed(span: Tuple[int, int, int]) -> int:
+    """How many key tiles a query tile of the query-tile pass streams, from
+    its :func:`dq_key_span`."""
+    prefix_tiles, window_tile, end = span
+    return min(prefix_tiles, end) + max(0, end - max(prefix_tiles, window_tile))
 
 
 def dq_keys(dim: int, dv: Optional[int] = None) -> int:
     """Keys a streamed tile of the wgmma query-tile pass (csrc
-    WgShape::kDqKeys): 32 past a padded D of 128, else 64."""
-    return 32 if _wgmma_widths(dim, dim if dv is None else dv)[0] > 128 else 64
+    WgShape::kDqKeys): 32 at a padded D of 256, else 64 (MLA's 192 too)."""
+    return 32 if _wgmma_widths(dim, dim if dv is None else dv)[0] == 256 else 64
 
 
 def dq_blocks(n_batch: int, n_heads: int, sq: int) -> int:
@@ -349,10 +427,16 @@ _PLANS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _PLAN_CACHE = 64
 
 
+def _sm_count(device) -> int:
+    """The SMs the plans fill (a test narrows it to make the persistent
+    passes' blocks walk many units)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _device_plan(q, n_kv, sk, dv, masks):
     n_batch, n_heads, sq, dim = q.shape
     causal, has_window, window, _, _, q_offset, prefix_len = masks
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_sm = _sm_count(q.device)
     key = (n_batch, n_heads, n_kv, sq, sk, _wgmma_widths(dim, dv), causal, has_window, window,
            q_offset, prefix_len, n_sm, q.device)
     hit = _PLANS.get(key)
@@ -363,7 +447,10 @@ def _device_plan(q, n_kv, sk, dv, masks):
         blocks = torch.tensor(plan.blocks or [[0] * 8], dtype=torch.int32).to(q.device)
         red = torch.tensor(plan.red or [[0] * 4], dtype=torch.int32).to(q.device)
         span = torch.tensor(plan.dq_span, dtype=torch.int32).to(q.device)
-        hit = (blocks, len(plan.blocks), red, len(plan.red), plan.n_slots, span)
+        persist = tuple(None if a is None else torch.tensor(a, dtype=torch.int32).to(q.device)
+                        for a in (plan.starts, plan.dq_units, plan.dq_starts))
+        hit = (blocks, len(plan.blocks), red, len(plan.red), plan.n_slots, span, persist,
+               plan.grid, plan.dq_grid)
         _PLANS[key] = hit
         if len(_PLANS) > _PLAN_CACHE:
             _PLANS.popitem(last=False)
@@ -450,7 +537,9 @@ def _backward(q, k, v, out, lse, dout, masks, scale):
     shape = (n_batch, n_heads, n_kv, sq, sk, width, width_v, _DTYPES[q.dtype], scale, *masks)
     global _BACKWARD_ENTRY, _BACKWARD_WGMMA_ENTRY, backward_launches
     if path != "fma_f32":
-        plan, n_plan, red, n_red, n_slots, span = _device_plan(q, n_kv, sk, width_v, masks)
+        (plan, n_plan, red, n_red, n_slots, span, persist, grid,
+         dq_grid) = _device_plan(q, n_kv, sk, width_v, masks)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         dk_pad, dv_pad = _wgmma_widths(width, width_v)
         ws = torch.empty((2, max(n_slots, 1), bwd_keys(width, width_v), max(dk_pad, dv_pad)),
                          dtype=torch.float32, device=q.device)
@@ -460,7 +549,8 @@ def _backward(q, k, v, out, lse, dout, masks, scale):
         err = _BACKWARD_WGMMA_ENTRY(
             *args, scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape,
             plan.data_ptr(), n_plan, red.data_ptr(), n_red, ws.data_ptr(), n_slots,
-            span.data_ptr(), raw_stream(q.device))
+            span.data_ptr(), ptr(persist[0]), grid, ptr(persist[1]), ptr(persist[2]), dq_grid,
+            raw_stream(q.device))
     else:
         di = torch.empty((n_batch, n_heads, sq), dtype=torch.float32, device=q.device)
         if _BACKWARD_ENTRY is None:

@@ -52,8 +52,10 @@ after the first (``[B, ceil(S / 64) - 1, E, N]`` float32: 14.7 MB a layer
 at falcon-mamba-7b's training shape), and its backward is the entry
 ``acs_mamba_scan_bwd`` of the same source (``mamba_scan_bwd``,
 ``selective_scan_bwd``: the kernel, which recomputes each chunk from its
-saved state and runs the adjoint recurrence in reverse, and a reduction
-across its blocks; counted on ``backward_launches``), held to
+saved state and runs the adjoint recurrence in reverse, its warps' db and
+dc summed once a chunk and the next chunk's tiles landing while one runs,
+and a reduction across its blocks (:func:`scan_bwd_grid`,
+:func:`scan_bwd_workspace`); counted on ``backward_launches``), held to
 ``ref.mamba_scan_bwd_ref`` / ``ref.selective_scan_bwd_ref`` within 1e-5 of
 each gradient's largest entry in float32. The Function returns dense
 gradients for z, b and c; autograd's slicing places them in their wider
@@ -79,7 +81,7 @@ import re
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -89,13 +91,36 @@ from .ref import mamba_scan_bwd_ref, mamba_scan_ref, selective_scan_bwd_ref, sel
 __all__ = ["selective_scan", "mamba_scan", "selective_scan_fwd", "mamba_scan_fwd",
            "selective_scan_bwd", "mamba_scan_bwd", "build",
            "launches", "backward_launches", "reset_launches", "launch_config", "sass_per_step",
-           "SOURCE", "MAX_STATE", "BWD_CHUNK"]
+           "SOURCE", "MAX_STATE", "BWD_CHUNK", "BWD_CHANNELS", "scan_bwd_grid",
+           "scan_bwd_workspace"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 MAX_STATE = 16
 # The backward's chunk (csrc kBwdSteps): the forward under grad saves the
 # carry-in state of each chunk of this many steps after the first.
 BWD_CHUNK = 64
+# The backward kernel's channel tile (csrc kBwdChans): a block owns this
+# many channels of one batch row (16 lanes a channel, 512 threads).
+BWD_CHANNELS = 32
+
+
+def scan_bwd_grid(n_batch: int, ch: int) -> List[Tuple[int, int, int]]:
+    """The backward kernel's blocks in launch order, ``(batch row, first
+    channel, channels)``: block ``i`` takes batch row ``i // tiles`` and
+    channel tile ``i % tiles`` of ``BWD_CHANNELS`` channels (the last one
+    ragged), ``tiles = ceil(E / BWD_CHANNELS)``."""
+    tiles = -(-ch // BWD_CHANNELS)
+    return [(bi, t * BWD_CHANNELS, min(BWD_CHANNELS, ch - t * BWD_CHANNELS))
+            for bi in range(n_batch) for t in range(tiles)]
+
+
+def scan_bwd_workspace(n_batch: int, seq: int, ch: int, n: int) -> int:
+    """The backward's float32 workspace in floats (what
+    ``acs_mamba_scan_bwd_workspace`` returns): each block's db and dc sums
+    over its channels (``[B, tiles, S, N]`` each), each batch row's da
+    (``[B, E, N]``), dD and d dt_bias (``[B, E]`` each)."""
+    blocks = len(scan_bwd_grid(n_batch, ch))
+    return 2 * blocks * n * seq + n_batch * ch * n + 2 * n_batch * ch
 
 # Kernel launches since the last reset_launches(): incremented once per
 # launch of the CUDA kernel (either entry), and once per call of the

@@ -125,11 +125,32 @@ def check_key_tile_plan(b, h, hkv, sq, sk, d, flags, n_sm, dv=None):
     slots = sorted(r[6] for r in plan.blocks if r[6] >= 0)
     assert slots == list(range(plan.n_slots))
     sizes = [r[5] - r[4] for r in plan.blocks]
-    assert sizes == sorted(sizes, reverse=True), "the blocks with the most items launch first"
     total = b * h * sum(fa.key_tile_queries(kt, keys, sq, sk, **kw)[1] for kt in range(n_kt))
     per_block = max(1, -(-total // (fa.BWD_BLOCKS_PER_SM * n_sm)))
     assert max(sizes, default=0) <= max(per_block, 1)
+    if fa.backward_persistent(d, dv):
+        check_lpt(plan.starts, [s + fa.BWD_UNIT_FIXED for s in sizes], n_sm, sizes)
+    else:
+        assert plan.starts is None and plan.grid == len(plan.blocks)
+        assert sizes == sorted(sizes, reverse=True), "the blocks with the most items launch first"
     return plan
+
+
+def check_lpt(starts, costs, n_sm, items):
+    """A persistent pass's split of its units (in block order, ``costs``
+    each) over ``len(starts) - 1`` blocks: ``min(n_sm, units)`` blocks, each
+    a contiguous, non-empty run of the list, whose cost (and whose items)
+    exceed the even share by at most one unit's; each block's units
+    largest first, as the longest-processing-time rule hands them out."""
+    grid = len(starts) - 1
+    assert grid == max(1, min(n_sm, len(costs)))
+    assert starts[0] == 0 and starts[-1] == len(costs)
+    assert all(lo < hi for lo, hi in zip(starts, starts[1:])) or not costs
+    for values in (costs, items):
+        loads = [sum(values[lo:hi]) for lo, hi in zip(starts, starts[1:])]
+        assert max(loads) <= -(-sum(values) // grid) + max(costs, default=0)
+    for lo, hi in zip(starts, starts[1:]):
+        assert costs[lo:hi] == sorted(costs[lo:hi], reverse=True)
 
 
 def dq_tiles(span):
@@ -157,6 +178,13 @@ def check_dq_plan(b, h, sq, sk, d, flags, dv=None):
         tiles = dq_tiles(plan.dq_span[qt])
         assert tiles == sorted(set(tiles)) and all(0 <= t < -(-sk // bn) for t in tiles)
         assert {kt for q, kt in pairs if q == qt} <= set(tiles)
+        assert fa.dq_tiles_streamed(plan.dq_span[qt]) == len(tiles)
+    if fa.backward_persistent(d, dv):  # every unit exactly once over the persistent grid
+        assert sorted(plan.dq_units) == list(range(grid)) and plan.dq_grid == len(plan.dq_starts) - 1
+        n_tiles = [len(dq_tiles(plan.dq_span[n_qt - 1 - i // (b * h)])) for i in plan.dq_units]
+        check_lpt(plan.dq_starts, [t + fa.BWD_UNIT_FIXED for t in n_tiles], 132, n_tiles)
+    else:
+        assert plan.dq_units is None and plan.dq_grid == grid
 
 
 @pytest.mark.parametrize("case", range(len(smoke.FLASH_BWD_SWEEP)))
@@ -185,14 +213,43 @@ def test_recurrentgemma_key_tile_pass_fills_the_card():
 
 def test_mla_widths_take_the_wide_tiles():
     """MLA's D 192 / Dv 128 run on the (192, 128) instantiation: 64 keys a
-    key-tile block shared by both warpgroups, 32-key tiles in the dQ pass;
-    any other Dv != D pair takes the same instantiation. deepseek-v2's 128
-    heads over 128 at its training shape need no workspace."""
+    key-tile unit shared by both warpgroups, 64-key tiles in the dQ pass
+    (32 only at D 256), both passes persistent; any other Dv != D pair takes
+    the same instantiation. deepseek-v2's 128 heads over 128 at its
+    training shape need no workspace: 4,096 key-tile units of 1-8 items
+    over 132 blocks, each within one unit of the even share."""
     assert fa._wgmma_widths(192, 128) == fa._wgmma_widths(16, 8) == (192, 128)
     assert fa.bwd_keys(192, 128) == fa.bwd_keys(16, 8) == 64 and fa.bwd_keys(128) == 128
-    assert fa.dq_keys(192, 128) == fa.dq_keys(16, 8) == 32 and fa.dq_keys(128) == 64
+    assert fa.dq_keys(192, 128) == fa.dq_keys(16, 8) == 64 and fa.dq_keys(128) == 64
+    assert fa.dq_keys(256) == 32
+    assert fa.backward_persistent(192, 128) and fa.backward_persistent(16, 8)
+    assert not any(fa.backward_persistent(d, d) for d in (64, 128, 256))
     plan = check_key_tile_plan(4, 128, 128, 512, 512, 192, {}, 132, dv=128)
     assert plan.red == [] and plan.n_slots == 0 and len(plan.blocks) == 4 * 128 * 8
+    assert plan.grid == 132 and plan.dq_grid == 132 and len(plan.dq_units) == 4 * 128 * 4
+    items = [r[5] - r[4] for r in plan.blocks]
+    loads = [sum(items[lo:hi]) for lo, hi in zip(plan.starts, plan.starts[1:])]
+    assert sum(items) == 4 * 128 * 36 and max(loads) <= -(-sum(items) // 132) + 8
+    check_dq_plan(4, 128, 512, 512, 192, {}, dv=128)
+
+
+@pytest.mark.parametrize("n_sm", [132, 5])
+def test_persistent_plan_walks_units_longest_first(n_sm):
+    """``lpt_split``: every index once, each bin's indices in decreasing
+    cost, the same bins for the same costs, and no bin past the even share
+    by more than the largest cost; a split with more bins than units
+    leaves the extra bins empty (the wrappers launch ``min(n_sm, units)``
+    blocks)."""
+    rng = np.random.RandomState(n_sm)
+    costs = list(rng.randint(1, 10, size=300))
+    bins = fa.lpt_split(costs, n_sm)
+    assert bins == fa.lpt_split(costs, n_sm)
+    assert sorted(i for b in bins for i in b) == list(range(len(costs)))
+    for b in bins:
+        assert [costs[i] for i in b] == sorted((costs[i] for i in b), reverse=True)
+    loads = [sum(costs[i] for i in b) for b in bins]
+    assert max(loads) <= -(-sum(costs) // n_sm) + max(costs)
+    assert sum(1 for b in fa.lpt_split([3, 1], n_sm) if b) == 2
 
 
 def test_minicpm_plan_needs_no_workspace():
@@ -324,6 +381,54 @@ def test_dx_plan_fits_every_shape(m_tiles, block_m, k, n_sm):
     check_dx_plan(m_tiles * block_m, k, block_m, n_sm)
 
 
+def _scan_bwd_source_constants():
+    """The scan backward's channel tile and its workspace's formula, as
+    ``csrc/selective_scan.cu`` writes them."""
+    import re
+
+    from repro_torch.kernels import selective_scan as ss
+
+    src = ss.SOURCE.read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    lanes = int(re.search(r"constexpr int kBwdLanes = (\d+);", src).group(1))
+    body = src[src.index('extern "C" long long acs_mamba_scan_bwd_workspace('):]
+    formula = re.search(r"return ([^;]+);", body).group(1)
+    return threads // lanes, formula
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 5), st.integers(1, 300), st.integers(1, 9000), st.integers(1, 16))
+def test_scan_bwd_grid_covers_every_channel(b, s, e, n):
+    """The scan backward's Python mirror: its blocks take every (batch row,
+    channel) exactly once in tiles of the kernel's ``kBwdChans`` channels,
+    batch rows outermost, and its workspace is the size the C entry's
+    ``acs_mamba_scan_bwd_workspace`` computes (its return expression,
+    evaluated on the same sizes)."""
+    from repro_torch.kernels import selective_scan as ss
+
+    chans, formula = _scan_bwd_source_constants()
+    assert ss.BWD_CHANNELS == chans
+    grid = ss.scan_bwd_grid(b, e)
+    seen = [(bi, c) for bi, c0, width in grid for c in range(c0, c0 + width)]
+    assert seen == [(bi, c) for bi in range(b) for c in range(e)]
+    assert all(0 < width <= chans and c0 % chans == 0 for _, c0, width in grid)
+    tiles = -(-e // chans)
+    want = eval(formula, {}, {"n_batch": b, "tiles": tiles, "seq": s, "n": n, "ch": e})
+    assert ss.scan_bwd_workspace(b, s, e, n) == want
+
+
+def test_scan_bwd_grid_at_falcons_training_shape():
+    """falcon-mamba-7b's training shape [4, 512, 8192], N 16: 1,024 blocks
+    of 32 channels, 7.76 waves of one block an SM on 132 SMs; the partial
+    db and dc sums 2 x 33.5 MB."""
+    from repro_torch.kernels import selective_scan as ss
+
+    assert len(ss.scan_bwd_grid(4, 8192)) == 1024
+    floats = ss.scan_bwd_workspace(4, 512, 8192, 16)
+    assert floats - 4 * 8192 * 16 - 2 * 4 * 8192 == 2 * 1024 * 16 * 512
+    assert 2 * 1024 * 16 * 512 * 4 / 2 / 1e6 == pytest.approx(33.55, abs=0.01)
+
+
 def _bf16(*shape, offset=0):
     """A contiguous bf16 tensor ``offset`` elements into its buffer."""
     n = int(np.prod(shape))
@@ -398,18 +503,29 @@ def test_backward_counts_nothing_on_the_cpu():
 
 
 def test_bwd_trace_finds_every_anchor():
-    """``bwd_trace`` stamps a copy of the wgmma backward's source at fixed
-    lines of text: each is still in the source and gets its stamp."""
-    from repro_torch.kernels import bwd_trace
+    """``bwd_trace`` stamps copies of the backward sources at fixed lines of
+    text. Flash's: every line is in the source once (both key-tile
+    arrangements, both query-tile passes) and gets its stamp. The scan's:
+    each stamp finds exactly one of its lines (the tool's other lines are
+    the first design's, for timing a parent tree), and every stamp and the
+    readers are in the copy."""
+    from repro_torch.kernels import bwd_trace, selective_scan as ss
 
     text = bwd_trace.stamped_text()
-    for anchor, pass_, mark in bwd_trace._ANCHORS:
-        indent = anchor[:len(anchor) - len(anchor.lstrip())]
-        assert anchor + bwd_trace._stamp(pass_, mark, indent) in text
-    for anchor, pass_, mark in bwd_trace._BEFORE:
-        indent = anchor[:len(anchor) - len(anchor.lstrip())]
-        assert bwd_trace._stamp(pass_, mark, indent) + anchor in text
+    src = fa.BACKWARD_WGMMA_SOURCE.read_text()
+    for pass_, mark, where, alternatives in bwd_trace._ANCHORS:
+        for anchor in alternatives:
+            assert src.count(anchor) == 1, anchor
+            line = anchor.rstrip("\n").split("\n")[-1 if where == "after" else 0]
+            stamp = bwd_trace._stamp(pass_, mark, line[:len(line) - len(line.lstrip())])
+            assert (anchor + stamp if where == "after" else stamp + anchor) in text
     assert 'extern "C" int acs_trace_read(' in text
+    scan_src = ss.SOURCE.read_text()
+    scan = bwd_trace.scan_stamped_text()
+    for inserted, _, alternatives in bwd_trace._SCAN_ANCHORS:
+        assert sum(scan_src.count(a) for a in alternatives) == 1, alternatives[0]
+        assert scan.count(inserted) == 1, inserted
+    assert 'extern "C" int acs_trace_read(' in scan and 'extern "C" int acs_trace_clear(' in scan
 
 
 @pytest.mark.parametrize("kernel", ["grouped_matmul", "flash_attention"])

@@ -1246,6 +1246,8 @@ FLASH_BWD = {
     # MLA's 16 / 8, and Dv 36 off the 16-byte rows (padded copies).
     "mla": ((1, 16, 16, 512, 512, 192, 128), {}),
     "mla_ragged": ((1, 4, 2, 97, 150, 192, 128), {"q_offset": 53}),
+    # keys 97.. follow every query row: the last key tile no query sees
+    "mla_unseen_keys": ((1, 4, 2, 97, 150, 192, 128), {}),
     "mla_gqa_window": ((1, 8, 2, 130, 130, 192, 128), {"window": 40}),
     "mla_reduced": ((2, 4, 4, 70, 70, 16, 8), {"prefix_len": 9}),
     "mla_dv36": ((1, 4, 2, 70, 70, 64, 36), {}),
@@ -1344,6 +1346,38 @@ def test_flash_backward_takes_its_path(device, name, offset, path, dtype):
         assert err <= FLASH_BWD_TOL[dtype] * float(w.abs().max()), (name_, err)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("n_sm", [3, 132])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_backward_persistent_walks_many_units(device, monkeypatch, n_sm, dtype):
+    """MLA's widths run both passes persistent: with the plans narrowed to
+    3 SMs each block walks hundreds of key-tile units (its k / v buffers
+    alternating, the ring's phases running on across units) and of dQ
+    units, within tolerance of the plain version, the same bits twice; a
+    ragged Sk whose last key tile no query sees (causal, Sq 97 < Sk 150)
+    gives zeros for every key past the last row."""
+    from repro_torch.kernels.ref import attention_bwd_ref
+
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: n_sm)
+    monkeypatch.setattr(fa, "_PLANS", type(fa._PLANS)())
+    for name in ("mla", "mla_unseen_keys"):
+        q, k, v, do, flags = _bwd_inputs(device, name, dtype)
+        out, lse = fa.flash_attention_lse(q, k, v, **flags)
+        plan = fa.backward_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                                q.shape[3], n_sm=n_sm, dv=v.shape[3], **flags)
+        assert plan.grid == min(n_sm, len(plan.blocks)) and plan.dq_grid == min(n_sm,
+                                                                                  plan.dq_blocks)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+        want = attention_bwd_ref(q, k, v, out, lse, do, **flags)
+        torch.cuda.synchronize()
+        for name_, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g.float() - w).abs().max())
+            assert err <= FLASH_BWD_TOL[dtype] * float(w.abs().max()), (name, name_, err)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+        if name == "mla_unseen_keys":
+            assert bool((got[1][:, :, 97:] == 0).all()) and bool((got[2][:, :, 97:] == 0).all())
 
 
 def test_flash_backward_float16(device):
@@ -1470,6 +1504,45 @@ def test_selective_scan_backward_matches_plain(device, b, s, e, n):
         got = ss.selective_scan_bwd(dt, x, bm, cm, a, h0, states, dys, g_ht)
         want = selective_scan_bwd_ref(dt, x, bm, cm, a, h0, dys, g_ht)
         _within(got, want, lambda g: SCAN_BWD_TOL[torch.float32])
+
+
+# The backward's chunk edges: one step, one whole 64-step chunk, one step
+# past it and falcon-mamba's 512 (8 chunks), at N 16 and an odd N.
+SCAN_BWD_EDGES = [(2, s, 96, n) for s in (1, 64, 65, 512) for n in (16, 7)]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("b,s,e,n", SCAN_BWD_EDGES)
+def test_scan_backward_chunk_edges(device, b, s, e, n, fused):
+    """The backward at S 1, 64, 65 and 512 (its chunks' edges: the chunk
+    buffers alternate, the last chunk ragged), N 16 and 7, fused (bf16)
+    and the scan alone (float32): within tolerance of the plain version,
+    the same bits on a second launch, and a workspace of the size the
+    Python mirror gives."""
+    from repro_torch.kernels.ref import mamba_scan_bwd_ref, selective_scan_bwd_ref
+
+    dtype = torch.bfloat16 if fused else torch.float32
+    args, dy, dht = _scan_bwd_inputs(device, b, s, e, n, dtype)
+    lib = ss._LIB.get()
+    sizes = ss._SIZES(ss.FUSED[dtype] if fused else ss.PLAIN, b, s, e, n)
+    assert lib.acs_mamba_scan_bwd_workspace(sizes) == ss.scan_bwd_workspace(b, s, e, n)
+    if fused:
+        _, _, states = ss.mamba_scan_fwd(*args)
+        got = ss.mamba_scan_bwd(*args, states, dy, dht)
+        again = ss.mamba_scan_bwd(*args, states, dy, dht)
+        want = mamba_scan_bwd_ref(*args, dy, dht)
+    else:
+        dt = torch.nn.functional.softplus(args[0].float())
+        scan = (dt, args[2], args[4].contiguous(), args[5].contiguous(), -torch.exp(args[6]),
+                args[8])
+        _, _, states = ss.selective_scan_fwd(*scan)
+        dys = dy.float()
+        got = ss.selective_scan_bwd(*scan, states, dys, dht)
+        again = ss.selective_scan_bwd(*scan, states, dys, dht)
+        want = selective_scan_bwd_ref(*scan, dys, dht)
+    torch.cuda.synchronize()
+    _within(got, want, lambda g: SCAN_BWD_TOL[g.dtype])
+    assert all(torch.equal(u, w) for u, w in zip(again, got))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
