@@ -175,6 +175,20 @@ Phases, each fatal on failure (an exception, exit code != 0):
    rows; a dyn epoch runs the step path or the loop interpreter). Tasks,
    dispatches, wave widths, blocking syncs, in-flight groups, the DAG's
    construction time and dependency checks, and walls are logged.
+5c. The examples (``examples/torch_*.py``), run after phase 7 and before
+   phase 9: quickstart, physics_rl,
+   dynamic_dnn_inference and serve_continuous, each one's ``main`` in this
+   process at its default arguments on the card and again on the CPU.
+   Their counts, dispatches, waves and wave widths equal across the two;
+   quickstart's ACS states bit-equal to its own serial run on each device
+   and the card's within 2e-5 / 1e-6 of the CPU's; the images' classes
+   equal where the logits are not within 1e-4 of a tie; every served
+   request's tokens equal to a plain greedy loop on that device's weights,
+   and on the card also to the loop with ``ops.attention`` swapped for the
+   plain ``attention_ref`` (where the plain loop's two best logits are
+   more than 1e-4 apart);
+   serve_continuous launches flash once per prefill and attention layer
+   on the card, and no other example launches a kernel of ours.
 6. Serving main paths, one model after the other (each one's weights
    freed before the next one's are drawn), each at its published widths
    with bf16 weights drawn from seed 0: recurrentgemma-2b (26 layers,
@@ -183,7 +197,12 @@ Phases, each fatal on failure (an exception, exit code != 0):
    whole (64 Mamba layers, d_model 4096, d_inner 8192, N 16) and
    deepseek-v2-236b cut to 4 layers (SERVE_CUTS: its dense first layer and
    3 MoE layers; MLA with 128 heads, kv_lora 512, q_lora 1536; 160
-   experts, top-6, 2 shared, d_expert 1536; 13.3 B parameters). Each
+   experts, top-6, 2 shared, d_expert 1536; 13.3 B parameters),
+   h2o-danube-3-4b whole (24 layers, 32 heads of 120 over 8 kv, 3.84 B),
+   mistral-large-123b cut to 16 of its 88 layers (96 heads of 128 over 8
+   kv, 22.95 B) and gemma2-27b whole (46 layers, local and global, the
+   attention softcap 50 and the final softcap 30, vocab 256,000, 27.23 B;
+   54.5 GB in bf16); each cut's bf16 weights within CARD_MAX_BYTES. Each
    serves 8 seeded prompts of 128-512 tokens, 16 new tokens each, through
    ``SessionServer(scheduler="wave")``, ``SessionServer(scheduler="device")``
    (its ``"loop"`` plan mode; every serving task takes the session's
@@ -196,7 +215,8 @@ Phases, each fatal on failure (an exception, exit code != 0):
    servers' tokens are identical and equal a plain greedy loop over
    ``prefill``/``decode_step``, every logit is finite, and each server run
    launches exactly: the flash kernel once per request and attention or
-   MLA layer (recurrentgemma 64, granite 256, deepseek 32), the RG-LRU
+   MLA layer (recurrentgemma 64, granite 256, deepseek 32, danube 192,
+   mistral 128, gemma2 368), the RG-LRU
    scan once per RG-LRU layer and prefill or decode (2,448), the
    selective scan once per Mamba layer and prefill or decode (falcon
    8,704) and the grouped GEMM three times per MoE layer and prefill or
@@ -223,7 +243,8 @@ Phases, each fatal on failure (an exception, exit code != 0):
    single-wave entry at the widest wave and at S = 32; SDPA, its backend
    named, for attention and ``torch.bmm`` for the grouped GEMM as the
    library calls; flash at recurrentgemma's, granite's, deepseek's MLA,
-   danube's and paligemma's prefills; the grouped GEMM at granite's and deepseek's
+   danube's, paligemma's, gemma2's (softcap: ``flex_attention``, compiled,
+   as the library call) and mistral's prefills; the grouped GEMM at granite's and deepseek's
    expert products; both scans at prefill and decode, the selective scan
    through the fused entry at S 512 and 128 and a decode step and alone
    in float32 at S 512, with its grid, warps an SM and SASS instructions
@@ -231,9 +252,11 @@ Phases, each fatal on failure (an exception, exit code != 0):
    grouped GEMM, the scans and the ready queue also 20 launches back to
    back, flash's and the scans' device times, each kernel's bound, the
    backward kernels at their training shapes (flash's at minicpm-2b's, at
-   recurrentgemma-2b's D 256 and at deepseek-v2's MLA (D 192, Dv 128)
-   beside SDPA's backward through autograd,
-   its backend named, with its path, its plan's blocks, split key tiles
+   recurrentgemma-2b's D 256, at deepseek-v2's MLA (D 192, Dv 128), at
+   h2o-danube-3-4b's D 120 over 8 kv, at paligemma-3b's D 256 with its
+   256-position prefix (SDPA through an explicit mask) and at gemma2-27b's
+   softcap (``flex_attention``) beside the library call's backward through
+   autograd, its output held to the plain version's and its backend named, with its path, its plan's blocks, split key tiles
    and workspace slots, each pass's device time (prologue, dK/dV,
    reduction, dQ) and its kernels' ``ptxas -v``; the grouped GEMM's dx and
    dw at granite's and deepseek-v2's gate/up and down products beside
@@ -262,11 +285,18 @@ Phases, each fatal on failure (an exception, exit code != 0):
    whole (each model freed before the next is built): minicpm-2b (40
    layers, 2.72 B parameters), granite-moe-3b-a800m (32 layers, 40
    experts, 3.30 B) and recurrentgemma-2b (26 layers, 18 RG-LRU, D 256,
-   2.90 B), and cut in depth (TRAIN_CUTS) deepseek-v2-236b (its first,
-   dense layer: MLA at D 192 / Dv 128, 1.39 B) and falcon-mamba-7b (32 of
-   its 64 layers, 3.50 B), bf16 from seed 0, tp_size 1, AdamW's float32
-   master, m and v on the card, batches of TokenPipeline(vocab, 512, 4,
-   seed=0): step 0's loss and gradients through the kernels against the
+   2.90 B), h2o-danube-3-4b (24 layers, D 120 over 8 kv, 3.84 B),
+   paligemma-3b (18 layers, D 256 over one kv head, prefix 256, 2.51 B)
+   and musicgen-large (48 layers of 32-head MHA at D 64, 3.23 B), and cut
+   in depth (TRAIN_CUTS) deepseek-v2-236b (its first, dense layer: MLA at
+   D 192 / Dv 128, 1.39 B), falcon-mamba-7b (32 of its 64 layers, 3.50
+   B), gemma2-27b (one stage: a local and a global layer, softcap 50,
+   2.31 B) and mistral-large-123b (one layer, 96 heads over 8 kv, 2.19 B),
+   each within CARD_MAX_BYTES of weights, gradients and AdamW state, bf16
+   from seed 0, tp_size 1, AdamW's float32 master, m and v on the card,
+   batches of TokenPipeline(vocab, 512, 4, seed=0) (the frontend archs'
+   inputs seeded [4, 512, F] embeddings, their labels the pipeline's):
+   step 0's loss and gradients through the kernels against the
    same step with ``ops.attention``, ``ops.grouped_matmul``,
    ``ops.lru_scan`` and ``ops.mamba_scan`` swapped for their plain
    versions (TRAIN_LOSS_ATOL, TRAIN_GNORM_RTOL,
@@ -279,7 +309,8 @@ Phases, each fatal on failure (an exception, exit code != 0):
    recurrentgemma flash 16 / 8,
    RG-LRU 34 (its two prefix layers are not recomputed), reverse 18;
    deepseek flash 1 / 1 (a prefix layer); falcon-mamba scan 64, its
-   backward 32);
+   backward 32; flash: danube 48 / 24, paligemma 36 / 18, musicgen 96 /
+   48, gemma2 4 / 2, mistral 2 / 1);
    step ms, tokens/s, MFU (6 N D, a MoE's N its
    active parameters, over the bf16 peak) and peak device memory logged,
    and one more step under ``torch.profiler`` (device time by kernel
@@ -298,8 +329,11 @@ file, it exits with an error and prints no result.
 
 from __future__ import annotations
 
+import functools
 import importlib
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -334,11 +368,16 @@ TIMED_RUNS = 20
 # The serving passes, at their published widths: recurrentgemma-2b,
 # granite-moe-3b-a800m, falcon-mamba-7b whole, and deepseek-v2-236b cut
 # to its first 4 layers (SERVE_CUTS: the dense prefix layer and 3 MoE
-# layers; all 60 would take 471 GB in bf16). The first two also get a
-# profiled pass.
+# layers; all 60 would take 471 GB in bf16); h2o-danube-3-4b (3.84 B, D
+# 120 over 8 kv heads) and gemma2-27b (27.23 B, 54.5 GB in bf16: its
+# attention and final softcaps, local and global layers, a 256,000-entry
+# vocab) whole, and mistral-large-123b cut to 16 of its 88 layers (22.95
+# B, 45.9 GB; all 88 would take 245 GB; 96 query heads over 8 kv). The
+# first two also get a profiled pass.
 SERVE_ARCHS, SERVE_SEED = ("recurrentgemma-2b", "granite-moe-3b-a800m", "falcon-mamba-7b",
-                           "deepseek-v2-236b"), 0
-SERVE_CUTS = {"deepseek-v2-236b": {"n_layers": 4}}
+                           "deepseek-v2-236b", "h2o-danube-3-4b", "mistral-large-123b",
+                           "gemma2-27b"), 0
+SERVE_CUTS = {"deepseek-v2-236b": {"n_layers": 4}, "mistral-large-123b": {"n_layers": 16}}
 PROFILED_SERVE = ("recurrentgemma-2b", "granite-moe-3b-a800m")
 # The mesh server (MESH_SERVE_SHARDS shards on the card) serves these two;
 # falcon-mamba-7b and deepseek-v2 skip it to keep the script near half its
@@ -380,9 +419,24 @@ FRONTEND_TOL = {"float32": (1e-3, 1e-3, 0.0), "bfloat16": (0.0, 0.0, 0.06)}
 # state (16 bytes a parameter): deepseek's one MoE layer alone is 3.77 B
 # parameters (its first, dense layer and the embeddings 1.39 B, 22.2 GB),
 # falcon-mamba's 64 layers 6.73 B (107.7 GB; 32 layers 3.50 B, 56.0 GB).
+# h2o-danube-3-4b (24 layers, 3.84 B, 61.4 GB; D 120 over 8 kv heads, the
+# tightest fit), paligemma-3b (18 layers, 2.51 B, D 256 over one kv head,
+# its 256-position bidirectional prefix) and musicgen-large (48 layers of
+# 32-head MHA at D 64, 3.23 B) train whole; the frontend two on seeded
+# [4, 512, F] embeddings (FRONTEND_DIMS) with the pipeline's labels.
+# gemma2-27b is cut to one stage, a local and a global layer (2.31 B, 37.0
+# GB; its 256,000 x 4608 embedding alone is 1.18 B; the softcaps), and
+# mistral-large-123b to one layer (2.19 B, 35.0 GB; 96 heads over 8 kv).
 TRAIN_ARCHS = ("minicpm-2b", "granite-moe-3b-a800m", "recurrentgemma-2b", "deepseek-v2-236b",
-               "falcon-mamba-7b")
-TRAIN_CUTS = {"deepseek-v2-236b": {"n_layers": 1}, "falcon-mamba-7b": {"n_layers": 32}}
+               "falcon-mamba-7b", "h2o-danube-3-4b", "paligemma-3b", "musicgen-large",
+               "gemma2-27b", "mistral-large-123b")
+TRAIN_CUTS = {"deepseek-v2-236b": {"n_layers": 1}, "falcon-mamba-7b": {"n_layers": 32},
+              "gemma2-27b": {"n_layers": 2}, "mistral-large-123b": {"n_layers": 1}}
+# CARD_MAX_BYTES bounds each served model's bf16 weights (2 bytes a
+# parameter) and each trained one's weights, gradients and AdamW state (16
+# bytes a parameter), leaving the card room for caches and activations
+# (held by tests/test_torch_smoke_plan.py).
+CARD_MAX_BYTES = 70e9
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR, TRAIN_CLIP = (
     "minicpm-2b", 512, 4, 5, 3e-4, 1.0)
 # Step 0's loss and gradients through the kernels (flash forward and its
@@ -433,6 +487,19 @@ TRAIN_TRUTH_RATIO, TRAIN_TRUTH_FLOOR = 2.0, 1e-3
 TRAINER_CUT = {"n_layers": 2, "d_model": 256, "n_heads": 4, "n_kv_heads": 4, "head_dim": 64,
                "d_ff": 640, "vocab": 8192}
 TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAIL = 20, 10, 15
+
+
+def free_device_memory() -> None:
+    """Collect any reference cycles that still hold a freed model and return
+    the freed blocks to the card: the next model is drawn into an empty
+    card. (The servers form no such cycle since their kernels close over
+    the model, not the server; ``tests/test_torch_serve.py`` holds that.)"""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def log(msg: str) -> None:
@@ -2463,20 +2530,172 @@ def dyn_rounds(name, params, device, card):
         f"{statistics.median(w) / base:.3f}x serial)" for p, w in walls.items()) + f" [{card}]")
 
 
+# The examples (phase 5c): the reference's tolerance for quickstart's
+# states across devices, and the logit margin under which two devices may
+# pick different classes.
+EXAMPLE_RTOL, EXAMPLE_ATOL, EXAMPLE_MARGIN = 2e-5, 1e-6, 1e-4
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", Path(__file__).resolve().parent / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(device, card):
+    """Each ported example's ``main`` in this process at its default
+    arguments on the card, held against the same ``main`` on the CPU:
+    quickstart's counts and wave widths equal, its ACS states bit-equal to
+    its own serial run on each device (``main`` checks it) and the card's
+    within EXAMPLE_RTOL / EXAMPLE_ATOL of the CPU's; physics_rl's and
+    dynamic_dnn_inference's per-step or per-image kernels, dispatches,
+    waves and widths (and the active blocks) equal, the classes equal
+    where the CPU's two largest logits are more than EXAMPLE_MARGIN apart;
+    serve_continuous's requests, drains and co-scheduled drains equal, and
+    each request's tokens equal to a plain greedy loop on that device's
+    weights (``init_params`` draws from each device's own generator). On
+    the card serve_continuous launches flash once per prefill and
+    attention layer (no decode step does), and no other example launches
+    a kernel of ours; so its card tokens are also held to the greedy loop
+    with the plain ``attention_ref`` in place of flash, on the same
+    weights: equal up to the first token where the plain loop's two best
+    logits lie within EXAMPLE_MARGIN of each other (prefill's choice, hidden
+    in the served tokens, counts at every position)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    runs = {}
+    for name in ("torch_quickstart", "torch_physics_rl", "torch_dynamic_dnn_inference",
+                 "torch_serve_continuous"):
+        mod = load_example(name)
+        for dev in (device, torch.device("cpu")):
+            for kernel in kernel_modules():
+                kernel.reset_launches()
+            t0 = time.perf_counter()
+            out = mod.main(["--device", str(dev)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k.__name__.rsplit(".", 1)[1]: k.launches for k in kernel_modules()}
+            runs[name, "card" if dev is device else "cpu"] = out
+            log(f"example {name} --device {dev}: {seconds:.2f} s; kernel launches {launches} "
+                f"[{card if dev is device else 'CPU'}]")
+            if name == "torch_serve_continuous" and dev is device:
+                n_req = len(out["batch"]["requests"]) + len(out["session"]["requests"])
+                want = expected_launches(out["cfg"], n_req)["flash_attention"]
+                check(launches.pop("flash_attention") == want > 0,
+                      f"{name}: flash launched {fa.launches} times on the card, expected {want}")
+            check(not any(launches.values()), f"{name} --device {dev} launched {launches}")
+
+    card_q, cpu_q = runs["torch_quickstart", "card"], runs["torch_quickstart", "cpu"]
+    keys = ("kernels", "serial_dispatches", "acs_dispatches", "acs_waves", "mean_wave_width",
+            "max_wave_width")
+    check(all(card_q[k] == cpu_q[k] for k in keys),
+          f"quickstart: {[card_q[k] for k in keys]} on the card, {[cpu_q[k] for k in keys]} "
+          f"on the CPU")
+    err = float(np.abs(card_q["acs_state"] - cpu_q["acs_state"]).max())
+    check(np.allclose(card_q["acs_state"], cpu_q["acs_state"], rtol=EXAMPLE_RTOL,
+                      atol=EXAMPLE_ATOL),
+          f"quickstart: the card's states {err} off the CPU's")
+    log(f"example quickstart: {[card_q[k] for k in keys]} on both devices; states bit-equal to "
+        f"serial on each, the card's within {err:.3g} of the CPU's [{card}]")
+
+    card_p, cpu_p = runs["torch_physics_rl", "card"], runs["torch_physics_rl", "cpu"]
+    keys = ("kernels", "dispatches", "waves", "wave_width")
+    rows = [[row[k] for k in keys] for row in card_p["steps"]]
+    check(rows == [[row[k] for k in keys] for row in cpu_p["steps"]] and card_p["finite"],
+          f"physics_rl: per step {rows} on the card, "
+          f"{[[row[k] for k in keys] for row in cpu_p['steps']]} on the CPU")
+    rewards = [(a["reward"], b["reward"]) for a, b in zip(card_p["steps"], cpu_p["steps"])]
+    log(f"example physics_rl {card_p['env']} [{card_p['scheduler']}]: {keys} per step {rows} "
+        f"on both devices; rewards (card, CPU) {rewards}; wall {card_p['wall']:.3f} s on the "
+        f"card, {cpu_p['wall']:.3f} s on the CPU [{card}]")
+
+    card_d, cpu_d = (runs["torch_dynamic_dnn_inference", d] for d in ("card", "cpu"))
+    keys = ("active", "kernels", "dispatches", "waves")
+    rows = [[img[k] for k in keys] for img in card_d["images"]]
+    check(rows == [[img[k] for k in keys] for img in cpu_d["images"]],
+          f"dynamic_dnn_inference: {rows} on the card, "
+          f"{[[img[k] for k in keys] for img in cpu_d['images']]} on the CPU")
+    for a, b in zip(card_d["images"], cpu_d["images"]):
+        top2 = np.sort(b["logits"])[-2:]
+        check(a["class"] == b["class"] or top2[1] - top2[0] <= EXAMPLE_MARGIN,
+              f"dynamic_dnn_inference: class {a['class']} on the card, {b['class']} on the CPU")
+    err = max(float(np.abs(a["logits"] - b["logits"]).max())
+              for a, b in zip(card_d["images"], cpu_d["images"]))
+    log(f"example dynamic_dnn_inference: {keys} per image {rows} on both devices, classes "
+        f"{[img['class'] for img in card_d['images']]}, logits within {err:.3g}, compiles "
+        f"{card_d['compiles']} [{card}]")
+
+    for dev, key in ((device, "card"), (torch.device("cpu"), "cpu")):
+        out = runs["torch_serve_continuous", key]
+        cfg, params = out["cfg"], out["params"]
+        for kind in ("batch", "session"):
+            for req in out[kind]["requests"]:
+                toks = greedy(cfg, params, req["prompt"], dev, max_len=48,  # the example's slots
+                              max_new=len(req["tokens"]))[0]
+                check(toks == req["tokens"], f"serve_continuous {kind} --device {dev}: request "
+                                             f"{req['rid']} served {req['tokens']}, greedy "
+                                             f"{toks}")
+    card_s, cpu_s = runs["torch_serve_continuous", "card"], runs["torch_serve_continuous", "cpu"]
+    # The card's tokens against the plain attention on the card's weights.
+    kernel, ops.attention, launched = ops.attention, attention_ref, fa.launches
+    ties = []
+    try:
+        for kind in ("batch", "session"):
+            for req in card_s[kind]["requests"]:
+                gaps = []
+                toks = greedy(card_s["cfg"], card_s["params"], req["prompt"], device, max_len=48,
+                              max_new=len(req["tokens"]), gaps=gaps)[0]
+                first = next((i for i, (a, b) in enumerate(zip(toks, req["tokens"])) if a != b),
+                             None)
+                tie = first is not None and min(gaps[0], gaps[first + 1]) <= EXAMPLE_MARGIN
+                check(first is None or tie,
+                      f"serve_continuous {kind} on the card: request {req['rid']} served "
+                      f"{req['tokens']}, the plain attention's greedy loop {toks} (margins "
+                      f"{gaps})")
+                ties += [req["rid"]] if tie else []
+    finally:
+        ops.attention = kernel
+    check(fa.launches == launched, "serve_continuous: the plain attention's loop launched flash")
+
+    def served(out):  # each server's prompts, then the batch server's drains
+        return ([[r["prompt"].tolist() for r in out[k]["requests"]] for k in ("batch", "session")],
+                out["batch"]["drains"], out["batch"]["co_scheduled"])
+    check(served(card_s) == served(cpu_s),
+          f"serve_continuous: prompts, drains or co-scheduled drains differ: {served(card_s)} "
+          f"on the card, {served(cpu_s)} on the CPU")
+    log(f"example serve_continuous: the same prompts on both devices (lengths "
+        f"{[len(r['prompt']) for r in card_s['batch']['requests']]}), drains and co-scheduled "
+        f"drains {served(card_s)[1:]}, every request's tokens equal to the greedy loop on its "
+        f"device, and on the card to the loop with the plain attention (near-ties: requests "
+        f"{ties}); the session server's groups in flight {card_s['session']['inflight']} on "
+        f"the card [{card}]")
+    del runs
+    free_device_memory()
+
+
 def serve_prompts(vocab):
     rng = np.random.RandomState(SERVE_SEED)
     lengths = rng.randint(SERVE_MIN_PROMPT, SERVE_MAX_PROMPT + 1, SERVE_REQUESTS)
     return [rng.randint(0, vocab, n).astype(np.int32) for n in lengths]
 
 
-def greedy(cfg, params, prompt, device):
+def greedy(cfg, params, prompt, device, max_len=None, max_new=None, gaps=None):
     """A plain greedy loop over ``prefill``/``decode_step``, mirroring one
-    server slot. Returns (tokens, prefill seconds, decode-step seconds,
-    all logits finite)."""
+    server slot of ``max_len`` positions (SERVE_MAX_LEN). Returns
+    (``max_new`` tokens (SERVE_MAX_NEW), prefill seconds, decode-step
+    seconds, all logits finite). A list ``gaps`` collects, outside the
+    timed spans, the margin of each chosen token's logit over the
+    runner-up's: prefill's first, then each decode step's."""
     import torch
     from repro_torch.models import decode_step, init_cache, prefill
 
-    cache = init_cache(cfg, 1, SERVE_MAX_LEN, device=device)
+    cache = init_cache(cfg, 1, max_len or SERVE_MAX_LEN, device=device)
     tokens = torch.as_tensor(prompt[None], device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2485,9 +2704,11 @@ def greedy(cfg, params, prompt, device):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
+    if gaps is not None:
+        gaps.append(top2_gap(logits, vocab=cfg.vocab))
     pos = torch.full((), len(prompt), dtype=torch.int32, device=device)
     out, t_decode = [], []
-    for _ in range(SERVE_MAX_NEW):
+    for _ in range(max_new or SERVE_MAX_NEW):
         t0 = time.perf_counter()
         logits, cache = decode_step(params, cfg, tok[:, None], cache, pos)
         tok = torch.argmax(logits[:, -1, : cfg.vocab], dim=-1).to(torch.int32)
@@ -2495,7 +2716,15 @@ def greedy(cfg, params, prompt, device):
         out.append(int(tok[0]))  # the host read ends the step
         t_decode.append(time.perf_counter() - t0)
         finite = finite and bool(torch.isfinite(logits).all())
+        if gaps is not None:
+            gaps.append(top2_gap(logits, vocab=cfg.vocab))
     return out, t_prefill, t_decode, finite
+
+
+def top2_gap(logits, vocab):
+    """The last position's largest logit less its second largest."""
+    best = logits[0, -1, :vocab].float().topk(2).values
+    return float(best[0] - best[1])
 
 
 def serve_once(cfg, params, server_cls, prompts, device, **kw):
@@ -2567,6 +2796,7 @@ def phase_serve(device, card, arch):
     from repro_torch.runtime import ContinuousBatchingServer, SessionServer
 
     cfg = dataclasses.replace(ARCHS[arch], **SERVE_CUTS.get(arch, {}))
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, SERVE_SEED, device=device)
     torch.cuda.synchronize()
@@ -2575,7 +2805,7 @@ def phase_serve(device, card, arch):
     log(f"serve: {cfg.name} {cfg.n_layers} layers{cut} d_model {cfg.d_model} {cfg.dtype}, "
         f"{n_params} parameters drawn from seed {SERVE_SEED} in "
         f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        f"allocated [{card}]")
+        f"allocated ({before / 1e9:.2f} GB before) [{card}]")
     prompts = serve_prompts(cfg.vocab)
     want = expected_launches(cfg, SERVE_REQUESTS)
 
@@ -2671,7 +2901,7 @@ def phase_frontend(device, card, arch):
             log(f"frontend {cfg.name} {dtype}: forward with flash against forward with the "
                 f"plain attention: max abs err {err:.4g} (bound {limit:.4g}) [{card}]")
         del params, want
-        torch.cuda.empty_cache()
+        free_device_memory()
     return launches
 
 
@@ -2923,6 +3153,27 @@ def train_step0(cfg, model, batch, card):
     torch.cuda.empty_cache()
 
 
+def train_batches(cfg):
+    """TRAIN_STEPS (inputs, labels) numpy batches of TRAIN_BATCH x
+    TRAIN_SEQ from ``TokenPipeline(vocab, seed=0)``; a frontend arch's
+    inputs are seeded ``[TRAIN_BATCH, TRAIN_SEQ, F]`` float32 embeddings
+    (``FRONTEND_DIMS``, as the CPU tests make them), its labels the
+    pipeline's."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import FRONTEND_DIMS
+
+    pipeline = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        inputs, labels = pipeline.next_batch()
+        if cfg.frontend:
+            inputs = rng.randn(TRAIN_BATCH, TRAIN_SEQ,
+                               FRONTEND_DIMS[cfg.frontend]).astype(np.float32)
+        out.append((inputs, labels))
+    return out
+
+
 def phase_train(device, card, arch):
     """One of TRAIN_ARCHS, whole or cut in depth as TRAIN_CUTS says,
     trained on the card: step 0 held to the
@@ -2938,25 +3189,27 @@ def phase_train(device, card, arch):
 
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.data import TokenPipeline
     from repro_torch.launch.roofline_run import model_flops_per_device
     from repro_torch.launch.steps import StepBundle
     from repro_torch.models import init_params
     from repro_torch.optim import adamw_init
 
     cfg = dataclasses.replace(ARCHS[arch], **TRAIN_CUTS.get(arch, {}))
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = init_params(cfg, 0, device=device, tp_size=1).requires_grad_(True)
     n_params = sum(p.numel() for p in model.parameters())
-    pipeline = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-    batches = [tuple(torch.from_numpy(a).to(device) for a in pipeline.next_batch())
-               for _ in range(TRAIN_STEPS)]
+    batches = [tuple(torch.from_numpy(a).to(device) for a in batch)
+               for batch in train_batches(cfg)]
     torch.cuda.synchronize()
     cut = f" (cut: {TRAIN_CUTS[arch]})" if arch in TRAIN_CUTS else ""
+    inputs = (f"seeded [{TRAIN_BATCH}, {TRAIN_SEQ}, {batches[0][0].shape[-1]}] {cfg.frontend} "
+              f"embeddings" if cfg.frontend else "tokens")
     log(f"train: {cfg.name} {cfg.n_layers} layers{cut} d_model {cfg.d_model} {cfg.n_heads} heads "
         f"of {cfg.head_dim} over {cfg.n_kv_heads} vocab {cfg.vocab} {cfg.dtype}, {n_params} "
         f"parameters from seed 0, AdamW state {3 * 4 * n_params / 1e9:.1f} GB, built in "
-        f"{time.perf_counter() - t0:.1f} s; batches [{TRAIN_BATCH}, {TRAIN_SEQ}] [{card}]")
+        f"{time.perf_counter() - t0:.1f} s ({before / 1e9:.2f} GB allocated before); batches "
+        f"[{TRAIN_BATCH}, {TRAIN_SEQ}] of {inputs} [{card}]")
     train_step0(cfg, model, batches[0], card)
 
     opt = adamw_init(model.param_tree())
@@ -3028,7 +3281,7 @@ def phase_train(device, card, arch):
         + "; most device time: "
         + "; ".join(f"{key} {ms:.3f} ms x{n}" for ms, n, key in top) + f" [{card}]")
     del model, opt, batches, prof
-    torch.cuda.empty_cache()
+    free_device_memory()
     return counts, {f"train {cfg.name} step (median)": step_ms / 1e3}
 
 
@@ -3426,14 +3679,17 @@ def numbers_scan(device):
 
 
 def sdpa_backend(fn):
-    """The kernel SDPA ran for ``fn`` (the CUDA kernel with the most device
-    time in one profiled call, after a warm-up call) and the backend that
-    name shows: "flash", "efficient", "cudnn" or "math" (None, None when
-    the trace holds no kernel)."""
+    """The kernel the library call ``fn`` ran (the CUDA kernel with the most
+    device time over TIMED_RUNS profiled calls, after a warm-up call: a
+    trace can lose its first device events, see ``phase_busy``, and a call
+    may launch one kernel) and the backend that name shows: SDPA's "flash",
+    "efficient", "cudnn" or "math", or "flex" for the Triton kernel
+    ``flex_attention`` compiles (None, None when the trace holds no
+    kernel)."""
     from torch.autograd import DeviceType
 
     fn()
-    prof, _ = profiled(fn)
+    prof, _ = profiled(lambda: [fn() for _ in range(TIMED_RUNS)])
     kernels = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
@@ -3442,18 +3698,82 @@ def sdpa_backend(fn):
         return None, None
     name = max(kernels, key=kernels.get)
     low = name.lower()
-    kind = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+    kind = ("flex" if low.startswith("triton") else "cudnn" if "cudnn" in low
+            else "flash" if "flash" in low
             else "efficient" if "fmha" in low or "efficient" in low else "math")
     return kind, name[:120]
 
 
-def flash_case(device, gen, shape, flags, sdpa_kw):
+# SDPA's keywords for a row's mask: the causal flag, or the visible pairs
+# as an explicit mask (a prefix, or a window that cuts into the sequence).
+CAUSAL = lambda mask: {"is_causal": True}  # noqa: E731
+MASKED = lambda mask: {"attn_mask": mask}  # noqa: E731
+
+
+def sdpa(kw):
+    """The library call ``F.scaled_dot_product_attention`` with the keywords
+    ``kw(mask)`` (``enable_gqa`` where the heads are grouped), for
+    ``flash_case`` and ``flash_bwd_case``: a function of (q, k, v, the
+    visible pairs) giving (the call, the backend SDPA's dispatcher picks
+    for these inputs)."""
+    def make(q, k, v, mask):
+        import torch
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend
+
+        args = {**kw(mask), "enable_gqa": q.shape[1] != k.shape[1]}
+        return (lambda: F.scaled_dot_product_attention(q, k, v, **args),
+                SDPBackend(torch._fused_sdp_choice(q, k, v, **args)).name)
+    return make
+
+
+@functools.lru_cache(maxsize=None)
+def compiled_flex():
+    """``flex_attention`` under ``torch.compile`` (its Triton kernels; one
+    compile thread, so no worker process outlives the script; the compile
+    caches under the kernels' build directory)."""
+    import torch
+    from repro_torch.kernels._nvcc import BUILD_DIR
+    from torch.nn.attention.flex_attention import flex_attention
+
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(BUILD_DIR / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import torch._inductor.config as inductor
+
+    inductor.compile_threads = 1
+    return torch.compile(flex_attention, dynamic=False)
+
+
+def flex_softcap(cap):
+    """The library call for causal attention under a logit softcap (gemma2's
+    ``cap * tanh(s / cap)`` on the scaled scores): ``flex_attention``,
+    compiled, with that ``score_mod`` and a causal block mask. Same
+    signature as ``sdpa``'s functions; the backend is "FLEX_ATTENTION"."""
+    def make(q, k, v, mask):
+        import torch
+        from torch.nn.attention.flex_attention import create_block_mask
+
+        s_q, s_k = q.shape[2], k.shape[2]
+        causal = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device).tril()
+        check(torch.equal(mask, causal), "flex_softcap: the row's mask is not causal")
+        block_mask = create_block_mask(lambda b, h, qi, ki: qi >= ki, None, None, s_q, s_k,
+                                       device=q.device)
+        score_mod = lambda score, b, h, qi, ki: cap * torch.tanh(score / cap)  # noqa: E731
+        flex = compiled_flex()
+        return (lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                             enable_gqa=q.shape[1] != k.shape[1]),
+                "FLEX_ATTENTION")
+    return make
+
+
+def flash_case(device, gen, shape, flags, library):
     """Flash at one main-path shape ``(b, h, hkv, s, d, dv)``, bf16: the
     error against the plain version, its bound, single launches (CUDA
     events), 20 back to back, its device time (profiler), the plain
-    version's time, and SDPA's the same ways with the backend it took."""
+    version's time, and the library call's (``library``: ``sdpa(...)`` or
+    ``flex_softcap(...)``) the same ways with the backend it took, after
+    its output is held to the plain version's as flash's is."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
 
@@ -3474,9 +3794,12 @@ def flash_case(device, gen, shape, flags, sdpa_kw):
     ms_bound, by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
                          2 * b * h * seen * (d + dv), BF16_FLOP_PER_S)
     kernel = lambda: flash_attention(q, k, v, **flags)  # noqa: E731
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw(mask))  # noqa: E731
-    backend, sdpa_kernel = sdpa_backend(sdpa)
     err = (got.float() - want.float()).abs()
+    call, choice = library(q, k, v, mask)
+    err_lib = (call().float() - want.float()).abs()
+    check(bool((err_lib <= 2e-2 + 2e-2 * want.float().abs()).all()),
+          f"{choice} at {shape} {flags}: {float(err_lib.max())} off the plain version")
+    backend, lib_kernel = sdpa_backend(call)
     return {
         "matches_plain": bool(got.shape == want.shape
                               and (err <= 2e-2 + 2e-2 * want.float().abs()).all()),
@@ -3487,10 +3810,12 @@ def flash_case(device, gen, shape, flags, sdpa_kw):
         "plain_ms": median_ms(lambda: attention_ref(q, k, v, **flags)),
         "bound_ms": ms_bound,
         "bound_by": by,
-        "library_ms": median_ms(sdpa),
-        "library_back_to_back_ms": back_to_back_ms(sdpa),
+        "library_ms": median_ms(call),
+        "library_back_to_back_ms": back_to_back_ms(call),
         "library_backend": backend,
-        "library_kernel": sdpa_kernel,
+        "library_kernel": lib_kernel,
+        "library_choice": choice,
+        "library_max_abs_err": float(err_lib.max()),
     }
 
 
@@ -3500,32 +3825,36 @@ def numbers_flash(device):
     2048), granite-moe-3b-a800m's ([1, 24, 512, 64], GQA 24/8, causal) and
     deepseek-v2's MLA (q, k [1, 128, 512, 192], v [1, 128, 512, 128],
     causal), h2o-danube-3-4b's ([1, 32, 512, 120] over 8 kv heads,
-    window 4096, causal at 512) and paligemma-3b's ([1, 8, 320, 256] over
-    one kv head, causal with a 256-key bidirectional prefix), beside SDPA
-    (``enable_gqa`` where the heads are grouped)."""
+    window 4096, causal at 512), paligemma-3b's ([1, 8, 320, 256] over
+    one kv head, causal with a 256-key bidirectional prefix), gemma2-27b's
+    ([1, 32, 512, 128] over 16 kv heads, attention softcap 50, beside
+    ``flex_attention`` with that softcap) and mistral-large-123b's ([1, 96,
+    512, 128] over 8 kv heads, causal), the others beside SDPA."""
     import torch
 
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
-    masked = lambda mask: {"attn_mask": mask, "enable_gqa": True}  # noqa: E731
-    causal = lambda mask: {"is_causal": True, "enable_gqa": True}  # noqa: E731
     cases = {
-        "": ((1, 10, 1, 512, 256, 256), {"window": 2048}, masked,
+        "": ((1, 10, 1, 512, 256, 256), {"window": 2048}, sdpa(MASKED),
              "q [1, 10, 512, 256], k, v [1, 1, 512, 256] bf16, causal, window 2048"),
-        "granite_": ((1, 24, 8, 512, 64, 64), {}, causal,
+        "granite_": ((1, 24, 8, 512, 64, 64), {}, sdpa(CAUSAL),
                      "q [1, 24, 512, 64], k, v [1, 8, 512, 64] bf16, causal"),
-        "mla_": ((1, 128, 128, 512, 192, 128), {}, lambda mask: {"is_causal": True},
+        "mla_": ((1, 128, 128, 512, 192, 128), {}, sdpa(CAUSAL),
                  "q, k [1, 128, 512, 192], v [1, 128, 512, 128] bf16, causal"),
-        "danube_": ((1, 32, 8, 512, 120, 120), {"window": 4096}, causal,
+        "danube_": ((1, 32, 8, 512, 120, 120), {"window": 4096}, sdpa(CAUSAL),
                     "q [1, 32, 512, 120], k, v [1, 8, 512, 120] bf16, causal (window 4096)"),
-        "paligemma_": ((1, 8, 1, 320, 256, 256), {"prefix_len": 256}, masked,
+        "paligemma_": ((1, 8, 1, 320, 256, 256), {"prefix_len": 256}, sdpa(MASKED),
                        "q [1, 8, 320, 256], k, v [1, 1, 320, 256] bf16, causal, prefix_len 256"),
+        "gemma2_": ((1, 32, 16, 512, 128, 128), {"softcap": 50.0}, flex_softcap(50.0),
+                    "q [1, 32, 512, 128], k, v [1, 16, 512, 128] bf16, causal, softcap 50"),
+        "mistral_": ((1, 96, 8, 512, 128, 128), {}, sdpa(CAUSAL),
+                     "q [1, 96, 512, 128], k, v [1, 8, 512, 128] bf16, causal"),
     }
     out = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:37", "launches": None}
-    for prefix, (shape, flags, sdpa_kw, label) in cases.items():
-        case = flash_case(device, gen, shape, flags, sdpa_kw)
+    for prefix, (shape, flags, library, label) in cases.items():
+        case = flash_case(device, gen, shape, flags, library)
         if prefix:
             out.update({prefix + key: val for key, val in case.items()})
         else:
@@ -3536,22 +3865,20 @@ def numbers_flash(device):
     return out
 
 
-def flash_bwd_case(device, gen, shape, flags):
+def flash_bwd_case(device, gen, shape, flags, library=sdpa(CAUSAL)):
     """Flash's backward at one training shape ``(b, h, hkv, s, d[, dv])``
     bf16, causal: the error against the plain version, its bound (the
     bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once; the
     operations: the five products over the visible pairs, S, dQ and dK
     over D, dP and dV over Dv), single launches, 20 back to back, device
     time per call and per
-    kernel (profiler), the plain version's time, and, as the library call,
-    the backward of ``F.scaled_dot_product_attention`` (causal, with
-    ``enable_gqa``) on the same inputs through autograd, with the backend
-    it took and the one its dispatcher picks."""
+    kernel (profiler), the plain version's time, and the backward of the
+    library call (``library``, as in ``flash_case``) on the same inputs
+    through autograd, its gradients held to the plain version's as
+    flash's are, with the backend it took and the one it names."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels._nvcc import resources
     from repro_torch.kernels.ref import attention_bwd_ref
-    from torch.nn.attention import SDPBackend
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     b, h, hkv, s, d = shape[:5]
@@ -3571,6 +3898,8 @@ def flash_bwd_case(device, gen, shape, flags):
     mask = cols <= rows
     if flags.get("window") is not None:
         mask &= cols > rows - flags["window"]
+    if flags.get("prefix_len"):
+        mask |= cols < flags["prefix_len"]
     seen = int(mask.sum())  # (row, key) pairs a head sees
     # q, dq, k, dk at D; v, dv, o, dO at Dv; lse in float32
     n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * lse.numel()
@@ -3578,6 +3907,7 @@ def flash_bwd_case(device, gen, shape, flags):
     call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **flags)  # noqa: E731
     path = fa.backward_path(q, k, v, out, do)
     plan = fa.backward_plan(b, h, hkv, s, s, d, causal=True, window=flags.get("window"),
+                            prefix_len=flags.get("prefix_len", 0),
                             n_sm=torch.cuda.get_device_properties(device).multi_processor_count,
                             dv=dv)
     # Device time: each pass's kernel's mean over the launches the trace
@@ -3600,12 +3930,15 @@ def flash_bwd_case(device, gen, shape, flags):
              if f"__nv_bfloat16, (int){width}, (int){width_v}>" in line
              or "dot16_kernel<__nv_bfloat16>" in line]
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    sdpa_kw = {"is_causal": True, "enable_gqa": hkv != h}
-    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
-    sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do, retain_graph=True)  # noqa: E731
-    backend, sdpa_kernel = sdpa_backend(sdpa_bwd)
-    # The backend SDPA's dispatcher picks for these inputs, without a trace.
-    choice = SDPBackend(torch._fused_sdp_choice(qs, ks, vs, **sdpa_kw)).name
+    forward, choice = library(qs, ks, vs, mask)
+    o_lib = forward()
+    lib_bwd = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,  # noqa: E731
+                                          retain_graph=True)
+    lib_errs = [float((g.float() - w).abs().max()) for g, w in zip(lib_bwd(), want)]
+    check(all(e <= FLASH_BWD_TOL["bfloat16"] * sc for e, sc in zip(lib_errs, scales)),
+          f"{choice}'s backward at {shape} {flags}: {lib_errs} off the plain version "
+          f"(scales {scales})")
+    backend, lib_kernel = sdpa_backend(lib_bwd)
     return {
         "matches_plain": all(e <= FLASH_BWD_TOL["bfloat16"] * sc for e, sc in zip(errs, scales)),
         "max_abs_err": max(errs),
@@ -3613,7 +3946,7 @@ def flash_bwd_case(device, gen, shape, flags):
         "plain_ms": median_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, **flags)),
         "bound_ms": ms_bound,
         "bound_by": by,
-        "library_ms": median_ms(sdpa_bwd),
+        "library_ms": median_ms(lib_bwd),
         "back_to_back_ms": back_to_back_ms(call),
         "device_ms": device_ms,
         "device_ms_prologue": passes["prologue"],
@@ -3633,21 +3966,28 @@ def flash_bwd_case(device, gen, shape, flags):
         "dq_blocks": plan.dq_blocks if path == "wgmma" else None,
         "dq_grid": plan.dq_grid if path == "wgmma" else None,
         "ptxas": ptxas,
-        "library_back_to_back_ms": back_to_back_ms(sdpa_bwd),
+        "library_back_to_back_ms": back_to_back_ms(lib_bwd),
         "library_backend": backend,
-        "library_kernel": sdpa_kernel,
+        "library_kernel": lib_kernel,
+        # the backend SDPA's dispatcher picks for these inputs, without a trace
         "library_choice": choice,
+        "library_max_abs_err": max(lib_errs),
     }
 
 
 def numbers_flash_bwd(device):
     """Flash's backward at minicpm-2b's training shape ([4, 36, 512, 64]
     bf16, causal), as its ``d256_`` keys at recurrentgemma-2b's ([4, 10,
-    512, 256] over one kv head, window 2048: causal at 512) and as its
+    512, 256] over one kv head, window 2048: causal at 512), as its
     ``mla_`` keys at deepseek-v2's MLA ([4, 128, 512, 192], v [4, 128, 512,
-    128], causal), each through ``flash_bwd_case``; also the forward at
-    minicpm's shape with and without its lse output (the serving call must
-    not be slower)."""
+    128], causal), as its ``danube_`` keys at h2o-danube-3-4b's ([4, 32,
+    512, 120] over 8 kv heads, window 4096: causal at 512), as its
+    ``paligemma_`` keys at paligemma-3b's ([4, 8, 512, 256] over one kv
+    head, prefix 256; SDPA takes it only as an explicit mask) and as its
+    ``gemma2_`` keys at gemma2-27b's ([4, 32, 512, 128] over 16 kv heads,
+    softcap 50; beside ``flex_attention``), each through ``flash_bwd_case``; also the
+    forward at minicpm's shape with and without its lse output (the
+    serving call must not be slower)."""
     import torch
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -3656,6 +3996,20 @@ def numbers_flash_bwd(device):
     case = flash_bwd_case(device, gen, (TRAIN_BATCH, 36, 36, TRAIN_SEQ, 64), {})
     wide = flash_bwd_case(device, gen, (TRAIN_BATCH, 10, 1, TRAIN_SEQ, 256), {"window": 2048})
     mla = flash_bwd_case(device, gen, (TRAIN_BATCH, 128, 128, TRAIN_SEQ, 192, 128), {})
+    more = {
+        "danube_": (flash_bwd_case(device, gen, (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 120),
+                                   {"window": 4096}),
+                    "q, o, dO [4, 32, 512, 120], k, v [4, 8, 512, 120] bf16, causal, window "
+                    "4096 (h2o-danube-3-4b's training step)"),
+        "paligemma_": (flash_bwd_case(device, gen, (TRAIN_BATCH, 8, 1, TRAIN_SEQ, 256),
+                                      {"prefix_len": 256}, sdpa(MASKED)),
+                       "q, o, dO [4, 8, 512, 256], k, v [4, 1, 512, 256] bf16, causal, "
+                       "prefix_len 256 (paligemma-3b's training step)"),
+        "gemma2_": (flash_bwd_case(device, gen, (TRAIN_BATCH, 32, 16, TRAIN_SEQ, 128),
+                                   {"softcap": 50.0}, flex_softcap(50.0)),
+                    "q, o, dO [4, 32, 512, 128], k, v [4, 16, 512, 128] bf16, causal, softcap "
+                    "50 (gemma2-27b's training step)"),
+    }
     q = torch.randn(TRAIN_BATCH, 36, TRAIN_SEQ, 64, generator=gen,
                     device=device).to(torch.bfloat16)
     fwd_ms = median_ms(lambda: fa.flash_attention(q, q, q))
@@ -3672,7 +4026,8 @@ def numbers_flash_bwd(device):
                          "XLA's derivative of ref.attention_ref",
         "launches": None,
         **case,
-        "matches_plain": case["matches_plain"] and wide["matches_plain"] and mla["matches_plain"],
+        "matches_plain": all(c["matches_plain"]
+                             for c in (case, wide, mla, *(c for c, _ in more.values()))),
         "forward_ms": fwd_ms,
         "forward_with_lse_ms": fwd_lse_ms,
         "shape": "q, k, v, o, dO [4, 36, 512, 64] bf16, causal (minicpm-2b's training step)",
@@ -3683,6 +4038,9 @@ def numbers_flash_bwd(device):
         "mla_shape": "q, k [4, 128, 512, 192], v, o, dO [4, 128, 512, 128] bf16, causal "
                      "(deepseek-v2's MLA training step)",
     }
+    for prefix, (c, label) in more.items():
+        out_dict.update({f"{prefix}{key}": val for key, val in c.items()})
+        out_dict[f"{prefix}shape"] = label
     log(f"flash backward: {out_dict} [{torch.cuda.get_device_name(0)}]")
     return out_dict
 
@@ -4432,6 +4790,8 @@ def main() -> int:
     lru_bwd = timed(numbers_lru_bwd, device)
     scan_bwd = timed(numbers_scan_bwd, device)
     kernels += [gmm_dx, gmm_dw, lru_bwd, scan_bwd]
+    # The examples' servers after the kernels' numbers, as the other servers.
+    timed(phase_examples, device, card)
     torch.cuda.empty_cache()
     # Training before the profiled serving passes, each model freed after.
     train_launches, train_walls = {}, {}
@@ -4446,25 +4806,38 @@ def main() -> int:
         serve_launches[arch] = arch_launches
         serve_walls.update(walls)
         del served  # free this model's weights before the next one's are drawn
-        torch.cuda.empty_cache()
+        free_device_memory()
     frontend_launches = {arch: timed(phase_frontend, device, card, arch)
                          for arch in FRONTEND_ARCHS}
-    rg, granite, mamba, deepseek = (serve_launches[a] for a in SERVE_ARCHS)
+    rg, granite, mamba, deepseek, danube, mistral, gemma2 = (serve_launches[a]
+                                                             for a in SERVE_ARCHS)
     queue, wave, flash, lru, gmm, scan, flash_bwd = kernels[:7]
     # The mesh phase's shards launched both device-window kernels too.
     queue.update(launches=queue["launches"] + mesh_rq, mesh_launches=mesh_rq)
     wave.update(launches=wave["launches"] + mesh_we, mesh_launches=mesh_we)
+    # The configs this script trains beside the three above, by key prefix.
+    trained = {"danube_": "h2o-danube-3-4b", "paligemma_": "paligemma-3b",
+               "musicgen_": "musicgen-large", "gemma2_": "gemma2-27b",
+               "mistral_": "mistral-large-123b"}
     flash.update(launches=rg["flash_attention"], granite_launches=granite["flash_attention"],
                  mla_launches=deepseek["flash_attention"],
+                 danube_launches=danube["flash_attention"],
+                 mistral_launches=mistral["flash_attention"],
+                 gemma2_launches=gemma2["flash_attention"],
                  paligemma_launches=frontend_launches["paligemma-3b"],
+                 musicgen_launches=frontend_launches["musicgen-large"],
                  train_launches=train_launches["minicpm-2b"]["flash"],
                  granite_train_launches=train_launches["granite-moe-3b-a800m"]["flash"],
                  d256_train_launches=train_launches["recurrentgemma-2b"]["flash"],
-                 mla_train_launches=train_launches["deepseek-v2-236b"]["flash"])
+                 mla_train_launches=train_launches["deepseek-v2-236b"]["flash"],
+                 **{f"{p}train_launches": train_launches[a]["flash"]
+                    for p, a in trained.items()})
     flash_bwd.update(launches=train_launches["minicpm-2b"]["flash_bwd"],
                      granite_launches=train_launches["granite-moe-3b-a800m"]["flash_bwd"],
                      d256_launches=train_launches["recurrentgemma-2b"]["flash_bwd"],
-                     mla_launches=train_launches["deepseek-v2-236b"]["flash_bwd"])
+                     mla_launches=train_launches["deepseek-v2-236b"]["flash_bwd"],
+                     **{f"{p}launches": train_launches[a]["flash_bwd"]
+                        for p, a in trained.items()})
     scan_bwd["launches"] = train_launches["falcon-mamba-7b"]["mamba_bwd"]
     gmm_dx["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dx"]
     gmm_dw["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dw"]

@@ -204,11 +204,14 @@ class _ServingCore:
             self.slots.append(buf)
         self.free = list(range(max_slots))
 
+        # The kernels close over the model, not the server: a closure over
+        # ``self`` would be a reference cycle that keeps a deleted server's
+        # model and slot caches on the card until the garbage collector runs.
         cfg_ = cfg
 
         def _prefill_fn(slot_val, tokens):
             cache, _, _ = slot_val
-            logits, cache = prefill(self.params, cfg_, tokens, cache)
+            logits, cache = prefill(params, cfg_, tokens, cache)
             tok = torch.argmax(logits[:, -1, : cfg_.vocab], dim=-1).to(torch.int32)
             pos = torch.full((), tokens.shape[1], dtype=torch.int32, device=tokens.device)
             # list-of-one: each element maps to one output buffer
@@ -217,7 +220,7 @@ class _ServingCore:
         def _decode_fn(*slot_vals):
             outs = []
             for cache, tok, pos in slot_vals:
-                logits, cache = decode_step(self.params, cfg_, tok[:, None], cache, pos)
+                logits, cache = decode_step(params, cfg_, tok[:, None], cache, pos)
                 nxt = torch.argmax(logits[:, -1, : cfg_.vocab], dim=-1).to(torch.int32)
                 outs.append((cache, nxt, pos + 1))
             return outs

@@ -21,6 +21,8 @@ the models are held by their logits (``tests/test_torch_models.py``).
 
 import dataclasses
 import functools
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -341,3 +343,27 @@ def test_servers_refuse_frontend_archs(name, server_cls):
     params = init_params(cfg, 0, **CPU)
     with pytest.raises(ValueError, match="token models"):
         server_cls(cfg, params, max_slots=1, max_len=16, **CPU)
+
+
+@pytest.mark.parametrize("kind", ["batch", "wave", "frontier", "device"])
+def test_deleted_server_frees_its_model_without_the_collector(kind):
+    """A served and closed server holds no reference cycle to its model: once
+    the caller drops both, the weights are freed at once, with the garbage
+    collector off (a card's memory pressure never runs the collector, so a
+    cycle kept the previous model resident when the next was drawn)."""
+    cfg = _model("danube")[0]
+    params = init_params(cfg, 0, **CPU)
+    if kind == "batch":
+        server = ContinuousBatchingServer(cfg, params, max_slots=2, max_len=32, **CPU)
+    else:
+        server = SessionServer(cfg, params, max_slots=2, max_len=32, scheduler=kind, **CPU)
+    assert len(_serve(server, _prompts(cfg, 3, seed=2), 2)) == 3
+    held = weakref.ref(params)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del server, params
+        assert held() is None
+    finally:
+        if enabled:
+            gc.enable()
