@@ -221,7 +221,7 @@ Phases, each fatal on failure (an exception, exit code != 0):
    selective scan once per Mamba layer and prefill or decode (falcon
    8,704) and the grouped GEMM three times per MoE layer and prefill or
    decode (granite 13,056, deepseek 1,224). After recurrentgemma's and
-   granite's server runs, one more serving pass (2 requests) runs under
+   granite's server runs, one more serving pass (1 request) runs under
    ``torch.profiler`` for its device busy share (as in 8).
 6b. The frontend path, at full width, in float32 and then in bf16:
    musicgen-large (48 layers, audio_stub, 256 seeded frame embeddings of
@@ -320,6 +320,19 @@ Phases, each fatal on failure (an exception, exit code != 0):
    uninterrupted; a run checkpointed every 10 steps crashed at 15 and
    resumed by a fresh ``Trainer``, whose steps 10-19 give the
    uninterrupted run's losses and gradient norms bit for bit.
+10. The production-mesh dry run, after phase 9b, in this process: two
+   cells traced at published widths over a fake world of H100s
+   (``repro_torch.launch.dryrun.run_cell``: fake DTensors, the flash and
+   grouped-GEMM ops' fake implementations), minicpm-2b/train_4k on 16 x 16
+   and granite-moe-3b-a800m/train_4k on 2 x 16 x 16, each record logged;
+   no kernel launch counter moves and ``torch.cuda.memory_allocated()`` is
+   the same before and after. The card's memory
+   (``get_device_properties``) must be the dry run's ``CARD_MEMORY_BYTES``.
+   Then minicpm-2b traced at phase 9's shape (4 x 512, remat) in a fake
+   world of 1: its peak bytes beside phase 9's measured peak, its FLOPs
+   beside 6 N D. Last, the ops' host cost: a flash and a grouped-GEMM call
+   through ``torch.ops`` against the same launch through the wrapper's
+   launch function, host clock, at a decode step's shapes.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2849,17 +2862,22 @@ def phase_serve(device, card, arch):
         f"{statistics.median(prefill_s) * 1e3:.3f} ms, median decode step "
         f"{statistics.median(decode_s) * 1e3:.3f} ms (greedy loop, host clock, "
         f"{len(decode_s)} steps) [{card}]")
+    if cfg.name in PRIOR_DECODE_MS:
+        log(f"serve {cfg.name}: median decode step {statistics.median(decode_s) * 1e3:.3f} ms "
+            f"through the torch.library ops, {PRIOR_DECODE_MS[cfg.name]:.3f} ms before them "
+            f"[{card}]")
     return main_launches, walls, (cfg, params, prompts)
 
 
 def busy_serve(device, card, served):
-    """One more serving pass (SessionServer(wave), 2 requests) under the
-    profiler: its device busy share."""
+    """One more serving pass (SessionServer(wave), one request: the
+    profiler's processing of a pass's kernels takes about a minute a
+    request) under the profiler: its device busy share."""
     from repro_torch.runtime import SessionServer
 
     cfg, params, prompts = served
-    profile_pass(f"serve {cfg.name} SessionServer(wave), 2 requests x {SERVE_MAX_NEW} tokens",
-                 lambda: serve_once(cfg, params, SessionServer, prompts[:2], device,
+    profile_pass(f"serve {cfg.name} SessionServer(wave), 1 request x {SERVE_MAX_NEW} tokens",
+                 lambda: serve_once(cfg, params, SessionServer, prompts[:1], device,
                                     scheduler="wave"), card)
 
 
@@ -3225,6 +3243,7 @@ def phase_train(device, card, arch):
         gnorms.append(float(metrics["gnorm"]))
         walls.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
+    TRAIN_PEAKS[arch] = (peak, before)
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
           f"train {cfg.name}: non-finite loss or gradient norm: {losses} {gnorms}")
     counts = train_counters()
@@ -3283,6 +3302,131 @@ def phase_train(device, card, arch):
     del model, opt, batches, prof
     free_device_memory()
     return counts, {f"train {cfg.name} step (median)": step_ms / 1e3}
+
+
+# Phase 9's measured peak device memory (max_memory_allocated) and what was
+# allocated before its model was built, by arch: phase 10 holds the dry
+# run's fake-world-of-1 trace against minicpm's.
+TRAIN_PEAKS = {}
+# Phase 6's median decode step before the kernels became torch.library ops
+# (ms, H100 80GB HBM3 at 700 W; PERF.md section 5).
+PRIOR_DECODE_MS = {"granite-moe-3b-a800m": 74.960, "h2o-danube-3-4b": 53.509}
+
+
+def all_counters():
+    """Every launch counter of the port's kernels, by name."""
+    we = importlib.import_module("repro_torch.kernels.wave_elementwise")
+    rq = importlib.import_module("repro_torch.kernels.ready_queue")
+    return {**train_counters(), "wave": we.launches, "wave_steps": we.steps,
+            "ready_queue": rq.launches}
+
+
+def phase_dryrun(device, card):
+    """Phase 10 (see the module docstring): the dry run's two cells at
+    published widths, the fake-world-of-1 check against phase 9, and the
+    ops' host cost. Returns the records."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
+    from repro_torch.launch.roofline_run import model_flops_per_device
+    from repro_torch.launch.steps import StepBundle
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    log(f"dry run: the card's memory {total} B ({total / 2**30:.2f} GiB), the dry run's "
+        f"CARD_MEMORY_BYTES {dryrun.CARD_MEMORY_BYTES} ({dryrun.CARD}) [{card}]")
+    check(total == dryrun.CARD_MEMORY_BYTES,
+          f"dry run: the card has {total} B, dryrun.CARD_MEMORY_BYTES says "
+          f"{dryrun.CARD_MEMORY_BYTES}")
+    torch.cuda.synchronize()
+    counters, allocated = all_counters(), torch.cuda.memory_allocated()
+    records = []
+    for arch, multi_pod in (("minicpm-2b", False), ("granite-moe-3b-a800m", True)):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, "train_4k", multi_pod, verbose=False)
+        coll = rec["collectives"]
+        log(f"dry run {arch}/train_4k on {rec['mesh']} ({rec['n_devices']} fake H100s, "
+            f"{time.perf_counter() - t0:.1f} s): FLOPs/device {rec['flops_per_device']:.4g}, "
+            f"bytes/device {rec['bytes_per_device']:.4g}, wire bytes {coll['total_bytes']:.4g} "
+            f"(by kind {({k: coll[k] for k in coll['counts']})}, counts {coll['counts']}, by "
+            f"link {coll['by_link']}, by axis {coll['by_axis']}), argument bytes "
+            f"{rec['memory']['argument_bytes']}, output bytes {rec['memory']['output_bytes']}, "
+            f"peak bytes {rec['peak_bytes']} ({rec['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{'fits' if rec['fits'] else 'does NOT fit'} the card's {total / 2**30:.2f} GiB), "
+            f"policy {rec['policy']} [{card}]")
+        log("dry run record: " + json.dumps(rec, default=str))
+        records.append(rec)
+    # phase 9's shape on one fake H100
+    cfg = ARCHS["minicpm-2b"]
+    shapes = {"train": (TRAIN_SEQ, TRAIN_BATCH, "train")}
+    t0 = time.perf_counter()
+    with fake_world(1):
+        t = StepBundle(cfg, make_local_mesh(device="cuda")).trace("train", shapes)
+    torch.cuda.synchronize()
+    check(all_counters() == counters, f"dry run: kernel launch counters moved: {counters} -> "
+                                      f"{all_counters()}")
+    check(torch.cuda.memory_allocated() == allocated,
+          f"dry run: memory allocated moved from {allocated} to "
+          f"{torch.cuda.memory_allocated()}")
+    peak, before = TRAIN_PEAKS["minicpm-2b"]
+    six_nd = model_flops_per_device(cfg, "train", 1, shapes=shapes)
+    log(f"dry run minicpm-2b at phase 9's shape [{TRAIN_BATCH}, {TRAIN_SEQ}] on a fake world "
+        f"of 1 ({time.perf_counter() - t0:.1f} s): peak bytes {t['peak_bytes']} "
+        f"({t['peak_bytes'] / 2**30:.2f} GiB) against phase 9's max_memory_allocated {peak} "
+        f"({peak / 2**30:.2f} GiB; {before} B allocated before its model): ratio "
+        f"{t['peak_bytes'] / peak:.4f} (to the peak less what was there before: "
+        f"{t['peak_bytes'] / max(peak - before, 1):.4f}); FLOPs {t['flops']:.6g} against 6 N D "
+        f"{six_nd:.6g}: ratio {t['flops'] / six_nd:.4f}; argument bytes "
+        f"{t['argument_bytes']}; no launch, no allocation [{card}]")
+    host_cost(device, card)
+    return records
+
+
+def host_cost(device, card):
+    """The torch.library ops' host cost per call: flash at a decode step's
+    shape (granite's: 24 heads over 8, one query row against 512 keys) and
+    the grouped GEMM at one MoE product's (48 experts of C = 1 row, 1536 to
+    512), each called through the wrapper (the op) and through the launch
+    function under it, 2000 times back to back, host clock; the medians of
+    5 rounds, the two orders alternating."""
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gm = importlib.import_module("repro_torch.kernels.grouped_matmul")
+    gen = torch.Generator(device=device).manual_seed(0)
+    q = torch.randn(1, 24, 1, 128, generator=gen, device=device).to(torch.bfloat16)
+    k = torch.randn(1, 8, 512, 128, generator=gen, device=device).to(torch.bfloat16)
+    x = torch.randn(48, 1536, generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn(48, 1536, 512, generator=gen, device=device).to(torch.bfloat16)
+    tiles = torch.arange(48, dtype=torch.int32, device=device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    masks = fa._masks(True, None, None, 511, 0)
+    calls = {
+        "flash op": lambda: fa.flash_attention(q, k, k, q_offset=511),
+        "flash launch": lambda: fa._forward(q, k, k, masks, 128 ** -0.5, False),
+        "grouped GEMM op": lambda: gm.grouped_matmul(x, w, tiles, block_m=1, err=err),
+        "grouped GEMM launch": lambda: gm._forward(x, w, tiles, 1, err),
+    }
+    n = 2000
+    times = {name: [] for name in calls}
+    for rnd in range(5):
+        for name in (list(calls) if rnd % 2 == 0 else list(reversed(calls))):
+            fn = calls[name]
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            host = (time.perf_counter() - t0) / n
+            torch.cuda.synchronize()
+            times[name].append(host * 1e6)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    log(f"ops' host cost (us a call, host clock to return, median of 5 x {n}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + f"; the op adds {med['flash op'] - med['flash launch']:.2f} us to flash and "
+        f"{med['grouped GEMM op'] - med['grouped GEMM launch']:.2f} us to the grouped GEMM "
+        f"[{card}]")
+    torch.cuda.synchronize()
 
 
 def phase_trainer(device, card):
@@ -4799,6 +4943,7 @@ def main() -> int:
         train_launches[arch], walls = timed(phase_train, device, card, arch)
         train_walls.update(walls)
     timed(phase_trainer, device, card)
+    timed(phase_dryrun, device, card)
     for arch in SERVE_ARCHS:
         arch_launches, walls, served = timed(phase_serve, device, card, arch)
         if arch in PROFILED_SERVE:

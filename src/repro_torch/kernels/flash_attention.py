@@ -18,9 +18,16 @@ plain version :func:`~.ref.attention_ref` computes, fully masked rows
 included (they give 0, where the Pallas kernel gives the row's mean of
 ``v``).
 
-Training: on CUDA tensors that need a gradient the call is a
-``torch.autograd.Function`` whose forward is the same kernel, also writing
-each row's log-sum-exp, and whose backward is the hand-written
+The entry points are ``torch.library`` ops in the ``repro_torch``
+namespace (``flash_attention``, ``flash_attention_lse``,
+``flash_attention_bwd``), each with a fake implementation and a FLOP
+formula, so a model traced under ``FakeTensorMode`` over a mesh of
+DTensors reaches them without a build or a launch.
+
+Training: on tensors that need a gradient the call is the op
+``flash_attention_lse``, whose forward is the same kernel, also writing
+each row's log-sum-exp, and whose autograd runs the op
+``flash_attention_bwd``: on the card the hand-written
 ``csrc/flash_attention_bwd_wgmma.cu`` (dQ, dK, dV in two deterministic
 passes on ``wgmma`` with TMA-fed tiles; every width pair the forward
 takes: Dv == D up to ``MAX_BACKWARD_HEAD_DIM`` = 256, and MLA's D 192 with
@@ -38,7 +45,8 @@ their fixed-order reduction) and counts the path of each call in
 (:func:`backward_persistent`): one block an SM walks a list of units that
 :func:`lpt_split` balances, so a key tile's handful of items no longer
 pays a block's set-up and epilogue each. Without a gradient the call is the serving call, bit
-for bit. On the CPU autograd differentiates the plain version.
+for bit. On the CPU the ops run the plain versions (``attention_ref``,
+``attention_lse_ref``, ``attention_bwd_ref``).
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. The kernels build at first use (``_nvcc.py``).
@@ -55,7 +63,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ._nvcc import NVCC_FLAGS, CudaLibrary, raw_stream
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd", "build",
            "build_backward", "build_backward_wgmma", "launches", "backward_launches",
@@ -63,7 +71,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_bwd", "bui
            "MAX_HEAD_DIM", "MAX_BACKWARD_HEAD_DIM", "kernel_takes",
            "backward_path", "backward_paths", "backward_plan", "BackwardPlan",
            "key_tile_queries", "dq_blocks", "dq_key_span", "dq_keys", "bwd_keys", "BWD_ROWS",
-           "BWD_DQ_ROWS", "backward_persistent", "lpt_split"]
+           "BWD_DQ_ROWS", "backward_persistent", "lpt_split", "visible_pairs"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BACKWARD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")  # the float32 path
@@ -576,22 +584,175 @@ def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
-class _FlashFunction(torch.autograd.Function):
-    """The forward kernel with its row log-sum-exp saved; the backward
-    kernel for the gradient."""
+# ---------------------------------------------------------------------------
+# The torch.library ops: repro_torch::flash_attention (the serving call),
+# ::flash_attention_lse (the forward with its row log-sum-exp, which autograd
+# differentiates through ::flash_attention_bwd). Each has the plain version
+# on the CPU, the kernel on CUDA (the same builds and counters, no
+# fallback), a fake implementation (shapes and dtypes: no build, no launch)
+# for FakeTensorMode, and a FLOP formula for the flop counter. DTensors run
+# them batch- or head-sharded through their sharding rules.
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, q, k, v, masks, scale):
-        out, lse = _forward(q, k, v, masks, scale, True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks, ctx.scale = masks, scale
-        return out
+_OPT_INT, _OPT_FLOAT = Optional[int], Optional[float]
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, out, lse, dout, ctx.masks, ctx.scale)
-        return dq, dk, dv, None, None
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cpu")
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  window: _OPT_INT, softcap: _OPT_FLOAT, scale: float, q_offset: int,
+                  prefix_len: int) -> torch.Tensor:
+    return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+                         q_offset=q_offset, prefix_len=prefix_len)
+
+
+@_attention_op.register_kernel("cuda")
+def _attention_cuda(q, k, v, causal, window, softcap, scale, q_offset, prefix_len):
+    _check(q, k, v)
+    return _forward(q, k, v, _masks(causal, window, softcap, q_offset, prefix_len), scale,
+                    False)[0]
+
+
+@_attention_op.register_fake
+def _attention_fake(q, k, v, causal, window, softcap, scale, q_offset, prefix_len):
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=(),
+                         device_types="cpu")
+def _attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                      window: _OPT_INT, softcap: _OPT_FLOAT, scale: float, q_offset: int,
+                      prefix_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    flags = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                 q_offset=q_offset, prefix_len=prefix_len)
+    return attention_ref(q, k, v, **flags), attention_lse_ref(q, k, **flags)
+
+
+@_attention_lse_op.register_kernel("cuda")
+def _attention_lse_cuda(q, k, v, causal, window, softcap, scale, q_offset, prefix_len):
+    _check(q, k, v)
+    return _forward(q, k, v, _masks(causal, window, softcap, q_offset, prefix_len), scale,
+                    True)
+
+
+@_attention_lse_op.register_fake
+def _attention_lse_fake(q, k, v, causal, window, softcap, scale, q_offset, prefix_len):
+    return (q.new_empty((*q.shape[:3], v.shape[3])),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                      lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: _OPT_INT,
+                      softcap: _OPT_FLOAT, scale: float, q_offset: int, prefix_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dq, dk, dv = attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
+                                   softcap=softcap, scale=scale, q_offset=q_offset,
+                                   prefix_len=prefix_len)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@_attention_bwd_op.register_kernel("cuda")
+def _attention_bwd_cuda(q, k, v, out, lse, dout, causal, window, softcap, scale, q_offset,
+                        prefix_len):
+    _check(q, k, v)
+    return _backward(q, k, v, out.contiguous(), lse.contiguous(), dout,
+                     _masks(causal, window, softcap, q_offset, prefix_len), scale)
+
+
+@_attention_bwd_op.register_fake
+def _attention_bwd_fake(q, k, v, out, lse, dout, causal, window, softcap, scale, q_offset,
+                        prefix_len):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _lse_setup(ctx, inputs, output):
+    q, k, v = inputs[:3]
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.flags = inputs[3:]
+    ctx.mark_non_differentiable(lse)
+
+
+def _lse_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd.default(q, k, v, out, lse, dout,
+                                                                   *ctx.flags)
+    return (dq, dk, dv) + (None,) * len(ctx.flags)
+
+
+_attention_lse_op.register_autograd(_lse_backward, setup_context=_lse_setup)
+
+
+def visible_pairs(sq: int, sk: int, *, causal: bool, window: Optional[int], q_offset: int,
+                  prefix_len: int) -> int:
+    """The (query row, key) pairs the mask keeps: what the kernels compute
+    over, and what their bounds and FLOP formulas count."""
+    import numpy as np
+
+    rows = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(rows, sk - 1) if causal else np.full(sq, sk - 1, dtype=np.int64)
+    lo = np.maximum(rows - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    seen = np.clip(hi - lo + 1, 0, None)
+    if prefix_len:  # keys [0, prefix_len) are visible to every row
+        p = min(prefix_len, sk)
+        overlap = np.clip(np.minimum(hi, p - 1) - lo + 1, 0, None)
+        seen = seen + p - overlap
+    return int(seen.sum())
+
+
+def _pairs_flops(q_shape, k_shape, v_shape, causal, window, q_offset, prefix_len, per_pair):
+    b, h, sq, d = q_shape
+    dv = v_shape[3]
+    seen = visible_pairs(sq, k_shape[2], causal=causal, window=window, q_offset=q_offset,
+                         prefix_len=prefix_len)
+    return per_pair(d, dv) * b * h * seen
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    def fwd(q_shape, k_shape, v_shape, causal, window, softcap, scale, q_offset, prefix_len,
+            *_, out_shape=None, **__):
+        # QK^T over D and PV over Dv, 2 FLOPs a multiply-add
+        return _pairs_flops(q_shape, k_shape, v_shape, causal, window, q_offset, prefix_len,
+                            lambda d, dv: 2 * (d + dv))
+
+    def bwd(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape, causal, window,
+            softcap, scale, q_offset, prefix_len, *_, out_shape=None, **__):
+        # S, dQ and dK over D; dP and dV over Dv
+        return _pairs_flops(q_shape, k_shape, v_shape, causal, window, q_offset, prefix_len,
+                            lambda d, dv: 2 * (3 * d + 2 * dv))
+
+    register_flop_formula(torch.ops.repro_torch.flash_attention)(fwd)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_lse)(fwd)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)(bwd)
+
+
+_register_flop_formulas()
+
+
+def _register_sharding() -> None:
+    """DTensor rules: every tensor replicated, or all sharded alike over
+    the batch (dim 0) or the heads (dim 1; the caller keeps q's and k's
+    heads in step, ``models/attention.py``). The sequence-sharded fallback
+    is a ``local_map`` in the caller, which owns the ``q_offset`` shift."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def rule(n_tensors: int, n_out: int):
+        def strategies(*args):
+            n_rest = len(args) - n_tensors
+            return [([p] * n_out, [p] * n_tensors + [None] * n_rest)
+                    for p in (Replicate(), Shard(0), Shard(1))]
+        return strategies
+
+    register_sharding(torch.ops.repro_torch.flash_attention.default)(rule(3, 1))
+    register_sharding(torch.ops.repro_torch.flash_attention_lse.default)(rule(3, 2))
+    register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)(rule(6, 3))
+
+
+_register_sharding()
 
 
 def flash_attention(
@@ -608,34 +769,30 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention ``[B, H, Sq, Dv]`` in ``q``'s dtype, float32 inside, with
     the scale ``1 / sqrt(D)`` unless given. Launches on the current CUDA
-    stream without synchronizing."""
+    stream without synchronizing. Under grad the forward also keeps its
+    row log-sum-exp and the gradient runs the backward op."""
     if q.dim() == 4 and v.dim() == 4 and not kernel_takes(q.shape[3], v.shape[3]):
         # on every device, so that a model the CPU runs is one the card runs
         raise ValueError(f"flash_attention: no kernel for head dims D {q.shape[3]}, "
                          f"Dv {v.shape[3]}: it takes Dv == D in 1..{MAX_HEAD_DIM}, or D in "
                          f"1..{MAX_QK_DIM_SPLIT} with Dv in 1..{MAX_V_DIM_SPLIT}")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                             scale=scale, q_offset=q_offset, prefix_len=prefix_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v)
-    masks = _masks(causal, window, softcap, q_offset, prefix_len)
-    scale = _scale(scale, q.shape[3])
+    flags = (bool(causal), window, softcap, _scale(scale, q.shape[3]), int(q_offset),
+             int(prefix_len))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashFunction.apply(q, k, v, masks, scale)
-    return _forward(q, k, v, masks, scale, False)[0]
+        return torch.ops.repro_torch.flash_attention_lse.default(q, k, v, *flags)[0]
+    return torch.ops.repro_torch.flash_attention.default(q, k, v, *flags)
 
 
 def flash_attention_lse(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
                         q_offset=0, prefix_len=0):
     """The forward kernel with its row log-sum-exp: ``(out, lse [B, H, Sq]
-    float32)``, -inf for a row that sees no key. CUDA tensors only; no
-    autograd."""
+    float32)``, -inf for a row that sees no key. CUDA tensors only."""
     _check_cuda("flash_attention_lse", q)
-    _check(q, k, v)
-    return _forward(q, k, v, _masks(causal, window, softcap, q_offset, prefix_len),
-                    _scale(scale, q.shape[3]), True)
+    return torch.ops.repro_torch.flash_attention_lse.default(
+        q, k, v, bool(causal), window, softcap, _scale(scale, q.shape[3]), int(q_offset),
+        int(prefix_len))
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=None, softcap=None,
@@ -644,10 +801,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=None, so
     forward's ``out`` and ``lse`` and the output's gradient ``dout``. CUDA
     tensors only (the plain version is ``ref.attention_bwd_ref``)."""
     _check_cuda("flash_attention_bwd", q)
-    _check(q, k, v)
     if not kernel_takes(q.shape[3], v.shape[3]):
         raise ValueError(f"flash_attention_bwd: no instantiation for D {q.shape[3]}, "
                          f"Dv {v.shape[3]}")
-    return _backward(q, k, v, out.contiguous(), lse.contiguous(), dout,
-                     _masks(causal, window, softcap, q_offset, prefix_len),
-                     _scale(scale, q.shape[3]))
+    return torch.ops.repro_torch.flash_attention_bwd.default(
+        q, k, v, out, lse, dout, bool(causal), window, softcap, _scale(scale, q.shape[3]),
+        int(q_offset), int(prefix_len))

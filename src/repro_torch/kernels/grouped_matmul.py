@@ -28,11 +28,17 @@ and calls :func:`raise_on_error` where it synchronizes anyway. On the CPU
 the ids are checked before the plain version runs, so both devices refuse
 the same inputs.
 
-Training: where ``x`` or ``w`` needs a gradient the call is a
-``torch.autograd.Function`` whose forward is the same kernel and whose
-backward launches ``dx`` (``dy @ w[g]^T``) and ``dw`` (each group's tiles
-summed in tile order, deterministic, 0 for a group no tile names), the
-hand-written entries of the same ``csrc/grouped_matmul.cu``, counted on
+The entry points are ``torch.library`` ops in the ``repro_torch``
+namespace (``grouped_matmul``, ``grouped_matmul_fwd``,
+``grouped_matmul_bwd``), each with a fake
+implementation and a FLOP formula, so a model traced under
+``FakeTensorMode`` reaches them without a build or a launch.
+
+Training: where ``x`` or ``w`` needs a gradient the call is the op
+``grouped_matmul_fwd``, whose forward is the same kernel and whose
+autograd runs the op ``grouped_matmul_bwd``: ``dx`` (``dy @ w[g]^T``)
+and ``dw`` (each group's tiles summed in tile order, deterministic, 0 for
+a group no tile names), the hand-written entries of the same ``csrc/grouped_matmul.cu``, counted on
 ``dx_launches`` and ``dw_launches``; ``tile_groups`` and ``err`` get no
 gradient. In bfloat16 and float16 both run on ``wgmma`` with TMA-fed tiles
 over a persistent grid, one block an SM. ``dx`` reads dy and w[g] both
@@ -43,9 +49,8 @@ themselves where TMA can address them (``"wgmma"``), else aligned copies
 zero-padded to whole 16-byte rows (``"wgmma_padded"``; ``dw`` a launch for
 each run of ``DW_MAX_GROUPS`` groups), by the shape rules :func:`dx_path`
 and :func:`dw_path`; float32 runs on FMAs (``"fma_f32"``). ``dx_paths``
-and ``dw_paths`` count each call's path. On the CPU the same Function runs
-the plain forward and the plain backward
-:func:`~.ref.grouped_matmul_bwd_ref`.
+and ``dw_paths`` count each call's path. On the CPU the same ops run the
+plain forward and the plain backward :func:`~.ref.grouped_matmul_bwd_ref`.
 
 A CPU tensor goes to the plain version :func:`~.ref.grouped_matmul_ref`; a
 CUDA tensor launches the kernel or raises. The kernel builds at first use
@@ -279,10 +284,7 @@ def _forward(x, w, tile_groups, block_m, err):
     _check_devices(x, w, tile_groups)
     if not (x.is_contiguous() and w.is_contiguous() and tile_groups.is_contiguous()):
         raise ValueError("grouped_matmul: x, w and tile_groups must be contiguous")
-    own = err is None
-    if own:
-        err = torch.zeros(1, dtype=torch.int32, device=x.device)
-    elif err.device != x.device or err.dtype != torch.int32 or err.numel() != 1:
+    if err.device != x.device or err.dtype != torch.int32 or err.numel() != 1:
         raise ValueError("grouped_matmul: err must be one int32 on x's device")
     m, k = x.shape
     g, _, n = w.shape
@@ -295,8 +297,6 @@ def _forward(x, w, tile_groups, block_m, err):
     if rc != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA error {rc}")
     launches += 1
-    if own:
-        raise_on_error(err)
     return out
 
 
@@ -421,23 +421,103 @@ def _dw_wgmma(lib, x, dy, tile_groups, dw, block_m, path, stream) -> int:
     return 0
 
 
-class _GroupedMatmulFunction(torch.autograd.Function):
-    """The forward with its inputs saved; the dx and dw entries (or the
-    plain backward on the CPU) for the gradient."""
+# ---------------------------------------------------------------------------
+# The torch.library ops: repro_torch::grouped_matmul (the serving call, its
+# error flag a mutated argument), ::grouped_matmul_fwd (the same forward with
+# a flag of its own as a second output, which autograd differentiates
+# through ::grouped_matmul_bwd: dx and dw, each where its input needs it). Each has the plain
+# version on the CPU, the kernel on CUDA (the same builds and counters, no
+# fallback), a fake implementation (shapes and dtypes: no build, no launch)
+# for FakeTensorMode, and a FLOP formula for the flop counter.
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, x, w, tile_groups, block_m, err):
-        ctx.save_for_backward(x, w, tile_groups)
-        ctx.block_m = block_m
-        return _forward(x, w, tile_groups, block_m, err)
+@torch.library.custom_op("repro_torch::grouped_matmul", mutates_args=("err",),
+                         device_types="cpu")
+def _gmm_op(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor, err: torch.Tensor,
+            block_m: int) -> torch.Tensor:
+    return _forward(x, w, tile_groups, block_m, err)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, w, tile_groups = ctx.saved_tensors
-        dx, dw = grouped_matmul_bwd(x, w, tile_groups, dy, block_m=ctx.block_m,
-                                    need_dx=ctx.needs_input_grad[0],
-                                    need_dw=ctx.needs_input_grad[1])
-        return dx, dw, None, None, None
+
+@_gmm_op.register_kernel("cuda")
+def _gmm_cuda(x, w, tile_groups, err, block_m):
+    return _forward(x, w, tile_groups, block_m, err)
+
+
+@_gmm_op.register_fake
+def _gmm_fake(x, w, tile_groups, err, block_m):
+    return x.new_empty((x.shape[0], w.shape[2]))
+
+
+@torch.library.custom_op("repro_torch::grouped_matmul_fwd", mutates_args=(),
+                         device_types="cpu")
+def _gmm_fwd_op(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor,
+                block_m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    err = torch.zeros(1, dtype=torch.int32, device=x.device)
+    return _forward(x, w, tile_groups, block_m, err), err
+
+
+@_gmm_fwd_op.register_kernel("cuda")
+def _gmm_fwd_cuda(x, w, tile_groups, block_m):
+    err = torch.zeros(1, dtype=torch.int32, device=x.device)
+    return _forward(x, w, tile_groups, block_m, err), err
+
+
+@_gmm_fwd_op.register_fake
+def _gmm_fwd_fake(x, w, tile_groups, block_m):
+    return x.new_empty((x.shape[0], w.shape[2])), x.new_empty((1,), dtype=torch.int32)
+
+
+@torch.library.custom_op("repro_torch::grouped_matmul_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _gmm_bwd_op(x: torch.Tensor, w: torch.Tensor, tile_groups: torch.Tensor, dy: torch.Tensor,
+                block_m: int, need_dx: bool, need_dw: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dx, dw = grouped_matmul_bwd(x, w, tile_groups, dy, block_m=block_m, need_dx=need_dx,
+                                need_dw=need_dw)
+    return (x.new_empty(0) if dx is None else dx), (w.new_empty(0) if dw is None else dw)
+
+
+@_gmm_bwd_op.register_fake
+def _gmm_bwd_fake(x, w, tile_groups, dy, block_m, need_dx, need_dw):
+    return (torch.empty_like(x) if need_dx else x.new_empty(0),
+            torch.empty_like(w) if need_dw else w.new_empty(0))
+
+
+def _fwd_setup(ctx, inputs, output):
+    x, w, tile_groups, block_m = inputs
+    ctx.save_for_backward(x, w, tile_groups)
+    ctx.block_m = block_m
+    ctx.mark_non_differentiable(output[1])
+
+
+def _fwd_backward(ctx, dy, _derr):
+    x, w, tile_groups = ctx.saved_tensors
+    need_dx, need_dw = ctx.needs_input_grad[:2]
+    dx, dw = torch.ops.repro_torch.grouped_matmul_bwd.default(
+        x, w, tile_groups, dy, ctx.block_m, need_dx, need_dw)
+    return (dx if need_dx else None), (dw if need_dw else None), None, None
+
+
+_gmm_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    def product(x_shape, w_shape, *_, out_shape=None, **__):
+        # each row against its group's [K, N]: 2 M K N
+        return 2 * x_shape[0] * x_shape[1] * w_shape[2]
+
+    def backward(x_shape, w_shape, tiles_shape, dy_shape, block_m, need_dx, need_dw, *_,
+                 out_shape=None, **__):
+        return product(x_shape, w_shape) * (int(need_dx) + int(need_dw))
+
+    for op in (torch.ops.repro_torch.grouped_matmul, torch.ops.repro_torch.grouped_matmul_fwd):
+        register_flop_formula(op)(product)
+    register_flop_formula(torch.ops.repro_torch.grouped_matmul_bwd)(backward)
+
+
+_register_flop_formulas()
 
 
 def grouped_matmul(
@@ -450,11 +530,25 @@ def grouped_matmul(
 ) -> torch.Tensor:
     """``[M, N]`` in ``x``'s dtype, float32 inside. Launches on the current
     CUDA stream; without ``err`` it then syncs once to check the group
-    ids. Differentiable in ``x`` and ``w`` on both devices."""
+    ids. Differentiable in ``x`` and ``w`` on both devices (the op
+    ``grouped_matmul_fwd``, whose flag is or-ed into ``err``)."""
     key = (x.shape, w.shape, tile_groups.shape, x.dtype, w.dtype, tile_groups.dtype, block_m)
     if key not in _CHECKED:
         _check(x, w, tile_groups, block_m)
         _CHECKED.add(key)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _GroupedMatmulFunction.apply(x, w, tile_groups, block_m, err)
-    return _forward(x, w, tile_groups, block_m, err)
+        out, flag = torch.ops.repro_torch.grouped_matmul_fwd.default(x, w, tile_groups, block_m)
+        if err is None:
+            if x.device.type == "cuda":
+                raise_on_error(flag)
+        else:
+            err.bitwise_or_(flag)
+        return out
+    if err is None:
+        if x.device.type == "cuda":
+            own = torch.zeros(1, dtype=torch.int32, device=x.device)
+            out = torch.ops.repro_torch.grouped_matmul.default(x, w, tile_groups, own, block_m)
+            raise_on_error(own)
+            return out
+        err = torch.zeros(1, dtype=torch.int32, device=x.device)
+    return torch.ops.repro_torch.grouped_matmul.default(x, w, tile_groups, err, block_m)

@@ -1,19 +1,23 @@
-"""Falcon-mamba-7b's serving path on the card, for comparing two trees.
+"""Falcon-mamba-7b's serving path on the card (or another served arch's),
+for comparing two trees.
 
     python -m repro_torch.kernels.mamba_serve_times <label>     # PYTHONPATH=src
+    python -m repro_torch.kernels.mamba_serve_times <label> granite-moe-3b-a800m gmm_tc_kernel
 
 Run from the root of a tree: it takes that tree's ``chip_smoke.py`` for
 the prompts, the greedy loop and the server runs, so the same file copied
 into a parent tree unpacked under ``.archive/`` times the parent; run
 parent, change, change, parent in one call to compare on one host.
 
-On falcon-mamba-7b whole (64 Mamba layers, bf16 weights from seed 0) over
-chip_smoke's 8 seeded prompts (128-512 tokens, 16 new tokens each):
+On falcon-mamba-7b whole (64 Mamba layers, bf16 weights from seed 0), or
+the arch named second, over chip_smoke's 8 seeded prompts (128-512
+tokens, 16 new tokens each):
 
 * the CUDA kernels one greedy decode step launches (``torch.profiler``,
   memory copies and sets left out; the step after a 200-token prefill),
-  with the selective scan's kernel name, count and mean device time in
-  that step;
+  with the name, count and mean device time in that step of the kernel
+  whose name holds the third argument (the selective scan's,
+  ``scan_kernel``, by default);
 * the greedy loop's median prefill and decode step (host clock, each
   ending in the token's host read), over the 8 prompts;
 * the wall of each of the four servers over the 8 requests
@@ -32,7 +36,7 @@ import subprocess
 import sys
 
 
-def main(label: str) -> int:
+def main(label: str, arch: str = "falcon-mamba-7b", kernel: str = "scan_kernel") -> int:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -51,7 +55,7 @@ def main(label: str) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    cfg = ARCHS["falcon-mamba-7b"]
+    cfg = ARCHS[arch]
     params = init_params(cfg, cs.SERVE_SEED, device=device)
     prompts = cs.serve_prompts(cfg.vocab)
 
@@ -69,7 +73,7 @@ def main(label: str) -> int:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
-    scan = [e for e in kernels if "scan_kernel" in e.name]
+    scan = [e for e in kernels if kernel in e.name]
     del cache
 
     greedy, prefill_s, decode_s = [], [], []
@@ -89,7 +93,7 @@ def main(label: str) -> int:
         walls[name] = wall * 1e3
         same = same and toks == greedy
     result = {
-        "label": label, "card": card,
+        "label": label, "card": card, "arch": arch,
         "decode_step_cuda_kernels": len(kernels),
         "decode_step_scan_kernels": len(scan),
         "scan_kernel": scan[0].name[:80] if scan else None,
@@ -105,4 +109,4 @@ def main(label: str) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "tree"))
+    sys.exit(main(*(sys.argv[1:] or ["tree"])))

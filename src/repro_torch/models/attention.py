@@ -8,8 +8,10 @@ functional pairs: GQA's ``(k, v)`` [B, Hkv, Sc, hd], MLA's compressed
 new tensors and never writes into the ones it was given. Prefill and
 training attend through ``ops.attention`` (the flash kernel on the card;
 MLA's q and k are 192 wide and its v 128); decode attends through the
-plain ``_cached_attention``, as the reference does. The reference's
-``parallel.shard`` calls are no-ops without a mesh and are dropped here.
+plain ``_cached_attention``, as the reference does. ``parallel.shard``
+sits where the reference constrains GQA's tensors: a no-op without a
+mesh; over one, ``models.meshed`` runs flash, the cached attention and the
+cache writes on each rank's shards.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 from torch import nn
 
 from ..kernels import ops
+from ..parallel import shard
+from . import meshed
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, rope
 
@@ -99,14 +103,21 @@ def apply_attn(
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     b, s, d = x.shape
     h, hd = cfg.eff_heads, cfg.head_dim
+    pol = meshed.mesh_policy()
 
-    q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bhsk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bhsk", x, p.wv)
+    if pol is None:
+        q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
+        k = torch.einsum("bsd,dhk->bhsk", x, p.wk)
+        v = torch.einsum("bsd,dhk->bhsk", x, p.wv)
+    else:
+        q, k, v = (_heads(x, w) for w in (p.wq, p.wk, p.wv))
 
     cos, sin = rope(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = shard(q, "heads")
+    k = shard(k, "kv_heads")
+    v = shard(v, "kv_heads")
 
     window = cfg.window if local else None
     new_cache = None
@@ -114,22 +125,33 @@ def apply_attn(
         ck, cv = cache
         ring = window is not None and ck.shape[2] <= window
         if ring:
+            if pol is not None:
+                raise NotImplementedError("apply_attn: a ring-buffer window cache over a mesh "
+                                          "is not supported yet")
             # ring-buffer window cache: keep only the trailing buffer rows
             rows = ck.shape[2]
             ck = torch.cat([ck, k], dim=2)[:, :, -rows:]
             cv = torch.cat([cv, v], dim=2)[:, :, -rows:]
+        elif pol is not None:
+            spec = pol.spec("kv_cache")
+            ck = meshed.update_rows(ck, k, pos, pol, spec, write=_update_rows)
+            cv = meshed.update_rows(cv, v, pos, pol, spec, write=_update_rows)
         else:
             ck = _update_rows(ck, k, pos)
             cv = _update_rows(cv, v, pos)
+        ck = shard(ck, "kv_cache")
+        cv = shard(cv, "kv_cache")
         new_cache = (ck, cv)
 
+    flags = dict(window=window, softcap=cfg.attn_softcap, prefix_len=cfg.prefix_len)
     if cache is None or prefill:
         # attention within the current segment (training, or prefill where
         # the cache starts empty and all context is in this call)
-        out = ops.attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window,
-            softcap=cfg.attn_softcap, prefix_len=cfg.prefix_len,
-        )
+        if pol is not None:
+            out = meshed.attention(q, k, v, pol, attend=_flash, causal=True, **flags)
+        else:
+            out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                                **flags)
     else:
         ck, cv = new_cache
         if window is not None and ck.shape[2] <= window:
@@ -138,23 +160,45 @@ def apply_attn(
         else:
             q_offset = pos
             min_col = None
-        out = _cached_attention(
-            q, ck, cv, q_offset=q_offset, window=window,
-            softcap=cfg.attn_softcap, prefix_len=cfg.prefix_len,
-            min_col=min_col,
-        )
+        if pol is not None:
+            out = meshed.cached_attention(q, ck, cv, pol, pol.spec("kv_cache"),
+                                          local=_cached_attention, q_offset=q_offset,
+                                          min_col=min_col, **flags)
+        else:
+            out = _cached_attention(q, ck, cv, q_offset=q_offset, min_col=min_col, **flags)
 
+    out = shard(out, "heads")
     out = out.transpose(1, 2).reshape(b, s, h * hd)
-    y = torch.einsum("bsk,kd->bsd", out, p.wo)
-    return y, new_cache
+    y = torch.einsum("bsk,kd->bsd", out, p.wo) if pol is None else meshed.project(out, p.wo)
+    return shard(y, "act_btd"), new_cache
+
+
+def _heads(x, w):
+    """``einsum("bsd,dhk->bhsk")`` over DTensors, through
+    ``meshed.project``'s batched product (rows sharded over both the batch
+    and the sequence in the backward)."""
+    b, s, _ = x.shape
+    d, h, hd = w.shape
+    return meshed.project(x, w.reshape(d, h * hd)).reshape(b, s, h, hd).transpose(1, 2)
+
+
+def _flash(q, k, v, **flags):
+    return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), **flags)
 
 
 def _cached_attention(q, k, v, *, q_offset: Pos, window, softcap, prefix_len,
-                      min_col: Optional[Pos] = None):
+                      min_col: Optional[Pos] = None, row0: int = 0,
+                      part: Optional[str] = None, m=None):
     """Attention against a cache where ``q_offset`` and ``min_col`` may be
     device scalars (the decode position), masked with them on the device:
     ``cols <= q_offset + row``. Masked logits are ``-1e30``, as in the
-    reference."""
+    reference.
+
+    Over a mesh whose ranks hold the cache's rows from ``row0`` on
+    (``meshed.cached_attention``): ``part="max"`` gives the row maxima of
+    this rank's scores ``[B, H, Sq]``; ``part="sums"`` with the global
+    maxima ``m``, this rank's exp-sums ``[B, H, Sq]`` and weighted values
+    ``[B, H, Sq, Dv]``, both float32."""
     b, h, sq, hd = q.shape
     _, hkv, sk, _ = k.shape
     dv = v.shape[-1]
@@ -167,6 +211,8 @@ def _cached_attention(q, k, v, *, q_offset: Pos, window, softcap, prefix_len,
         s = softcap * torch.tanh(s / softcap)
     rows = q_offset + torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(sk, device=q.device)[None, :]
+    if row0:
+        cols = cols + row0
     mask = cols <= rows
     if window is not None:
         mask &= cols > rows - window
@@ -175,6 +221,12 @@ def _cached_attention(q, k, v, *, q_offset: Pos, window, softcap, prefix_len,
     if min_col is not None:
         mask &= cols >= min_col
     s = s.masked_fill(~mask, -1e30)
+    if part == "max":  # one rank's part of a softmax over sharded rows
+        return s.amax(dim=-1).reshape(b, h, sq)
+    if part == "sums":
+        e = torch.exp(s - m.reshape(b, hkv, group, sq, 1))
+        o = torch.einsum("bkgql,bkld->bkgqd", e, v.float())
+        return e.sum(dim=-1).reshape(b, h, sq), o.reshape(b, h, sq, dv)
     prob = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgql,bkld->bkgqd", prob, v.float())
     return out.reshape(b, h, sq, dv).to(q.dtype)
@@ -257,13 +309,21 @@ def apply_mla(
     k_rope_b = r_all[:, None].expand((b, h) + tuple(r_all.shape[1:]))
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+    q_full = shard(q_full, "heads")
+    k_full = shard(k_full, "heads")
+    v = shard(v, "heads")
 
+    pol = meshed.mesh_policy()
     if cache is None or prefill:
         out = ops.attention(q_full.contiguous(), k_full.contiguous(), v.contiguous(),
                             causal=True)
+    elif pol is not None:  # the heads' layout: each rank's heads against the whole cache
+        out = meshed.cached_attention(q_full, k_full, v, pol, pol.spec("heads"),
+                                      local=_cached_attention, q_offset=pos, window=None,
+                                      softcap=None, prefix_len=0)
     else:
         out = _cached_attention(q_full, k_full, v, q_offset=pos, window=None, softcap=None,
                                 prefix_len=0)
     out = out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
-    y = torch.einsum("bsk,kd->bsd", out, p.wo)
-    return y, new_cache
+    y = torch.einsum("bsk,kd->bsd", out, p.wo) if pol is None else meshed.project(out, p.wo)
+    return shard(y, "act_btd"), new_cache

@@ -33,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..parallel import shard
+from . import meshed
 from .config import ArchConfig
 from .layers import dense_init
 
@@ -65,7 +67,8 @@ class GatedMlp(nn.Module):
 def apply_ffn(p: GatedMlp, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(torch.einsum("bsd,df->bsf", x, p.w_gate))
     h = h * torch.einsum("bsd,df->bsf", x, p.w_up)
-    return torch.einsum("bsf,fd->bsd", h, p.w_down)
+    h = shard(h, "ffn_hidden")
+    return shard(torch.einsum("bsf,fd->bsd", h, p.w_down), "act_btd")
 
 
 def padded_experts(cfg: ArchConfig, tp_size: int = 16) -> int:
@@ -126,11 +129,12 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _groups(x: torch.Tensor, cfg: ArchConfig) -> Tuple[int, int, int]:
-    """(token groups, tokens per group, capacity C per expert)."""
+def _groups(x: torch.Tensor, cfg: ArchConfig, g: Optional[int] = None) -> Tuple[int, int, int]:
+    """(token groups, tokens per group, capacity C per expert); ``g`` the
+    groups of ``x`` where it is one rank's share of a batch."""
     m = cfg.moe
     b, s, _ = x.shape
-    g = max(1, min(m.dispatch_groups, b))
+    g = g or max(1, min(m.dispatch_groups, b))
     tg = b * s // g
     cap = max(int(tg * m.top_k / m.n_experts * m.capacity_factor), 1)
     return g, tg, min(cap, tg)
@@ -139,17 +143,29 @@ def _groups(x: torch.Tensor, cfg: ArchConfig) -> Tuple[int, int, int]:
 def route_moe(p: MoeFfn, x: torch.Tensor, cfg: ArchConfig) -> MoeRouting:
     """The router (float32 softmax, token-choice top-k, renormalised) and
     the expert-choice capacity dispatch over it."""
+    return _route(x, p.router, p.w_gate.shape[0], cfg)
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, e_pad: int, cfg: ArchConfig,
+           e0: int = 0, e_loc: Optional[int] = None, groups: Optional[int] = None
+           ) -> MoeRouting:
+    """``route_moe`` over experts ``[e0, e0 + e_loc)`` of the ``e_pad``
+    (all of them by default) in ``groups`` token groups (``_groups``): each
+    expert's top-C rows are its own, so a rank of an expert-parallel mesh
+    routes its experts alone."""
     k = cfg.moe.top_k
-    e_pad = p.w_gate.shape[0]
-    g, tg, cap = _groups(x, cfg)
+    g, tg, cap = _groups(x, cfg, groups)
     xg = x.reshape(g, tg, x.shape[-1])
-    logits = torch.einsum("gtd,de->gte", xg.float(), p.router)
+    logits = torch.einsum("gtd,de->gte", xg.float(), router)
     probs = torch.softmax(logits, dim=-1)        # [G, Tg, E]
     top_p, top_e = _top_k(probs, k)             # [G, Tg, k]
     top_p = top_p / (top_p.sum(dim=-1, keepdim=True) + 1e-9)
     assign = torch.zeros((g, tg, e_pad), dtype=torch.float32, device=x.device)
     assign.scatter_(2, top_e, top_p)            # a token's k experts are distinct
-    top_scores, token_idx = _top_k(assign.transpose(1, 2), cap)  # [G, E_pad, C]
+    scores = assign.transpose(1, 2)
+    if e_loc is not None:
+        scores = scores[:, e0:e0 + e_loc]
+    top_scores, token_idx = _top_k(scores, cap)  # [G, E, C]
     return MoeRouting(top_p, top_e, token_idx, top_scores, top_scores > 0.0)
 
 
@@ -177,35 +193,64 @@ def apply_moe(p: MoeFfn, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
     Dispatch happens within ``g = moe.dispatch_groups`` batch-aligned token
     groups (g=1 -> one global group); the g groups' expert tiles share one
-    grouped-GEMM launch per product.
+    grouped-GEMM launch per product. Over a mesh the experts are sharded
+    over ``model`` (``meshed.moe``) and the combine is summed across it in
+    ``moe.combine_dtype``.
     """
-    b, s, d = x.shape
-    e_pad, _, de = p.w_gate.shape
-    g, tg, cap = _groups(x, cfg)
     cdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.moe.combine_dtype]
-    r = route_moe(p, x, cfg)
+    pol = meshed.mesh_policy()
+    if pol is None:
+        e_pad = p.w_gate.shape[0]
+        out = _moe_block(x, p.router, p.w_gate, p.w_up, p.w_down, 0, e_pad, None, cfg,
+                         cdt).to(x.dtype)
+    else:
+        core = lambda *a: _moe_block(*a, cfg, cdt, cached=False)  # noqa: E731
+        out = meshed.moe(x, p.router, p.w_gate, p.w_up, p.w_down, pol, core=core,
+                         groups=cfg.moe.dispatch_groups, cdt=cdt)
+        out = shard(out, "act_btd").to(x.dtype)
+    if p.shared is not None:
+        out = out + apply_ffn(p.shared, x)
+    return out
+
+
+def _moe_block(x, router, w_gate, w_up, w_down, e0: int, e_pad: int, groups: Optional[int],
+               cfg: ArchConfig, cdt, cached: bool = True) -> torch.Tensor:
+    """The routed experts on experts ``[e0, e0 + E_loc)`` (``w_*``'s first
+    axis) of the ``e_pad``, in ``groups`` token groups (``None``: as
+    ``_groups`` counts them): their share of the combine, in ``cdt``.
+    ``cached`` reuses the tile ids and error flag of ``_expert_tiles``
+    (off over a mesh, where the tensors may be a trace's fakes)."""
+    b, s, d = x.shape
+    e_loc = w_gate.shape[0]
+    g, tg, cap = _groups(x, cfg, groups)
+    r = _route(x, router, e_pad, cfg, e0, e_loc if e_loc != e_pad else None, g)
 
     xg = x.reshape(g, tg, d)
     gi = torch.arange(g, device=x.device)[:, None, None]
-    xe = xg[gi, r.token_idx].reshape(g * e_pad * cap, d)      # [G*E_pad*C, D]
-    tiles, err = _expert_tiles(x.device, e_pad, g)
+    xe = xg[gi, r.token_idx].reshape(g * e_loc * cap, d)      # [G*E_loc*C, D]
+    if cached:
+        tiles, err = _expert_tiles(x.device, e_loc, g)
+    else:
+        tiles = torch.arange(e_loc, dtype=torch.int32, device=x.device).repeat(g)
+        err = torch.zeros(1, dtype=torch.int32, device=x.device)
     gmm = lambda a, w: ops.grouped_matmul(a, w, tiles, block_m=cap, err=err)  # noqa: E731
-    h = F.silu(gmm(xe, p.w_gate)) * gmm(xe, p.w_up)
-    ye = gmm(h, p.w_down).reshape(g, e_pad, cap, d)
+    h = F.silu(gmm(xe, w_gate)) * gmm(xe, w_up)
+    ye = gmm(h, w_down).reshape(g, e_loc, cap, d)
     ye = (ye * (r.top_scores * r.valid)[..., None].to(ye.dtype)).to(cdt)
 
     # Combine: row (g, e, c) of ye belongs to token token_idx[g, e, c]. For
     # each token, look up where each of its k experts kept it (a missing
-    # or dropped assignment points at a zero row) and sum those rows.
-    n_rows = g * e_pad * cap
-    flat = torch.arange(n_rows, device=x.device).reshape(g, e_pad, cap)
+    # or dropped assignment, or an expert of another rank, points at a zero
+    # row) and sum those rows.
+    n_rows = g * e_loc * cap
+    flat = torch.arange(n_rows, device=x.device).reshape(g, e_loc, cap)
     flat = torch.where(r.valid, flat, torch.full_like(flat, n_rows))
-    where = torch.full((g, e_pad, tg), n_rows, dtype=flat.dtype, device=x.device)
+    where = torch.full((g, e_loc, tg), n_rows, dtype=flat.dtype, device=x.device)
     where.scatter_(2, r.token_idx, flat)       # an expert's C tokens are distinct
-    inv = torch.gather(where.transpose(1, 2), 2, r.top_e)     # [G, Tg, k]
+    slot = r.top_e
+    if e_loc != e_pad:  # a rank's experts: another rank's expert reads the zero row
+        where = torch.cat([where, where.new_full((g, 1, tg), n_rows)], dim=1)
+        slot = torch.where((slot >= e0) & (slot < e0 + e_loc), slot - e0, e_loc)
+    inv = torch.gather(where.transpose(1, 2), 2, slot)     # [G, Tg, k]
     rows = torch.cat([ye.reshape(n_rows, d), ye.new_zeros((1, d))])
-    out = rows[inv].sum(dim=2).reshape(b, s, d).to(x.dtype)
-
-    if p.shared is not None:
-        out = out + apply_ffn(p.shared, x)
-    return out
+    return rows[inv].sum(dim=2).reshape(b, s, d)

@@ -42,7 +42,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: float = 1.0) -> torch.Tensor:
     """Normal(0, 1) from ``gen`` (on the generator's device), times
-    ``scale / sqrt(fan_in)``, in ``dtype``; fan_in is ``shape[0]``."""
+    ``scale / sqrt(fan_in)``, in ``dtype``; fan_in is ``shape[0]``. On the
+    meta device an empty tensor of that shape and dtype."""
+    if gen.device.type == "meta":  # shapes only (``init_params(device="meta")``)
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=gen.device)
     return (scale * x / float(np.sqrt(fan_in))).to(dtype)

@@ -34,6 +34,8 @@ modes.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
@@ -42,7 +44,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..core.buffers import DeviceLike, resolve_device
-from ..parallel import shard
+from ..parallel import current_policy, shard
 from ..tree import tree_map
 from .attention import GqaAttention, MlaAttention, init_attn, init_mla
 from .config import ATTN_GLOBAL, ATTN_LOCAL, MAMBA, MLA, RGLRU, ArchConfig
@@ -52,8 +54,8 @@ from .recurrent import Mamba, RgLru, init_mamba, init_rglru
 
 __all__ = [
     "FRONTEND_DIMS", "LAYER_KINDS", "LayerKind", "layer_kind", "Block", "LanguageModel", "pad_vocab", "split_pattern",
-    "init_params", "init_cache", "forward", "loss_fn", "loss_and_grads", "prefill",
-    "decode_step",
+    "init_params", "param_shapes", "init_cache", "forward", "loss_fn", "loss_and_grads",
+    "prefill", "decode_step", "remat_policy",
 ]
 
 # The width of a frontend's precomputed embeddings (EnCodec frames, SigLIP
@@ -62,6 +64,49 @@ FRONTEND_DIMS = {"audio_stub": 512, "vision_stub": 1152}
 
 Cache = Dict[str, List[Any]]
 Pos = Union[int, torch.Tensor]
+
+
+# Remat policy for the per-stage checkpoint: "nothing" (recompute the
+# whole stage in the backward, the least memory) or "dots" (save matmul and
+# kernel outputs, skipping the recompute of the big GEMMs and of the
+# collectives around them, at more activation memory).
+_REMAT_POLICY = "nothing"
+_REMAT_POLICIES = ("nothing", "dots")
+
+
+@contextlib.contextmanager
+def remat_policy(name: str):
+    """Run the per-stage recompute (``remat=True``) under policy ``name``:
+    ``"nothing"`` (the default) or ``"dots"``, which saves the outputs of
+    matrix products and of the flash and grouped-GEMM ops through
+    ``torch.utils.checkpoint``'s selective checkpointing."""
+    global _REMAT_POLICY
+    if name not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy: {name!r} is not one of {_REMAT_POLICIES}")
+    prev = _REMAT_POLICY
+    _REMAT_POLICY = name
+    try:
+        yield
+    finally:
+        _REMAT_POLICY = prev
+
+
+def _saves_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default, torch.ops.repro_torch.flash_attention_lse.default,
+             torch.ops.repro_torch.grouped_matmul_fwd.default)
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_kwargs() -> Dict[str, Any]:
+    if _REMAT_POLICY == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _saves_dots)}
+    return {}
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -242,6 +287,13 @@ def _init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
     return layer
 
 
+class _MetaGenerator:
+    """What the initializers read of a generator on the meta device: its
+    device (``layers.dense_init`` then draws nothing)."""
+
+    device = torch.device("meta")
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda",
                 tp_size: int = 16) -> LanguageModel:
@@ -249,10 +301,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda",
     on ``device`` (the numbers differ from ``jax.random``'s; the tests carry
     the reference's weights across with ``models.convert`` instead). MoE
     layers pad their experts to a multiple of ``tp_size``, as the
-    reference does."""
+    reference does. ``device="meta"`` gives the shapes and dtypes alone,
+    allocating and drawing nothing: the counterpart of the reference's
+    ``jax.eval_shape(init_params)`` (see :func:`param_shapes`)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = _MetaGenerator()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     dtype = DTYPES[cfg.dtype]
     d = cfg.d_model
     v_pad = pad_vocab(cfg.vocab)
@@ -271,6 +328,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device: DeviceLike = "cuda",
                             for kind in cfg.pattern_unit)
                       for _ in range(n_stages)]
     return LanguageModel(cfg, tree)
+
+
+def param_shapes(cfg: ArchConfig, tp_size: int = 16) -> Dict[str, Any]:
+    """The parameter tree (``LanguageModel.param_tree``'s layout) as meta
+    tensors: every leaf's shape and dtype, nothing allocated."""
+    return init_params(cfg, device="meta", tp_size=tp_size).param_tree()
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +369,13 @@ def _embed(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor) -> torc
         dt = torch.promote_types(inputs.dtype, params.frontend_proj.dtype)
         x = torch.einsum("bsf,fd->bsd", inputs.to(dt), params.frontend_proj.to(dt))
     else:
-        x = params.embed[inputs.long()]
+        pol = current_policy()
+        if pol is not None and pol.mesh is not None:  # the vocab-sharded table
+            from .meshed import embed
+
+            x = embed(inputs, params.embed, pol)
+        else:
+            x = params.embed[inputs.long()]
     if cfg.embed_scale:
         # sqrt(d) as float32, applied in float32 before the cast to the
         # model dtype (the reference's order, which matters for bf16)
@@ -330,6 +399,16 @@ def _run_stage(stage: nn.ModuleList, x: torch.Tensor, positions: torch.Tensor) -
     return x
 
 
+def _run_stage_on_mesh(pol, stage: nn.ModuleList, x: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """``_run_stage`` under the mesh policy ``pol``, which the recompute
+    in the backward may need on another thread."""
+    from .meshed import mesh_context
+
+    with mesh_context(pol):
+        return _run_stage(stage, x, positions)
+
+
 def _run_layers(params: LanguageModel, x, positions, cache, pos, prefill_mode, remat=False):
     new_prefix = []
     for i, block in enumerate(params.prefix):
@@ -337,11 +416,15 @@ def _run_layers(params: LanguageModel, x, positions, cache, pos, prefill_mode, r
         x, nc = block(x, positions, entry, pos, prefill_mode)
         new_prefix.append(nc)
     if remat and cache is None and torch.is_grad_enabled():
-        # As the reference's jax.checkpoint(nothing_saveable) per stage: keep
-        # each stage's input, recompute the rest in the backward.
+        # As the reference's jax.checkpoint per stage: keep each stage's
+        # input (and, under remat_policy("dots"), its products' outputs) and
+        # recompute the rest in the backward.
+        pol = current_policy()
+        run = (_run_stage if pol is None or pol.mesh is None
+               else functools.partial(_run_stage_on_mesh, pol))
         for stage in params.stages:
-            x = torch.utils.checkpoint.checkpoint(_run_stage, stage, x, positions,
-                                                  use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(run, stage, x, positions,
+                                                  use_reentrant=False, **_checkpoint_kwargs())
         return x, None
     new_stages = []
     for si, stage in enumerate(params.stages):
@@ -373,6 +456,11 @@ def loss_fn(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor,
     """Mean next-token cross entropy; the padded vocab columns are masked
     out (logit -1e30), as in the reference."""
     logits = forward(params, cfg, inputs, remat=remat)
+    pol = current_policy()
+    if pol is not None and pol.mesh is not None:  # vocab-sharded logits
+        from .meshed import cross_entropy
+
+        return cross_entropy(logits, labels, cfg.vocab, pol)
     col = torch.arange(logits.shape[-1], device=logits.device)
     logits = torch.where(col < cfg.vocab, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)

@@ -9,7 +9,12 @@ reference's formula, weight decay inside the step
 leaf by leaf and in place: the params, master, m, v and step are updated
 where they lie, so a 2.7 B-parameter model's state (32.7 GB of float32
 master, m and v) is never held twice, as a functional update would hold
-it."""
+it.
+
+``opt_specs`` is ZeRO-1 over a mesh: master, m and v take their
+parameter's spec and are also sharded over the data axes along the first
+unsharded dim that those axes divide, since the state is only needed
+shard by shard at the update."""
 
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm"]
+__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm", "opt_specs"]
 
 
 def adamw_init(params: Any) -> Dict[str, Any]:
@@ -77,3 +82,26 @@ def adamw_update(
         master.sub_(lr * update)
         p.copy_(master)
     return params, state
+
+
+def opt_specs(param_spec_tree: Any, dp: Tuple[str, ...], dp_size: int,
+              shapes: Any) -> Dict[str, Any]:
+    """ZeRO-1 specs for ``adamw_init``'s state: on top of each parameter's
+    own spec (``param_spec_tree``, in the params' tree), master, m and v
+    are sharded over the data axes ``dp`` (``dp_size`` ranks in all) along
+    the first unsharded dim of ``shapes`` (the params' tree of tensors,
+    real, meta or fake) that ``dp_size`` divides."""
+
+    def zero1(shape: torch.Tensor, spec: Tuple[Any, ...]) -> Tuple[Any, ...]:
+        dims = tuple(shape.shape)
+        if not dims:
+            return ()
+        entries = list(spec) + [None] * (len(dims) - len(spec))
+        for i, d in enumerate(dims):
+            if entries[i] is None and dp_size > 0 and d % dp_size == 0:
+                entries[i] = dp
+                break
+        return tuple(entries)
+
+    per_leaf = tree_map(zero1, shapes, param_spec_tree)
+    return {"step": (), "master": per_leaf, "m": per_leaf, "v": per_leaf}

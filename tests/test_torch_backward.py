@@ -162,7 +162,8 @@ def test_grouped_matmul_function_matches_autograd_through_plain(case, dtype):
         xt, wt = (torch.from_numpy(a).to(T_DTYPES[dtype]).requires_grad_(True) for a in (x, w))
         out = fn(xt, wt, torch.from_numpy(tiles), block_m=bm)
         if fn is ops.grouped_matmul:
-            assert type(out.grad_fn).__name__ == "_GroupedMatmulFunctionBackward"
+            assert type(out.grad_fn).__name__ == (
+                "GeneratedBackwardFor_repro_torch_grouped_matmul_fwd_defaultBackward")
         out.backward(torch.from_numpy(dy).to(T_DTYPES[dtype]))
         grads.append((xt.grad, wt.grad))
     (gx, gw), (wx, ww) = grads

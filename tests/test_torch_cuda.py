@@ -1862,3 +1862,57 @@ def test_train_gradients_on_the_card_match_the_cpu(device, name):
     assert torch.equal(loss, loss_b)
     for (_, a), (_, b) in zip(mine, tree_leaves_with_names(no_remat)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The torch.library ops against the launch functions under them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_ops_give_the_launch_path_bits_and_counts(device, dtype):
+    """``flash_attention`` (the op ``flash_attention``), under grad (the op
+    ``flash_attention_lse`` and its autograd, the op
+    ``flash_attention_bwd``) and the lse and backward entries give the
+    bits of ``_forward`` and ``_backward`` called directly, one launch
+    each, as before the ops."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    q = torch.randn(2, 8, 96, 64, generator=gen, device=device).to(dtype)
+    k = torch.randn(2, 4, 96, 64, generator=gen, device=device).to(dtype)
+    v = torch.randn(2, 4, 96, 64, generator=gen, device=device).to(dtype)
+    do = torch.randn(2, 8, 96, 64, generator=gen, device=device).to(dtype)
+    masks, scale = fa._masks(True, None, None, 0, 0), 64 ** -0.5
+    want, want_lse = fa._forward(q, k, v, masks, scale, True)
+    want_d = fa._backward(q, k, v, want, want_lse, do, masks, scale)
+    fa.reset_launches()
+    assert torch.equal(fa.flash_attention(q, k, v), want) and fa.launches == 1
+    out, lse = fa.flash_attention_lse(q, k, v)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse) and fa.launches == 2
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(g, w) for g, w in zip(got, want_d)) and fa.backward_launches == 1
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    assert torch.equal(out, want) and fa.launches == 3
+    out.backward(do)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want_d))
+    assert fa.backward_launches == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_matmul_ops_give_the_launch_path_bits_and_counts(device, dtype):
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn(6 * 16, 96, generator=gen, device=device).to(dtype)
+    w = torch.randn(4, 96, 80, generator=gen, device=device).to(dtype)
+    dy = torch.randn(6 * 16, 80, generator=gen, device=device).to(dtype)
+    tiles = torch.tensor([0, 1, 1, 3, 2, 0], dtype=torch.int32, device=device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    want = gm._forward(x, w, tiles, 16, err)
+    want_dx, want_dw = gm.grouped_matmul_bwd(x, w, tiles, dy, block_m=16)
+    gm.reset_launches()
+    assert torch.equal(gm.grouped_matmul(x, w, tiles, block_m=16), want) and gm.launches == 1
+    assert torch.equal(gm.grouped_matmul(x, w, tiles, block_m=16, err=err), want)
+    xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    out = gm.grouped_matmul(xl, wl, tiles, block_m=16, err=err)
+    assert torch.equal(out, want) and gm.launches == 3
+    out.backward(dy)
+    assert torch.equal(xl.grad, want_dx) and torch.equal(wl.grad, want_dw)
+    assert (gm.dx_launches, gm.dw_launches) == (1, 1) and int(err) == 0

@@ -4,10 +4,12 @@ neither JAX, nor ``ml_dtypes``, nor the reference package, no source line
 them, and an entry point called without ``device=`` on a host without a
 card raises instead of moving to the CPU. Its public surface matches the
 reference's: ``repro_torch.core``, ``models``, ``runtime``, ``data`` and
-``checkpoint`` export every name of their reference packages (``loss_fn``,
-``Trainer`` and ``TrainerConfig`` among them), ``optim`` and ``parallel``
-every name but the TPU mesh's sharding specs, and each name the two
-``kernels`` packages share is a function in both or a module in both."""
+``checkpoint``, ``optim`` and ``parallel`` export every name of their
+reference packages (``loss_fn``, ``Trainer``, ``TrainerConfig``,
+``opt_specs`` and ``policy_for`` among them), each module of the
+reference's ``launch`` has a port with every public function of it, and
+each name the two ``kernels`` packages share is a function in both or a
+module in both."""
 
 import os
 import pkgutil
@@ -156,11 +158,6 @@ def test_public_surface_matches_the_reference():
         assert inspect.ismodule(getattr(T_kernels, name)), name
 
 
-# The reference's names the port leaves out: ZeRO-1 and PartitionSpec trees
-# for TPU meshes, which wait for a multi-GPU slice (ROADMAP).
-_MESH_ONLY = {"opt_specs", "param_specs", "batch_specs", "cache_specs", "policy_for"}
-
-
 @pytest.mark.parametrize("package", ["models", "runtime", "optim", "data", "checkpoint",
                                      "parallel"])
 def test_training_surface_matches_the_reference(package):
@@ -168,10 +165,30 @@ def test_training_surface_matches_the_reference(package):
 
     theirs = importlib.import_module(f"repro.{package}")
     ours = importlib.import_module(f"repro_torch.{package}")
-    assert set(theirs.__all__) - _MESH_ONLY <= set(ours.__all__)
-    for name in set(theirs.__all__) - _MESH_ONLY:
+    assert set(theirs.__all__) <= set(ours.__all__)
+    for name in set(theirs.__all__):
         assert callable(getattr(ours, name)) == callable(getattr(theirs, name)), name
     if package == "models":
         assert {"loss_fn", "forward", "init_params"} <= set(ours.__all__)
     if package == "runtime":
         assert {"Trainer", "TrainerConfig"} <= set(ours.__all__)
+
+
+_REF_LAUNCH = sorted(p.stem for p in (ROOT / "src" / "repro" / "launch").glob("*.py")
+                     if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("module", _REF_LAUNCH)
+def test_launch_modules_match_the_reference(module):
+    """Every public function of the reference's ``launch/<module>.py`` (read
+    from its source: importing some of them sets the XLA device count) is a
+    function of the port's module."""
+    import ast
+    import importlib
+
+    tree = ast.parse((ROOT / "src" / "repro" / "launch" / f"{module}.py").read_text())
+    public = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+              and not n.name.startswith("_")}
+    ours = importlib.import_module(f"repro_torch.launch.{module}")
+    assert public and all(callable(getattr(ours, name, None)) for name in public), \
+        sorted(name for name in public if not callable(getattr(ours, name, None)))

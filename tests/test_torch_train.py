@@ -318,15 +318,20 @@ def test_flash_wrapper_is_differentiable_on_the_cpu():
     assert not fa.kernel_takes(200, 128) and not fa.kernel_takes(192, 136)
     assert not hasattr(fa, "backward_takes")  # one rule for both directions
     src = inspect.getsource(fa.flash_attention)
-    assert "_FlashFunction.apply" in src and "raise" not in src.split("_FlashFunction")[0].split(
-        "is_grad_enabled")[1]
+    route = "torch.ops.repro_torch.flash_attention_lse.default("
+    assert route in src and "raise" not in src.split(route)[0].split("is_grad_enabled")[1]
+    out = fa.flash_attention(q, q.detach(), q.detach())
+    assert type(out.grad_fn).__name__ == (
+        "GeneratedBackwardFor_repro_torch_flash_attention_lse_defaultBackward")
+    assert "flash_attention_bwd.default(" in inspect.getsource(fa._lse_backward)
 
 
-# name -> (module, Function, the function its backward calls, the C entries
-# that function reaches, where they are named).
+# name -> (module, Function (or torch.library op), the function its backward
+# calls, the C entries that function reaches, where they are named).
 BACKWARDS = {
-    "grouped_matmul": ("grouped_matmul", "_GroupedMatmulFunction", "grouped_matmul_bwd",
-                       ("acs_grouped_matmul_dx", "acs_grouped_matmul_dw"), "grouped_matmul_bwd"),
+    "grouped_matmul": ("grouped_matmul", "torch.ops.repro_torch.grouped_matmul_fwd.default",
+                       "grouped_matmul_bwd", ("acs_grouped_matmul_dx", "acs_grouped_matmul_dw"),
+                       "grouped_matmul_bwd"),
     "lru_scan": ("lru_scan", "_LruScanFunction", "lru_scan_bwd", ("acs_lru_scan_bwd",),
                  "lru_scan_bwd"),
     "selective_scan": ("selective_scan", "_SelectiveScanFunction", "selective_scan_bwd",
@@ -348,9 +353,17 @@ def test_backward_kernels_replace_refuse_grad(name):
     assert "refuse_grad" not in inspect.getsource(mod)
     assert not hasattr(importlib.import_module("repro_torch.kernels._nvcc"), "refuse_grad")
     src = inspect.getsource(getattr(mod, name))
-    assert f"{function}.apply" in src
-    assert src.index("torch.is_grad_enabled()") < src.index(f"{function}.apply")
-    assert f"{bwd_fn}(" in inspect.getsource(getattr(mod, function).backward)
+    if function.startswith("torch.ops."):  # a torch.library op and its autograd
+        route = f"{function}("
+        backward = "\n".join(inspect.getsource(f) for f in (
+            mod._fwd_backward, mod._gmm_bwd_op._init_fn))
+        assert "torch.ops.repro_torch.grouped_matmul_bwd.default(" in backward
+    else:
+        route = f"{function}.apply"
+        backward = inspect.getsource(getattr(mod, function).backward)
+    assert route in src
+    assert src.index("torch.is_grad_enabled()") < src.index(route)
+    assert f"{bwd_fn}(" in backward
     bwd = inspect.getsource(getattr(mod, bwd_fn))
     assert holder == bwd_fn or f"{holder}(" in bwd
     launch = inspect.getsource(getattr(mod, holder))
