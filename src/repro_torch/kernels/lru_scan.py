@@ -18,13 +18,17 @@ decode step: the C entry point is looked up once, the shape, dtype, device
 and contiguity checks run once per distinct key of those (cached), and
 the stream handle comes from PyTorch's raw accessor.
 
-Training: where an input needs a gradient the call is a
-``torch.autograd.Function`` that saves ``a``, its output ``h`` and ``h0``,
-and whose backward is the reverse scan ``acs_lru_scan_bwd`` of the same
-``csrc/lru_scan.cu`` (``db``, ``da``, and ``dh0`` only where ``h0`` needs
-one; bit-equal to :func:`~.ref.lru_scan_bwd_ref` on the card, counted on
-``backward_launches``). On the CPU the same Function runs the plain
-forward and the plain backward.
+Training and the mesh: the scan and its reverse scan are ``torch.library``
+ops, ``repro_torch::lru_scan`` and ``::lru_scan_bwd``, the first
+differentiable through the second (``register_autograd``, which saves
+``a``, the output ``h`` and ``h0``). The reverse scan is the entry
+``acs_lru_scan_bwd`` of the same ``csrc/lru_scan.cu`` (``da``, ``db``,
+``dh0``; bit-equal to :func:`~.ref.lru_scan_bwd_ref` on the card, counted
+on ``backward_launches``). Each op has the plain version on the CPU, the
+kernel on CUDA (no fallback), a fake implementation (shapes and dtypes: no
+build, no launch) for FakeTensorMode, a FLOP formula for the flop counter
+and a DTensor sharding rule: each rank scans its own batch rows or its own
+channels (over one mesh axis or several).
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. The kernel builds at first use (``_nvcc.py``).
@@ -109,12 +113,7 @@ def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:
 
 
 def _forward(a, b, h0):
-    """The scan on a's device: the plain version on the CPU, the kernel on
-    a CUDA tensor."""
-    if not a.is_cuda:
-        if a.device.type == "cpu":
-            return lru_scan_ref(a, b, h0)
-        raise ValueError(f"lru_scan: unsupported device {a.device}")
+    """The kernel on CUDA tensors, on the current stream, no sync."""
     key = (a.shape, b.shape, h0.shape, a.dtype, b.dtype, h0.dtype, a.get_device(),
            b.get_device(), h0.get_device(), a.is_contiguous(), b.is_contiguous(),
            h0.is_contiguous())
@@ -134,50 +133,134 @@ def _forward(a, b, h0):
     return out
 
 
-def lru_scan_bwd(a, h, h0, dh, *, need_dh0=True):
-    """The reverse scan: ``(da, db, dh0)`` in the dtypes of ``a``, ``h``
-    and ``h0`` from the forward's ``a``, output ``h`` and ``h0`` and the
-    output's gradient ``dh`` (``dh0`` None unless ``need_dh0``). The plain
-    version on the CPU; on CUDA tensors the kernel, on the current stream,
-    no sync."""
-    if a.device.type == "cpu":
-        da, db, dh0 = lru_scan_bwd_ref(a, h, h0, dh)
-        return da, db, dh0 if need_dh0 else None
-    if a.device.type != "cuda":
-        raise ValueError(f"lru_scan_bwd: unsupported device {a.device}")
+def _backward(a, h, h0, dh):
+    """The reverse scan on CUDA tensors: ``(da, db, dh0)``, on the current
+    stream, no sync."""
     _check(a, h, h0)
     dh = dh.to(h.dtype).contiguous()
     if dh.shape != h.shape or dh.device != a.device:
         raise ValueError(f"lru_scan_bwd: dh {tuple(dh.shape)} on {dh.device} does not match "
                          f"h {tuple(h.shape)} on {a.device}")
     n_batch, seq, dim = a.shape
-    da, db = torch.empty_like(a), torch.empty_like(h)
-    dh0 = torch.empty_like(h0) if need_dh0 else None
+    da, db, dh0 = torch.empty_like(a), torch.empty_like(h), torch.empty_like(h0)
     global backward_launches
     err = _LIB.get().acs_lru_scan_bwd(
         a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
-        None if dh0 is None else dh0.data_ptr(), n_batch, seq, dim, _DTYPES[a.dtype],
-        _DTYPES[h0.dtype], raw_stream(a.device))
+        dh0.data_ptr(), n_batch, seq, dim, _DTYPES[a.dtype], _DTYPES[h0.dtype],
+        raw_stream(a.device))
     if err != 0:
         raise RuntimeError(f"lru_scan backward launch failed: CUDA error {err}")
     backward_launches += 1
     return da, db, dh0
 
 
-class _LruScanFunction(torch.autograd.Function):
-    """The scan with ``a``, its output and ``h0`` saved; the reverse scan
-    (or its plain version on the CPU) for the gradient."""
+# ---------------------------------------------------------------------------
+# The torch.library ops: repro_torch::lru_scan (serving and training alike;
+# its autograd runs ::lru_scan_bwd) and ::lru_scan_bwd.
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, a, b, h0):
-        h = _forward(a, b, h0)
-        ctx.save_for_backward(a, h, h0)
-        return h
+@torch.library.custom_op("repro_torch::lru_scan", mutates_args=(), device_types="cpu")
+def _scan_op(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    return lru_scan_ref(a, b, h0)
 
-    @staticmethod
-    def backward(ctx, dh):
-        a, h, h0 = ctx.saved_tensors
-        return lru_scan_bwd(a, h, h0, dh, need_dh0=ctx.needs_input_grad[2])
+
+@_scan_op.register_kernel("cuda")
+def _scan_cuda(a, b, h0):
+    return _forward(a, b, h0)
+
+
+@_scan_op.register_fake
+def _scan_fake(a, b, h0):
+    return b.new_empty(b.shape)
+
+
+@torch.library.custom_op("repro_torch::lru_scan_bwd", mutates_args=(), device_types="cpu")
+def _scan_bwd_op(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor, dh: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return lru_scan_bwd_ref(a, h, h0, dh)
+
+
+@_scan_bwd_op.register_kernel("cuda")
+def _scan_bwd_cuda(a, h, h0, dh):
+    return _backward(a, h, h0, dh)
+
+
+@_scan_bwd_op.register_fake
+def _scan_bwd_fake(a, h, h0, dh):
+    return a.new_empty(a.shape), h.new_empty(h.shape), h0.new_empty(h0.shape)
+
+
+def _scan_setup(ctx, inputs, output):
+    a, _, h0 = inputs
+    ctx.save_for_backward(a, output, h0)
+
+
+def _scan_backward(ctx, dh):
+    a, h, h0 = ctx.saved_tensors
+    da, db, dh0 = torch.ops.repro_torch.lru_scan_bwd.default(a, h, h0, dh)
+    return da, db, (dh0 if ctx.needs_input_grad[2] else None)
+
+
+_scan_op.register_autograd(_scan_backward, setup_context=_scan_setup)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    def forward(a_shape, *_, out_shape=None, **__):
+        # h_t = a_t * h_{t-1} + b_t: a multiply and an add an element
+        n_batch, seq, dim = a_shape
+        return 2 * n_batch * seq * dim
+
+    def backward(a_shape, *_, out_shape=None, **__):
+        # the carry g_t = dh_t + a_{t+1} g_{t+1}, a multiply and an add at
+        # every step but the last; da_t = g_t h_{t-1}, a multiply at every
+        # step; dh0 = a_0 g_0, a multiply: 3 B S D - B D
+        n_batch, seq, dim = a_shape
+        return (3 * seq - 1) * n_batch * dim
+
+    register_flop_formula(torch.ops.repro_torch.lru_scan)(forward)
+    register_flop_formula(torch.ops.repro_torch.lru_scan_bwd)(backward)
+
+
+_register_flop_formulas()
+
+
+def _register_sharding() -> None:
+    """DTensor rules, one mesh axis at a time: every tensor replicated; the
+    batch sharded (dim 0 of each); or the channels sharded (dim 2 of the
+    ``[B, S, D]`` tensors, dim 1 of ``h0`` and ``dh0``). Channels sharded
+    on several axes (the batch unshardable: ``long_500k``) are this rule
+    on each."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    rep, batch = Replicate(), Shard(0)
+    chan, chan_h = Shard(2), Shard(1)
+
+    @register_sharding(torch.ops.repro_torch.lru_scan.default)
+    def _forward_rule(a, b, h0):
+        return [([rep], [rep] * 3), ([batch], [batch] * 3), ([chan], [chan, chan, chan_h])]
+
+    @register_sharding(torch.ops.repro_torch.lru_scan_bwd.default)
+    def _backward_rule(a, h, h0, dh):
+        return [([rep] * 3, [rep] * 4), ([batch] * 3, [batch] * 4),
+                ([chan, chan, chan_h], [chan, chan, chan_h, chan])]
+
+
+_register_sharding()
+
+
+def lru_scan_bwd(a, h, h0, dh, *, need_dh0=True):
+    """The reverse scan: ``(da, db, dh0)`` in the dtypes of ``a``, ``h``
+    and ``h0`` from the forward's ``a``, output ``h`` and ``h0`` and the
+    output's gradient ``dh`` (``dh0`` None unless ``need_dh0``). The plain
+    version on the CPU; on CUDA tensors the kernel, on the current stream,
+    no sync."""
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lru_scan_bwd: unsupported device {a.device}")
+    da, db, dh0 = torch.ops.repro_torch.lru_scan_bwd.default(a, h, h0, dh)
+    return da, db, dh0 if need_dh0 else None
 
 
 def lru_scan(
@@ -187,7 +270,5 @@ def lru_scan(
 ) -> torch.Tensor:
     """``h [B, S, D]`` in ``b``'s dtype, the carry in float32. Launches on
     the current CUDA stream without synchronizing. Differentiable on both
-    devices."""
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or h0.requires_grad):
-        return _LruScanFunction.apply(a, b, h0)
-    return _forward(a, b, h0)
+    devices (the op's autograd)."""
+    return torch.ops.repro_torch.lru_scan.default(a, b, h0)

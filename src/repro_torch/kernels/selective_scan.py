@@ -44,31 +44,37 @@ combine, the state loop's decay is ``ex2.approx`` (within 2 ulp of exp),
 and y sums its N terms in another order than the plain version's einsum.
 On the CPU each wrapper IS its plain version.
 
-Training: where an input needs a gradient, each entry is a
-``torch.autograd.Function`` (``_MambaScanFunction``,
-``_SelectiveScanFunction``) on both devices. On the card its forward is
-the same launch, also writing the carry-in state of each 64-step chunk
-after the first (``[B, ceil(S / 64) - 1, E, N]`` float32: 14.7 MB a layer
-at falcon-mamba-7b's training shape), and its backward is the entry
-``acs_mamba_scan_bwd`` of the same source (``mamba_scan_bwd``,
-``selective_scan_bwd``: the kernel, which recomputes each chunk from its
-saved state and runs the adjoint recurrence in reverse, its warps' db and
-dc summed once a chunk and the next chunk's tiles landing while one runs,
-and a reduction across its blocks (:func:`scan_bwd_grid`,
-:func:`scan_bwd_workspace`); counted on ``backward_launches``), held to
-``ref.mamba_scan_bwd_ref`` / ``ref.selective_scan_bwd_ref`` within 1e-5 of
-each gradient's largest entry in float32. The Function returns dense
-gradients for z, b and c; autograd's slicing places them in their wider
-projections. On the CPU the same Functions run the plain forward and the
-plain backward. Without a gradient the call writes no states: the
-serving call, bit for bit.
+Training and the mesh: :func:`mamba_scan` is the ``torch.library`` op
+``repro_torch::mamba_scan``, differentiable through ``::mamba_scan_bwd``
+(``register_autograd``); :func:`selective_scan`, which no model calls,
+is a ``torch.autograd.Function`` (``_SelectiveScanFunction``). Where an
+input needs a gradient, the forward is the same launch, also writing the
+carry-in state of each 64-step chunk after the first (``[B, ceil(S / 64)
+- 1, E, N]`` float32: 14.7 MB a layer at falcon-mamba-7b's training shape;
+the op's third output, as ``flash_attention_lse`` returns its lse, empty
+without a gradient), and its backward is the entry ``acs_mamba_scan_bwd``
+of the same source (``mamba_scan_bwd``, ``selective_scan_bwd``: the
+kernel, which recomputes each chunk from its saved state and runs the
+adjoint recurrence in reverse, its warps' db and dc summed once a chunk and
+the next chunk's tiles landing while one runs, and a reduction across its
+blocks (:func:`scan_bwd_grid`, :func:`scan_bwd_workspace`); counted on
+``backward_launches``), held to ``ref.mamba_scan_bwd_ref`` /
+``ref.selective_scan_bwd_ref`` within 1e-5 of each gradient's largest
+entry in float32. The backward returns dense gradients for z, b and c;
+autograd's slicing places them in their wider projections. On the CPU the
+same routes run the plain forward (chunk by chunk where the states are
+kept: the same bits) and the plain backward. Without a gradient the call
+writes no states: the serving call, bit for bit. The ops have fake
+implementations (shapes and dtypes: no build, no launch), FLOP formulas
+and a DTensor sharding rule: each rank scans its own batch rows or its own
+channels, b and c replicated and their gradients partial sums.
 
 The wrapper is on the falcon-mamba decode step's path 64 times a step, so
 its host path is short: the C entry point is looked up once, the checks
 run once per distinct key of shapes, strides, dtypes and devices, and the
 key's entry keeps the launch's sizes and strides packed for the C entry, so
 a call writes its pointers into one reused array and allocates only its
-two outputs.
+outputs.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. The kernel builds at first use (``_nvcc.py``).
@@ -81,7 +87,7 @@ import re
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -315,12 +321,11 @@ def selective_scan_fwd(dt, x, bmat, cmat, a, h0):
 
 
 def mamba_scan_fwd(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0):
-    """The fused entry as the backward needs it, no autograd: ``(y, hT,
-    states)``, ``states`` the chunk states ``mamba_scan_bwd`` takes (None
-    on the CPU)."""
-    _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
-    ready = (_sizes(FUSED[dt_raw.dtype], a_log.shape[1], dt_raw, x, z, bmat, cmat), dt_raw.device)
-    return _mamba_forward(ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save=True)
+    """The fused entry as the backward needs it: ``(y, hT, states)``,
+    ``states`` the chunk states ``mamba_scan_bwd`` takes (the op with
+    ``save_states``)."""
+    return torch.ops.repro_torch.mamba_scan.default(dt_raw, dt_bias, x, z, bmat, cmat, a_log,
+                                                    d, h0, True)
 
 
 def _selective_forward(ready, dt, x, bmat, cmat, a, h0, save=False):
@@ -337,6 +342,26 @@ def _selective_forward(ready, dt, x, bmat, cmat, a, h0, save=False):
     call[12] = states.data_ptr() if states is not None and states.numel() else 0
     _launch(ready, call)
     return ys, ht, states
+
+
+def _fused_ready(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0) -> tuple:
+    """The fused entry's checks, once per distinct key of shapes, strides,
+    dtypes and devices, and the key's ``(sizes, device)`` for a launch."""
+    key = (dt_raw.shape, dt_raw.stride(), dt_raw.dtype, dt_raw.device,
+           x.shape, x.stride(), x.dtype, x.device,
+           z.shape, z.stride(), z.dtype, z.device,
+           bmat.shape, bmat.stride(), bmat.dtype, bmat.device,
+           cmat.shape, cmat.stride(), cmat.dtype, cmat.device,
+           dt_bias.shape, dt_bias.stride(), dt_bias.dtype, dt_bias.device,
+           a_log.shape, a_log.stride(), a_log.dtype, a_log.device,
+           d.shape, d.stride(), d.dtype, d.device,
+           h0.shape, h0.stride(), h0.dtype, h0.device)
+    ready = _READY.get(key)
+    if ready is None:
+        _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+        ready = _READY[key] = (_sizes(FUSED[dt_raw.dtype], a_log.shape[1], dt_raw, x, z, bmat,
+                                      cmat), dt_raw.device)
+    return ready
 
 
 def mamba_scan(
@@ -356,27 +381,14 @@ def mamba_scan(
     share the model dtype (float32, bfloat16 or float16) and unit stride
     along their last dimension (any batch and row strides); the rest is
     float32 and contiguous. The checks hold on every device; a CUDA launch
-    is on the current stream, without synchronizing."""
-    key = (dt_raw.shape, dt_raw.stride(), dt_raw.dtype, dt_raw.device,
-           x.shape, x.stride(), x.dtype, x.device,
-           z.shape, z.stride(), z.dtype, z.device,
-           bmat.shape, bmat.stride(), bmat.dtype, bmat.device,
-           cmat.shape, cmat.stride(), cmat.dtype, cmat.device,
-           dt_bias.shape, dt_bias.stride(), dt_bias.dtype, dt_bias.device,
-           a_log.shape, a_log.stride(), a_log.dtype, a_log.device,
-           d.shape, d.stride(), d.dtype, d.device,
-           h0.shape, h0.stride(), h0.dtype, h0.device)
-    ready = _READY.get(key)
-    if ready is None:
-        _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
-        ready = _READY[key] = (_sizes(FUSED[dt_raw.dtype], a_log.shape[1], dt_raw, x, z, bmat,
-                                      cmat), dt_raw.device)
+    is on the current stream, without synchronizing. Under grad the op
+    also writes the chunk states its backward reads."""
     if dt_raw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mamba_scan: unsupported device {dt_raw.device}")
     args = (dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _MambaScanFunction.apply(ready, *args)
-    return _mamba_forward(ready, *args)[:2]
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    y, ht, _ = torch.ops.repro_torch.mamba_scan.default(*args, save)
+    return y, ht
 
 
 def _mamba_forward(ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save=False):
@@ -463,14 +475,10 @@ def mamba_scan_bwd(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, states, dy, 
     from the forward's inputs, its saved chunk ``states`` and the gradients
     of y and hT (either may be None). The plain version on the CPU; on CUDA
     tensors the kernel, on the current stream, no sync."""
-    if not dt_raw.is_cuda:
-        zero = torch.zeros_like(x) if dy is None else dy
-        return mamba_scan_bwd_ref(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, zero, dht)
-    _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
-    ready = (_sizes(FUSED[dt_raw.dtype], a_log.shape[1], dt_raw, x, z, bmat, cmat), dt_raw.device)
-    ddt, dx, dz, db, dc, da, dd, dbias, dh0 = _backward(
-        ready, (dt_raw, x, z, bmat, cmat, a_log, dt_bias, d, h0), states, dy, dht, x.dtype)
-    return ddt, dbias, dx, dz, db, dc, da, dd, dh0
+    if dy is None:
+        dy = torch.zeros_like(x)
+    return torch.ops.repro_torch.mamba_scan_bwd.default(dt_raw, dt_bias, x, z, bmat, cmat,
+                                                        a_log, d, h0, states, dy, dht)
 
 
 class _SelectiveScanFunction(torch.autograd.Function):
@@ -490,22 +498,161 @@ class _SelectiveScanFunction(torch.autograd.Function):
         return (None, *selective_scan_bwd(dt, x, bmat, cmat, a, h0, states, dys, dht))
 
 
-class _MambaScanFunction(torch.autograd.Function):
-    """The fused entry with its inputs and (on the card) its chunk states
-    saved; the backward kernel (the plain backward on the CPU) for the
-    gradient."""
+# ---------------------------------------------------------------------------
+# The torch.library ops: repro_torch::mamba_scan (the fused entry; with
+# save_states it also returns the chunk states, as flash_attention_lse
+# returns its lse, and autograd differentiates it through ::mamba_scan_bwd).
+# Each has the plain version on the CPU, the kernel on CUDA (the same
+# builds and counters, no fallback), a fake implementation (shapes and
+# dtypes: no build, no launch), a FLOP formula and a DTensor sharding rule.
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0):
-        y, ht, states = _mamba_forward(ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0,
-                                       save=True)
-        ctx.save_for_backward(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, states)
-        ctx.set_materialize_grads(False)
-        return y, ht
+def _no_states(h0: torch.Tensor) -> torch.Tensor:
+    n_batch, ch, n = h0.shape
+    return h0.new_empty((n_batch, 0, ch, n))
 
-    @staticmethod
-    def backward(ctx, dy, dht):
-        return (None, *mamba_scan_bwd(*ctx.saved_tensors, dy, dht))
+
+def _mamba_plain(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save_states):
+    """The plain version; with ``save_states`` run chunk by chunk of
+    ``BWD_CHUNK`` steps (the same bits: each step is the same eager ops),
+    keeping the state each chunk after the first starts from."""
+    if not save_states:
+        return (*mamba_scan_ref(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0), _no_states(h0))
+    ys, states, h = [], [], h0
+    for t0 in range(0, dt_raw.shape[1], BWD_CHUNK):
+        if t0:
+            states.append(h)
+        span = slice(t0, t0 + BWD_CHUNK)
+        y, h = mamba_scan_ref(dt_raw[:, span], dt_bias, x[:, span], z[:, span], bmat[:, span],
+                              cmat[:, span], a_log, d, h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h, torch.stack(states, dim=1) if states else _no_states(h0)
+
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=(), device_types="cpu")
+def _mamba_op(dt_raw: _T, dt_bias: _T, x: _T, z: _T, bmat: _T, cmat: _T, a_log: _T, d: _T,
+              h0: _T, save_states: bool) -> Tuple[_T, _T, _T]:
+    _fused_ready(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    return _mamba_plain(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save_states)
+
+
+@_mamba_op.register_kernel("cuda")
+def _mamba_cuda(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save_states):
+    ready = _fused_ready(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    y, ht, states = _mamba_forward(ready, dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0,
+                                   save=save_states)
+    return y, ht, _no_states(h0) if states is None else states
+
+
+@_mamba_op.register_fake
+def _mamba_fake(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, save_states):
+    _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)  # sizes may be symbolic
+    states = _states(h0, dt_raw.shape[1]) if save_states else _no_states(h0)
+    return x.new_empty(x.shape), h0.new_empty(h0.shape), states
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_bwd", mutates_args=(), device_types="cpu")
+def _mamba_bwd_op(dt_raw: _T, dt_bias: _T, x: _T, z: _T, bmat: _T, cmat: _T, a_log: _T, d: _T,
+                  h0: _T, states: _T, dy: _T, dht: Optional[_T]
+                  ) -> Tuple[_T, _T, _T, _T, _T, _T, _T, _T, _T]:
+    _fused_ready(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    return mamba_scan_bwd_ref(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, dy, dht)
+
+
+@_mamba_bwd_op.register_kernel("cuda")
+def _mamba_bwd_cuda(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, states, dy, dht):
+    ready = _fused_ready(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    ddt, dx, dz, db, dc, da, dd, dbias, dh0 = _backward(
+        ready, (dt_raw, x, z, bmat, cmat, a_log, dt_bias, d, h0), states, dy, dht, x.dtype)
+    return ddt, dbias, dx, dz, db, dc, da, dd, dh0
+
+
+@_mamba_bwd_op.register_fake
+def _mamba_bwd_fake(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0, states, dy, dht):
+    _check_fused(dt_raw, dt_bias, x, z, bmat, cmat, a_log, d, h0)
+    return tuple(t.new_empty(t.shape) for t in (dt_raw, dt_bias, x, z, bmat, cmat, a_log, d,
+                                                h0))
+
+
+def _mamba_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:9], output[2])
+    ctx.mark_non_differentiable(output[2])
+    ctx.set_materialize_grads(False)
+
+
+def _mamba_backward(ctx, dy, dht, _dstates):
+    *fwd, states = ctx.saved_tensors
+    if dy is None:
+        dy = torch.zeros_like(fwd[2])
+    grads = torch.ops.repro_torch.mamba_scan_bwd.default(*fwd, states, dy, dht)
+    return (*grads, None)
+
+
+_mamba_op.register_autograd(_mamba_backward, setup_context=_mamba_setup)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    def forward(dt_shape, bias_shape, x_shape, z_shape, b_shape, *_, out_shape=None, **__):
+        # a step, channel and state: dt a, decay h, u b and their sum, h c
+        # and its sum (6); a step and channel: u = dt x, the skip D x and
+        # its sum, the gate's product (4). exp, softplus and silu are not
+        # counted.
+        n_batch, seq, ch = dt_shape
+        return n_batch * seq * ch * (6 * b_shape[2] + 4)
+
+    def backward(dt_shape, bias_shape, x_shape, z_shape, b_shape, *_, out_shape=None, **__):
+        # a step, channel and state: the forward's state and readout again
+        # (6), the adjoint g = dy c + G, dc, db, g b, q = g decay h, q a,
+        # q dt (2 each) and G = decay g (1); a step and channel: u, dy
+        # silu(z), dx, ddt, dz, dD and d dt_raw (15)
+        n_batch, seq, ch = dt_shape
+        return n_batch * seq * ch * (21 * b_shape[2] + 15)
+
+    register_flop_formula(torch.ops.repro_torch.mamba_scan)(forward)
+    register_flop_formula(torch.ops.repro_torch.mamba_scan_bwd)(backward)
+
+
+_register_flop_formulas()
+
+
+def _register_sharding() -> None:
+    """DTensor rules, one mesh axis at a time: every tensor replicated; the
+    batch sharded (the per-channel parameters replicated, their gradients
+    partial sums over the batch); or the channels sharded: dt_raw, x, z
+    and y ``[B, S, E]`` on dim 2, dt_bias, D and A_log on dim 0, h0, hT and
+    dh0 ``[B, E, N]`` on dim 1, the chunk states ``[B, C, E, N]`` on dim 2,
+    b and c ``[B, S, N]`` replicated, and their gradients, sums over the
+    channels, partial sums. Channels sharded on several axes are this rule
+    on each."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    r, s0, s1, s2, part = Replicate(), Shard(0), Shard(1), Shard(2), Partial("sum")
+    # inputs in schema order: dt_raw, dt_bias, x, z, b, c, A_log, D, h0
+    ins = {"rep": [r] * 9, "batch": [s0, r, s0, s0, s0, s0, r, r, s0],
+           "chan": [s2, s0, s2, s2, r, r, s0, s0, s1]}
+    grads = {"rep": [r] * 9, "batch": [s0, part, s0, s0, s0, s0, part, part, s0],
+             "chan": [s2, s0, s2, s2, part, part, s0, s0, s1]}
+    # y, hT, states (and the backward's states, dy, dhT)
+    outs = {"rep": [r, r, r], "batch": [s0, s0, s0], "chan": [s2, s1, s2]}
+
+    @register_sharding(torch.ops.repro_torch.mamba_scan.default)
+    def _forward_rule(*args):
+        return [(outs[k], ins[k] + [None]) for k in ins]
+
+    @register_sharding(torch.ops.repro_torch.mamba_scan_bwd.default)
+    def _backward_rule(*args):
+        dht = args[11]
+        return [(grads[k], ins[k] + [outs[k][2], outs[k][0], None if dht is None else outs[k][1]])
+                for k in ins]
+
+
+_register_sharding()
 
 
 def launch_config(dtype, n_batch: int, seq: int, ch: int, n: int) -> dict:

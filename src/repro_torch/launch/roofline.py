@@ -34,17 +34,18 @@ to check that assumption (``tests/test_torch_dryrun.py``), and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import re
 import sys
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "NET_BW", "CARDS_PER_NODE", "RooflineTerms",
-           "roofline_terms", "StepCounter", "collective_bytes",
+           "roofline_terms", "StepCounter", "card_collectives", "collective_bytes",
            "collective_bytes_from_text", "link_of", "analyze", "analyze_unrolled"]
 
 PEAK_FLOPS = 989e12  # bf16 dense / card (H100 SXM, 700 W)
@@ -132,16 +133,23 @@ def link_of(ranks: List[int]) -> str:
 
 
 _PROPAGATION_FILE = os.path.join("tensor", "_sharding_prop.py")
+# DTensor's redistribution: the pads, chunks and copies around a collective
+_REDISTRIBUTE_FILES = (os.path.join("tensor", "_redistribute.py"),
+                       os.path.join("tensor", "placement_types.py"))
 
 
-def _in_sharding_propagation() -> bool:
-    """Whether DTensor's sharding propagator is on this thread's stack."""
+def _dtensor_frames() -> Tuple[bool, bool]:
+    """Whether DTensor's sharding propagator, and its redistribution, are
+    on this thread's stack."""
     frame = sys._getframe(2)
+    redistributing = False
     while frame is not None:
-        if frame.f_code.co_filename.endswith(_PROPAGATION_FILE):
-            return True
+        name = frame.f_code.co_filename
+        if name.endswith(_PROPAGATION_FILE):
+            return True, redistributing
+        redistributing = redistributing or name.endswith(_REDISTRIBUTE_FILES)
         frame = frame.f_back
-    return False
+    return False, redistributing
 
 
 class StepCounter(TorchDispatchMode):
@@ -158,7 +166,11 @@ class StepCounter(TorchDispatchMode):
     Under ``FakeTensorMode`` DTensor's sharding propagation also runs each
     op on fake tensors of the global shapes, to learn its output's; an op
     called from inside that propagation (``_sharding_prop.py`` on the
-    Python stack) is no work of the rank's and is not counted."""
+    Python stack) is no work of the rank's and is not counted. The pads,
+    chunks and copies DTensor makes around a collective when it
+    redistributes (``_redistribute.py``, ``placement_types.py``) are no
+    compute op: their storages count toward the peak, their bytes not
+    (they differ between PyTorch versions; the collective is counted)."""
 
     def __init__(self, mesh=None):
         super().__init__()
@@ -193,6 +205,7 @@ class StepCounter(TorchDispatchMode):
         self.live_bytes -= self._live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
         from torch.distributed.tensor import DTensor
         from torch.utils._pytree import tree_flatten
         from torch.utils.flop_counter import flop_registry
@@ -200,8 +213,15 @@ class StepCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        if func is torch.ops._c10d_functional.wait_tensor.default and isinstance(
+                args[0], FakeTensor):
+            # on the card a wait returns its own tensor; a fake tensor's
+            # wait makes a new one, which no card would hold (MemTracker
+            # counts it so too)
+            return args[0]
         out = func(*args, **kwargs)
-        if _in_sharding_propagation():
+        propagating, redistributing = _dtensor_frames()
+        if propagating:
             return out
         for t in tree_flatten(out)[0]:
             if isinstance(t, torch.Tensor):
@@ -212,9 +232,14 @@ class StepCounter(TorchDispatchMode):
             if kind is not None:
                 self._record(kind, args, out)
             return out
+        if func.namespace == "_dtensor" and packet.__name__ == "shard_dim_alltoall":
+            # DTensor's Shard(a) -> Shard(b) on a CUDA mesh (on a CPU one it
+            # falls back to an all-gather and a chunk, counted as those)
+            self._record("all-to-all", args, out)
+            return out
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        if not func.is_view and func.namespace != "prim" and (
+        if not func.is_view and not redistributing and func.namespace != "prim" and (
                 args or kwargs) and not packet.__name__.startswith(("empty", "new_empty")):
             tensors = [t for t in tree_flatten((args, kwargs, out))[0]
                        if isinstance(t, torch.Tensor)]
@@ -232,6 +257,33 @@ class StepCounter(TorchDispatchMode):
                              "shape": tuple(big.shape),
                              "bytes": big.numel() * big.element_size(),
                              "axes": where["axes"], "link": where["link"]})
+
+
+@contextlib.contextmanager
+def card_collectives() -> Iterator[None]:
+    """Within it, DTensor's ``Shard(a) -> Shard(b)`` on a CPU mesh runs the
+    all-to-all op a CUDA mesh runs (``_dtensor::shard_dim_alltoall``), not
+    gloo's stand-in (an all-gather of the whole dim and a chunk, n times the
+    bytes and, for a moment, the memory): under ``FakeTensorMode`` the op's
+    fake implementation moves nothing, so a trace on the CPU counts what the
+    card's counts. For fake tensors only."""
+    import torch.distributed.tensor.placement_types as placement_types
+    from torch.distributed import _functional_collectives as funcol
+
+    real = placement_types.shard_dim_alltoall
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu":
+            return real(input, gather_dim, shard_dim, mesh, mesh_dim)
+        group = funcol._resolve_group((mesh, mesh_dim))
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                     funcol._group_or_group_name(group))
+
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = real
 
 
 def collective_bytes(records: List[Dict[str, Any]]) -> Dict[str, Any]:

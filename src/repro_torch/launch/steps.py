@@ -65,6 +65,17 @@ def _locals(tree: Any) -> list:
             if isinstance(t, torch.Tensor)]
 
 
+def _redistributed(t: torch.Tensor, spec) -> torch.Tensor:
+    """A DTensor laid out by ``spec`` on its own mesh (a sum over the ranks
+    that hold parts of it reduce-scattered onto the shards), or ``t`` where
+    it is a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, placements(spec, t.device_mesh))
+
+
 def _nbytes(tree: Any) -> int:
     """The bytes of the rank's own shards of a tree's tensors."""
     return sum(t.numel() * t.element_size() for t in _locals(tree))
@@ -95,8 +106,13 @@ class StepBundle:
                    ) -> Tuple[LanguageModel, Dict[str, Any], Dict[str, torch.Tensor]]:
         """One step on trainable weights (``params.requires_grad_(True)``)
         and ``optim.adamw_init(params.param_tree())``'s state, both updated
-        in place and returned. The metrics are device scalars."""
+        in place and returned. The metrics are device scalars. Over a mesh
+        each gradient goes onto its AdamW state's ZeRO-1 shards before the
+        clip (a reduce-scatter where it is a sum over the data ranks), so
+        that the norm and the update run on the shards."""
         loss, grads = loss_and_grads(params, self.cfg, inputs, labels)
+        if self.mesh is not None:  # ZeRO-1: each gradient onto its optimizer state's shards
+            grads = tree_map(_redistributed, grads, self.ospecs["m"])
         grads, gnorm = clip_by_global_norm(grads, self.clip)
         adamw_update(params.param_tree(), grads, opt_state, self.lr)
         return params, opt_state, {"loss": loss, "gnorm": gnorm}
@@ -120,13 +136,15 @@ class StepBundle:
         once during the step, arguments included) and ``trace_s``.
 
         Every tensor is a fake tensor (``FakeTensorMode``), so nothing is
-        allocated and no kernel builds or launches."""
+        allocated and no kernel builds or launches; a ``Shard(a) ->
+        Shard(b)`` is the card's all-to-all on a CPU mesh too
+        (``roofline.card_collectives``)."""
         if self.mesh is None:
             raise ValueError("StepBundle.trace needs a mesh")
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         from ..models.meshed import mesh_context
-        from .roofline import StepCounter
+        from .roofline import StepCounter, card_collectives
 
         cfg = self.cfg
         specs = input_specs(cfg, shape_name, shapes)
@@ -134,7 +152,7 @@ class StepBundle:
         pol = policy_for(cfg, self.mesh, batch=specs["inputs"].shape[0])
         t0 = time.time()
         counter = StepCounter(self.mesh)  # reads the mesh's ranks: before the fakes
-        with FakeTensorMode():
+        with FakeTensorMode(), card_collectives():
             params, args = self._fake_arguments(kind, specs, pol)
             step = {"train": self.train_step, "prefill": self.prefill_step,
                     "decode": self.decode_step}[kind]

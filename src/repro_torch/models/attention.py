@@ -11,7 +11,8 @@ MLA's q and k are 192 wide and its v 128); decode attends through the
 plain ``_cached_attention``, as the reference does. ``parallel.shard``
 sits where the reference constrains GQA's tensors: a no-op without a
 mesh; over one, ``models.meshed`` runs flash, the cached attention and the
-cache writes on each rank's shards.
+cache writes (the ring-buffer window cache's shift too) on each rank's
+shards.
 """
 
 from __future__ import annotations
@@ -124,10 +125,11 @@ def apply_attn(
     if cache is not None:
         ck, cv = cache
         ring = window is not None and ck.shape[2] <= window
-        if ring:
-            if pol is not None:
-                raise NotImplementedError("apply_attn: a ring-buffer window cache over a mesh "
-                                          "is not supported yet")
+        if ring and pol is not None:
+            spec = pol.spec("kv_cache")
+            ck = meshed.ring_update(ck, k, pol, spec)
+            cv = meshed.ring_update(cv, v, pol, spec)
+        elif ring:
             # ring-buffer window cache: keep only the trailing buffer rows
             rows = ck.shape[2]
             ck = torch.cat([ck, k], dim=2)[:, :, -rows:]

@@ -20,6 +20,11 @@ gradients lie over the mesh.
   sharded over both the batch and the sequence need no flattened view.
 * ``update_rows``: a cache write, each rank writing the new rows that fall
   in its own.
+* ``ring_update``: a ring-buffer window cache's shift by the new rows:
+  rank-local with kv heads sharded; with rows sharded, each rank keeps
+  its own rows past the shift and takes the rest from the next ranks'
+  first rows (one all-gather of each rank's first ``min(s, rows a
+  rank)`` rows) and from the new rows.
 * ``moe``: the expert-parallel MoE block: each rank routes the tokens of
   its dispatch groups over every expert and computes its own experts
   (``E_pad / tp``, tile ids rebased to them); the combine is summed across
@@ -42,7 +47,7 @@ from ..parallel import current_policy, placements
 from ..parallel.axes import ShardingPolicy
 
 __all__ = ["mesh_policy", "mesh_context", "embed", "attention", "cached_attention",
-           "update_rows", "project", "moe", "cross_entropy"]
+           "update_rows", "ring_update", "project", "moe", "cross_entropy"]
 
 
 def mesh_policy() -> Optional[ShardingPolicy]:
@@ -242,6 +247,83 @@ def update_rows(c, new, pos, pol: ShardingPolicy, cache_spec, *, write: Callable
         shape[dim] = c.shape[dim]
         return torch.where(keep.reshape(shape), c, picked)
     return _local_map(pol, body, cp, (cp, _pl(pol, new_spec), pp))(c, new, pos)
+
+
+def _spans(size: int, pol: ShardingPolicy, axes) -> List[tuple]:
+    """``(first index, length)`` of each rank's chunk of a dim of ``size``
+    sharded over the mesh axes ``axes`` (mesh order), in the ranks' order
+    along them (the outer axis major): DTensor's nested ``ceil`` chunks,
+    as :func:`_offset` computes one rank's."""
+    spans = [(0, size)]
+    for axis in axes:
+        n = pol.mesh.size(pol.mesh.mesh_dim_names.index(axis))
+        out = []
+        for start, length in spans:
+            chunk = -(-length // n)
+            for c in range(n):
+                first = min(c * chunk, length)
+                out.append((start + first, min(chunk, length - first)))
+        spans = out
+    return spans
+
+
+def ring_update(c, new, pol: ShardingPolicy, cache_spec, dim: int = 2):
+    """A ring-buffer window cache after ``new``'s ``s`` rows: row ``r`` of
+    the result is ``cat(c, new)[r + s]`` along ``dim`` (the one-card
+    ``cat`` and trailing slice), on a cache laid out by ``cache_spec``.
+
+    With the rows unsharded (kv heads sharded) each rank shifts its own.
+    With the rows sharded each rank keeps its rows from ``s`` on, takes the
+    ones it lacks from the first rows of the ranks after it along the row
+    axes (every rank's first ``min(s, chunk)`` rows all-gathered, O(s) a
+    rank, never the whole cache) and from ``new`` gathered whole along the
+    rows; with ``s >= rows`` the cache is the last rows of ``new`` and no
+    old row moves."""
+    from torch.distributed._functional_collectives import all_gather_tensor
+
+    cp = _pl(pol, cache_spec)
+    rows_entry = cache_spec[dim]
+    if rows_entry is None:
+        def shift(c, new):
+            return torch.cat([c, new], dim=dim).narrow(dim, new.shape[dim], c.shape[dim])
+        return _local_map(pol, shift, cp, (cp, cp))(c, new)
+    axes = rows_entry if isinstance(rows_entry, tuple) else (rows_entry,)
+    rows = c.shape[dim]
+    spans = _spans(rows, pol, axes)
+    chunk = max(length for _, length in spans)
+
+    def body(c, new):
+        s, n = new.shape[dim], c.shape[dim]
+        me = 0
+        for axis in axes:
+            me = me * pol.mesh.size(pol.mesh.mesh_dim_names.index(axis)) + _coord(pol, axis)
+        row0 = spans[me][0]
+        if s >= rows:  # the last rows of new; no old row moves
+            return new.narrow(dim, s - rows + row0, n)
+        h = min(s, chunk)
+        head = c.narrow(dim, 0, min(h, n))
+        if head.shape[dim] < h:
+            pad = list(head.shape)
+            pad[dim] = h - head.shape[dim]
+            head = torch.cat([head, head.new_zeros(pad)], dim=dim)
+        for axis in reversed(axes):  # the inner axis first: the ranks' order
+            head = all_gather_tensor(head, dim, (pol.mesh, pol.mesh.mesh_dim_names.index(axis)))
+        index = []
+        for j in range(n):
+            src = row0 + j + s
+            if src >= rows:  # past the old rows: new's
+                index.append(n + len(spans) * h + src - rows)
+            elif src < row0 + n:  # this rank's own
+                index.append(j + s)
+            else:  # the first rows of the rank that holds it
+                k = next(i for i, (first, length) in enumerate(spans)
+                         if first <= src < first + length)
+                index.append(n + k * h + src - spans[k][0])
+        source = torch.cat([c, head, new], dim=dim)
+        return source.index_select(dim, torch.tensor(index, dtype=torch.long, device=c.device))
+
+    new_spec = tuple(None if i == dim else e for i, e in enumerate(cache_spec))
+    return _local_map(pol, body, cp, (cp, _pl(pol, new_spec)))(c, new)
 
 
 def project(x, w):

@@ -12,6 +12,10 @@ in prefill (S = prompt length) and in every decode step (S = 1):
   ``-exp(A_log)``, the ``D`` skip term and the ``silu(z)`` gate, in one
   launch of ``kernels.ops.mamba_scan``; the projections and the conv stay
   PyTorch ops. The state is ``(h [B, di, N] f32, conv tail [B, K-1, di])``.
+
+``parallel.shard`` sits where the reference constrains them: a no-op
+without a mesh; over one, the recurrences run channel-sharded (the scans'
+ops' sharding rules) and each block's output is ``act_btd``'s layout.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..parallel import shard
+from . import meshed
 from .config import ArchConfig
 from .layers import dense_init
 
@@ -58,6 +64,16 @@ class RgLru(nn.Module):
         return apply_rglru(self, x, self.cfg, state=state)
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [B, S, K] @ w [K, N]``: ``einsum`` on one card; over a mesh
+    ``meshed.project``'s batched product, as attention's projections
+    (``einsum`` flattens B and S, which DTensor cannot shard over the data
+    axes and ``model`` at once)."""
+    if meshed.mesh_policy() is None:
+        return torch.einsum("bsk,kn->bsn", x, w)
+    return meshed.project(x, w)
+
+
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor]):
     """x [B, S, W]; w [K, W] depthwise causal conv. Returns (y, new_state)
     where state is the trailing K-1 inputs (for decode)."""
@@ -80,15 +96,16 @@ def apply_rglru(
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (h [B,W] f32, conv [B,K-1,W])
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     b = x.shape[0]
-    u = torch.einsum("bsd,dw->bsw", x, p.w_in)
+    u = _project(x, p.w_in)
     # jax.nn.gelu defaults to the tanh approximation; torch's default is exact.
-    g = F.gelu(torch.einsum("bsd,dw->bsw", x, p.w_gate_in), approximate="tanh")
+    g = F.gelu(_project(x, p.w_gate_in), approximate="tanh")
+    u = shard(u, "channels")
 
     conv_state = state[1] if state is not None else None
     u, new_conv = _causal_conv1d(u, p.conv_w, conv_state)
 
-    r = torch.sigmoid(torch.einsum("bsw,wv->bsv", u, p.wr))
-    i = torch.sigmoid(torch.einsum("bsw,wv->bsv", u, p.wi))
+    r = torch.sigmoid(_project(u, p.wr))
+    i = torch.sigmoid(_project(u, p.wi))
     log_a = -8.0 * r * F.softplus(p.a_log)[None, None, :]
     a = torch.exp(log_a.float())
     gated = (i * u).float()
@@ -97,11 +114,11 @@ def apply_rglru(
     h0 = (state[0].float() if state is not None
           else torch.zeros((b, u.shape[-1]), dtype=torch.float32, device=x.device))
     hs = ops.lru_scan(a.contiguous(), bterm.contiguous(), h0.contiguous())  # [B, S, W]
-    hs = hs.to(x.dtype)
+    hs = shard(hs.to(x.dtype), "channels")
 
-    y = torch.einsum("bsw,wd->bsd", hs * g, p.w_out)
+    y = _project(hs * g, p.w_out)
     new_state = (hs[:, -1].float(), new_conv) if state is not None else None
-    return y, new_state
+    return shard(y, "act_btd"), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +174,7 @@ def apply_mamba(
 
     xz = torch.einsum("bsd,de->bse", x, p.w_in)
     xi, z = xz[..., :di], xz[..., di:]
+    xi = shard(xi, "channels")
 
     conv_state = state[1] if state is not None else None
     xi, new_conv = _causal_conv1d(xi, p.conv_w, conv_state)
@@ -171,6 +189,7 @@ def apply_mamba(
     # the silu(z) gate, in x's dtype: one launch on the card.
     y, h_t = ops.mamba_scan(dt_raw, p.dt_bias, xi, z, proj[..., dt_rank: dt_rank + n],
                             proj[..., dt_rank + n:], p.A_log, p.D, h0.contiguous())
+    y = shard(y, "channels")
     out = torch.einsum("bse,ed->bsd", y, p.w_out)
     new_state = (h_t, new_conv) if state is not None else None
-    return out, new_state
+    return shard(out, "act_btd"), new_state

@@ -42,14 +42,42 @@ def adamw_init(params: Any) -> Dict[str, Any]:
 
 def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
     """``(grads scaled by min(1, max_norm / (norm + 1e-9)) in float32, norm)``,
-    the norm over every leaf in float32."""
+    the norm over every leaf in float32. Over DTensors sharded or replicated
+    on one mesh (no partial sums left), the sum of squares is each rank's
+    over its own shards, each leaf's divided by the ranks that hold copies
+    of its shard, then summed across the mesh once."""
     leaves = tree_leaves(grads)
-    sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for g in leaves:
-        sq = sq + torch.sum(torch.square(g.float()))
+    sq = _sharded_sum_of_squares(leaves)
+    if sq is None:
+        sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for g in leaves:
+            sq = sq + torch.sum(torch.square(g.float()))
     gnorm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), gnorm
+
+
+def _sharded_sum_of_squares(leaves) -> Any:
+    """The global sum of squares of DTensor ``leaves`` laid out by ``Shard``
+    and ``Replicate`` on one mesh, as a replicated DTensor, with one
+    all-reduce a mesh axis; None where the leaves are not such DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not leaves or not all(isinstance(g, DTensor) for g in leaves):
+        return None
+    mesh = leaves[0].device_mesh
+    if any(g.device_mesh != mesh or not all(isinstance(p, (Shard, Replicate))
+                                            for p in g.placements) for g in leaves):
+        return None
+    local = torch.zeros((), dtype=torch.float32, device=leaves[0].to_local().device)
+    for g in leaves:
+        copies = 1
+        for size, p in zip(mesh.shape, g.placements):
+            if isinstance(p, Replicate):
+                copies *= size
+        local = local + torch.sum(torch.square(g.to_local().float())) / copies
+    partial = DTensor.from_local(local, mesh, [Partial("sum")] * mesh.ndim, run_check=False)
+    return partial.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 @torch.no_grad()

@@ -5,7 +5,7 @@
 
 ``IN_FILE`` (``torch.save``) holds the cases: each a config, the weights
 (the reference's, as numpy), the train batch, the prompt and the decode
-token. Every rank lays the weights, the AdamW state, the inputs and the
+token, or ``tokens``, one a decode step. Every rank lays the weights, the AdamW state, the inputs and the
 cache out by the port's specs (``parallel``, ``optim.opt_specs``) as
 DTensors and runs ``StepBundle``'s train (its gradients recorded),
 prefill and decode steps under the arch's policy; rank 0 writes the
@@ -13,7 +13,10 @@ gathered results to ``OUT_FILE``.
 """
 
 import contextlib
+import os
+import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -88,7 +91,7 @@ def run_case(case, mesh):
         out["gnorm"] = _full(metrics["gnorm"]).detach()
         out["params"] = tree_map(lambda p: _full(p).detach(), params.param_tree())
 
-        prompt, token = case["prompt"], case["token"]
+        prompt = case["prompt"]
         spol = policy_for(cfg, mesh, batch=prompt.shape[0])
     with mesh_context(spol):
         params = model()
@@ -97,9 +100,73 @@ def run_case(case, mesh):
         p_spec = batch_specs(cfg, spol, "prefill")
         logits, cache = bundle.prefill_step(params, _distribute(prompt, p_spec, mesh), cache)
         out["prefill"] = _full(logits)
-        logits, cache = bundle.decode_step(params, _distribute(token, p_spec, mesh), cache,
-                                           prompt.shape[1])
-        out["decode"] = _full(logits)
+        steps = []
+        for i, token in enumerate(decode_tokens(case)):
+            logits, cache = bundle.decode_step(params, _distribute(token, p_spec, mesh), cache,
+                                               prompt.shape[1] + i)
+            steps.append(_full(logits))
+        out["decode"] = torch.cat(steps, dim=1)
+    return out
+
+
+def decode_tokens(case):
+    """The case's decode inputs, one a step (``tokens``, else the one
+    ``token``), at positions from the prompt's length on."""
+    return case.get("tokens") or [case["token"]]
+
+
+def run_world(cases, tmp: Path, world: int = 4, timeout: float = 150) -> dict:
+    """One launch of ``world`` ranks of this script over ``cases`` (saved
+    under ``tmp``); returns rank 0's results."""
+    root = Path(__file__).resolve().parents[1]
+    torch.save(cases, tmp / "in.pt")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep),
+        "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(world),
+                               str(tmp / "store"), str(tmp / "in.pt"), str(tmp / "out.pt")],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for rank in range(world)]
+    logs = [p.communicate(timeout=timeout)[0].decode(errors="replace") for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    return torch.load(tmp / "out.pt", weights_only=False)
+
+
+def named(tree):
+    from repro_torch.tree import tree_leaves_with_names
+
+    return {k: v.detach() for k, v in tree_leaves_with_names(tree)}
+
+
+def one_process(case, sharded):
+    """The case's steps on plain tensors in this process: the train step's
+    loss, gradient norm and gradients, one process's AdamW on the sharded
+    run's gathered gradients, and the prefill's and decode steps' logits."""
+    from repro_torch.launch.steps import StepBundle
+    from repro_torch.models import init_cache, params_from_numpy
+    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+
+    cfg = case["cfg"]
+    bundle = StepBundle(cfg)
+    params = params_from_numpy(case["weights"], cfg, device="cpu")
+    params.requires_grad_(True)
+    opt = adamw_init(params.param_tree())
+    with recording_grads() as grads:
+        params, opt, metrics = bundle.train_step(params, opt, case["inputs"], case["labels"])
+    out = {"loss": metrics["loss"], "gnorm": metrics["gnorm"], "grads": named(grads[0])}
+    # AdamW on one process, from the sharded run's gathered gradients
+    params = params_from_numpy(case["weights"], cfg, device="cpu")
+    clipped, _ = clip_by_global_norm(sharded["grads"], bundle.clip)
+    adamw_update(params.param_tree(), clipped, adamw_init(params.param_tree()), bundle.lr)
+    out["params"] = named(params.param_tree())
+    params = params_from_numpy(case["weights"], cfg, device="cpu")
+    cache = init_cache(cfg, case["prompt"].shape[0], case["max_len"], device="cpu")
+    out["prefill"], cache = bundle.prefill_step(params, case["prompt"], cache)
+    steps = []
+    for i, token in enumerate(decode_tokens(case)):
+        logits, cache = bundle.decode_step(params, token, cache, case["prompt"].shape[1] + i)
+        steps.append(logits)
+    out["decode"] = torch.cat(steps, dim=1)
     return out
 
 

@@ -233,7 +233,8 @@ def test_lru_scan_function_matches_autograd_through_plain(dtype, need_h0):
         h0t = torch.from_numpy(h0).requires_grad_(need_h0)
         out = fn(at, xt, h0t)
         if fn is ops.lru_scan:
-            assert type(out.grad_fn).__name__ == "_LruScanFunctionBackward"
+            assert type(out.grad_fn).__name__ == (
+                "GeneratedBackwardFor_repro_torch_lru_scan_defaultBackward")
             assert torch.equal(out.detach(), T.lru_scan_ref(at.detach(), xt.detach(),
                                                             h0t.detach()))
         out.backward(torch.from_numpy(dh).to(T_DTYPES[dtype]))

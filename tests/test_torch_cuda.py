@@ -1916,3 +1916,79 @@ def test_grouped_matmul_ops_give_the_launch_path_bits_and_counts(device, dtype):
     out.backward(dy)
     assert torch.equal(xl.grad, want_dx) and torch.equal(wl.grad, want_dw)
     assert (gm.dx_launches, gm.dw_launches) == (1, 1) and int(err) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lru_scan_ops_give_the_launch_path_bits_and_counts(device, dtype):
+    """``lru_scan`` (the op ``lru_scan``) and, under grad, its autograd (the
+    op ``lru_scan_bwd``) and ``lru_scan_bwd`` give the bits of ``_forward``
+    and ``_backward`` called directly, one launch each, as before the
+    ops."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    a = torch.rand(2, 300, 160, generator=gen, device=device).to(dtype)
+    b = torch.randn(2, 300, 160, generator=gen, device=device).to(dtype)
+    h0 = torch.randn(2, 160, generator=gen, device=device)
+    dh = torch.randn(2, 300, 160, generator=gen, device=device).to(dtype)
+    want = ls._forward(a, b, h0)
+    want_d = ls._backward(a, want, h0, dh)
+    ls.reset_launches()
+    assert torch.equal(ls.lru_scan(a, b, h0), want) and ls.launches == 1
+    got = ls.lru_scan_bwd(a, want, h0, dh)
+    assert all(torch.equal(g, w) for g, w in zip(got, want_d)) and ls.backward_launches == 1
+    leaves = [t.detach().requires_grad_(True) for t in (a, b, h0)]
+    out = ls.lru_scan(*leaves)
+    assert torch.equal(out, want) and ls.launches == 2
+    out.backward(dh)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want_d))
+    assert ls.backward_launches == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_scan_ops_give_the_launch_path_bits_and_counts(device, dtype):
+    """``mamba_scan`` (the op ``mamba_scan``: without grad no chunk states,
+    under grad the states and, through its autograd, the op
+    ``mamba_scan_bwd``) and ``mamba_scan_fwd`` / ``mamba_scan_bwd`` give the
+    bits of ``_mamba_forward`` and ``_backward`` called directly on z, b
+    and c sliced from their projections, one launch each, as before the
+    ops."""
+    ss = importlib.import_module("repro_torch.kernels.selective_scan")
+    gen = torch.Generator(device=device).manual_seed(6)
+    bsz, seq, e, n = 2, 150, 96, 16
+    xz = torch.randn(bsz, seq, 2 * e, generator=gen, device=device).to(dtype)
+    proj = torch.randn(bsz, seq, 8 + 2 * n, generator=gen, device=device).to(dtype)
+    dt_raw = torch.randn(bsz, seq, e, generator=gen, device=device).to(dtype)
+    x = torch.randn(bsz, seq, e, generator=gen, device=device).to(dtype)
+    dt_bias = 0.5 * torch.randn(e, generator=gen, device=device)
+    a_log = torch.rand(e, n, generator=gen, device=device)
+    d = torch.randn(e, generator=gen, device=device)
+    h0 = torch.randn(bsz, e, n, generator=gen, device=device)
+    dy = torch.randn(bsz, seq, e, generator=gen, device=device).to(dtype)
+    args = (dt_raw, dt_bias, x, xz[..., e:], proj[..., 8:8 + n], proj[..., 8 + n:], a_log, d,
+            h0)
+    ready = ss._fused_ready(*args)
+    want_y, want_ht, _ = ss._mamba_forward(ready, *args)
+    _, _, want_states = ss._mamba_forward(ready, *args, save=True)
+    ddt, dx, dz, db, dc, da, dd, dbias, dh0 = ss._backward(
+        ready, (dt_raw, x, xz[..., e:], proj[..., 8:8 + n], proj[..., 8 + n:], a_log, dt_bias,
+                d, h0), want_states, dy, None, dtype)
+    want_d = (ddt, dbias, dx, dz, db, dc, da, dd, dh0)
+    ss.reset_launches()
+    y, ht = ss.mamba_scan(*args)
+    assert torch.equal(y, want_y) and torch.equal(ht, want_ht) and ss.launches == 1
+    y, ht, states = ss.mamba_scan_fwd(*args)
+    assert torch.equal(y, want_y) and torch.equal(states, want_states) and ss.launches == 2
+    got = ss.mamba_scan_bwd(*args, states, dy)
+    assert all(torch.equal(g, w) for g, w in zip(got, want_d)) and ss.backward_launches == 1
+    leaves = [t.detach().requires_grad_(True) for t in (dt_raw, dt_bias, x, xz, proj, a_log,
+                                                         d, h0)]
+    dt_l, bias_l, x_l, xz_l, proj_l, alog_l, d_l, h0_l = leaves
+    y, _ = ss.mamba_scan(dt_l, bias_l, x_l, xz_l[..., e:], proj_l[..., 8:8 + n],
+                         proj_l[..., 8 + n:], alog_l, d_l, h0_l)
+    assert torch.equal(y, want_y) and ss.launches == 3
+    y.backward(dy)
+    assert ss.backward_launches == 2
+    for got_g, want_g in ((dt_l.grad, ddt), (bias_l.grad, dbias), (x_l.grad, dx),
+                          (xz_l.grad[..., e:], dz), (proj_l.grad[..., 8:8 + n], db),
+                          (proj_l.grad[..., 8 + n:], dc), (alog_l.grad, da), (d_l.grad, dd),
+                          (h0_l.grad, dh0)):
+        assert torch.equal(got_g, want_g)

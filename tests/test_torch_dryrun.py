@@ -1,12 +1,16 @@
 """The dry run's tools on the CPU, in a fake world of 8 ranks (``(2, 4)``
 over ``("data", "model")`` and ``(2, 2, 2)`` over ``("pod", "data",
 "model")``, each case in a world its fixture makes and destroys), on the
-reduced configs of minicpm-2b and granite-moe-3b-a800m:
+reduced configs of minicpm-2b and granite-moe-3b-a800m, and of every arch
+where a case says so:
 
 * ``StepBundle.trace`` runs each kind of step on fake DTensors, launching
-  no kernel (the launch counters stay) and allocating nothing;
+  no kernel (the launch counters stay) and allocating nothing: every kind
+  of all ten archs, ``long_500k``'s batch of one included where ``cells``
+  has it (its channels and ring rows folded over the data axes too);
 * a fake world of 1 counts the FLOPs PyTorch's ``FlopCounterMode`` counts
-  over the same step on plain tensors; with every weight sharded,
+  over the same step on plain tensors (recurrentgemma's and falcon-mamba's
+  scans through their ops' formulas too); with every weight sharded,
   per-device FLOPs x 8 equal that; where the sequence-sharded fallback
   replicates the attention projections the ratio is above 1 (printed);
 * the collective records, written as HLO lines, give the same wire bytes
@@ -17,7 +21,9 @@ reduced configs of minicpm-2b and granite-moe-3b-a800m:
 * the trace's peak bytes (``StepCounter``'s live storages) equal
   ``torch.distributed._tools.mem_tracker.MemTracker``'s peak over the same
   train step (the trace counts them itself: MemTracker's per-op walk over
-  every live tensor costs minutes at full width);
+  every live tensor costs minutes at full width), falcon-mamba's too;
+* a rows-sharded ring-buffer cache's decode update moves at most (ranks
+  on the row axes) x 1 row of k and of v over the wire;
 * hill-climb's transforms give the reference's ``policy_for`` results;
 * ``report``'s roofline table equals the reference's on the same JSON.
 """
@@ -35,7 +41,7 @@ from repro.configs import ARCHS as R_ARCHS
 from repro.launch import report as r_report
 from repro.launch.roofline import collective_bytes_from_text as r_collective_bytes_from_text
 from repro.parallel import sharding as RS
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, cells
 from repro_torch.launch import hillclimb, report
 from repro_torch.launch.mesh import fake_world, make_local_mesh
 from repro_torch.launch.roofline import analyze_unrolled, collective_bytes
@@ -43,7 +49,7 @@ from repro_torch.launch.steps import StepBundle
 from repro_torch.parallel import policy_for
 
 SHAPES = {"train": (16, 8, "train"), "prefill": (16, 8, "prefill"),
-          "decode": (16, 8, "decode")}
+          "decode": (16, 8, "decode"), "long": (64, 1, "decode")}
 MESHES = {"2x4": ((2, 4), ("data", "model")), "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 _HLO = {"float32": "f32", "bfloat16": "bf16", "float16": "f16", "int32": "s32", "int64": "s64"}
 
@@ -64,7 +70,7 @@ def mesh(request):
 
 def _launches():
     mods = [importlib.import_module(f"repro_torch.kernels.{m}")
-            for m in ("flash_attention", "grouped_matmul")]
+            for m in ("flash_attention", "grouped_matmul", "lru_scan", "selective_scan")]
     return [(m.launches, getattr(m, "backward_launches", 0), getattr(m, "dx_launches", 0),
              getattr(m, "dw_launches", 0)) for m in mods]
 
@@ -84,7 +90,77 @@ def test_trace_runs_each_step_without_launching(mesh, arch, kind):
     assert set(coll["by_axis"]) <= set(mesh.mesh_dim_names)
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "granite-moe-3b-a800m"])
+# the other eight archs' step kinds (minicpm's and granite's are
+# test_trace_runs_each_step_without_launching's): each cell's kind
+# (``long`` where it has ``long_500k``), train on the 2x4 mesh alone, the
+# rest on both
+_KINDS = {"train_4k": "train", "prefill_32k": "prefill", "decode_32k": "decode",
+          "long_500k": "long"}
+EVERY_CELL = [(arch, _KINDS[shape], mesh_name) for arch in sorted(ARCHS)
+              if arch not in ("minicpm-2b", "granite-moe-3b-a800m")
+              for shape in cells(ARCHS[arch])
+              for mesh_name in (("2x4",) if shape == "train_4k" else sorted(MESHES))]
+
+
+@pytest.mark.parametrize("arch,kind,mesh_name", EVERY_CELL)
+def test_every_arch_traces_each_kind_without_launching(arch, kind, mesh_name):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = MESHES[mesh_name]
+    before = _launches()
+    with fake_world(8):
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        t = StepBundle(_cfg(arch), mesh).trace(kind, SHAPES)
+    assert _launches() == before
+    assert not torch.cuda.is_available() or torch.cuda.memory_allocated() == 0
+    assert t["flops"] > 0 and 0 < t["argument_bytes"] <= t["peak_bytes"]
+    assert t["policy"].batch_shardable == (kind != "long")
+    coll = collective_bytes(t["records"])
+    assert set(coll["by_axis"]) <= set(names)
+
+
+def test_ring_update_moves_o_s_rows_a_rank():
+    """One decode step's ring-buffer update of danube's cache (8 kv heads
+    at TP 16, a fake world of 2 x 16: rows sharded over ``model``, 4,096 of
+    them), for k and for v: each moves at most 16 ranks x 1 row x 8 kv
+    heads x 120 x 2 bytes over the wire (each rank's first row,
+    all-gathered), never the cache."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    import torch.distributed.tensor as dtensor
+
+    from repro_torch.launch.roofline import StepCounter
+    from repro_torch.models import meshed
+    from repro_torch.models.meshed import mesh_context
+    from repro_torch.parallel import placements
+
+    cfg = ARCHS["h2o-danube-3-4b"]
+    batch, hkv, hd, rows, tp = 8, cfg.eff_kv_heads, cfg.head_dim, cfg.window, 16
+    with fake_world(2 * tp):
+        mesh = init_device_mesh("cpu", (2, tp), mesh_dim_names=("data", "model"))
+        pol = policy_for(cfg, mesh, batch=batch)
+        spec = pol.spec("kv_cache")
+        assert spec == (("data",), None, "model", None)
+        counter = StepCounter(mesh)
+        with FakeTensorMode(), mesh_context(pol):
+            def empty(shape, sp):
+                return dtensor.empty(shape, dtype=torch.bfloat16, device_mesh=mesh,
+                                     placements=placements(sp, mesh))
+            for _ in ("k", "v"):
+                cache = empty((batch, hkv, rows, hd), spec)
+                new = empty((batch, hkv, 1, hd), pol.spec("kv_heads"))
+                with counter:
+                    out = meshed.ring_update(cache, new, pol, spec)
+                assert out.shape == cache.shape and out.placements == cache.placements
+    wire = collective_bytes(counter.records)
+    one_row = batch // 2 * hkv * hd * 2  # a row of a data rank's batch, bf16
+    assert wire["counts"]["all-gather"] == 2 and wire["total_bytes"] > 0
+    assert wire["total_bytes"] <= 2 * tp * 1 * one_row
+    assert wire["total_bytes"] < rows // tp * one_row
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "granite-moe-3b-a800m", "recurrentgemma-2b",
+                                  "falcon-mamba-7b"])
 def test_peak_bytes_equal_mem_tracker(mesh, arch):
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
@@ -107,7 +183,8 @@ def test_peak_bytes_equal_mem_tracker(mesh, arch):
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill"])
-@pytest.mark.parametrize("arch", ["minicpm-2b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "granite-moe-3b-a800m", "recurrentgemma-2b",
+                                  "falcon-mamba-7b"])
 def test_one_rank_counts_what_the_flop_counter_counts(arch, kind):
     """A fake world of 1 counts the FLOPs ``FlopCounterMode`` counts over
     the same step on plain CPU tensors (none of DTensor's sharding

@@ -34,10 +34,6 @@ visible one.)
 """
 
 import dataclasses
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -47,15 +43,9 @@ import torch
 from repro import models as RM
 from repro.configs import ARCHS as R_ARCHS
 from repro_torch.configs import ARCHS
-from repro_torch.launch.steps import StepBundle
-from repro_torch.models import init_cache, params_from_numpy
-from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
-from repro_torch.tree import tree_leaves_with_names
 
-from _torch_mesh_step_worker import recording_grads
+from _torch_mesh_step_worker import named, one_process, run_world
 
-ROOT = Path(__file__).resolve().parents[1]
-WORKER = Path(__file__).with_name("_torch_mesh_step_worker.py")
 WORLD = 4
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -91,50 +81,15 @@ def _case(name):
             "prompt": tok(2, 10), "token": tok(2, 1), "max_len": 14}
 
 
-def _one_process(case, sharded):
-    cfg = case["cfg"]
-    bundle = StepBundle(cfg)
-    params = params_from_numpy(case["weights"], cfg, device="cpu")
-    params.requires_grad_(True)
-    opt = adamw_init(params.param_tree())
-    with recording_grads() as grads:
-        params, opt, metrics = bundle.train_step(params, opt, case["inputs"], case["labels"])
-    out = {"loss": metrics["loss"], "gnorm": metrics["gnorm"], "grads": _named(grads[0])}
-    # AdamW on one process, from the sharded run's gathered gradients
-    params = params_from_numpy(case["weights"], cfg, device="cpu")
-    clipped, _ = clip_by_global_norm(sharded["grads"], bundle.clip)
-    adamw_update(params.param_tree(), clipped, adamw_init(params.param_tree()), bundle.lr)
-    out["params"] = _named(params.param_tree())
-    params = params_from_numpy(case["weights"], cfg, device="cpu")
-    cache = init_cache(cfg, case["prompt"].shape[0], case["max_len"], device="cpu")
-    out["prefill"], cache = bundle.prefill_step(params, case["prompt"], cache)
-    out["decode"], _ = bundle.decode_step(params, case["token"], cache, case["prompt"].shape[1])
-    return out
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both sides of every case: the gloo world's (one launch of 4 ranks)
     and this process's."""
-    tmp = tmp_path_factory.mktemp("mesh_step")
     cases = {name: _case(name) for name in CASES}
-    torch.save(cases, tmp / "in.pt")
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep),
-        "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(rank), str(WORLD),
-                               str(tmp / "store"), str(tmp / "in.pt"), str(tmp / "out.pt")],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for rank in range(WORLD)]
-    logs = [p.communicate(timeout=150)[0].decode(errors="replace") for p in procs]
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    sharded = torch.load(tmp / "out.pt", weights_only=False)
-    return {name: (sharded[name], _one_process(case, sharded[name]))
+    sharded = run_world(cases, tmp_path_factory.mktemp("mesh_step"), WORLD)
+    return {name: (sharded[name], one_process(case, sharded[name]))
             for name, case in cases.items()}
 
-
-def _named(tree):
-    return {k: v.detach() for k, v in tree_leaves_with_names(tree)}
 
 
 def _close(got, want, what):
@@ -161,7 +116,7 @@ def test_train_step_matches_one_process(runs, name):
     _close(sharded["loss"], plain["loss"].detach(), "loss")
     _close(sharded["gnorm"], plain["gnorm"].detach(), "gnorm")
     for what in ("grads", "params"):
-        got = _named(sharded[what])
+        got = named(sharded[what])
         assert sorted(got) == sorted(plain[what])
         for leaf, want in plain[what].items():
             _close(got[leaf], want, f"{what} {leaf}")

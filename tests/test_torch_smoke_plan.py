@@ -29,7 +29,7 @@ from repro_torch.models import (FRONTEND_DIMS, decode_step, init_cache, init_par
 
 # Flash's launches in a server run (8 requests) and a train step (forward
 # with remat's recompute / backward) of the configs this slice adds.
-NEW_SERVE_FLASH = {"gemma2-27b": 368, "h2o-danube-3-4b": 192, "mistral-large-123b": 128}
+NEW_SERVE_FLASH = {"gemma2-27b": 128, "h2o-danube-3-4b": 192, "mistral-large-123b": 128}
 NEW_TRAIN_FLASH = {"h2o-danube-3-4b": (48, 24), "paligemma-3b": (36, 18),
                    "musicgen-large": (96, 48), "gemma2-27b": (4, 2),
                    "mistral-large-123b": (2, 1)}

@@ -326,17 +326,22 @@ def test_flash_wrapper_is_differentiable_on_the_cpu():
     assert "flash_attention_bwd.default(" in inspect.getsource(fa._lse_backward)
 
 
-# name -> (module, Function (or torch.library op), the function its backward
-# calls, the C entries that function reaches, where they are named).
+# name -> (module, the wrapper's route: a Function or a torch.library op, the
+# function its backward calls (for an op: the op's autograd backward, the
+# backward op it calls and that op's CUDA kernel), the C entries that
+# backward reaches, where they are named).
 BACKWARDS = {
     "grouped_matmul": ("grouped_matmul", "torch.ops.repro_torch.grouped_matmul_fwd.default",
-                       "grouped_matmul_bwd", ("acs_grouped_matmul_dx", "acs_grouped_matmul_dw"),
+                       ("_fwd_backward", "grouped_matmul_bwd", "_gmm_bwd_op"),
+                       ("acs_grouped_matmul_dx", "acs_grouped_matmul_dw"),
                        "grouped_matmul_bwd"),
-    "lru_scan": ("lru_scan", "_LruScanFunction", "lru_scan_bwd", ("acs_lru_scan_bwd",),
-                 "lru_scan_bwd"),
+    "lru_scan": ("lru_scan", "torch.ops.repro_torch.lru_scan.default",
+                 ("_scan_backward", "lru_scan_bwd", "_scan_bwd_cuda"), ("acs_lru_scan_bwd",),
+                 "_backward"),
     "selective_scan": ("selective_scan", "_SelectiveScanFunction", "selective_scan_bwd",
                        ("acs_mamba_scan_bwd",), "_backward"),
-    "mamba_scan": ("selective_scan", "_MambaScanFunction", "mamba_scan_bwd",
+    "mamba_scan": ("selective_scan", "torch.ops.repro_torch.mamba_scan.default",
+                   ("_mamba_backward", "mamba_scan_bwd", "_mamba_bwd_cuda"),
                    ("acs_mamba_scan_bwd",), "_backward"),
 }
 
@@ -345,30 +350,37 @@ BACKWARDS = {
 def test_backward_kernels_replace_refuse_grad(name):
     """Every wrapper has a backward kernel: no module calls a guard that
     refuses grad (``_nvcc.refuse_grad`` is gone), and under grad both
-    devices go through the autograd Function, whose backward is the
-    module's ``<name>_bwd``: on a CUDA tensor its hand-written entries, with
-    no ``try`` that could fall back to the plain version."""
-    module, function, bwd_fn, entries, holder = BACKWARDS[name]
+    devices go through the autograd Function or the op's registered
+    autograd, whose backward is the module's backward op or ``<name>_bwd``:
+    on a CUDA tensor its hand-written entries, with no ``try`` that could
+    fall back to the plain version."""
+    module, route, bwd_fn, entries, holder = BACKWARDS[name]
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
-    assert "refuse_grad" not in inspect.getsource(mod)
+    text = inspect.getsource(mod)
+    assert "refuse_grad" not in text
     assert not hasattr(importlib.import_module("repro_torch.kernels._nvcc"), "refuse_grad")
     src = inspect.getsource(getattr(mod, name))
-    if function.startswith("torch.ops."):  # a torch.library op and its autograd
-        route = f"{function}("
-        backward = "\n".join(inspect.getsource(f) for f in (
-            mod._fwd_backward, mod._gmm_bwd_op._init_fn))
-        assert "torch.ops.repro_torch.grouped_matmul_bwd.default(" in backward
+    if route.startswith("torch.ops."):  # a torch.library op and its registered autograd
+        autograd_fn, bwd_op, cuda_fn = bwd_fn
+        assert f"{route}(" in src
+        assert f".register_autograd({autograd_fn}, " in text
+        assert f"torch.ops.repro_torch.{bwd_op}.default(" in inspect.getsource(
+            getattr(mod, autograd_fn))
+        # the backward op's CUDA kernel: a function registered for it, or
+        # the op's own body where it takes both devices
+        assert (f'.register_kernel("cuda")\ndef {cuda_fn}(' in text
+                or f'device_types=("cpu", "cuda"))\ndef {cuda_fn}(' in text)
+        kernel = getattr(mod, cuda_fn)
+        bwd = inspect.getsource(getattr(kernel, "_init_fn", kernel))
     else:
-        route = f"{function}.apply"
-        backward = inspect.getsource(getattr(mod, function).backward)
-    assert route in src
-    assert src.index("torch.is_grad_enabled()") < src.index(route)
-    assert f"{bwd_fn}(" in backward
-    bwd = inspect.getsource(getattr(mod, bwd_fn))
-    assert holder == bwd_fn or f"{holder}(" in bwd
+        assert f"{route}.apply" in src
+        assert src.index("torch.is_grad_enabled()") < src.index(f"{route}.apply")
+        assert f"{bwd_fn}(" in inspect.getsource(getattr(mod, route).backward)
+        bwd = inspect.getsource(getattr(mod, bwd_fn))
+    assert f"{holder}(" in bwd
     launch = inspect.getsource(getattr(mod, holder))
     assert all(entry in launch for entry in entries)
-    assert all("try:" not in text and "except" not in text for text in (bwd, launch))
+    assert all("try:" not in t and "except" not in t for t in (bwd, launch))
 
 
 def test_plain_versions_stay_differentiable_on_the_cpu():
