@@ -24,4 +24,4 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["checkpoint", "configs", "core", "data", "dyn", "kernels", "launch", "models",
-           "optim", "parallel", "runtime", "sim", "tree"]
+           "optim", "parallel", "runtime", "sim", "trace", "tree"]

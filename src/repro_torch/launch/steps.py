@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..models import decode_step as model_decode
 from ..models import init_cache, loss_and_grads
 from ..models import prefill as model_prefill
@@ -110,11 +111,12 @@ class StepBundle:
         each gradient goes onto its AdamW state's ZeRO-1 shards before the
         clip (a reduce-scatter where it is a sum over the data ranks), so
         that the norm and the update run on the shards."""
-        loss, grads = loss_and_grads(params, self.cfg, inputs, labels)
-        if self.mesh is not None:  # ZeRO-1: each gradient onto its optimizer state's shards
-            grads = tree_map(_redistributed, grads, self.ospecs["m"])
-        grads, gnorm = clip_by_global_norm(grads, self.clip)
-        adamw_update(params.param_tree(), grads, opt_state, self.lr)
+        with trace.span(trace.STEP):
+            loss, grads = loss_and_grads(params, self.cfg, inputs, labels)
+            if self.mesh is not None:  # ZeRO-1: each gradient onto its optimizer state's shards
+                grads = tree_map(_redistributed, grads, self.ospecs["m"])
+            grads, gnorm = clip_by_global_norm(grads, self.clip)
+            adamw_update(params.param_tree(), grads, opt_state, self.lr)
         return params, opt_state, {"loss": loss, "gnorm": gnorm}
 
     def prefill_step(self, params, inputs, cache):

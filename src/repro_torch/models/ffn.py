@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
 from ..kernels import ops
 from ..parallel import shard
 from . import meshed
@@ -223,34 +224,42 @@ def _moe_block(x, router, w_gate, w_up, w_down, e0: int, e_pad: int, groups: Opt
     b, s, d = x.shape
     e_loc = w_gate.shape[0]
     g, tg, cap = _groups(x, cfg, groups)
-    r = _route(x, router, e_pad, cfg, e0, e_loc if e_loc != e_pad else None, g)
+    with trace.span("moe.route"):
+        r = _route(x, router, e_pad, cfg, e0, e_loc if e_loc != e_pad else None, g)
+        if trace.enabled() and e_loc == e_pad:  # one chip's routing (a rank's is not counted)
+            trace.count("moe.kept_rows", r.valid.sum())
+            trace.count("moe.expert_rows", r.valid.sum(dim=(0, 2)))
+            trace.count("moe.capacity_rows", g * e_loc * cap)
+            trace.count("moe.assignments", b * s * cfg.moe.top_k)
 
-    xg = x.reshape(g, tg, d)
-    gi = torch.arange(g, device=x.device)[:, None, None]
-    xe = xg[gi, r.token_idx].reshape(g * e_loc * cap, d)      # [G*E_loc*C, D]
-    if cached:
-        tiles, err = _expert_tiles(x.device, e_loc, g)
-    else:
-        tiles = torch.arange(e_loc, dtype=torch.int32, device=x.device).repeat(g)
-        err = torch.zeros(1, dtype=torch.int32, device=x.device)
-    gmm = lambda a, w: ops.grouped_matmul(a, w, tiles, block_m=cap, err=err)  # noqa: E731
-    h = F.silu(gmm(xe, w_gate)) * gmm(xe, w_up)
-    ye = gmm(h, w_down).reshape(g, e_loc, cap, d)
-    ye = (ye * (r.top_scores * r.valid)[..., None].to(ye.dtype)).to(cdt)
+    with trace.span("moe.experts"):
+        xg = x.reshape(g, tg, d)
+        gi = torch.arange(g, device=x.device)[:, None, None]
+        xe = xg[gi, r.token_idx].reshape(g * e_loc * cap, d)      # [G*E_loc*C, D]
+        if cached:
+            tiles, err = _expert_tiles(x.device, e_loc, g)
+        else:
+            tiles = torch.arange(e_loc, dtype=torch.int32, device=x.device).repeat(g)
+            err = torch.zeros(1, dtype=torch.int32, device=x.device)
+        gmm = lambda a, w: ops.grouped_matmul(a, w, tiles, block_m=cap, err=err)  # noqa: E731
+        h = F.silu(gmm(xe, w_gate)) * gmm(xe, w_up)
+        ye = gmm(h, w_down).reshape(g, e_loc, cap, d)
+        ye = (ye * (r.top_scores * r.valid)[..., None].to(ye.dtype)).to(cdt)
 
     # Combine: row (g, e, c) of ye belongs to token token_idx[g, e, c]. For
     # each token, look up where each of its k experts kept it (a missing
     # or dropped assignment, or an expert of another rank, points at a zero
     # row) and sum those rows.
-    n_rows = g * e_loc * cap
-    flat = torch.arange(n_rows, device=x.device).reshape(g, e_loc, cap)
-    flat = torch.where(r.valid, flat, torch.full_like(flat, n_rows))
-    where = torch.full((g, e_loc, tg), n_rows, dtype=flat.dtype, device=x.device)
-    where.scatter_(2, r.token_idx, flat)       # an expert's C tokens are distinct
-    slot = r.top_e
-    if e_loc != e_pad:  # a rank's experts: another rank's expert reads the zero row
-        where = torch.cat([where, where.new_full((g, 1, tg), n_rows)], dim=1)
-        slot = torch.where((slot >= e0) & (slot < e0 + e_loc), slot - e0, e_loc)
-    inv = torch.gather(where.transpose(1, 2), 2, slot)     # [G, Tg, k]
-    rows = torch.cat([ye.reshape(n_rows, d), ye.new_zeros((1, d))])
-    return rows[inv].sum(dim=2).reshape(b, s, d)
+    with trace.span("moe.combine"):
+        n_rows = g * e_loc * cap
+        flat = torch.arange(n_rows, device=x.device).reshape(g, e_loc, cap)
+        flat = torch.where(r.valid, flat, torch.full_like(flat, n_rows))
+        where = torch.full((g, e_loc, tg), n_rows, dtype=flat.dtype, device=x.device)
+        where.scatter_(2, r.token_idx, flat)       # an expert's C tokens are distinct
+        slot = r.top_e
+        if e_loc != e_pad:  # a rank's experts: another rank's expert reads the zero row
+            where = torch.cat([where, where.new_full((g, 1, tg), n_rows)], dim=1)
+            slot = torch.where((slot >= e0) & (slot < e0 + e_loc), slot - e0, e_loc)
+        inv = torch.gather(where.transpose(1, 2), 2, slot)     # [G, Tg, k]
+        rows = torch.cat([ye.reshape(n_rows, d), ye.new_zeros((1, d))])
+        return rows[inv].sum(dim=2).reshape(b, s, d)

@@ -43,6 +43,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import trace
 from ..core.buffers import DeviceLike, resolve_device
 from ..parallel import current_policy, shard
 from ..tree import tree_map
@@ -215,16 +216,18 @@ class Block(nn.Module):
 
     def forward(self, x, positions, cache_entry, pos, prefill_mode):
         cfg = self.cfg
-        h = rms_norm(x, self.norm, cfg.norm_eps)
-        if self.recurrent:
-            y, new_c = self.mixer(h, state=cache_entry)
-        else:
-            y, new_c = self.mixer(h, positions=positions, cache=cache_entry, pos=pos,
-                                  prefill=prefill_mode)
-        x = x + y
+        with trace.span("block.mixer"):
+            h = rms_norm(x, self.norm, cfg.norm_eps)
+            if self.recurrent:
+                y, new_c = self.mixer(h, state=cache_entry)
+            else:
+                y, new_c = self.mixer(h, positions=positions, cache=cache_entry, pos=pos,
+                                      prefill=prefill_mode)
+            x = x + y
         if self.ffn is not None:
-            h = rms_norm(x, self.ffn_norm, cfg.norm_eps)
-            x = x + self.ffn(h)
+            with trace.span("block.ffn"):
+                h = rms_norm(x, self.ffn_norm, cfg.norm_eps)
+                x = x + self.ffn(h)
         return x, new_c
 
 
@@ -477,11 +480,13 @@ def loss_and_grads(params: LanguageModel, cfg: ArchConfig, inputs: torch.Tensor,
     (zeros for a weight the loss does not reach); the weights' ``.grad`` is
     left cleared."""
     params.zero_grad(set_to_none=True)
-    loss = loss_fn(params, cfg, inputs, labels, remat=remat)
-    loss.backward()
-    grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-                     params.param_tree())
-    params.zero_grad(set_to_none=True)
+    with trace.span("train.forward"):
+        loss = loss_fn(params, cfg, inputs, labels, remat=remat)
+    with trace.span("train.backward"):
+        loss.backward()
+        grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+                         params.param_tree())
+        params.zero_grad(set_to_none=True)
     return loss.detach(), grads
 
 

@@ -22,6 +22,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from .. import trace
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["adamw_init", "adamw_update", "clip_by_global_norm", "opt_specs"]
@@ -46,15 +47,16 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]
     on one mesh (no partial sums left), the sum of squares is each rank's
     over its own shards, each leaf's divided by the ranks that hold copies
     of its shard, then summed across the mesh once."""
-    leaves = tree_leaves(grads)
-    sq = _sharded_sum_of_squares(leaves)
-    if sq is None:
-        sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for g in leaves:
-            sq = sq + torch.sum(torch.square(g.float()))
-    gnorm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), gnorm
+    with trace.span("optim.clip"):
+        leaves = tree_leaves(grads)
+        sq = _sharded_sum_of_squares(leaves)
+        if sq is None:
+            sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            for g in leaves:
+                sq = sq + torch.sum(torch.square(g.float()))
+        gnorm = torch.sqrt(sq)
+        scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+        return tree_map(lambda g: g.float() * scale, grads), gnorm
 
 
 def _sharded_sum_of_squares(leaves) -> Any:
@@ -95,20 +97,21 @@ def adamw_update(
     """One AdamW step, in place on ``params`` (each the rounding of its new
     master to its dtype) and ``state``; ``lr`` a float or 0-d tensor.
     Returns ``(params, state)``, the same objects."""
-    state["step"] += 1
-    step = state["step"].float()
-    c1 = 1.0 - torch.pow(b1, step)
-    c2 = 1.0 - torch.pow(b2, step)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
-    for p, master, g, m, v in zip(tree_leaves(params), tree_leaves(state["master"]),
-                                  tree_leaves(grads), tree_leaves(state["m"]),
-                                  tree_leaves(state["v"])):
-        g = g.float()
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        update = (m / c1).div_(torch.sqrt(v / c2).add_(eps)).add_(weight_decay * master)
-        master.sub_(lr * update)
-        p.copy_(master)
+    with trace.span("optim.adamw"):
+        state["step"] += 1
+        step = state["step"].float()
+        c1 = 1.0 - torch.pow(b1, step)
+        c2 = 1.0 - torch.pow(b2, step)
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
+        for p, master, g, m, v in zip(tree_leaves(params), tree_leaves(state["master"]),
+                                      tree_leaves(grads), tree_leaves(state["m"]),
+                                      tree_leaves(state["v"])):
+            g = g.float()
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
+            update = (m / c1).div_(torch.sqrt(v / c2).add_(eps)).add_(weight_decay * master)
+            master.sub_(lr * update)
+            p.copy_(master)
     return params, state
 
 

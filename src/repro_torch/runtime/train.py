@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from .. import trace
 from ..checkpoint import CheckpointManager
 from ..core.buffers import DeviceLike, resolve_device
 from ..data import DataCursor, TokenPipeline
@@ -116,13 +117,14 @@ class Trainer:
                 "err": None if self.err is None else tree_to_numpy(self.err)}
 
     def _step(self, inputs: torch.Tensor, labels: torch.Tensor, lr: torch.Tensor):
-        loss, grads = loss_and_grads(self.model, self.cfg, inputs, labels)
-        grads, gnorm = clip_by_global_norm(grads, self.tcfg.clip)
-        if self.err is not None:
-            # error-feedback int8 round-trip (the data-parallel wire format)
-            q, scales, self.err = ef_int8_compress(grads, self.err)
-            grads = ef_int8_decompress(q, scales)
-        adamw_update(self.params, grads, self.opt, lr)
+        with trace.span(trace.STEP):
+            loss, grads = loss_and_grads(self.model, self.cfg, inputs, labels)
+            grads, gnorm = clip_by_global_norm(grads, self.tcfg.clip)
+            if self.err is not None:
+                # error-feedback int8 round-trip (the data-parallel wire format)
+                q, scales, self.err = ef_int8_compress(grads, self.err)
+                grads = ef_int8_decompress(q, scales)
+            adamw_update(self.params, grads, self.opt, lr)
         return {"loss": loss, "gnorm": gnorm}
 
     def run(self, n_steps: Optional[int] = None) -> List[Dict[str, float]]:

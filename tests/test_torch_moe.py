@@ -275,3 +275,53 @@ def test_device_window_step_path_runs_the_expert_stream_bit_equal_to_serial(
     assert torch.equal(wave.view(torch.int32), serial.view(torch.int32))
     if per_task:
         assert calls == [len(tasks)]  # one step group of 21, run task by task
+
+
+@pytest.mark.parametrize("variant", ["base", "dispatch_groups_2"])
+@pytest.mark.parametrize("tp_size", [1, 16])
+def test_moe_counters_equal_a_plain_count_of_the_routing(variant, tp_size):
+    """With tracing on, the MoE layer's counters are a plain count of the
+    dispatch ``route_moe`` gives, and its output is the output off."""
+    from repro_torch import trace
+
+    cfg, _, port, _, x_port = _setup(variant, tp_size)
+    r = TF.route_moe(port, x_port, cfg)
+    off = TF.apply_moe(port, x_port, cfg)
+    trace.enable()
+    try:
+        on = TF.apply_moe(port, x_port, cfg)
+        counters = trace.collect()["counters"]
+    finally:
+        trace.disable()
+        trace.collect()
+    g, e_pad, cap = r.token_idx.shape
+    assert counters["moe.kept_rows"] == int(r.valid.sum())
+    assert counters["moe.expert_rows"] == r.valid.sum(dim=(0, 2)).tolist()
+    assert counters["moe.capacity_rows"] == g * e_pad * cap
+    assert counters["moe.assignments"] == B * S * cfg.moe.top_k
+    assert 0 < counters["moe.kept_rows"] <= min(counters["moe.capacity_rows"],
+                                                counters["moe.assignments"])
+    assert torch.equal(on, off)
+
+
+def test_moe_rank_branch_is_unchanged_and_uncounted_with_tracing_on():
+    """A rank's share of the experts (the mesh branch, ``e_loc != e_pad``)
+    gives the same output with tracing on, and adds to no counter."""
+    from repro_torch import trace
+
+    cfg, _, port, _, x_port = _setup("base", 1)
+    e_pad = port.w_gate.shape[0]
+    e0, e_loc = e_pad // 2, e_pad - e_pad // 2
+    args = (x_port, port.router, port.w_gate[e0:], port.w_up[e0:], port.w_down[e0:], e0,
+            e_pad, None, cfg, torch.float32)
+    off = TF._moe_block(*args, cached=False)
+    trace.enable()
+    try:
+        on = TF._moe_block(*args, cached=False)
+        got = trace.collect()
+    finally:
+        trace.disable()
+        trace.collect()
+    assert e_loc != e_pad and torch.equal(on, off)
+    assert got["counters"] == {}
+    assert [s["name"] for s in got["spans"]] == ["moe.route", "moe.experts", "moe.combine"]
