@@ -268,7 +268,12 @@ Phases, each fatal on failure (an exception, exit code != 0):
    ``torch.bmm(x, w)``; the RG-LRU reverse scan at [4,
    512, 2560] f32, no library call; the selective scan's backward at
    falcon-mamba-7b's [4, 512, 8192], N 16, bf16, its kernel and reduction
-   timed, no library call), and
+   timed, no library call; the optimizer's clip and AdamW update at
+   minicpm-2b's and granite-moe-3b-a800m's whole leaf sets through
+   ``optim.clip_by_global_norm`` and ``optim.adamw_update``, held leaf by
+   leaf to ``global_norm_ref`` and ``adamw_step_ref`` (``numbers_adamw``),
+   ``torch.optim.AdamW(fused=True)`` on float32 copies of the leaves the
+   library call), and
    the wall time of each phase-4/5/6 policy and server. The ready queue also: its device time from
    ``torch.profiler`` (the mean over the kernels the trace holds), that
    of ONE 32-deep chain (over 32: the hop that bounds it) and of one
@@ -2438,10 +2443,11 @@ def dyn_runner(policy, device):
 
 
 def kernel_modules():
-    """The six hand-written kernels' wrapper modules."""
+    """The hand-written kernels' wrapper modules: the six kernels of the
+    models and the scheduler, and the optimizer's."""
     return tuple(importlib.import_module(f"repro_torch.kernels.{name}")
                  for name in ("ready_queue", "wave_elementwise", "flash_attention", "lru_scan",
-                              "grouped_matmul", "selective_scan"))
+                              "grouped_matmul", "selective_scan", "adamw"))
 
 
 def phase_dyn(device, card):
@@ -2956,8 +2962,14 @@ def train_counters():
 
 
 def reset_train_counters():
-    for name in ("flash_attention", "grouped_matmul", "lru_scan", "selective_scan"):
+    for name in ("flash_attention", "grouped_matmul", "lru_scan", "selective_scan", "adamw"):
         importlib.import_module(f"repro_torch.kernels.{name}").reset_launches()
+
+
+def optimizer_counters():
+    """The fused optimizer's launches (update, norm) and leaves by path."""
+    aw = importlib.import_module("repro_torch.kernels.adamw")
+    return aw.launches, aw.norm_launches, dict(aw.paths)
 
 
 def expected_train_launches(cfg):
@@ -3220,6 +3232,7 @@ def phase_train(device, card, arch):
     from repro_torch.launch.steps import StepBundle
     from repro_torch.models import init_params
     from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(ARCHS[arch], **TRAIN_CUTS.get(arch, {}))
     before = torch.cuda.memory_allocated()
@@ -3259,6 +3272,12 @@ def phase_train(device, card, arch):
     want = {k: v * TRAIN_STEPS for k, v in expected_train_launches(cfg).items()}
     check(counts == want, f"train {cfg.name}: {TRAIN_STEPS} steps launched {counts}, "
                           f"expected {want}")
+    n_leaves = len(tree_leaves(model.param_tree()))
+    opt_counts = optimizer_counters()
+    want_opt = (TRAIN_STEPS, 2 * TRAIN_STEPS, {"fused": TRAIN_STEPS * n_leaves, "per_leaf": 0})
+    check(opt_counts == want_opt,
+          f"train {cfg.name}: the optimizer's {TRAIN_STEPS} steps gave (update launches, norm "
+          f"launches, leaves by path) {opt_counts}, expected {want_opt}")
     step_ms = statistics.median(walls[1:]) * 1e3
     flops = model_flops_per_device(cfg, "train", 1,
                                    shapes={"train": (TRAIN_SEQ, TRAIN_BATCH, "train")})
@@ -3310,6 +3329,7 @@ def phase_train(device, card, arch):
         + "; ".join(f"{key} {ms:.3f} ms x{n}" for ms, n, key in top) + f" [{card}]")
     del model, opt, batches, prof
     free_device_memory()
+    counts = {**counts, "adamw": opt_counts[0], "adamw_norm": opt_counts[1]}
     return counts, {f"train {cfg.name} step (median)": step_ms / 1e3}
 
 
@@ -4813,6 +4833,173 @@ def numbers_wave(device, launches, widest):
     }
 
 
+# The optimizer's numbers: the train cells' archs, the clip, the learning
+# rate and the step whose bias corrections the update takes.
+ADAMW_ARCHS = ("minicpm-2b", "granite-moe-3b-a800m")
+ADAMW_CLIP, ADAMW_LR, ADAMW_STEP = 1.0, 1.6e-4, 10
+
+
+def adamw_leaf(shape, dtype, seed, device):
+    """One leaf's parameter, gradient, float32 master, m and v, drawn from
+    its own ``seed``: the same tensors every time."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    master = 0.02 * torch.randn(shape, generator=gen, device=device)
+    g = (1e-3 * torch.randn(shape, generator=gen, device=device)).to(dtype)
+    m = 1e-4 * torch.randn(shape, generator=gen, device=device)
+    v = 1e-7 * torch.rand(shape, generator=gen, device=device)
+    return master.to(dtype), g, master, m, v
+
+
+def adamw_device_ms(fn, runs=5):
+    """Per call of ``fn``: the device ms of the optimizer's three kernels,
+    and of every device operation of the call (kernels and copies, each
+    counted once)."""
+    from torch.autograd import DeviceType
+
+    prof, _ = profiled(lambda: [fn() for _ in range(runs)])
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = ("norm_partials_kernel", "norm_finish_kernel", "adamw_update_kernel")
+    kernels = sum(e.time_range.elapsed_us() for e in events if any(k in e.name for k in mine))
+    return kernels / 1e3 / runs, sum(e.time_range.elapsed_us() for e in events) / 1e3 / runs
+
+
+def adamw_numbers_at(arch, device):
+    """The optimizer's kernels at one arch's whole leaf set: one clip and
+    update through ``optim``'s wrappers as the train step calls them, each
+    leaf then drawn again from its seed and run through the plain version
+    at the kernels' scale (bit-equal: parameter, master, m and v), the norm
+    against ``global_norm_ref``'s (within 1e-6), the launches and the paths
+    of that step; then the times of the fused pair, of the plain version
+    (the per-leaf norm, the float32 copy of every gradient, the per-leaf
+    update) and of ``torch.optim.AdamW(fused=True)`` on float32 copies."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import adamw as aw
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_update, clip_by_global_norm
+    from repro_torch.tree import tree_leaves
+
+    free_device_memory()
+    shapes = [(tuple(t.shape), t.dtype) for t in
+              tree_leaves(init_params(ARCHS[arch], device="meta", tp_size=1).param_tree())]
+    seeds = [34_000 + i for i in range(len(shapes))]
+    leaves = [adamw_leaf(shape, dtype, seed, device) for (shape, dtype), seed
+              in zip(shapes, seeds)]
+    params, grads, master, m, v = (list(x) for x in zip(*leaves))
+    del leaves
+    state = {"step": torch.full((), ADAMW_STEP - 1, dtype=torch.int32, device=device),
+             "master": master, "m": m, "v": v}
+    n_params = sum(p.numel() for p in params)
+    least = sum(p.numel() * (3 * p.element_size() + 24) for p in params)  # g twice, p once
+    want_norm, _ = aw.global_norm_ref(grads, ADAMW_CLIP)
+    aw.reset_launches()
+    clipped, gnorm = clip_by_global_norm(grads, ADAMW_CLIP)
+    adamw_update(params, clipped, state, ADAMW_LR)
+    counts = (aw.launches, aw.norm_launches, dict(aw.paths))
+    step = state["step"].float()
+    c1, c2 = 1.0 - torch.pow(0.9, step), 1.0 - torch.pow(0.95, step)
+    lr = torch.as_tensor(ADAMW_LR, dtype=torch.float32, device=device)
+    same, worst = True, 0.0
+    for i, ((shape, dtype), seed) in enumerate(zip(shapes, seeds)):
+        p0, _, w0, m0, v0 = adamw_leaf(shape, dtype, seed, device)
+        aw.adamw_step_ref([p0], [grads[i]], [w0], [m0], [v0], scale=clipped.scale, c1=c1,
+                          c2=c2, lr=lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+        for got, want in ((params[i], p0), (master[i], w0), (m[i], m0), (v[i], v0)):
+            as_int = torch.int16 if got.element_size() == 2 else torch.int32
+            same = same and got.dtype == want.dtype and torch.equal(got.view(as_int),
+                                                                    want.view(as_int))
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+        del p0, w0, m0, v0
+    norm_rel = abs(float(gnorm) - float(want_norm)) / float(want_norm)
+
+    def fused():
+        adamw_update(params, clip_by_global_norm(grads, ADAMW_CLIP)[0], state, lr)
+
+    def plain():
+        _, scale = aw.global_norm_ref(grads, ADAMW_CLIP)
+        scaled = [g.float() * scale for g in grads]
+        state["step"] += 1
+        t = state["step"].float()
+        aw.adamw_step_ref(params, scaled, master, m, v, scale=None, c1=1.0 - torch.pow(0.9, t),
+                          c2=1.0 - torch.pow(0.95, t), lr=lr, b1=0.9, b2=0.95, eps=1e-8,
+                          weight_decay=0.1)
+
+    kernels_ms, device_ms = adamw_device_ms(fused)
+    out = {"leaves": len(shapes), "params": n_params, "launches_a_step": counts,
+           "matches_plain": same and norm_rel <= 1e-6 and counts == (1, 2, {
+               "fused": len(shapes), "per_leaf": 0}),
+           "max_abs_err": worst, "norm_rel_err": norm_rel,
+           "bound_ms": least / HBM_BYTES_PER_S * 1e3, "ms": median_ms(fused),
+           "b2b_ms": back_to_back_ms(fused), "device_ms": kernels_ms,
+           "device_all_ms": device_ms, "plain_ms": median_ms(plain, runs=5, warmup=1),
+           "plain_device_ms": adamw_device_ms(plain, runs=2)[1]}
+    del params, grads, master, m, v, state, clipped, fused, plain
+    free_device_memory()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(34)
+    wide = [torch.randn(shape, generator=gen, device=device).requires_grad_(True)
+            for shape, _ in shapes]
+    for t in wide:
+        t.grad = 1e-3 * torch.randn(t.shape, generator=gen, device=device)
+    opt = torch.optim.AdamW(wide, lr=ADAMW_LR, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                            fused=True)
+    out.update(library_ms=median_ms(opt.step), library_b2b_ms=back_to_back_ms(opt.step),
+               library_bound_ms=28 * n_params / HBM_BYTES_PER_S * 1e3)
+    del wide, opt
+    free_device_memory()
+    return out
+
+
+def numbers_adamw(device):
+    """The optimizer's clip and AdamW update (``kernels/adamw.py``) at the
+    benchmark's two train cells' leaf sets (``adamw_numbers_at``):
+    minicpm-2b's numbers, granite's beside them under ``granite_``. The
+    bound is the least bytes at the HBM rate: a bf16 parameter's gradient
+    read twice, its master, m and v read and written, the parameter written,
+    30 B; the library's is float32 AdamW's 28 B a parameter."""
+    import torch
+
+    at = {arch: adamw_numbers_at(arch, device) for arch in ADAMW_ARCHS}
+    mini, granite = at["minicpm-2b"], at["granite-moe-3b-a800m"]
+    for arch, r in at.items():
+        log(f"optimizer at {arch}'s {r['leaves']} leaves ({r['params']} parameters): "
+            f"bit-equal to the plain version {r['matches_plain']} (max abs err "
+            f"{r['max_abs_err']:.3g}, norm rel err {r['norm_rel_err']:.3g}, launches a step "
+            f"{r['launches_a_step']}); kernels' device {r['device_ms']:.3f} ms (all device "
+            f"{r['device_all_ms']:.3f}), single {r['ms']:.3f}, back to back {r['b2b_ms']:.3f}, "
+            f"bound {r['bound_ms']:.3f} ms ({100 * r['bound_ms'] / r['b2b_ms']:.1f} % of it "
+            f"back to back); plain {r['plain_ms']:.3f} ms (device {r['plain_device_ms']:.3f}); "
+            f"torch.optim.AdamW(fused=True) float32 {r['library_ms']:.3f}, back to back "
+            f"{r['library_b2b_ms']:.3f} (its bound {r['library_bound_ms']:.3f}) "
+            f"[{torch.cuda.get_device_name(device)}]")
+    return {
+        "name": "adamw",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the reference's optimizer (src/repro/optim/adamw.py) is plain jnp",
+        "launches": None,  # main() adds phase 9's
+        "matches_plain": mini["matches_plain"] and granite["matches_plain"],
+        "max_abs_err": max(mini["max_abs_err"], granite["max_abs_err"]),
+        "ms": mini["ms"],
+        "plain_ms": mini["plain_ms"],
+        "bound_ms": mini["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": mini["library_ms"],
+        "b2b_ms": mini["b2b_ms"],
+        "device_ms": mini["device_ms"],
+        "device_all_ms": mini["device_all_ms"],
+        "plain_device_ms": mini["plain_device_ms"],
+        "library_b2b_ms": mini["library_b2b_ms"],
+        "norm_rel_err": max(mini["norm_rel_err"], granite["norm_rel_err"]),
+        **{f"granite_{k}": v for k, v in granite.items() if k not in ("matches_plain",)},
+        "shape": f"minicpm-2b's {mini['leaves']} leaves ({mini['params']} bf16 parameters), "
+                 f"granite-moe-3b-a800m's {granite['leaves']} ({granite['params']})",
+    }
+
+
 def profiled(fn):
     """Run ``fn()`` once under ``torch.profiler``. Returns (the profile, the
     wall ms of ``fn`` under it)."""
@@ -5000,7 +5187,8 @@ def main() -> int:
     gmm_dx, gmm_dw, gmm_train = timed(numbers_gmm_bwd, device)
     lru_bwd = timed(numbers_lru_bwd, device)
     scan_bwd = timed(numbers_scan_bwd, device)
-    kernels += [gmm_dx, gmm_dw, lru_bwd, scan_bwd]
+    adamw = timed(numbers_adamw, device)
+    kernels += [gmm_dx, gmm_dw, lru_bwd, scan_bwd, adamw]
     # The examples' servers after the kernels' numbers, as the other servers.
     timed(phase_examples, device, card)
     torch.cuda.empty_cache()
@@ -5055,6 +5243,10 @@ def main() -> int:
     gmm_dw["launches"] = train_launches["granite-moe-3b-a800m"]["gmm_dw"]
     lru_bwd["launches"] = train_launches["recurrentgemma-2b"]["lru_bwd"]
     lru["launches"] = rg["lru_scan"]
+    adamw.update(launches=train_launches["minicpm-2b"]["adamw"],
+                 norm_launches=train_launches["minicpm-2b"]["adamw_norm"],
+                 granite_launches=train_launches["granite-moe-3b-a800m"]["adamw"],
+                 granite_norm_launches=train_launches["granite-moe-3b-a800m"]["adamw_norm"])
     gmm.update(launches=granite["grouped_matmul"], deepseek_launches=deepseek["grouped_matmul"],
                train_launches=train_launches["granite-moe-3b-a800m"]["gmm"], **gmm_train)
     scan.update(launches=mamba["selective_scan"],

@@ -2,6 +2,9 @@
 version in ``ref.py``:
 
 ready_queue      — the ACS-HW device ready queue (CUDA, ``csrc/ready_queue.cu``)
+adamw            — the optimizer's global-norm clip and AdamW update over every leaf
+                   in a fixed number of launches (CUDA, ``csrc/adamw.cu``); the
+                   reference's optimizer is plain ``jnp``, with no Pallas kernel
 flash_attention  — online-softmax attention (CUDA, ``csrc/flash_attention.cu``)
 grouped_matmul   — the ragged grouped GEMM of the MoE experts (CUDA,
                    ``csrc/grouped_matmul.cu``)
@@ -25,14 +28,14 @@ As in the reference's ``repro.kernels``, the package binds
 ``flash_attention``, ``grouped_matmul``, ``lru_scan``, ``wave_elementwise``
 and ``apply_wave`` to the functions; their modules (launch counters,
 ``build``) are ``importlib.import_module("repro_torch.kernels.<name>")``.
-``ready_queue``, ``selective_scan``, ``ops`` and ``ref`` are modules.
+``adamw``, ``ready_queue``, ``selective_scan``, ``ops`` and ``ref`` are modules.
 """
 
-from . import ops, ready_queue, ref, selective_scan
+from . import adamw, ops, ready_queue, ref, selective_scan
 from .flash_attention import flash_attention
 from .grouped_matmul import grouped_matmul
 from .lru_scan import lru_scan
 from .wave_elementwise import apply_wave, wave_elementwise
 
-__all__ = ["apply_wave", "flash_attention", "grouped_matmul", "lru_scan", "ops", "ready_queue",
-           "ref", "selective_scan", "wave_elementwise"]
+__all__ = ["adamw", "apply_wave", "flash_attention", "grouped_matmul", "lru_scan", "ops",
+           "ready_queue", "ref", "selective_scan", "wave_elementwise"]

@@ -6,10 +6,17 @@ master, m and v trees of the params' structure. The update is the
 reference's formula, weight decay inside the step
 (``master - lr * (mh / (sqrt(vh) + eps) + wd * master)``), not
 ``torch.optim.AdamW``'s decoupled decay, which rounds differently. It runs
-leaf by leaf and in place: the params, master, m, v and step are updated
-where they lie, so a 2.7 B-parameter model's state (32.7 GB of float32
-master, m and v) is never held twice, as a functional update would hold
-it.
+in place: the params, master, m, v and step are updated where they lie, so
+a 2.7 B-parameter model's state (32.7 GB of float32 master, m and v) is
+never held twice, as a functional update would hold it.
+
+The clip returns :class:`ScaledGrads` (the gradients as given and the
+clip's scale) in place of a float32 copy of every gradient, and the update
+applies the scale as it reads each gradient. Both steps run in
+``kernels/adamw.py``: on plain CUDA tensors its multi-tensor kernels (two
+launches for the norm, one for the update, whatever the number of leaves),
+on CPU tensors and DTensors its plain per-leaf version; over a mesh the
+norm takes one all-reduce a mesh axis.
 
 ``opt_specs`` is ZeRO-1 over a mesh: master, m and v take their
 parameter's spec and are also sharded over the data axes along the first
@@ -23,9 +30,10 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .. import trace
+from ..kernels import adamw as fused
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm", "opt_specs"]
+__all__ = ["ScaledGrads", "adamw_init", "adamw_update", "clip_by_global_norm", "opt_specs"]
 
 
 def adamw_init(params: Any) -> Dict[str, Any]:
@@ -41,22 +49,37 @@ def adamw_init(params: Any) -> Dict[str, Any]:
     }
 
 
+class ScaledGrads:
+    """The clip's result: the gradient tree as given and ``scale`` (a 0-d
+    float32 tensor, or DTensor, on its device), which :func:`adamw_update`
+    applies as it reads each gradient."""
+
+    __slots__ = ("grads", "scale")
+
+    def __init__(self, grads: Any, scale: torch.Tensor) -> None:
+        self.grads = grads
+        self.scale = scale
+
+    def materialize(self) -> Any:
+        """The scaled gradients as a float32 tree (a copy of every leaf)."""
+        return tree_map(lambda g: g.float() * self.scale, self.grads)
+
+
 def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    """``(grads scaled by min(1, max_norm / (norm + 1e-9)) in float32, norm)``,
-    the norm over every leaf in float32. Over DTensors sharded or replicated
-    on one mesh (no partial sums left), the sum of squares is each rank's
-    over its own shards, each leaf's divided by the ranks that hold copies
-    of its shard, then summed across the mesh once."""
+    """``(ScaledGrads(grads, min(1, max_norm / (norm + 1e-9))), norm)``, the
+    norm over every leaf in float32; nothing is copied. Over DTensors
+    sharded or replicated on one mesh (no partial sums left) the sum of
+    squares is each rank's over its own shards, each leaf's divided by the
+    ranks that hold copies of its shard, then summed across the mesh once."""
     with trace.span("optim.clip"):
         leaves = tree_leaves(grads)
         sq = _sharded_sum_of_squares(leaves)
-        if sq is None:
-            sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            for g in leaves:
-                sq = sq + torch.sum(torch.square(g.float()))
-        gnorm = torch.sqrt(sq)
-        scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
-        return tree_map(lambda g: g.float() * scale, grads), gnorm
+        if sq is None:  # the kernels on plain CUDA tensors, else the plain version
+            gnorm, scale = fused.global_norm(leaves, max_norm)
+        else:
+            gnorm = torch.sqrt(sq)
+            scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+        return ScaledGrads(grads, scale), gnorm
 
 
 def _sharded_sum_of_squares(leaves) -> Any:
@@ -95,23 +118,20 @@ def adamw_update(
     weight_decay: float = 0.1,
 ) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step, in place on ``params`` (each the rounding of its new
-    master to its dtype) and ``state``; ``lr`` a float or 0-d tensor.
-    Returns ``(params, state)``, the same objects."""
+    master to its dtype) and ``state``; ``grads`` a tree or the clip's
+    :class:`ScaledGrads`; ``lr`` a float or 0-d tensor. Returns ``(params,
+    state)``, the same objects."""
     with trace.span("optim.adamw"):
+        scale = None
+        if isinstance(grads, ScaledGrads):
+            grads, scale = grads.grads, grads.scale
         state["step"] += 1
         step = state["step"].float()
         c1 = 1.0 - torch.pow(b1, step)
         c2 = 1.0 - torch.pow(b2, step)
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
-        for p, master, g, m, v in zip(tree_leaves(params), tree_leaves(state["master"]),
-                                      tree_leaves(grads), tree_leaves(state["m"]),
-                                      tree_leaves(state["v"])):
-            g = g.float()
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            update = (m / c1).div_(torch.sqrt(v / c2).add_(eps)).add_(weight_decay * master)
-            master.sub_(lr * update)
-            p.copy_(master)
+        fused.adamw_step(tree_leaves(params), tree_leaves(grads), tree_leaves(state["master"]),
+                         tree_leaves(state["m"]), tree_leaves(state["v"]), scale=scale, c1=c1,
+                         c2=c2, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     return params, state
 
 

@@ -121,8 +121,9 @@ class Trainer:
             loss, grads = loss_and_grads(self.model, self.cfg, inputs, labels)
             grads, gnorm = clip_by_global_norm(grads, self.tcfg.clip)
             if self.err is not None:
-                # error-feedback int8 round-trip (the data-parallel wire format)
-                q, scales, self.err = ef_int8_compress(grads, self.err)
+                # error-feedback int8 round-trip (the data-parallel wire format),
+                # on the scaled gradients in float32
+                q, scales, self.err = ef_int8_compress(grads.materialize(), self.err)
                 grads = ef_int8_decompress(q, scales)
             adamw_update(self.params, grads, self.opt, lr)
         return {"loss": loss, "gnorm": gnorm}

@@ -51,6 +51,7 @@ STEP = "train.step"
 # The kernel modules' launch counters (ints, or dicts of ints by path) that
 # ``collect`` reports as deltas.
 LAUNCH_COUNTERS = {
+    "adamw": ("launches", "norm_launches", "paths"),
     "flash_attention": ("launches", "backward_launches", "backward_paths"),
     "grouped_matmul": ("launches", "dx_launches", "dw_launches", "dx_paths", "dw_paths"),
     "lru_scan": ("launches", "backward_launches"),

@@ -82,7 +82,20 @@
   (both entries) within tolerance of ``mamba_scan_bwd_ref`` and
   ``selective_scan_bwd_ref``, each autograd Function launching its
   kernels, and reduced configs' gradients on the card (deepseek-v2's MLA
-  and falcon-mamba's scan among them) against the CPU's.
+  and falcon-mamba's scan among them) against the CPU's;
+* the optimizer (``kernels/adamw.py``): the fused AdamW update bit-equal
+  to the per-leaf plain version at a scale of exactly 1 and at a shared
+  scale below it, lr a float or a device tensor, over leaves of 1, 7 and
+  4,097 elements, bfloat16, float16 and float32 in one tree, views whose
+  storage offset breaks 16-byte alignment (all five pointers alike: the
+  vector path after a head; one alone: element by element) and a
+  283M-element leaf (minicpm-2b's tied embedding) beside small ones; the
+  norm within 1e-6 of the per-leaf ``torch.sum`` path and the same bits
+  over 20 runs; three launches a step whatever the number of leaves; no
+  host sync under ``torch.cuda.set_sync_debug_mode("error")``; no float32
+  copy of the gradients (the peak memory of a clip and update); a reduced
+  model's ``StepBundle.train_step`` taking the fused path for every leaf
+  (``trace.collect()``); the wrappers' refusals.
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use), so they carry the ``cuda`` marker and skip without a card.
@@ -107,6 +120,7 @@ from repro_torch.core import (MeshDeviceSession, SlabArena, Task, ThreadedStream
                               run_serial)
 from repro_torch.core.device_dispatch import _loop_kernel_parts, lower_epoch_program
 from repro_torch.core.task import default_segments
+from repro_torch.kernels import adamw as aw
 from repro_torch.kernels import ready_queue as rq
 from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels.ops import LOOP_BRANCHES, register_loop_branches, wave_step
@@ -1992,3 +2006,233 @@ def test_mamba_scan_ops_give_the_launch_path_bits_and_counts(device, dtype):
                           (proj_l.grad[..., 8 + n:], dc), (alog_l.grad, da), (d_l.grad, dd),
                           (h0_l.grad, dh0)):
         assert torch.equal(got_g, want_g)
+
+
+# ---------------------------------------------------------------------------
+# The optimizer: the fused clip and AdamW update (kernels/adamw.py)
+# ---------------------------------------------------------------------------
+
+def _opt_leaves(device, specs, seed=0):
+    """Params, gradients and AdamW state over ``specs`` ((numel, dtype,
+    offset) each): every tensor a contiguous view ``offset`` elements into
+    its storage; master a copy of the params, m and v small positive."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def view(n, dtype, offset, fill):
+        base = torch.empty(n + offset, dtype=dtype, device=device)
+        t = base[offset:]
+        t.copy_(fill)
+        return t
+
+    out = {k: [] for k in ("p", "g", "master", "m", "v")}
+    for n, dtype, offset in specs:
+        po, go, so = offset if isinstance(offset, tuple) else (offset,) * 3
+        w = torch.randn(n, generator=gen, device=device)
+        out["p"].append(view(n, dtype, po, w.to(dtype)))
+        out["master"].append(view(n, torch.float32, so, out["p"][-1].float()))
+        out["g"].append(view(n, dtype, go, torch.randn(n, generator=gen, device=device)))
+        out["m"].append(view(n, torch.float32, so, 0.01 * torch.randn(n, generator=gen,
+                                                                      device=device)))
+        out["v"].append(view(n, torch.float32, so, 1e-4 * torch.rand(n, generator=gen,
+                                                                     device=device)))
+    return out
+
+
+def _opt_clone(leaves):
+    return {k: [t.clone() for t in v] for k, v in leaves.items()}
+
+
+def _opt_bits(t):
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def _opt_step(leaves, step, scale, lr, fused=True):
+    c1 = 1.0 - torch.pow(0.9, torch.full((), float(step), device=scale.device))
+    c2 = 1.0 - torch.pow(0.95, torch.full((), float(step), device=scale.device))
+    fn = aw.adamw_step if fused else aw.adamw_step_ref
+    if not fused:
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=scale.device)
+    fn(leaves["p"], leaves["g"], leaves["master"], leaves["m"], leaves["v"], scale=scale, c1=c1,
+       c2=c2, lr=lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+_OPT_MIXED = [(1, torch.bfloat16, 0), (7, torch.float16, 0), (4097, torch.float32, 0),
+              (4097, torch.bfloat16, 0), (100_003, torch.bfloat16, 1), (65_536, torch.float32, 3),
+              (70_001, torch.float16, (1, 0, 0)), (33_000, torch.float32, (0, 2, 0)),
+              (5, torch.float32, 1), (3 * 32768 + 5, torch.bfloat16, 2)]
+
+
+@pytest.mark.parametrize("max_norm", [1e9, 0.5])  # a scale of exactly 1, and one below it
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+def test_adamw_fused_bit_equal_to_per_leaf(device, max_norm, lr_kind):
+    mine = _opt_leaves(device, _OPT_MIXED)
+    theirs = _opt_clone(mine)
+    for step in (1, 2, 3):
+        gnorm, scale = aw.global_norm(mine["g"], max_norm)
+        if max_norm > 1e6:
+            assert float(scale) == 1.0
+        else:
+            assert float(scale) < 1.0
+        lr = 1e-3 * step
+        lr = torch.tensor(lr, device=device) if lr_kind == "tensor" else lr
+        _opt_step(mine, step, scale, lr)
+        _opt_step(theirs, step, scale, lr, fused=False)
+        torch.cuda.synchronize()
+        for key in ("p", "master", "m", "v"):
+            for a, b in zip(mine[key], theirs[key]):
+                assert a.dtype == b.dtype and torch.equal(_opt_bits(a), _opt_bits(b)), key
+        for g in mine["g"] + theirs["g"]:  # the next step's gradients
+            g.mul_(-0.5)
+
+
+def test_adamw_fused_state_rows_follow_the_state(device):
+    """The update keeps each state's rows of parameters and state between
+    steps: two states in turns, one of them given new m tensors every step,
+    and an empty leaf, each step still bit-equal to the per-leaf path."""
+    a = _opt_leaves(device, _OPT_MIXED + [(0, torch.bfloat16, 0)], seed=3)
+    b = _opt_leaves(device, _OPT_MIXED[::-1], seed=4)
+    ref_a, ref_b = _opt_clone(a), _opt_clone(b)
+    for step in (1, 2, 3):
+        for mine, theirs in ((a, ref_a), (b, ref_b)):
+            _, scale = aw.global_norm(mine["g"], 0.5)
+            _opt_step(mine, step, scale, 1e-3 * step)
+            _opt_step(theirs, step, scale, 1e-3 * step, fused=False)
+        a["m"] = [t.clone() for t in a["m"]]
+    torch.cuda.synchronize()
+    for mine, theirs in ((a, ref_a), (b, ref_b)):
+        for key in ("p", "master", "m", "v"):
+            for x, y in zip(mine[key], theirs[key]):
+                assert torch.equal(_opt_bits(x), _opt_bits(y)), key
+
+
+def test_adamw_fused_on_a_283m_leaf_beside_small_ones(device):
+    """minicpm-2b's tied embedding (122,880 x 2,304: its vocab padded) among small
+    leaves."""
+    specs = [(2304, torch.bfloat16, 0), (122_880 * 2304, torch.bfloat16, 0),
+             (7, torch.bfloat16, 1), (5760 * 2304, torch.bfloat16, 0)]
+    mine = _opt_leaves(device, specs, seed=1)
+    theirs = _opt_clone(mine)
+    gnorm, scale = aw.global_norm(mine["g"], 1.0)
+    want_norm, want_scale = aw.global_norm_ref(mine["g"], 1.0)
+    assert abs(float(gnorm) - float(want_norm)) <= 1e-6 * float(want_norm)
+    _opt_step(mine, 1, scale, 3e-4)
+    _opt_step(theirs, 1, scale, 3e-4, fused=False)
+    torch.cuda.synchronize()
+    for key in ("p", "master", "m", "v"):
+        for a, b in zip(mine[key], theirs[key]):
+            assert torch.equal(_opt_bits(a), _opt_bits(b)), key
+
+
+def test_global_norm_close_to_per_leaf_sum_and_the_same_bits(device):
+    leaves = _opt_leaves(device, _OPT_MIXED + [(3_000_000, torch.bfloat16, 0)], seed=2)["g"]
+    want, want_scale = aw.global_norm_ref(leaves, 1.0)
+    exact = torch.sqrt(sum(torch.sum(torch.square(g.double())) for g in leaves))
+    first = None
+    for _ in range(20):
+        gnorm, scale = aw.global_norm(leaves, 1.0)
+        got = torch.stack([gnorm, scale]).clone()
+        first = got if first is None else first
+        assert torch.equal(got.view(torch.int32), first.view(torch.int32))
+    assert abs(float(first[0]) - float(want)) <= 1e-6 * float(want)
+    assert abs(float(first[0]) - float(exact)) <= 1e-6 * float(exact)
+    assert float(first[1]) == pytest.approx(float(want_scale), rel=1e-6)
+    for max_norm in (1e9, 0.0):  # the clip's bounds: 1 and 0
+        _, scale = aw.global_norm(leaves, max_norm)
+        assert float(scale) == (1.0 if max_norm else 0.0)
+
+
+def test_adamw_fused_launches_a_step_do_not_depend_on_the_leaves(device):
+    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+
+    counts = []
+    for n_leaves in (3, 300):
+        params = [torch.randn(37 + i, device=device).to(torch.bfloat16) for i in range(n_leaves)]
+        grads = [torch.randn_like(p) for p in params]
+        state = adamw_init(params)
+        aw.reset_launches()
+        clipped, _ = clip_by_global_norm(grads, 1.0)
+        adamw_update(params, clipped, state, 1e-3)
+        counts.append((aw.norm_launches, aw.launches, dict(aw.paths)))
+    assert counts == [(2, 1, {"fused": 3, "per_leaf": 0}), (2, 1, {"fused": 300, "per_leaf": 0})]
+
+
+def test_optimizer_syncs_nothing_and_copies_no_gradient(device):
+    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+
+    n = 64 * 2 ** 20  # a 64M-element bfloat16 leaf: its float32 copy would be 256 MiB
+    params = [torch.randn(n, device=device).to(torch.bfloat16),
+              torch.randn(1000, device=device).to(torch.bfloat16)]
+    grads = [torch.randn_like(p) for p in params]
+    state = adamw_init(params)
+    lr = torch.tensor(1e-3, device=device)
+    clipped, _ = clip_by_global_norm(grads, 1.0)  # the build and the grid's size, first
+    adamw_update(params, clipped, state, lr)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        clipped, gnorm = clip_by_global_norm(grads, 1.0)
+        adamw_update(params, clipped, state, lr)
+        clipped, gnorm = clip_by_global_norm(grads, 1.0)
+        adamw_update(params, clipped, state, 2e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 2 ** 20  # tables, scalars, partials
+    assert torch.isfinite(gnorm)
+
+
+def test_adamw_fused_refusals(device):
+    good = _opt_leaves(device, [(10, torch.float32, 0)])
+    one = torch.ones((), device=device)
+    args = dict(scale=None, c1=one, c2=one, lr=1e-3, b1=0.9, b2=0.95, eps=1e-8,
+                weight_decay=0.1)
+    with pytest.raises(TypeError, match="gradient must be one of"):
+        aw.global_norm([torch.ones(4, dtype=torch.float64, device=device)], 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        aw.global_norm([torch.ones(4, 4, device=device).t()], 1.0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        aw.global_norm([torch.ones(4, device=device), torch.ones(4)], 1.0)
+    with pytest.raises(TypeError, match="master"):
+        aw.adamw_step(good["p"], good["g"], [t.double() for t in good["master"]], good["m"],
+                      good["v"], **args)
+    with pytest.raises(ValueError, match="shape"):
+        aw.adamw_step(good["p"], [torch.ones(9, device=device)], good["master"], good["m"],
+                      good["v"], **args)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        aw.adamw_step(good["p"], [t.cpu() for t in good["g"]], good["master"], good["m"],
+                      good["v"], **args)
+    with pytest.raises(ValueError, match="c1"):
+        aw.adamw_step(good["p"], good["g"], good["master"], good["m"], good["v"],
+                      **dict(args, c1=one.double()))
+
+
+def test_train_step_takes_the_fused_optimizer_for_every_leaf(device):
+    from repro_torch import trace
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import StepBundle
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS["minicpm-2b"].reduced()
+    model = init_params(cfg, 0, device=device, tp_size=1).requires_grad_(True)
+    opt = adamw_init(model.param_tree())
+    bundle = StepBundle(cfg, lr=1e-3)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = [torch.randint(0, cfg.vocab, (2, 32), generator=gen, device=device,
+                           dtype=torch.int32) for _ in range(2)]
+    bundle.train_step(model, opt, *batch)  # builds and warms
+    trace.enable()
+    try:
+        _, _, out = bundle.train_step(model, opt, *batch)
+        got = trace.collect()
+    finally:
+        trace.disable()
+        trace.collect()
+    n_leaves = len(tree_leaves(model.param_tree()))
+    assert got["launches"]["adamw.paths.fused"] == n_leaves
+    assert got["launches"]["adamw.paths.per_leaf"] == 0
+    assert got["launches"]["adamw.launches"] == 1 and got["launches"]["adamw.norm_launches"] == 2
+    assert torch.isfinite(out["loss"]) and torch.isfinite(out["gnorm"])
